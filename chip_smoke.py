@@ -2,24 +2,35 @@
 """Drive hyperspace_tpu_torch on one NVIDIA GPU and check what it computes.
 
     python3 chip_smoke.py                     # every phase
-    python3 chip_smoke.py --phases env,kernels
+    python3 chip_smoke.py --phases env,kernels,strings,packed
 
 Phases, each failing loudly:
 
 1. env       the card's name and power limit, torch and CUDA versions; build
              the CUDA kernels from `hyperspace_tpu_torch/csrc` (timed).
-2. kernels   K1 (in-bucket sort) and K2 (range probe) against their plain
-             PyTorch versions at the slice's shapes and edge cases. Outputs
-             are integers: tolerance 0. Times kernel, plain version, the
-             library call computing the same function, and the bound.
+2. kernels   K1 (in-bucket sort), K2 (range probe), K3 (build composite
+             sort), K4 (packed-code sort) and K5 (packed-code probe) against
+             their plain PyTorch versions at the path's shapes and edge cases.
+             Outputs are integers: tolerance 0. Times kernel, plain version,
+             the library call computing the same function, and the bound.
 3. main      TPC-H SF1-shaped data made with numpy from --seed (spec clause
-             4.2.3 rules, numeric columns), four `create_index` calls, then
-             Q3's join (value mode: K2) and Q9's join (hash mode: K1 + K2),
-             count and collect, cold and a p50 of 3. Each plan must scan the
-             indexes, each kernel must launch, and counts and rows must equal
-             a numpy join computed straight from the generated arrays.
-4. identity  the same slice at SF 0.05 with device="cpu" and device="cuda":
-             identical index files, identical rows in identical order.
+             4.2.3 rules), four `create_index` calls, then Q3's join (value
+             mode: K2) and Q9's join (hash mode: K1 + K2), count and collect,
+             cold and a p50 of 3. Each plan must scan the indexes, each kernel
+             must launch, and counts and rows must equal a numpy join computed
+             straight from the generated arrays.
+4. strings   two dictionary-string indexes on the same data: custSeg on
+             c_mktsegment (its build sorts with K3) and liShip on l_shipmode
+             (its composite overflows int32, so its build must not take K3);
+             then Q3's and Q12's predicates through FilterIndexRule with bucket
+             pruning, count and collect, cold and a p50 of 3, against a numpy
+             filter and the non-indexed query.
+5. packed    `pad_buckets_by_codes` (K4) and `probe_code_ranges` (K5), an ops
+             API no engine operator calls, on bench.py's packed shape and on
+             lineitem's shipmode codes in its l_orderkey bucket layout, against
+             the plain probe and numpy searchsorted.
+6. identity  the join and string slices at SF 0.05 with device="cpu" and
+             device="cuda": identical index files, identical rows in order.
 
 Prints one JSON line of per-kernel results, the card's `nvidia-smi` line,
 and last `{"ok": true, "device": {...}}`. Exits non-zero without a result
@@ -44,6 +55,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 SCALAR_OPS_PER_S = 67e12  # H100 SXM non-tensor 32-bit rate (NVIDIA data sheet)
 NUM_BUCKETS = 200
 PAD = np.iinfo(np.int64).max
+DEVICE = "cuda"  # the device every phase drives (the identity phase also runs the CPU)
 
 
 def log(msg: str) -> None:
@@ -177,6 +189,9 @@ def phase_kernels(torch, rng):
     r_len[0] = 0
     l_len[1] = 0
     check_probe(torch, cuda_probe, ls, rs, l_len, r_len)
+    # Lengths outside [0, cap] clamp, in the kernel as in the plain version.
+    l_len[2], r_len[2], l_len[3], r_len[3] = 64 + 9, 64 + 3, -2, -7
+    check_probe(torch, cuda_probe, ls, rs, l_len, r_len)
     ext = np.array([[-(2**63), -5, 0, 2**63 - 2]], np.int64)
     check_probe(torch, cuda_probe, ext, ext.copy(), np.array([4]), np.array([4]))
     log("[kernels] edge cases: K1 and K2 equal their plain versions exactly")
@@ -216,14 +231,161 @@ def phase_kernels(torch, rng):
             ),
             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0,
         })
+    shapes += phase_packed_kernels(torch, rng)
     for s in shapes:
         log(f"[kernels] {json.dumps(s)}")
     return shapes
 
 
+def comp_case(torch, rng, rows: int, n: int, n_pad: int, card: int = 5, num_buckets: int = NUM_BUCKETS):
+    """Build composites as `packed_build_sort` packs them: random bucket ids
+    and codes (-1 = null lane) for the first n slots of each row, the pad
+    composite after them."""
+    from hyperspace_tpu_torch.engine.packed_codes import bits_for_cardinality
+    from hyperspace_tpu_torch.ops.partition import packed_build_comp
+
+    bits = bits_for_cardinality(card)
+    log2np = n_pad.bit_length() - 1
+    out = []
+    for _ in range(rows):
+        b = torch.from_numpy(rng.randint(0, num_buckets, n).astype(np.int32))
+        codes = torch.from_numpy(rng.randint(-1, card, n).astype(np.int32))
+        out.append(packed_build_comp(b, codes, bits, log2np, n_pad, num_buckets))
+    return torch.cat(out).contiguous()
+
+
+def lanes_case(rng, rows: int, cap: int, bits: int, fill=(0.0, 1.0), sort_rows_too: bool = False):
+    """Biased code lanes [rows, cap] with a valid prefix per row (a `fill`
+    fraction of cap, real lanes below the top value) and pads at the top lane
+    value 2**bits - 1; rows sorted when asked. Returns (lanes, lengths)."""
+    top = (1 << bits) - 1
+    lanes = rng.randint(0, top, size=(rows, cap)).astype(np.int32)
+    lens = rng.randint(int(fill[0] * cap), int(fill[1] * cap) + 1, size=rows)
+    for b in range(rows):
+        if sort_rows_too:
+            lanes[b, : lens[b]] = np.sort(lanes[b, : lens[b]])
+        lanes[b, lens[b]:] = top
+    return lanes, lens.astype(np.int64)
+
+
+def check_comp(torch, cuda_comp_sort, v) -> None:
+    got = cuda_comp_sort.sort_comp_rows(v)
+    want = cuda_comp_sort.sort_comp_rows_plain(v)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"K3 disagrees with its plain version at {tuple(v.shape)}")
+
+
+def check_packed_sort(torch, cuda_packed_sort, words, bits) -> None:
+    got = cuda_packed_sort.sort_codes_packed(words, bits)
+    want = cuda_packed_sort.sort_codes_packed_plain(words, bits)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError(f"K4 disagrees with its plain version at {tuple(words.shape)}, bits {bits}")
+
+
+def check_packed_probe(torch, cuda_packed_probe, lw, rw, bits, l_len, r_len) -> None:
+    got = cuda_packed_probe.probe_packed(lw, rw, bits, l_len, r_len)
+    want = cuda_packed_probe.probe_packed_plain(lw, rw, bits, l_len, r_len)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError(f"K5 disagrees with its plain version at {tuple(lw.shape)} x {tuple(rw.shape)}, bits {bits}")
+
+
+def phase_packed_kernels(torch, rng):
+    """K3, K4 and K5 against their plain versions (tolerance 0), then timed."""
+    from hyperspace_tpu_torch.engine.packed_codes import pack_rows, unpack_rows
+    from hyperspace_tpu_torch.ops import cuda_comp_sort, cuda_packed_probe, cuda_packed_sort
+
+    dev = torch.device("cuda")
+    # K3 edge cases: one slot, pads only, several rows, a row of one tile and
+    # rows that cross tiles.
+    for rows, n, n_pad in [(1, 1, 2), (1, 2, 2), (1, 0, 4), (3, 1000, 1024), (2, 32768, 32768),
+                           (2, 40000, 65536), (1, 262144, 262144)]:
+        check_comp(torch, cuda_comp_sort, comp_case(torch, rng, rows, n, n_pad).to(dev))
+    # K4 and K5 edge cases at every width: a row of one word, empty and
+    # all-pad rows, rows that cross tiles.
+    for bits in (1, 2, 4):
+        lpw = 32 // bits
+        for rows, cap, fill in [(3, lpw, (0.0, 1.0)), (8, 256, (0.0, 0.0)), (8, 256, (1.0, 1.0)),
+                                (5, 4096, (0.0, 1.0)), (2, 65536, (0.5, 1.0))]:
+            lanes, lens = lanes_case(rng, rows, cap, bits, fill)
+            words = pack_rows(torch.from_numpy(lanes), bits).to(dev)
+            check_packed_sort(torch, cuda_packed_sort, words, bits)
+            for cap_r in (cap, 4 * cap if cap < 65536 else cap):
+                l_lanes, l_lens = lanes_case(rng, rows, cap, bits, fill, sort_rows_too=True)
+                r_lanes, r_lens = lanes_case(rng, rows, cap_r, bits, fill, sort_rows_too=True)
+                r_lens[0] = 0
+                if rows > 2:  # lengths outside [0, cap] clamp
+                    l_lens[1], r_lens[1], l_lens[2], r_lens[2] = cap + 5, cap_r + 9, -1, -3
+                lw = pack_rows(torch.from_numpy(l_lanes), bits).to(dev)
+                rw = pack_rows(torch.from_numpy(r_lanes), bits).to(dev)
+                check_packed_probe(torch, cuda_packed_probe, lw, rw, bits,
+                                   torch.from_numpy(l_lens).to(dev), torch.from_numpy(r_lens).to(dev))
+    log("[kernels] edge cases: K3, K4 and K5 equal their plain versions exactly")
+
+    shapes = []
+    # K3 at the custSeg build (150,000 customers, 200 buckets -> [1, 262144])
+    # and a larger build row ([1, 2^22]; 16 buckets keep its composite within
+    # int32).
+    for n, n_pad, nb in [(150_000, 262_144, NUM_BUCKETS), (3_000_000, 4_194_304, 16)]:
+        v = comp_case(torch, rng, 1, n, n_pad, num_buckets=nb).to(dev)
+        check_comp(torch, cuda_comp_sort, v)
+        b_ms, b_by = bound(8 * n_pad, n_pad * np.log2(n_pad))
+        shapes.append({
+            "kernel": "K3", "shape": [1, n_pad],
+            "ms": cuda_ms(lambda: cuda_comp_sort.sort_comp_rows(v)),
+            "plain_ms": cuda_ms(lambda: cuda_comp_sort.sort_comp_rows_plain(v)),
+            "library_ms": cuda_ms(lambda: torch.sort(v, dim=1)),
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0,
+        })
+    # K4 and K5 at bench.py's packed shape (64 buckets, ~1900 rows each: cap
+    # 4096 at ~45% fill is its class) and at lineitem's shipmode buckets
+    # (200 buckets of ~30,000 rows, cap 32768), bits 4; bits 1 and 2 at 4096.
+    for rows, cap, bits, fill in [(200, 32768, 4, (0.88, 0.96)), (64, 4096, 4, (0.4, 0.55)),
+                                  (64, 4096, 2, (0.4, 0.55)), (64, 4096, 1, (0.4, 0.55))]:
+        lanes, lens = lanes_case(rng, rows, cap, bits, fill)
+        words = pack_rows(torch.from_numpy(lanes), bits).to(dev)
+        check_packed_sort(torch, cuda_packed_sort, words, bits)
+        flat = torch.from_numpy(lanes).to(dev)
+        b_ms, b_by = bound(rows * cap * (bits / 8 + 8), rows * cap * np.log2(cap))
+        shapes.append({
+            "kernel": "K4", "shape": [rows, cap], "bits": bits,
+            "ms": cuda_ms(lambda: cuda_packed_sort.sort_codes_packed(words, bits)),
+            "plain_ms": cuda_ms(lambda: cuda_packed_sort.sort_codes_packed_plain(words, bits)),
+            "library_ms": cuda_ms(lambda: torch.sort(flat, dim=1, stable=True)),
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0,
+        })
+        l_lanes, l_lens = lanes_case(rng, rows, cap, bits, fill, sort_rows_too=True)
+        r_lanes, r_lens = lanes_case(rng, rows, cap, bits, fill, sort_rows_too=True)
+        lw = pack_rows(torch.from_numpy(l_lanes), bits).to(dev)
+        rw = pack_rows(torch.from_numpy(r_lanes), bits).to(dev)
+        l_len, r_len = torch.from_numpy(l_lens).to(dev), torch.from_numpy(r_lens).to(dev)
+        check_packed_probe(torch, cuda_packed_probe, lw, rw, bits, l_len, r_len)
+        lf, rf = unpack_rows(lw, bits), unpack_rows(rw, bits)
+        n_l = int(l_lens.sum())
+        nbytes = 2 * rows * cap * bits / 8 + 8 * rows + 8 * rows * cap
+        ops = 2 * n_l * np.log2(max(int(r_lens.max()), 2))
+        b_ms, b_by = bound(nbytes, ops)
+        shapes.append({
+            "kernel": "K5", "shape": [rows, cap], "bits": bits,
+            "ms": cuda_ms(lambda: cuda_packed_probe.probe_packed(lw, rw, bits, l_len, r_len)),
+            "plain_ms": cuda_ms(lambda: cuda_packed_probe.probe_packed_plain(lw, rw, bits, l_len, r_len),
+                                iters=3, warmup=1),
+            "library_ms": cuda_ms(lambda: (torch.searchsorted(rf, lf), torch.searchsorted(rf, lf, right=True))),
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0,
+        })
+    return shapes
+
+
 # ---------------------------------------------------------------------------
-# TPC-H-shaped data (spec clause 4.2.3, numeric columns)
+# TPC-H-shaped data (spec clause 4.2.3)
 # ---------------------------------------------------------------------------
+
+
+# Clause 4.2.2.13 lists, sorted: dictionary order is value order.
+SEGMENTS = np.array(sorted(["AUTOMOBILE", "BUILDING", "FURNITURE", "MACHINERY", "HOUSEHOLD"]))
+SHIPMODES = np.array(sorted(["REG AIR", "AIR", "RAIL", "SHIP", "TRUCK", "MAIL", "FOB"]))
 
 
 def tpch(sf: float, seed: int):
@@ -259,11 +421,22 @@ def tpch(sf: float, seed: int):
     ps_suppkey = suppkey(ps_partkey, np.tile(np.arange(4, dtype=np.int64), n_part))
     ps_availqty = rng.randint(1, 10000, 4 * n_part).astype(np.int64)
     ps_supplycost = rng.randint(100, 100001, 4 * n_part) / 100.0
+    # String columns (clause 4.2.3), drawn after the numeric ones so those stay
+    # as they were; held as (sorted dictionary, codes).
+    c_custkey = np.arange(1, n_cust + 1, dtype=np.int64)
+    c_name = (np.array([f"Customer#{k:09d}" for k in c_custkey]), np.arange(n_cust, dtype=np.int32))
+    c_mktsegment = (SEGMENTS, rng.randint(0, len(SEGMENTS), n_cust).astype(np.int32))
+    c_acctbal = rng.randint(-99999, 1000000, n_cust) / 100.0
+    l_shipmode = (SHIPMODES, rng.randint(0, len(SHIPMODES), n_lines).astype(np.int32))
     return {
         "lineitem": {
             "l_orderkey": l_orderkey, "l_partkey": l_partkey, "l_suppkey": l_suppkey,
             "l_linenumber": l_linenumber, "l_quantity": l_quantity,
             "l_extendedprice": l_extendedprice, "l_discount": l_discount, "l_tax": l_tax,
+            "l_shipmode": l_shipmode,
+        },
+        "customer": {
+            "c_custkey": c_custkey, "c_name": c_name, "c_mktsegment": c_mktsegment, "c_acctbal": c_acctbal,
         },
         "orders": {"o_orderkey": o_orderkey, "o_custkey": o_custkey, "o_totalprice": o_totalprice},
         "partsupp": {
@@ -321,14 +494,31 @@ INDEXES = [
 ]
 
 
+def source_table(columns: dict):
+    """A host table of generated columns; a (dictionary, codes) pair is a
+    dictionary string column."""
+    import torch
+
+    from hyperspace_tpu_torch.engine.table import Column, Table
+
+    cols = {}
+    for n, v in columns.items():
+        if isinstance(v, tuple):
+            cols[n] = Column("string", torch.from_numpy(v[1]), v[0])
+        else:
+            cols[n] = Column.from_values(v, "cpu")
+    return Table(cols)
+
+
+def decoded(v):
+    return v[0][v[1]] if isinstance(v, tuple) else v
+
+
 def write_sources(data, base: str) -> None:
     from hyperspace_tpu_torch.engine import io as engine_io
-    from hyperspace_tpu_torch.engine.table import Table
 
-    for name in ("lineitem", "orders", "partsupp"):
-        engine_io.write_parquet(
-            Table.from_pydict(data[name], "cpu"), os.path.join(base, "src", name, "part-00000.parquet")
-        )
+    for name in ("lineitem", "orders", "partsupp", "customer"):
+        engine_io.write_parquet(source_table(data[name]), os.path.join(base, "src", name, "part-00000.parquet"))
 
 
 def build(base: str, device, warehouse=None):
@@ -370,56 +560,46 @@ def scanned_indexes(df):
     )
 
 
-def phase_main(torch, seed: int, sf: float):
+def phase_main(torch, data, base: str):
     from hyperspace_tpu_torch.ops import cuda_probe, cuda_sort
 
-    t0 = time.perf_counter()
-    data = tpch(sf, seed)
     want = {n: canonical(rows) for n, rows in zip(("q_ord", "q_ps"), expected_rows(data))}
-    n_li = len(data["lineitem"]["l_orderkey"])
-    log(f"[main] TPC-H SF{sf}: lineitem {n_li} rows, orders {len(data['orders']['o_orderkey'])}, "
-        f"partsupp {len(data['partsupp']['ps_partkey'])} (generated in {time.perf_counter() - t0:.2f} s)")
-    base = tempfile.mkdtemp(prefix="hs_smoke_sf1_")
-    try:
-        write_sources(data, base)
-        cuda_sort.launches = 0
-        cuda_probe.launches = 0
-        s, build_s = build(base, "cuda")
-        log(f"[main] build seconds {json.dumps(build_s)}")
-        qs = queries(s, base)
-        expect_idx = {"q_ord": ["liOrd", "ordIdx"], "q_ps": ["liPs", "psIdx"]}
-        times = {}
-        for name, df in qs.items():
-            if scanned_indexes(df) != expect_idx[name]:
-                raise AssertionError(f"{name}: the plan does not scan the indexes:\n{df.explain_string()}")
-            k1, k2 = cuda_sort.launches, cuda_probe.launches
-            counts, collects = [], []
-            for _ in range(4):
-                n, t_count = wall(df.count)
-                out, t_collect = wall(df.collect)
-                counts.append(t_count)
-                collects.append(t_collect)
-                if n != len(want[name][next(iter(want[name]))]):
-                    raise AssertionError(f"{name}: count {n} != numpy join")
-                got = out.to_numpy()
-                if not same_multiset(got, want[name]):
-                    raise AssertionError(f"{name}: collected rows differ from the numpy join")
-            d1, d2 = cuda_sort.launches - k1, cuda_probe.launches - k2
-            if d2 == 0 or (name == "q_ps" and d1 == 0):
-                raise AssertionError(f"{name}: kernels not launched (K1 {d1}, K2 {d2})")
-            times[name] = {
-                "rows": n, "count_cold_s": counts[0], "count_p50_s": float(np.median(counts[1:])),
-                "collect_cold_s": collects[0], "collect_p50_s": float(np.median(collects[1:])),
-                "k1_launches": d1, "k2_launches": d2,
-            }
-            log(f"[main] {name} {json.dumps(times[name])}")
-        launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches}
-        log(f"[main] counts and rows equal the numpy join; launches {json.dumps(launches)}")
-        for name, df in qs.items():
-            log(f"[main] {name} warm collect breakdown {json.dumps(stage_breakdown(torch, df))}")
-        return launches, build_s, times
-    finally:
-        shutil.rmtree(base, ignore_errors=True)
+    cuda_sort.launches = 0
+    cuda_probe.launches = 0
+    s, build_s = build(base, DEVICE)
+    log(f"[main] build seconds {json.dumps(build_s)}")
+    qs = queries(s, base)
+    expect_idx = {"q_ord": ["liOrd", "ordIdx"], "q_ps": ["liPs", "psIdx"]}
+    times = {}
+    for name, df in qs.items():
+        if scanned_indexes(df) != expect_idx[name]:
+            raise AssertionError(f"{name}: the plan does not scan the indexes:\n{df.explain_string()}")
+        k1, k2 = cuda_sort.launches, cuda_probe.launches
+        counts, collects = [], []
+        for _ in range(4):
+            n, t_count = wall(df.count)
+            out, t_collect = wall(df.collect)
+            counts.append(t_count)
+            collects.append(t_collect)
+            if n != len(want[name][next(iter(want[name]))]):
+                raise AssertionError(f"{name}: count {n} != numpy join")
+            got = out.to_numpy()
+            if not same_multiset(got, want[name]):
+                raise AssertionError(f"{name}: collected rows differ from the numpy join")
+        d1, d2 = cuda_sort.launches - k1, cuda_probe.launches - k2
+        if d2 == 0 or (name == "q_ps" and d1 == 0):
+            raise AssertionError(f"{name}: kernels not launched (K1 {d1}, K2 {d2})")
+        times[name] = {
+            "rows": n, "count_cold_s": counts[0], "count_p50_s": float(np.median(counts[1:])),
+            "collect_cold_s": collects[0], "collect_p50_s": float(np.median(collects[1:])),
+            "k1_launches": d1, "k2_launches": d2,
+        }
+        log(f"[main] {name} {json.dumps(times[name])}")
+    launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches}
+    log(f"[main] counts and rows equal the numpy join; launches {json.dumps(launches)}")
+    for name, df in qs.items():
+        log(f"[main] {name} warm collect breakdown {json.dumps(stage_breakdown(torch, df))}")
+    return launches, build_s, times
 
 
 def stage_breakdown(torch, df) -> dict:
@@ -465,37 +645,238 @@ def phase_identity(torch, seed: int, sf: float) -> None:
     try:
         write_sources(data, base)
         results, files = {}, {}
-        for device in ("cpu", "cuda"):
-            wh = os.path.join(base, device)
+        for i, device in enumerate(("cpu", DEVICE)):
+            wh = os.path.join(base, f"warehouse{i}")
             s, _ = build(base, device, warehouse=wh)
-            results[device] = {n: df.collect().to_numpy() for n, df in queries(s, base).items()}
+            results[i] = {n: df.collect().to_numpy() for n, df in queries(s, base).items()}
+            s, _, k3 = build_string_indexes(torch, base, device, wh)
+            if device == DEVICE and k3 != {"custSeg": 1, "liShip": 1}:
+                raise AssertionError(f"at SF{sf} both string builds must take K3: {k3}")
+            for name, df in string_queries(s, base).items():
+                if index_scan(df) is None:
+                    raise AssertionError(f"{name}: the plan does not scan the index:\n{df.explain_string()}")
+                results[i][name] = df.collect().to_numpy()
             root = os.path.join(wh, "indexes")
-            files[device] = {
+            files[i] = {
                 os.path.relpath(os.path.join(d, f), root): hashlib.sha256(open(os.path.join(d, f), "rb").read()).hexdigest()
                 for d, _, fs in os.walk(root) for f in fs if f.endswith(".parquet")
             }
-        if files["cpu"] != files["cuda"]:
+        if files[0] != files[1]:
             raise AssertionError("index files built on the CPU and on the GPU differ")
-        for name in results["cpu"]:
-            a, b = results["cpu"][name], results["cuda"][name]
+        for name in results[0]:
+            a, b = results[0][name], results[1][name]
             if list(a) != list(b) or not all(np.array_equal(a[k], b[k]) for k in a):
                 raise AssertionError(f"{name}: CPU and GPU rows differ (values or order)")
-        log(f"[identity] SF{sf}: {len(files['cpu'])} identical index files; "
-            f"q_ord {len(next(iter(results['cpu']['q_ord'].values())))} rows and "
-            f"q_ps {len(next(iter(results['cpu']['q_ps'].values())))} rows identical in order")
+        rows = {n: len(next(iter(r.values()))) for n, r in results[0].items()}
+        log(f"[identity] SF{sf}: {len(files[0])} identical index files; rows identical in order "
+            f"{json.dumps(rows)}")
     finally:
         shutil.rmtree(base, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# The string slice: K3 builds, FilterIndexRule lookups with bucket pruning
+# ---------------------------------------------------------------------------
+
+STRING_INDEXES = [
+    ("customer", "custSeg", ["c_mktsegment"], ["c_custkey", "c_name", "c_acctbal"]),
+    ("lineitem", "liShip", ["l_shipmode"], ["l_orderkey", "l_quantity", "l_extendedprice"]),
+]
+
+
+def build_string_indexes(torch, base: str, device, warehouse: str):
+    """The two string indexes; returns the session, build seconds and K3's
+    launches per build."""
+    import hyperspace_tpu_torch as hst
+    from hyperspace_tpu_torch.ops import cuda_comp_sort
+
+    s = hst.HyperspaceSession(warehouse=warehouse, device=device)
+    s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, NUM_BUCKETS)
+    hs = hst.Hyperspace(s)
+    seconds, k3 = {}, {}
+    for src, name, indexed, included in STRING_INDEXES:
+        df = s.read.parquet(os.path.join(base, "src", src))
+        before = cuda_comp_sort.launches
+        _, seconds[name] = wall(lambda: hs.create_index(df, hst.IndexConfig(name, indexed, included)))
+        k3[name] = cuda_comp_sort.launches - before
+    hst.enable_hyperspace(s)
+    return s, seconds, k3
+
+
+def string_queries(s, base: str):
+    from hyperspace_tpu_torch import col
+
+    def rd(name):
+        return s.read.parquet(os.path.join(base, "src", name))
+
+    return {
+        "q3_filter": rd("customer").filter(col("c_mktsegment") == "BUILDING").select(
+            "c_custkey", "c_name", "c_acctbal"
+        ),
+        "q12_filter": rd("lineitem").filter(col("l_shipmode").isin("MAIL", "SHIP")).select(
+            "l_orderkey", "l_shipmode", "l_quantity", "l_extendedprice"
+        ),
+    }
+
+
+def expected_string_rows(data) -> dict:
+    """The two lookups as numpy filters of the generated arrays."""
+    cu, li = data["customer"], data["lineitem"]
+    seg_dict, seg = cu["c_mktsegment"]
+    keep = seg == int(np.searchsorted(seg_dict, "BUILDING"))
+    q3 = {n: decoded(cu[n])[keep] for n in ("c_custkey", "c_name", "c_acctbal")}
+    mode_dict, mode = li["l_shipmode"]
+    keep = np.isin(mode, np.searchsorted(mode_dict, ["MAIL", "SHIP"]))
+    q12 = {n: decoded(li[n])[keep] for n in ("l_orderkey", "l_shipmode", "l_quantity", "l_extendedprice")}
+    return {"q3_filter": q3, "q12_filter": q12}
+
+
+def index_scan(df):
+    """The relation of the plan's one index scan (None when the rewrite did
+    not fire)."""
+    from hyperspace_tpu_torch.engine.physical import ScanExec
+
+    rels = [n.relation for n in df.physical_plan().collect_nodes() if isinstance(n, ScanExec)]
+    return rels[0] if len(rels) == 1 and rels[0].index_name else None
+
+
+def phase_strings(torch, data, base: str):
+    import hyperspace_tpu_torch as hst
+    from hyperspace_tpu_torch.ops import cuda_comp_sort
+
+    cuda_comp_sort.launches = 0
+    s, build_s, k3 = build_string_indexes(torch, base, DEVICE, os.path.join(base, "strings"))
+    log(f"[strings] build seconds {json.dumps(build_s)}; K3 launches per build {json.dumps(k3)}")
+    if k3 != {"custSeg": 1, "liShip": 0}:
+        raise AssertionError(f"K3 must sort the custSeg build and not the liShip build (int32 headroom): {k3}")
+    want = {n: canonical(rows) for n, rows in expected_string_rows(data).items()}
+    expect_idx = {"q3_filter": "custSeg", "q12_filter": "liShip"}
+    times = {}
+    for name, df in string_queries(s, base).items():
+        rel = index_scan(df)
+        if rel is None or rel.index_name != expect_idx[name] or rel.pruned_by != ["FilterIndexRule:bucket"]:
+            raise AssertionError(f"{name}: the plan does not scan the pruned index:\n{df.explain_string()}")
+        counts, collects = [], []
+        for _ in range(4):
+            n, t_count = wall(df.count)
+            out, t_collect = wall(df.collect)
+            counts.append(t_count)
+            collects.append(t_collect)
+            got = out.to_numpy()
+            if n != len(next(iter(want[name].values()))) or not same_multiset(got, want[name]):
+                raise AssertionError(f"{name}: rows differ from the numpy filter (count {n})")
+        hst.disable_hyperspace(s)
+        plain_df = string_queries(s, base)[name]
+        if not same_multiset(plain_df.collect().to_numpy(), canonical(got)):
+            raise AssertionError(f"{name}: indexed and non-indexed rows differ")
+        hst.enable_hyperspace(s)
+        times[name] = {
+            "rows": n, "files_scanned": len(rel.files),
+            "count_cold_s": counts[0], "count_p50_s": float(np.median(counts[1:])),
+            "collect_cold_s": collects[0], "collect_p50_s": float(np.median(collects[1:])),
+        }
+        log(f"[strings] {name} {json.dumps(times[name])}")
+        log(f"[strings] {name} warm collect breakdown {json.dumps(filter_breakdown(torch, df))}")
+    launches = {"K3": cuda_comp_sort.launches}
+    log(f"[strings] rows equal the numpy filters and the non-indexed queries; launches {json.dumps(launches)}")
+    return launches, build_s, times
+
+
+def filter_breakdown(torch, df) -> dict:
+    """Seconds of each stage of one warm `collect()` of a filter query, run
+    step by step with a synchronize after each."""
+    from hyperspace_tpu_torch.engine.evaluate import evaluate_predicate
+    from hyperspace_tpu_torch.engine.physical import ExecContext
+
+    project = df.physical_plan()
+    node = project
+    while node.name != "Filter":
+        node = node.children()[0]
+    ctx = ExecContext(df.session)
+    t = {}
+    table, t["scan_s"] = wall(lambda: node.child.execute(ctx))
+    keep, t["filter_eval_s"] = wall(lambda: torch.nonzero(evaluate_predicate(node.condition, table)).squeeze(1))
+    out, t["gather_s"] = wall(lambda: table.take(keep).select(project.column_names))
+    _, t["to_host_s"] = wall(lambda: out.to("cpu"))
+    t["rows_scanned"] = table.num_rows
+    return t
+
+
+# ---------------------------------------------------------------------------
+# Packed code reps: pad_buckets_by_codes (K4) and probe_code_ranges (K5)
+# ---------------------------------------------------------------------------
+
+
+def packed_inputs(torch, data, rng):
+    """bench.py's packed shape, and lineitem's shipmode codes in the bucket
+    layout of lineitem indexed by l_orderkey at 200 buckets."""
+    from hyperspace_tpu_torch.engine.table import Column, Table
+    from hyperspace_tpu_torch.ops.partition import bucketize_table
+
+    card = 12
+    lens = [rng.randint(0, 2 * 120_000 // 64, 64) for _ in range(2)]
+    starts = [np.concatenate([[0], np.cumsum(x)]).astype(np.int64) for x in lens]
+    bench = [(rng.randint(0, card, st[-1]).astype(np.int32), st) for st in starts]
+    li = data["lineitem"]
+    table = Table({
+        "l_orderkey": Column.from_values(li["l_orderkey"], DEVICE),
+        "l_shipmode": Column("string", torch.from_numpy(li["l_shipmode"][1]).to(DEVICE), li["l_shipmode"][0]),
+    })
+    out, st = bucketize_table(table, ["l_orderkey"], NUM_BUCKETS)
+    ship = out.column("l_shipmode").data.cpu().numpy()
+    return {
+        "bench_64": (card, bench[0], bench[1]),
+        "lineitem_shipmode_200": (len(SHIPMODES), (ship, st), (ship, st)),
+    }
+
+
+def phase_packed(torch, data, rng):
+    from hyperspace_tpu_torch.ops import bucket_join, cuda_packed_probe, cuda_packed_sort
+
+    inputs = packed_inputs(torch, data, rng)
+    cuda_packed_sort.launches = 0
+    cuda_packed_probe.launches = 0
+    results = {}
+    for name, (card, (l_codes, l_starts), (r_codes, r_starts)) in inputs.items():
+        lc, rc = torch.from_numpy(l_codes).to(DEVICE), torch.from_numpy(r_codes).to(DEVICE)
+        (lrep, rrep), t_pad = wall(lambda: (
+            bucket_join.pad_buckets_by_codes(lc, l_starts, card), bucket_join.pad_buckets_by_codes(rc, r_starts, card)
+        ))
+        (lo, cnt), t_probe = wall(lambda: bucket_join.probe_code_ranges(lrep, rrep))
+        plo, pcnt = cuda_packed_probe.probe_packed_plain(lrep.words, rrep.words, lrep.bits, lrep.lengths, rrep.lengths)
+        if not (torch.equal(cnt, pcnt) and torch.equal(lo, plo)):
+            raise AssertionError(f"{name}: K5 ranges differ from the plain probe")
+        cnt_h = cnt.cpu().numpy()
+        for b in range(len(l_starts) - 1):
+            ls = np.sort(l_codes[l_starts[b]: l_starts[b + 1]])
+            rs = np.sort(r_codes[r_starts[b]: r_starts[b + 1]])
+            exp = np.searchsorted(rs, ls, "right") - np.searchsorted(rs, ls, "left")
+            if not np.array_equal(cnt_h[b, : len(ls)], exp) or cnt_h[b, len(ls):].any():
+                raise AssertionError(f"{name}: bucket {b} counts differ from numpy searchsorted")
+        results[name] = {
+            "buckets": len(l_starts) - 1, "cap": lrep.cap, "bits": lrep.bits, "rows": int(l_starts[-1]),
+            "pad_sort_s": t_pad, "probe_s": t_probe, "pairs": int(cnt_h.sum(dtype=np.int64)),
+        }
+        log(f"[packed] {name} {json.dumps(results[name])}")
+    launches = {"K4": cuda_packed_sort.launches, "K5": cuda_packed_probe.launches}
+    if not launches["K4"] or not launches["K5"]:
+        raise AssertionError(f"K4 and K5 must launch in the packed phase: {launches}")
+    log(f"[packed] ranges equal the plain probe and numpy searchsorted; launches {json.dumps(launches)}")
+    return launches, results
 
 
 KERNEL_META = {
     "K1": ("bucket_sort", "hyperspace_tpu_torch/csrc/bucket_sort.cu", "hyperspace_tpu/ops/pallas_sort.py:107"),
     "K2": ("range_probe", "hyperspace_tpu_torch/csrc/range_probe.cu", "hyperspace_tpu/ops/pallas_probe.py:129"),
+    "K3": ("comp_sort", "hyperspace_tpu_torch/csrc/comp_sort.cu", "hyperspace_tpu/ops/pallas_sort.py:256"),
+    "K4": ("packed_sort", "hyperspace_tpu_torch/csrc/packed_sort.cu", "hyperspace_tpu/ops/pallas_sort.py:210"),
+    "K5": ("packed_probe", "hyperspace_tpu_torch/csrc/packed_probe.cu", "hyperspace_tpu/ops/pallas_probe.py:254"),
 }
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="env,kernels,main,identity")
+    ap.add_argument("--phases", default="env,kernels,main,strings,packed,identity")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sf", type=float, default=1.0)
     ap.add_argument("--identity-sf", type=float, default=0.05)
@@ -522,8 +903,25 @@ def main() -> int:
     rng = np.random.RandomState(args.seed)
     shapes = phase_kernels(torch, rng) if "kernels" in phases else []
     launches = {}
-    if "main" in phases:
-        launches, _build_s, _times = phase_main(torch, args.seed, args.sf)
+    data = None
+    if {"main", "strings", "packed"} & set(phases):
+        t0 = time.perf_counter()
+        data = tpch(args.sf, args.seed)
+        log(f"[data] TPC-H SF{args.sf}: lineitem {len(data['lineitem']['l_orderkey'])} rows, orders "
+            f"{len(data['orders']['o_orderkey'])}, partsupp {len(data['partsupp']['ps_partkey'])}, customer "
+            f"{len(data['customer']['c_custkey'])} (generated in {time.perf_counter() - t0:.2f} s)")
+    base = tempfile.mkdtemp(prefix="hs_smoke_sf1_")
+    try:
+        if {"main", "strings"} & set(phases):
+            write_sources(data, base)
+        if "main" in phases:
+            launches.update(phase_main(torch, data, base)[0])
+        if "strings" in phases:
+            launches.update(phase_strings(torch, data, base)[0])
+        if "packed" in phases:
+            launches.update(phase_packed(torch, data, rng)[0])
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
     if "identity" in phases:
         phase_identity(torch, args.seed, args.identity_sf)
     kernels = []

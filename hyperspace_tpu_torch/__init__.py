@@ -1,11 +1,13 @@
 """hyperspace_tpu_torch: the PyTorch/CUDA port of hyperspace_tpu.
 
-A second package beside the JAX reference, ported slice by slice. This slice
-runs the paper's core loop on an NVIDIA GPU: create covering indexes
-(hash-bucketed, sorted parquet plus the JSON operation log), let
-`JoinIndexRule` rewrite an equi-join over two indexed relations, and execute
-it as a shuffle-free co-bucketed merge join whose in-bucket sort and range
-probe are hand-written CUDA kernels (`csrc/`). Tables live on the session's
+A second package beside the JAX reference, ported slice by slice. It runs the
+paper's core loop on an NVIDIA GPU: create covering indexes (hash-bucketed,
+sorted parquet plus the JSON operation log) over numeric, dictionary-string
+and nullable columns; let `JoinIndexRule` rewrite an equi-join over two
+indexed relations into a shuffle-free co-bucketed merge join, and
+`FilterIndexRule` rewrite a filter into a scan of the index's matching hash
+buckets. The sorts and searches on that path are hand-written CUDA kernels
+(`csrc/`). Tables live on the session's
 device, CUDA by default. The package imports torch, numpy and pyarrow, never
 jax or hyperspace_tpu.
 """
@@ -16,6 +18,7 @@ from .engine.session import DataFrame, HyperspaceSession  # noqa: F401
 from .exceptions import HyperspaceException  # noqa: F401
 from .hyperspace import (  # noqa: F401
     Hyperspace,
+    disable_hyperspace,
     enable_hyperspace,
     is_hyperspace_enabled,
 )

@@ -1,7 +1,7 @@
 """Configuration: the session's flat string-keyed conf and its typed accessors.
 
-Counterpart of `hyperspace_tpu/config.py`, cut to the keys the build → rewrite →
-co-bucketed join slice reads. Key names and defaults are the JAX package's, so
+Counterpart of `hyperspace_tpu/config.py`, cut to the keys the ported slices
+read (build, JoinIndexRule and the co-bucketed join, FilterIndexRule). Key names and defaults are the JAX package's, so
 a conf written for one package means the same to the other.
 """
 
@@ -27,6 +27,10 @@ class IndexConstants:
     # On-lake layout names (reference `IndexConstants.scala:41-42`).
     HYPERSPACE_LOG = "_hyperspace_log"
     INDEX_VERSION_DIR_PREFIX = "v__"
+
+    # FilterIndexRule reads only the hash bucket(s) of a head-column equality.
+    INDEX_FILTER_BUCKET_PRUNING = "hyperspace.index.filter.bucketPruning"
+    INDEX_FILTER_BUCKET_PRUNING_DEFAULT = True
 
     # Column-name resolution (the spark.sql.caseSensitive analogue).
     RESOLUTION_CASE_SENSITIVE = "hyperspace.resolution.caseSensitive"
@@ -73,4 +77,11 @@ class HyperspaceConf:
         return self._c.get_bool(
             IndexConstants.RESOLUTION_CASE_SENSITIVE,
             IndexConstants.RESOLUTION_CASE_SENSITIVE_DEFAULT,
+        )
+
+    @property
+    def filter_bucket_pruning(self) -> bool:
+        return self._c.get_bool(
+            IndexConstants.INDEX_FILTER_BUCKET_PRUNING,
+            IndexConstants.INDEX_FILTER_BUCKET_PRUNING_DEFAULT,
         )

@@ -55,8 +55,10 @@ __global__ void range_probe(const T* __restrict__ left, const T* __restrict__ ri
   extern __shared__ unsigned char stage_raw[];
   const int64_t row = blockIdx.x / blocks_per_row;
   const int slot = (blockIdx.x % blocks_per_row) * blockDim.x + threadIdx.x;
-  const int m = r_len[row];
-  const int n = l_len[row];
+  // Lengths clamp to [0, cap], as the TPU kernel's iota masks do, so the
+  // host never reads them back to check.
+  const int m = min(max(r_len[row], 0), cap_r);
+  const int n = min(l_len[row], cap_l);
   const T* r = right + row * cap_r;
   if (kStage) {
     T* staged = reinterpret_cast<T*>(stage_raw);

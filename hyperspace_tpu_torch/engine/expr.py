@@ -1,14 +1,16 @@
-"""Expression IR for join conditions (counterpart of `hyperspace_tpu/engine/expr.py`).
+"""Expression IR for filters and join conditions (counterpart of `hyperspace_tpu/engine/expr.py`).
 
-The join rule pattern-matches equi-join CNF (`EqualTo`/`And` only, reference
-`JoinIndexRule.scala:188-194`), so the tree shape is explicit: `==` and `&`
-build the same trees as the JAX package. Other operators and predicate
-evaluation (filters) are not ported yet.
+The rules pattern-match the tree (`EqualTo`/`And` CNF for joins, reference
+`JoinIndexRule.scala:188-194`; head-column equality for bucket pruning), so
+the shapes are the JAX package's: comparisons, `and`/`or` as `BinaryOp`,
+`Not`, `IsNull` and `IsIn`. Arithmetic and user functions are not ported.
 """
 
 from __future__ import annotations
 
 from typing import List, Sequence, Set
+
+from ..exceptions import not_in_slice
 
 
 class Expr:
@@ -25,11 +27,50 @@ class Expr:
     def children(self) -> Sequence["Expr"]:
         return ()
 
+    # -- operator sugar -----------------------------------------------------
+
     def __eq__(self, other):  # type: ignore[override]
         return BinaryOp("==", self, _lit(other))
 
+    def __ne__(self, other):  # type: ignore[override]
+        return BinaryOp("!=", self, _lit(other))
+
+    def __lt__(self, other):
+        return BinaryOp("<", self, _lit(other))
+
+    def __le__(self, other):
+        return BinaryOp("<=", self, _lit(other))
+
+    def __gt__(self, other):
+        return BinaryOp(">", self, _lit(other))
+
+    def __ge__(self, other):
+        return BinaryOp(">=", self, _lit(other))
+
     def __and__(self, other):
         return BinaryOp("and", self, _lit(other))
+
+    def __or__(self, other):
+        return BinaryOp("or", self, _lit(other))
+
+    def __invert__(self):
+        return Not(self)
+
+    def _arithmetic(self, other):
+        raise not_in_slice("arithmetic in filter and column expressions")
+
+    __add__ = __radd__ = __sub__ = __rsub__ = _arithmetic
+    __mul__ = __rmul__ = __truediv__ = __rtruediv__ = _arithmetic
+
+    def is_null(self) -> "IsNull":
+        return IsNull(self, negated=False)
+
+    def is_not_null(self) -> "IsNull":
+        return IsNull(self, negated=True)
+
+    def isin(self, *values) -> "IsIn":
+        vals = values[0] if len(values) == 1 and isinstance(values[0], (list, tuple)) else values
+        return IsIn(self, list(vals))
 
     def __hash__(self):
         return hash(repr(self))
@@ -55,10 +96,12 @@ class Lit(Expr):
 
 
 class BinaryOp(Expr):
-    OPS = ("==", "and")
+    COMPARISONS = ("==", "!=", "<", "<=", ">", ">=")
+    BOOLEAN = ("and", "or")
 
     def __init__(self, op: str, left: Expr, right: Expr):
-        assert op in self.OPS, op
+        if op not in self.COMPARISONS + self.BOOLEAN:
+            raise ValueError(f"unknown operator {op!r}")
         self.op = op
         self.left = left
         self.right = right
@@ -68,6 +111,44 @@ class BinaryOp(Expr):
 
     def __repr__(self):
         return f"({self.left!r} {self.op} {self.right!r})"
+
+
+class Not(Expr):
+    def __init__(self, child: Expr):
+        self.child = child
+
+    def children(self) -> Sequence[Expr]:
+        return (self.child,)
+
+    def __repr__(self):
+        return f"(not {self.child!r})"
+
+
+class IsNull(Expr):
+    """IS NULL / IS NOT NULL: the only expressions that observe the validity
+    lane directly (and whose result is never itself null)."""
+
+    def __init__(self, child: Expr, negated: bool = False):
+        self.child = child
+        self.negated = negated
+
+    def children(self) -> Sequence[Expr]:
+        return (self.child,)
+
+    def __repr__(self):
+        return f"({self.child!r} is {'not ' if self.negated else ''}null)"
+
+
+class IsIn(Expr):
+    def __init__(self, child: Expr, values: Sequence):
+        self.child = child
+        self.values = list(values)
+
+    def children(self) -> Sequence[Expr]:
+        return (self.child,)
+
+    def __repr__(self):
+        return f"({self.child!r} in {self.values!r})"
 
 
 def _lit(v) -> Expr:

@@ -1,7 +1,8 @@
 """Logical plan IR (counterpart of `hyperspace_tpu/engine/logical.py`).
 
-The node set of the slice: relation scans, projections and inner equi-joins.
-Class names are the JAX package's: the plan signature folds over them.
+The node set of the slice: relation scans, filters, projections and inner
+equi-joins. Class names are the JAX package's: the plan signature folds over
+them.
 """
 
 from __future__ import annotations
@@ -39,9 +40,13 @@ class SourceRelation:
     bucket_spec: Optional[BucketSpec] = None
     index_name: Optional[str] = None
     log_entry_id: Optional[int] = field(default=None, compare=False)
+    # Names of the rules that pruned this scan's file list (bucket pruning).
+    pruned_by: List[str] = field(default_factory=list)
 
     def __repr__(self):
         tag = f" index={self.index_name}" if self.index_name else ""
+        if self.pruned_by:
+            tag += f" (files pruned by {','.join(self.pruned_by)})"
         return f"Relation[{self.file_format}]({','.join(self.root_paths)}{tag})"
 
 
@@ -97,6 +102,25 @@ class ScanNode(LogicalPlan):
 
     def simple_string(self):
         return f"Scan {self.relation!r}"
+
+
+class FilterNode(LogicalPlan):
+    def __init__(self, condition: Expr, child: LogicalPlan):
+        self.condition = condition
+        self.child = child
+
+    def children(self):
+        return (self.child,)
+
+    @property
+    def output_schema(self) -> Schema:
+        return self.child.output_schema
+
+    def with_children(self, children):
+        return FilterNode(self.condition, children[0])
+
+    def simple_string(self):
+        return f"Filter {self.condition!r}"
 
 
 class ProjectNode(LogicalPlan):

@@ -1,7 +1,9 @@
 """Physical plan + executor (counterpart of `hyperspace_tpu/engine/physical.py`).
 
-The operators of the slice: file scans, bucketed index scans, projections and
-the co-bucketed inner sort-merge join that `JoinIndexRule` sets up. Both join
+The operators of the slice: file scans, bucketed index scans, filters,
+projections and the co-bucketed inner sort-merge join that `JoinIndexRule`
+sets up. A filter evaluates its predicate on the device (`engine/evaluate.py`)
+and keeps the surviving rows in order. Both join
 sides arrive hash-partitioned into the same buckets on the join keys, so the
 merge runs per bucket pair with no exchange (reference
 `JoinIndexRule.scala:137-162`): `ops.bucket_join` probes all bucket pairs at
@@ -23,8 +25,9 @@ import torch
 from ..exceptions import HyperspaceException, not_in_slice
 from ..ops.hashing import key64
 from . import io as engine_io
-from .expr import extract_equi_join_keys
-from .logical import JoinNode, LogicalPlan, ProjectNode, ScanNode, SourceRelation
+from .evaluate import evaluate_predicate
+from .expr import Expr, extract_equi_join_keys
+from .logical import FilterNode, JoinNode, LogicalPlan, ProjectNode, ScanNode, SourceRelation
 from .schema import Schema
 from .table import Column, Table
 
@@ -85,6 +88,8 @@ class ScanExec(PhysicalNode):
     def simple_string(self):
         cols = f" [{', '.join(self.columns)}]" if self.columns else ""
         tag = f" index={self.relation.index_name}" if self.relation.index_name else ""
+        if self.relation.pruned_by:
+            tag += f" (files pruned by {','.join(self.relation.pruned_by)})"
         return f"Scan{tag} {','.join(self.relation.root_paths)}{cols}"
 
 
@@ -113,10 +118,7 @@ class BucketedIndexScanExec(PhysicalNode):
         starts = np.zeros(spec.num_buckets + 1, dtype=np.int64)
         if not ordered:
             names = self.columns or self.relation.schema.names
-            empty = {
-                n: Column.from_numpy(np.empty(0, np.dtype(self.relation.schema.field(n).dtype)), ctx.device)
-                for n in names
-            }
+            empty = {n: _empty_column(self.relation.schema.field(n).dtype, ctx.device) for n in names}
             return Table(empty), starts
         # read_files concatenates in sorted path order: within one version
         # directory that is bucket order (zero-padded `part-<b>` names).
@@ -141,6 +143,59 @@ class BucketedIndexScanExec(PhysicalNode):
             f"BucketedIndexScan index={self.relation.index_name} "
             f"buckets={spec.num_buckets} by {list(spec.bucket_columns)}"
         )
+
+
+def _empty_column(dtype: str, device) -> Column:
+    if dtype == "string":
+        return Column(dtype, torch.empty(0, dtype=torch.int32, device=device), np.empty(0, dtype="<U1"))
+    return Column.from_values(np.empty(0, np.dtype(dtype)), device)
+
+
+class FilterExec(PhysicalNode):
+    """Keeps the rows whose predicate is true and known, in order
+    (physical.py:653)."""
+
+    name = "Filter"
+
+    def __init__(self, condition: Expr, child: PhysicalNode):
+        self.condition = condition
+        self.child = child
+
+    def children(self):
+        return (self.child,)
+
+    @property
+    def relation(self) -> SourceRelation:
+        return self.child.relation
+
+    def _keep(self, t: Table) -> torch.Tensor:
+        return torch.nonzero(evaluate_predicate(self.condition, t)).squeeze(1)
+
+    def execute(self, ctx) -> Table:
+        t = self.child.execute(ctx)
+        return t if t.num_rows == 0 else t.take(self._keep(t))
+
+    def execute_concat(self, ctx) -> Tuple[Table, np.ndarray]:
+        """A filtered bucketed scan with its bucket structure kept: a filter
+        moves no row across buckets and keeps the order within one, so the
+        co-bucketed join stays sound over it."""
+        table, starts = self.child.execute_concat(ctx)
+        if table.num_rows:
+            keep = self._keep(table)
+            bounds = torch.as_tensor(np.asarray(starts, np.int64), device=keep.device)
+            starts = torch.searchsorted(keep, bounds).cpu().numpy().astype(np.int64)
+            table = table.take(keep)
+        return table, starts
+
+    def simple_string(self):
+        return f"Filter {self.condition!r}"
+
+
+def _bucketed(node: PhysicalNode) -> bool:
+    """A bucketed index scan, or a filter over one."""
+    if isinstance(node, FilterExec):
+        node = node.child
+    return isinstance(node, BucketedIndexScanExec)
 
 
 class ProjectExec(PhysicalNode):
@@ -203,7 +258,7 @@ def _table_key64(table: Table, keys: List[str]) -> torch.Tensor:
 
 def _value_mode_column(table: Table, keys: List[str]) -> Optional[Column]:
     """The single join-key column when the side may run in value mode (one
-    numeric non-bool key; nulls never reach the port's tables)."""
+    numeric non-bool key; string and nullable keys are refused earlier)."""
     if len(keys) != 1:
         return None
     c = table.column(keys[0])
@@ -232,8 +287,7 @@ class SortMergeJoinExec(PhysicalNode):
 
     name = "SortMergeJoin"
 
-    def __init__(self, left: BucketedIndexScanExec, right: BucketedIndexScanExec,
-                 left_keys: List[str], right_keys: List[str]):
+    def __init__(self, left: PhysicalNode, right: PhysicalNode, left_keys: List[str], right_keys: List[str]):
         self.left = left
         self.right = right
         self.left_keys = left_keys
@@ -265,6 +319,9 @@ class SortMergeJoinExec(PhysicalNode):
 
         left, l_starts = self.left.execute_concat(ctx)
         right, r_starts = self.right.execute_concat(ctx)
+        for table, keys in ((left, self.left_keys), (right, self.right_keys)):
+            if any(table.column(k).is_string or table.column(k).has_nulls for k in keys):
+                raise not_in_slice("string or nullable join keys")
         if left.num_rows == 0 or right.num_rows == 0:
             return left, right, None, None
         plan = _classed_plan(left, right, self.left_keys, self.right_keys, l_starts, r_starts)
@@ -361,6 +418,12 @@ def plan_physical(
             return BucketedIndexScanExec(rel, cols)
         return ScanExec(rel, cols)
 
+    if isinstance(logical, FilterNode):
+        child_required = None
+        if required is not None:
+            child_required = list(dict.fromkeys(list(required) + sorted(logical.condition.references())))
+        return FilterExec(logical.condition, plan_physical(logical.child, child_required, case_sensitive))
+
     if isinstance(logical, ProjectNode):
         return ProjectExec(
             logical.column_names,
@@ -380,7 +443,7 @@ def plan_physical(
             rreq = list(dict.fromkeys([n for n in rschema.names if key(n) in req] + rkeys))
         lphys = plan_physical(logical.left, lreq, case_sensitive)
         rphys = plan_physical(logical.right, rreq, case_sensitive)
-        if isinstance(lphys, BucketedIndexScanExec) and isinstance(rphys, BucketedIndexScanExec):
+        if _bucketed(lphys) and _bucketed(rphys):
             keys = _bucketed_join_keys(lphys, rphys, lkeys, rkeys, key)
             if keys is not None:
                 return SortMergeJoinExec(lphys, rphys, keys[0], keys[1])

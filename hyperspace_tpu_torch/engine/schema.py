@@ -1,7 +1,8 @@
 """Schema model for columnar tables (counterpart of `hyperspace_tpu/engine/schema.py`).
 
 Type names and the JSON form are the JAX package's, so a schema written into
-the operation log by one package reads the same in the other.
+the operation log by one package reads the same in the other. A `string`
+column holds int32 dictionary codes on the device (`engine/table.py`).
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ TORCH_DTYPES = {
     FLOAT32: torch.float32,
     FLOAT64: torch.float64,
     BOOL: torch.bool,
+    STRING: torch.int32,  # dictionary codes
 }
 
 

@@ -2,7 +2,7 @@
 
 A session carries the conf, the filesystem, the device its tables live on and
 the optimizer extension point (`extra_optimizations`) that `enable_hyperspace`
-plugs the rewrite rule into. The device defaults to CUDA.
+plugs the rewrite rules into. The device defaults to CUDA.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from ..ops.backend import resolve_device
 from ..storage.filesystem import FileStatus, LocalFileSystem
 from . import io as engine_io
 from .expr import Expr
-from .logical import JoinNode, LogicalPlan, ProjectNode, ScanNode, SourceRelation
+from .logical import FilterNode, JoinNode, LogicalPlan, ProjectNode, ScanNode, SourceRelation
 from .physical import ExecContext, PhysicalNode, plan_physical
 from .table import Table
 
@@ -39,7 +39,7 @@ class DataFrame:
         return DataFrame(self.session, JoinNode(self.plan, other.plan, on, how))
 
     def filter(self, condition: Expr) -> "DataFrame":
-        raise not_in_slice("filter (and FilterIndexRule)")
+        return DataFrame(self.session, FilterNode(condition, self.plan))
 
     where = filter
 

@@ -1,56 +1,148 @@
 """Columnar in-memory table whose columns are torch tensors on one device.
 
-Counterpart of `hyperspace_tpu/engine/table.py` for numeric columns. The JAX
-package keeps numpy on the host and uploads to the device per operation; here
-the columns live on the session's device from the read on, and only a query's
-result crosses back to the host (`Table.to("cpu")`). Strings (dictionary
-codes) and nulls (validity masks) are not ported yet: building such a column
-raises.
+Counterpart of `hyperspace_tpu/engine/table.py`. The JAX package keeps numpy
+on the host and uploads to the device per operation; here the columns live on
+the session's device from the read on, and only a query's result crosses back
+to the host (`Table.to("cpu")`). The representation is the JAX package's:
+
+- **Strings are dictionary-encoded** with a *sorted* host dictionary, so the
+  int32 codes on the device are order-preserving: string range filters are
+  integer compares and the build's sort by a string is an integer sort.
+- **Nulls ride as validity masks** (a bool tensor, True = valid) over dense
+  filled storage (numeric fill 0, string fill code 0). `validity=None` means
+  all-valid; an all-True mask is normalized to None, as in the JAX package.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, List, Sequence
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from ..exceptions import not_in_slice
 from .schema import STRING, TORCH_DTYPES, Field, Schema, dtype_from_numpy
 
 
 @dataclass
 class Column:
-    """One numeric column: `dtype` names the schema type of `data`."""
+    """One column: numeric data, or dictionary codes (`data`, int32) into a
+    sorted host `dictionary`, plus an optional validity mask on the same
+    device as `data`. `encoded_read` marks codes that came through the
+    encoded (dictionary-page) read; it survives take and concat."""
 
     dtype: str
     data: torch.Tensor
+    dictionary: Optional[np.ndarray] = None
+    validity: Optional[torch.Tensor] = None
+    encoded_read: bool = field(default=False, compare=False)
 
     def __post_init__(self):
-        if self.dtype == STRING:
-            raise not_in_slice("string columns")
         if TORCH_DTYPES[self.dtype] != self.data.dtype:
             raise ValueError(f"column type {self.dtype} holds {self.data.dtype}")
+        if (self.dtype == STRING) != (self.dictionary is not None):
+            raise ValueError("a string column needs a dictionary, and only a string column has one")
+        if self.validity is not None:
+            if self.validity.dtype != torch.bool:
+                raise ValueError(f"validity must be bool, got {self.validity.dtype}")
+            if bool(self.validity.all()):
+                self.validity = None  # normalize: all-valid keeps the fast paths
 
     def __len__(self) -> int:
         return int(self.data.shape[0])
 
+    @property
+    def is_string(self) -> bool:
+        return self.dtype == STRING
+
+    @property
+    def has_nulls(self) -> bool:
+        return self.validity is not None
+
+    def _derive(self, data, validity) -> "Column":
+        return Column(self.dtype, data, self.dictionary, validity, self.encoded_read)
+
     def take(self, indices: torch.Tensor) -> "Column":
-        return Column(self.dtype, self.data[indices])
+        v = self.validity[indices] if self.validity is not None else None
+        return self._derive(self.data[indices], v)
+
+    def slice(self, lo: int, hi: int) -> "Column":
+        v = self.validity[lo:hi] if self.validity is not None else None
+        return self._derive(self.data[lo:hi], v)
+
+    def to(self, device) -> "Column":
+        v = self.validity.to(device) if self.validity is not None else None
+        return self._derive(self.data.to(device), v)
 
     def numpy(self) -> np.ndarray:
+        """`data` on the host (codes for a string column, fills at nulls)."""
         return self.data.cpu().numpy()
 
+    def decode(self) -> np.ndarray:
+        """Raw host values (strings decoded through the dictionary). Null slots
+        hold the fill value: pair with `validity`, or use `decode_objects`."""
+        data = self.numpy()
+        return self.dictionary[data] if self.is_string else data
+
+    def decode_objects(self) -> np.ndarray:
+        """User-facing host values: an object array with None at null slots
+        (the plain `decode()` array when the column has no nulls)."""
+        raw = self.decode()
+        if self.validity is None:
+            return raw
+        out = raw.astype(object)
+        out[~self.validity.cpu().numpy()] = None
+        return out
+
     @staticmethod
-    def from_numpy(values: np.ndarray, device) -> "Column":
+    def from_values(values: np.ndarray, device) -> "Column":
+        """Ingest a host numpy array: strings get dictionary-encoded with a
+        sorted dictionary; None entries of object arrays become nulls
+        (validity mask + fill), as `Column.from_values` in the JAX package."""
         values = np.asarray(values)
-        if values.dtype.kind in ("U", "S", "O"):
-            raise not_in_slice("string columns")
-        dtype = dtype_from_numpy(values.dtype)
+        validity = None
+        if values.dtype.kind == "O":
+            null_mask = np.asarray([v is None for v in values], dtype=bool)
+            if null_mask.any():
+                validity = ~null_mask
+                fill = next((v for v in values if v is not None), "")
+                values = np.asarray([fill if v is None else v for v in values])
+            else:
+                values = np.asarray(values.tolist())
+            if values.dtype.kind == "O":
+                values = values.astype(str)
+        valid_t = None if validity is None else torch.from_numpy(validity).to(device)
+        if values.dtype.kind in ("U", "S"):
+            dictionary, codes = np.unique(values, return_inverse=True)
+            codes = codes.astype(np.int32).reshape(-1)
+            if validity is not None:
+                codes = np.where(validity, codes, np.int32(0))
+            return Column(STRING, torch.from_numpy(codes).to(device), dictionary, valid_t)
+        if validity is not None:
+            values = np.where(validity, values, np.zeros((), dtype=values.dtype))
         if not values.flags.writeable or not values.flags.c_contiguous:
             values = np.array(values)
-        return Column(dtype, torch.from_numpy(values).to(device))
+        return Column(dtype_from_numpy(values.dtype), torch.from_numpy(values).to(device), None, valid_t)
+
+
+def _remap_codes(col: Column, new_dictionary: np.ndarray) -> torch.Tensor:
+    """A string column's codes remapped into a (sorted) superset dictionary."""
+    positions = torch.from_numpy(np.searchsorted(new_dictionary, col.dictionary).astype(np.int32))
+    return positions.to(col.data.device)[col.data.long()]
+
+
+def align_dictionaries(a: Column, b: Column):
+    """Two string columns re-encoded over their union dictionary so their codes
+    compare directly; untouched when both already share one dictionary."""
+    if not (a.is_string and b.is_string):
+        raise ValueError("align_dictionaries requires string columns")
+    if a.dictionary is b.dictionary or np.array_equal(a.dictionary, b.dictionary):
+        return a, b
+    union = np.union1d(a.dictionary, b.dictionary)
+    return (
+        Column(STRING, _remap_codes(a, union), union, a.validity),
+        Column(STRING, _remap_codes(b, union), union, b.validity),
+    )
 
 
 class Table:
@@ -91,17 +183,52 @@ class Table:
 
     def slice(self, lo: int, hi: int) -> "Table":
         """Rows [lo, hi) as views of this table's columns."""
-        return Table({n: Column(c.dtype, c.data[lo:hi]) for n, c in self.columns.items()})
+        return Table({n: c.slice(lo, hi) for n, c in self.columns.items()})
 
     def to(self, device) -> "Table":
-        return Table({n: Column(c.dtype, c.data.to(device)) for n, c in self.columns.items()})
+        return Table({n: c.to(device) for n, c in self.columns.items()})
 
     def to_numpy(self) -> Dict[str, np.ndarray]:
-        return {n: c.numpy() for n, c in self.columns.items()}
+        """Host values per column: strings decoded, None at null slots."""
+        return {n: c.decode_objects() for n, c in self.columns.items()}
 
     @staticmethod
     def from_pydict(data: Dict[str, list], device) -> "Table":
-        return Table({n: Column.from_numpy(np.asarray(v), device) for n, v in data.items()})
+        return Table({n: Column.from_values(np.asarray(v), device) for n, v in data.items()})
+
+    @staticmethod
+    def concat(tables: List["Table"]) -> "Table":
+        """Concatenate tables with the same column names (multi-file scans).
+        String columns are re-encoded over the union dictionary."""
+        if not tables:
+            return Table({})
+        out: Dict[str, Column] = {}
+        for n in tables[0].column_names:
+            cols = [t.columns[n] for t in tables]
+            validity = None
+            if any(c.validity is not None for c in cols):
+                validity = torch.cat([
+                    c.validity if c.validity is not None
+                    else torch.ones(len(c), dtype=torch.bool, device=c.data.device)
+                    for c in cols
+                ])
+            encoded = all(c.encoded_read for c in cols)
+            if cols[0].is_string:
+                union = cols[0].dictionary
+                for c in cols[1:]:
+                    union = np.union1d(union, c.dictionary)
+                codes = torch.cat([_remap_codes(c, union) for c in cols])
+                out[n] = Column(STRING, codes, union, validity, encoded)
+            else:
+                # Mixed numeric widths promote in the concatenation; the type
+                # label describes the promoted data.
+                data = torch.cat([c.data for c in cols])
+                out[n] = Column(_dtype_of(data), data, None, validity, encoded)
+        return Table(out)
 
     def __repr__(self):
         return f"Table({self.schema}, rows={self.num_rows})"
+
+
+def _dtype_of(data: torch.Tensor) -> str:
+    return next(k for k, v in TORCH_DTYPES.items() if v == data.dtype and k != STRING)

@@ -22,7 +22,8 @@ from typing import Optional
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
-_SOURCES = ("bucket_sort.cu", "range_probe.cu")
+_SOURCES = ("bucket_sort.cu", "range_probe.cu", "comp_sort.cu", "packed_sort.cu", "packed_probe.cu")
+_HEADERS = ("bitonic_i32.cuh",)
 _BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "hyperspace_tpu_torch")
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -40,6 +41,9 @@ _SIGNATURES = {
     "hs_bucket_sort": (_P, _P, _P, _I, _I, _P),
     "hs_range_probe_i64": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "hs_range_probe_f64": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "hs_comp_sort": (_P, _P, _I, _I, _P),
+    "hs_packed_sort": (_P, _P, _P, _I, _I, _I, _P),
+    "hs_packed_probe": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 
@@ -56,7 +60,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for name in _SOURCES:
+    for name in _SOURCES + _HEADERS:
         with open(os.path.join(_CSRC, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     return h.hexdigest()[:16]

@@ -18,6 +18,10 @@ bucket b of the right. The bucket axis becomes a batch dimension:
 4. `classed_pairs` expands the ranges into (left_row, right_row) candidate
    pairs in bucket-major order, with torch ops on the tables' device.
 
+`pad_buckets_by_codes` and `probe_code_ranges` are the packed code-mode reps
+of one low-cardinality string key (kernels K4 and K5). As in the JAX package,
+they are an ops-level API that no engine operator calls yet.
+
 The JAX package builds the class matrices on the host with numpy on its CPU
 backend and with jitted programs on a TPU; the port has one path, torch ops on
 the session's device, and only the kernels' wrappers tell CPU from CUDA.
@@ -30,6 +34,9 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..engine.packed_codes import lanes_per_word, pack_rows, probe_bits_for_cardinality
+from .cuda_packed_probe import probe_packed
+from .cuda_packed_sort import sort_codes_packed
 from .cuda_probe import range_probe
 from .cuda_sort import sort_rows
 from .join import host_merge_pairs
@@ -332,3 +339,87 @@ def classed_pairs(plan: ClassedJoinPlan, ranges: ClassedRanges) -> Tuple[torch.T
             li_all[s : s + len(li_o)] = torch.as_tensor(li_o, device=dev)
             ri_all[s : s + len(ri_o)] = torch.as_tensor(ri_o, device=dev)
     return li_all, ri_all
+
+
+# ---------------------------------------------------------------------------
+# Packed code-mode padded reps (sub-byte dictionary codes)
+# ---------------------------------------------------------------------------
+#
+# A single string key of at most 13 distinct values needs no 64-bit hash: its
+# dictionary codes order-embed the equality, and they pack 1, 2 or 4 bits a
+# lane into 32-bit words (`engine/packed_codes.py`). The resident padded
+# matrices stay packed (`packed_codes.pack_rows`, the JAX package's
+# `_pack_code_rows` :507); K4 sorts them and K5 probes them word-packed.
+
+
+class PackedCodeBuckets:
+    """Packed twin of a padded class side (`bucket_join.py:458`): `words`
+    [B, cap / lpw] (int32 tensors carrying 32 bits) of sorted BIASED codes
+    (code + 1; pads at the top lane value), `bits` the lane width, `lengths`
+    [B] valid counts, `order` [B, cap] sorted slot -> storage slot, `starts`
+    the host bucket offsets."""
+
+    __slots__ = ("words", "bits", "lengths", "order", "starts", "cap")
+
+    def __init__(self, words, bits: int, lengths, order, starts, cap: int):
+        self.words = words
+        self.bits = bits
+        self.lengths = lengths
+        self.order = order
+        self.starts = starts
+        self.cap = cap
+
+
+def _pad_scatter_codes(codes: torch.Tensor, starts: torch.Tensor, num_buckets: int, cap: int, bits: int):
+    """Raw codes (null = -1) of consecutive buckets -> an UNSORTED [B, cap]
+    int32 matrix of biased codes padded with 2**bits - 1, and the bucket
+    lengths (`bucket_join.py:482`)."""
+    n = codes.shape[0]
+    pos = torch.arange(n, device=codes.device)
+    b_of_row = torch.searchsorted(starts, pos, right=True) - 1
+    slot = pos - starts[b_of_row]
+    padded = torch.full((num_buckets, cap), (1 << bits) - 1, dtype=torch.int32, device=codes.device)
+    padded[b_of_row, slot] = codes.to(torch.int32) + 1
+    return padded, starts[1:] - starts[:-1]
+
+
+def _pad_and_sort_codes(codes: torch.Tensor, starts: torch.Tensor, num_buckets: int, cap: int, bits: int):
+    """The reference twin of the K4 route (`bucket_join.py:498`): scatter,
+    then a stable argsort of the flat biased matrix. (sorted, order, lengths)."""
+    padded, lengths = _pad_scatter_codes(codes, starts, num_buckets, cap, bits)
+    order = torch.sort(padded, dim=1, stable=True).indices
+    return padded.gather(1, order), order.to(torch.int32), lengths
+
+
+def pad_buckets_by_codes(
+    codes, starts_np: np.ndarray, cardinality: int, has_nulls: bool = False
+) -> Optional[PackedCodeBuckets]:
+    """Packed code-mode rep of a single low-cardinality string key whose rows
+    lie bucket after bucket (`bucket_join.py:520`); each row sorted by K4.
+    None when the key does not qualify: nulls present (null semantics belong
+    to the hash path), a cardinality past the 4-bit sort/probe class, or no
+    rows."""
+    if has_nulls:
+        return None
+    bits = probe_bits_for_cardinality(int(cardinality))
+    if bits is None:
+        return None
+    starts_np = np.asarray(starts_np, np.int64)
+    num_buckets = len(starts_np) - 1
+    lens = np.diff(starts_np)
+    if num_buckets == 0 or lens.max(initial=0) == 0:
+        return None
+    cap = max(_cap_pow2(int(lens.max())), lanes_per_word(bits))
+    codes = torch.as_tensor(codes)
+    starts = torch.as_tensor(starts_np, device=codes.device)
+    padded, lengths = _pad_scatter_codes(codes, starts, num_buckets, cap, bits)
+    sorted_codes, order = sort_codes_packed(pack_rows(padded, bits), bits)
+    words = pack_rows(sorted_codes, bits)
+    return PackedCodeBuckets(words, bits, lengths, order, starts_np, cap)
+
+
+def probe_code_ranges(l: PackedCodeBuckets, r: PackedCodeBuckets) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(lo, counts) of two packed code reps by K5 (`bucket_join.py:578`)."""
+    if l.bits != r.bits:
+        raise ValueError(f"packed rep bits mismatch: {l.bits} != {r.bits}")
+    return probe_packed(l.words, r.words, l.bits, l.lengths, r.lengths)

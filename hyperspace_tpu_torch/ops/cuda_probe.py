@@ -24,7 +24,10 @@ _WIDEN = (torch.int8, torch.int16, torch.int32)
 
 
 def range_probe_plain(ls, rs, l_len, r_len) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain PyTorch version: per-row `torch.searchsorted` over the valid prefix."""
+    """The plain PyTorch version: per-row `torch.searchsorted` over the valid
+    prefix. Lengths clamp to [0, cap], as in the kernel."""
+    l_len = torch.as_tensor(l_len).clamp(0, ls.shape[1])
+    r_len = torch.as_tensor(r_len).clamp(0, rs.shape[1])
     lo = torch.zeros(ls.shape, dtype=torch.int32, device=ls.device)
     counts = torch.zeros(ls.shape, dtype=torch.int32, device=ls.device)
     for b, (n, m) in enumerate(zip(l_len.tolist(), r_len.tolist())):
@@ -40,7 +43,8 @@ def range_probe_plain(ls, rs, l_len, r_len) -> Tuple[torch.Tensor, torch.Tensor]
 
 def range_probe(ls, rs, l_len, r_len) -> Tuple[torch.Tensor, torch.Tensor]:
     """(lo, counts) int32 [B, cap_l] of left keys [B, cap_l] probed into right
-    keys [B, cap_r]; each row of `rs` sorted over its first r_len[b] slots."""
+    keys [B, cap_r]; each row of `rs` sorted over its first r_len[b] slots.
+    Lengths clamp to [0, cap] (on the card inside the kernel, with no sync)."""
     if ls.device.type == "cpu":
         return range_probe_plain(ls, rs, l_len, r_len)
     global launches
@@ -68,8 +72,6 @@ def range_probe(ls, rs, l_len, r_len) -> Tuple[torch.Tensor, torch.Tensor]:
     counts = torch.empty(ls.shape, dtype=torch.int32, device=ls.device)
     if rows == 0 or cap_l == 0:
         return lo, counts
-    if int(l_len.max()) > cap_l or int(r_len.max()) > cap_r:
-        raise ValueError("range_probe: a valid length exceeds its row")
     lib = _kernels.library()
     fn = lib.hs_range_probe_i64 if ls.dtype == torch.int64 else lib.hs_range_probe_f64
     err = fn(

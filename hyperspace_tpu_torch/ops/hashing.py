@@ -4,8 +4,14 @@ The JAX package hashes with uint32 vector ops (murmur3 finalizer mixing). Bucket
 co-location across independently built indexes — what makes the shuffle-free
 bucketed join sound — needs every package to hash identically, so this module
 computes the same functions: `fmix32` :100, `_mix_combine` :111, `_words_u32`
-:118 (its numeric part), `hash_device_values` :145, `key64` :324 and
-`bucket_id` :337.
+:118, `hash_device_values` :145, `host_hash_dictionary` :163,
+`column_hash_u32` :205, `key64` :324 and `bucket_id` :337.
+
+A key lane is a tensor of numeric values, or a `Column`: a string column
+hashes through its dictionary (one 4-byte blake2b per distinct value on the
+host, then a gather through the codes on the device), so the string bytes are
+touched once per dictionary entry. Null slots hash their fill value (numeric
+0, string code 0), as in the JAX package.
 
 torch has no uint32 shifts or compares on every device, so each lane is an
 int64 tensor holding a value in [0, 2^32), masked after every multiply: the
@@ -15,8 +21,10 @@ wrap, and those are all that is kept.
 
 from __future__ import annotations
 
+import hashlib
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 _M32 = 0xFFFFFFFF
@@ -63,15 +71,37 @@ def hash_device_values(x: torch.Tensor, seed: int, force_float: bool = False) ->
     return fmix32(h)
 
 
-def _lane(arrays: Sequence[torch.Tensor], seed: int, force_float) -> torch.Tensor:
+def host_hash_dictionary(dictionary: np.ndarray, seed: int) -> torch.Tensor:
+    """uint32 hash (in int64 lanes, on the host) of each dictionary entry: a
+    4-byte blake2b of its UTF-8 bytes, the seed as little-endian salt."""
+    out = np.empty(len(dictionary), dtype=np.uint32)
+    salt = int(seed).to_bytes(4, "little")
+    for i, s in enumerate(dictionary):
+        d = hashlib.blake2b(str(s).encode("utf-8"), digest_size=4, salt=salt).digest()
+        out[i] = np.frombuffer(d, dtype=np.uint32)[0]
+    return torch.from_numpy(out.astype(np.int64))
+
+
+def column_hash_u32(lane, seed: int, force_float: bool = False) -> torch.Tensor:
+    """uint32 hash (in an int64 lane) of one key lane: a numeric tensor, or a
+    Column (string columns through their dictionary; codes may be narrow)."""
+    if isinstance(lane, torch.Tensor):
+        return hash_device_values(lane, seed, force_float)
+    if lane.is_string:
+        table = host_hash_dictionary(lane.dictionary, seed).to(lane.data.device)
+        return table[lane.data.long()]
+    return hash_device_values(lane.data, seed, force_float)
+
+
+def _lane(lanes: Sequence, seed: int, force_float) -> torch.Tensor:
     h = None
-    for i, a in enumerate(arrays):
-        hc = hash_device_values(a, seed, bool(force_float[i]) if force_float else False)
+    for i, a in enumerate(lanes):
+        hc = column_hash_u32(a, seed, bool(force_float[i]) if force_float else False)
         h = hc if h is None else fmix32(_mix_combine(h, hc))
     return h
 
 
-def key64(arrays: Sequence[torch.Tensor], force_float: Optional[Sequence[bool]] = None) -> torch.Tensor:
+def key64(arrays: Sequence, force_float: Optional[Sequence[bool]] = None) -> torch.Tensor:
     """Signed 64-bit join/sort key from two independent 32-bit hash lanes:
     `(h1 << 32) | h2` in two's complement. h1 is first mapped to its signed
     32-bit value, so the shift is a multiply that never leaves int64."""
@@ -81,6 +111,6 @@ def key64(arrays: Sequence[torch.Tensor], force_float: Optional[Sequence[bool]] 
     return h1_signed * (1 << 32) + h2
 
 
-def bucket_id(arrays: Sequence[torch.Tensor], num_buckets: int) -> torch.Tensor:
+def bucket_id(arrays: Sequence, num_buckets: int) -> torch.Tensor:
     """Bucket assignment: h1 % num_buckets (the repartition hash), int32."""
     return (_lane(arrays, _SEED1, None) % int(num_buckets)).to(torch.int32)

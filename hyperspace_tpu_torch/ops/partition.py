@@ -2,20 +2,30 @@
 
 Counterpart of `hyperspace_tpu/ops/partition.py` `bucketize_table` :108 and
 `bucket_starts` :103. The build order is the JAX package's canonical one:
-rows grouped by bucket id, sorted by the indexed columns within a bucket,
-ties in original row order. Its device sort `_sort_perm` :34 is a stable
-`lax.sort`, not a Pallas kernel; its counterpart here is a chain of stable
-`torch.sort` passes, last key first (a least-significant-digit lexsort).
+rows grouped by bucket id, sorted by the indexed columns within a bucket
+(string columns by their sorted-dictionary codes, null slots by their fill),
+ties in original row order. Two routes give it, as in the JAX package's device
+path:
+
+- one dictionary string key of at most 15 distinct values packs
+  (bucket, code + 1, row) into ONE unique int32 composite, sorted by kernel K3
+  (`cuda_comp_sort.sort_comp_rows`; `_packed_build_comp` :239 and
+  `pallas_packed_build_sort` :252), when the composite fits int32;
+- every other key takes a chain of stable `torch.sort` passes, last key
+  first (a least-significant-digit lexsort), the counterpart of `_sort_perm`
+  :34, a stable `lax.sort`.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..engine.packed_codes import bits_for_cardinality, packed_codes_enabled
 from ..engine.table import Table
+from .cuda_comp_sort import sort_comp_rows
 from .hashing import bucket_id
 
 
@@ -37,13 +47,59 @@ def bucket_starts(sorted_b: torch.Tensor, num_buckets: int) -> np.ndarray:
     return torch.searchsorted(sorted_b, edges).cpu().numpy().astype(np.int64)
 
 
+def packed_build_comp(b: torch.Tensor, codes: torch.Tensor, bits: int, log2np: int, n_pad: int,
+                      num_buckets: int) -> torch.Tensor:
+    """((bucket << bits) | (code + 1)) << log2np | row as int32, padded to
+    [1, n_pad] with the supremum (num_buckets << bits) << log2np, which sorts
+    after every real composite."""
+    n = codes.shape[0]
+    biased = codes.to(torch.int32) + 1
+    rows = torch.arange(n, dtype=torch.int32, device=codes.device)
+    comp = (((b.to(torch.int32) << bits) | biased) << log2np) | rows
+    padded = torch.full((1, n_pad), (num_buckets << bits) << log2np, dtype=torch.int32, device=codes.device)
+    padded[0, :n] = comp
+    return padded
+
+
+def packed_build_sort(
+    b: torch.Tensor, codes: torch.Tensor, cardinality: int, num_buckets: int
+) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """(perm, sorted bucket ids) by K3 for a single dictionary key whose
+    cardinality has a packed class, or None when the packed layer is off, no
+    class holds the cardinality, or the composite overflows int32. The row
+    bits make the composites unique, so the order is the canonical stable
+    (bucket, code, row) one and index files are the same whichever route ran."""
+    if not packed_codes_enabled():
+        return None
+    bits = bits_for_cardinality(int(cardinality))
+    if bits is None:
+        return None
+    n = int(codes.shape[0])
+    if n == 0:
+        empty = torch.empty(0, dtype=torch.int32, device=codes.device)
+        return empty, empty
+    n_pad = 1 << max(n - 1, 1).bit_length()
+    log2np = n_pad.bit_length() - 1
+    if (num_buckets << bits) << log2np >= 1 << 31:
+        return None  # the pad composite must fit signed int32
+    head = sort_comp_rows(packed_build_comp(b, codes, bits, log2np, n_pad, num_buckets))[0, :n]
+    return head & (n_pad - 1), head >> (bits + log2np)
+
+
 def bucketize_table(
     table: Table, bucket_columns: Sequence[str], num_buckets: int
 ) -> Tuple[Table, np.ndarray]:
     """Hash-partition `table` into `num_buckets` by `bucket_columns`, sorted by
     those columns within each bucket. Returns (reordered table, bucket start
     offsets): bucket b = rows[starts[b]:starts[b+1]]."""
-    keys = [table.column(c).data for c in bucket_columns]
-    b = bucket_id(keys, num_buckets)
-    perm = sort_perm(b, keys)
-    return table.take(perm), bucket_starts(b[perm], num_buckets)
+    cols = [table.column(c) for c in bucket_columns]
+    lanes = [c.data for c in cols]
+    b = bucket_id(cols, num_buckets)
+    res = None
+    if len(cols) == 1 and cols[0].is_string:
+        res = packed_build_sort(b, lanes[0], len(cols[0].dictionary), num_buckets)
+    if res is None:
+        perm = sort_perm(b, lanes)
+        res = perm, b[perm]
+    perm, sorted_b = res
+    return table.take(perm.long()), bucket_starts(sorted_b, num_buckets)

@@ -21,7 +21,7 @@ import logging
 from typing import Dict, List, Optional, Tuple
 
 from ..engine.expr import extract_equi_join_keys
-from ..engine.logical import JoinNode, LogicalPlan, ProjectNode, ScanNode, find_single_relation
+from ..engine.logical import FilterNode, JoinNode, LogicalPlan, ProjectNode, ScanNode, find_single_relation
 from ..util.resolver_utils import resolution_key
 from .rule_utils import _index_relation, get_candidate_indexes
 
@@ -39,7 +39,7 @@ def _collect_expr_refs(plan: LogicalPlan) -> List[str]:
     for node in plan.collect_nodes():
         if isinstance(node, ProjectNode):
             refs.extend(node.column_names)
-        elif isinstance(node, JoinNode):
+        elif isinstance(node, (FilterNode, JoinNode)):
             refs.extend(node.condition.references())
     return refs
 

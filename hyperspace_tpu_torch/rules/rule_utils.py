@@ -3,8 +3,8 @@
 `get_candidate_indexes` keeps the ACTIVE covering indexes whose recorded
 signature provider recomputes the same signature on the query's relation
 (reference `RuleUtils.scala`); `_index_relation` (from the JAX package's
-`filter_index_rule.py`) builds the relation that substitutes an index for its
-source. Hybrid scan and lineage-based delete tolerance are not ported yet:
+`filter_index_rule.py` :312) builds the relation that substitutes an index
+for its source. Hybrid scan and lineage-based delete tolerance are not ported yet:
 an index whose source drifted is simply not a candidate.
 """
 
@@ -60,8 +60,11 @@ def index_files_as_statuses(entry: IndexLogEntry) -> List[FileStatus]:
     ]
 
 
-def _index_relation(entry: IndexLogEntry, with_bucket_spec: bool = False) -> SourceRelation:
-    """The substituted relation over the index's own data files."""
+def _index_relation(entry: IndexLogEntry, with_bucket_spec: bool = False, files=None) -> SourceRelation:
+    """The substituted relation over the index's own data files. No bucket
+    spec for filter scans (the join rule asks for one); `files` restricts the
+    scan to a subset (bucket pruning), and the relation then names the rule
+    that pruned it."""
     spec = None
     if with_bucket_spec:
         spec = BucketSpec(
@@ -69,12 +72,15 @@ def _index_relation(entry: IndexLogEntry, with_bucket_spec: bool = False) -> Sou
             bucket_columns=tuple(entry.indexed_columns),
             sort_columns=tuple(entry.indexed_columns),
         )
+    all_files = index_files_as_statuses(entry)
+    pruned = files is not None and len(files) < len(all_files)
     return SourceRelation(
         root_paths=[entry.index_location()],
         file_format="parquet",
         schema=Schema.from_json_string(entry.schema_json),
-        files=index_files_as_statuses(entry),
+        files=all_files if files is None else files,
         bucket_spec=spec,
         index_name=entry.name,
         log_entry_id=entry.id,
+        pruned_by=["FilterIndexRule:bucket"] if pruned else [],
     )

@@ -1,7 +1,8 @@
 """The port's boundary: what it imports, where it runs, what it refuses.
 
-(a) A fresh process imports the port, builds and joins on the CPU, and ends
-    with no JAX module and no `hyperspace_tpu` module loaded.
+(a) A fresh process imports the port, builds, joins and runs an indexed
+    string filter on the CPU, and ends with no JAX module and no
+    `hyperspace_tpu` module loaded.
 (b) No file of the port (nor `chip_smoke.py`) imports `jax` or `hyperspace_tpu`.
 (c) A session built without `device=` asks for CUDA; with no card it raises
     instead of running on the CPU.
@@ -19,7 +20,6 @@ import pytest
 import torch
 
 import hyperspace_tpu_torch as hst
-from hyperspace_tpu_torch.engine.table import Table
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "hyperspace_tpu_torch")
@@ -52,6 +52,11 @@ def test_a_fresh_process_runs_the_slice_without_jax(tmp_path):
         q = s.read.parquet(base + "/l").join(s.read.parquet(base + "/r"), hst.col("a") == hst.col("b"))
         assert q.count() == 3000 and q.select("x", "y").collect().num_rows == 3000
         assert "BucketedIndexScan" in q.explain_string()
+        seg = np.array(["AIR", "MAIL", "SHIP", None] * 750, dtype=object)
+        s.write_parquet({{"seg": seg, "v": rng.rand(3000)}}, base + "/s")
+        hs.create_index(s.read.parquet(base + "/s"), hst.IndexConfig("si", ["seg"], ["v"]))
+        f = s.read.parquet(base + "/s").filter(hst.col("seg").isin("AIR", "SHIP")).select("v", "seg")
+        assert f.count() == 1500 and "FilterIndexRule:bucket" in f.explain_string()
         bad = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r})
         assert not bad, bad
         print("OK")
@@ -104,14 +109,16 @@ def session(tmp_path):
 
 
 CUT_OUTS = {
-    "filter": lambda s, l, r: l.filter(hst.col("a") == 1),
+    "filter": lambda s, l, r: l.filter((hst.col("a") + 1) == 2),
     "aggregation": lambda s, l, r: l.group_by("a"),
     "left joins": lambda s, l, r: l.join(r, hst.col("a") == hst.col("b"), "left"),
     "the join without a compatible pair of covering indexes": lambda s, l, r: l.join(
         r, hst.col("a") == hst.col("b")
     ).count(),
-    "string columns": lambda s, l, r: Table.from_pydict({"s": np.array(["x", "y"])}, "cpu"),
-    "null values": lambda s, l, r: _read_nullable(s),
+    "string columns": lambda s, l, r: _indexed_join(s, np.array(["x", "y", "z"]), np.array(["y", "z", "w"])),
+    "null values": lambda s, l, r: _indexed_join(
+        s, np.array([1, None, 3], dtype=object), np.array([3, 1, None], dtype=object)
+    ),
     "aggregation (agg)": lambda s, l, r: l.agg(n=("*", "count")),
     "computed columns": lambda s, l, r: l.with_column("z", hst.col("a")),
     "order by": lambda s, l, r: l.order_by("a"),
@@ -119,14 +126,18 @@ CUT_OUTS = {
 }
 
 
-def _read_nullable(s):
-    import pyarrow as pa
-    import pyarrow.parquet as pq
-
-    path = os.path.join(s.warehouse, "nullable")
-    os.makedirs(path)
-    pq.write_table(pa.table({"a": pa.array([1, None], pa.int64())}), os.path.join(path, "part-0.parquet"))
-    return s.read.parquet(path).select("a").collect()
+def _indexed_join(s, left_keys, right_keys):
+    """A join on string or nullable keys, both sides indexed: the join rule
+    rewrites it, and its execution refuses such keys."""
+    s.write_parquet({"ka": left_keys, "x": np.ones(3)}, os.path.join(s.warehouse, "kl"))
+    s.write_parquet({"kb": right_keys, "y": np.ones(3)}, os.path.join(s.warehouse, "kr"))
+    kl = s.read.parquet(os.path.join(s.warehouse, "kl"))
+    kr = s.read.parquet(os.path.join(s.warehouse, "kr"))
+    hs = hst.Hyperspace(s)
+    hs.create_index(kl, hst.IndexConfig("klIdx", ["ka"], ["x"]))
+    hs.create_index(kr, hst.IndexConfig("krIdx", ["kb"], ["y"]))
+    hst.enable_hyperspace(s)
+    return kl.join(kr, hst.col("ka") == hst.col("kb")).collect()
 
 
 @pytest.mark.parametrize("feature", sorted(CUT_OUTS))

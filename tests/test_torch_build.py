@@ -110,3 +110,72 @@ def test_log_entries_are_equal_apart_from_ids_times_and_paths(built, name):
         assert _normalized(t, str(torch_root)) == _normalized(j, str(jax_root))
         # The JAX package reads the port's log entry.
         assert JaxLogEntry.from_json(t_text).state == j["state"]
+
+
+# ---------------------------------------------------------------------------
+# Dictionary-string and nullable keys and included columns
+# ---------------------------------------------------------------------------
+
+STRING_INDEXES = [
+    ("s", "bySeg", ["seg"], ["k", "name", "bal"]),  # card 5: the K3 route
+    ("s", "byMode40", ["mode40"], ["k"]),  # card 40: past every packed class
+    ("s", "byNullSeg", ["nseg"], ["k", "nint"]),  # nullable string key (card 5)
+    ("s", "byNullInt", ["nint"], ["seg", "nseg"]),  # nullable int key, string payload
+    ("s", "bySegK", ["seg", "k"], ["name"]),  # string + int key
+]
+
+
+def _string_source(seed=13, n=6000):
+    rng = np.random.RandomState(seed)
+    seg = np.array(["AUTOMOBILE", "BUILDING", "FURNITURE", "HOUSEHOLD", "MACHINERY"])[rng.randint(0, 5, n)]
+    nseg = seg.astype(object)
+    nseg[rng.rand(n) < 0.2] = None
+    nint = rng.randint(0, 30, n).astype(object)
+    nint[rng.rand(n) < 0.2] = None
+    return {
+        "seg": seg,
+        "mode40": np.array([f"mode{i:02d}" for i in range(40)])[rng.randint(0, 40, n)],
+        "nseg": nseg,
+        "nint": nint,
+        "name": np.array([f"Customer#{i:09d}" for i in rng.permutation(n)]),
+        "k": rng.randint(0, 1000, n).astype(np.int64),
+        "bal": np.round(rng.randn(n) * 1000, 2),
+    }
+
+
+@pytest.fixture(params=["host-sort", "device-path"])
+def built_strings(request, tmp_path, monkeypatch):
+    """The JAX package builds on its CPU host sort, or on its device path with
+    the Pallas composite sort (K3) in interpret mode; the port's build is the
+    same either way."""
+    monkeypatch.setenv("HYPERSPACE_DISTRIBUTED", "0")
+    monkeypatch.setenv("HYPERSPACE_BUILD_DECODE_THREADS", "1")
+    if request.param == "device-path":
+        monkeypatch.setenv("HYPERSPACE_FORCE_DEVICE_OPS", "1")
+        monkeypatch.setenv("HYPERSPACE_PALLAS_SORT", "1")
+    src = tmp_path / "src"
+    hst.engine.io.write_parquet(Table.from_pydict(_string_source(), "cpu"), str(src / "s" / "part-00000.parquet"))
+    ts = hst.HyperspaceSession(warehouse=str(tmp_path / "torch"), device="cpu")
+    ts.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, NUM_BUCKETS)
+    js = JaxSession(warehouse=str(tmp_path / "jax"))
+    js.conf.set(JaxIndexConstants.INDEX_NUM_BUCKETS, NUM_BUCKETS)
+    th, jh = hst.Hyperspace(ts), JaxHyperspace(js)
+    for table, name, indexed, included in STRING_INDEXES:
+        th.create_index(ts.read.parquet(str(src / table)), hst.IndexConfig(name, indexed, included))
+        jh.create_index(js.read.parquet(str(src / table)), JaxIndexConfig(name, indexed, included))
+    return tmp_path / "torch" / "indexes", tmp_path / "jax" / "indexes"
+
+
+def test_string_and_nullable_index_files_are_sha256_identical(built_strings):
+    torch_root, jax_root = built_strings
+    for _table, name, _indexed, _included in STRING_INDEXES:
+        tf = sorted(glob.glob(str(torch_root / name / "v__=0" / "*.parquet")))
+        jf = sorted(glob.glob(str(jax_root / name / "v__=0" / "*.parquet")))
+        assert [os.path.basename(f) for f in tf] == [os.path.basename(f) for f in jf], name
+        assert tf, name
+        for a, b in zip(tf, jf):
+            assert hashlib.sha256(open(a, "rb").read()).digest() == hashlib.sha256(open(b, "rb").read()).digest(), a
+        for log_id in ("0", "1"):
+            t = json.loads(open(torch_root / name / "_hyperspace_log" / log_id).read())
+            j = json.loads(open(jax_root / name / "_hyperspace_log" / log_id).read())
+            assert _normalized(t, str(torch_root)) == _normalized(j, str(jax_root)), name

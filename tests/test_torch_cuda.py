@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card.
 
-K1 (`ops/cuda_sort.sort_rows`) and K2 (`ops/cuda_probe.range_probe`) have no
+K1 (`ops/cuda_sort.sort_rows`), K2 (`ops/cuda_probe.range_probe`), K3
+(`ops/cuda_comp_sort`), K4 (`ops/cuda_packed_sort`) and K5 (`ops/cuda_packed_probe`) have no
 CPU mode: these tests are marked `cuda` and skip where no CUDA device is
 visible. They import neither jax nor the JAX package, so on a machine with a
 card they run without the repo's JAX conftest:
@@ -88,3 +89,109 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     lens = torch.zeros(2, dtype=torch.int64, device=cuda_device)
     with pytest.raises(ValueError):
         cuda_probe.range_probe(m, m, lens, lens)
+
+
+def _comp_input(seed, rows, n, n_pad, num_buckets=200, card=5):
+    """Build composites as `partition.packed_build_sort` packs them."""
+    from hyperspace_tpu_torch.engine.packed_codes import bits_for_cardinality
+    from hyperspace_tpu_torch.ops.partition import packed_build_comp
+
+    rng = np.random.RandomState(seed)
+    bits = bits_for_cardinality(card)
+    parts = []
+    for _ in range(rows):
+        b = torch.from_numpy(rng.randint(0, num_buckets, n).astype(np.int32))
+        codes = torch.from_numpy(rng.randint(-1, card, n).astype(np.int32))
+        parts.append(packed_build_comp(b, codes, bits, n_pad.bit_length() - 1, n_pad, num_buckets))
+    return torch.cat(parts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,n_pad", [(1, 1, 2), (1, 0, 8), (3, 900, 1024), (2, 32768, 32768),
+                                          (2, 40000, 65536), (1, 150000, 262144)])
+def test_comp_sort_kernel_equals_plain(cuda_device, rows, n, n_pad):
+    from hyperspace_tpu_torch.ops import cuda_comp_sort
+
+    v = _comp_input(rows + n, rows, n, n_pad).to(cuda_device)
+    before = cuda_comp_sort.launches
+    got, want = cuda_comp_sort.sort_comp_rows(v), cuda_comp_sort.sort_comp_rows_plain(v)
+    assert cuda_comp_sort.launches == before + 1
+    assert torch.equal(got, want)
+
+
+def _packed_rows(seed, rows, cap, bits, sort):
+    from hyperspace_tpu_torch.engine.packed_codes import pack_rows
+
+    rng = np.random.RandomState(seed)
+    top = (1 << bits) - 1
+    lanes = rng.randint(0, top, size=(rows, cap))
+    lens = rng.randint(0, cap + 1, rows)
+    lens[0] = 0
+    lens[-1] = cap
+    for b in range(rows):
+        if sort:
+            lanes[b, : lens[b]] = np.sort(lanes[b, : lens[b]])
+        lanes[b, lens[b]:] = top
+    return pack_rows(torch.from_numpy(lanes), bits), torch.from_numpy(lens)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,rows,cap", [(4, 3, 8), (2, 4, 16), (1, 2, 32), (4, 64, 4096), (2, 8, 4096),
+                                           (1, 8, 4096), (4, 4, 32768), (4, 2, 65536)])
+def test_packed_sort_kernel_equals_plain(cuda_device, bits, rows, cap):
+    from hyperspace_tpu_torch.ops import cuda_packed_sort
+
+    words = _packed_rows(bits + rows + cap, rows, cap, bits, sort=False)[0].to(cuda_device)
+    before = cuda_packed_sort.launches
+    got, want = cuda_packed_sort.sort_codes_packed(words, bits), cuda_packed_sort.sort_codes_packed_plain(words, bits)
+    assert cuda_packed_sort.launches == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,rows,cap_l,cap_r", [(4, 3, 8, 8), (2, 5, 16, 64), (1, 4, 256, 256),
+                                                   (4, 64, 4096, 4096), (4, 8, 4096, 131072)])
+def test_packed_probe_kernel_equals_plain(cuda_device, bits, rows, cap_l, cap_r):
+    from hyperspace_tpu_torch.ops import cuda_packed_probe
+
+    lw, l_len = _packed_rows(bits + cap_l, rows, cap_l, bits, sort=True)
+    rw, r_len = _packed_rows(bits + cap_r + 1, rows, cap_r, bits, sort=True)
+    args = [t.to(cuda_device) for t in (lw, rw)] + [bits] + [t.to(cuda_device) for t in (l_len, r_len)]
+    before = cuda_packed_probe.launches
+    got, want = cuda_packed_probe.probe_packed(*args), cuda_packed_probe.probe_packed_plain(*args)
+    assert cuda_packed_probe.launches == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_packed_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
+    from hyperspace_tpu_torch.ops import cuda_comp_sort, cuda_packed_probe, cuda_packed_sort
+
+    with pytest.raises(ValueError):
+        cuda_comp_sort.sort_comp_rows(torch.zeros((1, 6), dtype=torch.int32, device=cuda_device))
+    with pytest.raises(ValueError):
+        cuda_packed_sort.sort_codes_packed(torch.zeros((2, 3), dtype=torch.int32, device=cuda_device), 4)
+    with pytest.raises(ValueError):
+        cuda_packed_sort.sort_codes_packed(torch.zeros((2, 4), dtype=torch.int32, device=cuda_device), 3)
+    w = torch.zeros((2, 4), dtype=torch.int32, device=cuda_device)
+
+
+@pytest.mark.cuda
+def test_probe_kernels_clamp_lengths_to_the_row(cuda_device):
+    """Lengths past the row or below 0 clamp to [0, cap] inside K2 and K5,
+    as in their plain versions; the wrappers read no length back."""
+    from hyperspace_tpu_torch.ops import cuda_packed_probe
+
+    ls, rs, _l, _r = _probe_input(9, 4, 64, 128, 50, np.int64)
+    l_len = torch.tensor([64 + 9, -3, 17, 64], device=cuda_device)
+    r_len = torch.tensor([128 + 1, 40, -1, 1000], device=cuda_device)
+    args = [torch.from_numpy(ls).to(cuda_device), torch.from_numpy(rs).to(cuda_device), l_len, r_len]
+    got, want = cuda_probe.range_probe(*args), cuda_probe.range_probe_plain(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for bits in (1, 2, 4):
+        lw, _ = _packed_rows(bits, 4, 64, bits, sort=True)
+        rw, _ = _packed_rows(bits + 1, 4, 128, bits, sort=True)
+        pargs = [lw.to(cuda_device), rw.to(cuda_device), bits, l_len, r_len]
+        got = cuda_packed_probe.probe_packed(*pargs)
+        want = cuda_packed_probe.probe_packed_plain(*pargs)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

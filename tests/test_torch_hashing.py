@@ -73,3 +73,50 @@ def test_signed_zero_and_width_canonicalization():
     a = torch_hashing.key64([torch.tensor([5, -9], dtype=torch.int32)])
     b = torch_hashing.key64([torch.tensor([5, -9], dtype=torch.int64)])
     assert torch.equal(a, b)
+
+
+def _string_columns():
+    """String, nullable and mixed key columns, made with numpy from a seed."""
+    rng = np.random.RandomState(11)
+    n = 3000
+    seg = np.array(["AUTOMOBILE", "BUILDING", "FURNITURE", "HOUSEHOLD", "MACHINERY"])[rng.randint(0, 5, n)]
+    names = np.array([f"Customer#{i:09d}" for i in rng.randint(0, 150000, n)])
+    names[:3] = ["", "é ü", "x" * 40]  # empty, non-ASCII, long
+    nseg = seg.astype(object)
+    nseg[rng.rand(n) < 0.25] = None
+    nint = rng.randint(-9, 9, n).astype(object)
+    nint[rng.rand(n) < 0.25] = None
+    return {"seg": seg, "name": names, "nseg": nseg, "nint": nint, "k": rng.randint(0, 100, n).astype(np.int64)}
+
+
+STRING_CASES = [["seg"], ["name"], ["nseg"], ["nint"], ["seg", "k"], ["k", "nseg", "name"], ["nint", "seg"]]
+
+
+def _both(names, fn_name, *args):
+    from hyperspace_tpu_torch.engine.table import Column as TorchColumn
+
+    cols = _string_columns()
+    jcols = [Column.from_values(cols[n]) for n in names]
+    want = getattr(jax_hashing, fn_name)(jcols, [jnp.asarray(c.data) for c in jcols], *args)
+    got = getattr(torch_hashing, fn_name)([TorchColumn.from_values(cols[n], "cpu") for n in names], *args)
+    return got.numpy(), np.asarray(want)
+
+
+@pytest.mark.parametrize("names", STRING_CASES, ids=["+".join(c) for c in STRING_CASES])
+def test_key64_bit_identical_for_string_and_nullable_keys(names):
+    got, want = _both(names, "key64")
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("names", STRING_CASES, ids=["+".join(c) for c in STRING_CASES])
+def test_bucket_id_bit_identical_for_string_and_nullable_keys(names):
+    got, want = _both(names, "bucket_id", 200)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_dictionary_hash_matches():
+    d = np.array(["", "AIR", "MAIL", "REG AIR", "é"])
+    for seed in (0x9747B28C, 0x85EBCA6B):
+        np.testing.assert_array_equal(
+            torch_hashing.host_hash_dictionary(d, seed).numpy(), np.asarray(jax_hashing.host_hash_dictionary(d, seed))[: len(d)]
+        )

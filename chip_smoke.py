@@ -12,7 +12,9 @@ Phases, each failing loudly:
              sort), K4 (packed-code sort) and K5 (packed-code probe) against
              their plain PyTorch versions at the path's shapes and edge cases.
              Outputs are integers: tolerance 0. Times kernel, plain version,
-             the library call computing the same function, and the bound.
+             the library call computing the same function (kernel and library
+             as medians of 5 alternating windows), and the bound; splits the
+             K3 and K5 calls into host and device time (`torch.profiler`).
 3. main      TPC-H SF1-shaped data made with numpy from --seed (spec clause
              4.2.3 rules), four `create_index` calls, then Q3's join (value
              mode: K2) and Q9's join (hash mode: K1 + K2), count and collect,
@@ -89,6 +91,52 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def paired_ms(fn, library, windows: int = 5):
+    """Median milliseconds a call of `fn` and of `library`, each timed by
+    `cuda_ms` in `windows` alternating windows, so that drift of a shared
+    host falls on both alike."""
+    a, b = [], []
+    for _ in range(windows):
+        a.append(cuda_ms(fn))
+        b.append(cuda_ms(library))
+    return float(np.median(a)), float(np.median(b))
+
+
+def host_device_split(torch, fn, iters: int = 10) -> dict:
+    """Where one call of `fn` spends its time, over a window of `iters`
+    back-to-back calls: the host's enqueue milliseconds a call (host clock, no
+    profiler, no sync inside the window), the device's milliseconds a call
+    (`torch.profiler` device self time), the host's self microseconds a call
+    of each profiled op (its launches are what the profiler names; the rest of
+    the host time is Python and the ctypes call), and each device kernel's
+    launches and microseconds a call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    device_us, ops, kernels = 0.0, {}, {}
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+        device_us += dev_us
+        if dev_us > 0:
+            kernels[e.key[:60]] = [e.count / iters, dev_us / iters]
+        if e.self_cpu_time_total > 0 and e.key != "cudaDeviceSynchronize":
+            ops[e.key] = [e.count / iters, e.self_cpu_time_total / iters]
+    top = dict(sorted(ops.items(), key=lambda kv: -kv[1][1])[:8])
+    return {"host_ms": host_ms, "device_ms": device_us / 1e3 / iters, "host_ops_calls_us": top,
+            "device_calls_us": kernels}
 
 
 def wall(fn):
@@ -206,11 +254,10 @@ def phase_kernels(torch, rng):
         keys = torch.from_numpy(keys_np).cuda()
         n = rows * cap
         b_ms, b_by = bound(n * (8 + 8 + 4), rows * cap * np.log2(max(cap, 2)))
+        ms, library_ms = paired_ms(lambda: cuda_sort.sort_rows(keys), lambda: torch.sort(keys, dim=1, stable=True))
         shapes.append({
-            "kernel": "K1", "shape": [rows, cap],
-            "ms": cuda_ms(lambda: cuda_sort.sort_rows(keys)),
+            "kernel": "K1", "shape": [rows, cap], "ms": ms, "library_ms": library_ms,
             "plain_ms": cuda_ms(lambda: cuda_sort.sort_rows_plain(keys)),
-            "library_ms": cuda_ms(lambda: torch.sort(keys, dim=1, stable=True)),
             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0,
         })
     # K2: orders (8192) into lineitem (32768), partsupp (4096) into lineitem.
@@ -222,13 +269,11 @@ def phase_kernels(torch, rng):
         nbytes = 8 * n_l + 8 * n_r + 8 * rows + 8 * rows * cap_l
         ops = 2 * n_l * np.log2(max(int(r_len_np.max()), 2))
         b_ms, b_by = bound(nbytes, ops)
+        ms, library_ms = paired_ms(lambda: cuda_probe.range_probe(ls, rs, l_len, r_len),
+                                   lambda: (torch.searchsorted(rs, ls), torch.searchsorted(rs, ls, right=True)))
         shapes.append({
-            "kernel": "K2", "shape": [[rows, cap_l], [rows, cap_r]],
-            "ms": cuda_ms(lambda: cuda_probe.range_probe(ls, rs, l_len, r_len)),
+            "kernel": "K2", "shape": [[rows, cap_l], [rows, cap_r]], "ms": ms, "library_ms": library_ms,
             "plain_ms": cuda_ms(lambda: cuda_probe.range_probe_plain(ls, rs, l_len, r_len), iters=3, warmup=1),
-            "library_ms": cuda_ms(
-                lambda: (torch.searchsorted(rs, ls), torch.searchsorted(rs, ls, right=True))
-            ),
             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0,
         })
     shapes += phase_packed_kernels(torch, rng)
@@ -268,6 +313,55 @@ def lanes_case(rng, rows: int, cap: int, bits: int, fill=(0.0, 1.0), sort_rows_t
     return lanes, lens.astype(np.int64)
 
 
+INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
+
+
+def comp_values_case(rng, rows: int, cap: int, kind: str) -> np.ndarray:
+    """[rows, cap] int32 keys of any sign, beyond the build's composites:
+    "wide" uniform over int32, "dup" a handful of values around 0, "extreme"
+    the int32 ends and their neighbours, "allpad" one value everywhere."""
+    if kind == "wide":
+        v = rng.randint(INT32_MIN, INT32_MAX + 1, size=(rows, cap), dtype=np.int64)
+    elif kind == "dup":
+        v = rng.randint(-3, 4, size=(rows, cap))
+    elif kind == "extreme":
+        v = rng.choice(np.array([INT32_MIN, INT32_MIN + 1, -1, 0, 1, INT32_MAX - 1, INT32_MAX]), size=(rows, cap))
+    else:
+        v = np.full((rows, cap), INT32_MAX)
+    return v.astype(np.int32)
+
+
+def probe_lanes_case(rng, rows: int, cap_l: int, cap_r: int, bits: int, kind: str):
+    """Sorted left and right lane rows whose values stress the lane table:
+    "single" one lane value per right row, "absent" left lanes that the right
+    row never holds, "every" rows holding every lane value (the top one too),
+    "dups" two values. Pads at the top lane value. Returns (L, R, l_len, r_len)."""
+    top = (1 << bits) - 1
+    l_len = rng.randint(0, cap_l + 1, rows)
+    r_len = rng.randint(0, cap_r + 1, rows)
+    L = np.full((rows, cap_l), top, np.int64)
+    R = np.full((rows, cap_r), top, np.int64)
+    for b in range(rows):
+        n, m = l_len[b], r_len[b]
+        if kind == "single":
+            R[b, :m] = rng.randint(0, top + 1)
+            L[b, :n] = rng.randint(0, top + 1, n)
+        elif kind == "absent":
+            R[b, :m] = 2 * rng.randint(0, (top + 1) // 2, m)
+            L[b, :n] = 2 * rng.randint(0, (top + 1) // 2, n) + 1
+        elif kind == "every":
+            if m > top:
+                R[b, :m] = np.concatenate([np.arange(top + 1), rng.randint(0, top + 1, m - top - 1)])
+            L[b, :n] = rng.randint(0, top + 1, n)
+        else:
+            pair = rng.choice(top + 1, 2, replace=False)
+            R[b, :m] = rng.choice(pair, m)
+            L[b, :n] = rng.choice(pair, n)
+        L[b, :n].sort()
+        R[b, :m].sort()
+    return L, R, l_len.astype(np.int64), r_len.astype(np.int64)
+
+
 def check_comp(torch, cuda_comp_sort, v) -> None:
     got = cuda_comp_sort.sort_comp_rows(v)
     want = cuda_comp_sort.sort_comp_rows_plain(v)
@@ -298,11 +392,18 @@ def phase_packed_kernels(torch, rng):
     from hyperspace_tpu_torch.ops import cuda_comp_sort, cuda_packed_probe, cuda_packed_sort
 
     dev = torch.device("cuda")
-    # K3 edge cases: one slot, pads only, several rows, a row of one tile and
-    # rows that cross tiles.
+    # K3 edge cases: build composites with one slot, pads only, several rows,
+    # rows within one radix tile (2048 keys) and across many; then keys of any
+    # sign, duplicates, the int32 ends and all-pad rows, below, at and above
+    # the tile, rows of the wide tile (4096 keys, from 2^21 keys a matrix) and
+    # one row of 2^23 keys.
     for rows, n, n_pad in [(1, 1, 2), (1, 2, 2), (1, 0, 4), (3, 1000, 1024), (2, 32768, 32768),
                            (2, 40000, 65536), (1, 262144, 262144)]:
         check_comp(torch, cuda_comp_sort, comp_case(torch, rng, rows, n, n_pad).to(dev))
+    for rows, cap, kind in [(4, 65536, "wide"), (4, 65536, "dup"), (3, 1024, "wide"), (3, 2048, "extreme"),
+                            (2, 4096, "dup"), (5, 1, "wide"), (2, 2, "extreme"), (4, 8192, "allpad"),
+                            (6, 32, "extreme"), (2, 1 << 20, "dup"), (1, 1 << 23, "wide")]:
+        check_comp(torch, cuda_comp_sort, torch.from_numpy(comp_values_case(rng, rows, cap, kind)).to(dev))
     # K4 and K5 edge cases at every width: a row of one word, empty and
     # all-pad rows, rows that cross tiles.
     for bits in (1, 2, 4):
@@ -322,6 +423,16 @@ def phase_packed_kernels(torch, rng):
                 rw = pack_rows(torch.from_numpy(r_lanes), bits).to(dev)
                 check_packed_probe(torch, cuda_packed_probe, lw, rw, bits,
                                    torch.from_numpy(l_lens).to(dev), torch.from_numpy(r_lens).to(dev))
+        # The lane table's cases, with int64 and int32 lengths; rows of 32768
+        # left lanes span 4 blocks of 8192.
+        for kind in ("single", "absent", "every", "dups"):
+            for rows, cap_l, cap_r in [(6, 256, 1024), (3, 32768, 4096)]:
+                L, R, l_lens, r_lens = probe_lanes_case(rng, rows, cap_l, cap_r, bits, kind)
+                lw = pack_rows(torch.from_numpy(L), bits).to(dev)
+                rw = pack_rows(torch.from_numpy(R), bits).to(dev)
+                for dtype in (torch.int64, torch.int32):
+                    check_packed_probe(torch, cuda_packed_probe, lw, rw, bits,
+                                       torch.from_numpy(l_lens).to(dev, dtype), torch.from_numpy(r_lens).to(dev, dtype))
     log("[kernels] edge cases: K3, K4 and K5 equal their plain versions exactly")
 
     shapes = []
@@ -332,13 +443,15 @@ def phase_packed_kernels(torch, rng):
         v = comp_case(torch, rng, 1, n, n_pad, num_buckets=nb).to(dev)
         check_comp(torch, cuda_comp_sort, v)
         b_ms, b_by = bound(8 * n_pad, n_pad * np.log2(n_pad))
-        shapes.append({
-            "kernel": "K3", "shape": [1, n_pad],
-            "ms": cuda_ms(lambda: cuda_comp_sort.sort_comp_rows(v)),
+        kernel = lambda: cuda_comp_sort.sort_comp_rows(v)  # noqa: E731
+        ms, library_ms = paired_ms(kernel, lambda: torch.sort(v, dim=1))
+        shape = {
+            "kernel": "K3", "shape": [1, n_pad], "ms": ms, "library_ms": library_ms,
             "plain_ms": cuda_ms(lambda: cuda_comp_sort.sort_comp_rows_plain(v)),
-            "library_ms": cuda_ms(lambda: torch.sort(v, dim=1)),
             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0,
-        })
+        }
+        shape["split"] = host_device_split(torch, kernel)
+        shapes.append(shape)
     # K4 and K5 at bench.py's packed shape (64 buckets, ~1900 rows each: cap
     # 4096 at ~45% fill is its class) and at lineitem's shipmode buckets
     # (200 buckets of ~30,000 rows, cap 32768), bits 4; bits 1 and 2 at 4096.
@@ -349,11 +462,11 @@ def phase_packed_kernels(torch, rng):
         check_packed_sort(torch, cuda_packed_sort, words, bits)
         flat = torch.from_numpy(lanes).to(dev)
         b_ms, b_by = bound(rows * cap * (bits / 8 + 8), rows * cap * np.log2(cap))
+        ms, library_ms = paired_ms(lambda: cuda_packed_sort.sort_codes_packed(words, bits),
+                                   lambda: torch.sort(flat, dim=1, stable=True))
         shapes.append({
-            "kernel": "K4", "shape": [rows, cap], "bits": bits,
-            "ms": cuda_ms(lambda: cuda_packed_sort.sort_codes_packed(words, bits)),
+            "kernel": "K4", "shape": [rows, cap], "bits": bits, "ms": ms, "library_ms": library_ms,
             "plain_ms": cuda_ms(lambda: cuda_packed_sort.sort_codes_packed_plain(words, bits)),
-            "library_ms": cuda_ms(lambda: torch.sort(flat, dim=1, stable=True)),
             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0,
         })
         l_lanes, l_lens = lanes_case(rng, rows, cap, bits, fill, sort_rows_too=True)
@@ -367,14 +480,19 @@ def phase_packed_kernels(torch, rng):
         nbytes = 2 * rows * cap * bits / 8 + 8 * rows + 8 * rows * cap
         ops = 2 * n_l * np.log2(max(int(r_lens.max()), 2))
         b_ms, b_by = bound(nbytes, ops)
-        shapes.append({
-            "kernel": "K5", "shape": [rows, cap], "bits": bits,
-            "ms": cuda_ms(lambda: cuda_packed_probe.probe_packed(lw, rw, bits, l_len, r_len)),
+        kernel = lambda: cuda_packed_probe.probe_packed(lw, rw, bits, l_len, r_len)  # noqa: E731
+        library = lambda: (torch.searchsorted(rf, lf), torch.searchsorted(rf, lf, right=True))  # noqa: E731
+        ms, library_ms = paired_ms(kernel, library)
+        shape = {
+            "kernel": "K5", "shape": [rows, cap], "bits": bits, "ms": ms, "library_ms": library_ms,
             "plain_ms": cuda_ms(lambda: cuda_packed_probe.probe_packed_plain(lw, rw, bits, l_len, r_len),
                                 iters=3, warmup=1),
-            "library_ms": cuda_ms(lambda: (torch.searchsorted(rf, lf), torch.searchsorted(rf, lf, right=True))),
             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0,
-        })
+        }
+        shape["split"] = host_device_split(torch, kernel)
+        if cap == 4096:  # where the host's cost per call decides the time
+            shape["library_split"] = host_device_split(torch, library)
+        shapes.append(shape)
     return shapes
 
 

@@ -1,10 +1,10 @@
-// Bitonic network over rows of int32 keys, shared by kernels K3 and K4 of the port.
+// Bitonic network over rows of int32 keys, used by kernel K4 of the port
+// (packed_sort.cu).
 //
 // Each row of a [rows, cap] int32 matrix (cap a power of two) is sorted
-// ascending in place. The keys K3 and K4 sort are composites whose low bits
-// hold the row slot, so they are unique (K3's pads are equal to each other and
-// sort last): any correct sort gives the stable order, and an unstable network
-// is enough.
+// ascending in place. The keys K4 sorts are composites whose low bits hold
+// the row slot, so they are unique: any correct sort gives the stable order,
+// and an unstable network is enough.
 //
 // The layout follows K1 (bucket_sort.cu): a row is cut into tiles of up to
 // kMaxTile keys (128 KiB of the 227 KiB of shared memory a block may use). The

@@ -20,6 +20,8 @@ import threading
 import time
 from typing import Optional
 
+import torch
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
 _SOURCES = ("bucket_sort.cu", "range_probe.cu", "comp_sort.cu", "packed_sort.cu", "packed_probe.cu")
@@ -41,9 +43,9 @@ _SIGNATURES = {
     "hs_bucket_sort": (_P, _P, _P, _I, _I, _P),
     "hs_range_probe_i64": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "hs_range_probe_f64": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "hs_comp_sort": (_P, _P, _I, _I, _P),
+    "hs_comp_sort": (_P, _P, _P, _P, _I, _I, _I, _P),
     "hs_packed_sort": (_P, _P, _P, _I, _I, _I, _P),
-    "hs_packed_probe": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "hs_packed_probe": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 
@@ -94,6 +96,8 @@ def _build(target: str) -> None:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _lib
+    if _lib is not None:  # every launch asks: no lock once it is loaded
+        return _lib
     with _lock:
         if _lib is None:
             target = os.path.join(_BUILD_DIR, f"libhyperspace_tpu_torch_{_digest()}.so")
@@ -107,6 +111,12 @@ def library() -> ctypes.CDLL:
             lib.hs_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def stream(device) -> int:
+    """The raw pointer of `device`'s current CUDA stream, read without building
+    a `torch.cuda.Stream` object."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(err: int, kernel: str) -> None:

@@ -36,28 +36,38 @@ def probe_packed(lw, rw, bits: int, l_len, r_len) -> Tuple[torch.Tensor, torch.T
     if lw.device.type == "cpu":
         return probe_packed_plain(lw, rw, bits, l_len, r_len)
     global launches
-    if lw.device.type != "cuda" or rw.device != lw.device:
-        raise ValueError(f"probe_packed: unsupported devices {lw.device}, {rw.device}")
+    dev = lw.device
+    if dev.type != "cuda" or rw.device != dev:
+        raise ValueError(f"probe_packed: unsupported devices {dev}, {rw.device}")
     for w in (lw, rw):
         if w.dtype != torch.int32 or w.dim() != 2 or not w.is_contiguous():
             raise ValueError(f"probe_packed: needs contiguous 2-D int32 word matrices, got {w.dtype} {tuple(w.shape)}")
-    rows = lw.shape[0]
+    (rows, words_l), (rows_r, words_r) = lw.shape, rw.shape
     lpw = lanes_per_word(bits)
-    cap_l, cap_r = lw.shape[1] * lpw, rw.shape[1] * lpw
-    if rw.shape[0] != rows or tuple(l_len.shape) != (rows,) or tuple(r_len.shape) != (rows,):
+    cap_l, cap_r = words_l * lpw, words_r * lpw
+    if rows_r != rows or l_len.shape != (rows,) or r_len.shape != (rows,):
         raise ValueError(f"probe_packed: shapes {tuple(lw.shape)}, {tuple(rw.shape)}, {tuple(l_len.shape)}, {tuple(r_len.shape)}")
     if rows * max(cap_l, cap_r) >= 2**31:
         raise ValueError(f"probe_packed: matrices too large {tuple(lw.shape)}, {tuple(rw.shape)}")
-    l_len = l_len.to(device=lw.device, dtype=torch.int32).contiguous()
-    r_len = r_len.to(device=lw.device, dtype=torch.int32).contiguous()
-    lo = torch.empty((rows, cap_l), dtype=torch.int32, device=lw.device)
-    counts = torch.empty((rows, cap_l), dtype=torch.int32, device=lw.device)
+    l_len, r_len = _lengths(l_len, r_len, dev)
+    out = lw.new_empty((2, rows, cap_l))  # int32 lo, then counts: one allocation
     if rows == 0 or cap_l == 0:
-        return lo, counts
+        return out.unbind(0)
+    lo_ptr = out.data_ptr()
     err = _kernels.library().hs_packed_probe(
-        lw.data_ptr(), rw.data_ptr(), l_len.data_ptr(), r_len.data_ptr(), lo.data_ptr(), counts.data_ptr(),
-        rows, cap_l, cap_r, bits, torch.cuda.current_stream(lw.device).cuda_stream,
+        lw.data_ptr(), rw.data_ptr(), l_len.data_ptr(), r_len.data_ptr(), lo_ptr, lo_ptr + 4 * rows * cap_l,
+        rows, cap_l, cap_r, bits, l_len.dtype == torch.int64, _kernels.stream(dev),
     )
     _kernels.check(err, "hs_packed_probe")
     launches += 1
-    return lo, counts
+    return out.unbind(0)
+
+
+def _lengths(l_len, r_len, device):
+    """The lengths as the kernel reads them: on the card, contiguous, both
+    int32 or both int64. Lengths that already are (the reps' int64 lengths)
+    pass as they are, with no launch."""
+    if (l_len.dtype != r_len.dtype or l_len.dtype not in (torch.int32, torch.int64)
+            or l_len.device != device or r_len.device != device):
+        l_len, r_len = (x.to(device=device, dtype=torch.int64) for x in (l_len, r_len))
+    return l_len.contiguous(), r_len.contiguous()

@@ -55,7 +55,7 @@ def sort_codes_packed(words: torch.Tensor, bits: int) -> Tuple[torch.Tensor, tor
         return codes, order
     err = _kernels.library().hs_packed_sort(
         words.data_ptr(), codes.data_ptr(), order.data_ptr(), rows, cap, bits,
-        torch.cuda.current_stream(words.device).cuda_stream,
+        _kernels.stream(words.device),
     )
     _kernels.check(err, "hs_packed_sort")
     launches += 1

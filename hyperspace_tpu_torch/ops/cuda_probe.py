@@ -77,7 +77,7 @@ def range_probe(ls, rs, l_len, r_len) -> Tuple[torch.Tensor, torch.Tensor]:
     err = fn(
         ls.data_ptr(), rs.data_ptr(), l_len.data_ptr(), r_len.data_ptr(),
         lo.data_ptr(), counts.data_ptr(), rows, cap_l, cap_r,
-        torch.cuda.current_stream(ls.device).cuda_stream,
+        _kernels.stream(ls.device),
     )
     _kernels.check(err, "hs_range_probe")
     launches += 1

@@ -47,7 +47,7 @@ def sort_rows(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return out_keys, order
     err = _kernels.library().hs_bucket_sort(
         keys.data_ptr(), out_keys.data_ptr(), order.data_ptr(), rows, cap,
-        torch.cuda.current_stream(keys.device).cuda_stream,
+        _kernels.stream(keys.device),
     )
     _kernels.check(err, "hs_bucket_sort")
     launches += 1

@@ -195,3 +195,85 @@ def test_probe_kernels_clamp_lengths_to_the_row(cuda_device):
         got = cuda_packed_probe.probe_packed(*pargs)
         want = cuda_packed_probe.probe_packed_plain(*pargs)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _int32_keys(seed, rows, cap, kind):
+    """[rows, cap] int32 keys of any sign: uniform over int32, a few
+    duplicated values around 0, the int32 ends, or one value everywhere."""
+    rng = np.random.RandomState(seed)
+    lo, hi = -(2**31), 2**31 - 1
+    if kind == "wide":
+        v = rng.randint(lo, hi + 1, size=(rows, cap), dtype=np.int64)
+    elif kind == "dup":
+        v = rng.randint(-3, 4, size=(rows, cap))
+    elif kind == "extreme":
+        v = rng.choice(np.array([lo, lo + 1, -1, 0, 1, hi - 1, hi]), size=(rows, cap))
+    else:
+        v = np.full((rows, cap), hi)
+    return torch.from_numpy(v.astype(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cap,kind", [(4, 65536, "wide"), (4, 65536, "dup"), (3, 1024, "wide"),
+                                           (3, 2048, "extreme"), (2, 4096, "dup"), (4, 8192, "allpad"),
+                                           (5, 1, "wide"), (2, 1 << 20, "dup"), (1, 1 << 23, "wide")])
+def test_comp_sort_kernel_sorts_any_int32(cuda_device, rows, cap, kind):
+    """K3 sorts keys of any sign, duplicates and the int32 ends, in rows below,
+    at and across the radix tile (2048 keys; 4096 from 2^21 keys a matrix),
+    and one row of 2^23 keys."""
+    from hyperspace_tpu_torch.ops import cuda_comp_sort
+
+    v = _int32_keys(rows + cap, rows, cap, kind).to(cuda_device)
+    before = cuda_comp_sort.launches
+    got, want = cuda_comp_sort.sort_comp_rows(v), cuda_comp_sort.sort_comp_rows_plain(v)
+    assert cuda_comp_sort.launches == before + 1
+    assert torch.equal(got, want)
+
+
+def _lane_table_rows(seed, rows, cap_l, cap_r, bits, kind):
+    """Sorted packed left and right rows whose lanes stress K5's lane table:
+    one value per right row, left lanes the right row never holds, every lane
+    value (the top one too), or two values."""
+    from hyperspace_tpu_torch.engine.packed_codes import pack_rows
+
+    rng = np.random.RandomState(seed)
+    top = (1 << bits) - 1
+    l_len, r_len = rng.randint(0, cap_l + 1, rows), rng.randint(0, cap_r + 1, rows)
+    L, R = np.full((rows, cap_l), top), np.full((rows, cap_r), top)
+    for b in range(rows):
+        n, m = l_len[b], r_len[b]
+        if kind == "single":
+            R[b, :m], L[b, :n] = rng.randint(0, top + 1), rng.randint(0, top + 1, n)
+        elif kind == "absent":
+            R[b, :m] = 2 * rng.randint(0, (top + 1) // 2, m)
+            L[b, :n] = 2 * rng.randint(0, (top + 1) // 2, n) + 1
+        elif kind == "every":
+            if m > top:
+                R[b, :m] = np.concatenate([np.arange(top + 1), rng.randint(0, top + 1, m - top - 1)])
+            L[b, :n] = rng.randint(0, top + 1, n)
+        else:
+            pair = rng.choice(top + 1, 2, replace=False)
+            R[b, :m], L[b, :n] = rng.choice(pair, m), rng.choice(pair, n)
+        L[b, :n].sort()
+        R[b, :m].sort()
+    lw, rw = pack_rows(torch.from_numpy(L), bits), pack_rows(torch.from_numpy(R), bits)
+    return lw, rw, torch.from_numpy(l_len), torch.from_numpy(r_len)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
+@pytest.mark.parametrize("kind", ["single", "absent", "every", "dups"])
+@pytest.mark.parametrize("bits", [1, 2, 4])
+def test_packed_probe_kernel_lane_table_cases(cuda_device, bits, kind, dtype):
+    """K5's lane table against the plain probe, with lengths in the dtype
+    they arrive in (int64 from the reps, or int32); the second shape's rows
+    span several blocks of left words."""
+    from hyperspace_tpu_torch.ops import cuda_packed_probe
+
+    for rows, cap_l, cap_r in [(6, 256, 1024), (3, 32768, 4096)]:
+        lw, rw, l_len, r_len = _lane_table_rows(bits + rows, rows, cap_l, cap_r, bits, kind)
+        args = [lw.to(cuda_device), rw.to(cuda_device), bits, l_len.to(cuda_device, dtype), r_len.to(cuda_device, dtype)]
+        before = cuda_packed_probe.launches
+        got, want = cuda_packed_probe.probe_packed(*args), cuda_packed_probe.probe_packed_plain(*args)
+        assert cuda_packed_probe.launches == before + 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

@@ -20,6 +20,7 @@ from hyperspace_tpu.ops import bucket_join as jax_bj
 from hyperspace_tpu.ops.hashing import bucket_id as jax_bucket_id
 from hyperspace_tpu.ops.pallas_probe import probe_packed_pallas
 from hyperspace_tpu.ops.pallas_sort import sort_codes_packed as jax_sort_codes_packed
+from hyperspace_tpu.ops.pallas_sort import sort_comp_padded
 from hyperspace_tpu.ops.partition import _sort_perm, pallas_packed_build_sort
 from hyperspace_tpu_torch.engine import packed_codes as pc
 from hyperspace_tpu_torch.engine.table import Column, Table
@@ -252,3 +253,94 @@ def test_packed_probe_lengths_clamp_to_the_row(monkeypatch, bits):
         jnp.asarray(_u32(lw)), jnp.asarray(_u32(rw)), bits, jnp.asarray(l_len), jnp.asarray(r_len)
     )
     np.testing.assert_array_equal(cnt.numpy(), np.asarray(jcnt))
+
+
+def _lane_table_case(rng, rows, cap_l, cap_r, bits, kind):
+    """Sorted lane rows for the contract K5's lane table relies on: right rows
+    of a single lane value, left lanes the right row never holds, rows holding
+    every lane value (the top one too), duplicate-heavy rows of two values.
+    Pads at the top lane value; row 0 has an empty right side."""
+    top = (1 << bits) - 1
+    l_len, r_len = rng.randint(0, cap_l + 1, rows), rng.randint(0, cap_r + 1, rows)
+    r_len[0], l_len[-1], r_len[-1] = 0, cap_l, cap_r
+    L, R = np.full((rows, cap_l), top), np.full((rows, cap_r), top)
+    for b in range(rows):
+        n, m = l_len[b], r_len[b]
+        if kind == "single":
+            R[b, :m], L[b, :n] = rng.randint(0, top + 1), rng.randint(0, top + 1, n)
+        elif kind == "absent":
+            R[b, :m] = 2 * rng.randint(0, (top + 1) // 2, m)
+            L[b, :n] = 2 * rng.randint(0, (top + 1) // 2, n) + 1
+        elif kind == "every":
+            if m > top:
+                R[b, :m] = np.concatenate([np.arange(top + 1), rng.randint(0, top + 1, m - top - 1)])
+            L[b, :n] = rng.randint(0, top + 1, n)
+        else:
+            pair = rng.choice(top + 1, 2, replace=False)
+            R[b, :m], L[b, :n] = rng.choice(pair, m), rng.choice(pair, n)
+        L[b, :n].sort()
+        R[b, :m].sort()
+    return L, R, l_len, r_len
+
+
+@pytest.mark.parametrize("len_dtype", [np.int64, np.int32])
+@pytest.mark.parametrize("kind", ["single", "absent", "every", "dups"])
+@pytest.mark.parametrize("bits", [1, 2, 4])
+def test_packed_probe_lane_table_cases_match_pallas(monkeypatch, bits, kind, len_dtype):
+    """K5's plain version against the Pallas kernel in interpret mode on the
+    rows a per-row lane table must get right, with int64 and int32 lengths."""
+    monkeypatch.setenv("HYPERSPACE_PALLAS_PROBE", "1")
+    rng = np.random.RandomState(100 + 8 * bits + len(kind))
+    rows, cap_l, cap_r = 5, 64, 128
+    L, R, l_len, r_len = _lane_table_case(rng, rows, cap_l, cap_r, bits, kind)
+    l_len, r_len = l_len.astype(len_dtype), r_len.astype(len_dtype)
+    lw, rw = pc.pack_rows(torch.from_numpy(L), bits), pc.pack_rows(torch.from_numpy(R), bits)
+    lo, cnt = cuda_packed_probe.probe_packed(lw, rw, bits, torch.from_numpy(l_len), torch.from_numpy(r_len))
+    assert lo.dtype == cnt.dtype == torch.int32
+    jlo, jcnt = probe_packed_pallas(
+        jnp.asarray(_u32(lw)), jnp.asarray(_u32(rw)), bits, jnp.asarray(l_len), jnp.asarray(r_len)
+    )
+    jlo, jcnt = np.asarray(jlo), np.asarray(jcnt)
+    np.testing.assert_array_equal(cnt.numpy(), jcnt)
+    for b in range(rows):  # lo is defined on the valid left slots
+        np.testing.assert_array_equal(lo.numpy()[b, : l_len[b]], jlo[b, : l_len[b]])
+    # The table's own terms: lo = T[x], counts = T[x + 1] - T[x] over the valid right prefix.
+    for b in range(rows):
+        table = np.searchsorted(R[b, : r_len[b]], np.arange((1 << bits) + 1), "left")
+        x = L[b, : l_len[b]]
+        np.testing.assert_array_equal(lo.numpy()[b, : l_len[b]], table[x])
+        np.testing.assert_array_equal(cnt.numpy()[b, : l_len[b]], table[x + 1] - table[x])
+        assert not lo.numpy()[b, l_len[b]:].any() and not cnt.numpy()[b, l_len[b]:].any()
+
+
+_I32_MIN, _I32_MAX = -(2**31), 2**31 - 1
+
+
+def _comp_rows(rng, rows, cap, kind):
+    if kind == "wide":
+        v = rng.randint(_I32_MIN, _I32_MAX + 1, size=(rows, cap), dtype=np.int64)
+    elif kind == "dup":
+        v = rng.randint(-3, 4, size=(rows, cap))
+    elif kind == "extreme":
+        v = rng.choice(np.array([_I32_MIN, _I32_MIN + 1, -1, 0, 1, _I32_MAX - 1, _I32_MAX]), size=(rows, cap))
+    else:  # one row of pads among rows of negative keys
+        v = rng.randint(_I32_MIN, 0, size=(rows, cap), dtype=np.int64)
+        v[rows // 2] = _I32_MAX
+    return v.astype(np.int32)
+
+
+# K3: several rows; negative keys, duplicates, the int32 ends, all-pad rows.
+COMP_CASES = [(3, 256, "wide"), (8, 128, "dup"), (4, 64, "extreme"), (5, 32, "allpad"), (2, 1024, "wide"),
+              (16, 8, "extreme")]
+
+
+@pytest.mark.parametrize("rows,cap,kind", COMP_CASES)
+def test_comp_sort_plain_matches_pallas_on_any_int32(rows, cap, kind):
+    """K3's plain version against `sort_comp_padded` in interpret mode: the
+    contract is an ascending sort of each row whatever its int32 values, which
+    is what the radix kernel is held to on the card."""
+    v = _comp_rows(np.random.RandomState(rows * cap), rows, cap, kind)
+    got = cuda_comp_sort.sort_comp_rows(torch.from_numpy(v))
+    want = np.asarray(sort_comp_padded(jnp.asarray(v), True))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), np.sort(v, axis=1))

@@ -14,13 +14,15 @@ Phases, each failing loudly:
              Outputs are integers: tolerance 0. Times kernel, plain version,
              the library call computing the same function (kernel and library
              as medians of 5 alternating windows), and the bound; splits the
-             K3 and K5 calls into host and device time (`torch.profiler`).
+             K1 (at cap 4096), K3, K4 and K5 calls into host and device time
+             (`torch.profiler`).
 3. main      TPC-H SF1-shaped data made with numpy from --seed (spec clause
              4.2.3 rules), four `create_index` calls, then Q3's join (value
              mode: K2) and Q9's join (hash mode: K1 + K2), count and collect,
              cold and a p50 of 3. Each plan must scan the indexes, each kernel
              must launch, and counts and rows must equal a numpy join computed
-             straight from the generated arrays.
+             straight from the generated arrays. A warm collect is then timed
+             stage by stage, its layout split into key64, pad scatter and K1.
 4. strings   two dictionary-string indexes on the same data: custSeg on
              c_mktsegment (its build sorts with K3) and liShip on l_shipmode
              (its composite overflows int32, so its build must not take K3);
@@ -220,11 +222,15 @@ def check_probe(torch, cuda_probe, ls_np, rs_np, l_len_np, r_len_np) -> int:
 def phase_kernels(torch, rng):
     from hyperspace_tpu_torch.ops import cuda_probe, cuda_sort
 
-    # Edge cases first: exact equality, no timing.
+    # Edge cases first: exact equality, no timing. K1's merge sort holds 8
+    # pairs a thread (caps 8 and 16 are one and two threads' worth), sorts
+    # tiles of 4096 or 8192 pairs in one launch and adds a merge pass over
+    # device memory per doubling above that (131072: four passes).
     for rows, cap, kind in [
-        (3, 1, "hash"), (5, 2, "hash"), (7, 256, "hash"), (4, 16384, "hash"),
-        (4, 32768, "hash"), (3, 65536, "hash"), (6, 1024, "dup"), (6, 1024, "allpad"),
-        (6, 4096, "extreme"), (9, 8, "hash"),
+        (3, 1, "hash"), (5, 2, "hash"), (9, 8, "hash"), (3, 16, "hash"), (5, 32, "dup"), (7, 256, "hash"),
+        (6, 1024, "dup"), (6, 1024, "allpad"), (5, 4096, "hash"), (6, 4096, "extreme"), (3, 4096, "allpad"),
+        (4, 8192, "hash"), (4, 8192, "extreme"), (4, 16384, "hash"), (4, 32768, "hash"), (3, 32768, "dup"),
+        (3, 65536, "hash"), (2, 65536, "extreme"), (2, 131072, "hash"), (2, 131072, "dup"),
     ]:
         check_sort(torch, cuda_sort, sort_case(rng, rows, cap, kind))
     for rows, cap_l, cap_r, dtype, distinct in [
@@ -254,12 +260,18 @@ def phase_kernels(torch, rng):
         keys = torch.from_numpy(keys_np).cuda()
         n = rows * cap
         b_ms, b_by = bound(n * (8 + 8 + 4), rows * cap * np.log2(max(cap, 2)))
-        ms, library_ms = paired_ms(lambda: cuda_sort.sort_rows(keys), lambda: torch.sort(keys, dim=1, stable=True))
-        shapes.append({
+        kernel = lambda: cuda_sort.sort_rows(keys)  # noqa: E731
+        library = lambda: torch.sort(keys, dim=1, stable=True)  # noqa: E731
+        ms, library_ms = paired_ms(kernel, library)
+        shape = {
             "kernel": "K1", "shape": [rows, cap], "ms": ms, "library_ms": library_ms,
             "plain_ms": cuda_ms(lambda: cuda_sort.sort_rows_plain(keys)),
             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0,
-        })
+        }
+        if cap == 4096:  # where the host's cost per call may decide the time
+            shape["split"] = host_device_split(torch, kernel)
+            shape["library_split"] = host_device_split(torch, library)
+        shapes.append(shape)
     # K2: orders (8192) into lineitem (32768), partsupp (4096) into lineitem.
     for rows, cap_l, cap_r in [(256, 8192, 32768), (256, 4096, 32768)]:
         ls_np, rs_np, l_len_np, r_len_np = probe_case(rng, rows, cap_l, cap_r, fill=main_fill)
@@ -299,14 +311,21 @@ def comp_case(torch, rng, rows: int, n: int, n_pad: int, card: int = 5, num_buck
     return torch.cat(out).contiguous()
 
 
-def lanes_case(rng, rows: int, cap: int, bits: int, fill=(0.0, 1.0), sort_rows_too: bool = False):
+def lanes_case(rng, rows: int, cap: int, bits: int, fill=(0.0, 1.0), sort_rows_too: bool = False,
+               kind: str = "random"):
     """Biased code lanes [rows, cap] with a valid prefix per row (a `fill`
     fraction of cap, real lanes below the top value) and pads at the top lane
-    value 2**bits - 1; rows sorted when asked. Returns (lanes, lengths)."""
+    value 2**bits - 1; rows sorted when asked. "one": one lane value fills
+    each row; "every": each row starts with every lane value, the top one
+    too. Returns (lanes, lengths)."""
     top = (1 << bits) - 1
     lanes = rng.randint(0, top, size=(rows, cap)).astype(np.int32)
+    if kind == "one":
+        lanes[:] = rng.randint(0, top + 1, size=(rows, 1))
     lens = rng.randint(int(fill[0] * cap), int(fill[1] * cap) + 1, size=rows)
     for b in range(rows):
+        if kind == "every" and cap > top:
+            lanes[b, : top + 1] = np.arange(top + 1)
         if sort_rows_too:
             lanes[b, : lens[b]] = np.sort(lanes[b, : lens[b]])
         lanes[b, lens[b]:] = top
@@ -433,6 +452,13 @@ def phase_packed_kernels(torch, rng):
                 for dtype in (torch.int64, torch.int32):
                     check_packed_probe(torch, cuda_packed_probe, lw, rw, bits,
                                        torch.from_numpy(l_lens).to(dev, dtype), torch.from_numpy(r_lens).to(dev, dtype))
+    # K4's counting sort: rows of one lane value, rows holding every value,
+    # and rows longer than the 32768 slots it stages in shared memory.
+    for bits, rows, cap in [(4, 3, 8), (2, 3, 16), (1, 3, 32), (4, 6, 4096), (2, 6, 4096), (1, 6, 4096),
+                            (4, 3, 65536), (4, 2, 131072), (1, 2, 1 << 20)]:
+        for kind in ("random", "one", "every"):
+            lanes, _ = lanes_case(rng, rows, cap, bits, kind=kind)
+            check_packed_sort(torch, cuda_packed_sort, pack_rows(torch.from_numpy(lanes), bits).to(dev), bits)
     log("[kernels] edge cases: K3, K4 and K5 equal their plain versions exactly")
 
     shapes = []
@@ -462,13 +488,18 @@ def phase_packed_kernels(torch, rng):
         check_packed_sort(torch, cuda_packed_sort, words, bits)
         flat = torch.from_numpy(lanes).to(dev)
         b_ms, b_by = bound(rows * cap * (bits / 8 + 8), rows * cap * np.log2(cap))
-        ms, library_ms = paired_ms(lambda: cuda_packed_sort.sort_codes_packed(words, bits),
-                                   lambda: torch.sort(flat, dim=1, stable=True))
-        shapes.append({
+        kernel = lambda: cuda_packed_sort.sort_codes_packed(words, bits)  # noqa: E731
+        library = lambda: torch.sort(flat, dim=1, stable=True)  # noqa: E731
+        ms, library_ms = paired_ms(kernel, library)
+        shape = {
             "kernel": "K4", "shape": [rows, cap], "bits": bits, "ms": ms, "library_ms": library_ms,
             "plain_ms": cuda_ms(lambda: cuda_packed_sort.sort_codes_packed_plain(words, bits)),
             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0,
-        })
+        }
+        shape["split"] = host_device_split(torch, kernel)
+        if cap == 4096:
+            shape["library_split"] = host_device_split(torch, library)
+        shapes.append(shape)
         l_lanes, l_lens = lanes_case(rng, rows, cap, bits, fill, sort_rows_too=True)
         r_lanes, r_lens = lanes_case(rng, rows, cap, bits, fill, sort_rows_too=True)
         lw = pack_rows(torch.from_numpy(l_lanes), bits).to(dev)
@@ -733,9 +764,9 @@ def stage_breakdown(torch, df) -> dict:
     t = {}
     (left, l_starts), t["scan_left_s"] = wall(lambda: join.left.execute_concat(ctx))
     (right, r_starts), t["scan_right_s"] = wall(lambda: join.right.execute_concat(ctx))
-    plan, t["layout_s"] = wall(
-        lambda: _classed_plan(left, right, join.left_keys, join.right_keys, l_starts, r_starts)
-    )
+    layout = lambda: _classed_plan(left, right, join.left_keys, join.right_keys, l_starts, r_starts)  # noqa: E731
+    plan, t["layout_s"] = wall(layout)
+    t.update(layout_split(layout))
     ranges, t["probe_s"] = wall(lambda: probe_classed(plan))
     (li, ri), t["expand_s"] = wall(lambda: classed_pairs(plan, ranges))
     (li, ri), t["verify_s"] = wall(lambda: _verify_pairs(left, right, join.left_keys, join.right_keys, li, ri))
@@ -755,6 +786,39 @@ def stage_breakdown(torch, df) -> dict:
     t["device_busy_s"] = device_us / 1e6
     t["device_busy_share"] = device_us / 1e6 / wall_s if device_us else None
     return t
+
+
+def layout_split(layout) -> dict:
+    """Seconds of the parts of one more run of `layout` (a `_classed_plan`
+    call): the key64 hashes, the pad scatters and K1, each timed by a host
+    clock ended by a synchronize, and the rest of the stage (the joint
+    partition, clamps, copies of the bucket bounds)."""
+    from hyperspace_tpu_torch.engine import physical
+    from hyperspace_tpu_torch.ops import bucket_join
+
+    parts = [(physical, "_table_key64", "key64"), (bucket_join, "_pad_scatter", "pad_scatter"),
+             (bucket_join, "sort_rows", "k1")]
+    spent = {part: 0.0 for _, _, part in parts}
+    originals = [getattr(module, name) for module, name, _ in parts]
+
+    def timed(fn, part):
+        def call(*args):
+            out, seconds = wall(lambda: fn(*args))
+            spent[part] += seconds
+            return out
+        return call
+
+    for (module, name, part), fn in zip(parts, originals):
+        setattr(module, name, timed(fn, part))
+    try:
+        _, total = wall(layout)
+    finally:
+        for (module, name, _), fn in zip(parts, originals):
+            setattr(module, name, fn)
+    split = {f"layout_{part}_s": seconds for part, seconds in spent.items()}
+    split["layout_other_s"] = total - sum(spent.values())
+    split["layout_split_total_s"] = total
+    return split
 
 
 def phase_identity(torch, seed: int, sf: float) -> None:

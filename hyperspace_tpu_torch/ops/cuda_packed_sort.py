@@ -7,7 +7,8 @@ biased code lanes big-endian (`engine/packed_codes.py`), pad slots at the top
 lane value. Output: the lanes of each row sorted ascending, int32 [B, cap], and
 `order` int32 [B, cap] with sorted[b, s] == lanes[b, order[b, s]]: exactly the
 stable argsort, ties included. On a CUDA tensor it launches
-`csrc/packed_sort.cu`; on a CPU tensor it computes `sort_codes_packed_plain`.
+`csrc/packed_sort.cu`, a counting sort; on a CPU tensor it computes
+`sort_codes_packed_plain`.
 """
 
 from __future__ import annotations
@@ -21,6 +22,10 @@ from . import _kernels
 
 #: Launches of the CUDA kernel since the count was last set to 0.
 launches = 0
+
+#: Slots a block of the kernel sorts; longer rows are cut into chunks of this
+#: many, counted by a first launch.
+CHUNK_SLOTS = 4096
 
 
 def sort_codes_packed_plain(words: torch.Tensor, bits: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -49,12 +54,17 @@ def sort_codes_packed(words: torch.Tensor, bits: int) -> Tuple[torch.Tensor, tor
     cap = words.shape[1] * lanes_per_word(bits)
     if cap < 1 or cap & (cap - 1) or rows * cap >= 2**31 or ((1 << bits) - 1) * cap >= 2**31:
         raise ValueError(f"sort_codes_packed: row length {cap} is not a power of two that fits")
-    codes = torch.empty((rows, cap), dtype=torch.int32, device=words.device)
-    order = torch.empty((rows, cap), dtype=torch.int32, device=words.device)
+    # One allocation: the two outputs, then the per-chunk value counts of
+    # rows longer than a chunk.
+    n = rows * cap
+    hist = rows * (cap // CHUNK_SLOTS) << bits if cap > CHUNK_SLOTS else 0
+    out = torch.empty(2 * n + hist, dtype=torch.int32, device=words.device)
+    codes, order = out[:n].view(rows, cap), out[n: 2 * n].view(rows, cap)
     if rows == 0:
         return codes, order
+    base = out.data_ptr()
     err = _kernels.library().hs_packed_sort(
-        words.data_ptr(), codes.data_ptr(), order.data_ptr(), rows, cap, bits,
+        words.data_ptr(), base, base + 4 * n, base + 8 * n if hist else None, rows, cap, bits, CHUNK_SLOTS,
         _kernels.stream(words.device),
     )
     _kernels.check(err, "hs_packed_sort")

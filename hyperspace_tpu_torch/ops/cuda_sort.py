@@ -2,10 +2,10 @@
 
 `sort_rows` replaces `hyperspace_tpu/ops/pallas_sort.py` `sort_padded_with_order`
 :159 (the Pallas `_sort_kernel` :107). It sorts each row of an int64 [B, cap]
-matrix (pads = int64 max) by the pair (key, slot) and returns the sorted keys
-and the int32 slot order, `sorted[b, s] == keys[b, order[b, s]]`. Slots are
-unique, so the order is exactly the stable argsort. On a CUDA tensor it
-launches `csrc/bucket_sort.cu`; on a CPU tensor it computes `sort_rows_plain`.
+matrix (pads = int64 max) ascending and returns the sorted keys and the int32
+slot order, `sorted[b, s] == keys[b, order[b, s]]`: exactly the stable argsort.
+On a CUDA tensor it launches `csrc/bucket_sort.cu`, a stable merge sort; on a
+CPU tensor it computes `sort_rows_plain`.
 """
 
 from __future__ import annotations
@@ -18,6 +18,11 @@ from . import _kernels
 
 #: Launches of the CUDA kernel since the count was last set to 0.
 launches = 0
+
+#: Pairs a block of the kernel sorts in shared memory (4096 or 8192): a row of
+#: up to a tile is sorted in one launch, longer rows add one merge pass over
+#: device memory per doubling. Shorter rows share a 4096-pair tile.
+TILE_PAIRS, MAX_TILE_PAIRS = 4096, 8192
 
 
 def sort_rows_plain(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -45,8 +50,13 @@ def sort_rows(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     order = torch.empty(keys.shape, dtype=torch.int32, device=keys.device)
     if rows == 0:
         return out_keys, order
+    tile = min(max(cap, TILE_PAIRS), MAX_TILE_PAIRS)
+    # The merge passes ping-pong through a scratch copy of both outputs
+    # (rows * cap int64 keys, then as many int32 slots).
+    scratch = torch.empty(rows * cap * 3 // 2, dtype=torch.int64, device=keys.device) if cap > tile else None
     err = _kernels.library().hs_bucket_sort(
-        keys.data_ptr(), out_keys.data_ptr(), order.data_ptr(), rows, cap,
+        keys.data_ptr(), out_keys.data_ptr(), order.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), rows, cap, tile,
         _kernels.stream(keys.device),
     )
     _kernels.check(err, "hs_bucket_sort")

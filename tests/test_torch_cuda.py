@@ -27,12 +27,24 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _sort_input(seed, rows, cap):
+def _sort_input(seed, rows, cap, kind="hash"):
+    """A padded key matrix: random keys with a duplicate run in row 0
+    ("hash"), one key everywhere so that only stability orders the row
+    ("dup"), int64's ends and their neighbours ("extreme"), or pads only
+    ("allpad"); every row but the last ends in pads at a random length."""
     rng = np.random.RandomState(seed)
-    keys = rng.randint(-(2**62), 2**62, size=(rows, cap), dtype=np.int64)
-    keys[0, : cap // 2] = 5  # a duplicate run: ties resolve by slot
-    for b in range(rows):
+    if kind == "dup":
+        keys = np.full((rows, cap), 7, np.int64)
+    elif kind == "extreme":
+        ends = np.array([-(2**63), -(2**63) + 1, -1, 0, 2**63 - 2], np.int64)
+        keys = rng.choice(ends, size=(rows, cap))
+    else:
+        keys = rng.randint(-(2**62), 2**62, size=(rows, cap), dtype=np.int64)
+        keys[0, : cap // 2] = 5  # a duplicate run: ties resolve by slot
+    for b in range(rows - 1):
         keys[b, rng.randint(0, cap + 1):] = PAD
+    if kind == "allpad":
+        keys[:] = PAD
     return keys
 
 
@@ -51,9 +63,16 @@ def _probe_input(seed, rows, cap_l, cap_r, distinct, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,cap", [(3, 1), (5, 2), (8, 256), (4, 16384), (3, 32768), (2, 65536)])
-def test_sort_kernel_equals_plain(cuda_device, rows, cap):
-    keys = torch.from_numpy(_sort_input(rows + cap, rows, cap)).to(cuda_device)
+@pytest.mark.parametrize("kind", ["hash", "dup", "extreme", "allpad"])
+@pytest.mark.parametrize(
+    "rows,cap",
+    # 8 and 16: a thread's pairs and two threads'; 4096 and 8192: the two
+    # tiles; 16384, 32768 and 131072: one, two and four merge passes.
+    [(3, 1), (5, 2), (9, 8), (4, 16), (6, 32), (8, 256), (3, 4096), (3, 8192), (4, 16384), (3, 32768),
+     (2, 65536), (2, 131072)],
+)
+def test_sort_kernel_equals_plain(cuda_device, rows, cap, kind):
+    keys = torch.from_numpy(_sort_input(rows + cap, rows, cap, kind)).to(cuda_device)
     before = cuda_sort.launches
     got, want = cuda_sort.sort_rows(keys), cuda_sort.sort_rows_plain(keys)
     assert cuda_sort.launches == before + 1
@@ -119,16 +138,24 @@ def test_comp_sort_kernel_equals_plain(cuda_device, rows, n, n_pad):
     assert torch.equal(got, want)
 
 
-def _packed_rows(seed, rows, cap, bits, sort):
+def _packed_rows(seed, rows, cap, bits, sort, kind="random"):
+    """Packed rows of biased lanes below the top value, then pads (the top
+    value) from a random length on; row 0 is all pads and the last row has
+    none. "one": one lane value fills each row; "every": each row starts with
+    every lane value, the top one too."""
     from hyperspace_tpu_torch.engine.packed_codes import pack_rows
 
     rng = np.random.RandomState(seed)
     top = (1 << bits) - 1
     lanes = rng.randint(0, top, size=(rows, cap))
+    if kind == "one":
+        lanes[:] = rng.randint(0, top + 1, size=(rows, 1))
     lens = rng.randint(0, cap + 1, rows)
     lens[0] = 0
     lens[-1] = cap
     for b in range(rows):
+        if kind == "every" and cap > top:
+            lanes[b, : top + 1] = np.arange(top + 1)
         if sort:
             lanes[b, : lens[b]] = np.sort(lanes[b, : lens[b]])
         lanes[b, lens[b]:] = top
@@ -136,12 +163,18 @@ def _packed_rows(seed, rows, cap, bits, sort):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bits,rows,cap", [(4, 3, 8), (2, 4, 16), (1, 2, 32), (4, 64, 4096), (2, 8, 4096),
-                                           (1, 8, 4096), (4, 4, 32768), (4, 2, 65536)])
-def test_packed_sort_kernel_equals_plain(cuda_device, bits, rows, cap):
+@pytest.mark.parametrize("kind", ["random", "one", "every"])
+@pytest.mark.parametrize(
+    "bits,rows,cap",
+    # A row of one word at each width; rows of up to 32768 slots are staged
+    # in shared memory, longer ones (up to 2^20 at 1 bit) are not.
+    [(4, 3, 8), (2, 4, 16), (1, 2, 32), (4, 64, 4096), (2, 8, 4096), (1, 8, 4096), (4, 4, 32768),
+     (4, 2, 65536), (4, 2, 131072), (1, 2, 1 << 20)],
+)
+def test_packed_sort_kernel_equals_plain(cuda_device, bits, rows, cap, kind):
     from hyperspace_tpu_torch.ops import cuda_packed_sort
 
-    words = _packed_rows(bits + rows + cap, rows, cap, bits, sort=False)[0].to(cuda_device)
+    words = _packed_rows(bits + rows + cap, rows, cap, bits, sort=False, kind=kind)[0].to(cuda_device)
     before = cuda_packed_sort.launches
     got, want = cuda_packed_sort.sort_codes_packed(words, bits), cuda_packed_sort.sort_codes_packed_plain(words, bits)
     assert cuda_packed_sort.launches == before + 1

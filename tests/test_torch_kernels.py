@@ -118,3 +118,19 @@ def test_wrappers_refuse_a_device_they_have_no_kernel_for():
     m = torch.empty((2, 4), dtype=torch.int64, device="meta")
     with pytest.raises(ValueError):
         cuda_probe.range_probe(m, m, torch.zeros(2), torch.zeros(2))
+
+
+def test_build_list_names_every_kernel_source_and_nothing_else():
+    """The sources and headers `_kernels` compiles and hashes into the build
+    digest are exactly the `.cu`/`.cuh` files under `csrc/`: a deleted header
+    left in the digest, or a source the build never compiles, fails here."""
+    import os
+
+    from hyperspace_tpu_torch.ops import _kernels
+
+    named = _kernels._SOURCES + _kernels._HEADERS
+    assert len(set(named)) == len(named)
+    on_disk = {f for f in os.listdir(_kernels._CSRC) if f.endswith((".cu", ".cuh"))}
+    assert set(named) == on_disk
+    assert all(f.endswith(".cu") for f in _kernels._SOURCES)
+    assert all(f.endswith(".cuh") for f in _kernels._HEADERS)

@@ -14,15 +14,16 @@ Phases, each failing loudly:
              Outputs are integers: tolerance 0. Times kernel, plain version,
              the library call computing the same function (kernel and library
              as medians of 5 alternating windows), and the bound; splits the
-             K1 (at cap 4096), K3, K4 and K5 calls into host and device time
-             (`torch.profiler`).
+             K1 (at cap 4096), K2, K3, K4 and K5 calls into host and device
+             time (`torch.profiler`).
 3. main      TPC-H SF1-shaped data made with numpy from --seed (spec clause
              4.2.3 rules), four `create_index` calls, then Q3's join (value
              mode: K2) and Q9's join (hash mode: K1 + K2), count and collect,
              cold and a p50 of 3. Each plan must scan the indexes, each kernel
              must launch, and counts and rows must equal a numpy join computed
              straight from the generated arrays. A warm collect is then timed
-             stage by stage, its layout split into key64, pad scatter and K1.
+             stage by stage, its layout split into key64, pad scatter and K1,
+             its probe (K2) stage also as a median of 5 more runs.
 4. strings   two dictionary-string indexes on the same data: custSeg on
              c_mktsegment (its build sorts with K3) and liShip on l_shipmode
              (its composite overflows int32, so its build must not take K3);
@@ -199,6 +200,38 @@ def probe_case(rng, rows: int, cap_l: int, cap_r: int, dtype=np.int64, distinct:
     return ls, rs, l_len.astype(np.int64), r_len.astype(np.int64)
 
 
+def probe_window_cases(rng):
+    """K2's windowed probe at the cases its design must keep exact: unsorted
+    left rows (a tile's window spans the row, wider than the stage), a hot key
+    whose right run is wider than the stage, tiles that are all pad, windows
+    at the row's start and end, float64 keys of both signs, cap_l > cap_r, and
+    caps that take the scalar loads (odd, or not a multiple of a thread's
+    keys). Yields (ls, rs, l_len, r_len)."""
+    for rows, cap_l, cap_r, dtype in [(4, 8192, 32768, np.int64), (3, 4096, 32768, np.float64),
+                                      (3, 1024, 4096, np.int64)]:
+        ls, rs, l_len, r_len = probe_case(rng, rows, cap_l, cap_r, dtype, fill=(0.5, 1.0))
+        for b in range(rows):
+            rng.shuffle(ls[b, : l_len[b]])
+        yield ls, rs, l_len, r_len
+    hot_l, hot_r = np.full((2, 1024), 7, np.int64), np.full((2, 65536), 7, np.int64)
+    yield hot_l, hot_r, np.array([1024, 700]), np.array([65536, 40000])
+    ls, rs, l_len, r_len = probe_case(rng, 5, 8192, 32768, fill=(0.88, 0.96))
+    l_len[:] = [0, 1, 2047, 2048, 2049]
+    yield ls, rs, l_len, r_len
+    for dtype in (np.int64, np.float64):
+        ls, rs, l_len, r_len = probe_case(rng, 3, 8192, 32768, dtype, fill=(0.88, 0.96))
+        lo_key, hi_key = (-1e300, 1e300) if dtype == np.float64 else (-(2**62), 2**62)
+        ls[:, 0], ls[0, 1] = lo_key, lo_key  # below every right key
+        for b in range(3):
+            ls[b, l_len[b] - 1] = hi_key  # above every right key
+        ls[2, : l_len[2]] = np.sort(np.where(np.arange(l_len[2]) % 2 == 0, lo_key, hi_key))
+        yield ls, rs, l_len, r_len
+    yield probe_case(rng, 3, 8192, 32768, np.float64, fill=(0.88, 0.96))
+    for rows, cap_l, cap_r, distinct in [(3, 32768, 4096, 0), (4, 8192, 1024, 500), (3, 1000, 3001, 0),
+                                         (3, 3001, 1000, 0), (2, 8191, 32767, 0)]:
+        yield probe_case(rng, rows, cap_l, cap_r, distinct=distinct)
+
+
 def check_sort(torch, cuda_sort, keys_np) -> int:
     keys = torch.from_numpy(keys_np).cuda()
     got_k, got_o = cuda_sort.sort_rows(keys)
@@ -248,6 +281,8 @@ def phase_kernels(torch, rng):
     check_probe(torch, cuda_probe, ls, rs, l_len, r_len)
     ext = np.array([[-(2**63), -5, 0, 2**63 - 2]], np.int64)
     check_probe(torch, cuda_probe, ext, ext.copy(), np.array([4]), np.array([4]))
+    for case in probe_window_cases(rng):
+        check_probe(torch, cuda_probe, *case)
     log("[kernels] edge cases: K1 and K2 equal their plain versions exactly")
 
     shapes = []
@@ -281,12 +316,13 @@ def phase_kernels(torch, rng):
         nbytes = 8 * n_l + 8 * n_r + 8 * rows + 8 * rows * cap_l
         ops = 2 * n_l * np.log2(max(int(r_len_np.max()), 2))
         b_ms, b_by = bound(nbytes, ops)
-        ms, library_ms = paired_ms(lambda: cuda_probe.range_probe(ls, rs, l_len, r_len),
+        kernel = lambda: cuda_probe.range_probe(ls, rs, l_len, r_len)  # noqa: E731
+        ms, library_ms = paired_ms(kernel,
                                    lambda: (torch.searchsorted(rs, ls), torch.searchsorted(rs, ls, right=True)))
         shapes.append({
             "kernel": "K2", "shape": [[rows, cap_l], [rows, cap_r]], "ms": ms, "library_ms": library_ms,
             "plain_ms": cuda_ms(lambda: cuda_probe.range_probe_plain(ls, rs, l_len, r_len), iters=3, warmup=1),
-            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0,
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0, "split": host_device_split(torch, kernel),
         })
     shapes += phase_packed_kernels(torch, rng)
     for s in shapes:
@@ -768,6 +804,9 @@ def stage_breakdown(torch, df) -> dict:
     plan, t["layout_s"] = wall(layout)
     t.update(layout_split(layout))
     ranges, t["probe_s"] = wall(lambda: probe_classed(plan))
+    # The probe stage is a few host calls around K2's launches: a median of 5
+    # more runs beside the one above.
+    t["probe_p50_s"] = float(np.median([wall(lambda: probe_classed(plan))[1] for _ in range(5)]))
     (li, ri), t["expand_s"] = wall(lambda: classed_pairs(plan, ranges))
     (li, ri), t["verify_s"] = wall(lambda: _verify_pairs(left, right, join.left_keys, join.right_keys, li, ri))
     out, t["gather_s"] = wall(lambda: _assemble_join(left, right, li, ri).select(project.column_names))

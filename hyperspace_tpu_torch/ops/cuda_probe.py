@@ -66,10 +66,11 @@ def range_probe(ls, rs, l_len, r_len) -> Tuple[torch.Tensor, torch.Tensor]:
         raise ValueError("range_probe: l_len and r_len must be [B]")
     if rows * max(cap_l, cap_r) >= 2**31:
         raise ValueError(f"range_probe: matrix too large {tuple(ls.shape)}, {tuple(rs.shape)}")
-    l_len = l_len.to(device=ls.device, dtype=torch.int32).contiguous()
-    r_len = r_len.to(device=ls.device, dtype=torch.int32).contiguous()
-    lo = torch.empty(ls.shape, dtype=torch.int32, device=ls.device)
-    counts = torch.empty(ls.shape, dtype=torch.int32, device=ls.device)
+    # The kernel reads int64 lengths, the dtype the join keeps: no conversion
+    # runs on the main path. Both outputs are views of one allocation.
+    l_len = l_len.to(device=ls.device, dtype=torch.int64).contiguous()
+    r_len = r_len.to(device=ls.device, dtype=torch.int64).contiguous()
+    lo, counts = torch.empty((2, rows, cap_l), dtype=torch.int32, device=ls.device)
     if rows == 0 or cap_l == 0:
         return lo, counts
     lib = _kernels.library()

@@ -48,17 +48,35 @@ def _sort_input(seed, rows, cap, kind="hash"):
     return keys
 
 
-def _probe_input(seed, rows, cap_l, cap_r, distinct, dtype):
+def _probe_input(seed, rows, cap_l, cap_r, distinct, dtype, kind="sorted"):
+    """Padded left/right matrices, each right row sorted over its valid prefix.
+    Left rows are sorted ("sorted"), shuffled ("shuffled": a tile's window
+    spans the whole row), or hold keys below and above every right key at
+    their two ends ("ends"); "hot" puts one key everywhere, so the right run
+    is wider than the kernel's staged window; "allpad_tiles" leaves every left
+    slot from 2049 on a pad, so whole tiles are pads."""
     rng = np.random.RandomState(seed)
     l_len = rng.randint(0, cap_l + 1, rows)
     r_len = rng.randint(0, cap_r + 1, rows)
     l_len[0], r_len[min(1, rows - 1)] = 0, 0
+    if kind == "allpad_tiles":
+        l_len[1:] = rng.randint(0, 2050, rows - 1)
     pad = np.finfo(np.float64).max if dtype == np.float64 else PAD
     ls = np.full((rows, cap_l), pad, dtype)
     rs = np.full((rows, cap_r), pad, dtype)
     for b in range(rows):
-        ls[b, : l_len[b]] = np.sort(rng.randint(0, distinct, l_len[b])).astype(dtype)
-        rs[b, : r_len[b]] = np.sort(rng.randint(0, distinct, r_len[b])).astype(dtype)
+        vals_l = np.sort(rng.randint(0, distinct, l_len[b])).astype(dtype)
+        vals_r = np.sort(rng.randint(0, distinct, r_len[b])).astype(dtype)
+        if dtype == np.float64:  # keys of both signs
+            vals_l, vals_r = (vals_l - distinct / 2) / 3.0, (vals_r - distinct / 2) / 3.0
+        if kind == "hot":
+            vals_l[:], vals_r[:] = 7, 7
+        if kind == "ends" and l_len[b] >= 2:
+            vals_l[0], vals_l[-1] = -(2**40), 2**40
+        if kind == "shuffled":
+            rng.shuffle(vals_l)
+        ls[b, : l_len[b]] = vals_l
+        rs[b, : r_len[b]] = vals_r
     return ls, rs, l_len.astype(np.int64), r_len.astype(np.int64)
 
 
@@ -81,17 +99,32 @@ def test_sort_kernel_equals_plain(cuda_device, rows, cap, kind):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "seed,rows,cap_l,cap_r,distinct,dtype",
+    "seed,rows,cap_l,cap_r,distinct,dtype,kind",
     [
-        (0, 8, 256, 512, 40, np.int64),
-        (1, 4, 256, 1024, 2**40, np.int64),
-        (2, 8, 256, 512, 30, np.float64),
-        (3, 3, 512, 512, 7, np.int64),
-        (4, 4, 1024, 32768, 500, np.int64),
+        (0, 8, 256, 512, 40, np.int64, "sorted"),
+        (1, 4, 256, 1024, 2**40, np.int64, "sorted"),
+        (2, 8, 256, 512, 30, np.float64, "sorted"),
+        (3, 3, 512, 512, 7, np.int64, "sorted"),
+        (4, 4, 1024, 32768, 500, np.int64, "sorted"),
+        # The windowed probe: main-path caps, unsorted left rows, a hot key
+        # over a right row wider than the stage, all-pad tiles, windows at the
+        # row's ends, float64 keys of both signs, cap_l > cap_r, odd caps.
+        (5, 4, 8192, 32768, 2**20, np.int64, "sorted"),
+        (6, 4, 4096, 32768, 2**20, np.float64, "sorted"),
+        (7, 4, 8192, 32768, 2**20, np.int64, "shuffled"),
+        (8, 3, 4096, 32768, 5000, np.float64, "shuffled"),
+        (9, 2, 1024, 65536, 1, np.int64, "hot"),
+        (10, 5, 8192, 32768, 2**20, np.int64, "allpad_tiles"),
+        (11, 4, 8192, 32768, 2**20, np.int64, "ends"),
+        (12, 4, 8192, 32768, 2**20, np.float64, "ends"),
+        (13, 3, 32768, 4096, 2**16, np.int64, "sorted"),
+        (14, 4, 8192, 1024, 300, np.float64, "shuffled"),
+        (15, 3, 1000, 3001, 2000, np.int64, "sorted"),
+        (16, 3, 3001, 1000, 2000, np.int64, "shuffled"),
     ],
 )
-def test_probe_kernel_equals_plain(cuda_device, seed, rows, cap_l, cap_r, distinct, dtype):
-    args = [torch.from_numpy(a).to(cuda_device) for a in _probe_input(seed, rows, cap_l, cap_r, distinct, dtype)]
+def test_probe_kernel_equals_plain(cuda_device, seed, rows, cap_l, cap_r, distinct, dtype, kind):
+    args = [torch.from_numpy(a).to(cuda_device) for a in _probe_input(seed, rows, cap_l, cap_r, distinct, dtype, kind)]
     before = cuda_probe.launches
     got, want = cuda_probe.range_probe(*args), cuda_probe.range_probe_plain(*args)
     assert cuda_probe.launches == before + 1

@@ -90,6 +90,38 @@ def test_probe_plain_matches_pallas_and_host_probe(seed, rows, cap_l, cap_r, dis
     np.testing.assert_array_equal(counts, np.asarray(x_counts))
 
 
+UNSORTED_PROBE_CASES = [
+    (20, 8, 256, 512, 40, np.int64),
+    (21, 4, 256, 1024, 2**40, np.int64),
+    (22, 8, 256, 512, 30, np.float64),
+    (23, 4, 512, 256, 9, np.int64),
+    (24, 3, 512, 512, 1, np.int64),
+]
+
+
+@pytest.mark.parametrize("seed,rows,cap_l,cap_r,distinct,dtype", UNSORTED_PROBE_CASES)
+def test_probe_plain_matches_pallas_and_host_probe_on_unsorted_left_rows(seed, rows, cap_l, cap_r, distinct, dtype):
+    """K2's contract holds for ANY order of the left row (the Pallas kernel
+    counts by brute force and `_probe_host` searches each key alone), so the
+    plain version, which the CUDA kernel must equal, is held to it here on
+    left rows shuffled within their valid prefix."""
+    ls, rs, l_len, r_len = _probe_input(seed, rows, cap_l, cap_r, distinct, dtype)
+    rng = np.random.RandomState(seed)
+    for b in range(rows):
+        rng.shuffle(ls[b, : l_len[b]])
+    assert any((np.diff(ls[b, : l_len[b]]) < 0).any() for b in range(rows)) or distinct == 1
+    lo, counts = cuda_probe.range_probe(*(torch.from_numpy(a) for a in (ls, rs, l_len, r_len)))
+    lo, counts = lo.numpy(), counts.numpy()
+    host_lo, host_counts = _probe_host(ls, rs, l_len, r_len)
+    np.testing.assert_array_equal(lo, host_lo)
+    np.testing.assert_array_equal(counts, host_counts)
+    args = tuple(jnp.asarray(a) for a in (ls, rs, l_len, r_len))
+    mask = counts > 0
+    for other_lo, other_counts in (probe_pallas(*args), _probe(*args)):
+        np.testing.assert_array_equal(counts, np.asarray(other_counts))
+        np.testing.assert_array_equal(lo[mask], np.asarray(other_lo)[mask])
+
+
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     cuda_sort.launches = 0
     cuda_probe.launches = 0

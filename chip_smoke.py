@@ -18,24 +18,35 @@ Phases, each failing loudly:
              time (`torch.profiler`).
 3. main      TPC-H SF1-shaped data made with numpy from --seed (spec clause
              4.2.3 rules), four `create_index` calls, then Q3's join (value
-             mode: K2) and Q9's join (hash mode: K1 + K2), count and collect,
-             cold and a p50 of 3. Each plan must scan the indexes, each kernel
-             must launch, and counts and rows must equal a numpy join computed
-             straight from the generated arrays. A warm collect is then timed
-             stage by stage, its layout split into key64, pad scatter and K1,
-             its probe (K2) stage also as a median of 5 more runs.
+             mode: K2), Q9's join (hash mode: K1 + K2) and q3_agg, Q3's
+             revenue shape (the Q3 join, a computed revenue column, a group-by
+             on o_custkey: sum, count_distinct, count, max). Count and collect
+             cold, uncached (every scan cache and join memo emptied before
+             each run; p50 of 3) and cached (p50 of 3). Each plan must scan the
+             indexes, each kernel must launch, counts and rows must equal a
+             numpy join, and q3_agg a numpy group-by (keys and counts exact,
+             sums at rtol 1e-9); two uncached q3_agg runs must be bitwise
+             equal. Then an uncached and a cached collect are timed stage by
+             stage: the scan split into decode, dictionary conversion, copy to
+             the device and concatenation; the join's layout into key64, pad
+             scatter and K1; q3_agg into scan, join, with_column and aggregate.
 4. strings   two dictionary-string indexes on the same data: custSeg on
              c_mktsegment (its build sorts with K3) and liShip on l_shipmode
              (its composite overflows int32, so its build must not take K3);
              then Q3's and Q12's predicates through FilterIndexRule with bucket
-             pruning, count and collect, cold and a p50 of 3, against a numpy
-             filter and the non-indexed query.
+             pruning, and q12_range (Q12's modes and l_orderkey below its 10th
+             percentile, whose row groups the footer zone maps prune), count
+             and collect, cold, uncached and cached, against a numpy filter and
+             the non-indexed query; q12_range also against its read with
+             `HYPERSPACE_SCAN_PUSHDOWN=0`. Prints the row groups each lookup
+             decodes of those in its files.
 5. packed    `pad_buckets_by_codes` (K4) and `probe_code_ranges` (K5), an ops
              API no engine operator calls, on bench.py's packed shape and on
              lineitem's shipmode codes in its l_orderkey bucket layout, against
              the plain probe and numpy searchsorted.
-6. identity  the join and string slices at SF 0.05 with device="cpu" and
-             device="cuda": identical index files, identical rows in order.
+6. identity  the join, aggregate and string slices at SF 0.05 with
+             device="cpu" and device="cuda": identical index files, identical
+             rows in order (q3_agg's sums at rtol 1e-9).
 
 Prints one JSON line of per-kernel results, the card's `nvidia-smi` line,
 and last `{"ok": true, "device": {...}}`. Exits non-zero without a result
@@ -745,52 +756,207 @@ def scanned_indexes(df):
     )
 
 
+def clear_caches() -> None:
+    """Empty every scan cache and join memo of the port: the next run is
+    uncached (what PRs before the caches printed as warm)."""
+    from hyperspace_tpu_torch.engine import physical, scan_cache
+
+    scan_cache.clear_scan_caches()
+    physical.clear_device_memos()
+
+
+def cache_stats() -> dict:
+    from hyperspace_tpu_torch.engine import io as engine_io
+    from hyperspace_tpu_torch.engine import physical, scan_cache
+
+    return {"scan_caches": scan_cache.stats(), "memos": physical.memo_stats(), "io": engine_io.io_stats()}
+
+
+def q3_agg(s, base: str):
+    """Q3's revenue shape over the liOrd and ordIdx indexes."""
+    from hyperspace_tpu_torch import col
+
+    def rd(name):
+        return s.read.parquet(os.path.join(base, "src", name))
+
+    return (
+        rd("lineitem").join(rd("orders"), col("l_orderkey") == col("o_orderkey"))
+        .with_column("revenue", col("l_extendedprice") * (1 - col("l_discount")))
+        .group_by("o_custkey")
+        .agg(revenue=("revenue", "sum"), orders=("l_orderkey", "count_distinct"), lines=("*", "count"),
+             top=("o_totalprice", "max"))
+    )
+
+
+def expected_q3_agg(data) -> dict:
+    """q3_agg as a numpy group-by of the generated arrays, by ascending key."""
+    li, od = data["lineitem"], data["orders"]
+    a, b = np_join(li["l_orderkey"], od["o_orderkey"])
+    keys, inv = np.unique(od["o_custkey"][b], return_inverse=True)
+    ok, tp = li["l_orderkey"][a], od["o_totalprice"][b]
+    by_order = np.lexsort((ok, inv))
+    si, so = inv[by_order], ok[by_order]
+    first = np.ones(len(si), bool)
+    first[1:] = (si[1:] != si[:-1]) | (so[1:] != so[:-1])
+    by_price = np.lexsort((tp, inv))
+    last = np.append(np.nonzero(np.diff(inv[by_price]))[0], len(by_price) - 1)
+    return {
+        "o_custkey": keys,
+        "revenue": np.bincount(inv, weights=li["l_extendedprice"][a] * (1 - li["l_discount"][a])),
+        "orders": np.bincount(si[first], minlength=len(keys)),
+        "lines": np.bincount(inv),
+        "top": tp[by_price][last],
+    }
+
+
+def check_q3_agg(got: dict, want: dict) -> None:
+    """Keys and counts exact, the top price exact, revenue sums at rtol 1e-9."""
+    order = np.argsort(got["o_custkey"], kind="stable")
+    got = {n: np.asarray(v)[order] for n, v in got.items()}
+    for n in ("o_custkey", "orders", "lines", "top"):
+        if not np.array_equal(got[n].astype(want[n].dtype), want[n]):
+            raise AssertionError(f"q3_agg: {n} differs from the numpy group-by")
+    if not np.allclose(got["revenue"].astype(np.float64), want["revenue"], rtol=1e-9, atol=0):
+        raise AssertionError("q3_agg: revenue sums differ from the numpy group-by beyond rtol 1e-9")
+
+
+def run_p50(fn, runs: int, uncached: bool):
+    """(last output, median seconds) of `runs` calls of `fn`, each after
+    emptying the caches when `uncached`."""
+    seconds = []
+    for _ in range(runs):
+        if uncached:
+            clear_caches()
+        out, t = wall(fn)
+        seconds.append(t)
+    return out, float(np.median(seconds))
+
+
 def phase_main(torch, data, base: str):
+    from hyperspace_tpu_torch.engine import io as engine_io
     from hyperspace_tpu_torch.ops import cuda_probe, cuda_sort
 
     want = {n: canonical(rows) for n, rows in zip(("q_ord", "q_ps"), expected_rows(data))}
+    want_agg = expected_q3_agg(data)
     cuda_sort.launches = 0
     cuda_probe.launches = 0
     s, build_s = build(base, DEVICE)
     log(f"[main] build seconds {json.dumps(build_s)}")
-    qs = queries(s, base)
-    expect_idx = {"q_ord": ["liOrd", "ordIdx"], "q_ps": ["liPs", "psIdx"]}
+    qs = dict(queries(s, base), q3_agg=q3_agg(s, base))
+    expect_idx = {"q_ord": ["liOrd", "ordIdx"], "q_ps": ["liPs", "psIdx"], "q3_agg": ["liOrd", "ordIdx"]}
+
+    def check(name, n, out):
+        if name == "q3_agg":
+            check_q3_agg(out.to_numpy(), want_agg)
+            if n != len(want_agg["o_custkey"]):
+                raise AssertionError(f"q3_agg: {n} groups, numpy has {len(want_agg['o_custkey'])}")
+        elif n != len(want[name][next(iter(want[name]))]):
+            raise AssertionError(f"{name}: count {n} != numpy join")
+        elif not same_multiset(out.to_numpy(), want[name]):
+            raise AssertionError(f"{name}: collected rows differ from the numpy join")
+
     times = {}
     for name, df in qs.items():
         if scanned_indexes(df) != expect_idx[name]:
             raise AssertionError(f"{name}: the plan does not scan the indexes:\n{df.explain_string()}")
         k1, k2 = cuda_sort.launches, cuda_probe.launches
-        counts, collects = [], []
-        for _ in range(4):
-            n, t_count = wall(df.count)
-            out, t_collect = wall(df.collect)
-            counts.append(t_count)
-            collects.append(t_collect)
-            if n != len(want[name][next(iter(want[name]))]):
-                raise AssertionError(f"{name}: count {n} != numpy join")
-            got = out.to_numpy()
-            if not same_multiset(got, want[name]):
-                raise AssertionError(f"{name}: collected rows differ from the numpy join")
+        clear_caches()
+        n, t_count = wall(df.count)
+        clear_caches()
+        out, t_collect = wall(df.collect)
+        check(name, n, out)
+        t = {"rows": n, "count_cold_s": t_count, "collect_cold_s": t_collect}
+        out, t["uncached_p50_s"] = run_p50(df.collect, 3, uncached=True)
+        check(name, n, out)
+        engine_io.reset_io_stats()
+        clear_caches()
+        _, t["uncached_run_s"] = wall(df.collect)
+        t["uncached_scan_split_s"] = engine_io.io_stats()["seconds"]
+        n, t["count_uncached_p50_s"] = run_p50(df.count, 3, uncached=True)
+        out, t["cached_p50_s"] = run_p50(df.collect, 3, uncached=False)
+        n, t["count_cached_p50_s"] = run_p50(df.count, 3, uncached=False)
+        check(name, n, out)
         d1, d2 = cuda_sort.launches - k1, cuda_probe.launches - k2
         if d2 == 0 or (name == "q_ps" and d1 == 0):
             raise AssertionError(f"{name}: kernels not launched (K1 {d1}, K2 {d2})")
-        times[name] = {
-            "rows": n, "count_cold_s": counts[0], "count_p50_s": float(np.median(counts[1:])),
-            "collect_cold_s": collects[0], "collect_p50_s": float(np.median(collects[1:])),
-            "k1_launches": d1, "k2_launches": d2,
-        }
-        log(f"[main] {name} {json.dumps(times[name])}")
+        t.update(k1_launches=d1, k2_launches=d2)
+        times[name] = t
+        log(f"[main] {name} {json.dumps(t)}")
+    clear_caches()
+    first = qs["q3_agg"].collect()
+    clear_caches()
+    second = qs["q3_agg"].collect()
+    for n in first.column_names:
+        a, b = first.column(n), second.column(n)
+        if a.data.numpy().tobytes() != b.data.numpy().tobytes() or (a.validity is None) != (b.validity is None):
+            raise AssertionError(f"q3_agg: two uncached runs differ in the bits of {n}")
     launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches}
-    log(f"[main] counts and rows equal the numpy join; launches {json.dumps(launches)}")
-    for name, df in qs.items():
-        log(f"[main] {name} warm collect breakdown {json.dumps(stage_breakdown(torch, df))}")
+    log(f"[main] counts, rows and q3_agg's groups equal numpy; two q3_agg runs are bitwise equal; "
+        f"launches {json.dumps(launches)}")
+    log(f"[main] caches and memos {json.dumps(cache_stats())}")
+    for name in ("q_ord", "q_ps"):
+        clear_caches()
+        log(f"[main] {name} uncached collect breakdown {json.dumps(stage_breakdown(torch, qs[name]))}")
+        log(f"[main] {name} cached collect breakdown {json.dumps(cached_breakdown(qs[name]))}")
+    for uncached in (True, False):
+        label = "uncached" if uncached else "cached"
+        log(f"[main] q3_agg {label} collect breakdown {json.dumps(agg_breakdown(qs['q3_agg'], uncached))}")
     return launches, build_s, times
 
 
+def cached_breakdown(df) -> dict:
+    """Seconds of each step of one cached `collect()` of a join: the scans
+    (cache hits), the pairs (a memo hit), the gather and the copy to the host."""
+    from hyperspace_tpu_torch.engine.physical import ExecContext, _assemble_join
+
+    project = df.physical_plan()
+    join = project.child
+    ctx = ExecContext(df.session)
+    t = {}
+    _, t["scan_left_s"] = wall(lambda: join.left.execute_concat(ctx))
+    _, t["scan_right_s"] = wall(lambda: join.right.execute_concat(ctx))
+    (left, right, li, ri), t["pairs_s"] = wall(lambda: join._pairs(ctx))
+    out, t["gather_s"] = wall(lambda: _assemble_join(left, right, li, ri).select(project.column_names))
+    _, t["to_host_s"] = wall(lambda: out.to("cpu"))
+    return t
+
+
+def agg_breakdown(df, uncached: bool) -> dict:
+    """Seconds of each stage of one `collect()` of q3_agg: scan, join,
+    with_column, aggregate and the copy to the host; an uncached run also
+    splits its scan into parts (decode, dictionary conversion and copy to the
+    device summed over the decode threads, and the concatenation)."""
+    from hyperspace_tpu_torch.engine import io as engine_io
+    from hyperspace_tpu_torch.engine.physical import ExecContext
+    from hyperspace_tpu_torch.ops.aggregate import hash_aggregate
+
+    agg = df.physical_plan()
+    with_col = agg.child
+    join = with_col.child
+    ctx = ExecContext(df.session)
+    if uncached:
+        clear_caches()
+        engine_io.reset_io_stats()
+    t = {}
+    _, t["scan_s"] = wall(lambda: (join.left.execute_concat(ctx), join.right.execute_concat(ctx)))
+    if uncached:
+        t["scan_split_s"] = engine_io.io_stats()["seconds"]
+    joined, t["join_s"] = wall(lambda: join.execute(ctx))
+    computed, t["with_column_s"] = wall(lambda: with_col.apply(joined))
+    out, t["aggregate_s"] = wall(lambda: hash_aggregate(computed, agg.group_keys, agg.aggs))
+    _, t["to_host_s"] = wall(lambda: out.to("cpu"))
+    t["joined_rows"], t["groups"] = joined.num_rows, out.num_rows
+    return t
+
+
 def stage_breakdown(torch, df) -> dict:
-    """Seconds of each stage of one warm `collect()`, run step by step with a
-    synchronize after each (the steps `SortMergeJoinExec.execute` chains), and
-    the device's busy share of a whole warm `collect()` from `torch.profiler`."""
+    """Seconds of each stage of one uncached `collect()` (the caller empties
+    the caches), run step by step with a synchronize after each (the steps
+    `SortMergeJoinExec` chains when its memos miss), the scan's parts, and
+    the device's busy share of a whole uncached `collect()` from
+    `torch.profiler`."""
+    from hyperspace_tpu_torch.engine import io as engine_io
+
     from hyperspace_tpu_torch.engine.physical import ExecContext, _assemble_join, _classed_plan, _verify_pairs
     from hyperspace_tpu_torch.ops.bucket_join import classed_pairs, probe_classed
 
@@ -798,8 +964,10 @@ def stage_breakdown(torch, df) -> dict:
     join = project.child
     ctx = ExecContext(df.session)
     t = {}
+    engine_io.reset_io_stats()
     (left, l_starts), t["scan_left_s"] = wall(lambda: join.left.execute_concat(ctx))
     (right, r_starts), t["scan_right_s"] = wall(lambda: join.right.execute_concat(ctx))
+    t["scan_split_s"] = engine_io.io_stats()["seconds"]
     layout = lambda: _classed_plan(left, right, join.left_keys, join.right_keys, l_starts, r_starts)  # noqa: E731
     plan, t["layout_s"] = wall(layout)
     t.update(layout_split(layout))
@@ -816,6 +984,7 @@ def stage_breakdown(torch, df) -> dict:
     t["outlier_buckets"] = int(len(plan.outlier_ids))
     from torch.profiler import ProfilerActivity, profile
 
+    clear_caches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall_s = wall(df.collect)
     device_us = sum(
@@ -829,9 +998,9 @@ def stage_breakdown(torch, df) -> dict:
 
 def layout_split(layout) -> dict:
     """Seconds of the parts of one more run of `layout` (a `_classed_plan`
-    call): the key64 hashes, the pad scatters and K1, each timed by a host
-    clock ended by a synchronize, and the rest of the stage (the joint
-    partition, clamps, copies of the bucket bounds)."""
+    call, its key64 memo emptied first): the key64 hashes, the pad scatters
+    and K1, each timed by a host clock ended by a synchronize, and the rest
+    of the stage (the joint partition, clamps, copies of the bucket bounds)."""
     from hyperspace_tpu_torch.engine import physical
     from hyperspace_tpu_torch.ops import bucket_join
 
@@ -849,6 +1018,7 @@ def layout_split(layout) -> dict:
 
     for (module, name, part), fn in zip(parts, originals):
         setattr(module, name, timed(fn, part))
+    physical.clear_device_memos()
     try:
         _, total = wall(layout)
     finally:
@@ -869,11 +1039,12 @@ def phase_identity(torch, seed: int, sf: float) -> None:
         for i, device in enumerate(("cpu", DEVICE)):
             wh = os.path.join(base, f"warehouse{i}")
             s, _ = build(base, device, warehouse=wh)
-            results[i] = {n: df.collect().to_numpy() for n, df in queries(s, base).items()}
+            qs = dict(queries(s, base), q3_agg=q3_agg(s, base))
+            results[i] = {n: df.collect().to_numpy() for n, df in qs.items()}
             s, _, k3 = build_string_indexes(torch, base, device, wh)
             if device == DEVICE and k3 != {"custSeg": 1, "liShip": 1}:
                 raise AssertionError(f"at SF{sf} both string builds must take K3: {k3}")
-            for name, df in string_queries(s, base).items():
+            for name, df in string_queries(s, base, range_key(data)).items():
                 if index_scan(df) is None:
                     raise AssertionError(f"{name}: the plan does not scan the index:\n{df.explain_string()}")
                 results[i][name] = df.collect().to_numpy()
@@ -886,7 +1057,10 @@ def phase_identity(torch, seed: int, sf: float) -> None:
             raise AssertionError("index files built on the CPU and on the GPU differ")
         for name in results[0]:
             a, b = results[0][name], results[1][name]
-            if list(a) != list(b) or not all(np.array_equal(a[k], b[k]) for k in a):
+            # q3_agg's float sums may differ in rounding (rtol 1e-9); all else exactly.
+            same = [np.allclose(a[k], b[k], rtol=1e-9, atol=0) if k == "revenue" else np.array_equal(a[k], b[k])
+                    for k in a]
+            if list(a) != list(b) or not all(same):
                 raise AssertionError(f"{name}: CPU and GPU rows differ (values or order)")
         rows = {n: len(next(iter(r.values()))) for n, r in results[0].items()}
         log(f"[identity] SF{sf}: {len(files[0])} identical index files; rows identical in order "
@@ -924,32 +1098,53 @@ def build_string_indexes(torch, base: str, device, warehouse: str):
     return s, seconds, k3
 
 
-def string_queries(s, base: str):
+def range_key(data) -> int:
+    """q12_range's bound on l_orderkey: the 10th percentile of the column."""
+    return int(np.percentile(data["lineitem"]["l_orderkey"], 10))
+
+
+def string_queries(s, base: str, k: int):
     from hyperspace_tpu_torch import col
 
     def rd(name):
         return s.read.parquet(os.path.join(base, "src", name))
 
+    cols = ("l_orderkey", "l_shipmode", "l_quantity", "l_extendedprice")
     return {
         "q3_filter": rd("customer").filter(col("c_mktsegment") == "BUILDING").select(
             "c_custkey", "c_name", "c_acctbal"
         ),
-        "q12_filter": rd("lineitem").filter(col("l_shipmode").isin("MAIL", "SHIP")).select(
-            "l_orderkey", "l_shipmode", "l_quantity", "l_extendedprice"
-        ),
+        "q12_filter": rd("lineitem").filter(col("l_shipmode").isin("MAIL", "SHIP")).select(*cols),
+        "q12_range": rd("lineitem").filter(col("l_shipmode").isin("MAIL", "SHIP") & (col("l_orderkey") < k)).select(*cols),
     }
 
 
-def expected_string_rows(data) -> dict:
-    """The two lookups as numpy filters of the generated arrays."""
+def expected_string_rows(data, k: int) -> dict:
+    """The three lookups as numpy filters of the generated arrays."""
     cu, li = data["customer"], data["lineitem"]
     seg_dict, seg = cu["c_mktsegment"]
     keep = seg == int(np.searchsorted(seg_dict, "BUILDING"))
     q3 = {n: decoded(cu[n])[keep] for n in ("c_custkey", "c_name", "c_acctbal")}
     mode_dict, mode = li["l_shipmode"]
     keep = np.isin(mode, np.searchsorted(mode_dict, ["MAIL", "SHIP"]))
-    q12 = {n: decoded(li[n])[keep] for n in ("l_orderkey", "l_shipmode", "l_quantity", "l_extendedprice")}
-    return {"q3_filter": q3, "q12_filter": q12}
+    cols = ("l_orderkey", "l_shipmode", "l_quantity", "l_extendedprice")
+    q12 = {n: decoded(li[n])[keep] for n in cols}
+    keep &= li["l_orderkey"] < k
+    return {"q3_filter": q3, "q12_filter": q12, "q12_range": {n: decoded(li[n])[keep] for n in cols}}
+
+
+def row_groups(df) -> dict:
+    """Row groups an uncached run of a lookup decodes, of those in the files
+    bucket pruning kept."""
+    from hyperspace_tpu_torch.engine import io as engine_io
+    from hyperspace_tpu_torch.engine.physical import ExecContext, ScanExec
+
+    clear_caches()
+    plan = df.physical_plan()
+    plan.execute(ExecContext(df.session))
+    scan = next(n for n in plan.collect_nodes() if isinstance(n, ScanExec))
+    total = sum(len(engine_io.footer_metadata(f.path).row_groups) for f in scan.relation.files)
+    return {"kept": total - scan.pruning.get("row_groups_skipped", 0), "total": total}
 
 
 def index_scan(df):
@@ -970,42 +1165,63 @@ def phase_strings(torch, data, base: str):
     log(f"[strings] build seconds {json.dumps(build_s)}; K3 launches per build {json.dumps(k3)}")
     if k3 != {"custSeg": 1, "liShip": 0}:
         raise AssertionError(f"K3 must sort the custSeg build and not the liShip build (int32 headroom): {k3}")
-    want = {n: canonical(rows) for n, rows in expected_string_rows(data).items()}
-    expect_idx = {"q3_filter": "custSeg", "q12_filter": "liShip"}
+    k = range_key(data)
+    want = {n: canonical(rows) for n, rows in expected_string_rows(data, k).items()}
+    expect_idx = {"q3_filter": "custSeg", "q12_filter": "liShip", "q12_range": "liShip"}
     times = {}
-    for name, df in string_queries(s, base).items():
+    for name, df in string_queries(s, base, k).items():
         rel = index_scan(df)
         if rel is None or rel.index_name != expect_idx[name] or rel.pruned_by != ["FilterIndexRule:bucket"]:
             raise AssertionError(f"{name}: the plan does not scan the pruned index:\n{df.explain_string()}")
-        counts, collects = [], []
-        for _ in range(4):
-            n, t_count = wall(df.count)
-            out, t_collect = wall(df.collect)
-            counts.append(t_count)
-            collects.append(t_collect)
-            got = out.to_numpy()
-            if n != len(next(iter(want[name].values()))) or not same_multiset(got, want[name]):
+
+        def check(n, out):
+            if n != len(next(iter(want[name].values()))) or not same_multiset(out.to_numpy(), want[name]):
                 raise AssertionError(f"{name}: rows differ from the numpy filter (count {n})")
+
+        clear_caches()
+        n, t_count = wall(df.count)
+        clear_caches()
+        out, t_collect = wall(df.collect)
+        check(n, out)
+        t = {"rows": n, "files_scanned": len(rel.files), "count_cold_s": t_count, "collect_cold_s": t_collect}
+        out, t["uncached_p50_s"] = run_p50(df.collect, 3, uncached=True)
+        check(n, out)
+        out, t["cached_p50_s"] = run_p50(df.collect, 3, uncached=False)
+        n, t["count_cached_p50_s"] = run_p50(df.count, 3, uncached=False)
+        check(n, out)
+        t["row_groups"] = row_groups(df)
+        if name == "q12_range":
+            if t["row_groups"]["kept"] >= t["row_groups"]["total"]:
+                raise AssertionError(f"q12_range: pushdown kept every row group {t['row_groups']}")
+            os.environ["HYPERSPACE_SCAN_PUSHDOWN"] = "0"
+            try:
+                clear_caches()
+                whole = df.collect().to_numpy()
+            finally:
+                del os.environ["HYPERSPACE_SCAN_PUSHDOWN"]
+            got = out.to_numpy()
+            if list(whole) != list(got) or not all(np.array_equal(whole[c], got[c]) for c in got):
+                raise AssertionError("q12_range: rows differ from the read without pushdown")
         hst.disable_hyperspace(s)
-        plain_df = string_queries(s, base)[name]
-        if not same_multiset(plain_df.collect().to_numpy(), canonical(got)):
+        plain_df = string_queries(s, base, k)[name]
+        if not same_multiset(plain_df.collect().to_numpy(), canonical(out.to_numpy())):
             raise AssertionError(f"{name}: indexed and non-indexed rows differ")
         hst.enable_hyperspace(s)
-        times[name] = {
-            "rows": n, "files_scanned": len(rel.files),
-            "count_cold_s": counts[0], "count_p50_s": float(np.median(counts[1:])),
-            "collect_cold_s": collects[0], "collect_p50_s": float(np.median(collects[1:])),
-        }
-        log(f"[strings] {name} {json.dumps(times[name])}")
-        log(f"[strings] {name} warm collect breakdown {json.dumps(filter_breakdown(torch, df))}")
+        times[name] = t
+        log(f"[strings] {name} {json.dumps(t)}")
+        clear_caches()
+        log(f"[strings] {name} uncached collect breakdown {json.dumps(filter_breakdown(torch, df))}")
+        log(f"[strings] {name} cached collect breakdown {json.dumps(filter_breakdown(torch, df))}")
     launches = {"K3": cuda_comp_sort.launches}
-    log(f"[strings] rows equal the numpy filters and the non-indexed queries; launches {json.dumps(launches)}")
+    log(f"[strings] rows equal the numpy filters and the non-indexed queries, and q12_range's the read "
+        f"without pushdown; launches {json.dumps(launches)}")
     return launches, build_s, times
 
 
 def filter_breakdown(torch, df) -> dict:
-    """Seconds of each stage of one warm `collect()` of a filter query, run
-    step by step with a synchronize after each."""
+    """Seconds of each stage of one `collect()` of a filter query, run step
+    by step with a synchronize after each, and the scan's parts."""
+    from hyperspace_tpu_torch.engine import io as engine_io
     from hyperspace_tpu_torch.engine.evaluate import evaluate_predicate
     from hyperspace_tpu_torch.engine.physical import ExecContext
 
@@ -1015,7 +1231,9 @@ def filter_breakdown(torch, df) -> dict:
         node = node.children()[0]
     ctx = ExecContext(df.session)
     t = {}
+    engine_io.reset_io_stats()
     table, t["scan_s"] = wall(lambda: node.child.execute(ctx))
+    t["scan_split_s"] = engine_io.io_stats()["seconds"]
     keep, t["filter_eval_s"] = wall(lambda: torch.nonzero(evaluate_predicate(node.condition, table)).squeeze(1))
     out, t["gather_s"] = wall(lambda: table.take(keep).select(project.column_names))
     _, t["to_host_s"] = wall(lambda: out.to("cpu"))

@@ -1,13 +1,36 @@
 """Configuration: the session's flat string-keyed conf and its typed accessors.
 
 Counterpart of `hyperspace_tpu/config.py`, cut to the keys the ported slices
-read (build, JoinIndexRule and the co-bucketed join, FilterIndexRule). Key names and defaults are the JAX package's, so
-a conf written for one package means the same to the other.
+read (build, JoinIndexRule and the co-bucketed join, FilterIndexRule, the scan
+layer and the aggregate). Key names, environment variables and defaults are
+the JAX package's, so a conf or an environment written for one package means
+the same to the other.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional
+
+#: Row-group pushdown on/off (`engine/pushdown.py`); "0" = whole-file reads.
+ENV_SCAN_PUSHDOWN = "HYPERSPACE_SCAN_PUSHDOWN"
+#: Byte budget of the per-file scan cache (`engine/scan_cache.py`).
+ENV_SCAN_CACHE_BUDGET = "HYPERSPACE_SCAN_CACHE_BUDGET"
+SCAN_CACHE_BUDGET_DEFAULT = 1 << 30
+#: Budget of each concat cache (bucketed, plain multi-file, filtered); the
+#: JAX package reads no variable for it.
+CONCAT_CACHE_BUDGET_DEFAULT = 1 << 30
+#: Row-group cap of the index bucket files (`engine/io.py`).
+ENV_INDEX_ROW_GROUP_ROWS = "HYPERSPACE_INDEX_ROW_GROUP_ROWS"
+INDEX_ROW_GROUP_ROWS_DEFAULT = 65536
+#: Byte budget of the join memos (`engine/physical.py`), one LRU order.
+ENV_DEVICE_CACHE_BUDGET = "HYPERSPACE_DEVICE_CACHE_BUDGET"
+DEVICE_CACHE_BUDGET_DEFAULT = 2 << 30
+
+
+def env_bytes(name: str, default: int) -> int:
+    """A byte budget from the environment (unset = `default`)."""
+    return int(os.environ.get(name, default))
 
 
 class IndexConstants:

@@ -1,16 +1,22 @@
-"""Predicate evaluation on the table's device (counterpart of `hyperspace_tpu/engine/evaluate.py`).
+"""Expression evaluation on the table's device (counterpart of `hyperspace_tpu/engine/evaluate.py`).
 
-The eager subset of `evaluate` :104 and `evaluate_predicate` :703, as torch
-ops on the table's device. String comparisons against a literal translate to
-code-space integer compares on the host (one binary search of the sorted
-dictionary per literal, `_str_lit_compare` :79); no string reaches the device.
+The eager `evaluate` :104, `evaluate_column` :281 and `evaluate_predicate`
+:703, as torch ops on the table's device. String comparisons against a
+literal translate to code-space integer compares on the host (one binary
+search of the sorted dictionary per literal, `_str_lit_compare` :79); no
+string reaches the device.
 
 Null semantics (SQL/Spark) ride a validity lane: every result carries an
-optional bool tensor of the non-null slots. Comparisons propagate invalidity;
-`and`/`or` follow Kleene logic (a known FALSE decides `and`, a known TRUE
-decides `or`); `evaluate_predicate` keeps a row only when the value is true AND
-known. The JAX package's compiled predicate programs (:449-700) cache XLA
-programs and have no counterpart here: torch runs eagerly.
+optional bool tensor of the non-null slots. Comparisons and arithmetic
+propagate invalidity, and `x / 0` is null; `and`/`or` follow Kleene logic (a
+known FALSE decides `and`, a known TRUE decides `or`); `evaluate_predicate`
+keeps a row only when the value is true AND known. Arithmetic takes the JAX
+package's types (`_arith_dtype`): a Python literal is weakly typed, so
+`int32 + 1` stays int32 and `int64 * 1.5` is float64, and true division of
+integers gives float32 for int32 and float64 for int64. Arithmetic of two
+literals is a 0-d value that `evaluate_column` broadcasts. The JAX package's
+compiled predicate programs (:449-700) cache XLA programs and have no
+counterpart here: torch runs eagerly.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch
 
 from ..exceptions import HyperspaceException
 from .expr import BinaryOp, Col, Expr, IsIn, IsNull, Lit, Not
+from .schema import TORCH_DTYPES
 from .table import Column, Table, align_dictionaries
 
 
@@ -93,9 +100,63 @@ def _numeric_operand(v: _Val, other: _Val):
     return v.value
 
 
+def _device_of(table: Table) -> torch.device:
+    return next(iter(table.columns.values())).data.device if table.columns else torch.device("cpu")
+
+
 def _full(table: Table, value: bool) -> torch.Tensor:
-    device = next(iter(table.columns.values())).data.device if table.columns else "cpu"
-    return torch.full((table.num_rows,), value, dtype=torch.bool, device=device)
+    return torch.full((table.num_rows,), value, dtype=torch.bool, device=_device_of(table))
+
+
+def _literal_dtype(value) -> torch.dtype:
+    if isinstance(value, bool):
+        return torch.bool
+    return torch.float64 if isinstance(value, float) else torch.int64
+
+
+def _arith_dtype(l: _Val, r: _Val, op: str) -> torch.dtype:
+    """The result type of `l op r` under the JAX package's promotion: two
+    tensors promote by the lattice; a Python literal is weak (an int keeps
+    the tensor's type, a float makes an integer tensor float64); two
+    literals are int64 or float64. True division of integers is float32 for
+    int32 and float64 otherwise."""
+    if l.kind == "num" and r.kind == "num":
+        dt = torch.promote_types(l.arr.dtype, r.arr.dtype)
+    elif l.kind == "num" or r.kind == "num":
+        t, x = (l.arr, r.value) if l.kind == "num" else (r.arr, l.value)
+        if isinstance(x, float):
+            dt = t.dtype if t.is_floating_point() else torch.float64
+        else:
+            dt = torch.int64 if t.dtype == torch.bool and not isinstance(x, bool) else t.dtype
+    else:
+        dt = torch.promote_types(_literal_dtype(l.value), _literal_dtype(r.value))
+    if op == "/" and not dt.is_floating_point:
+        dt = torch.float32 if dt == torch.int32 else torch.float64
+    return dt
+
+
+def _arith_operand(v: _Val, dtype: torch.dtype, device) -> torch.Tensor:
+    if v.kind == "num":
+        return v.arr.to(dtype)
+    return torch.tensor(v.value, dtype=dtype, device=device)
+
+
+def _arithmetic(op: str, l: _Val, r: _Val, valid, device) -> _Val:
+    """`+ - * /` with the JAX package's types; `x / 0` is null (SQL), its
+    slot filled with 0."""
+    dt = _arith_dtype(l, r, op)
+    lv, rv = _arith_operand(l, dt, device), _arith_operand(r, dt, device)
+    if op == "+":
+        return _Val("num", lv + rv, valid=valid)
+    if op == "-":
+        return _Val("num", lv - rv, valid=valid)
+    if op == "*":
+        return _Val("num", lv * rv, valid=valid)
+    zero = rv == 0
+    value = lv / torch.where(zero, torch.ones_like(rv), rv)
+    nonzero = torch.broadcast_to(~zero, value.shape)
+    valid = nonzero if valid is None else (valid & nonzero)
+    return _Val("num", torch.where(nonzero, value, torch.zeros((), dtype=value.dtype, device=device)), valid=valid)
 
 
 def evaluate(expr: Expr, table: Table) -> _Val:
@@ -174,6 +235,8 @@ def evaluate(expr: Expr, table: Table) -> _Val:
 
         valid = _and_valid(l.valid, r.valid)
         if l.kind == "str" or r.kind == "str":
+            if op not in BinaryOp.COMPARISONS:
+                raise HyperspaceException(f"Arithmetic on strings is not supported: {op}")
             if l.kind == "str" and r.kind == "lit":
                 return _Val("num", _str_lit_compare(op, l.arr, l.dictionary, str(r.value)), valid=valid)
             if r.kind == "str" and l.kind == "lit":
@@ -186,11 +249,43 @@ def evaluate(expr: Expr, table: Table) -> _Val:
                 )
                 return _Val("num", _compare(op, la.data, ra.data), valid=valid)
             raise HyperspaceException("Cannot compare string with non-string")
+        if op in BinaryOp.ARITHMETIC:
+            return _arithmetic(op, l, r, valid, _device_of(table))
         if l.kind == "lit" and r.kind == "lit":
             raise HyperspaceException(f"A comparison of two literals is not supported: {expr!r}")
         return _Val("num", _compare(op, _numeric_operand(l, r), _numeric_operand(r, l)), valid=valid)
 
     raise HyperspaceException(f"Cannot evaluate expression: {expr!r}")
+
+
+def evaluate_column(expr: Expr, table: Table) -> Column:
+    """An expression as a column (the computed-column executor,
+    `evaluate.evaluate_column` :281). Null slots are refilled with 0 so that
+    hashing and grouping over computed columns keep nulls in one cluster; a
+    literal, or arithmetic of literals, is broadcast to the table's rows."""
+    n = table.num_rows
+    device = _device_of(table)
+    v = evaluate(expr, table)
+    if v.kind == "str":
+        codes = v.arr if v.valid is None else torch.where(v.valid, v.arr, torch.zeros((), dtype=v.arr.dtype, device=device))
+        return Column("string", codes.to(torch.int32), np.asarray(v.dictionary), v.valid)
+    if v.kind == "lit":
+        if isinstance(v.value, str):
+            return Column("string", torch.zeros(n, dtype=torch.int32, device=device), np.asarray([v.value]))
+        dt = _literal_dtype(v.value)
+        return Column(_type_name(dt), torch.full((n,), v.value, dtype=dt, device=device))
+    arr, valid = v.arr, v.valid
+    if arr.ndim == 0:
+        arr = arr.expand(n).clone()
+    if valid is not None and valid.ndim == 0:
+        valid = valid.expand(n).clone()
+    if valid is not None and not bool(valid.all()):
+        arr = torch.where(valid, arr, torch.zeros((), dtype=arr.dtype, device=device))
+    return Column(_type_name(arr.dtype), arr, None, valid)
+
+
+def _type_name(dtype: torch.dtype) -> str:
+    return next(k for k, v in TORCH_DTYPES.items() if v == dtype and k != "string")
 
 
 def evaluate_predicate(expr: Expr, table: Table) -> torch.Tensor:

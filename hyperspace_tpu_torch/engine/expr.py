@@ -1,16 +1,16 @@
-"""Expression IR for filters and join conditions (counterpart of `hyperspace_tpu/engine/expr.py`).
+"""Expression IR for filters, computed columns and join conditions
+(counterpart of `hyperspace_tpu/engine/expr.py`).
 
 The rules pattern-match the tree (`EqualTo`/`And` CNF for joins, reference
 `JoinIndexRule.scala:188-194`; head-column equality for bucket pruning), so
-the shapes are the JAX package's: comparisons, `and`/`or` as `BinaryOp`,
-`Not`, `IsNull` and `IsIn`. Arithmetic and user functions are not ported.
+the shapes are the JAX package's: comparisons, `and`/`or` and the arithmetic
+`+ - * /` as `BinaryOp` (a literal on either side), `Not`, `IsNull` and
+`IsIn`. User functions are not ported.
 """
 
 from __future__ import annotations
 
 from typing import List, Sequence, Set
-
-from ..exceptions import not_in_slice
 
 
 class Expr:
@@ -56,11 +56,29 @@ class Expr:
     def __invert__(self):
         return Not(self)
 
-    def _arithmetic(self, other):
-        raise not_in_slice("arithmetic in filter and column expressions")
+    def __add__(self, other):
+        return BinaryOp("+", self, _lit(other))
 
-    __add__ = __radd__ = __sub__ = __rsub__ = _arithmetic
-    __mul__ = __rmul__ = __truediv__ = __rtruediv__ = _arithmetic
+    def __radd__(self, other):
+        return BinaryOp("+", _lit(other), self)
+
+    def __sub__(self, other):
+        return BinaryOp("-", self, _lit(other))
+
+    def __rsub__(self, other):
+        return BinaryOp("-", _lit(other), self)
+
+    def __mul__(self, other):
+        return BinaryOp("*", self, _lit(other))
+
+    def __rmul__(self, other):
+        return BinaryOp("*", _lit(other), self)
+
+    def __truediv__(self, other):
+        return BinaryOp("/", self, _lit(other))
+
+    def __rtruediv__(self, other):
+        return BinaryOp("/", _lit(other), self)
 
     def is_null(self) -> "IsNull":
         return IsNull(self, negated=False)
@@ -98,9 +116,10 @@ class Lit(Expr):
 class BinaryOp(Expr):
     COMPARISONS = ("==", "!=", "<", "<=", ">", ">=")
     BOOLEAN = ("and", "or")
+    ARITHMETIC = ("+", "-", "*", "/")
 
     def __init__(self, op: str, left: Expr, right: Expr):
-        if op not in self.COMPARISONS + self.BOOLEAN:
+        if op not in self.COMPARISONS + self.BOOLEAN + self.ARITHMETIC:
             raise ValueError(f"unknown operator {op!r}")
         self.op = op
         self.left = left
@@ -157,6 +176,34 @@ def _lit(v) -> Expr:
 
 def col(name: str) -> Col:
     return Col(name)
+
+
+def lit(value) -> Lit:
+    return Lit(value)
+
+
+def canonical_condition_repr(e: Expr, case_sensitive: bool = False) -> str:
+    """A condition's cache-key spelling (`expr.canonical_condition_repr`
+    :267): under case-insensitive resolution column names are lowercased, so
+    `col("X") == 1` and `col("x") == 1` share one entry; injective per
+    distinct condition."""
+    if case_sensitive:
+        return repr(e)
+
+    def walk(x: Expr) -> str:
+        if isinstance(x, Col):
+            return f"col({x.name.lower()})"
+        if isinstance(x, BinaryOp):
+            return f"({walk(x.left)} {x.op} {walk(x.right)})"
+        if isinstance(x, Not):
+            return f"(not {walk(x.child)})"
+        if isinstance(x, IsNull):
+            return f"({walk(x.child)} is {'not ' if x.negated else ''}null)"
+        if isinstance(x, IsIn):
+            return f"({walk(x.child)} in {x.values!r})"
+        return repr(x)
+
+    return walk(e)
 
 
 def split_conjuncts(e: Expr) -> List[Expr]:

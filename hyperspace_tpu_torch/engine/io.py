@@ -7,32 +7,50 @@ concatenates them in sorted file order over union dictionaries and copies
 each column to the device once. The writer turns a table back into arrow
 arrays (string columns as compacted dictionaries) and calls `pq.write_table`
 with the same arguments as the JAX package's writer, so equal tables give
-equal files. Only parquet is ported; the footer cache, scan caches and
-row-group pushdown are not.
+equal files. Only parquet is ported.
+
+Reads go through the scan caches (`engine/scan_cache.py`): a file's decoded
+columns are cached on the device per (path, size, mtime), and so is a
+multi-file scan's concatenation. A parquet footer (row groups and their
+per-column min/max/null-count zone maps) is parsed once per file and cached
+beside them. A `ScanPredicate` (`engine/pushdown.py`) handed to `read_files`
+prunes whole row groups through those zone maps: only the row groups that
+can hold a matching row decode, cached under keys of their own.
+`HYPERSPACE_SCAN_PUSHDOWN=0` turns pruning off.
 """
 
 from __future__ import annotations
 
 import os
+import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import List, Optional
+from contextlib import contextmanager
+from typing import Dict, List, Optional
 
 import numpy as np
 import pyarrow as pa
 import pyarrow.parquet as pq
 import torch
 
+from ..config import ENV_INDEX_ROW_GROUP_ROWS, INDEX_ROW_GROUP_ROWS_DEFAULT
 from ..exceptions import HyperspaceException, not_in_slice
 from ..storage.filesystem import FileStatus, LocalFileSystem
 from ..util.path_utils import is_data_path
 from . import encoding as _encoding
+from .pushdown import ZoneStats
+from .scan_cache import file_base, global_concat_cache, global_scan_cache
 from .schema import BOOL, FLOAT32, FLOAT64, INT32, INT64, STRING, Field, Schema
 from .table import Column, Table
 
-#: Row-group cap of the per-bucket index files: bounded, key-sorted row
-#: groups (the JAX package's default `HYPERSPACE_INDEX_ROW_GROUP_ROWS`).
-INDEX_ROW_GROUP_ROWS = 65536
-#: Files decoded at once by `read_files` (pyarrow releases the GIL).
+def index_row_group_rows() -> int:
+    """Row-group cap of the per-bucket index files the build writes:
+    bounded, key-sorted row groups give the footer zone maps resolution
+    inside a bucket file (`HYPERSPACE_INDEX_ROW_GROUP_ROWS`, 65536)."""
+    return max(1, int(os.environ.get(ENV_INDEX_ROW_GROUP_ROWS, "") or INDEX_ROW_GROUP_ROWS_DEFAULT))
+
+
+#: Files decoded at once by a scan (pyarrow releases the GIL).
 DECODE_THREADS = 8
 
 
@@ -98,31 +116,151 @@ def infer_schema(files: List[str], file_format: str) -> Schema:
     return arrow_schema_to_schema(pq.read_schema(sorted(files)[0]))
 
 
+class RowGroupMeta:
+    """One row group's row count, byte size, per-column `ZoneStats` and
+    per-column uncompressed chunk bytes."""
+
+    __slots__ = ("num_rows", "total_bytes", "stats", "col_bytes")
+
+    def __init__(self, num_rows: int, total_bytes: int, stats: dict, col_bytes: dict):
+        self.num_rows = num_rows
+        self.total_bytes = total_bytes
+        self.stats = stats
+        self.col_bytes = col_bytes
+
+
 class FileFooterMeta:
-    """What the encoded read needs from one parquet footer: the column names
-    and `dict_cols`, per column whether EVERY row-group chunk has a dictionary
-    page and the values are strings (the JAX package's `FileFooterMeta`)."""
+    """One parquet file's footer facts (`io.FileFooterMeta` :348): row count,
+    arrow schema, the row groups' zone maps, and `dict_cols`, per column
+    whether EVERY row-group chunk has a dictionary page and the values are
+    strings (the encoded read's choice)."""
 
-    __slots__ = ("names", "dict_cols")
+    __slots__ = ("num_rows", "names", "arrow_schema", "row_groups", "dict_cols")
 
-    def __init__(self, names, dict_cols):
+    def __init__(self, num_rows, names, arrow_schema, row_groups, dict_cols=None):
+        self.num_rows = num_rows
         self.names = names
-        self.dict_cols = dict_cols
+        self.arrow_schema = arrow_schema
+        self.row_groups = row_groups
+        self.dict_cols = dict_cols or {}
 
 
-def footer_metadata(pf: "pq.ParquetFile") -> FileFooterMeta:
+#: Footer-cache traffic and row-group pruning outcomes, as plain counters
+#: (`io_stats`); the byte counters tick only at real pruned decodes.
+_COUNTS = {
+    "footer_hits": 0, "footer_misses": 0, "row_groups_scanned": 0, "row_groups_skipped": 0,
+    "bytes_decoded": 0, "bytes_skipped": 0,
+}
+#: Seconds of the scan's parts: host decode, dictionary conversion and copy to
+#: the device summed over the decode threads, and the concatenation.
+SCAN_SECONDS = {"decode": 0.0, "convert": 0.0, "to_device": 0.0, "concat": 0.0}
+_stats_lock = threading.Lock()
+
+
+def _count(name: str, n: int = 1) -> None:
+    with _stats_lock:
+        _COUNTS[name] += n
+
+
+@contextmanager
+def _timed(part: str):
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        with _stats_lock:
+            SCAN_SECONDS[part] += time.perf_counter() - t0
+
+
+def io_stats() -> dict:
+    """The footer and pruning counters and the scan's seconds by part."""
+    with _stats_lock:
+        return {**_COUNTS, "seconds": dict(SCAN_SECONDS)}
+
+
+def reset_io_stats() -> None:
+    with _stats_lock:
+        for k in _COUNTS:
+            _COUNTS[k] = 0
+        for k in SCAN_SECONDS:
+            SCAN_SECONDS[k] = 0.0
+
+
+def _stat_value(v):
+    """A parquet statistics value in the engine's comparison space (UTF-8
+    bytes decode to str; undecodable bytes are unusable)."""
+    if isinstance(v, bytes):
+        try:
+            return v.decode("utf-8")
+        except UnicodeDecodeError:
+            return None
+    return v
+
+
+def _footer_meta_from_open(pf: "pq.ParquetFile") -> FileFooterMeta:
     md = pf.metadata
     schema = pf.schema_arrow
     names = list(schema.names)
-    dict_cols = {}
-    if md.num_columns == len(names) and md.num_row_groups > 0:  # flat schema: chunk j is column j
-        for j, f in enumerate(schema):
+    # Zone maps only for flat schemas (column chunk j is field j).
+    flat = md.num_columns == len(names)
+    dict_cols: Dict[str, bool] = {}
+    if flat:
+        for f in schema:
             vt = f.type.value_type if pa.types.is_dictionary(f.type) else f.type
-            if pa.types.is_string(vt) or pa.types.is_large_string(vt):
-                dict_cols[f.name] = all(
-                    md.row_group(i).column(j).has_dictionary_page for i in range(md.num_row_groups)
-                )
-    return FileFooterMeta(names, dict_cols)
+            dict_cols[f.name] = bool(pa.types.is_string(vt) or pa.types.is_large_string(vt)) and md.num_row_groups > 0
+    row_groups: List[RowGroupMeta] = []
+    for i in range(md.num_row_groups):
+        rg = md.row_group(i)
+        stats: Dict[str, ZoneStats] = {}
+        col_bytes: Dict[str, int] = {}
+        if flat:
+            for j in range(rg.num_columns):
+                chunk = rg.column(j)
+                col_bytes[names[j]] = int(chunk.total_uncompressed_size)
+                if not chunk.has_dictionary_page:
+                    dict_cols[names[j]] = False
+                st = chunk.statistics
+                if st is None:
+                    stats[names[j]] = ZoneStats()
+                    continue
+                mn = mx = None
+                has = bool(st.has_min_max)
+                if has:
+                    mn, mx = _stat_value(st.min), _stat_value(st.max)
+                    has = mn is not None and mx is not None
+                stats[names[j]] = ZoneStats(mn, mx, has, st.null_count if st.has_null_count else None)
+        row_groups.append(RowGroupMeta(rg.num_rows, rg.total_byte_size, stats, col_bytes))
+    return FileFooterMeta(md.num_rows, names, schema, row_groups, dict_cols)
+
+
+def _meta_nbytes(meta: FileFooterMeta) -> int:
+    """The footer's charge to the scan-cache budget (an estimate)."""
+    return 512 + (64 + 96 * max(1, len(meta.names))) * max(1, len(meta.row_groups))
+
+
+def footer_metadata(path: str, file_format: str = "parquet", _pf=None) -> Optional[FileFooterMeta]:
+    """One parquet file's footer through the scan cache (freshness = the
+    cache's (path, size, mtime) base). None for another format or an
+    unreadable footer: the scan then prunes nothing in that file. `_pf` lets
+    a cold read parse the footer from its own open."""
+    if file_format != "parquet":
+        return None
+    cache = global_scan_cache()
+    meta = cache.get_meta(path)
+    if meta is not None:
+        _count("footer_hits")
+        return meta
+    _count("footer_misses")
+    try:
+        if _pf is not None:
+            meta = _footer_meta_from_open(_pf)
+        else:
+            with pq.ParquetFile(path) as pf:
+                meta = _footer_meta_from_open(pf)
+    except Exception:
+        return None  # a corrupt footer costs the pruning, never the scan
+    cache.put_meta(path, meta, _meta_nbytes(meta))
+    return meta
 
 
 def _arrow_to_table(at: pa.Table) -> Table:
@@ -166,15 +304,205 @@ def _arrow_to_table(at: pa.Table) -> Table:
     return Table(cols)
 
 
-def _read_one(path: str, columns: Optional[List[str]]) -> pa.Table:
-    """One parquet file as arrow; string columns whose chunks are all
-    dictionary-encoded are read as dictionaries (`io._read_one` :242)."""
-    with pq.ParquetFile(path) as pf:
-        rd = _encoding.dict_read_columns(footer_metadata(pf), columns)
-        if not rd:
-            return pf.read(columns=columns)
-    with pq.ParquetFile(path, read_dictionary=rd) as pf:
-        return pf.read(columns=columns)
+def _read_one(path: str, columns: Optional[List[str]]) -> Table:
+    """One parquet file as a host table; string columns whose chunks are all
+    dictionary-encoded read as dictionaries (`io._read_one` :242). A warm
+    footer decides with no extra open; a cold one is parsed from this read's
+    own open."""
+    meta = global_scan_cache().get_meta(path)
+    if meta is not None:
+        _count("footer_hits")
+    with _timed("decode"):
+        with pq.ParquetFile(path) as pf:
+            if meta is None:
+                meta = footer_metadata(path, _pf=pf)
+            rd = _encoding.dict_read_columns(meta, columns)
+            if not rd:
+                at = pf.read(columns=columns)
+        if rd:
+            with pq.ParquetFile(path, read_dictionary=rd) as pf:
+                at = pf.read(columns=columns)
+    with _timed("convert"):
+        return _arrow_to_table(at)
+
+
+def _read_row_groups_one(path: str, sel, columns: Optional[List[str]]) -> Table:
+    """Decode ONLY the row groups `sel` (ascending), in the file's own row
+    order (`io._read_row_groups_one` :654)."""
+    rd = _encoding.dict_read_columns(footer_metadata(path), columns)
+    with _timed("decode"):
+        with pq.ParquetFile(path, read_dictionary=rd or None) as pf:
+            at = pf.read_row_groups(list(sel), columns=columns)
+    with _timed("convert"):
+        return _arrow_to_table(at)
+
+
+def _to_device(t: Table, device) -> Table:
+    with _timed("to_device"):
+        return t.to(device)
+
+
+def selection_columns(columns: Optional[List[str]], meta: FileFooterMeta) -> List[str]:
+    """The explicit column list of a selection-keyed cache entry: the
+    projection, or the footer's whole-file order for columns=None."""
+    return list(columns) if columns is not None else list(meta.names)
+
+
+def _decode_into_cache(path: str, columns: Optional[List[str]], device, sel=None, meta=None) -> Table:
+    """The miss half of `file_table` / `pruned_file_table`: decode only the
+    columns the cache lacks when it can tell, else the whole projection, copy
+    them to the device once and cache them. The caller counted the miss."""
+    cache = global_scan_cache()
+    missing = cache.missing_columns(path, columns, sel, device)
+
+    def read(cols):
+        return _read_one(path, cols) if sel is None else _read_row_groups_one(path, sel, cols)
+
+    if missing and missing != list(columns or []):
+        cache.put(path, missing, _to_device(read(missing), device), sel, device)
+        t = cache.get(path, columns, record=False, sel=sel, device=device)
+        if t is not None:
+            if sel is not None:
+                _record_decoded_bytes(meta, sel, missing)
+            return t
+    t = _to_device(read(columns), device)
+    cache.put(path, columns, t, sel, device)
+    if sel is not None:
+        _record_decoded_bytes(meta, sel, t.column_names)
+    return t
+
+
+def file_table(path: str, columns: Optional[List[str]], device) -> Table:
+    """One file's table on `device` through the per-file scan cache: a warm
+    file decodes only the columns no earlier projection read."""
+    t = global_scan_cache().get(path, columns, device=device)
+    return t if t is not None else _decode_into_cache(path, columns, device)
+
+
+def _empty_file_table(meta: FileFooterMeta, columns: Optional[List[str]], device) -> Table:
+    """The 0-row table of an all-pruned file, with the file's exact decoded
+    types (from its footer schema), so concatenation promotes as unpruned."""
+    at = meta.arrow_schema.empty_table()
+    if columns is not None:
+        at = at.select(columns)
+    return _arrow_to_table(at).to(device)
+
+
+def pruned_file_table(path: str, columns: Optional[List[str]], meta: FileFooterMeta, sel, device) -> Table:
+    """One file's table under a row-group selection (`io.pruned_file_table`
+    :685). `sel` None is the whole-file read with its own cache keys; a tuple
+    decodes those row groups under selection keys."""
+    if sel is None:
+        return file_table(path, columns, device)
+    if len(sel) == 0:
+        return _empty_file_table(meta, columns, device)
+    cols = selection_columns(columns, meta)
+    sel = tuple(sel)
+    t = global_scan_cache().get(path, cols, sel=sel, device=device)
+    return t if t is not None else _decode_into_cache(path, cols, device, sel, meta)
+
+
+def _record_decoded_bytes(meta: Optional[FileFooterMeta], sel: tuple, decoded_cols: List[str]) -> None:
+    """Bytes of the decoded columns' chunks in the kept and in the pruned row
+    groups, counted only where a pruned decode really ran."""
+    if meta is None:
+        return
+
+    def cols_bytes(rg) -> int:
+        return sum(rg.col_bytes.get(c, 0) for c in decoded_cols) if rg.col_bytes else rg.total_bytes
+
+    keep = set(sel)
+    _count("bytes_decoded", sum(cols_bytes(rg) for i, rg in enumerate(meta.row_groups) if i in keep))
+    _count("bytes_skipped", sum(cols_bytes(rg) for i, rg in enumerate(meta.row_groups) if i not in keep))
+
+
+def pushdown_selections(ordered: List[str], pushdown):
+    """Per-file (meta, sel) of one scan, aligned with `ordered` (sel None =
+    every row group), or None when pushdown does not apply or prunes nothing
+    anywhere: the caller then reads exactly as without pushdown, with the
+    same cache keys (`io._pushdown_selections` :485). Counts nothing."""
+    if pushdown is None:
+        return None
+    out = []
+    for p in ordered:
+        meta = footer_metadata(p)
+        out.append((meta, pushdown.select_row_groups(meta) if meta is not None else None))
+    return out if any(sel is not None for _, sel in out) else None
+
+
+def record_pruning(selections, pruning_stats: Optional[dict] = None) -> None:
+    """Count one assembling scan's kept and skipped row groups; a scan served
+    whole by a concat cache never counts (`io._record_pruning` :505)."""
+    scanned = skipped = 0
+    for meta, sel in selections:
+        if meta is None:
+            continue
+        n = len(meta.row_groups)
+        scanned += n if sel is None else len(sel)
+        skipped += 0 if sel is None else n - len(sel)
+    _count("row_groups_scanned", scanned)
+    _count("row_groups_skipped", skipped)
+    if pruning_stats is not None:
+        pruning_stats["row_groups_scanned"] = pruning_stats.get("row_groups_scanned", 0) + scanned
+        pruning_stats["row_groups_skipped"] = pruning_stats.get("row_groups_skipped", 0) + skipped
+
+
+def file_stats(files: List[str]) -> Optional[tuple]:
+    """Every file's (path, size, mtime), or None if one cannot be stat'ed."""
+    bases = tuple(file_base(p) for p in files)
+    return None if any(b is None for b in bases) else bases
+
+
+def concat_cache_probe(ordered: List[str], columns: Optional[List[str]], device, selection_marker=None):
+    """(key, cached table or None) of a multi-file scan in the plain concat
+    cache. The key holds every file's (path, size, mtime), the columns and
+    the device; a pushdown's selections key a pruned concat apart from the
+    whole one (`io.concat_cache_probe` :968)."""
+    if len(ordered) <= 1:
+        return None, None
+    stats = file_stats(ordered)
+    if stats is None:
+        return None, None
+    key = ("concat", stats, ("<all>",) if columns is None else tuple(columns), str(device))
+    if selection_marker is not None:
+        key += (("rgsel", selection_marker),)
+    hit = global_concat_cache().get(key)
+    return key, None if hit is None else hit[0]
+
+
+def decode_files(jobs: List[tuple], device) -> List[Table]:
+    """`jobs` of (path, columns, meta, sel) as device tables through the scan
+    cache, cold files decoded concurrently (pyarrow releases the GIL)."""
+    cache = global_scan_cache()
+    tables: List[Optional[Table]] = []
+    for path, cols, meta, sel in jobs:
+        if sel is None:
+            tables.append(cache.get(path, cols, device=device))
+        elif len(sel) == 0:
+            tables.append(_empty_file_table(meta, cols, device))
+        else:
+            tables.append(cache.get(path, selection_columns(cols, meta), sel=tuple(sel), device=device))
+    missing = [i for i, t in enumerate(tables) if t is None]
+
+    def decode(i: int) -> Table:
+        path, cols, meta, sel = jobs[i]
+        if sel is None:
+            return _decode_into_cache(path, cols, device)
+        return _decode_into_cache(path, selection_columns(cols, meta), device, tuple(sel), meta)
+
+    if len(missing) > 1:
+        with ThreadPoolExecutor(max_workers=min(DECODE_THREADS, len(missing))) as pool:
+            decoded = list(pool.map(decode, missing))
+    else:
+        decoded = [decode(i) for i in missing]
+    for i, t in zip(missing, decoded):
+        tables[i] = t
+    return tables
+
+
+def concat_tables(tables: List[Table]) -> Table:
+    with _timed("concat"):
+        return tables[0] if len(tables) == 1 else Table.concat(tables)
 
 
 def read_files(
@@ -182,34 +510,44 @@ def read_files(
     file_format: str,
     columns: Optional[List[str]],
     device,
-    row_counts: Optional[List[int]] = None,
+    pushdown=None,
+    pruning_stats: Optional[dict] = None,
 ) -> Table:
-    """Read + concat data files (sorted path order) onto `device`. Files decode
-    concurrently (pyarrow releases the GIL). Files of one arrow schema
-    concatenate as arrow and convert once (a dictionary column's chunks unify
-    into the union dictionary of the values present, which is what
-    `Table.concat` of the per-file tables gives); files whose schemas differ
-    convert one by one and concatenate as tables. Each column crosses to the
-    device once. `row_counts`, when given, receives each file's row count in
-    order."""
+    """Read and concatenate data files, in sorted path order, onto `device`
+    (`io.read_files` :1014). Each file's table comes through the per-file scan
+    cache; a multi-file scan's concatenation is cached too. `pushdown` (a
+    `ScanPredicate`) decodes only the row groups whose footer zone maps can
+    satisfy it; when it prunes nothing the read is the pushdown-free read,
+    cache keys included. An all-pruned file gives its 0-row table, so types
+    and union dictionaries are those of the whole read."""
     _check_format(file_format)
     if not files:
         raise HyperspaceException("No data files to read.")
+    device = torch.device(device)
     ordered = sorted(files)
-    with ThreadPoolExecutor(max_workers=min(DECODE_THREADS, len(ordered))) as pool:
-        parts = list(pool.map(lambda f: _read_one(f, columns), ordered))
-    if row_counts is not None:
-        row_counts.extend(p.num_rows for p in parts)
-    if all(p.schema.equals(parts[0].schema) for p in parts[1:]):
-        table = _arrow_to_table(pa.concat_tables(parts))
+    selections = pushdown_selections(ordered, pushdown)
+    marker = None if selections is None else tuple(sel for _, sel in selections)
+    key, cached = concat_cache_probe(ordered, columns, device, marker)
+    if cached is not None:
+        return cached
+    if selections is None:
+        selections = [(None, None)] * len(ordered)
     else:
-        table = Table.concat([_arrow_to_table(p) for p in parts])
-    return table.to(device)
+        record_pruning(selections, pruning_stats)
+    out = concat_tables(decode_files([(p, columns, m, s) for p, (m, s) in zip(ordered, selections)], device))
+    if key is not None:
+        global_concat_cache().put(key, out, None)
+    return out
 
 
 def footer_row_count(files: List[FileStatus]) -> int:
-    """Total row count from parquet footers, with no column decode."""
-    return sum(pq.ParquetFile(f.path).metadata.num_rows for f in files)
+    """Total row count from parquet footers (through the footer cache), with
+    no column decode."""
+    total = 0
+    for f in files:
+        meta = footer_metadata(f.path)
+        total += meta.num_rows if meta is not None else pq.ParquetFile(f.path).metadata.num_rows
+    return total
 
 
 def table_to_arrow(table: Table, encode_dictionaries: bool = False) -> pa.Table:

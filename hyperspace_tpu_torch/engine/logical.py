@@ -1,8 +1,8 @@
 """Logical plan IR (counterpart of `hyperspace_tpu/engine/logical.py`).
 
-The node set of the slice: relation scans, filters, projections and inner
-equi-joins. Class names are the JAX package's: the plan signature folds over
-them.
+The node set of the slice: relation scans, filters, projections, inner
+equi-joins, computed columns and grouped aggregates. Class names are the JAX
+package's: the plan signature folds over them.
 """
 
 from __future__ import annotations
@@ -10,10 +10,12 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
-from ..exceptions import not_in_slice
+import numpy as np
+
+from ..exceptions import HyperspaceException, not_in_slice
 from ..storage.filesystem import FileStatus
-from .expr import Expr
-from .schema import Schema
+from .expr import BinaryOp, Col, Expr, IsIn, IsNull, Lit, Not
+from .schema import Field, Schema
 
 
 @dataclass(frozen=True)
@@ -163,6 +165,116 @@ class JoinNode(LogicalPlan):
 
     def simple_string(self):
         return f"Join {self.how} on {self.condition!r}"
+
+
+def infer_expr_dtype(e: Expr, schema: Schema) -> str:
+    """Static result type of an expression against a schema
+    (`logical.infer_expr_dtype` :418): comparisons, boolean operators and
+    null tests are bool; `/` is float64 (float32 when both sides are);
+    `+ - *` promote as numpy does; columns and literals keep their own."""
+    if isinstance(e, Col):
+        return schema.field(e.name).dtype
+    if isinstance(e, Lit):
+        v = e.value
+        if isinstance(v, bool):
+            return "bool"
+        if isinstance(v, int):
+            return "int64"
+        if isinstance(v, float):
+            return "float64"
+        if isinstance(v, str):
+            return "string"
+        raise HyperspaceException(f"Cannot type literal: {v!r}")
+    if isinstance(e, (Not, IsNull, IsIn)):
+        return "bool"
+    if isinstance(e, BinaryOp):
+        if e.op in BinaryOp.COMPARISONS or e.op in BinaryOp.BOOLEAN:
+            return "bool"
+        lt = infer_expr_dtype(e.left, schema)
+        rt = infer_expr_dtype(e.right, schema)
+        if "string" in (lt, rt) or "bool" in (lt, rt):
+            raise HyperspaceException(f"Arithmetic on {lt}/{rt}: {e!r}")
+        if e.op == "/":
+            return "float32" if lt == rt == "float32" else "float64"
+        return str(np.result_type(np.dtype(lt), np.dtype(rt)))
+    raise HyperspaceException(f"Cannot type expression: {e!r}")
+
+
+class WithColumnNode(LogicalPlan):
+    """A computed column (`logical.WithColumnNode` :460): `name` = `expr`
+    per row, replacing a same-named column in place, else appended."""
+
+    def __init__(self, name: str, expr: Expr, child: LogicalPlan):
+        self.name = name
+        self.expr = expr
+        self.child = child
+        dtype = infer_expr_dtype(expr, child.output_schema)
+        fields = []
+        replaced = False
+        for f in child.output_schema.fields:
+            if f.name.lower() == name.lower():
+                fields.append(Field(f.name, dtype))
+                replaced = True
+            else:
+                fields.append(f)
+        if not replaced:
+            fields.append(Field(name, dtype))
+        self._schema = Schema(fields)
+
+    def children(self):
+        return (self.child,)
+
+    @property
+    def output_schema(self) -> Schema:
+        return self._schema
+
+    def with_children(self, children):
+        return WithColumnNode(self.name, self.expr, children[0])
+
+    def references(self) -> List[str]:
+        return sorted(self.expr.references())
+
+    def simple_string(self):
+        return f"WithColumn {self.name} = {self.expr!r}"
+
+
+class AggregateNode(LogicalPlan):
+    """GROUP BY and aggregates (`logical.AggregateNode` :500). `aggs` =
+    [(out_name, fn, column | None)]; column None is count(*)."""
+
+    def __init__(self, group_keys: Sequence[str], aggs: Sequence[tuple], child: LogicalPlan):
+        from ..ops.aggregate import result_dtype  # validates names and types
+
+        self.group_keys = list(group_keys)
+        self.aggs = [tuple(a) for a in aggs]
+        self.child = child
+        schema = child.output_schema
+        fields = [schema.field(k) for k in self.group_keys]
+        seen = {f.name.lower() for f in fields}
+        for out_name, fn, col in self.aggs:
+            if out_name.lower() in seen:
+                raise HyperspaceException(f"Duplicate aggregate output name: {out_name!r}")
+            seen.add(out_name.lower())
+            in_dtype = schema.field(col).dtype if col is not None else None
+            fields.append(Field(out_name, result_dtype(fn, in_dtype)))
+        self._schema = Schema(fields)
+
+    def children(self):
+        return (self.child,)
+
+    @property
+    def output_schema(self) -> Schema:
+        return self._schema
+
+    def with_children(self, children):
+        return AggregateNode(self.group_keys, self.aggs, children[0])
+
+    def references(self) -> List[str]:
+        return self.group_keys + [c for _, _, c in self.aggs if c is not None]
+
+    def simple_string(self):
+        aggs = ", ".join(f"{o}={fn}({c if c is not None else '*'})" for o, fn, c in self.aggs)
+        return f"Aggregate [{', '.join(self.group_keys)}] [{aggs}]"
 
 
 def find_single_relation(plan: LogicalPlan) -> Optional[ScanNode]:

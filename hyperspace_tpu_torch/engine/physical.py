@@ -1,34 +1,54 @@
 """Physical plan + executor (counterpart of `hyperspace_tpu/engine/physical.py`).
 
 The operators of the slice: file scans, bucketed index scans, filters,
-projections and the co-bucketed inner sort-merge join that `JoinIndexRule`
-sets up. A filter evaluates its predicate on the device (`engine/evaluate.py`)
-and keeps the surviving rows in order. Both join
-sides arrive hash-partitioned into the same buckets on the join keys, so the
-merge runs per bucket pair with no exchange (reference
+projections, computed columns, grouped aggregates and the co-bucketed inner
+sort-merge join that `JoinIndexRule` sets up. A filter evaluates its
+predicate on the device (`engine/evaluate.py`) and keeps the surviving rows
+in order; a filter directly over a plain scan hands its condition to the scan,
+which skips the parquet row groups that cannot match (`engine/pushdown.py`).
+Both join sides arrive hash-partitioned into the same buckets on the join
+keys, so the merge runs per bucket pair with no exchange (reference
 `JoinIndexRule.scala:137-162`): `ops.bucket_join` probes all bucket pairs at
 once, candidate pairs are verified by exact key equality (a 64-bit hash
-collision can never join unequal rows), and the payload columns are gathered —
-all as torch ops on the tables' device. The JAX package's memos and caches
-(`physical.py:1817-2101`) are not ported: every query recomputes.
+collision can never join unequal rows), and the payload columns are gathered,
+all as torch ops on the tables' device.
+
+Scans return their tables through the scan caches (`engine/scan_cache.py`),
+so a repeated query gets the same device tables, and the join's key64, layout,
+probe ranges and verified pairs are kept in the join memos below.
 """
 
 from __future__ import annotations
 
 import os
 import re
+import threading
+import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..config import DEVICE_CACHE_BUDGET_DEFAULT, ENV_DEVICE_CACHE_BUDGET, env_bytes
 from ..exceptions import HyperspaceException, not_in_slice
+from ..ops.aggregate import hash_aggregate
 from ..ops.hashing import key64
 from . import io as engine_io
-from .evaluate import evaluate_predicate
-from .expr import Expr, extract_equi_join_keys
-from .logical import FilterNode, JoinNode, LogicalPlan, ProjectNode, ScanNode, SourceRelation
-from .schema import Schema
+from .evaluate import evaluate_column, evaluate_predicate
+from .expr import Expr, canonical_condition_repr, extract_equi_join_keys
+from .logical import (
+    AggregateNode,
+    FilterNode,
+    JoinNode,
+    LogicalPlan,
+    ProjectNode,
+    ScanNode,
+    SourceRelation,
+    WithColumnNode,
+)
+from .pushdown import ScanPredicate, pushdown_enabled
+from .scan_cache import global_bucketed_cache, global_filtered_cache
+from .schema import TORCH_DTYPES, Schema
 from .table import Column, Table
 
 _BUCKET_FILE_RE = re.compile(r"part-(\d+)")
@@ -71,16 +91,43 @@ class PhysicalNode:
         return out
 
 
+def _resolution_case_sensitive(ctx, schema_names) -> bool:
+    """Case sensitivity of conjunct resolution and cache-key spelling: the
+    session's conf, forced on when the schema holds two spellings of one
+    name (then `X` and `x` read different columns)."""
+    cs = ctx.session.hs_conf.case_sensitive if ctx is not None and ctx.session is not None else False
+    return cs or len({n.lower() for n in schema_names}) != len(schema_names)
+
+
 class ScanExec(PhysicalNode):
     name = "Scan"
 
     def __init__(self, relation: SourceRelation, columns: Optional[List[str]] = None):
         self.relation = relation
         self.columns = columns
+        #: The condition of the FilterExec directly above, set by the planner.
+        #: Advisory: the scan may leave out row groups whose zone maps show
+        #: that no row passes it (the filter drops those rows anyway).
+        self.pushdown: Optional[Expr] = None
+        #: Row groups scanned and skipped by the last execute (pushdown only).
+        self.pruning: Dict[str, int] = {}
+
+    def _pushdown_pred(self, ctx):
+        """The compiled `ScanPredicate`, or None when pushdown cannot apply
+        (disabled, a bucketed relation, or no prunable conjunct)."""
+        if self.pushdown is None or self.relation.bucket_spec is not None or not pushdown_enabled():
+            return None
+        return ScanPredicate.from_condition(self.pushdown, _resolution_case_sensitive(ctx, self.relation.schema.names))
 
     def execute(self, ctx) -> Table:
         files = [f.path for f in self.relation.files]
-        return engine_io.read_files(files, self.relation.file_format, self.columns, ctx.device)
+        if not files:
+            return _empty_table(self.relation, self.columns, ctx.device)
+        self.pruning = {}
+        return engine_io.read_files(
+            files, self.relation.file_format, self.columns, ctx.device,
+            pushdown=self._pushdown_pred(ctx), pruning_stats=self.pruning,
+        )
 
     def execute_count(self, ctx) -> int:
         return engine_io.footer_row_count(self.relation.files)
@@ -103,32 +150,88 @@ class BucketedIndexScanExec(PhysicalNode):
         assert relation.bucket_spec is not None
         self.relation = relation
         self.columns = columns
+        self.pruning: Dict[str, int] = {}
 
-    def execute_concat(self, ctx) -> Tuple[Table, np.ndarray]:
-        """The scan as one contiguous table + bucket start offsets (bucket b =
-        rows[starts[b]:starts[b+1]])."""
-        spec = self.relation.bucket_spec
-        per_bucket: List[List[str]] = [[] for _ in range(spec.num_buckets)]
+    def _bucket_files(self) -> List[Tuple[int, str]]:
+        """(bucket, path) of each file, in bucket order."""
+        out = []
         for f in self.relation.files:
             m = _BUCKET_FILE_RE.search(os.path.basename(f.path))
             if m is None:
                 raise HyperspaceException(f"Not a bucketed index file: {f.path}")
-            per_bucket[int(m.group(1))].append(f.path)
-        ordered = [p for paths in per_bucket for p in paths]
-        starts = np.zeros(spec.num_buckets + 1, dtype=np.int64)
-        if not ordered:
-            names = self.columns or self.relation.schema.names
-            empty = {n: _empty_column(self.relation.schema.field(n).dtype, ctx.device) for n in names}
-            return Table(empty), starts
-        # read_files concatenates in sorted path order: within one version
-        # directory that is bucket order (zero-padded `part-<b>` names).
-        if sorted(ordered) != ordered:
+            out.append((int(m.group(1)), f.path))
+        out.sort(key=lambda bp: bp[0])
+        if len({b for b, _ in out}) != len(out):
             raise not_in_slice("index data spread over several version directories")
-        rows: List[int] = []
-        table = engine_io.read_files(ordered, "parquet", self.columns, ctx.device, row_counts=rows)
-        sizes = np.zeros(spec.num_buckets, dtype=np.int64)
-        np.add.at(sizes, [b for b, paths in enumerate(per_bucket) for _ in paths], rows)
-        np.cumsum(sizes, out=starts[1:])
+        return out
+
+    def _assemble(self, ctx, selections=None) -> Tuple[Table, np.ndarray]:
+        """One contiguous table in bucket order and the bucket start offsets
+        (bucket b = rows[starts[b]:starts[b+1]]). Cold files decode
+        concurrently through the scan cache; `selections` (path → (meta, sel))
+        reads only the kept row groups of each file."""
+        bucket_files = self._bucket_files()
+        sel_of = selections or {}
+        jobs = [(p, self.columns) + sel_of.get(p, (None, None)) for _, p in bucket_files]
+        tables = engine_io.decode_files(jobs, ctx.device)
+        starts = np.zeros(self.relation.bucket_spec.num_buckets + 1, dtype=np.int64)
+        for (b, _), t in zip(bucket_files, tables):
+            starts[b + 1] = t.num_rows
+        np.cumsum(starts, out=starts)
+        kept = [t for t in tables if t.num_rows > 0]
+        return (engine_io.concat_tables(kept) if kept else self.empty_table(ctx)), starts
+
+    def execute_pruned_concat(self, ctx, condition: Expr) -> Optional[Tuple[Table, np.ndarray]]:
+        """The scan under `condition` with each `part-<bucket>` file decoded
+        only in the row groups whose zone maps can satisfy it (the build
+        writes bounded, key-sorted row groups for this): a row subset of
+        `execute_concat`'s table in the same order, so the condition applied
+        afterwards gives identical rows and bucket bounds. None when pushdown
+        cannot apply or prunes nothing (the caller takes the plain path)."""
+        if not pushdown_enabled():
+            return None
+        pred = ScanPredicate.from_condition(condition, _resolution_case_sensitive(ctx, self.relation.schema.names))
+        if pred is None:
+            return None
+        paths = [f.path for f in self.relation.files]
+        selections = engine_io.pushdown_selections(paths, pred)
+        if selections is None:
+            return None
+        self.pruning = {}
+        engine_io.record_pruning(selections, self.pruning)
+        return self._assemble(ctx, dict(zip(paths, selections)))
+
+    def empty_table(self, ctx) -> Table:
+        return _empty_table(self.relation, self.columns, ctx.device)
+
+    def rows_token(self, ctx=None) -> Optional[tuple]:
+        """Identity of this scan's rows and their order, whatever its columns:
+        the index log entry id and every file's (path, size, mtime) as it is
+        on disk now. Join pairs computed against one projection of the scan
+        serve every other; a rewritten file changes the token. None when a
+        file cannot be stat'ed."""
+        stats = engine_io.file_stats([f.path for f in self.relation.files])
+        if stats is None:
+            return None
+        return (("log", self.relation.index_name, self.relation.log_entry_id), stats)
+
+    def _concat_cache_key(self, ctx) -> Optional[tuple]:
+        token = self.rows_token(ctx)
+        if token is None:
+            return None
+        return token + (("<all>",) if self.columns is None else tuple(self.columns), str(ctx.device))
+
+    def execute_concat(self, ctx) -> Tuple[Table, np.ndarray]:
+        """The scan as one contiguous table + bucket start offsets, cached
+        across queries (`BucketedConcatCache`)."""
+        key = self._concat_cache_key(ctx)
+        if key is not None:
+            hit = global_bucketed_cache().get(key)
+            if hit is not None:
+                return hit
+        table, starts = self._assemble(ctx)
+        if key is not None:
+            global_bucketed_cache().put(key, table, starts)
         return table, starts
 
     def execute(self, ctx) -> Table:
@@ -149,6 +252,11 @@ def _empty_column(dtype: str, device) -> Column:
     if dtype == "string":
         return Column(dtype, torch.empty(0, dtype=torch.int32, device=device), np.empty(0, dtype="<U1"))
     return Column.from_values(np.empty(0, np.dtype(dtype)), device)
+
+
+def _empty_table(relation: SourceRelation, columns, device) -> Table:
+    names = columns or relation.schema.names
+    return Table({n: _empty_column(relation.schema.field(n).dtype, device) for n in names})
 
 
 class FilterExec(PhysicalNode):
@@ -178,14 +286,38 @@ class FilterExec(PhysicalNode):
     def execute_concat(self, ctx) -> Tuple[Table, np.ndarray]:
         """A filtered bucketed scan with its bucket structure kept: a filter
         moves no row across buckets and keeps the order within one, so the
-        co-bucketed join stays sound over it."""
-        table, starts = self.child.execute_concat(ctx)
+        co-bucketed join stays sound over it. Cached beside the bucketed
+        concats, keyed by the scan's key and the condition. A cold run reads
+        only the row groups the condition can match, unless the whole scan is
+        already cached (filtering it in memory beats decoding again)."""
+        child = self.child
+        base_key = child._concat_cache_key(ctx)
+        key = None if base_key is None else ("filtered", base_key, self._condition_key(ctx))
+        if key is not None:
+            hit = global_filtered_cache().get(key)
+            if hit is not None:
+                return hit
+        pruned = None
+        if base_key is None or not global_bucketed_cache().contains(base_key):
+            pruned = child.execute_pruned_concat(ctx, self.condition)
+        table, starts = pruned if pruned is not None else child.execute_concat(ctx)
         if table.num_rows:
             keep = self._keep(table)
             bounds = torch.as_tensor(np.asarray(starts, np.int64), device=keep.device)
             starts = torch.searchsorted(keep, bounds).cpu().numpy().astype(np.int64)
             table = table.take(keep)
+        if key is not None:
+            global_filtered_cache().put(key, table, starts)
         return table, starts
+
+    def _condition_key(self, ctx) -> str:
+        cs = _resolution_case_sensitive(ctx, self.child.relation.schema.names)
+        return canonical_condition_repr(self.condition, cs)
+
+    def rows_token(self, ctx=None) -> Optional[tuple]:
+        """The filtered scan's row identity: the scan's and the condition."""
+        token = self.child.rows_token(ctx)
+        return None if token is None else ("filtered-rows", token, self._condition_key(ctx))
 
     def simple_string(self):
         return f"Filter {self.condition!r}"
@@ -242,18 +374,234 @@ def _verify_pairs(
     return li, ri
 
 
-def _gather_verified(
-    left: Table, right: Table, left_keys: List[str], right_keys: List[str],
-    li: torch.Tensor, ri: torch.Tensor,
-) -> Table:
-    """Verify candidate pairs, then gather the inner-join output (physical.py:1661)."""
-    li, ri = _verify_pairs(left, right, left_keys, right_keys, li, ri)
-    return _assemble_join(left, right, li, ri)
+# ---------------------------------------------------------------------------
+# The join memos (physical.py:1678-2101): device work that is a pure function
+# of the joined rows, kept across queries under one byte budget.
+# ---------------------------------------------------------------------------
+#
+# - "k64": a table's join key64, per table identity (`_cached_by_table`).
+# - "cpad": a join pair's size-classed layout (`_cached_two_table`).
+# - "pairs": a pair's probe ranges and its verified (li, ri) pairs.
+#
+# Two-table entries are keyed by the two scans' `rows_token`s when both have
+# one (projection-independent: pairs computed against one column pruning
+# serve every other), else by table identity. Every entry holds weak
+# references to its tables and dies with them: the tables are owned by the
+# scan caches. One LRU order over all entries (`_recency`) evicts under
+# `HYPERSPACE_DEVICE_CACHE_BUDGET` (2 GiB). The JAX package's single-flight
+# around each computation belongs to serving and is not ported.
+
+_key64_cache: Dict[int, tuple] = {}
+_classed_cache: Dict[tuple, tuple] = {}
+_pairs_cache: Dict[tuple, tuple] = {}
+_CACHES = {"k64": _key64_cache, "cpad": _classed_cache, "pairs": _pairs_cache}
+_TWO_TABLE_TAGS = ("cpad", "pairs")
+_MEMO_COUNTS = {t: {"hits": 0, "misses": 0} for t in _CACHES}
+_cache_lock = threading.RLock()  # weakref callbacks may fire inside a guarded section
+_DEVICE_CACHE_BUDGET_BYTES = env_bytes(ENV_DEVICE_CACHE_BUDGET, DEVICE_CACHE_BUDGET_DEFAULT)
+_device_cache_bytes = 0
+_device_cache_evictions = 0
+_MISS = object()
+#: (tag, key) of every entry, least recently used first.
+_recency: Dict[tuple, None] = {}
+
+
+def device_cache_stats() -> Dict[str, int]:
+    """Bytes the memos hold, lifetime evictions and the budget."""
+    with _cache_lock:
+        return {"bytes": _device_cache_bytes, "evictions": _device_cache_evictions, "budget": _DEVICE_CACHE_BUDGET_BYTES}
+
+
+def memo_stats() -> Dict[str, Dict[str, int]]:
+    """Hits and misses of each memo, and `device_cache_stats()`."""
+    with _cache_lock:
+        out = {t: dict(c) for t, c in _MEMO_COUNTS.items()}
+    out["device_cache"] = device_cache_stats()
+    return out
+
+
+def set_device_cache_budget(n_bytes: int) -> None:
+    global _DEVICE_CACHE_BUDGET_BYTES
+    with _cache_lock:
+        _DEVICE_CACHE_BUDGET_BYTES = int(n_bytes)
+
+
+def clear_device_memos() -> None:
+    """Drop every memo entry (a cold-executor measurement keeps the scan
+    caches and clears these)."""
+    global _device_cache_bytes
+    with _cache_lock:
+        for c in _CACHES.values():
+            c.clear()
+        _recency.clear()
+        _device_cache_bytes = 0
+
+
+def _val_nbytes(val) -> int:
+    total, stack = 0, [val]
+    while stack:
+        x = stack.pop()
+        if isinstance(x, (tuple, list)):
+            stack.extend(x)
+        else:
+            total += int(getattr(x, "nbytes", 0) or 0)
+    return total
+
+
+def _entry_nbytes(tag: str, ent) -> int:
+    if tag in _TWO_TABLE_TAGS:  # (wr_left, wr_right, value)
+        return _val_nbytes(ent[2])
+    return sum(_val_nbytes(v) for v in ent[1].values())  # (wr, {subkey: value})
+
+
+def _touch(tag, key) -> None:
+    _recency.pop((tag, key), None)
+    _recency[(tag, key)] = None
+
+
+def _drop_entry(tag: str, key) -> None:
+    global _device_cache_bytes
+    with _cache_lock:
+        _recency.pop((tag, key), None)
+        dropped = _CACHES[tag].pop(key, None)
+        if dropped is not None:
+            _device_cache_bytes -= _entry_nbytes(tag, dropped)
+
+
+def _evict_over_budget(protect: tuple) -> None:
+    """Evict the least recently used entry across all memos until under the
+    budget, never the entry just inserted (`protect`)."""
+    global _device_cache_evictions
+    with _cache_lock:
+        while _device_cache_bytes > _DEVICE_CACHE_BUDGET_BYTES:
+            victim = next((rk for rk in _recency if rk != protect), None)
+            if victim is None:
+                return
+            _drop_entry(*victim)
+            _device_cache_evictions += 1
+
+
+def _count(tag: str, what: str) -> None:
+    with _cache_lock:
+        _MEMO_COUNTS[tag][what] += 1
+
+
+def _cached_by_table(tag: str, table: Table, subkey, compute):
+    """A per-table-identity memo, weakref-keyed so that an entry dies with
+    its table (`physical._cached_by_table` :1817)."""
+    global _device_cache_bytes
+    cache, key = _CACHES[tag], id(table)
+    with _cache_lock:
+        ent = cache.get(key)
+        if ent is not None and ent[0]() is table:
+            hit = ent[1].get(subkey, _MISS)
+            if hit is not _MISS:
+                _touch(tag, key)
+                _MEMO_COUNTS[tag]["hits"] += 1
+                return hit
+    _count(tag, "misses")
+    val = compute()
+    nbytes = _val_nbytes(val)
+    with _cache_lock:
+        ent = cache.get(key)
+        if ent is None or ent[0]() is not table:
+            if ent is not None:  # a dead table's id, reused before its callback ran
+                _device_cache_bytes -= _entry_nbytes(tag, ent)
+
+            def _evict(wr, key=key):
+                ent_now = cache.get(key)
+                if ent_now is not None and ent_now[0] is wr:
+                    _drop_entry(tag, key)
+
+            cache[key] = (weakref.ref(table, _evict), {subkey: val})
+            _device_cache_bytes += nbytes
+        elif subkey not in ent[1]:
+            ent[1][subkey] = val
+            _device_cache_bytes += nbytes
+        else:
+            val = ent[1][subkey]
+        _touch(tag, key)
+        _evict_over_budget((tag, key))
+    return val
+
+
+def _two_table_key(left: Table, right: Table, subkey: tuple, rows_key):
+    """Key and validity test of a two-table entry: by table identity, or by
+    the scans' row identity when they have one (the weak references then
+    only bound the entry's life)."""
+    if rows_key is None:
+        return (id(left), id(right)) + subkey, lambda ent: ent[0]() is left and ent[1]() is right
+    return rows_key + subkey, lambda ent: ent[0]() is not None and ent[1]() is not None
+
+
+def _cached_two_table(tag: str, left: Table, right: Table, subkey: tuple, compute, rows_key=None):
+    """A per-table-pair memo with the same accounting; an entry dies with
+    either table (`physical._cached_two_table`)."""
+    global _device_cache_bytes
+    cache = _CACHES[tag]
+    key, valid = _two_table_key(left, right, subkey, rows_key)
+    with _cache_lock:
+        ent = cache.get(key)
+        if ent is not None and valid(ent):
+            _touch(tag, key)
+            _MEMO_COUNTS[tag]["hits"] += 1
+            return ent[2]
+    _count(tag, "misses")
+    val = compute()
+
+    def _evict(wr, key=key):
+        ent_now = cache.get(key)
+        if ent_now is not None and (ent_now[0] is wr or ent_now[1] is wr):
+            _drop_entry(tag, key)
+
+    with _cache_lock:
+        ent = cache.get(key)
+        if ent is not None:
+            if valid(ent):
+                _touch(tag, key)
+                return ent[2]
+            _device_cache_bytes -= _val_nbytes(ent[2])
+        cache[key] = (weakref.ref(left, _evict), weakref.ref(right, _evict), val)
+        _device_cache_bytes += _val_nbytes(val)
+        _touch(tag, key)
+        _evict_over_budget((tag, key))
+    return val
+
+
+def _peek_two_table(tag: str, left: Table, right: Table, subkey: tuple, rows_key=None):
+    """(hit, value) of a two-table entry, computing nothing on a miss."""
+    key, valid = _two_table_key(left, right, subkey, rows_key)
+    with _cache_lock:
+        ent = _CACHES[tag].get(key)
+        if ent is not None and valid(ent):
+            _touch(tag, key)
+            _MEMO_COUNTS[tag]["hits"] += 1
+            return True, ent[2]
+    return False, None
+
+
+def _pair_rows_key(lnode, rnode, ctx) -> Optional[tuple]:
+    """The two children's row identities, when both state one."""
+    ltok, rtok = lnode.rows_token(ctx), rnode.rows_token(ctx)
+    return None if ltok is None or rtok is None else (ltok, rtok)
+
+
+def _pair_subkey(left_keys, right_keys, lnode, rnode) -> tuple:
+    """The join keys of a pair-memo key: lowercased only when no column name
+    of either relation collides with another case-insensitively."""
+    names = lnode.relation.schema.names + rnode.relation.schema.names
+    if len({n.lower() for n in names}) != len(set(names)):
+        return tuple(left_keys), tuple(right_keys)
+    return tuple(k.lower() for k in left_keys), tuple(k.lower() for k in right_keys)
 
 
 def _table_key64(table: Table, keys: List[str]) -> torch.Tensor:
-    """Join key64 of a table's key columns (physical.py:2222)."""
-    return key64([table.column(k).data for k in keys])
+    """Join key64 of a table's key columns, kept per table identity
+    (physical.py:2222): a bucketed scan returns the same table across
+    queries, so the hashed keys stay on the device."""
+    return _cached_by_table(
+        "k64", table, tuple(k.lower() for k in keys), lambda: key64([table.column(k).data for k in keys])
+    )
 
 
 def _value_mode_column(table: Table, keys: List[str]) -> Optional[Column]:
@@ -283,7 +631,8 @@ def _classed_plan(left: Table, right: Table, l_keys, r_keys, l_starts, r_starts)
 
 
 class SortMergeJoinExec(PhysicalNode):
-    """The co-bucketed inner sort-merge join over two bucketed index scans."""
+    """The co-bucketed inner sort-merge join over two bucketed index scans.
+    Its layout, probe ranges and verified pairs ride the join memos."""
 
     name = "SortMergeJoin"
 
@@ -296,56 +645,131 @@ class SortMergeJoinExec(PhysicalNode):
     def children(self):
         return (self.left, self.right)
 
-    def execute(self, ctx) -> Table:
-        left, right, plan, ranges = self._plan_and_ranges(ctx)
-        if plan is None:
-            empty = torch.empty(0, dtype=torch.int64, device=ctx.device)
-            return _assemble_join(left, right, empty, empty)
-        li, ri = self._bucketed_pairs(plan, ranges)
-        return _gather_verified(left, right, self.left_keys, self.right_keys, li, ri)
-
-    def execute_count(self, ctx) -> int:
-        left, right, plan, ranges = self._plan_and_ranges(ctx)
-        n = self._bucketed_count_fast(plan, ranges)
-        if n is not None:
-            return n
-        li, ri = self._bucketed_pairs(plan, ranges)
-        return len(_verify_pairs(left, right, self.left_keys, self.right_keys, li, ri)[0])
-
-    def _plan_and_ranges(self, ctx):
-        """Both sides' bucketed concats, their joint size-classed layout and its
-        probe (plan and ranges None when a side is empty)."""
-        from ..ops.bucket_join import probe_classed
-
+    def _sides(self, ctx):
         left, l_starts = self.left.execute_concat(ctx)
         right, r_starts = self.right.execute_concat(ctx)
         for table, keys in ((left, self.left_keys), (right, self.right_keys)):
             if any(table.column(k).is_string or table.column(k).has_nulls for k in keys):
                 raise not_in_slice("string or nullable join keys")
-        if left.num_rows == 0 or right.num_rows == 0:
-            return left, right, None, None
-        plan = _classed_plan(left, right, self.left_keys, self.right_keys, l_starts, r_starts)
-        return left, right, plan, probe_classed(plan)
+        subkey = _pair_subkey(self.left_keys, self.right_keys, self.left, self.right)
+        return left, right, l_starts, r_starts, subkey, _pair_rows_key(self.left, self.right, ctx)
 
-    @staticmethod
-    def _bucketed_count_fast(plan, ranges) -> Optional[int]:
-        """Value-mode probe counts compare the actual key values, so their total
-        is the exact inner-join count with no pair expansion (physical.py:2685).
-        None in hash mode, whose candidates must be verified."""
-        if plan is None:
-            return 0
-        return ranges.total if plan.mode == "value" else None
+    def _plan_and_ranges(self, left, right, l_starts, r_starts, subkey, rows_key):
+        """The pair's size-classed layout and its probe, through the memos."""
+        from ..ops.bucket_join import probe_classed
 
-    @staticmethod
-    def _bucketed_pairs(plan, ranges):
-        """Candidate (li, ri) pairs in bucket-major order (physical.py:2584)."""
+        plan = _cached_two_table(
+            "cpad", left, right, ("cplan",) + subkey,
+            lambda: _classed_plan(left, right, self.left_keys, self.right_keys, l_starts, r_starts), rows_key,
+        )
+        ranges = _cached_two_table("pairs", left, right, ("cprobe", plan.mode) + subkey, lambda: probe_classed(plan), rows_key)
+        return plan, ranges
+
+    def _pairs(self, ctx):
+        """Both sides and their verified pairs (li, ri) in bucket-major order,
+        through the pairs memo."""
         from ..ops.bucket_join import classed_pairs
 
-        return classed_pairs(plan, ranges)
+        left, right, l_starts, r_starts, subkey, rows_key = self._sides(ctx)
+        if left.num_rows == 0 or right.num_rows == 0:
+            empty = torch.empty(0, dtype=torch.int64, device=ctx.device)
+            return left, right, empty, empty
+
+        def compute():
+            plan, ranges = self._plan_and_ranges(left, right, l_starts, r_starts, subkey, rows_key)
+            li, ri = classed_pairs(plan, ranges)
+            return _verify_pairs(left, right, self.left_keys, self.right_keys, li, ri)
+
+        li, ri = _cached_two_table("pairs", left, right, subkey, compute, rows_key)
+        return left, right, li, ri
+
+    def execute(self, ctx) -> Table:
+        left, right, li, ri = self._pairs(ctx)
+        return _assemble_join(left, right, li, ri)
+
+    def execute_count(self, ctx) -> int:
+        """A query that collected these rows already holds the verified pairs;
+        otherwise value-mode probe counts compare the key values and are the
+        exact count with no pair expansion (physical.py:2685), and hash mode
+        counts the verified pairs."""
+        left, right, l_starts, r_starts, subkey, rows_key = self._sides(ctx)
+        if left.num_rows == 0 or right.num_rows == 0:
+            return 0
+        hit, val = _peek_two_table("pairs", left, right, subkey, rows_key)
+        if hit:
+            return len(val[0])
+        plan, ranges = self._plan_and_ranges(left, right, l_starts, r_starts, subkey, rows_key)
+        if plan.mode == "value":
+            return ranges.total
+        return len(self._pairs(ctx)[2])
 
     def simple_string(self):
         pairs = ", ".join(f"{l}={r}" for l, r in zip(self.left_keys, self.right_keys))
         return f"SortMergeJoin [{pairs}] (bucketed, no exchange)"
+
+
+class WithColumnExec(PhysicalNode):
+    """A computed column (physical.py:991): replaces a same-named column in
+    place, else appends; the value conforms to the declared type."""
+
+    name = "WithColumn"
+
+    def __init__(self, col_name: str, expr: Expr, child: PhysicalNode, dtype: Optional[str] = None):
+        self.col_name = col_name
+        self.expr = expr
+        self.child = child
+        self.dtype = dtype
+
+    def children(self):
+        return (self.child,)
+
+    def execute(self, ctx) -> Table:
+        return self.apply(self.child.execute(ctx))
+
+    def apply(self, t: Table) -> Table:
+        new_col = evaluate_column(self.expr, t)
+        if self.dtype not in (None, "string") and not new_col.is_string and new_col.dtype != self.dtype:
+            new_col = Column(self.dtype, new_col.data.to(TORCH_DTYPES[self.dtype]), None, new_col.validity)
+        out: Dict[str, Column] = {}
+        replaced = False
+        for n, c in t.columns.items():
+            if n.lower() == self.col_name.lower():
+                out[n] = new_col
+                replaced = True
+            else:
+                out[n] = c
+        if not replaced:
+            out[self.col_name] = new_col
+        return Table(out)
+
+    def execute_count(self, ctx) -> int:
+        return self.child.execute_count(ctx)
+
+    def simple_string(self):
+        return f"WithColumn {self.col_name} = {self.expr!r}"
+
+
+class HashAggregateExec(PhysicalNode):
+    """Grouped aggregation by a key64 sort and segment reductions
+    (`ops.aggregate.hash_aggregate`). The JAX package's streamed and fused
+    join-aggregate variants (physical.py:1222) are not ported."""
+
+    name = "HashAggregate"
+
+    def __init__(self, group_keys: Sequence[str], aggs: Sequence[tuple], child: PhysicalNode):
+        self.group_keys = list(group_keys)
+        self.aggs = [tuple(a) for a in aggs]
+        self.child = child
+
+    def children(self):
+        return (self.child,)
+
+    def execute(self, ctx) -> Table:
+        return hash_aggregate(self.child.execute(ctx), self.group_keys, self.aggs)
+
+    def simple_string(self):
+        aggs = ", ".join(f"{o}={fn}({c if c is not None else '*'})" for o, fn, c in self.aggs)
+        return f"HashAggregate [{', '.join(self.group_keys)}] [{aggs}]"
 
 
 def _orient_join_keys(pairs, left_schema: Schema, right_schema: Schema):
@@ -422,12 +846,36 @@ def plan_physical(
         child_required = None
         if required is not None:
             child_required = list(dict.fromkeys(list(required) + sorted(logical.condition.references())))
-        return FilterExec(logical.condition, plan_physical(logical.child, child_required, case_sensitive))
+        child = plan_physical(logical.child, child_required, case_sensitive)
+        if type(child) is ScanExec:
+            # The scan may skip row groups that cannot pass this filter
+            # (physical.py:3087); the filter still evaluates all it gets.
+            child.pushdown = logical.condition
+        return FilterExec(logical.condition, child)
 
     if isinstance(logical, ProjectNode):
         return ProjectExec(
             logical.column_names,
             plan_physical(logical.child, list(logical.column_names), case_sensitive),
+        )
+
+    if isinstance(logical, WithColumnNode):
+        if required is not None and all(key(r) != key(logical.name) for r in required):
+            return plan_physical(logical.child, required, case_sensitive)  # pruned out above
+        child_required = None
+        if required is not None:
+            keep = [r for r in required if key(r) != key(logical.name)]
+            child_required = list(dict.fromkeys(keep + sorted(logical.expr.references())))
+        return WithColumnExec(
+            logical.name, logical.expr, plan_physical(logical.child, child_required, case_sensitive),
+            dtype=logical.output_schema.field(logical.name).dtype,
+        )
+
+    if isinstance(logical, AggregateNode):
+        # An aggregate reads only its keys and inputs (physical.py:3133).
+        child_required = list(dict.fromkeys(logical.references())) or logical.child.output_schema.names[:1]
+        return HashAggregateExec(
+            logical.group_keys, logical.aggs, plan_physical(logical.child, child_required, case_sensitive)
         )
 
     if isinstance(logical, JoinNode):

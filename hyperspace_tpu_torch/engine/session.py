@@ -16,7 +16,16 @@ from ..ops.backend import resolve_device
 from ..storage.filesystem import FileStatus, LocalFileSystem
 from . import io as engine_io
 from .expr import Expr
-from .logical import FilterNode, JoinNode, LogicalPlan, ProjectNode, ScanNode, SourceRelation
+from .logical import (
+    AggregateNode,
+    FilterNode,
+    JoinNode,
+    LogicalPlan,
+    ProjectNode,
+    ScanNode,
+    SourceRelation,
+    WithColumnNode,
+)
 from .physical import ExecContext, PhysicalNode, plan_physical
 from .table import Table
 
@@ -43,16 +52,24 @@ class DataFrame:
 
     where = filter
 
-    def group_by(self, *keys: str):
-        raise not_in_slice("aggregation")
+    def with_column(self, name: str, expr: Expr) -> "DataFrame":
+        """A computed column (Spark `withColumn`): replaces a same-named column
+        in place, else appends, e.g. `col("price") * (1 - col("discount"))`."""
+        return DataFrame(self.session, WithColumnNode(name, expr, self.plan))
+
+    withColumn = with_column
+
+    def group_by(self, *keys: str) -> "GroupedDataFrame":
+        names = list(keys[0]) if len(keys) == 1 and isinstance(keys[0], (list, tuple)) else list(keys)
+        for n in names:
+            self.plan.output_schema.field(n)  # resolve or raise
+        return GroupedDataFrame(self, names)
 
     groupBy = group_by
 
-    def agg(self, **aggs):
-        raise not_in_slice("aggregation")
-
-    def with_column(self, name: str, expr: Expr):
-        raise not_in_slice("computed columns")
+    def agg(self, **aggs) -> "DataFrame":
+        """A global aggregate (no grouping): `df.agg(total=("qty", "sum"))`."""
+        return GroupedDataFrame(self, []).agg(**aggs)
 
     def order_by(self, *keys, ascending: bool = True):
         raise not_in_slice("order by")
@@ -85,24 +102,68 @@ class DataFrame:
         return self.physical_plan().tree_string()
 
 
+class GroupedDataFrame:
+    """`df.group_by(keys)`: the aggregation builder (`session.GroupedDataFrame`
+    :336) over sum, count, count_distinct, min, max and avg."""
+
+    def __init__(self, df: DataFrame, keys: List[str]):
+        self._df = df
+        self._keys = keys
+
+    def agg(self, **aggs) -> DataFrame:
+        """`.agg(out_name=("column", "fn"), ...)`; `("*", "count")` is count(*)."""
+        if not aggs:
+            raise HyperspaceException("agg() requires at least one aggregate")
+        triples = []
+        for out_name, spec in aggs.items():
+            if not (isinstance(spec, tuple) and len(spec) == 2):
+                raise HyperspaceException(f"agg spec must be (column, fn): {out_name}={spec!r}")
+            col, fn = spec
+            triples.append((out_name, fn.lower(), None if col in ("*", None) else col))
+        return DataFrame(self._df.session, AggregateNode(self._keys, triples, self._df.plan))
+
+    def count(self) -> DataFrame:
+        return self.agg(count=("*", "count"))
+
+    def sum(self, *cols: str) -> DataFrame:
+        return self.agg(**{f"sum({c})": (c, "sum") for c in cols})
+
+    def min(self, *cols: str) -> DataFrame:
+        return self.agg(**{f"min({c})": (c, "min") for c in cols})
+
+    def max(self, *cols: str) -> DataFrame:
+        return self.agg(**{f"max({c})": (c, "max") for c in cols})
+
+    def avg(self, *cols: str) -> DataFrame:
+        return self.agg(**{f"avg({c})": (c, "avg") for c in cols})
+
+
 class DataFrameReader:
     def __init__(self, session: "HyperspaceSession"):
         self._session = session
 
     def parquet(self, *paths) -> DataFrame:
-        path_list = list(paths)
+        return self._load(list(paths), "parquet")
+
+    def csv(self, *paths) -> DataFrame:
+        return self._load(list(paths), "csv")
+
+    def json(self, *paths) -> DataFrame:
+        return self._load(list(paths), "json")
+
+    def _load(self, path_list: List[str], file_format: str) -> DataFrame:
         files: List[FileStatus] = []
         for p in path_list:
-            files.extend(engine_io.list_data_files(p, "parquet", self._session.fs))
+            files.extend(engine_io.list_data_files(p, file_format, self._session.fs))
         if not files:
-            raise HyperspaceException(f"No parquet files found under {path_list}")
-        schema = engine_io.infer_schema([f.path for f in files], "parquet")
+            raise HyperspaceException(f"No {file_format} files found under {path_list}")
+        schema = engine_io.infer_schema([f.path for f in files], file_format)
         files = [
             FileStatus(os.path.abspath(f.path), f.size, f.modified_time, f.is_dir) for f in files
         ]
         rel = SourceRelation(
             root_paths=[os.path.abspath(p) for p in path_list],
-            file_format="parquet",
+            file_format=file_format,
             schema=schema,
             files=files,
         )

@@ -87,7 +87,7 @@ class CoveringIndexBuilder(IndexerBuilder):
             engine_io.write_parquet(
                 host.slice(lo, hi),
                 os.path.join(index_data_path, f"part-{b:05d}.parquet"),
-                row_group_rows=engine_io.INDEX_ROW_GROUP_ROWS,
+                row_group_rows=engine_io.index_row_group_rows(),
             )
 
         # Parquet encode releases the GIL: bucket files are written concurrently.

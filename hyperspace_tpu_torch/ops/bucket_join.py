@@ -98,6 +98,15 @@ class ClassedJoinPlan:
         self.r_starts = r_starts
         self.num_buckets = len(l_starts) - 1
 
+    @property
+    def nbytes(self) -> int:
+        """Device bytes the plan holds (its charge to the join memos)."""
+        sides = [s for seg in self.segments for s in (seg.l, seg.r)]
+        parts = [self.l_vals, self.r_vals] + [
+            t for s in sides for t in (s.keys, s.lengths, s.order, s.starts) if t is not None
+        ]
+        return sum(int(t.nbytes) for t in parts)
+
 
 class ClassedRanges:
     """Probe output of a classed plan: per segment (lo, counts, swapped,
@@ -108,6 +117,12 @@ class ClassedRanges:
         self.segments = segments
         self.outliers = outliers
         self.total = total
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes the ranges hold (their charge to the join memos)."""
+        n = sum(int(lo.nbytes) + int(counts.nbytes) for lo, counts, _, _ in self.segments)
+        return n + sum(int(li.nbytes) + int(ri.nbytes) for _, li, ri in self.outliers)
 
 
 def joint_partition(l_starts: np.ndarray, r_starts: np.ndarray) -> Tuple[List[np.ndarray], np.ndarray]:

@@ -21,7 +21,16 @@ import logging
 from typing import Dict, List, Optional, Tuple
 
 from ..engine.expr import extract_equi_join_keys
-from ..engine.logical import FilterNode, JoinNode, LogicalPlan, ProjectNode, ScanNode, find_single_relation
+from ..engine.logical import (
+    AggregateNode,
+    FilterNode,
+    JoinNode,
+    LogicalPlan,
+    ProjectNode,
+    ScanNode,
+    WithColumnNode,
+    find_single_relation,
+)
 from ..util.resolver_utils import resolution_key
 from .rule_utils import _index_relation, get_candidate_indexes
 
@@ -41,6 +50,8 @@ def _collect_expr_refs(plan: LogicalPlan) -> List[str]:
             refs.extend(node.column_names)
         elif isinstance(node, (FilterNode, JoinNode)):
             refs.extend(node.condition.references())
+        elif isinstance(node, (AggregateNode, WithColumnNode)):
+            refs.extend(node.references())
     return refs
 
 

@@ -1,8 +1,8 @@
 """The port's boundary: what it imports, where it runs, what it refuses.
 
-(a) A fresh process imports the port, builds, joins and runs an indexed
-    string filter on the CPU, and ends with no JAX module and no
-    `hyperspace_tpu` module loaded.
+(a) A fresh process imports the port, builds, joins, aggregates the join and
+    runs an indexed string filter on the CPU, and ends with no JAX module and
+    no `hyperspace_tpu` module loaded.
 (b) No file of the port (nor `chip_smoke.py`) imports `jax` or `hyperspace_tpu`.
 (c) A session built without `device=` asks for CUDA; with no card it raises
     instead of running on the CPU.
@@ -52,6 +52,8 @@ def test_a_fresh_process_runs_the_slice_without_jax(tmp_path):
         q = s.read.parquet(base + "/l").join(s.read.parquet(base + "/r"), hst.col("a") == hst.col("b"))
         assert q.count() == 3000 and q.select("x", "y").collect().num_rows == 3000
         assert "BucketedIndexScan" in q.explain_string()
+        agg = q.with_column("z", hst.col("x") * 2).group_by("b").agg(n=("*", "count"), z=("z", "sum"))
+        assert int(agg.collect().column("n").data.sum()) == 3000
         seg = np.array(["AIR", "MAIL", "SHIP", None] * 750, dtype=object)
         s.write_parquet({{"seg": seg, "v": rng.rand(3000)}}, base + "/s")
         hs.create_index(s.read.parquet(base + "/s"), hst.IndexConfig("si", ["seg"], ["v"]))
@@ -109,9 +111,12 @@ def session(tmp_path):
 
 
 CUT_OUTS = {
-    "filter": lambda s, l, r: l.filter((hst.col("a") + 1) == 2),
-    "aggregation": lambda s, l, r: l.group_by("a"),
     "left joins": lambda s, l, r: l.join(r, hst.col("a") == hst.col("b"), "left"),
+    "semi joins": lambda s, l, r: l.join(r, hst.col("a") == hst.col("b"), "semi"),
+    "anti joins": lambda s, l, r: l.join(r, hst.col("a") == hst.col("b"), "anti"),
+    "full outer joins": lambda s, l, r: l.join(r, hst.col("a") == hst.col("b"), "full"),
+    "csv sources": lambda s, l, r: s.read.csv(s.warehouse),
+    "json sources": lambda s, l, r: s.read.json(s.warehouse),
     "the join without a compatible pair of covering indexes": lambda s, l, r: l.join(
         r, hst.col("a") == hst.col("b")
     ).count(),
@@ -119,8 +124,6 @@ CUT_OUTS = {
     "null values": lambda s, l, r: _indexed_join(
         s, np.array([1, None, 3], dtype=object), np.array([3, 1, None], dtype=object)
     ),
-    "aggregation (agg)": lambda s, l, r: l.agg(n=("*", "count")),
-    "computed columns": lambda s, l, r: l.with_column("z", hst.col("a")),
     "order by": lambda s, l, r: l.order_by("a"),
     "limit": lambda s, l, r: l.limit(3),
 }

@@ -1,0 +1,130 @@
+"""A lake built by either package is queried by the other with equal answers.
+
+Each package builds `test_torch_join.py`'s four indexes over the same source
+files in its own warehouse. Then the OTHER package opens that warehouse and
+runs q_ord (value-mode join), q_ps (hash-mode join), a range lookup through
+`FilterIndexRule` whose row groups are pruned by the footer zone maps, and a
+join → group-by. Its rows must equal those of the package that built the
+lake, in the same order, first uncached and then from its caches. The JAX
+package runs its sort path (`HYPERSPACE_FORCE_DEVICE_OPS=1`), whose group
+order is the port's. Tolerance: exact, except the aggregate's float sums
+(rtol 1e-9).
+"""
+
+import os
+
+import numpy as np
+import pytest
+
+import hyperspace_tpu_torch as hst
+from hyperspace_tpu import IndexConfig as JaxIndexConfig
+from hyperspace_tpu import IndexConstants as JaxIndexConstants
+from hyperspace_tpu.engine import HyperspaceSession as JaxSession
+from hyperspace_tpu.engine import col as jax_col
+from hyperspace_tpu.engine.physical import clear_device_memos as jax_clear_memos
+from hyperspace_tpu.engine.scan_cache import (
+    global_bucketed_cache,
+    global_concat_cache,
+    global_filtered_cache,
+    global_scan_cache,
+)
+from hyperspace_tpu.hyperspace import Hyperspace as JaxHyperspace
+from hyperspace_tpu.hyperspace import enable_hyperspace as jax_enable
+from hyperspace_tpu_torch.engine import io as torch_io
+from hyperspace_tpu_torch.engine import physical, scan_cache
+from hyperspace_tpu_torch.engine.table import Table
+from test_torch_join import INDEXES, NUM_BUCKETS, _tables
+
+FLOAT_SUMS = ("revenue",)
+
+
+def clear_all():
+    for c in (global_scan_cache(), global_concat_cache(), global_filtered_cache(), global_bucketed_cache()):
+        c.clear()
+    jax_clear_memos()
+    scan_cache.clear_scan_caches()
+    physical.clear_device_memos()
+
+
+def queries(s, src, c):
+    def rd(name):
+        return s.read.parquet(os.path.join(src, name))
+
+    li = rd("lineitem")
+    return {
+        "q_ord": li.join(rd("orders"), c("l_orderkey") == c("o_orderkey")).select("l_extendedprice", "o_custkey"),
+        "q_ps": li.join(rd("partsupp"), (c("l_partkey") == c("ps_partkey")) & (c("l_suppkey") == c("ps_suppkey")))
+        .select("l_quantity", "ps_supplycost"),
+        "lookup": li.filter((c("l_orderkey") >= 600) & (c("l_orderkey") < 1400)).select("l_orderkey", "l_quantity"),
+        "join_group_by": li.join(rd("orders"), c("l_orderkey") == c("o_orderkey"))
+        .with_column("revenue", c("l_extendedprice") * (1 - c("l_quantity") / 100))
+        .group_by("o_custkey")
+        .agg(revenue=("revenue", "sum"), orders=("l_orderkey", "count_distinct"), lines=("*", "count"),
+             top=("o_totalprice", "max")),
+    }
+
+
+def _session(pkg, warehouse):
+    if pkg == "torch":
+        s = hst.HyperspaceSession(warehouse=warehouse, device="cpu")
+        s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, NUM_BUCKETS)
+        return s, hst.Hyperspace(s), hst.IndexConfig, hst.enable_hyperspace, hst.col
+    s = JaxSession(warehouse=warehouse)
+    s.conf.set(JaxIndexConstants.INDEX_NUM_BUCKETS, NUM_BUCKETS)
+    return s, JaxHyperspace(s), JaxIndexConfig, jax_enable, jax_col
+
+
+@pytest.fixture(scope="module")
+def lakes(tmp_path_factory):
+    base = tmp_path_factory.mktemp("crosslake")
+    mp = pytest.MonkeyPatch()
+    mp.setenv("HYPERSPACE_DISTRIBUTED", "0")
+    mp.setenv("HYPERSPACE_BUILD_DECODE_THREADS", "1")
+    mp.setenv("HYPERSPACE_INDEX_ROW_GROUP_ROWS", "256")
+    mp.setenv("HYPERSPACE_FORCE_DEVICE_OPS", "1")
+    src = str(base / "src")
+    for name, cols in _tables(11, False).items():
+        torch_io.write_parquet(Table.from_pydict(cols, "cpu"), os.path.join(src, name, "part-00000.parquet"))
+    for pkg in ("torch", "jax"):
+        s, hs, cfg, enable, _ = _session(pkg, str(base / pkg))
+        for table, name, indexed, included in INDEXES:
+            hs.create_index(s.read.parquet(os.path.join(src, table)), cfg(name, indexed, included))
+    yield base, src
+    mp.undo()
+
+
+def _host(t):
+    return {n: np.asarray(c.decode_objects(), dtype=object) for n, c in t.columns.items()}
+
+
+def _equal(got, want):
+    g, w = _host(got), _host(want)
+    assert list(g) == list(w)
+    for n in g:
+        if n in FLOAT_SUMS:
+            np.testing.assert_allclose(g[n].astype(float), w[n].astype(float), rtol=1e-9, atol=0)
+        else:
+            assert g[n].tolist() == w[n].tolist(), n
+
+
+@pytest.mark.parametrize("owner,reader", [("jax", "torch"), ("torch", "jax")])
+@pytest.mark.parametrize("query", ["q_ord", "q_ps", "lookup", "join_group_by"])
+def test_a_lake_is_queried_by_the_other_package(lakes, owner, reader, query):
+    base, src = lakes
+    warehouse = str(base / owner)
+    so, _, _, enable_o, co = _session(owner, warehouse)
+    enable_o(so)
+    want = queries(so, src, co)[query].collect()
+    assert want.num_rows > 0
+    sr, _, _, enable_r, cr = _session(reader, warehouse)
+    enable_r(sr)
+    df = queries(sr, src, cr)[query]
+    plan = df.explain_string() if reader == "torch" else df.physical_plan().tree_string()
+    index = {"q_ps": "liPs", "q_ord": "liOrd", "lookup": "liOrd", "join_group_by": "ordIdx"}[query]
+    assert f"index={index}" in plan, plan
+    clear_all()
+    before = torch_io.io_stats()["row_groups_skipped"]
+    _equal(df.collect(), want)  # uncached
+    if query == "lookup" and reader == "torch":
+        assert torch_io.io_stats()["row_groups_skipped"] > before
+    _equal(df.collect(), want)  # from the reader's caches

@@ -944,9 +944,41 @@ def agg_breakdown(df, uncached: bool) -> dict:
     joined, t["join_s"] = wall(lambda: join.execute(ctx))
     computed, t["with_column_s"] = wall(lambda: with_col.apply(joined))
     out, t["aggregate_s"] = wall(lambda: hash_aggregate(computed, agg.group_keys, agg.aggs))
+    t.update(aggregate_split(lambda: hash_aggregate(computed, agg.group_keys, agg.aggs)))
     _, t["to_host_s"] = wall(lambda: out.to("cpu"))
     t["joined_rows"], t["groups"] = joined.num_rows, out.num_rows
     return t
+
+
+def aggregate_split(run) -> dict:
+    """Seconds of the parts of one more aggregate (`run`): the key64 hash, the
+    stable sort and group ids, the segment reductions, count_distinct, each
+    timed by a host clock ended by a synchronize, and the rest (the
+    representatives and the output columns)."""
+    from hyperspace_tpu_torch.ops import aggregate
+
+    names = {"key64": "key64", "_group_ids": "group_ids", "_segment_reduce": "reduce",
+             "_count_distinct_sorted": "count_distinct"}
+    spent = {part: 0.0 for part in names.values()}
+    originals = {name: getattr(aggregate, name) for name in names}
+
+    def timed(fn, part):
+        def call(*args):
+            out, seconds = wall(lambda: fn(*args))
+            spent[part] += seconds
+            return out
+        return call
+
+    for name, part in names.items():
+        setattr(aggregate, name, timed(originals[name], part))
+    try:
+        _, total = wall(run)
+    finally:
+        for name, fn in originals.items():
+            setattr(aggregate, name, fn)
+    split = {f"aggregate_{part}_s": seconds for part, seconds in spent.items()}
+    split["aggregate_other_s"] = total - sum(spent.values())
+    return split
 
 
 def stage_breakdown(torch, df) -> dict:
@@ -1143,7 +1175,7 @@ def row_groups(df) -> dict:
     plan = df.physical_plan()
     plan.execute(ExecContext(df.session))
     scan = next(n for n in plan.collect_nodes() if isinstance(n, ScanExec))
-    total = sum(len(engine_io.footer_metadata(f.path).row_groups) for f in scan.relation.files)
+    total = sum(engine_io.footer_metadata(f.path).num_row_groups for f in scan.relation.files)
     return {"kept": total - scan.pruning.get("row_groups_skipped", 0), "total": total}
 
 

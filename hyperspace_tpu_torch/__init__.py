@@ -6,14 +6,16 @@ sorted parquet plus the JSON operation log) over numeric, dictionary-string
 and nullable columns; let `JoinIndexRule` rewrite an equi-join over two
 indexed relations into a shuffle-free co-bucketed merge join, and
 `FilterIndexRule` rewrite a filter into a scan of the index's matching hash
-buckets. The sorts and searches on that path are hand-written CUDA kernels
-(`csrc/`). Tables live on the session's
-device, CUDA by default. The package imports torch, numpy and pyarrow, never
-jax or hyperspace_tpu.
+buckets, whose parquet row groups are pruned by their footer zone maps; feed
+the join into computed columns and a grouped aggregate. Scans and the join's
+device work are cached across queries. The sorts and searches on that path
+are hand-written CUDA kernels (`csrc/`). Tables live on the session's device,
+CUDA by default. The package imports torch, numpy and pyarrow, never jax or
+hyperspace_tpu.
 """
 
 from .config import IndexConstants, SessionConf  # noqa: F401
-from .engine.expr import col  # noqa: F401
+from .engine.expr import col, lit  # noqa: F401
 from .engine.session import DataFrame, HyperspaceSession  # noqa: F401
 from .exceptions import HyperspaceException  # noqa: F401
 from .hyperspace import (  # noqa: F401

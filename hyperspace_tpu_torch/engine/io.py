@@ -131,18 +131,60 @@ class RowGroupMeta:
 
 class FileFooterMeta:
     """One parquet file's footer facts (`io.FileFooterMeta` :348): row count,
-    arrow schema, the row groups' zone maps, and `dict_cols`, per column
-    whether EVERY row-group chunk has a dictionary page and the values are
-    strings (the encoded read's choice)."""
+    arrow schema, `dict_cols` (per column, whether EVERY row-group chunk has
+    a dictionary page and the values are strings: the encoded read's choice)
+    and the row groups' zone maps. The zone maps are parsed from the footer
+    on first use (a read that prunes nothing never pays for them)."""
 
-    __slots__ = ("num_rows", "names", "arrow_schema", "row_groups", "dict_cols")
+    __slots__ = ("num_rows", "names", "arrow_schema", "dict_cols", "num_row_groups", "_md", "_row_groups")
 
-    def __init__(self, num_rows, names, arrow_schema, row_groups, dict_cols=None):
-        self.num_rows = num_rows
-        self.names = names
+    def __init__(self, md: "pq.FileMetaData", arrow_schema: pa.Schema):
+        self.num_rows = md.num_rows
+        self.names = list(arrow_schema.names)
         self.arrow_schema = arrow_schema
-        self.row_groups = row_groups
-        self.dict_cols = dict_cols or {}
+        self.num_row_groups = md.num_row_groups
+        self._md = md
+        self._row_groups: Optional[List[RowGroupMeta]] = None
+        # Column chunk j is field j only in a flat schema.
+        self.dict_cols: Dict[str, bool] = {}
+        if md.num_columns == len(self.names) and md.num_row_groups > 0:
+            for j, f in enumerate(arrow_schema):
+                vt = f.type.value_type if pa.types.is_dictionary(f.type) else f.type
+                self.dict_cols[f.name] = bool(pa.types.is_string(vt) or pa.types.is_large_string(vt)) and all(
+                    md.row_group(i).column(j).has_dictionary_page for i in range(md.num_row_groups)
+                )
+
+    @property
+    def row_groups(self) -> List[RowGroupMeta]:
+        if self._row_groups is None:
+            self._row_groups = _zone_maps(self._md, self.names)
+        return self._row_groups
+
+
+def _zone_maps(md: "pq.FileMetaData", names: List[str]) -> List[RowGroupMeta]:
+    """Each row group's rows, bytes, per-column `ZoneStats` and chunk bytes
+    (zone maps only for a flat schema)."""
+    flat = md.num_columns == len(names)
+    row_groups = []
+    for i in range(md.num_row_groups):
+        rg = md.row_group(i)
+        stats: Dict[str, ZoneStats] = {}
+        col_bytes: Dict[str, int] = {}
+        for j in range(rg.num_columns if flat else 0):
+            chunk = rg.column(j)
+            col_bytes[names[j]] = int(chunk.total_uncompressed_size)
+            st = chunk.statistics
+            if st is None:
+                stats[names[j]] = ZoneStats()
+                continue
+            mn = mx = None
+            has = bool(st.has_min_max)
+            if has:
+                mn, mx = _stat_value(st.min), _stat_value(st.max)
+                has = mn is not None and mx is not None
+            stats[names[j]] = ZoneStats(mn, mx, has, st.null_count if st.has_null_count else None)
+        row_groups.append(RowGroupMeta(rg.num_rows, rg.total_byte_size, stats, col_bytes))
+    return row_groups
 
 
 #: Footer-cache traffic and row-group pruning outcomes, as plain counters
@@ -151,8 +193,10 @@ _COUNTS = {
     "footer_hits": 0, "footer_misses": 0, "row_groups_scanned": 0, "row_groups_skipped": 0,
     "bytes_decoded": 0, "bytes_skipped": 0,
 }
-#: Seconds of the scan's parts: host decode, dictionary conversion and copy to
-#: the device summed over the decode threads, and the concatenation.
+#: Seconds of the scan's parts: the parquet decode (summed over the decode
+#: threads), then the conversion to columns (dictionary strings in code
+#: space), the copy to the device and the concatenation, each in the scan's
+#: own thread.
 SCAN_SECONDS = {"decode": 0.0, "convert": 0.0, "to_device": 0.0, "concat": 0.0}
 _stats_lock = threading.Lock()
 
@@ -197,69 +241,35 @@ def _stat_value(v):
     return v
 
 
-def _footer_meta_from_open(pf: "pq.ParquetFile") -> FileFooterMeta:
-    md = pf.metadata
-    schema = pf.schema_arrow
-    names = list(schema.names)
-    # Zone maps only for flat schemas (column chunk j is field j).
-    flat = md.num_columns == len(names)
-    dict_cols: Dict[str, bool] = {}
-    if flat:
-        for f in schema:
-            vt = f.type.value_type if pa.types.is_dictionary(f.type) else f.type
-            dict_cols[f.name] = bool(pa.types.is_string(vt) or pa.types.is_large_string(vt)) and md.num_row_groups > 0
-    row_groups: List[RowGroupMeta] = []
-    for i in range(md.num_row_groups):
-        rg = md.row_group(i)
-        stats: Dict[str, ZoneStats] = {}
-        col_bytes: Dict[str, int] = {}
-        if flat:
-            for j in range(rg.num_columns):
-                chunk = rg.column(j)
-                col_bytes[names[j]] = int(chunk.total_uncompressed_size)
-                if not chunk.has_dictionary_page:
-                    dict_cols[names[j]] = False
-                st = chunk.statistics
-                if st is None:
-                    stats[names[j]] = ZoneStats()
-                    continue
-                mn = mx = None
-                has = bool(st.has_min_max)
-                if has:
-                    mn, mx = _stat_value(st.min), _stat_value(st.max)
-                    has = mn is not None and mx is not None
-                stats[names[j]] = ZoneStats(mn, mx, has, st.null_count if st.has_null_count else None)
-        row_groups.append(RowGroupMeta(rg.num_rows, rg.total_byte_size, stats, col_bytes))
-    return FileFooterMeta(md.num_rows, names, schema, row_groups, dict_cols)
-
-
 def _meta_nbytes(meta: FileFooterMeta) -> int:
     """The footer's charge to the scan-cache budget (an estimate)."""
-    return 512 + (64 + 96 * max(1, len(meta.names))) * max(1, len(meta.row_groups))
+    return 512 + (64 + 96 * max(1, len(meta.names))) * max(1, meta.num_row_groups)
 
 
-def footer_metadata(path: str, file_format: str = "parquet", _pf=None) -> Optional[FileFooterMeta]:
+def footer_metadata(path: str, file_format: str = "parquet", _pf=None, base=None) -> Optional[FileFooterMeta]:
     """One parquet file's footer through the scan cache (freshness = the
     cache's (path, size, mtime) base). None for another format or an
     unreadable footer: the scan then prunes nothing in that file. `_pf` lets
-    a cold read parse the footer from its own open."""
+    a cold read parse the footer from its own open; `base` is the file's
+    stat when the caller has it."""
     if file_format != "parquet":
         return None
     cache = global_scan_cache()
-    meta = cache.get_meta(path)
+    base = base or file_base(path)
+    meta = cache.get_meta(path, base)
     if meta is not None:
         _count("footer_hits")
         return meta
     _count("footer_misses")
     try:
         if _pf is not None:
-            meta = _footer_meta_from_open(_pf)
+            meta = FileFooterMeta(_pf.metadata, _pf.schema_arrow)
         else:
             with pq.ParquetFile(path) as pf:
-                meta = _footer_meta_from_open(pf)
+                meta = FileFooterMeta(pf.metadata, pf.schema_arrow)
     except Exception:
         return None  # a corrupt footer costs the pruning, never the scan
-    cache.put_meta(path, meta, _meta_nbytes(meta))
+    cache.put_meta(path, meta, _meta_nbytes(meta), base)
     return meta
 
 
@@ -304,42 +314,24 @@ def _arrow_to_table(at: pa.Table) -> Table:
     return Table(cols)
 
 
-def _read_one(path: str, columns: Optional[List[str]]) -> Table:
-    """One parquet file as a host table; string columns whose chunks are all
-    dictionary-encoded read as dictionaries (`io._read_one` :242). A warm
-    footer decides with no extra open; a cold one is parsed from this read's
-    own open."""
-    meta = global_scan_cache().get_meta(path)
+def _read_arrow(path: str, columns: Optional[List[str]], sel=None, base=None) -> pa.Table:
+    """One parquet file, or only its row groups `sel` (ascending, in the
+    file's own row order), as arrow (`io._read_one` :242,
+    `io._read_row_groups_one` :654). String columns whose chunks are all
+    dictionary-encoded read as dictionaries; a cold footer is parsed from
+    this read's own open."""
+    meta = global_scan_cache().get_meta(path, base)
     if meta is not None:
         _count("footer_hits")
     with _timed("decode"):
         with pq.ParquetFile(path) as pf:
             if meta is None:
-                meta = footer_metadata(path, _pf=pf)
+                meta = footer_metadata(path, _pf=pf, base=base)
             rd = _encoding.dict_read_columns(meta, columns)
             if not rd:
-                at = pf.read(columns=columns)
-        if rd:
-            with pq.ParquetFile(path, read_dictionary=rd) as pf:
-                at = pf.read(columns=columns)
-    with _timed("convert"):
-        return _arrow_to_table(at)
-
-
-def _read_row_groups_one(path: str, sel, columns: Optional[List[str]]) -> Table:
-    """Decode ONLY the row groups `sel` (ascending), in the file's own row
-    order (`io._read_row_groups_one` :654)."""
-    rd = _encoding.dict_read_columns(footer_metadata(path), columns)
-    with _timed("decode"):
-        with pq.ParquetFile(path, read_dictionary=rd or None) as pf:
-            at = pf.read_row_groups(list(sel), columns=columns)
-    with _timed("convert"):
-        return _arrow_to_table(at)
-
-
-def _to_device(t: Table, device) -> Table:
-    with _timed("to_device"):
-        return t.to(device)
+                return pf.read(columns=columns) if sel is None else pf.read_row_groups(list(sel), columns=columns)
+        with pq.ParquetFile(path, read_dictionary=rd) as pf:
+            return pf.read(columns=columns) if sel is None else pf.read_row_groups(list(sel), columns=columns)
 
 
 def selection_columns(columns: Optional[List[str]], meta: FileFooterMeta) -> List[str]:
@@ -348,35 +340,109 @@ def selection_columns(columns: Optional[List[str]], meta: FileFooterMeta) -> Lis
     return list(columns) if columns is not None else list(meta.names)
 
 
-def _decode_into_cache(path: str, columns: Optional[List[str]], device, sel=None, meta=None) -> Table:
-    """The miss half of `file_table` / `pruned_file_table`: decode only the
-    columns the cache lacks when it can tell, else the whole projection, copy
-    them to the device once and cache them. The caller counted the miss."""
+def _joined(tensors: List[torch.Tensor]) -> torch.Tensor:
+    """One host tensor of `tensors`: a view when they are consecutive
+    slices of one buffer (a batch converted at once), else a copy."""
+    first = tensors[0]
+    ptr, end = first.untyped_storage().data_ptr(), first.storage_offset()
+    for t in tensors:
+        if not t.is_contiguous() or t.untyped_storage().data_ptr() != ptr or t.storage_offset() != end:
+            return torch.cat(tensors)
+        end += t.numel()
+    return torch.as_strided(first, (end - first.storage_offset(),), (1,), first.storage_offset())
+
+
+def _convert_batch(arrows: List[pa.Table]) -> List[Table]:
+    """Host tables of a batch of per-file arrow tables. A batch of one
+    schema converts each non-string column once for all its files and
+    splits it into per-file views (a conversion per file and column costs
+    more than its bytes); string columns keep a dictionary per file, as a
+    single-file read gives them."""
+    if len(arrows) == 1 or not all(a.schema.equals(arrows[0].schema) for a in arrows[1:]):
+        return [_arrow_to_table(a) for a in arrows]
+    sizes = [a.num_rows for a in arrows]
+    out: List[Dict[str, Column]] = [{} for _ in arrows]
+    for j, f in enumerate(arrows[0].schema):
+        t = f.type
+        if pa.types.is_dictionary(t) or pa.types.is_string(t) or pa.types.is_large_string(t) or pa.types.is_temporal(t):
+            for i, a in enumerate(arrows):
+                out[i][f.name] = _arrow_to_table(a.select([j])).columns[f.name]
+            continue
+        chunks = [c for a in arrows for c in a.column(j).chunks]
+        whole = _arrow_to_table(pa.table({f.name: pa.chunked_array(chunks, type=t)})).columns[f.name]
+        data = whole.data.split(sizes)
+        valid = [None] * len(arrows) if whole.validity is None else whole.validity.split(sizes)
+        for i in range(len(arrows)):
+            out[i][f.name] = Column(whole.dtype, data[i], None, valid[i])
+    return [Table(o) for o in out]
+
+
+def _to_device_batched(hosts: List[Table], device) -> List[Table]:
+    """Host tables on `device` with one copy per column for the whole batch,
+    split back into per-file views on the device."""
+    with _timed("to_device"):
+        if device.type == "cpu":
+            return hosts
+        out: List[Dict[str, Column]] = [{} for _ in hosts]
+        for n in dict.fromkeys(n for h in hosts for n in h.column_names):
+            idx = [i for i, h in enumerate(hosts) if n in h.columns]
+            cols = [hosts[i].columns[n] for i in idx]
+            sizes = [len(c) for c in cols]
+            if len({c.data.dtype for c in cols}) == 1:
+                data = _joined([c.data for c in cols]).to(device).split(sizes)
+            else:
+                data = [c.data.to(device) for c in cols]
+            valid = [None] * len(cols)
+            nullable = [k for k, c in enumerate(cols) if c.validity is not None]
+            if nullable:
+                parts = _joined([cols[k].validity for k in nullable]).to(device).split([sizes[k] for k in nullable])
+                for k, v in zip(nullable, parts):
+                    valid[k] = v
+            for k, i in enumerate(idx):
+                c = cols[k]
+                out[i][n] = Column(c.dtype, data[k], c.dictionary, valid[k], c.encoded_read)
+        return [Table({n: o[n] for n in h.column_names}) for h, o in zip(hosts, out)]
+
+
+_POOL: Optional[ThreadPoolExecutor] = None
+
+
+def _pool() -> ThreadPoolExecutor:
+    """The decode threads, shared by every scan (made on first use)."""
+    global _POOL
+    if _POOL is None:
+        _POOL = ThreadPoolExecutor(max_workers=DECODE_THREADS, thread_name_prefix="hs-decode")
+    return _POOL
+
+
+def _decode_into_cache(jobs: List[tuple], device) -> List[Table]:
+    """The miss half of `decode_files` (`io._decode_into_cache` :572): each
+    job's file is decoded in the columns the cache lacks (all of them when it
+    cannot tell), the arrow reads on the decode threads, the conversions
+    here, one copy to the device per column for the batch, and every table
+    cached. The caller counted the misses."""
     cache = global_scan_cache()
-    missing = cache.missing_columns(path, columns, sel, device)
-
-    def read(cols):
-        return _read_one(path, cols) if sel is None else _read_row_groups_one(path, sel, cols)
-
-    if missing and missing != list(columns or []):
-        cache.put(path, missing, _to_device(read(missing), device), sel, device)
-        t = cache.get(path, columns, record=False, sel=sel, device=device)
-        if t is not None:
-            if sel is not None:
-                _record_decoded_bytes(meta, sel, missing)
-            return t
-    t = _to_device(read(columns), device)
-    cache.put(path, columns, t, sel, device)
-    if sel is not None:
-        _record_decoded_bytes(meta, sel, t.column_names)
-    return t
-
-
-def file_table(path: str, columns: Optional[List[str]], device) -> Table:
-    """One file's table on `device` through the per-file scan cache: a warm
-    file decodes only the columns no earlier projection read."""
-    t = global_scan_cache().get(path, columns, device=device)
-    return t if t is not None else _decode_into_cache(path, columns, device)
+    reads = []
+    for path, cols, meta, sel, base in jobs:
+        missing = cache.missing_columns(path, cols, sel, device, base)
+        reads.append(missing if missing and missing != list(cols or []) else cols)
+    args = [(job[0], rd, job[3], job[4]) for job, rd in zip(jobs, reads)]
+    if len(args) > 1:
+        arrows = list(_pool().map(lambda a: _read_arrow(*a), args))
+    else:
+        arrows = [_read_arrow(*a) for a in args]
+    with _timed("convert"):
+        hosts = _convert_batch(arrows)
+    out = []
+    for (path, cols, meta, sel, base), rd, t in zip(jobs, reads, _to_device_batched(hosts, device)):
+        cache.put(path, rd, t, sel, device, base)
+        if sel is not None:
+            _record_decoded_bytes(meta, sel, t.column_names)
+        if rd is not cols:  # only the cold columns were read: assemble the rest from the cache
+            whole = cache.get(path, cols, record=False, sel=sel, device=device, base=base)
+            t = whole if whole is not None else _decode_into_cache([(path, list(cols or meta.names), meta, sel, base)], device)[0]
+        out.append(t)
+    return out
 
 
 def _empty_file_table(meta: FileFooterMeta, columns: Optional[List[str]], device) -> Table:
@@ -386,20 +452,6 @@ def _empty_file_table(meta: FileFooterMeta, columns: Optional[List[str]], device
     if columns is not None:
         at = at.select(columns)
     return _arrow_to_table(at).to(device)
-
-
-def pruned_file_table(path: str, columns: Optional[List[str]], meta: FileFooterMeta, sel, device) -> Table:
-    """One file's table under a row-group selection (`io.pruned_file_table`
-    :685). `sel` None is the whole-file read with its own cache keys; a tuple
-    decodes those row groups under selection keys."""
-    if sel is None:
-        return file_table(path, columns, device)
-    if len(sel) == 0:
-        return _empty_file_table(meta, columns, device)
-    cols = selection_columns(columns, meta)
-    sel = tuple(sel)
-    t = global_scan_cache().get(path, cols, sel=sel, device=device)
-    return t if t is not None else _decode_into_cache(path, cols, device, sel, meta)
 
 
 def _record_decoded_bytes(meta: Optional[FileFooterMeta], sel: tuple, decoded_cols: List[str]) -> None:
@@ -437,7 +489,7 @@ def record_pruning(selections, pruning_stats: Optional[dict] = None) -> None:
     for meta, sel in selections:
         if meta is None:
             continue
-        n = len(meta.row_groups)
+        n = meta.num_row_groups
         scanned += n if sel is None else len(sel)
         skipped += 0 if sel is None else n - len(sel)
     _count("row_groups_scanned", scanned)
@@ -447,9 +499,20 @@ def record_pruning(selections, pruning_stats: Optional[dict] = None) -> None:
         pruning_stats["row_groups_skipped"] = pruning_stats.get("row_groups_skipped", 0) + skipped
 
 
+def _stat_all(files: List[str]) -> tuple:
+    """`file_base` of each file (None where it cannot be stat'ed); many
+    files are stat'ed on the decode threads, a slice each (a stat releases
+    the GIL)."""
+    if len(files) <= 16:
+        return tuple(map(file_base, files))
+    step = -(-len(files) // DECODE_THREADS)
+    slices = [files[i: i + step] for i in range(0, len(files), step)]
+    return tuple(b for part in _pool().map(lambda fs: [file_base(p) for p in fs], slices) for b in part)
+
+
 def file_stats(files: List[str]) -> Optional[tuple]:
     """Every file's (path, size, mtime), or None if one cannot be stat'ed."""
-    bases = tuple(file_base(p) for p in files)
+    bases = _stat_all(files)
     return None if any(b is None for b in bases) else bases
 
 
@@ -470,32 +533,34 @@ def concat_cache_probe(ordered: List[str], columns: Optional[List[str]], device,
     return key, None if hit is None else hit[0]
 
 
-def decode_files(jobs: List[tuple], device) -> List[Table]:
-    """`jobs` of (path, columns, meta, sel) as device tables through the scan
-    cache, cold files decoded concurrently (pyarrow releases the GIL)."""
+def decode_files(jobs: List[tuple], device, bases: Optional[tuple] = None) -> List[Table]:
+    """`jobs` of (path, columns, meta, sel) as tables on `device` through the
+    per-file scan cache: the port's `file_table` / `pruned_file_table`
+    (`io.py` :551, :685) for a whole scan at once. `sel` None reads the whole
+    file under its whole-file keys; a tuple reads those row groups under
+    selection keys, never aliasing the whole-file entries; an empty tuple is
+    the file's 0-row table. `bases` are the files' stats when the caller
+    has them."""
+    device = torch.device(device)
     cache = global_scan_cache()
+    bases = bases or _stat_all([job[0] for job in jobs])
     tables: List[Optional[Table]] = []
-    for path, cols, meta, sel in jobs:
+    for (path, cols, meta, sel), base in zip(jobs, bases):
         if sel is None:
-            tables.append(cache.get(path, cols, device=device))
+            tables.append(cache.get(path, cols, device=device, base=base))
         elif len(sel) == 0:
             tables.append(_empty_file_table(meta, cols, device))
         else:
-            tables.append(cache.get(path, selection_columns(cols, meta), sel=tuple(sel), device=device))
+            tables.append(cache.get(path, selection_columns(cols, meta), sel=tuple(sel), device=device, base=base))
     missing = [i for i, t in enumerate(tables) if t is None]
-
-    def decode(i: int) -> Table:
+    cold = []
+    for i in missing:
         path, cols, meta, sel = jobs[i]
         if sel is None:
-            return _decode_into_cache(path, cols, device)
-        return _decode_into_cache(path, selection_columns(cols, meta), device, tuple(sel), meta)
-
-    if len(missing) > 1:
-        with ThreadPoolExecutor(max_workers=min(DECODE_THREADS, len(missing))) as pool:
-            decoded = list(pool.map(decode, missing))
-    else:
-        decoded = [decode(i) for i in missing]
-    for i, t in zip(missing, decoded):
+            cold.append((path, cols, meta, None, bases[i]))
+        else:
+            cold.append((path, selection_columns(cols, meta), meta, tuple(sel), bases[i]))
+    for i, t in zip(missing, _decode_into_cache(cold, device) if cold else []):
         tables[i] = t
     return tables
 

@@ -57,6 +57,14 @@ _BUCKET_FILE_RE = re.compile(r"part-(\d+)")
 class ExecContext:
     def __init__(self, session):
         self.session = session
+        self._file_stats: Dict[tuple, Optional[tuple]] = {}
+
+    def file_stats(self, paths: List[str]) -> Optional[tuple]:
+        """Each file's (path, size, mtime), stat'ed once per execution."""
+        key = tuple(paths)
+        if key not in self._file_stats:
+            self._file_stats[key] = engine_io.file_stats(paths)
+        return self._file_stats[key]
 
     @property
     def device(self) -> torch.device:
@@ -173,7 +181,10 @@ class BucketedIndexScanExec(PhysicalNode):
         bucket_files = self._bucket_files()
         sel_of = selections or {}
         jobs = [(p, self.columns) + sel_of.get(p, (None, None)) for _, p in bucket_files]
-        tables = engine_io.decode_files(jobs, ctx.device)
+        stats = ctx.file_stats([f.path for f in self.relation.files])
+        by_path = dict(zip([f.path for f in self.relation.files], stats)) if stats is not None else None
+        bases = None if by_path is None else tuple(by_path[p] for _, p in bucket_files)
+        tables = engine_io.decode_files(jobs, ctx.device, bases)
         starts = np.zeros(self.relation.bucket_spec.num_buckets + 1, dtype=np.int64)
         for (b, _), t in zip(bucket_files, tables):
             starts[b + 1] = t.num_rows
@@ -210,7 +221,8 @@ class BucketedIndexScanExec(PhysicalNode):
         on disk now. Join pairs computed against one projection of the scan
         serve every other; a rewritten file changes the token. None when a
         file cannot be stat'ed."""
-        stats = engine_io.file_stats([f.path for f in self.relation.files])
+        paths = [f.path for f in self.relation.files]
+        stats = engine_io.file_stats(paths) if ctx is None else ctx.file_stats(paths)
         if stats is None:
             return None
         return (("log", self.relation.index_name, self.relation.log_entry_id), stats)

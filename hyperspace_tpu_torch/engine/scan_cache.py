@@ -132,13 +132,14 @@ class ScanCache(_LruBytes):
         return list(ent[0])
 
     def get(
-        self, path: str, columns: Optional[List[str]], record: bool = True, sel=None, device="cpu"
+        self, path: str, columns: Optional[List[str]], record: bool = True, sel=None, device="cpu", base=None
     ) -> Optional[Table]:
         """The requested table on `device` assembled from cached columns, or
         None. `record=False` counts nothing (a re-read inside one request);
         `sel` reads the row-group-selection entries instead of the whole-file
-        ones."""
-        base = file_base(path)
+        ones. `base` is the file's `file_base` when the caller has it (each
+        method stats the file otherwise)."""
+        base = base or file_base(path)
         if base is None:
             return None
         with self._lock:
@@ -160,10 +161,12 @@ class ScanCache(_LruBytes):
             self.hits += record
             return Table(cols)
 
-    def missing_columns(self, path: str, columns: Optional[List[str]], sel=None, device="cpu") -> Optional[List[str]]:
+    def missing_columns(
+        self, path: str, columns: Optional[List[str]], sel=None, device="cpu", base=None
+    ) -> Optional[List[str]]:
         """The requested columns not cached for this file; None = cannot tell
         (unknown names for columns=None, or the file cannot be stat'ed)."""
-        base = file_base(path)
+        base = base or file_base(path)
         if base is None:
             return None
         with self._lock:
@@ -172,8 +175,8 @@ class ScanCache(_LruBytes):
                 return None
             return [n for n in names if base + (self._col_key(n, sel, device),) not in self._entries]
 
-    def put(self, path: str, columns: Optional[List[str]], table: Table, sel=None, device="cpu") -> None:
-        base = file_base(path)
+    def put(self, path: str, columns: Optional[List[str]], table: Table, sel=None, device="cpu", base=None) -> None:
+        base = base or file_base(path)
         if base is None:
             return
         with self._lock:
@@ -188,9 +191,9 @@ class ScanCache(_LruBytes):
                     continue
                 self._insert_locked(key, (c, size))
 
-    def get_meta(self, path: str):
+    def get_meta(self, path: str, base=None):
         """A file's cached footer metadata, or None (counted by the caller)."""
-        base = file_base(path)
+        base = base or file_base(path)
         if base is None:
             return None
         with self._lock:
@@ -200,8 +203,8 @@ class ScanCache(_LruBytes):
             self._entries.move_to_end(base + (("meta",),))
             return ent[0]
 
-    def put_meta(self, path: str, meta, nbytes: int) -> None:
-        base = file_base(path)
+    def put_meta(self, path: str, meta, nbytes: int, base=None) -> None:
+        base = base or file_base(path)
         if base is None:
             return
         with self._lock:

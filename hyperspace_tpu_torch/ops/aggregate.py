@@ -16,7 +16,9 @@ Counterpart of the non-streaming path of `hyperspace_tpu/ops/aggregate.py`
    exact whatever the order.
 4. If the representative key tuples are not all distinct, a collision split a
    group: recompute exactly on the host (`_host_aggregate` :389, as at
-   :797-802), whose groups come in first-occurrence order.
+   :797-802), whose groups come in first-occurrence order. Only
+   representatives with equal key64s can repeat a tuple, so the exact host
+   check runs only when two adjacent ones have equal key64s.
 
 Groups come out in the order of the stable key64 sort, the order of the JAX
 package's sort paths (its device program, and its host path under
@@ -136,8 +138,7 @@ def _count_distinct_sorted(gid: torch.Tensor, perm: torch.Tensor, col: Column, n
     xs = _distinct_values(col.data)[perm]
     v = _valid(col)[perm]
     order = torch.sort(xs, stable=True).indices
-    order = order[torch.sort((~v)[order].to(torch.int8), stable=True).indices]
-    order = order[torch.sort(gid[order], stable=True).indices]
+    order = order[torch.sort((gid * 2 + (~v).to(torch.int64))[order], stable=True).indices]
     sg, sx, sv = gid[order], xs[order], v[order]
     first = torch.ones_like(sv)
     first[1:] = (sg[1:] != sg[:-1]) | (sx[1:] != sx[:-1])
@@ -317,7 +318,8 @@ def hash_aggregate(table: Table, group_keys, aggs: Sequence[AggTriple]) -> Table
     if table.num_rows == 0:
         return _empty_result(table, group_keys, aggs)
     key_cols = [table.column(k) for k in group_keys]
-    perm, boundary, gid = _group_ids(key_cols, key64(key_cols))
+    k64 = key64(key_cols)
+    perm, boundary, gid = _group_ids(key_cols, k64)
     starts = torch.nonzero(boundary).squeeze(1)
     n_groups = int(starts.shape[0])
     ends = torch.cat([starts[1:], torch.tensor([table.num_rows], device=starts.device)])
@@ -332,7 +334,12 @@ def hash_aggregate(table: Table, group_keys, aggs: Sequence[AggTriple]) -> Table
         vals, n_valid = _segment_reduce(fn, col, perm, gid, seg_rows, n_groups)
         reduced.append((out_name, col, dtype, vals, None if fn == "count" else n_valid > 0))
     rep_rows = table.take(perm[starts]).select(group_keys)
-    if len(np.unique(_key_records([rep_rows.column(k) for k in group_keys]))) != n_groups:
+    # Equal tuples hash equal, so two representatives can only repeat a tuple
+    # when their key64s are equal: check exactly on the host only then.
+    rep_k64 = k64[perm[starts]]
+    if bool((rep_k64[1:] == rep_k64[:-1]).any()) and len(
+        np.unique(_key_records([rep_rows.column(k) for k in group_keys]))
+    ) != n_groups:
         # A 64-bit collision interleaved two tuples in one sorted run.
         return _host_aggregate(table, group_keys, aggs)
     out = {k: rep_rows.column(k) for k in group_keys}

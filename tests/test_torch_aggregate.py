@@ -103,10 +103,6 @@ def both(tmp_path_factory):
     return ts.read.parquet(path), js.read.parquet(path)
 
 
-def _grouped(c, keys, **aggs):
-    return lambda df: df.group_by(*keys).agg(**aggs)
-
-
 QUERIES = {
     "sum_count_rows": (("region",), dict(total=("amount", "sum"), n=("amount", "count"), rows=("*", "count"))),
     "min_max_avg": (("region",), dict(lo=("amount", "min"), hi=("amount", "max"), mean=("price", "avg"))),
@@ -250,7 +246,7 @@ COMPUTED = {
     "literal_minus_column": lambda c: 100 - c("amount"),
     "nullable_product": lambda c: c("amount") * c("price"),
     "division_by_a_column_with_zeros": lambda c: c("price") / c("small"),
-    "literal_arithmetic": lambda c: hst.engine.expr.lit(2) * 3 if c is hst.col else _jax_lit(2) * 3,
+    "literal_arithmetic": lambda c: hst.lit(2) * 3 if c is hst.col else _jax_lit(2) * 3,
     "comparison": lambda c: c("price") > 50,
     "replace_in_place": lambda c: c("qty") * 2,
 }

@@ -343,3 +343,41 @@ def test_packed_probe_kernel_lane_table_cases(cuda_device, bits, kind, dtype):
         got, want = cuda_packed_probe.probe_packed(*args), cuda_packed_probe.probe_packed_plain(*args)
         assert cuda_packed_probe.launches == before + 1
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mixed", [False, True], ids=["one-schema", "mixed-widths"])
+def test_a_cold_multi_file_scan_on_the_card_equals_the_cpu_scan(cuda_device, tmp_path, mixed):
+    """A cold scan copies each column to the card once for all its files and
+    splits it into per-file tables (`io._to_device_batched`, card only). The
+    tables equal the CPU read's, uncached and from the cache, with dictionary
+    strings and nulls, over files of one schema (one conversion a column) and
+    of mixed integer widths (a conversion a file)."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch.engine import io as torch_io
+    from hyperspace_tpu_torch.engine import scan_cache
+
+    rng = np.random.RandomState(3)
+    paths = []
+    for i in range(5):
+        n = 500 + 100 * i
+        k = pa.array(np.arange(n) + 1000 * i, pa.int32() if mixed and i == 2 else pa.int64())
+        s = pa.array(np.array(["AIR", "MAIL", "SHIP"])[rng.randint(0, 3, n)])
+        v = pa.array([None if x < 0.2 else x for x in rng.rand(n)] if i % 2 else rng.rand(n), pa.float64())
+        paths.append(str(tmp_path / f"part-{i:05d}.parquet"))
+        pq.write_table(pa.table({"k": k, "s": s, "v": v}), paths[-1], row_group_size=300)
+    for cols in (None, ["s", "k"]):
+        want = torch_io.read_files(paths, "parquet", cols, "cpu")
+        scan_cache.clear_scan_caches()
+        for got in (torch_io.read_files(paths, "parquet", cols, cuda_device),
+                    torch_io.read_files(paths, "parquet", cols, cuda_device)):
+            assert got.column_names == want.column_names
+            for n in want.column_names:
+                a, b = got.column(n), want.column(n)
+                assert a.data.device.type == "cuda" and a.dtype == b.dtype
+                assert torch.equal(a.data.cpu(), b.data)
+                assert (a.validity is None) == (b.validity is None)
+                assert a.validity is None or torch.equal(a.validity.cpu(), b.validity)
+                assert a.dictionary is None or np.array_equal(a.dictionary, b.dictionary)

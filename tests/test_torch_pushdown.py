@@ -254,21 +254,22 @@ def test_a_fault_mid_scan_leaves_no_partial_entry(sessions, tmp_path, monkeypatc
     src = _write_clustered(str(tmp_path), "src")
     monkeypatch.setenv(ENV, "1")
     clear_all()
-    real = torch_io._read_row_groups_one
+    real = torch_io._read_arrow
     boom = {}
 
-    def failing(path, sel, columns):
-        boom.setdefault("path", path)
-        if path == boom["path"]:
-            raise OSError("injected decode fault")
-        return real(path, sel, columns)
+    def failing(path, columns, sel=None, base=None):
+        if sel is not None:  # fail the first pruned decode
+            boom.setdefault("path", path)
+            if path == boom["path"]:
+                raise OSError("injected decode fault")
+        return real(path, columns, sel, base)
 
-    monkeypatch.setattr(torch_io, "_read_row_groups_one", failing)
+    monkeypatch.setattr(torch_io, "_read_arrow", failing)
     with pytest.raises(OSError, match="injected"):
         ts.read.parquet(src).filter(hst.col("ts") < 900).collect()
     names = ["ts", "fv", "sv", "nv"]
     assert torch_scan_cache.global_scan_cache().missing_columns(boom["path"], names, sel=(0, 1)) == names
-    monkeypatch.setattr(torch_io, "_read_row_groups_one", real)
+    monkeypatch.setattr(torch_io, "_read_arrow", real)
     assert ts.read.parquet(src).filter(hst.col("ts") < 900).collect().num_rows == 900
 
 

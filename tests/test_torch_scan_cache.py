@@ -234,7 +234,7 @@ def test_a_rewritten_file_misses_every_cache_and_memo(tmp_path, monkeypatch):
     scan = next(n for n in q().physical_plan().collect_nodes() if isinstance(n, physical.BucketedIndexScanExec))
     part = scan.relation.files[0].path
     time.sleep(0.01)
-    torch_io.write_parquet(torch_io._read_one(part, None), part, row_group_rows=16)
+    torch_io.write_parquet(torch_io._arrow_to_table(torch_io._read_arrow(part, None)), part, row_group_rows=16)
     before, memo_before = scan_cache.stats(), physical.memo_stats()
     again = q().collect()
     after, memo_after = scan_cache.stats(), physical.memo_stats()

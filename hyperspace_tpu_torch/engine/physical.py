@@ -158,7 +158,6 @@ class BucketedIndexScanExec(PhysicalNode):
         assert relation.bucket_spec is not None
         self.relation = relation
         self.columns = columns
-        self.pruning: Dict[str, int] = {}
 
     def _bucket_files(self) -> List[Tuple[int, str]]:
         """(bucket, path) of each file, in bucket order."""
@@ -181,10 +180,7 @@ class BucketedIndexScanExec(PhysicalNode):
         bucket_files = self._bucket_files()
         sel_of = selections or {}
         jobs = [(p, self.columns) + sel_of.get(p, (None, None)) for _, p in bucket_files]
-        stats = ctx.file_stats([f.path for f in self.relation.files])
-        by_path = dict(zip([f.path for f in self.relation.files], stats)) if stats is not None else None
-        bases = None if by_path is None else tuple(by_path[p] for _, p in bucket_files)
-        tables = engine_io.decode_files(jobs, ctx.device, bases)
+        tables = engine_io.decode_files(jobs, ctx.device, ctx.file_stats([p for _, p in bucket_files]))
         starts = np.zeros(self.relation.bucket_spec.num_buckets + 1, dtype=np.int64)
         for (b, _), t in zip(bucket_files, tables):
             starts[b + 1] = t.num_rows
@@ -208,21 +204,19 @@ class BucketedIndexScanExec(PhysicalNode):
         selections = engine_io.pushdown_selections(paths, pred)
         if selections is None:
             return None
-        self.pruning = {}
-        engine_io.record_pruning(selections, self.pruning)
+        engine_io.record_pruning(selections)
         return self._assemble(ctx, dict(zip(paths, selections)))
 
     def empty_table(self, ctx) -> Table:
         return _empty_table(self.relation, self.columns, ctx.device)
 
-    def rows_token(self, ctx=None) -> Optional[tuple]:
+    def rows_token(self, ctx) -> Optional[tuple]:
         """Identity of this scan's rows and their order, whatever its columns:
         the index log entry id and every file's (path, size, mtime) as it is
         on disk now. Join pairs computed against one projection of the scan
         serve every other; a rewritten file changes the token. None when a
         file cannot be stat'ed."""
-        paths = [f.path for f in self.relation.files]
-        stats = engine_io.file_stats(paths) if ctx is None else ctx.file_stats(paths)
+        stats = ctx.file_stats([p for _, p in self._bucket_files()])
         if stats is None:
             return None
         return (("log", self.relation.index_name, self.relation.log_entry_id), stats)
@@ -326,7 +320,7 @@ class FilterExec(PhysicalNode):
         cs = _resolution_case_sensitive(ctx, self.child.relation.schema.names)
         return canonical_condition_repr(self.condition, cs)
 
-    def rows_token(self, ctx=None) -> Optional[tuple]:
+    def rows_token(self, ctx) -> Optional[tuple]:
         """The filtered scan's row identity: the scan's and the condition."""
         token = self.child.rows_token(ctx)
         return None if token is None else ("filtered-rows", token, self._condition_key(ctx))

@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                     # every phase
     python3 chip_smoke.py --phases env,kernels,strings,packed
+    python3 chip_smoke.py --phases env,q3
 
 Phases, each failing loudly:
 
@@ -30,7 +31,21 @@ Phases, each failing loudly:
              stage: the scan split into decode, dictionary conversion, copy to
              the device and concatenation; the join's layout into key64, pad
              scatter and K1; q3_agg into scan, join, with_column and aggregate.
-4. strings   two dictionary-string indexes on the same data: custSeg on
+4. q3        TPC-H Q3 whole on the same data, with two covering indexes of
+             its own (liQ3: lineitem [l_orderkey] with l_extendedprice,
+             l_discount, l_shipdate; ordQ3: orders [o_orderkey] with
+             o_custkey, o_orderdate, o_shippriority): (lineitem shipped after
+             1995-03-15 ⋈ orders placed before it) — the co-bucketed join,
+             value mode, K2 — ⋈ BUILDING customers, the general join; then
+             revenue, group_by(l_orderkey, o_orderdate, o_shippriority),
+             ORDER BY revenue DESC, o_orderdate and LIMIT 10. Runs indexed and
+             with Hyperspace disabled (two general joins): cold, uncached p50
+             of 3, cached p50 of 3, and an uncached and a cached collect split
+             by stage (scans, bucketed join, general join, aggregate, order_by,
+             limit). Both must equal a numpy Q3 of the generated arrays (rows
+             and order, revenue at rtol 1e-9, tied sort keys as a set) and
+             each other.
+5. strings   two dictionary-string indexes on the same data: custSeg on
              c_mktsegment (its build sorts with K3) and liShip on l_shipmode
              (its composite overflows int32, so its build must not take K3);
              then Q3's and Q12's predicates through FilterIndexRule with bucket
@@ -39,16 +54,23 @@ Phases, each failing loudly:
              and collect, cold, uncached and cached, against a numpy filter and
              the non-indexed query; q12_range also against its read with
              `HYPERSPACE_SCAN_PUSHDOWN=0`. Prints the row groups each lookup
-             decodes of those in its files.
-5. packed    `pad_buckets_by_codes` (K4) and `probe_code_ranges` (K5), an ops
+             decodes of those in its files. Then the join key kinds, indexed
+             and in hash mode (K1 then K2): customer ⋈ a copy of it on the
+             string c_name, and a copy of o_custkey with 1% nulls (its own
+             `RandomState(seed + 1)`) ⋈ customer on c_custkey, each against
+             numpy.
+6. packed    `pad_buckets_by_codes` (K4) and `probe_code_ranges` (K5), an ops
              API no engine operator calls, on bench.py's packed shape and on
              lineitem's shipmode codes in its l_orderkey bucket layout, against
              the plain probe and numpy searchsorted.
-6. identity  the join, aggregate and string slices at SF 0.05 with
-             device="cpu" and device="cuda": identical index files, identical
-             rows in order (q3_agg's sums at rtol 1e-9).
+7. identity  the join, aggregate, Q3 (general joins, every group) and
+             string slices at SF 0.05 with device="cpu" and device="cuda":
+             identical index files, identical rows in order (sums at rtol
+             1e-9).
 
-Prints one JSON line of per-kernel results, the card's `nvidia-smi` line,
+Kernel launches are counted from 0 at the start of each phase that drives
+the engine (main, q3, strings, packed) and summed over them. Prints one JSON
+line of per-kernel results, the card's `nvidia-smi` line,
 and last `{"ok": true, "device": {...}}`. Exits non-zero without a result
 when no CUDA device is visible or the package is missing.
 """
@@ -584,6 +606,15 @@ SEGMENTS = np.array(sorted(["AUTOMOBILE", "BUILDING", "FURNITURE", "MACHINERY", 
 SHIPMODES = np.array(sorted(["REG AIR", "AIR", "RAIL", "SHIP", "TRUCK", "MAIL", "FOB"]))
 
 
+def days(date: str) -> int:
+    """A date as int32 days since 1970-01-01, the port's date columns."""
+    return int(np.datetime64(date, "D").astype(np.int64))
+
+
+START_DATE, END_DATE = days("1992-01-01"), days("1998-12-31")  # clause 4.2.3
+Q3_DATE = days("1995-03-15")
+
+
 def tpch(sf: float, seed: int):
     rng = np.random.RandomState(seed)
     n_orders = int(1_500_000 * sf)
@@ -624,17 +655,25 @@ def tpch(sf: float, seed: int):
     c_mktsegment = (SEGMENTS, rng.randint(0, len(SEGMENTS), n_cust).astype(np.int32))
     c_acctbal = rng.randint(-99999, 1000000, n_cust) / 100.0
     l_shipmode = (SHIPMODES, rng.randint(0, len(SHIPMODES), n_lines).astype(np.int32))
+    # Q3's dates (clause 4.2.3), drawn after everything above so that it stays
+    # byte-identical: int32 days since 1970-01-01.
+    o_orderdate = rng.randint(START_DATE, END_DATE - 151 + 1, n_orders).astype(np.int32)
+    o_shippriority = np.zeros(n_orders, dtype=np.int32)
+    l_shipdate = (np.repeat(o_orderdate, lines) + rng.randint(1, 122, n_lines)).astype(np.int32)
     return {
         "lineitem": {
             "l_orderkey": l_orderkey, "l_partkey": l_partkey, "l_suppkey": l_suppkey,
             "l_linenumber": l_linenumber, "l_quantity": l_quantity,
             "l_extendedprice": l_extendedprice, "l_discount": l_discount, "l_tax": l_tax,
-            "l_shipmode": l_shipmode,
+            "l_shipmode": l_shipmode, "l_shipdate": l_shipdate,
         },
         "customer": {
             "c_custkey": c_custkey, "c_name": c_name, "c_mktsegment": c_mktsegment, "c_acctbal": c_acctbal,
         },
-        "orders": {"o_orderkey": o_orderkey, "o_custkey": o_custkey, "o_totalprice": o_totalprice},
+        "orders": {
+            "o_orderkey": o_orderkey, "o_custkey": o_custkey, "o_totalprice": o_totalprice,
+            "o_orderdate": o_orderdate, "o_shippriority": o_shippriority,
+        },
         "partsupp": {
             "ps_partkey": ps_partkey, "ps_suppkey": ps_suppkey,
             "ps_availqty": ps_availqty, "ps_supplycost": ps_supplycost,
@@ -1062,7 +1101,237 @@ def layout_split(layout) -> dict:
     return split
 
 
+# ---------------------------------------------------------------------------
+# TPC-H Q3 whole: a bucketed join, a general join, the aggregate, ORDER BY and
+# LIMIT, with its covering indexes and with Hyperspace disabled
+# ---------------------------------------------------------------------------
+
+Q3_INDEXES = [
+    ("lineitem", "liQ3", ["l_orderkey"], ["l_extendedprice", "l_discount", "l_shipdate"]),
+    ("orders", "ordQ3", ["o_orderkey"], ["o_custkey", "o_orderdate", "o_shippriority"]),
+]
+Q3_COLUMNS = ["l_orderkey", "revenue", "o_orderdate", "o_shippriority"]
+
+
+def q3_query(read, col, n: int = 10):
+    """TPC-H Q3 through either package's DataFrame API (`read(table)` gives a
+    source's DataFrame, `col` names a column): (lineitem shipped after the
+    date ⋈ orders placed before it) ⋈ BUILDING customers, revenue summed per
+    order, the `n` largest (Q3 takes 10)."""
+    li = read("lineitem").filter(col("l_shipdate") > Q3_DATE)
+    od = read("orders").filter(col("o_orderdate") < Q3_DATE)
+    cu = read("customer").filter(col("c_mktsegment") == "BUILDING")
+    return (
+        li.join(od, col("l_orderkey") == col("o_orderkey"))
+        .join(cu, col("o_custkey") == col("c_custkey"))
+        .with_column("revenue", col("l_extendedprice") * (1 - col("l_discount")))
+        .group_by("l_orderkey", "o_orderdate", "o_shippriority")
+        .agg(revenue=("revenue", "sum"))
+        .order_by(("revenue", False), "o_orderdate")
+        .limit(n)
+        .select(*Q3_COLUMNS)
+    )
+
+
+def expected_q3(data) -> dict:
+    """Q3 of the generated arrays with numpy: every group, in Q3's order
+    (revenue descending, then o_orderdate); the query keeps the first ten."""
+    li, od, cu = data["lineitem"], data["orders"], data["customer"]
+    seg_dict, seg = cu["c_mktsegment"]
+    building = cu["c_custkey"][seg == int(np.searchsorted(seg_dict, "BUILDING"))]
+    o = np.nonzero((od["o_orderdate"] < Q3_DATE) & np.isin(od["o_custkey"], building))[0]
+    lines = np.nonzero(li["l_shipdate"] > Q3_DATE)[0]
+    a, b = np_join(li["l_orderkey"][lines], od["o_orderkey"][o])
+    a, b = lines[a], o[b]
+    keys, inv = np.unique(li["l_orderkey"][a], return_inverse=True)
+    revenue = np.bincount(inv, weights=li["l_extendedprice"][a] * (1 - li["l_discount"][a]))
+    order_of = np.zeros(len(keys), np.int64)
+    order_of[inv] = b
+    date, prio = od["o_orderdate"][order_of], od["o_shippriority"][order_of]
+    by = np.lexsort((date, -revenue))
+    return {"l_orderkey": keys[by], "revenue": revenue[by], "o_orderdate": date[by], "o_shippriority": prio[by]}
+
+
+def check_q3(label: str, got: dict, want: dict, n: int = 10) -> None:
+    """`got` must be numpy's first n rows in order, revenue at rtol 1e-9. Rows
+    whose sort keys tie in numpy's order (revenue within rtol 1e-9 and the
+    same date) may come in any order among themselves; a tie across the n-th
+    row may bring any of its members."""
+    rev, date = want["revenue"], want["o_orderdate"]
+    m = min(n, len(rev))
+    if list(got) != Q3_COLUMNS or len(got["l_orderkey"]) != m:
+        raise AssertionError(f"{label}: columns {list(got)} and {len(got['l_orderkey'])} rows, want {Q3_COLUMNS} "
+                             f"and {m}")
+    tie = np.isclose(rev[1:], rev[:-1], rtol=1e-9, atol=0) & (date[1:] == date[:-1])
+    cls = np.concatenate([[0], np.cumsum(~tie)])
+    keys = np.asarray(got["l_orderkey"])
+    for c in np.unique(cls[:m]):
+        pos, members = np.nonzero(cls[:m] == c)[0], np.nonzero(cls == c)[0]
+        have, allowed = set(keys[pos].tolist()), set(want["l_orderkey"][members].tolist())
+        if not (have <= allowed if members[-1] >= m else have == allowed):
+            raise AssertionError(f"{label}: rows {pos.tolist()} hold orders {sorted(have)}, numpy {sorted(allowed)}")
+    at = {k: i for i, k in enumerate(want["l_orderkey"].tolist())}
+    rows = np.array([at[k] for k in keys.tolist()], np.int64)
+    for name in ("o_orderdate", "o_shippriority"):
+        if not np.array_equal(np.asarray(got[name]).astype(np.int64), want[name][rows].astype(np.int64)):
+            raise AssertionError(f"{label}: {name} differs from numpy's Q3")
+    if not np.allclose(np.asarray(got["revenue"], np.float64), want["revenue"][rows], rtol=1e-9, atol=0):
+        raise AssertionError(f"{label}: revenue differs from numpy's Q3 beyond rtol 1e-9")
+
+
+def q3_stage_split(torch, df, uncached: bool) -> dict:
+    """Seconds of one `collect()` of Q3 by stage: each operator's own time
+    (its call's time less its children's, every call ended by a synchronize),
+    summed into the scans (with their filters), the bucketed join, the
+    general join (with its exchange and sort markers), the aggregate (with
+    the computed column), ORDER BY, LIMIT, the projection and the copy to the
+    host."""
+    from hyperspace_tpu_torch.engine.physical import ExecContext
+
+    plan = df.physical_plan()
+    spent, stack = {}, []
+
+    def stage(node) -> str:
+        if node.name == "SortMergeJoin":
+            return "bucketed_join_s" if node.bucketed else "general_join_s"
+        return {
+            "Scan": "scans_s", "BucketedIndexScan": "scans_s", "Filter": "scans_s", "Sort": "general_join_s",
+            "ShuffleExchange": "general_join_s", "WithColumn": "aggregate_s", "HashAggregate": "aggregate_s",
+            "OrderBy": "order_by_s", "Limit": "limit_s", "Project": "project_s",
+        }[node.name]
+
+    def wrap(node, method):
+        fn = getattr(node, method)
+
+        def call(*args):
+            stack.append(0.0)
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            inner = stack.pop()
+            spent[stage(node)] = spent.get(stage(node), 0.0) + dt - inner
+            if stack:
+                stack[-1] += dt
+            return out
+
+        setattr(node, method, call)
+
+    for node in plan.collect_nodes():
+        for method in ("execute", "execute_concat", "execute_pruned_concat"):
+            if hasattr(node, method):
+                wrap(node, method)
+    if uncached:
+        clear_caches()
+    out, total = wall(lambda: plan.execute(ExecContext(df.session)))
+    _, spent["to_host_s"] = wall(lambda: out.to("cpu"))
+    spent["total_s"] = total + spent["to_host_s"]
+    return spent
+
+
+def order_by_check(torch, rows: int = 1 << 20) -> dict:
+    """`OrderByExec`'s stable sorts on the card against `np.lexsort` of the
+    JAX package's lanes (value, validity above it; a descending key as a
+    negated dense rank), over float keys that a radix sort of raw bits would
+    split: NaNs of both signs (they tie, after +inf) and ±0.0 (they tie), in
+    float64 and float32, with an int key and a nullable copy. Returns the
+    seconds of each order on the card."""
+    from hyperspace_tpu_torch.engine.physical import OrderByExec
+    from hyperspace_tpu_torch.engine.table import Column, Table
+
+    rng = np.random.RandomState(5)
+    seconds = {}
+    for dtype in (np.float64, np.float32):
+        pool = np.array([np.nan, -np.nan, 0.0, -0.0, 1.5, -1.5, np.inf, -np.inf], dtype)
+        f = np.where(rng.rand(rows) < 0.5, pool[rng.randint(0, len(pool), rows)], rng.randn(rows).astype(dtype))
+        g = rng.randint(0, 4, rows).astype(np.int64)
+        valid = rng.rand(rows) >= 0.05
+        fill = np.where(valid, f, 0).astype(dtype)
+        t = Table({
+            "f": Column.from_values(f, DEVICE),
+            "g": Column.from_values(g, DEVICE),
+            "fn": Column(np.dtype(dtype).name, torch.from_numpy(fill).to(DEVICE), None, torch.from_numpy(valid).to(DEVICE)),
+        })
+        rank = np.unique(f, return_inverse=True)[1].reshape(-1)
+        fill_rank = np.unique(fill, return_inverse=True)[1].reshape(-1)
+        cases = {
+            "f": ([("f", True)], [f]),
+            "f_desc": ([("f", False)], [-rank]),
+            "g_f_desc": ([("g", True), ("f", False)], [-rank, g]),
+            "fn": ([("fn", True)], [fill, valid]),
+            "fn_desc_g_desc": ([("fn", False), ("g", False)], [-g, -fill_rank, ~valid]),
+        }
+        for name, (keys, lanes) in cases.items():
+            node = OrderByExec(keys, None)
+            perm, seconds[f"{np.dtype(dtype).name}_{name}_s"] = wall(lambda: node.order(t))
+            if not np.array_equal(perm.cpu().numpy(), np.lexsort(tuple(lanes))):
+                raise AssertionError(f"order_by {np.dtype(dtype).name} {keys}: the card's order differs from np.lexsort")
+    return seconds
+
+
+def phase_q3(torch, data, base: str):
+    import hyperspace_tpu_torch as hst
+    from hyperspace_tpu_torch.engine.physical import SortMergeJoinExec
+    from hyperspace_tpu_torch.ops import cuda_probe, cuda_sort
+
+    want = expected_q3(data)
+    cuda_sort.launches = 0
+    cuda_probe.launches = 0
+    s = hst.HyperspaceSession(warehouse=os.path.join(base, "q3"), device=DEVICE)
+    s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, NUM_BUCKETS)
+    hs = hst.Hyperspace(s)
+    build_s = {}
+    for src, name, indexed, included in Q3_INDEXES:
+        df = s.read.parquet(os.path.join(base, "src", src))
+        _, build_s[name] = wall(lambda: hs.create_index(df, hst.IndexConfig(name, indexed, included)))
+    log(f"[q3] build seconds {json.dumps(build_s)}")
+    df = q3_query(lambda t: s.read.parquet(os.path.join(base, "src", t)), hst.col)
+    results, times = {}, {}
+    for run in ("indexed", "disabled"):
+        (hst.enable_hyperspace if run == "indexed" else hst.disable_hyperspace)(s)
+        joins = [n for n in df.physical_plan().collect_nodes() if isinstance(n, SortMergeJoinExec)]
+        kinds = sorted("bucketed" if j.bucketed else "general" for j in joins)
+        expect = ["bucketed", "general"] if run == "indexed" else ["general", "general"]
+        if kinds != expect or (run == "indexed" and scanned_indexes(df) != ["liQ3", "ordQ3"]):
+            raise AssertionError(f"q3 {run}: joins {kinds}, want {expect}:\n{df.explain_string()}")
+        k2 = cuda_probe.launches
+        clear_caches()
+        out, t_cold = wall(df.collect)
+        check_q3(f"q3 {run}", out.to_numpy(), want)
+        t = {"rows": out.num_rows, "collect_cold_s": t_cold}
+        out, t["uncached_p50_s"] = run_p50(df.collect, 3, uncached=True)
+        check_q3(f"q3 {run}", out.to_numpy(), want)
+        out, t["cached_p50_s"] = run_p50(df.collect, 3, uncached=False)
+        check_q3(f"q3 {run}", out.to_numpy(), want)
+        if df.count() != out.num_rows:
+            raise AssertionError(f"q3 {run}: count() {df.count()} != {out.num_rows} rows")
+        t["k2_launches"] = cuda_probe.launches - k2
+        if run == "indexed" and t["k2_launches"] == 0:
+            raise AssertionError("q3 indexed: K2 never launched")
+        results[run] = out.to_numpy()
+        times[run] = t
+        log(f"[q3] {run} {json.dumps(t)}")
+        log(f"[q3] {run} uncached collect stages {json.dumps(q3_stage_split(torch, df, True))}")
+        log(f"[q3] {run} cached collect stages {json.dumps(q3_stage_split(torch, df, False))}")
+    a, b = results["indexed"], results["disabled"]
+    ai, bi = np.argsort(a["l_orderkey"]), np.argsort(b["l_orderkey"])
+    if not (np.array_equal(a["l_orderkey"][ai], b["l_orderkey"][bi])
+            and np.allclose(a["revenue"][ai], b["revenue"][bi], rtol=1e-9, atol=0)
+            and all(np.array_equal(a[c][ai], b[c][bi]) for c in ("o_orderdate", "o_shippriority"))):
+        raise AssertionError("q3: the indexed and the disabled runs differ")
+    hst.enable_hyperspace(s)
+    log(f"[q3] order_by on the card equals np.lexsort with NaN and ±0.0 keys ({1 << 20} rows), seconds "
+        f"{json.dumps(order_by_check(torch))}")
+    top = {c: (v.tolist() if c != "revenue" else [round(float(x), 4) for x in v]) for c, v in a.items()}
+    launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches}
+    log(f"[q3] both runs equal numpy's Q3 and each other; top rows {json.dumps(top)}; "
+        f"launches {json.dumps(launches)}")
+    return launches, build_s, times
+
+
 def phase_identity(torch, seed: int, sf: float) -> None:
+    import hyperspace_tpu_torch as hst
+
     data = tpch(sf, seed)
     base = tempfile.mkdtemp(prefix="hs_smoke_ident_")
     try:
@@ -1072,6 +1341,8 @@ def phase_identity(torch, seed: int, sf: float) -> None:
             wh = os.path.join(base, f"warehouse{i}")
             s, _ = build(base, device, warehouse=wh)
             qs = dict(queries(s, base), q3_agg=q3_agg(s, base))
+            # Q3 without its indexes (two general joins), every group in order.
+            qs["q3"] = q3_query(lambda t: s.read.parquet(os.path.join(base, "src", t)), hst.col, 1_000_000)
             results[i] = {n: df.collect().to_numpy() for n, df in qs.items()}
             s, _, k3 = build_string_indexes(torch, base, device, wh)
             if device == DEVICE and k3 != {"custSeg": 1, "liShip": 1}:
@@ -1089,7 +1360,7 @@ def phase_identity(torch, seed: int, sf: float) -> None:
             raise AssertionError("index files built on the CPU and on the GPU differ")
         for name in results[0]:
             a, b = results[0][name], results[1][name]
-            # q3_agg's float sums may differ in rounding (rtol 1e-9); all else exactly.
+            # Float sums may differ in rounding (rtol 1e-9); all else exactly.
             same = [np.allclose(a[k], b[k], rtol=1e-9, atol=0) if k == "revenue" else np.array_equal(a[k], b[k])
                     for k in a]
             if list(a) != list(b) or not all(same):
@@ -1188,11 +1459,91 @@ def index_scan(df):
     return rels[0] if len(rels) == 1 and rels[0].index_name else None
 
 
-def phase_strings(torch, data, base: str):
+KEY_KIND_INDEXES = [
+    ("customer", "custName", ["c_name"], ["c_custkey"]),
+    ("customer_copy", "custName2", ["c2_name"], ["c2_custkey"]),
+    ("orders_nullable", "ordNullCust", ["o_custkey_n"], ["o_orderkey"]),
+    ("customer", "custKey", ["c_custkey"], ["c_acctbal"]),
+]
+
+
+def key_kind_sources(torch, data, base: str, seed: int) -> dict:
+    """The key-kind cases' extra sources: a copy of customer with its columns
+    renamed, and orders' o_custkey with 1% nulls drawn from its own
+    `RandomState(seed + 1)` (so no other column moves). Returns the
+    validity."""
+    from hyperspace_tpu_torch.engine import io as engine_io
+    from hyperspace_tpu_torch.engine.table import Column, Table
+
+    cu, od = data["customer"], data["orders"]
+    copy = source_table({"c2_name": cu["c_name"], "c2_custkey": cu["c_custkey"]})
+    engine_io.write_parquet(copy, os.path.join(base, "src", "customer_copy", "part-00000.parquet"))
+    valid = np.random.RandomState(seed + 1).rand(len(od["o_custkey"])) >= 0.01
+    nullable = Table({
+        "o_orderkey": Column.from_values(od["o_orderkey"], "cpu"),
+        "o_custkey_n": Column("int64", torch.from_numpy(np.where(valid, od["o_custkey"], 0)), None,
+                              torch.from_numpy(valid)),
+    })
+    engine_io.write_parquet(nullable, os.path.join(base, "src", "orders_nullable", "part-00000.parquet"))
+    return {"o_custkey_n": valid}
+
+
+def key_kind_joins(torch, data, base: str, seed: int) -> dict:
+    """Indexed joins on a string key (customer ⋈ its copy on the name) and on
+    a nullable key (orders' nullable o_custkey ⋈ customer), both in hash
+    mode (K1 then K2), each against numpy; returns their K1 and K2 launches
+    and times."""
     import hyperspace_tpu_torch as hst
-    from hyperspace_tpu_torch.ops import cuda_comp_sort
+    from hyperspace_tpu_torch import col
+    from hyperspace_tpu_torch.ops import cuda_probe, cuda_sort
+
+    valid = key_kind_sources(torch, data, base, seed)["o_custkey_n"]
+    s = hst.HyperspaceSession(warehouse=os.path.join(base, "keykinds"), device=DEVICE)
+    s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, NUM_BUCKETS)
+    hs = hst.Hyperspace(s)
+    for src, name, indexed, included in KEY_KIND_INDEXES:
+        hs.create_index(s.read.parquet(os.path.join(base, "src", src)), hst.IndexConfig(name, indexed, included))
+    hst.enable_hyperspace(s)
+
+    def rd(name):
+        return s.read.parquet(os.path.join(base, "src", name))
+
+    cu, od = data["customer"], data["orders"]
+    qs = {
+        "string_key": (rd("customer").join(rd("customer_copy"), col("c_name") == col("c2_name"))
+                       .select("c_custkey", "c2_custkey"), ["custName", "custName2"],
+                       {"c_custkey": cu["c_custkey"], "c2_custkey": cu["c_custkey"]}),
+        "nullable_key": (rd("orders_nullable").join(rd("customer"), col("o_custkey_n") == col("c_custkey"))
+                         .select("o_orderkey", "c_custkey"), ["custKey", "ordNullCust"],
+                         {"o_orderkey": od["o_orderkey"][valid], "c_custkey": od["o_custkey"][valid]}),
+    }
+    out = {}
+    for name, (df, indexes, rows) in qs.items():
+        if scanned_indexes(df) != indexes:
+            raise AssertionError(f"{name}: the plan does not scan {indexes}:\n{df.explain_string()}")
+        k1, k2 = cuda_sort.launches, cuda_probe.launches
+        clear_caches()
+        got, t_cold = wall(df.collect)
+        n = df.count()
+        if n != len(rows["c_custkey"]) or not same_multiset(got.to_numpy(), canonical(rows)):
+            raise AssertionError(f"{name}: {n} rows differ from numpy's {len(rows['c_custkey'])}")
+        t = {"rows": n, "collect_cold_s": t_cold}
+        _, t["cached_p50_s"] = run_p50(df.collect, 3, uncached=False)
+        t.update(k1_launches=cuda_sort.launches - k1, k2_launches=cuda_probe.launches - k2)
+        if not (t["k1_launches"] and t["k2_launches"]):
+            raise AssertionError(f"{name}: the hash-mode join must launch K1 and K2: {t}")
+        out[name] = t
+        log(f"[strings] {name} {json.dumps(t)}")
+    return out
+
+
+def phase_strings(torch, data, base: str, seed: int):
+    import hyperspace_tpu_torch as hst
+    from hyperspace_tpu_torch.ops import cuda_comp_sort, cuda_probe, cuda_sort
 
     cuda_comp_sort.launches = 0
+    cuda_sort.launches = 0
+    cuda_probe.launches = 0
     s, build_s, k3 = build_string_indexes(torch, base, DEVICE, os.path.join(base, "strings"))
     log(f"[strings] build seconds {json.dumps(build_s)}; K3 launches per build {json.dumps(k3)}")
     if k3 != {"custSeg": 1, "liShip": 0}:
@@ -1244,9 +1595,10 @@ def phase_strings(torch, data, base: str):
         clear_caches()
         log(f"[strings] {name} uncached collect breakdown {json.dumps(filter_breakdown(torch, df))}")
         log(f"[strings] {name} cached collect breakdown {json.dumps(filter_breakdown(torch, df))}")
-    launches = {"K3": cuda_comp_sort.launches}
-    log(f"[strings] rows equal the numpy filters and the non-indexed queries, and q12_range's the read "
-        f"without pushdown; launches {json.dumps(launches)}")
+    times.update(key_kind_joins(torch, data, base, seed))
+    launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches, "K3": cuda_comp_sort.launches}
+    log(f"[strings] rows equal the numpy filters and the non-indexed queries, q12_range's the read without "
+        f"pushdown, and the string-key and nullable-key joins numpy's; launches {json.dumps(launches)}")
     return launches, build_s, times
 
 
@@ -1347,7 +1699,7 @@ KERNEL_META = {
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="env,kernels,main,strings,packed,identity")
+    ap.add_argument("--phases", default="env,kernels,main,q3,strings,packed,identity")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sf", type=float, default=1.0)
     ap.add_argument("--identity-sf", type=float, default=0.05)
@@ -1374,8 +1726,14 @@ def main() -> int:
     rng = np.random.RandomState(args.seed)
     shapes = phase_kernels(torch, rng) if "kernels" in phases else []
     launches = {}
+
+    def add(counts: dict) -> None:
+        """A phase's launches, counted from 0 at its start, into the totals."""
+        for kid, n in counts.items():
+            launches[kid] = launches.get(kid, 0) + n
+
     data = None
-    if {"main", "strings", "packed"} & set(phases):
+    if {"main", "q3", "strings", "packed"} & set(phases):
         t0 = time.perf_counter()
         data = tpch(args.sf, args.seed)
         log(f"[data] TPC-H SF{args.sf}: lineitem {len(data['lineitem']['l_orderkey'])} rows, orders "
@@ -1383,14 +1741,16 @@ def main() -> int:
             f"{len(data['customer']['c_custkey'])} (generated in {time.perf_counter() - t0:.2f} s)")
     base = tempfile.mkdtemp(prefix="hs_smoke_sf1_")
     try:
-        if {"main", "strings"} & set(phases):
+        if {"main", "q3", "strings"} & set(phases):
             write_sources(data, base)
         if "main" in phases:
-            launches.update(phase_main(torch, data, base)[0])
+            add(phase_main(torch, data, base)[0])
+        if "q3" in phases:
+            add(phase_q3(torch, data, base)[0])
         if "strings" in phases:
-            launches.update(phase_strings(torch, data, base)[0])
+            add(phase_strings(torch, data, base, args.seed)[0])
         if "packed" in phases:
-            launches.update(phase_packed(torch, data, rng)[0])
+            add(phase_packed(torch, data, rng)[0])
     finally:
         shutil.rmtree(base, ignore_errors=True)
     if "identity" in phases:

@@ -1,7 +1,7 @@
 """Logical plan IR (counterpart of `hyperspace_tpu/engine/logical.py`).
 
 The node set of the slice: relation scans, filters, projections, inner
-equi-joins, computed columns and grouped aggregates. Class names are the JAX
+equi-joins, computed columns, grouped aggregates, ORDER BY and LIMIT. Class names are the JAX
 package's: the plan signature folds over them.
 """
 
@@ -275,6 +275,57 @@ class AggregateNode(LogicalPlan):
     def simple_string(self):
         aggs = ", ".join(f"{o}={fn}({c if c is not None else '*'})" for o, fn, c in self.aggs)
         return f"Aggregate [{', '.join(self.group_keys)}] [{aggs}]"
+
+
+class OrderByNode(LogicalPlan):
+    """ORDER BY (`logical.OrderByNode` :549): `keys` = [(column, ascending)].
+    Nulls order as Spark's default: first ascending, last descending."""
+
+    def __init__(self, keys: Sequence[tuple], child: LogicalPlan):
+        self.keys = [(k, bool(asc)) for k, asc in keys]
+        self.child = child
+        for k, _ in self.keys:
+            child.output_schema.field(k)  # resolve or raise
+
+    def children(self):
+        return (self.child,)
+
+    @property
+    def output_schema(self) -> Schema:
+        return self.child.output_schema
+
+    def with_children(self, children):
+        return OrderByNode(self.keys, children[0])
+
+    def references(self) -> List[str]:
+        return [k for k, _ in self.keys]
+
+    def simple_string(self):
+        keys = ", ".join(f"{k} {'ASC' if a else 'DESC'}" for k, a in self.keys)
+        return f"OrderBy [{keys}]"
+
+
+class LimitNode(LogicalPlan):
+    """LIMIT n (`logical.LimitNode` :577): the child's first n rows."""
+
+    def __init__(self, n: int, child: LogicalPlan):
+        if n < 0:
+            raise ValueError(f"limit must be non-negative: {n}")
+        self.n = int(n)
+        self.child = child
+
+    def children(self):
+        return (self.child,)
+
+    @property
+    def output_schema(self) -> Schema:
+        return self.child.output_schema
+
+    def with_children(self, children):
+        return LimitNode(self.n, children[0])
+
+    def simple_string(self):
+        return f"Limit {self.n}"
 
 
 def find_single_relation(plan: LogicalPlan) -> Optional[ScanNode]:

@@ -1,17 +1,21 @@
 """Physical plan + executor (counterpart of `hyperspace_tpu/engine/physical.py`).
 
 The operators of the slice: file scans, bucketed index scans, filters,
-projections, computed columns, grouped aggregates and the co-bucketed inner
-sort-merge join that `JoinIndexRule` sets up. A filter evaluates its
-predicate on the device (`engine/evaluate.py`) and keeps the surviving rows
-in order; a filter directly over a plain scan hands its condition to the scan,
-which skips the parquet row groups that cannot match (`engine/pushdown.py`).
-Both join sides arrive hash-partitioned into the same buckets on the join
-keys, so the merge runs per bucket pair with no exchange (reference
-`JoinIndexRule.scala:137-162`): `ops.bucket_join` probes all bucket pairs at
-once, candidate pairs are verified by exact key equality (a 64-bit hash
-collision can never join unequal rows), and the payload columns are gathered,
-all as torch ops on the tables' device.
+projections, computed columns, grouped aggregates, ORDER BY, LIMIT and the
+inner sort-merge join. A filter evaluates its predicate on the device
+(`engine/evaluate.py`) and keeps the surviving rows in order; a filter
+directly over a plain scan hands its condition to the scan, which skips the
+parquet row groups that cannot match (`engine/pushdown.py`).
+
+The join has two paths. When `JoinIndexRule` has put both sides on
+compatible covering indexes, they arrive hash-partitioned into the same
+buckets on the join keys, so the merge runs per bucket pair with no exchange
+(reference `JoinIndexRule.scala:137-162`): `ops.bucket_join` probes all bucket
+pairs at once. Any other equi-join takes the general path: both sides' key64
+hashes are sorted and merged whole (`ops.join.merge_join_pairs`). Either way
+candidate pairs are verified by exact key equality (a 64-bit hash collision
+can never join unequal rows, and a null key matches nothing), and the payload
+columns are gathered, all as torch ops on the tables' device.
 
 Scans return their tables through the scan caches (`engine/scan_cache.py`),
 so a repeated query gets the same device tables, and the join's key64, layout,
@@ -33,6 +37,7 @@ from ..config import DEVICE_CACHE_BUDGET_DEFAULT, ENV_DEVICE_CACHE_BUDGET, env_b
 from ..exceptions import HyperspaceException, not_in_slice
 from ..ops.aggregate import hash_aggregate
 from ..ops.hashing import key64
+from ..ops.join import merge_join_pairs
 from . import io as engine_io
 from .evaluate import evaluate_column, evaluate_predicate
 from .expr import Expr, canonical_condition_repr, extract_equi_join_keys
@@ -40,7 +45,9 @@ from .logical import (
     AggregateNode,
     FilterNode,
     JoinNode,
+    LimitNode,
     LogicalPlan,
+    OrderByNode,
     ProjectNode,
     ScanNode,
     SourceRelation,
@@ -49,7 +56,7 @@ from .logical import (
 from .pushdown import ScanPredicate, pushdown_enabled
 from .scan_cache import global_bucketed_cache, global_filtered_cache
 from .schema import TORCH_DTYPES, Schema
-from .table import Column, Table
+from .table import Column, Table, align_dictionaries
 
 _BUCKET_FILE_RE = re.compile(r"part-(\d+)")
 
@@ -370,11 +377,29 @@ def _verify_pairs(
     li: torch.Tensor, ri: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Drop candidate pairs whose keys differ (64-bit hash collisions) by exact
-    key equality (physical.py:1624)."""
+    key equality, and pairs with a null key: null equals nothing, itself
+    included, and null slots share a fill value, so equality alone cannot see
+    them (physical.py:1624). String keys compare as codes over the two
+    columns' union dictionary (`_aligned_key_codes`); numeric keys compare in
+    numpy's promoted type, as the JAX package's host arrays do."""
+    from ..ops.bucket_join import probe_keys_promoted
+
     if len(li):
         keep = torch.ones(li.shape[0], dtype=torch.bool, device=li.device)
         for lk, rk in zip(left_keys, right_keys):
-            keep &= left.column(lk).data[li] == right.column(rk).data[ri]
+            lc, rc = left.column(lk), right.column(rk)
+            if lc.is_string != rc.is_string:
+                raise HyperspaceException("Join key type mismatch (string vs numeric)")
+            if lc.is_string:
+                la, ra = _aligned_key_codes(left, right, lk, rk)
+                keep &= la[li] == ra[ri]
+            else:
+                a, b = probe_keys_promoted(lc.data[li], rc.data[ri])
+                keep &= a == b
+            if lc.validity is not None:
+                keep &= lc.validity[li]
+            if rc.validity is not None:
+                keep &= rc.validity[ri]
         if not bool(keep.all()):
             li, ri = li[keep], ri[keep]
     return li, ri
@@ -387,21 +412,25 @@ def _verify_pairs(
 #
 # - "k64": a table's join key64, per table identity (`_cached_by_table`).
 # - "cpad": a join pair's size-classed layout (`_cached_two_table`).
-# - "pairs": a pair's probe ranges and its verified (li, ri) pairs.
+# - "pairs": a pair's probe ranges and its verified (li, ri) pairs, bucketed
+#   or general.
+# - "ver": a string key pair's codes over the union dictionary.
 #
-# Two-table entries are keyed by the two scans' `rows_token`s when both have
-# one (projection-independent: pairs computed against one column pruning
-# serve every other), else by table identity. Every entry holds weak
-# references to its tables and dies with them: the tables are owned by the
-# scan caches. One LRU order over all entries (`_recency`) evicts under
+# Bucketed two-table entries are keyed by the two scans' `rows_token`s when
+# both have one (projection-independent: pairs computed against one column
+# pruning serve every other); general-join and "ver" entries by table
+# identity, the general pairs also by each side's `_relation_sig`. Every
+# entry holds weak references to its tables and dies with them: the tables
+# are owned by the scan caches. One LRU order over all entries (`_recency`) evicts under
 # `HYPERSPACE_DEVICE_CACHE_BUDGET` (2 GiB). The JAX package's single-flight
 # around each computation belongs to serving and is not ported.
 
 _key64_cache: Dict[int, tuple] = {}
 _classed_cache: Dict[tuple, tuple] = {}
 _pairs_cache: Dict[tuple, tuple] = {}
-_CACHES = {"k64": _key64_cache, "cpad": _classed_cache, "pairs": _pairs_cache}
-_TWO_TABLE_TAGS = ("cpad", "pairs")
+_verify_cache: Dict[tuple, tuple] = {}
+_CACHES = {"k64": _key64_cache, "cpad": _classed_cache, "pairs": _pairs_cache, "ver": _verify_cache}
+_TWO_TABLE_TAGS = ("cpad", "pairs", "ver")
 _MEMO_COUNTS = {t: {"hits": 0, "misses": 0} for t in _CACHES}
 _cache_lock = threading.RLock()  # weakref callbacks may fire inside a guarded section
 _DEVICE_CACHE_BUDGET_BYTES = env_bytes(ENV_DEVICE_CACHE_BUDGET, DEVICE_CACHE_BUDGET_DEFAULT)
@@ -592,31 +621,109 @@ def _pair_rows_key(lnode, rnode, ctx) -> Optional[tuple]:
     return None if ltok is None or rtok is None else (ltok, rtok)
 
 
-def _pair_subkey(left_keys, right_keys, lnode, rnode) -> tuple:
+def _node_relation_names(node) -> Optional[List[str]]:
+    """The schema names of a join side's underlying relation (a scan, or a
+    filter over one); None when the side has no single relation."""
+    rel = getattr(node, "relation", None)
+    if rel is None:
+        rel = getattr(getattr(node, "child", None), "relation", None)
+    return None if rel is None else list(rel.schema.names)
+
+
+def _relation_sig(node) -> Optional[tuple]:
+    """The identity of a general-join side's underlying relation for the
+    general pairs memo (physical.py:2103): the index name, its log entry id
+    and every file's (path, size, mtime), so a refreshed index whose files
+    alias the old stats still misses."""
+    while node is not None and getattr(node, "relation", None) is None:
+        node = getattr(node, "child", None)
+    rel = getattr(node, "relation", None)
+    if rel is None:
+        return None
+    return (rel.index_name, rel.log_entry_id, tuple((f.path, f.size, f.modified_time) for f in rel.files))
+
+
+def _pair_subkey(left_keys, right_keys, lnode, rnode, left: Optional[Table] = None,
+                 right: Optional[Table] = None) -> tuple:
     """The join keys of a pair-memo key: lowercased only when no column name
-    of either relation collides with another case-insensitively."""
-    names = lnode.relation.schema.names + rnode.relation.schema.names
+    of either underlying relation collides with another case-insensitively
+    (physical.py:2133). A side with no single relation reads its table's
+    names."""
+    l_names = _node_relation_names(lnode)
+    r_names = _node_relation_names(rnode)
+    names = (l_names if l_names is not None else left.column_names) + (
+        r_names if r_names is not None else right.column_names
+    )
     if len({n.lower() for n in names}) != len(set(names)):
         return tuple(left_keys), tuple(right_keys)
     return tuple(k.lower() for k in left_keys), tuple(k.lower() for k in right_keys)
 
 
-def _table_key64(table: Table, keys: List[str]) -> torch.Tensor:
+def _table_key64(table: Table, keys: List[str], force_float=None) -> torch.Tensor:
     """Join key64 of a table's key columns, kept per table identity
     (physical.py:2222): a bucketed scan returns the same table across
-    queries, so the hashed keys stay on the device."""
+    queries, so the hashed keys stay on the device. String keys hash their
+    values through the dictionary; `force_float[i]` hashes numeric key i in
+    the float64 space of a mixed int/float key pair (`_joint_float_flags`)."""
+    subkey = (tuple(k.lower() for k in keys), None if force_float is None else tuple(force_float))
     return _cached_by_table(
-        "k64", table, tuple(k.lower() for k in keys), lambda: key64([table.column(k).data for k in keys])
+        "k64", table, subkey, lambda: key64([table.column(k) for k in keys], force_float)
     )
 
 
+def _joint_float_flags(lt: Table, rt: Table, lkeys: List[str], rkeys: List[str]):
+    """Per-side flags of the keys that hash in float64 (physical.py:2249): a
+    pair of an int key and a float key compares as float64, so the int side
+    hashes there too. Float keys hash in float64 anyway, so only the int side
+    of a mixed pair is flagged, and the float side keeps the key64 memo entry
+    it shares with same-kind joins. Each side's list is None when nothing on
+    it is flagged."""
+    l_flags, r_flags = [], []
+    for lk, rk in zip(lkeys, rkeys):
+        lc, rc = lt.column(lk), rt.column(rk)
+        if lc.is_string or rc.is_string:
+            l_flags.append(False)
+            r_flags.append(False)
+            continue
+        lf, rf = lc.data.is_floating_point(), rc.data.is_floating_point()
+        l_flags.append(rf and not lf)
+        r_flags.append(lf and not rf)
+    return (l_flags if any(l_flags) else None, r_flags if any(r_flags) else None)
+
+
+def _join_pairs(left: Table, right: Table, left_keys: List[str], right_keys: List[str]):
+    """The general join's verified pairs: a merge of the two sides' key64
+    (physical.py:2274)."""
+    l_flags, r_flags = _joint_float_flags(left, right, left_keys, right_keys)
+    li, ri = merge_join_pairs(
+        _table_key64(left, left_keys, l_flags), _table_key64(right, right_keys, r_flags)
+    )
+    return _verify_pairs(left, right, left_keys, right_keys, li, ri)
+
+
+def _aligned_key_codes(left: Table, right: Table, lkey: str, rkey: str):
+    """A string key pair's codes over the two columns' union dictionary, kept
+    per table pair (physical.py:2159): aligned codes are equal exactly when
+    the strings are, so verification never decodes a string."""
+
+    def compute():
+        lc, rc = align_dictionaries(left.column(lkey), right.column(rkey))
+        return lc.data, rc.data
+
+    return _cached_two_table("ver", left, right, (lkey.lower(), rkey.lower()), compute)
+
+
 def _value_mode_column(table: Table, keys: List[str]) -> Optional[Column]:
-    """The single join-key column when the side may run in value mode (one
-    numeric non-bool key; string and nullable keys are refused earlier)."""
+    """The single join-key column when the side may run in value mode: one
+    numeric, non-bool, null-free key (physical.py:2032). A nullable key pads
+    by hash, so its null slots' fill values never meet in the probe as
+    values; verification drops their pairs."""
     if len(keys) != 1:
         return None
     c = table.column(keys[0])
-    return None if c.dtype == "bool" else c
+    if c.is_string or c.dtype == "bool" or c.validity is not None:
+        return None
+    return c
 
 
 def _classed_plan(left: Table, right: Table, l_keys, r_keys, l_starts, r_starts):
@@ -636,28 +743,82 @@ def _classed_plan(left: Table, right: Table, l_keys, r_keys, l_starts, r_starts)
     return build_classed_plan(lk, rk, l_starts, r_starts, "hash")
 
 
+class _PassThroughExec(PhysicalNode):
+    """A plan marker on the join keys that passes its child's rows through."""
+
+    def __init__(self, keys: Sequence[str], child: PhysicalNode):
+        self.keys = list(keys)
+        self.child = child
+
+    def children(self):
+        return (self.child,)
+
+    def execute(self, ctx) -> Table:
+        return self.child.execute(ctx)
+
+    def execute_count(self, ctx) -> int:
+        return self.child.execute_count(ctx)
+
+
+class ShuffleExchangeExec(_PassThroughExec):
+    """Hash repartitioning on the join keys (physical.py:913): the operator
+    the bucketed index path eliminates. On one device it moves nothing; it
+    stands in the general join's plan as the exchange the indexes save."""
+
+    name = "ShuffleExchange"
+
+    def simple_string(self):
+        return f"ShuffleExchange hashpartitioning({', '.join(self.keys)})"
+
+
+class SortExec(_PassThroughExec):
+    """The sort-merge join's required child ordering (physical.py:962): the
+    general join sorts the key hashes itself (`merge_join_pairs`)."""
+
+    name = "Sort"
+
+    def simple_string(self):
+        return f"Sort [{', '.join(self.keys)}]"
+
+
 class SortMergeJoinExec(PhysicalNode):
-    """The co-bucketed inner sort-merge join over two bucketed index scans.
-    Its layout, probe ranges and verified pairs ride the join memos."""
+    """The inner sort-merge join. `bucketed`: the co-bucketed join over two
+    bucketed index scans, whose layout, probe ranges and verified pairs ride
+    the join memos. Otherwise the general join (physical.py:2502): both
+    children execute whole, a merge of their key64 gives the candidate pairs,
+    and the verified pairs are kept per table pair and relation signature."""
 
     name = "SortMergeJoin"
 
-    def __init__(self, left: PhysicalNode, right: PhysicalNode, left_keys: List[str], right_keys: List[str]):
+    def __init__(self, left: PhysicalNode, right: PhysicalNode, left_keys: List[str], right_keys: List[str],
+                 bucketed: bool = False):
         self.left = left
         self.right = right
         self.left_keys = left_keys
         self.right_keys = right_keys
+        self.bucketed = bucketed
 
     def children(self):
         return (self.left, self.right)
 
+    def _general_pairs(self, ctx):
+        """Both children's tables and their verified pairs, through the
+        general pairs memo (physical.py:2541-2562)."""
+        lt, rt = self.left.execute(ctx), self.right.execute(ctx)
+        subkey = (
+            ("general",)
+            + _pair_subkey(self.left_keys, self.right_keys, self.left, self.right, lt, rt)
+            + (_relation_sig(self.left), _relation_sig(self.right))
+        )
+        li, ri = _cached_two_table(
+            "pairs", lt, rt, subkey, lambda: _join_pairs(lt, rt, self.left_keys, self.right_keys)
+        )
+        return lt, rt, li, ri
+
     def _sides(self, ctx):
         left, l_starts = self.left.execute_concat(ctx)
         right, r_starts = self.right.execute_concat(ctx)
-        for table, keys in ((left, self.left_keys), (right, self.right_keys)):
-            if any(table.column(k).is_string or table.column(k).has_nulls for k in keys):
-                raise not_in_slice("string or nullable join keys")
-        subkey = _pair_subkey(self.left_keys, self.right_keys, self.left, self.right)
+        subkey = _pair_subkey(self.left_keys, self.right_keys, self.left, self.right, left, right)
         return left, right, l_starts, r_starts, subkey, _pair_rows_key(self.left, self.right, ctx)
 
     def _plan_and_ranges(self, left, right, l_starts, r_starts, subkey, rows_key):
@@ -672,10 +833,13 @@ class SortMergeJoinExec(PhysicalNode):
         return plan, ranges
 
     def _pairs(self, ctx):
-        """Both sides and their verified pairs (li, ri) in bucket-major order,
-        through the pairs memo."""
+        """Both sides and their verified pairs (li, ri), through the pairs
+        memo: in bucket-major order for the bucketed join, in `merge_join_pairs`'
+        order for the general one."""
         from ..ops.bucket_join import classed_pairs
 
+        if not self.bucketed:
+            return self._general_pairs(ctx)
         left, right, l_starts, r_starts, subkey, rows_key = self._sides(ctx)
         if left.num_rows == 0 or right.num_rows == 0:
             empty = torch.empty(0, dtype=torch.int64, device=ctx.device)
@@ -697,7 +861,9 @@ class SortMergeJoinExec(PhysicalNode):
         """A query that collected these rows already holds the verified pairs;
         otherwise value-mode probe counts compare the key values and are the
         exact count with no pair expansion (physical.py:2685), and hash mode
-        counts the verified pairs."""
+        and the general join count the verified pairs."""
+        if not self.bucketed:
+            return len(self._general_pairs(ctx)[2])
         left, right, l_starts, r_starts, subkey, rows_key = self._sides(ctx)
         if left.num_rows == 0 or right.num_rows == 0:
             return 0
@@ -711,7 +877,7 @@ class SortMergeJoinExec(PhysicalNode):
 
     def simple_string(self):
         pairs = ", ".join(f"{l}={r}" for l, r in zip(self.left_keys, self.right_keys))
-        return f"SortMergeJoin [{pairs}] (bucketed, no exchange)"
+        return f"SortMergeJoin [{pairs}]" + (" (bucketed, no exchange)" if self.bucketed else "")
 
 
 class WithColumnExec(PhysicalNode):
@@ -778,6 +944,120 @@ class HashAggregateExec(PhysicalNode):
         return f"HashAggregate [{', '.join(self.group_keys)}] [{aggs}]"
 
 
+def _order_lane(c: Column) -> torch.Tensor:
+    """An int64 lane whose stable ascending sort orders the column's values as
+    `np.lexsort` does: strings by dictionary code (the dictionary is sorted),
+    bools and ints as themselves, floats through their float64 bits mapped to
+    a monotone int64 after -0.0 becomes +0.0 and every NaN one NaN, so
+    signed zeros tie and NaNs tie after +inf, as under numpy's comparisons
+    (a radix sort of raw float bits would split both)."""
+    d = c.data
+    if not d.is_floating_point():
+        return d.to(torch.int64)
+    d = d.to(torch.float64)
+    d = torch.where(d == 0, torch.zeros((), dtype=d.dtype, device=d.device), d)
+    d = torch.where(torch.isnan(d), torch.full((), float("nan"), dtype=d.dtype, device=d.device), d)
+    bits = d.view(torch.int64)
+    return bits ^ ((bits >> 63) & 0x7FFFFFFFFFFFFFFF)
+
+
+class OrderByExec(PhysicalNode):
+    """A total ORDER BY (physical.py:1464), in `np.lexsort`'s stable order.
+    Each key gives a value lane and, when the column has nulls, a validity
+    lane above it: nulls first ascending, last descending (Spark's default).
+    A descending value lane is the bitwise complement of the ascending one,
+    which reverses its order and keeps its ties, as the JAX package's negated
+    dense rank does. The rows' order is built on the tables' device by one
+    stable sort per lane, least significant first, then one take."""
+
+    name = "OrderBy"
+
+    def __init__(self, keys: Sequence[tuple], child: PhysicalNode):
+        self.keys = [(k, bool(asc)) for k, asc in keys]
+        self.child = child
+
+    def children(self):
+        return (self.child,)
+
+    def execute_count(self, ctx) -> int:
+        return self.child.execute_count(ctx)
+
+    def execute(self, ctx) -> Table:
+        t = self.child.execute(ctx)
+        return t if t.num_rows <= 1 else t.take(self.order(t))
+
+    def order(self, t: Table) -> torch.Tensor:
+        """The rows' permutation: the lanes sorted least significant first."""
+        lanes = []
+        for name, asc in reversed(self.keys):
+            c = t.column(name)
+            lane = _order_lane(c)
+            lanes.append(lane if asc else ~lane)
+            if c.validity is not None:
+                lanes.append((c.validity if asc else ~c.validity).to(torch.int64))
+        perm = torch.sort(lanes[0], stable=True).indices
+        for lane in lanes[1:]:
+            perm = perm[torch.sort(lane[perm], stable=True).indices]
+        return perm
+
+    def simple_string(self):
+        keys = ", ".join(f"{k} {'ASC' if a else 'DESC'}" for k, a in self.keys)
+        return f"OrderBy [{keys}]"
+
+
+class LimitExec(PhysicalNode):
+    """The child's first n rows (physical.py:1511). Directly over a plain
+    multi-file scan it reads only the files that hold them (`_scan_prefix`)."""
+
+    name = "Limit"
+
+    def __init__(self, n: int, child: PhysicalNode):
+        self.n = int(n)
+        self.child = child
+
+    def children(self):
+        return (self.child,)
+
+    def execute(self, ctx) -> Table:
+        t = self._scan_prefix(ctx)
+        if t is None:
+            t = self.child.execute(ctx)
+        return t if t.num_rows <= self.n else t.slice(0, self.n)
+
+    def _scan_prefix(self, ctx) -> Optional[Table]:
+        """A limit over a plain multi-file scan, through a projection or not
+        (physical.py:1529): the files in order until their footers' row
+        counts reach n, read as the scan would read them. None when the path
+        does not apply, a footer cannot be read, or every file is needed."""
+        child, project = self.child, None
+        if isinstance(child, ProjectExec):
+            project, child = child, child.child
+        if type(child) is not ScanExec:
+            return None
+        rel = child.relation
+        if rel.bucket_spec is not None or rel.file_format != "parquet" or len(rel.files) <= 1:
+            return None
+        picked, total = [], 0
+        for f in rel.files:
+            picked.append(f)
+            try:
+                total += engine_io.footer_row_count([f])
+            except (OSError, ValueError):  # an unreadable footer: the plain read reports it
+                return None
+            if total >= self.n:
+                break
+        if len(picked) == len(rel.files):
+            return None
+        t = engine_io.read_files([f.path for f in picked], rel.file_format, child.columns, ctx.device)
+        return t.select(project.column_names) if project is not None else t
+
+    def execute_count(self, ctx) -> int:
+        return min(self.n, self.child.execute_count(ctx))
+
+    def simple_string(self):
+        return f"Limit {self.n}"
+
+
 def _orient_join_keys(pairs, left_schema: Schema, right_schema: Schema):
     """Orient each (a, b) condition pair as (left_col, right_col); a name
     resolving on both sides is refused (physical.py:3007)."""
@@ -803,7 +1083,8 @@ def _bucketed_join_keys(lbucket, rbucket, lkeys, rkeys, key):
     """The join keys in bucket-column order when both sides are bucketed on
     exactly the join keys, in the same order under the key mapping, with equal
     bucket counts and hash kinds (the planner-side re-check of the join rule's
-    compatibility condition); else None."""
+    compatibility condition); else None, and the join takes the general path
+    (an int-bucketed side does not co-locate with a float-bucketed one)."""
     lspec, rspec = lbucket.relation.bucket_spec, rbucket.relation.bucket_spec
     pair_map: Dict[str, str] = {}
     for l, r in zip(lkeys, rkeys):
@@ -884,6 +1165,15 @@ def plan_physical(
             logical.group_keys, logical.aggs, plan_physical(logical.child, child_required, case_sensitive)
         )
 
+    if isinstance(logical, OrderByNode):
+        child_required = None
+        if required is not None:
+            child_required = list(dict.fromkeys(list(required) + [k for k, _ in logical.keys]))
+        return OrderByExec(logical.keys, plan_physical(logical.child, child_required, case_sensitive))
+
+    if isinstance(logical, LimitNode):
+        return LimitExec(logical.n, plan_physical(logical.child, required, case_sensitive))
+
     if isinstance(logical, JoinNode):
         pairs = extract_equi_join_keys(logical.condition)
         if pairs is None:
@@ -900,7 +1190,15 @@ def plan_physical(
         if _bucketed(lphys) and _bucketed(rphys):
             keys = _bucketed_join_keys(lphys, rphys, lkeys, rkeys, key)
             if keys is not None:
-                return SortMergeJoinExec(lphys, rphys, keys[0], keys[1])
-        raise not_in_slice("the join without a compatible pair of covering indexes")
+                return SortMergeJoinExec(lphys, rphys, keys[0], keys[1], bucketed=True)
+        # The general join (physical.py:3252): a bucketed scan becomes a plain
+        # read of its index files, and each side an exchange and a sort.
+        if isinstance(lphys, BucketedIndexScanExec):
+            lphys = ScanExec(lphys.relation, lphys.columns)
+        if isinstance(rphys, BucketedIndexScanExec):
+            rphys = ScanExec(rphys.relation, rphys.columns)
+        lside = SortExec(lkeys, ShuffleExchangeExec(lkeys, lphys))
+        rside = SortExec(rkeys, ShuffleExchangeExec(rkeys, rphys))
+        return SortMergeJoinExec(lside, rside, lkeys, rkeys, bucketed=False)
 
     raise not_in_slice(f"the {type(logical).__name__} operator")

@@ -11,7 +11,7 @@ import os
 from typing import List, Optional
 
 from ..config import HyperspaceConf, SessionConf
-from ..exceptions import HyperspaceException, not_in_slice
+from ..exceptions import HyperspaceException
 from ..ops.backend import resolve_device
 from ..storage.filesystem import FileStatus, LocalFileSystem
 from . import io as engine_io
@@ -20,7 +20,9 @@ from .logical import (
     AggregateNode,
     FilterNode,
     JoinNode,
+    LimitNode,
     LogicalPlan,
+    OrderByNode,
     ProjectNode,
     ScanNode,
     SourceRelation,
@@ -71,11 +73,17 @@ class DataFrame:
         """A global aggregate (no grouping): `df.agg(total=("qty", "sum"))`."""
         return GroupedDataFrame(self, []).agg(**aggs)
 
-    def order_by(self, *keys, ascending: bool = True):
-        raise not_in_slice("order by")
+    def order_by(self, *keys, ascending: bool = True) -> "DataFrame":
+        """ORDER BY. Keys are column names or (name, ascending) pairs; the
+        `ascending` keyword is the default for bare names."""
+        parsed = [(k[0], bool(k[1])) if isinstance(k, tuple) else (k, ascending) for k in keys]
+        return DataFrame(self.session, OrderByNode(parsed, self.plan))
 
-    def limit(self, n: int):
-        raise not_in_slice("limit")
+    orderBy = order_by
+    sort = order_by
+
+    def limit(self, n: int) -> "DataFrame":
+        return DataFrame(self.session, LimitNode(n, self.plan))
 
     # -- actions ------------------------------------------------------------
 

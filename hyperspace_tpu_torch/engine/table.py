@@ -214,9 +214,9 @@ class Table:
                 ])
             encoded = all(c.encoded_read for c in cols)
             if cols[0].is_string:
-                union = cols[0].dictionary
-                for c in cols[1:]:
-                    union = np.union1d(union, c.dictionary)
+                # One sort of all dictionaries: what folding `np.union1d` over
+                # them gives, without a sort of the growing union per table.
+                union = np.unique(np.concatenate([c.dictionary for c in cols]))
                 codes = torch.cat([_remap_codes(c, union) for c in cols])
                 out[n] = Column(STRING, codes, union, validity, encoded)
             else:

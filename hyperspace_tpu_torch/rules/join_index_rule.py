@@ -26,6 +26,7 @@ from ..engine.logical import (
     FilterNode,
     JoinNode,
     LogicalPlan,
+    OrderByNode,
     ProjectNode,
     ScanNode,
     WithColumnNode,
@@ -50,7 +51,7 @@ def _collect_expr_refs(plan: LogicalPlan) -> List[str]:
             refs.extend(node.column_names)
         elif isinstance(node, (FilterNode, JoinNode)):
             refs.extend(node.condition.references())
-        elif isinstance(node, (AggregateNode, WithColumnNode)):
+        elif isinstance(node, (AggregateNode, OrderByNode, WithColumnNode)):
             refs.extend(node.references())
     return refs
 

@@ -1,7 +1,8 @@
 """The port's boundary: what it imports, where it runs, what it refuses.
 
-(a) A fresh process imports the port, builds, joins, aggregates the join and
-    runs an indexed string filter on the CPU, and ends with no JAX module and
+(a) A fresh process imports the port, builds, joins (indexed, then with the
+    general join), aggregates the join, orders and limits the groups and runs
+    an indexed string filter on the CPU, and ends with no JAX module and
     no `hyperspace_tpu` module loaded.
 (b) No file of the port (nor `chip_smoke.py`) imports `jax` or `hyperspace_tpu`.
 (c) A session built without `device=` asks for CUDA; with no card it raises
@@ -54,6 +55,10 @@ def test_a_fresh_process_runs_the_slice_without_jax(tmp_path):
         assert "BucketedIndexScan" in q.explain_string()
         agg = q.with_column("z", hst.col("x") * 2).group_by("b").agg(n=("*", "count"), z=("z", "sum"))
         assert int(agg.collect().column("n").data.sum()) == 3000
+        assert agg.order_by(("n", False), "b").limit(3).collect().num_rows == 3
+        hst.disable_hyperspace(s)
+        assert q.count() == 3000 and "bucketed" not in q.explain_string()
+        hst.enable_hyperspace(s)
         seg = np.array(["AIR", "MAIL", "SHIP", None] * 750, dtype=object)
         s.write_parquet({{"seg": seg, "v": rng.rand(3000)}}, base + "/s")
         hs.create_index(s.read.parquet(base + "/s"), hst.IndexConfig("si", ["seg"], ["v"]))
@@ -117,30 +122,7 @@ CUT_OUTS = {
     "full outer joins": lambda s, l, r: l.join(r, hst.col("a") == hst.col("b"), "full"),
     "csv sources": lambda s, l, r: s.read.csv(s.warehouse),
     "json sources": lambda s, l, r: s.read.json(s.warehouse),
-    "the join without a compatible pair of covering indexes": lambda s, l, r: l.join(
-        r, hst.col("a") == hst.col("b")
-    ).count(),
-    "string columns": lambda s, l, r: _indexed_join(s, np.array(["x", "y", "z"]), np.array(["y", "z", "w"])),
-    "null values": lambda s, l, r: _indexed_join(
-        s, np.array([1, None, 3], dtype=object), np.array([3, 1, None], dtype=object)
-    ),
-    "order by": lambda s, l, r: l.order_by("a"),
-    "limit": lambda s, l, r: l.limit(3),
 }
-
-
-def _indexed_join(s, left_keys, right_keys):
-    """A join on string or nullable keys, both sides indexed: the join rule
-    rewrites it, and its execution refuses such keys."""
-    s.write_parquet({"ka": left_keys, "x": np.ones(3)}, os.path.join(s.warehouse, "kl"))
-    s.write_parquet({"kb": right_keys, "y": np.ones(3)}, os.path.join(s.warehouse, "kr"))
-    kl = s.read.parquet(os.path.join(s.warehouse, "kl"))
-    kr = s.read.parquet(os.path.join(s.warehouse, "kr"))
-    hs = hst.Hyperspace(s)
-    hs.create_index(kl, hst.IndexConfig("klIdx", ["ka"], ["x"]))
-    hs.create_index(kr, hst.IndexConfig("krIdx", ["kb"], ["y"]))
-    hst.enable_hyperspace(s)
-    return kl.join(kr, hst.col("ka") == hst.col("kb")).collect()
 
 
 @pytest.mark.parametrize("feature", sorted(CUT_OUTS))

@@ -3,8 +3,9 @@
 Each package builds `test_torch_join.py`'s four indexes over the same source
 files in its own warehouse. Then the OTHER package opens that warehouse and
 runs q_ord (value-mode join), q_ps (hash-mode join), a range lookup through
-`FilterIndexRule` whose row groups are pruned by the footer zone maps, and a
-join → group-by. Its rows must equal those of the package that built the
+`FilterIndexRule` whose row groups are pruned by the footer zone maps, a
+join → group-by and the same ordered and limited, and a join on a nullable
+string key (two more indexes, `nameA` and `nameB`, hash mode). Its rows must equal those of the package that built the
 lake, in the same order, first uncached and then from its caches. The JAX
 package runs its sort path (`HYPERSPACE_FORCE_DEVICE_OPS=1`), whose group
 order is the port's. Tolerance: exact, except the aggregate's float sums
@@ -61,7 +62,30 @@ def queries(s, src, c):
         .group_by("o_custkey")
         .agg(revenue=("revenue", "sum"), orders=("l_orderkey", "count_distinct"), lines=("*", "count"),
              top=("o_totalprice", "max")),
+        "join_order_limit": li.join(rd("orders"), c("l_orderkey") == c("o_orderkey"))
+        .group_by("o_custkey")
+        .agg(lines=("*", "count"), top=("o_totalprice", "max"))
+        .order_by(("lines", False), "o_custkey")
+        .limit(20),
+        "string_key": rd("names_a").join(rd("names_b"), c("name") == c("nameb")).select("ida", "name", "w"),
     }
+
+
+def _name_tables(seed=17):
+    """Two sources joined on a nullable string key with different
+    dictionaries on each side."""
+    rng = np.random.RandomState(seed)
+    a = np.array([f"n-{i:04d}" for i in rng.randint(0, 300, 2000)], dtype=object)
+    a[::13] = None
+    b = np.array([f"n-{i:04d}" for i in rng.randint(100, 400, 300)], dtype=object)
+    b[::17] = None
+    return {
+        "names_a": {"name": a, "ida": np.arange(2000, dtype=np.int64)},
+        "names_b": {"nameb": b, "w": rng.rand(300)},
+    }
+
+
+STRING_INDEXES = [("names_a", "nameA", ["name"], ["ida"]), ("names_b", "nameB", ["nameb"], ["w"])]
 
 
 def _session(pkg, warehouse):
@@ -83,11 +107,11 @@ def lakes(tmp_path_factory):
     mp.setenv("HYPERSPACE_INDEX_ROW_GROUP_ROWS", "256")
     mp.setenv("HYPERSPACE_FORCE_DEVICE_OPS", "1")
     src = str(base / "src")
-    for name, cols in _tables(11, False).items():
+    for name, cols in dict(_tables(11, False), **_name_tables()).items():
         torch_io.write_parquet(Table.from_pydict(cols, "cpu"), os.path.join(src, name, "part-00000.parquet"))
     for pkg in ("torch", "jax"):
         s, hs, cfg, enable, _ = _session(pkg, str(base / pkg))
-        for table, name, indexed, included in INDEXES:
+        for table, name, indexed, included in INDEXES + STRING_INDEXES:
             hs.create_index(s.read.parquet(os.path.join(src, table)), cfg(name, indexed, included))
     yield base, src
     mp.undo()
@@ -108,7 +132,7 @@ def _equal(got, want):
 
 
 @pytest.mark.parametrize("owner,reader", [("jax", "torch"), ("torch", "jax")])
-@pytest.mark.parametrize("query", ["q_ord", "q_ps", "lookup", "join_group_by"])
+@pytest.mark.parametrize("query", ["q_ord", "q_ps", "lookup", "join_group_by", "join_order_limit", "string_key"])
 def test_a_lake_is_queried_by_the_other_package(lakes, owner, reader, query):
     base, src = lakes
     warehouse = str(base / owner)
@@ -120,7 +144,8 @@ def test_a_lake_is_queried_by_the_other_package(lakes, owner, reader, query):
     enable_r(sr)
     df = queries(sr, src, cr)[query]
     plan = df.explain_string() if reader == "torch" else df.physical_plan().tree_string()
-    index = {"q_ps": "liPs", "q_ord": "liOrd", "lookup": "liOrd", "join_group_by": "ordIdx"}[query]
+    index = {"q_ps": "liPs", "q_ord": "liOrd", "lookup": "liOrd", "join_group_by": "ordIdx",
+             "join_order_limit": "ordIdx", "string_key": "nameB"}[query]
     assert f"index={index}" in plan, plan
     clear_all()
     before = torch_io.io_stats()["row_groups_skipped"]

@@ -381,3 +381,70 @@ def test_a_cold_multi_file_scan_on_the_card_equals_the_cpu_scan(cuda_device, tmp
                 assert (a.validity is None) == (b.validity is None)
                 assert a.validity is None or torch.equal(a.validity.cpu(), b.validity)
                 assert a.dictionary is None or np.array_equal(a.dictionary, b.dictionary)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dups", "disjoint", "extremes", "large"])
+def test_the_general_join_on_the_card_equals_host_merge_pairs(cuda_device, case):
+    """`merge_join_pairs` (torch sorts, searchsorted and the expansion on the
+    card) against the numpy merge, pairs in order."""
+    from hyperspace_tpu_torch.ops.join import host_merge_pairs, merge_join_pairs
+
+    rng = np.random.RandomState(3)
+    lk, rk = {
+        "dups": (rng.randint(0, 50, 30000), rng.randint(0, 60, 5000)),
+        "disjoint": (rng.randint(0, 50, 3000), rng.randint(100, 150, 3000)),
+        "extremes": (np.array([-(2**63), -1, 0, 2**63 - 1] * 500), np.array([2**63 - 1, 0, -(2**63), 5] * 70)),
+        "large": (rng.randint(-(2**62), 2**62, 2_000_000, dtype=np.int64) % 1_000_003,
+                  rng.randint(0, 1_000_003, 400_000)),
+    }[case]
+    lk, rk = lk.astype(np.int64), rk.astype(np.int64)
+    li, ri = merge_join_pairs(torch.from_numpy(lk).to(cuda_device), torch.from_numpy(rk).to(cuda_device))
+    assert li.is_cuda and ri.is_cuda
+    want_l, want_r = host_merge_pairs(lk, rk)
+    np.testing.assert_array_equal(li.cpu().numpy(), want_l)
+    np.testing.assert_array_equal(ri.cpu().numpy(), want_r)
+
+
+def _order_table(device, n=20000, dtype=np.float64):
+    from hyperspace_tpu_torch.engine.table import Column, Table
+
+    rng = np.random.RandomState(8)
+    pool = np.array([np.nan, -np.nan, 0.0, -0.0, 1.5, -1.5, np.inf, -np.inf, 2.0, -2.0], dtype=dtype)
+    f = pool[rng.randint(0, len(pool), n)]
+    g = rng.randint(0, 3, n).astype(np.int64)
+    valid = rng.rand(n) >= 0.1
+    cols = {
+        "f": Column.from_values(f, device),
+        "g": Column.from_values(g, device),
+        "fn": Column(str(f.dtype), torch.from_numpy(np.where(valid, f, 0)).to(device), None,
+                     torch.from_numpy(valid).to(device)),
+    }
+    return Table(cols), f, g, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_order_by_on_the_card_equals_np_lexsort_with_nan_and_signed_zeros(cuda_device, dtype):
+    """`OrderByExec`'s stable sorts on the card give `np.lexsort`'s order with
+    the JAX package's lanes: signed zeros tie, NaNs tie after +inf, a
+    descending key is a negated dense rank, nulls first ascending and last
+    descending."""
+    from hyperspace_tpu_torch.engine.physical import OrderByExec
+
+    t, f, g, valid = _order_table(cuda_device, dtype=dtype)
+    rank = np.unique(f, return_inverse=True)[1].reshape(-1)
+    fill = np.where(valid, f, 0)
+    fill_rank = np.unique(fill, return_inverse=True)[1].reshape(-1)
+    cases = [
+        ([("f", True)], [f]),
+        ([("f", False)], [-rank]),
+        ([("g", True), ("f", False)], [-rank, g]),
+        ([("f", False), ("g", True)], [g, -rank]),
+        ([("fn", True)], [fill, valid]),
+        ([("fn", False), ("g", False)], [-g, -fill_rank, ~valid]),
+    ]
+    for keys, lanes in cases:
+        perm = OrderByExec(keys, None).order(t)
+        assert perm.is_cuda
+        np.testing.assert_array_equal(perm.cpu().numpy(), np.lexsort(tuple(lanes)), err_msg=str(keys))

@@ -4,6 +4,7 @@
     python3 chip_smoke.py                     # every phase
     python3 chip_smoke.py --phases env,kernels,strings,packed
     python3 chip_smoke.py --phases env,q3
+    python3 chip_smoke.py --phases env,refresh
 
 Phases, each failing loudly:
 
@@ -63,13 +64,31 @@ Phases, each failing loudly:
              API no engine operator calls, on bench.py's packed shape and on
              lineitem's shipmode codes in its l_orderkey bucket layout, against
              the plain probe and numpy searchsorted.
-7. identity  the join, aggregate, Q3 (general joins, every group) and
+7. refresh   the index lifecycle in a directory of its own: lineitem as 8
+             source files of equal row ranges (file 3, a middle range of
+             l_orderkey, held back), orders as one; with lineage on, liR (lineitem [l_orderkey] with
+             l_extendedprice, l_discount) and ordR (orders [o_orderkey]
+             with o_custkey); q_ord's join, count and collect, at each step
+             against a numpy join of the files that exist then: (a) fresh,
+             value mode (K2); (b) file 3 appended, no refresh: the rule does
+             not fire (the general join); (c) `refresh_index("liR",
+             "incremental")`: two version directories, hash mode (K1, K2);
+             (d) file 0 deleted, `refresh_index("liR", "auto")`: incremental,
+             no data written, `deletedSourceFiles` = [file 0], its rows
+             pruned through the lineage column, hash mode; (e) full: one
+             version directory, no deletes, value mode; (f) delete (no
+             index), restore (index), a dead refresh's transient entry (the
+             stable generation answers), cancel, delete and vacuum (no
+             version directory, `indexes()` without liR). Prints each
+             refresh's seconds, the join's mode, the index files per side
+             and cold, uncached p50 of 3 and cached p50 of 3 times.
+8. identity  the join, aggregate, Q3 (general joins, every group) and
              string slices at SF 0.05 with device="cpu" and device="cuda":
              identical index files, identical rows in order (sums at rtol
              1e-9).
 
 Kernel launches are counted from 0 at the start of each phase that drives
-the engine (main, q3, strings, packed) and summed over them. Prints one JSON
+the engine (main, q3, strings, packed, refresh) and summed over them. Prints one JSON
 line of per-kernel results, the card's `nvidia-smi` line,
 and last `{"ok": true, "device": {...}}`. Exits non-zero without a result
 when no CUDA device is visible or the package is missing.
@@ -1688,6 +1707,220 @@ def phase_packed(torch, data, rng):
     return launches, results
 
 
+# ---------------------------------------------------------------------------
+# Phase refresh: the index lifecycle over a changing lineitem
+# ---------------------------------------------------------------------------
+
+REFRESH_FILES = 8
+#: The lineitem file written only at step (b). lineitem's rows come in
+#: l_orderkey order, so the last file's keys lie above every indexed key and
+#: an append of it keeps every bucket sorted (value mode); a middle file's
+#: keys fall inside each bucket's range, which a two-version join must
+#: handle in hash mode.
+HELD_BACK = 3
+REFRESH_INDEXES = [
+    ("lineitem", "liR", ["l_orderkey"], ["l_extendedprice", "l_discount"]),
+    ("orders", "ordR", ["o_orderkey"], ["o_custkey"]),
+]
+
+
+def refresh_bounds(data) -> np.ndarray:
+    """Row bounds of the 8 lineitem source files (equal row ranges)."""
+    return np.linspace(0, len(data["lineitem"]["l_orderkey"]), REFRESH_FILES + 1).astype(np.int64)
+
+
+def lineitem_file(src: str, i: int) -> str:
+    return os.path.join(src, "lineitem", f"part-{i:05d}.parquet")
+
+
+def write_lineitem_file(data, src: str, bounds, i: int) -> None:
+    from hyperspace_tpu_torch.engine import io as engine_io
+
+    a, b = int(bounds[i]), int(bounds[i + 1])
+    cols = {n: ((v[0], v[1][a:b]) if isinstance(v, tuple) else v[a:b]) for n, v in data["lineitem"].items()}
+    engine_io.write_parquet(source_table(cols), lineitem_file(src, i))
+
+
+def expected_q_ord(data, bounds, present) -> dict:
+    """q_ord over the lineitem rows of the files in `present`, canonical."""
+    li, od = data["lineitem"], data["orders"]
+    rows = np.concatenate([np.arange(bounds[i], bounds[i + 1]) for i in sorted(present)])
+    a, b = np_join(li["l_orderkey"][rows], od["o_orderkey"])
+    return canonical({"l_extendedprice": li["l_extendedprice"][rows[a]], "o_custkey": od["o_custkey"][b]})
+
+
+def join_mode(df) -> str:
+    """"general", or the co-bucketed join's layout mode ("value" / "hash"),
+    read from the join memos a collect of `df` filled."""
+    from hyperspace_tpu_torch.engine.physical import ExecContext, SortMergeJoinExec
+
+    join = next(n for n in df.physical_plan().collect_nodes() if isinstance(n, SortMergeJoinExec))
+    if not join.bucketed:
+        return "general"
+    left, right, ls, rs, subkey, rows_key = join._sides(ExecContext(df.session))
+    return join._plan_and_ranges(left, right, ls, rs, subkey, rows_key)[0].mode
+
+
+def index_files_per_side(df) -> dict:
+    from hyperspace_tpu_torch.engine.physical import BucketedIndexScanExec, ScanExec
+
+    return {
+        n.relation.index_name: len(n.relation.files) for n in df.physical_plan().collect_nodes()
+        if isinstance(n, (BucketedIndexScanExec, ScanExec)) and n.relation.index_name
+    }
+
+
+def version_dirs(entry) -> list:
+    return sorted({p.split("v__=")[1].split(os.sep)[0] for p in entry.content.files()})
+
+
+def phase_refresh(torch, data, base: str):
+    """Steps (a)-(f): fresh, appended and unrefreshed, incremental, deletes
+    folded by auto, full, then delete / restore / cancel / vacuum; each
+    step's join against numpy over the files that exist then."""
+    import hyperspace_tpu_torch as hst
+    from hyperspace_tpu_torch.actions.refresh import RefreshIncrementalAction
+    from hyperspace_tpu_torch.engine import io as engine_io
+    from hyperspace_tpu_torch.index.builder import CoveringIndexBuilder
+    from hyperspace_tpu_torch.index.data_manager import IndexDataManagerImpl
+    from hyperspace_tpu_torch.index.log_manager import IndexLogManagerImpl
+    from hyperspace_tpu_torch.ops import cuda_probe, cuda_sort
+
+    root = os.path.join(base, "refresh")
+    src = os.path.join(root, "src")
+    bounds = refresh_bounds(data)
+    for i in range(REFRESH_FILES):
+        if i != HELD_BACK:
+            write_lineitem_file(data, src, bounds, i)
+    engine_io.write_parquet(source_table(data["orders"]), os.path.join(src, "orders", "part-00000.parquet"))
+    cuda_sort.launches = 0
+    cuda_probe.launches = 0
+    s = hst.HyperspaceSession(warehouse=root, device=DEVICE)
+    s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, NUM_BUCKETS)
+    s.conf.set(hst.IndexConstants.INDEX_LINEAGE_ENABLED, "true")
+    hs = hst.Hyperspace(s)
+    seconds = {}
+    for table, name, indexed, included in REFRESH_INDEXES:
+        df = s.read.parquet(os.path.join(src, table))
+        _, seconds[f"create_{name}"] = wall(lambda: hs.create_index(df, hst.IndexConfig(name, indexed, included)))
+    hst.enable_hyperspace(s)
+
+    def query():
+        rd = lambda t: s.read.parquet(os.path.join(src, t))  # noqa: E731
+        return rd("lineitem").join(rd("orders"), hst.col("l_orderkey") == hst.col("o_orderkey")).select(
+            "l_extendedprice", "o_custkey")
+
+    def entry():
+        return next(e for e in hs._manager.get_indexes() if e.name == "liR")
+
+    def check(label, present, out, n=None):
+        want = expected_q_ord(data, bounds, present)
+        if n is not None and n != len(want["o_custkey"]):
+            raise AssertionError(f"refresh {label}: count {n} != numpy join {len(want['o_custkey'])}")
+        if not same_multiset(out.to_numpy(), want):
+            raise AssertionError(f"refresh {label}: collected rows differ from the numpy join")
+
+    steps = {}
+
+    def measure(label, present, mode, files):
+        df = query()
+        k1, k2 = cuda_sort.launches, cuda_probe.launches
+        clear_caches()
+        n, t_count = wall(df.count)
+        clear_caches()
+        out, t_cold = wall(df.collect)
+        check(label, present, out, n)
+        got_mode, got_files = join_mode(df), index_files_per_side(df)
+        if got_mode != mode or got_files != files:
+            raise AssertionError(f"refresh {label}: join {got_mode} over {got_files}, want {mode} over {files}:\n"
+                                 f"{df.explain_string()}")
+        t = {"rows": n, "mode": got_mode, "index_files": got_files, "count_cold_s": t_count,
+             "collect_cold_s": t_cold}
+        _, t["uncached_p50_s"] = run_p50(df.collect, 3, uncached=True)
+        out, t["cached_p50_s"] = run_p50(df.collect, 3, uncached=False)
+        check(label, present, out)
+        t["k1_launches"], t["k2_launches"] = cuda_sort.launches - k1, cuda_probe.launches - k2
+        if (mode == "hash" and not t["k1_launches"]) or (mode != "general" and not t["k2_launches"]):
+            raise AssertionError(f"refresh {label}: kernels not launched ({t})")
+        if mode == "value" and t["k1_launches"]:
+            raise AssertionError(f"refresh {label}: K1 launched in value mode ({t})")
+        steps[label] = t
+        log(f"[refresh] {label} {json.dumps(t)}")
+        if mode != "general":
+            clear_caches()
+            log(f"[refresh] {label} uncached collect breakdown {json.dumps(stage_breakdown(torch, df))}")
+
+    present = set(range(REFRESH_FILES)) - {HELD_BACK}
+    one_version = {"liR": NUM_BUCKETS, "ordR": NUM_BUCKETS}
+    measure("a_fresh", present, "value", one_version)
+
+    write_lineitem_file(data, src, bounds, HELD_BACK)
+    present.add(HELD_BACK)
+    measure("b_appended_unrefreshed", present, "general", {})
+
+    _, seconds["incremental"] = wall(lambda: hs.refresh_index("liR", "incremental"))
+    if version_dirs(entry()) != ["0", "1"]:
+        raise AssertionError(f"refresh incremental: version directories {version_dirs(entry())}")
+    measure("c_incremental", present, "hash", {"liR": 2 * NUM_BUCKETS, "ordR": NUM_BUCKETS})
+
+    os.remove(lineitem_file(src, 0))
+    present.discard(0)
+    on_disk = sorted(os.listdir(os.path.join(root, "indexes", "liR")))
+    _, seconds["deletes_only_auto"] = wall(lambda: hs.refresh_index("liR", "auto"))
+    e = entry()
+    if (e.deleted_source_files() != [lineitem_file(src, 0)] or version_dirs(e) != ["0", "1"]
+            or sorted(os.listdir(os.path.join(root, "indexes", "liR"))) != on_disk):
+        raise AssertionError(f"refresh auto: deletes {e.deleted_source_files()}, versions {version_dirs(e)}; "
+                             "a deletes-only refresh must fold the delete and write no data")
+    measure("d_deletes_folded", present, "hash", {"liR": 2 * NUM_BUCKETS, "ordR": NUM_BUCKETS})
+
+    _, seconds["full"] = wall(lambda: hs.refresh_index("liR", "full"))
+    e = entry()
+    if e.deleted_source_files() or version_dirs(e) != ["2"]:
+        raise AssertionError(f"refresh full: deletes {e.deleted_source_files()}, versions {version_dirs(e)}")
+    measure("e_full", present, "value", one_version)
+
+    f = {}
+
+    def uses_index(label, want_index):
+        df = query()
+        out, t = wall(df.collect)
+        check(label, present, out)
+        if ("liR" in index_files_per_side(df)) != want_index:
+            raise AssertionError(f"refresh {label}: index used {not want_index}, want {want_index}")
+        f[f"{label}_collect_s"] = t
+
+    _, f["delete_s"] = wall(lambda: hs.delete_index("liR"))
+    uses_index("deleted", False)
+    _, f["restore_s"] = wall(lambda: hs.restore_index("liR"))
+    uses_index("restored", True)
+    index_path = os.path.join(root, "indexes", "liR")
+    data_mgr = IndexDataManagerImpl(index_path)
+    dead = RefreshIncrementalAction(CoveringIndexBuilder(s), IndexLogManagerImpl(index_path), index_path,
+                                    data_mgr.get_path(data_mgr.get_latest_version_id() + 1))
+    dead.begin()  # a refresh that died after begin(): its transient entry is the log's latest
+    hs._manager.clear_cache()
+    if IndexLogManagerImpl(index_path).get_latest_log().state != "REFRESHING" or entry().state != "ACTIVE":
+        raise AssertionError("refresh: a dead writer's entry must read as the stable generation")
+    uses_index("writer_in_flight", True)
+    _, f["cancel_s"] = wall(lambda: hs.cancel("liR"))
+    if IndexLogManagerImpl(index_path).get_latest_log().state != "ACTIVE":
+        raise AssertionError("refresh: cancel must roll the dead refresh back to ACTIVE")
+    uses_index("cancelled", True)
+    hs.delete_index("liR")
+    _, f["vacuum_s"] = wall(lambda: hs.vacuum_index("liR"))
+    left = [n for n in os.listdir(index_path) if n.startswith("v__=")]
+    names = hs.indexes().to_numpy()["name"].tolist()
+    if left or "liR" in names or "ordR" not in names:
+        raise AssertionError(f"refresh vacuum: version directories {left} left, indexes() {names}")
+    uses_index("vacuumed", False)
+    steps["f_lifecycle"] = f
+    log(f"[refresh] f_lifecycle {json.dumps(f)}")
+    launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches}
+    log(f"[refresh] seconds {json.dumps(seconds)}; every step equals numpy; launches {json.dumps(launches)}")
+    return launches, seconds, steps
+
+
 KERNEL_META = {
     "K1": ("bucket_sort", "hyperspace_tpu_torch/csrc/bucket_sort.cu", "hyperspace_tpu/ops/pallas_sort.py:107"),
     "K2": ("range_probe", "hyperspace_tpu_torch/csrc/range_probe.cu", "hyperspace_tpu/ops/pallas_probe.py:129"),
@@ -1699,7 +1932,7 @@ KERNEL_META = {
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="env,kernels,main,q3,strings,packed,identity")
+    ap.add_argument("--phases", default="env,kernels,main,q3,strings,packed,refresh,identity")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sf", type=float, default=1.0)
     ap.add_argument("--identity-sf", type=float, default=0.05)
@@ -1733,7 +1966,7 @@ def main() -> int:
             launches[kid] = launches.get(kid, 0) + n
 
     data = None
-    if {"main", "q3", "strings", "packed"} & set(phases):
+    if {"main", "q3", "strings", "packed", "refresh"} & set(phases):
         t0 = time.perf_counter()
         data = tpch(args.sf, args.seed)
         log(f"[data] TPC-H SF{args.sf}: lineitem {len(data['lineitem']['l_orderkey'])} rows, orders "
@@ -1751,6 +1984,8 @@ def main() -> int:
             add(phase_strings(torch, data, base, args.seed)[0])
         if "packed" in phases:
             add(phase_packed(torch, data, rng)[0])
+        if "refresh" in phases:
+            add(phase_refresh(torch, data, base)[0])
     finally:
         shutil.rmtree(base, ignore_errors=True)
     if "identity" in phases:

@@ -8,7 +8,9 @@ indexed relations into a shuffle-free co-bucketed merge join, and
 `FilterIndexRule` rewrite a filter into a scan of the index's matching hash
 buckets, whose parquet row groups are pruned by their footer zone maps; feed
 the join into computed columns and a grouped aggregate. Scans and the join's
-device work are cached across queries. The sorts and searches on that path
+device work are cached across queries. Indexes are refreshed (full,
+incremental with lineage delete folding, auto), deleted, restored, vacuumed
+and cancelled through the JAX package's operation log. The sorts and searches on that path
 are hand-written CUDA kernels (`csrc/`). Tables live on the session's device,
 CUDA by default. The package imports torch, numpy and pyarrow, never jax or
 hyperspace_tpu.

@@ -11,9 +11,25 @@ from __future__ import annotations
 import time
 from typing import Optional
 
-from ..exceptions import ConcurrentWriteError, LogCommitError
+from ..exceptions import ConcurrentWriteError, HyperspaceException, LogCommitError
 from ..index.log_entry import LogEntry
 from . import states
+
+
+def _recover_stable(log_manager, orphan: LogEntry, missing_ok: bool = False) -> Optional[LogEntry]:
+    """Resolve a dead writer's transient latest entry to the latest STABLE
+    one, so that the next action proceeds instead of wedging on it
+    (`actions/action._recover_stable` :25). `missing_ok`: a log with no
+    stable entry at all (a killed first create) gives None; otherwise it
+    raises. A writer that is still alive shares the orphan's id as its base,
+    so the two contest the next log id and exactly one wins."""
+    stable = log_manager.get_latest_stable_log()
+    if stable is None and not missing_ok:
+        raise HyperspaceException(
+            f"Index log has only a transient entry (state {orphan.state}) and "
+            "no stable state to recover to; run cancel() or vacuum."
+        )
+    return stable
 
 
 class Action:

@@ -12,11 +12,12 @@ from ..exceptions import HyperspaceException
 from ..index.index_config import IndexConfig
 from ..index.log_entry import IndexLogEntry, LogEntry
 from . import states
-from .action import Action
+from .action import Action, _recover_stable
 
 
 class IndexerBuilder:
-    """Engine seam: validates the source, writes index data, derives the record."""
+    """Engine seam: validates the source, writes index data, derives the
+    record; for refresh, rebuilds the source from a logged relation."""
 
     def validate_source(self, df, index_config: IndexConfig) -> None:
         raise NotImplementedError
@@ -28,6 +29,20 @@ class IndexerBuilder:
         self, df, index_config: IndexConfig, index_path: str, index_data_path: str
     ) -> IndexLogEntry:
         raise NotImplementedError
+
+    def reconstruct_df(self, relation):
+        """A dataframe over a logged Relation's root paths (reference
+        `RefreshAction.scala:44-56`)."""
+        raise NotImplementedError
+
+    def restrict_df_to_files(self, df, file_paths):
+        """The same relation limited to some of its files (the appended files
+        an incremental refresh indexes)."""
+        raise NotImplementedError
+
+    def config_from_entry(self, entry: IndexLogEntry) -> IndexConfig:
+        """The index spec a log entry records (`create.py:47`)."""
+        return IndexConfig(entry.name, entry.indexed_columns, entry.included_columns)
 
 
 class CreateAction(Action):
@@ -61,7 +76,8 @@ class CreateAction(Action):
         # the latest STABLE one (a dead writer's orphan).
         latest = self._log_manager.get_latest_log()
         if latest is not None and latest.state in states.TRANSIENT_STATES:
-            latest = self._log_manager.get_latest_stable_log()
+            # None = nothing durable was ever committed: create proceeds.
+            latest = _recover_stable(self._log_manager, latest, missing_ok=True)
         if latest is not None and latest.state != states.DOESNOTEXIST:
             raise HyperspaceException(
                 f"Another Index with name {self._config.index_name} already exists."

@@ -2,15 +2,17 @@
 
 Counterpart of `hyperspace_tpu/config.py`, cut to the keys the ported slices
 read (build, JoinIndexRule and the co-bucketed join, FilterIndexRule, the scan
-layer and the aggregate). Key names, environment variables and defaults are
-the JAX package's, so a conf or an environment written for one package means
-the same to the other.
+layer, the aggregate, the index lifecycle and refresh). Key names,
+environment variables and defaults are the JAX package's, so a conf or an
+environment written for one package means the same to the other.
 """
 
 from __future__ import annotations
 
 import os
 from typing import Dict, Optional
+
+from .exceptions import not_in_slice
 
 #: Row-group pushdown on/off (`engine/pushdown.py`); "0" = whole-file reads.
 ENV_SCAN_PUSHDOWN = "HYPERSPACE_SCAN_PUSHDOWN"
@@ -26,6 +28,9 @@ INDEX_ROW_GROUP_ROWS_DEFAULT = 65536
 #: Byte budget of the join memos (`engine/physical.py`), one LRU order.
 ENV_DEVICE_CACHE_BUDGET = "HYPERSPACE_DEVICE_CACHE_BUDGET"
 DEVICE_CACHE_BUDGET_DEFAULT = 2 << 30
+#: The refresh mode `Hyperspace.refresh_index(name)` takes when given none
+#: ("full" when unset; also "incremental" or "auto").
+ENV_REFRESH_MODE = "HYPERSPACE_REFRESH_MODE"
 
 
 def env_bytes(name: str, default: int) -> int:
@@ -40,6 +45,23 @@ class IndexConstants:
 
     INDEX_NUM_BUCKETS = "hyperspace.index.num.buckets"
     INDEX_NUM_BUCKETS_DEFAULT = 200  # reference default = spark.sql.shuffle.partitions
+
+    # TTL of the index metadata cache (reference `IndexConstants.scala`;
+    # `index/collection_manager.CachingIndexCollectionManager`).
+    INDEX_CACHE_EXPIRY_DURATION_SECONDS = "hyperspace.index.cache.expiryDurationInSeconds"
+    INDEX_CACHE_EXPIRY_DURATION_SECONDS_DEFAULT = 300
+    INDEX_CACHE_TYPE = "hyperspace.index.cache.type"
+    INDEX_CACHE_TYPE_DEFAULT = "CREATION_TIME_BASED"
+
+    # Hybrid Scan is not ported: the key set to true raises.
+    INDEX_HYBRID_SCAN_ENABLED = "hyperspace.index.hybridscan.enabled"
+    INDEX_HYBRID_SCAN_ENABLED_DEFAULT = False
+
+    # Lineage: the build adds the per-row source file path, which lets an
+    # incremental refresh fold deleted source files (`actions/refresh.py`).
+    INDEX_LINEAGE_ENABLED = "hyperspace.index.lineage.enabled"
+    INDEX_LINEAGE_ENABLED_DEFAULT = False
+    DATA_FILE_NAME_COLUMN = "_data_file_name"
 
     # Bucket hash-scheme version recorded at build time: bucket co-location
     # across independently built indexes needs BUILD and QUERY to hash
@@ -94,6 +116,31 @@ class HyperspaceConf:
         return self._c.get_int(
             IndexConstants.INDEX_NUM_BUCKETS, IndexConstants.INDEX_NUM_BUCKETS_DEFAULT
         )
+
+    @property
+    def lineage_enabled(self) -> bool:
+        return self._c.get_bool(
+            IndexConstants.INDEX_LINEAGE_ENABLED, IndexConstants.INDEX_LINEAGE_ENABLED_DEFAULT
+        )
+
+    def refuse_hybrid_scan(self) -> None:
+        """Raise when the conf asks for Hybrid Scan, which the port does not
+        have: answering from the index alone would ignore the appended rows."""
+        if self._c.get_bool(
+            IndexConstants.INDEX_HYBRID_SCAN_ENABLED, IndexConstants.INDEX_HYBRID_SCAN_ENABLED_DEFAULT
+        ):
+            raise not_in_slice("hybrid scan")
+
+    @property
+    def cache_expiry_seconds(self) -> int:
+        return self._c.get_int(
+            IndexConstants.INDEX_CACHE_EXPIRY_DURATION_SECONDS,
+            IndexConstants.INDEX_CACHE_EXPIRY_DURATION_SECONDS_DEFAULT,
+        )
+
+    @property
+    def cache_type(self) -> str:
+        return self._c.get(IndexConstants.INDEX_CACHE_TYPE, IndexConstants.INDEX_CACHE_TYPE_DEFAULT)
 
     @property
     def case_sensitive(self) -> bool:

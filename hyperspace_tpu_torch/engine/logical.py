@@ -44,6 +44,8 @@ class SourceRelation:
     log_entry_id: Optional[int] = field(default=None, compare=False)
     # Names of the rules that pruned this scan's file list (bucket pruning).
     pruned_by: List[str] = field(default_factory=list)
+    # Hive partitioning (`.columns`); no reader of the port sets it yet.
+    partition_spec: Optional[object] = None
 
     def __repr__(self):
         tag = f" index={self.index_name}" if self.index_name else ""
@@ -91,12 +93,28 @@ class LogicalPlan:
         return all(c.is_linear() for c in kids)
 
 
+def internal_column(name: str) -> bool:
+    """The reserved index-internal column names (the lineage column
+    `_data_file_name`): hidden from logical schemas, read only when a filter
+    names it (the delete prune) and stripped after that filter
+    (`logical.internal_column` :124)."""
+    from ..config import IndexConstants
+
+    return name.lower() == IndexConstants.DATA_FILE_NAME_COLUMN
+
+
 class ScanNode(LogicalPlan):
     def __init__(self, relation: SourceRelation):
         self.relation = relation
 
     @property
     def output_schema(self) -> Schema:
+        if self.relation.index_name:
+            # An index relation's lineage column is bookkeeping: a rewrite
+            # keeps the output schema, so the logical schema hides it.
+            fields = [f for f in self.relation.schema.fields if not internal_column(f.name)]
+            if len(fields) != len(self.relation.schema.fields):
+                return Schema(fields)
         return self.relation.schema
 
     def with_children(self, children):

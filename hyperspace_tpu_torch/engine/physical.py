@@ -52,6 +52,7 @@ from .logical import (
     ScanNode,
     SourceRelation,
     WithColumnNode,
+    internal_column,
 )
 from .pushdown import ScanPredicate, pushdown_enabled
 from .scan_cache import global_bucketed_cache, global_filtered_cache
@@ -114,6 +115,17 @@ def _resolution_case_sensitive(ctx, schema_names) -> bool:
     return cs or len({n.lower() for n in schema_names}) != len(schema_names)
 
 
+def _default_scan_columns(relation: SourceRelation, columns: Optional[List[str]]) -> Optional[List[str]]:
+    """The columns a scan reads when `columns` is None ("everything"): for an
+    index relation its visible schema, since the lineage column is read only
+    when a filter names it (physical.py:233). None when nothing is hidden."""
+    if columns is not None or not relation.index_name:
+        return columns
+    names = relation.schema.names
+    visible = [n for n in names if not internal_column(n)]
+    return visible if len(visible) != len(names) else None
+
+
 class ScanExec(PhysicalNode):
     name = "Scan"
 
@@ -140,7 +152,7 @@ class ScanExec(PhysicalNode):
             return _empty_table(self.relation, self.columns, ctx.device)
         self.pruning = {}
         return engine_io.read_files(
-            files, self.relation.file_format, self.columns, ctx.device,
+            files, self.relation.file_format, _default_scan_columns(self.relation, self.columns), ctx.device,
             pushdown=self._pushdown_pred(ctx), pruning_stats=self.pruning,
         )
 
@@ -157,7 +169,10 @@ class ScanExec(PhysicalNode):
 
 class BucketedIndexScanExec(PhysicalNode):
     """Reads index data preserving bucket structure: bucket ids come from the
-    `part-<bucket>` file naming contract of the bucketed writer."""
+    `part-<bucket>` file naming contract of the bucketed writer. An index
+    refreshed incrementally spreads a bucket over several version
+    directories: its files are concatenated in `relation.files` order, as the
+    JAX package's `_assemble_buckets` does (physical.py:378)."""
 
     name = "BucketedIndexScan"
 
@@ -167,7 +182,8 @@ class BucketedIndexScanExec(PhysicalNode):
         self.columns = columns
 
     def _bucket_files(self) -> List[Tuple[int, str]]:
-        """(bucket, path) of each file, in bucket order."""
+        """(bucket, path) of each file, by bucket and, within a bucket, in
+        `relation.files` order (a stable sort)."""
         out = []
         for f in self.relation.files:
             m = _BUCKET_FILE_RE.search(os.path.basename(f.path))
@@ -175,8 +191,6 @@ class BucketedIndexScanExec(PhysicalNode):
                 raise HyperspaceException(f"Not a bucketed index file: {f.path}")
             out.append((int(m.group(1)), f.path))
         out.sort(key=lambda bp: bp[0])
-        if len({b for b, _ in out}) != len(out):
-            raise not_in_slice("index data spread over several version directories")
         return out
 
     def _assemble(self, ctx, selections=None) -> Tuple[Table, np.ndarray]:
@@ -186,11 +200,12 @@ class BucketedIndexScanExec(PhysicalNode):
         reads only the kept row groups of each file."""
         bucket_files = self._bucket_files()
         sel_of = selections or {}
-        jobs = [(p, self.columns) + sel_of.get(p, (None, None)) for _, p in bucket_files]
+        cols = _default_scan_columns(self.relation, self.columns)
+        jobs = [(p, cols) + sel_of.get(p, (None, None)) for _, p in bucket_files]
         tables = engine_io.decode_files(jobs, ctx.device, ctx.file_stats([p for _, p in bucket_files]))
         starts = np.zeros(self.relation.bucket_spec.num_buckets + 1, dtype=np.int64)
         for (b, _), t in zip(bucket_files, tables):
-            starts[b + 1] = t.num_rows
+            starts[b + 1] += t.num_rows
         np.cumsum(starts, out=starts)
         kept = [t for t in tables if t.num_rows > 0]
         return (engine_io.concat_tables(kept) if kept else self.empty_table(ctx)), starts
@@ -268,7 +283,7 @@ def _empty_column(dtype: str, device) -> Column:
 
 
 def _empty_table(relation: SourceRelation, columns, device) -> Table:
-    names = columns or relation.schema.names
+    names = _default_scan_columns(relation, columns) or relation.schema.names
     return Table({n: _empty_column(relation.schema.field(n).dtype, device) for n in names})
 
 
@@ -294,7 +309,18 @@ class FilterExec(PhysicalNode):
 
     def execute(self, ctx) -> Table:
         t = self.child.execute(ctx)
-        return t if t.num_rows == 0 else t.take(self._keep(t))
+        return self._strip_internal(t if t.num_rows == 0 else t.take(self._keep(t)))
+
+    def _strip_internal(self, t: Table) -> Table:
+        """Drop an index scan's lineage column once this filter, the delete
+        prune and the column's only reader, has evaluated: the logical schema
+        hides it from everything above (physical.py:670)."""
+        rel = getattr(self.child, "relation", None)
+        if rel is None or not rel.index_name:
+            return t
+        refs = {r.lower() for r in self.condition.references()}
+        drop = [c for c in t.column_names if internal_column(c) and c.lower() in refs]
+        return t.select([c for c in t.column_names if c not in drop]) if drop else t
 
     def execute_concat(self, ctx) -> Tuple[Table, np.ndarray]:
         """A filtered bucketed scan with its bucket structure kept: a filter
@@ -319,6 +345,7 @@ class FilterExec(PhysicalNode):
             bounds = torch.as_tensor(np.asarray(starts, np.int64), device=keep.device)
             starts = torch.searchsorted(keep, bounds).cpu().numpy().astype(np.int64)
             table = table.take(keep)
+        table = self._strip_internal(table)
         if key is not None:
             global_filtered_cache().put(key, table, starts)
         return table, starts
@@ -1048,7 +1075,8 @@ class LimitExec(PhysicalNode):
                 break
         if len(picked) == len(rel.files):
             return None
-        t = engine_io.read_files([f.path for f in picked], rel.file_format, child.columns, ctx.device)
+        cols = _default_scan_columns(rel, child.columns)
+        t = engine_io.read_files([f.path for f in picked], rel.file_format, cols, ctx.device)
         return t.select(project.column_names) if project is not None else t
 
     def execute_count(self, ctx) -> int:
@@ -1131,8 +1159,15 @@ def plan_physical(
 
     if isinstance(logical, FilterNode):
         child_required = None
+        refs = sorted(logical.condition.references())
         if required is not None:
-            child_required = list(dict.fromkeys(list(required) + sorted(logical.condition.references())))
+            child_required = list(dict.fromkeys(list(required) + refs))
+        else:
+            # "Everything" leaves out a scan's hidden lineage column: a
+            # condition naming it (the delete prune) asks for it explicitly.
+            visible = {n.lower() for n in logical.child.output_schema.names}
+            if any(r.lower() not in visible for r in refs):
+                child_required = list(dict.fromkeys(list(logical.child.output_schema.names) + refs))
         child = plan_physical(logical.child, child_required, case_sensitive)
         if type(child) is ScanExec:
             # The scan may skip row groups that cannot pass this filter

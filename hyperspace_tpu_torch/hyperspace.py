@@ -2,12 +2,18 @@
 (counterpart of `hyperspace_tpu/hyperspace.py`; reference `Hyperspace.scala`,
 `package.scala:34-74`). `enable_hyperspace` registers `JoinIndexRule`, then
 `FilterIndexRule`, in the JAX package's order; its data-skipping rule is not
-ported."""
+ported. The facade creates, refreshes, deletes, restores, vacuums, cancels
+and lists indexes; `optimize_index` (compaction) is not ported."""
 
 from __future__ import annotations
 
+import os
+from typing import Optional
+
+from .config import ENV_REFRESH_MODE
 from .engine.session import DataFrame, HyperspaceSession
-from .index.collection_manager import IndexCollectionManager
+from .engine.table import Table
+from .index.collection_manager import CachingIndexCollectionManager
 from .index.index_config import IndexConfig
 from .rules.filter_index_rule import FilterIndexRule
 from .rules.join_index_rule import JoinIndexRule
@@ -17,11 +23,11 @@ _ALL_RULES = (JoinIndexRule, FilterIndexRule)
 _MANAGER_ATTR = "_hyperspace_index_manager"
 
 
-def _index_manager_for(session: HyperspaceSession) -> IndexCollectionManager:
+def _index_manager_for(session: HyperspaceSession) -> CachingIndexCollectionManager:
     """One manager per session (the reference's HyperspaceContext)."""
     mgr = getattr(session, _MANAGER_ATTR, None)
     if mgr is None:
-        mgr = IndexCollectionManager(session)
+        mgr = CachingIndexCollectionManager(session)
         setattr(session, _MANAGER_ATTR, mgr)
     return mgr
 
@@ -33,6 +39,31 @@ class Hyperspace:
 
     def create_index(self, df: DataFrame, index_config: IndexConfig) -> None:
         self._manager.create(df, index_config)
+
+    def delete_index(self, index_name: str) -> None:
+        self._manager.delete(index_name)
+
+    def restore_index(self, index_name: str) -> None:
+        self._manager.restore(index_name)
+
+    def vacuum_index(self, index_name: str) -> None:
+        self._manager.vacuum(index_name)
+
+    def refresh_index(self, index_name: str, mode: Optional[str] = None) -> None:
+        """mode "full": rebuild; "incremental": index only the appended source
+        files and fold the deleted ones through lineage; "auto": incremental
+        when it can, full when it cannot, nothing when the index is fresh.
+        None takes `HYPERSPACE_REFRESH_MODE`, else "full"."""
+        self._manager.refresh(index_name, mode or os.environ.get(ENV_REFRESH_MODE) or "full")
+
+    def optimize_index(self, index_name: str, mode: str = "quick") -> None:
+        self._manager.optimize(index_name, mode)
+
+    def cancel(self, index_name: str) -> None:
+        self._manager.cancel(index_name)
+
+    def indexes(self) -> Table:
+        return self._manager.indexes()
 
 
 def enable_hyperspace(session: HyperspaceSession) -> HyperspaceSession:

@@ -6,7 +6,10 @@ pipelined and mesh builds to): read the indexed + included columns onto the
 device, bucketize (hash + stable in-bucket sort, `ops/partition.py`), write one
 `part-<bucket>.parquet` per non-empty bucket with bounded row groups, inside a
 staging directory committed by one rename. `derive_log_entry` (:265) builds
-the same metadata record, field for field.
+the same metadata record, field for field. With lineage on
+(`hyperspace.index.lineage.enabled`) each source file is read on its own, in
+inventory order, and its rows get the file's path in the `_data_file_name`
+string column (:79-107), which lets a refresh fold deleted source files.
 """
 
 from __future__ import annotations
@@ -15,12 +18,16 @@ import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import List
 
+import numpy as np
+import torch
+
 from ..actions.create import IndexerBuilder
 from ..config import IndexConstants
 from ..engine import io as engine_io
-from ..engine.logical import ScanNode
-from ..engine.schema import Field, Schema
-from ..exceptions import HyperspaceException
+from ..engine.logical import ScanNode, SourceRelation
+from ..engine.schema import STRING, Field, Schema
+from ..engine.table import Column, Table
+from ..exceptions import HyperspaceException, not_in_slice
 from ..ops.partition import bucketize_table
 from ..util.resolver_utils import resolve_all
 from .index_config import IndexConfig
@@ -69,12 +76,39 @@ class CoveringIndexBuilder(IndexerBuilder):
         with stage_commit(index_data_path) as stage:
             self._write_serial(df, index_config, stage)
 
-    def _write_serial(self, df, index_config: IndexConfig, index_data_path: str) -> None:
+    @staticmethod
+    def _missing_partition_columns(rel: SourceRelation, wanted: List[str]) -> List[str]:
+        """Partition columns not already selected: lineage mode indexes them
+        so that a lineage row maps back to its source partition (reference
+        `CreateActionBase.scala:176-188`). None while the relation has no
+        partition spec, as every relation of the port's readers."""
+        if rel.partition_spec is None:
+            return []
+        have = {w.lower() for w in wanted}
+        return [c for c in rel.partition_spec.columns if c.lower() not in have]
+
+    def _index_table(self, df, index_config: IndexConfig) -> Table:
+        """The indexed + included columns on the device, and with lineage on
+        the missing partition columns and `_data_file_name`."""
         indexed, included = self._resolved_columns(df, index_config)
         rel = df.plan.relation
-        table = engine_io.read_files(
-            [f.path for f in rel.files], rel.file_format, indexed + included, self._session.device
-        )
+        wanted = indexed + included
+        device = self._session.device
+        if not self._session.hs_conf.lineage_enabled:
+            return engine_io.read_files([f.path for f in rel.files], rel.file_format, wanted, device)
+        wanted = wanted + self._missing_partition_columns(rel, wanted)
+        parts = []
+        for f in rel.files:
+            t = engine_io.read_files([f.path], rel.file_format, wanted, device)
+            cols = dict(t.columns)
+            codes = torch.zeros(t.num_rows, dtype=torch.int32, device=device)
+            cols[IndexConstants.DATA_FILE_NAME_COLUMN] = Column(STRING, codes, np.asarray([f.path]))
+            parts.append(Table(cols))
+        return engine_io.concat_tables(parts)
+
+    def _write_serial(self, df, index_config: IndexConfig, index_data_path: str) -> None:
+        indexed, _ = self._resolved_columns(df, index_config)
+        table = self._index_table(df, index_config)
         num_buckets = self._session.hs_conf.num_buckets
         sorted_table, starts = bucketize_table(table, indexed, num_buckets)
         host = sorted_table.to("cpu")
@@ -98,6 +132,10 @@ class CoveringIndexBuilder(IndexerBuilder):
         indexed, included = self._resolved_columns(df, index_config)
         src = df.plan.output_schema
         fields: List[Field] = [src.field(n) for n in indexed + included]
+        if self._session.hs_conf.lineage_enabled:
+            for p in self._missing_partition_columns(df.plan.relation, indexed + included):
+                fields.append(src.field(p))
+            fields.append(Field(IndexConstants.DATA_FILE_NAME_COLUMN, STRING))
         return Schema(fields)
 
     def derive_log_entry(
@@ -133,3 +171,26 @@ class CoveringIndexBuilder(IndexerBuilder):
                 )
             ),
         )
+
+    def reconstruct_df(self, relation: Relation):
+        """The source again, over the logged root paths (listed anew)."""
+        if relation.file_format != "parquet":
+            raise not_in_slice(f"{relation.file_format} sources")
+        return self._session.read.parquet(*relation.root_paths)
+
+    def restrict_df_to_files(self, df, file_paths):
+        """The same relation limited to `file_paths` (the files an incremental
+        refresh indexes)."""
+        from ..engine.session import DataFrame
+
+        rel = df.plan.relation
+        wanted = set(file_paths)
+        sub = SourceRelation(
+            root_paths=list(rel.root_paths),
+            file_format=rel.file_format,
+            schema=rel.schema,
+            files=[f for f in rel.files if f.path in wanted],
+            options=dict(rel.options),
+            partition_spec=rel.partition_spec,
+        )
+        return DataFrame(self._session, ScanNode(sub))

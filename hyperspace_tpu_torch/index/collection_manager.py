@@ -1,20 +1,37 @@
-"""Index management: create, and list the indexes (counterpart of
-`hyperspace_tpu/index/collection_manager.py`, reference
-`IndexCollectionManager.scala:26-191`). Refresh, optimize, delete, restore,
-vacuum, cancel and the TTL metadata cache are not ported yet."""
+"""Index management: create, refresh, delete, restore, vacuum, cancel, list.
+
+Counterpart of `hyperspace_tpu/index/collection_manager.py` (reference
+`IndexCollectionManager.scala:26-191`, `CachingIndexCollectionManager.scala`
+and `Cache.scala`). Each action runs on the index's own log and data
+managers; resolving an index first reclaims the staging directories of dead
+writers. `CachingIndexCollectionManager` keeps the list of log entries for
+`hyperspace.index.cache.expiryDurationInSeconds` (300 s) and clears it
+before and after every mutation. The JAX package's event logger, metrics,
+data-skipping kind, optimize and the replica fleet's cross-process
+invalidation are not ported.
+"""
 
 from __future__ import annotations
 
+import time
 from typing import List, Optional, Sequence
 
 from ..actions import states
 from ..actions.create import CreateAction
+from ..actions.lifecycle import CancelAction, DeleteAction, RestoreAction, VacuumAction
+from ..actions.refresh import NothingToRefreshError, RefreshAction, RefreshIncrementalAction
+from ..engine.table import Table
+from ..exceptions import HyperspaceException, not_in_slice
+from . import quarantine
 from .builder import CoveringIndexBuilder
 from .data_manager import IndexDataManagerImpl
 from .index_config import IndexConfig
 from .log_entry import IndexLogEntry
 from .log_manager import IndexLogManagerImpl
 from .path_resolver import PathResolver
+from .staging import reclaim_orphans
+
+REFRESH_MODES = ("full", "incremental", "auto")
 
 
 class IndexCollectionManager:
@@ -22,25 +39,91 @@ class IndexCollectionManager:
         self._session = session
         self._resolver = PathResolver(session.conf, session.fs, warehouse=session.warehouse)
 
-    def create(self, df, index_config: IndexConfig) -> None:
-        index_path = self._resolver.get_index_path(index_config.index_name)
+    def _managers_for(self, name: str):
+        """(log manager, data manager, index path) of `name`, after reclaiming
+        its dead writers' staging directories (live writers are pid-checked
+        and never touched)."""
+        index_path = self._resolver.get_index_path(name)
+        reclaim_orphans(index_path)
         fs = self._session.fs
-        log_mgr = IndexLogManagerImpl(index_path, fs)
-        data_mgr = IndexDataManagerImpl(index_path, fs)
+        return IndexLogManagerImpl(index_path, fs), IndexDataManagerImpl(index_path, fs), index_path
+
+    def _existing_log_manager(self, name: str):
+        """An existing index's managers (reference `withLogManager`,
+        `IndexCollectionManager.scala:107-118`)."""
+        log_mgr, data_mgr, index_path = self._managers_for(name)
+        if log_mgr.get_latest_id() is None:
+            raise HyperspaceException(f"Index with name {name} could not be found.")
+        return log_mgr, data_mgr, index_path
+
+    @staticmethod
+    def _next_data_path(data_mgr) -> str:
         latest = data_mgr.get_latest_version_id()
-        next_version = 0 if latest is None else latest + 1
+        return data_mgr.get_path(0 if latest is None else latest + 1)
+
+    def create(self, df, index_config: IndexConfig) -> None:
+        log_mgr, data_mgr, index_path = self._managers_for(index_config.index_name)
         CreateAction(
-            df,
-            index_config,
-            CoveringIndexBuilder(self._session),
-            log_mgr,
-            index_path,
-            data_mgr.get_path(next_version),
+            df, index_config, CoveringIndexBuilder(self._session), log_mgr, index_path,
+            self._next_data_path(data_mgr),
         ).run()
+        quarantine.clear(index_config.index_name)  # fresh data supersedes corrupt files
+
+    def refresh(self, index_name: str, mode: str = "full") -> None:
+        """mode "full" rebuilds; "incremental" indexes the appended files and
+        folds the deleted ones; "auto" goes incremental when its validation
+        passes, full on any other refusal, and does nothing when the index
+        already covers the source, unless it is quarantined (:138-204)."""
+        if mode not in REFRESH_MODES:
+            raise HyperspaceException(f"Unsupported refresh mode '{mode}'; supported: full, incremental, auto.")
+        log_mgr, data_mgr, index_path = self._existing_log_manager(index_name)
+        builder = CoveringIndexBuilder(self._session)
+        data_path = self._next_data_path(data_mgr)
+
+        def make(cls):
+            return cls(builder, log_mgr, index_path, data_path)
+
+        action = make(RefreshAction if mode == "full" else RefreshIncrementalAction)
+        if mode == "auto":
+            # Decided by validate() alone: a failure past begin() propagates
+            # and never re-runs as full.
+            try:
+                action.validate()
+            except NothingToRefreshError:
+                if not quarantine.is_quarantined(index_name):
+                    return
+                action = make(RefreshAction)  # the documented remedy of a quarantined index
+            except HyperspaceException:
+                action = make(RefreshAction)
+        action.run()
+        quarantine.clear(index_name)
+
+    def optimize(self, index_name: str, mode: str = "quick") -> None:
+        raise not_in_slice("optimize (index compaction)")
+
+    def delete(self, index_name: str) -> None:
+        log_mgr, _, _ = self._existing_log_manager(index_name)
+        DeleteAction(log_mgr).run()
+
+    def restore(self, index_name: str) -> None:
+        log_mgr, _, _ = self._existing_log_manager(index_name)
+        RestoreAction(log_mgr).run()
+
+    def vacuum(self, index_name: str) -> None:
+        log_mgr, data_mgr, index_path = self._existing_log_manager(index_name)
+        VacuumAction(data_mgr, log_mgr).run()
+        reclaim_orphans(index_path)
+        quarantine.clear(index_name)
+
+    def cancel(self, index_name: str) -> None:
+        log_mgr, _, _ = self._existing_log_manager(index_name)
+        CancelAction(log_mgr).run()
 
     def get_indexes(self, states_filter: Optional[Sequence[str]] = None) -> List[IndexLogEntry]:
-        """Latest entry of every index (its latest STABLE one while a writer is
-        in flight), filtered by state."""
+        """Latest entry of every index, filtered by state. A transient latest
+        entry (a writer in flight, or dead in flight) reads as the latest
+        stable one, so readers keep the committed generation; with no stable
+        entry (a first create in flight) the index sits out."""
         system = self._resolver.system_path()
         fs = self._session.fs
         out: List[IndexLogEntry] = []
@@ -58,3 +141,135 @@ class IndexCollectionManager:
             if states_filter is None or entry.state in states_filter:
                 out.append(entry)
         return out
+
+    def indexes(self) -> Table:
+        """The summary table (reference `IndexSummary`, :151-191) on the host,
+        without DOESNOTEXIST indexes, in the JAX package's columns and order."""
+        rows = {c: [] for c in (
+            "name", "indexedColumns", "includedColumns", "numBuckets", "schema", "indexLocation", "state",
+        )}
+        for e in self.get_indexes():
+            if e.state == states.DOESNOTEXIST:
+                continue
+            rows["name"].append(e.name)
+            rows["indexedColumns"].append(",".join(e.indexed_columns))
+            rows["includedColumns"].append(",".join(e.included_columns))
+            rows["numBuckets"].append(e.num_buckets)
+            rows["schema"].append(e.schema_json)
+            rows["indexLocation"].append(e.index_location())
+            rows["state"].append(e.state)
+        return Table.from_pydict(rows, "cpu")
+
+
+class IndexCache:
+    """Cache of the full entry list (reference `index/Cache.scala:23-41`)."""
+
+    def get(self) -> Optional[List[IndexLogEntry]]:
+        raise NotImplementedError
+
+    def set(self, entries: List[IndexLogEntry]) -> None:
+        raise NotImplementedError
+
+    def clear(self) -> None:
+        raise NotImplementedError
+
+
+class CreationTimeBasedIndexCache(IndexCache):
+    """The entry list, expired `expiry_seconds_fn()` seconds after it was set
+    (reference `CreationTimeBasedIndexCache`, :117-168)."""
+
+    def __init__(self, expiry_seconds_fn):
+        self._expiry_fn = expiry_seconds_fn
+        self._entries: Optional[List[IndexLogEntry]] = None
+        self._set_time = 0.0
+
+    def get(self) -> Optional[List[IndexLogEntry]]:
+        if self._entries is None:
+            return None
+        if time.time() - self._set_time > self._expiry_fn():
+            self.clear()
+            return None
+        return self._entries
+
+    def set(self, entries: List[IndexLogEntry]) -> None:
+        self._entries = list(entries)
+        self._set_time = time.time()
+
+    def clear(self) -> None:
+        self._entries = None
+        self._set_time = 0.0
+
+
+class IndexCacheFactory:
+    """Cache implementations by policy name (reference
+    `IndexCacheFactory.scala:23-38`); `register` is the extension seam."""
+
+    CREATION_TIME_BASED = "CREATION_TIME_BASED"
+    _registry = {}
+
+    @classmethod
+    def register(cls, cache_type: str, ctor) -> None:
+        """ctor: (session) -> IndexCache"""
+        cls._registry[cache_type.upper()] = ctor
+
+    @classmethod
+    def create(cls, cache_type: str, session) -> IndexCache:
+        ctor = cls._registry.get(cache_type.upper())
+        if ctor is None:
+            raise HyperspaceException(f"Unknown index cache type: {cache_type}")
+        return ctor(session)
+
+
+IndexCacheFactory.register(
+    IndexCacheFactory.CREATION_TIME_BASED,
+    lambda session: CreationTimeBasedIndexCache(lambda: session.hs_conf.cache_expiry_seconds),
+)
+
+
+class CachingIndexCollectionManager(IndexCollectionManager):
+    """The read path through the cache policy `hyperspace.index.cache.type`
+    names. A mutation clears the cache before and after the action: a
+    concurrent reader may refill it with the old generation while the action
+    runs, and a failed action's transient entry must be read, not trusted
+    from the cache (:382-496)."""
+
+    def __init__(self, session):
+        super().__init__(session)
+        self._cache = IndexCacheFactory.create(session.hs_conf.cache_type, session)
+
+    def get_indexes(self, states_filter: Optional[Sequence[str]] = None) -> List[IndexLogEntry]:
+        cached = self._cache.get()
+        if cached is None:
+            cached = super().get_indexes(None)
+            self._cache.set(cached)
+        if states_filter is None:
+            return list(cached)
+        return [e for e in cached if e.state in states_filter]
+
+    def clear_cache(self) -> None:
+        self._cache.clear()
+
+    def _mutate(self, fn) -> None:
+        self.clear_cache()
+        try:
+            fn()
+        finally:
+            self.clear_cache()
+
+    def create(self, df, index_config) -> None:
+        self._mutate(lambda: super(CachingIndexCollectionManager, self).create(df, index_config))
+
+    def refresh(self, index_name: str, mode: str = "full") -> None:
+        self._mutate(lambda: super(CachingIndexCollectionManager, self).refresh(index_name, mode))
+
+    def delete(self, index_name: str) -> None:
+        self._mutate(lambda: super(CachingIndexCollectionManager, self).delete(index_name))
+
+    def restore(self, index_name: str) -> None:
+        self._mutate(lambda: super(CachingIndexCollectionManager, self).restore(index_name))
+
+    def vacuum(self, index_name: str) -> None:
+        self._mutate(lambda: super(CachingIndexCollectionManager, self).vacuum(index_name))
+
+    def cancel(self, index_name: str) -> None:
+        self._mutate(lambda: super(CachingIndexCollectionManager, self).cancel(index_name))

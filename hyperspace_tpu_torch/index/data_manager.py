@@ -1,5 +1,6 @@
 """Versioned index-data directories (reference `index/IndexDataManager.scala:38-73`):
-data lives under `<indexRoot>/v__=<n>/`."""
+data lives under `<indexRoot>/v__=<n>/`; `delete` removes one version
+directory (vacuum)."""
 
 from __future__ import annotations
 
@@ -33,3 +34,8 @@ class IndexDataManagerImpl:
         return os.path.join(
             self._index_path, f"{IndexConstants.INDEX_VERSION_DIR_PREFIX}={version_id}"
         )
+
+    def delete(self, version_id: int) -> None:
+        path = self.get_path(version_id)
+        if self._fs.exists(path):
+            self._fs.delete(path, recursive=True)

@@ -135,6 +135,22 @@ class Content:
     def from_directory(path: str, fs: LocalFileSystem) -> "Content":
         return Content(Directory.from_directory(path, fs))
 
+    @staticmethod
+    def from_file_infos(infos: List[FileInfo]) -> "Content":
+        """A tree rooted at "/" over absolute-path FileInfos (the merged
+        inventory of an index spread over several version directories)."""
+        leaves = [FileStatus(f.name, f.size, f.modified_time, False) for f in infos]
+        return Content(Directory.from_leaf_files("/", leaves))
+
+    @staticmethod
+    def merge(contents: List["Content"]) -> "Content":
+        """The union of inventories, each flattened in path order, in the
+        order given (`log_entry.Content.merge` :143)."""
+        all_infos: List[FileInfo] = []
+        for c in contents:
+            all_infos.extend(c.file_infos())
+        return Content.from_file_infos(all_infos)
+
 
 # ---------------------------------------------------------------------------
 # Source lineage: relations + plan fingerprint (reference IndexLogEntry.scala:242-282)
@@ -336,6 +352,14 @@ class LogEntry:
         return decoder(d)
 
 
+#: `extra` key of the source-file paths whose rows are still in the index data
+#: but logically deleted: folded in by an incremental refresh that saw the
+#: files vanish (`actions/refresh.RefreshIncrementalAction`), pruned at scan
+#: time through the lineage column (`rules.rule_utils.lineage_prune_condition`)
+#: and cleared by the next full rewrite.
+DELETED_SOURCE_FILES_KEY = "deletedSourceFiles"
+
+
 class IndexLogEntry(LogEntry):
     """The full index metadata record (reference `IndexLogEntry.scala:285-334`)."""
 
@@ -387,6 +411,21 @@ class IndexLogEntry(LogEntry):
         if len(sigs) != 1:
             raise ValueError(f"expected exactly one signature, got {len(sigs)}")
         return sigs[0]
+
+    def has_lineage(self) -> bool:
+        """Whether the index data carries the per-row source-file lineage
+        column, the precondition of delete folding."""
+        from ..config import IndexConstants
+        from ..engine.schema import Schema
+
+        target = IndexConstants.DATA_FILE_NAME_COLUMN.lower()
+        return any(n.lower() == target for n in Schema.from_json_string(self.schema_json).names)
+
+    def deleted_source_files(self) -> List[str]:
+        """Source-file paths whose rows remain in the index data but were
+        folded as deleted by an incremental refresh."""
+        v = self.extra.get(DELETED_SOURCE_FILES_KEY)
+        return list(v) if v else []
 
     def index_location(self) -> str:
         """Root directory of the index data (common prefix of content files — may

@@ -15,10 +15,13 @@ Parity: `hyperspace_tpu/rules/filter_index_rule.py` (reference
   other `part-<bucket>` file is skipped. A filter that leaves an indexed
   column free prunes nothing. (The JAX package hashes the head literal alone,
   which drops rows of a multi-column index; the port does not copy that.)
-- ranking is first-candidate;
-- any exception returns the original plan (:74-78).
-Hybrid scan, lineage delete tolerance and usage events are not ported: an
-index whose source drifted is not a candidate.
+- deletes folded by a refresh: the index scan sits under the lineage prune
+  filter, below the user's filter and the output projection (:132-138);
+- ranking: fewest folded deletes first, then first-candidate (:304);
+- any exception returns the original plan (:74-78), except a conf asking for
+  Hybrid Scan, which raises before the rule runs.
+Hybrid scan and usage events are not ported: an index whose source drifted
+since its last refresh is not a candidate.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ from ..engine.table import Column
 from ..index.log_entry import IndexLogEntry
 from ..ops.hashing import bucket_id
 from ..util.resolver_utils import resolve, resolve_all
-from .rule_utils import _index_relation, get_candidate_indexes, index_files_as_statuses
+from .rule_utils import _index_relation, get_candidate_indexes, index_files_as_statuses, lineage_prune_condition
 
 
 def _extract_filter_node(plan: LogicalPlan):
@@ -69,6 +72,7 @@ class FilterIndexRule:
     def apply(self, plan: LogicalPlan, session) -> LogicalPlan:
         from ..hyperspace import _index_manager_for
 
+        session.hs_conf.refuse_hybrid_scan()
         try:
             index_manager = _index_manager_for(session)
             cs = session.hs_conf.case_sensitive
@@ -88,14 +92,19 @@ class FilterIndexRule:
                 ]
                 if not usable:
                     return node
-                best = rank(usable).entry
+                chosen = rank(usable)
+                best = chosen.entry
                 pruned_files = None
                 if session.hs_conf.filter_bucket_pruning:
                     pruned_files = _bucket_pruned_files(best, filt.condition, cs)
-                index_scan = ScanNode(_index_relation(best, files=pruned_files))
+                index_child: LogicalPlan = ScanNode(_index_relation(best, files=pruned_files))
+                if chosen.deleted:
+                    # Prune the folded files' rows by lineage before the
+                    # projection drops the column.
+                    index_child = FilterNode(lineage_prune_condition(chosen.deleted), index_child)
                 # Always project: the index stores its columns in
                 # indexed + included order, not the source's.
-                return ProjectNode(list(output_columns), FilterNode(filt.condition, index_scan))
+                return ProjectNode(list(output_columns), FilterNode(filt.condition, index_child))
 
             return plan.transform_up(rewrite)
         except Exception as e:  # never break the user's query over an index problem
@@ -196,6 +205,7 @@ def _bucket_pruned_files(entry: IndexLogEntry, condition, case_sensitive: bool):
 
 
 def rank(candidates):
-    """FilterIndexRanker: the first candidate (every ported candidate is an
-    exact signature match; reference ranking TODO at :202-208)."""
-    return candidates[0]
+    """FilterIndexRanker: the candidate with the fewest folded deletes (each
+    costs a lineage prune per query), then the first (reference ranking TODO
+    at :202-208)."""
+    return sorted(candidates, key=lambda c: len(c.deleted))[0]

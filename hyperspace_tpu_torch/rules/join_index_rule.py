@@ -10,9 +10,12 @@ Parity: reference `index/rules/JoinIndexRule.scala:54-564`, via
 - a compatible pair lists its indexed columns in the same order under the key
   mapping, so bucket b of the left index holds exactly the keys bucket b of
   the right one holds;
-- the best-ranked pair substitutes both relations by bucketed index scans.
-Any exception returns the original plan. Star-join recognition
-(`HYPERSPACE_MULTIWAY`) is not ported yet.
+- the best-ranked pair substitutes both relations by bucketed index scans,
+  each under the lineage prune filter when its index has folded deletes
+  (:499-525); the filter keeps the buckets, so the join stays co-bucketed.
+Any exception returns the original plan, except a conf asking for Hybrid
+Scan, which raises. Star-join recognition (`HYPERSPACE_MULTIWAY`) is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ from ..engine.logical import (
     find_single_relation,
 )
 from ..util.resolver_utils import resolution_key
-from .rule_utils import _index_relation, get_candidate_indexes
+from .rule_utils import _index_relation, get_candidate_indexes, lineage_prune_condition
 
 
 def _nkey(name: str, cs: bool) -> str:
@@ -115,12 +118,17 @@ def _compatible_pairs(l_candidates, r_candidates, l_to_r: Dict[str, str], cs: bo
 
 
 def rank_join_pairs(pairs):
-    """JoinIndexRanker: equal-bucket pairs first, then higher bucket counts
-    (reference `rankers/JoinIndexRanker.scala:40-55`)."""
+    """JoinIndexRanker: pairs with fewer folded deletes first (each costs a
+    lineage prune per query), then equal-bucket pairs, then higher bucket
+    counts (reference `rankers/JoinIndexRanker.scala:40-55`; JAX :135-160)."""
 
     def key(p):
         li, ri = p[0].entry, p[1].entry
-        return (0 if li.num_buckets == ri.num_buckets else 1, -(li.num_buckets + ri.num_buckets))
+        return (
+            len(p[0].deleted) + len(p[1].deleted),
+            0 if li.num_buckets == ri.num_buckets else 1,
+            -(li.num_buckets + ri.num_buckets),
+        )
 
     return sorted(pairs, key=key)
 
@@ -131,6 +139,7 @@ class JoinIndexRule:
     def apply(self, plan: LogicalPlan, session) -> LogicalPlan:
         from ..hyperspace import _index_manager_for
 
+        session.hs_conf.refuse_hybrid_scan()
         try:
             index_manager = _index_manager_for(session)
             cs = session.hs_conf.case_sensitive
@@ -174,7 +183,10 @@ class JoinIndexRule:
 
                     def replace(n: LogicalPlan) -> LogicalPlan:
                         if n is scan or (isinstance(n, ScanNode) and n.relation is scan.relation):
-                            return ScanNode(new_rel)
+                            new_scan: LogicalPlan = ScanNode(new_rel)
+                            if cand.deleted:
+                                new_scan = FilterNode(lineage_prune_condition(cand.deleted), new_scan)
+                            return new_scan
                         return n
 
                     return side.transform_up(replace)

@@ -4,8 +4,10 @@
 signature provider recomputes the same signature on the query's relation
 (reference `RuleUtils.scala`); `_index_relation` (from the JAX package's
 `filter_index_rule.py` :312) builds the relation that substitutes an index
-for its source. Hybrid scan and lineage-based delete tolerance are not ported yet:
-an index whose source drifted is simply not a candidate.
+for its source. Deletes that a refresh folded into the log entry ride every
+candidate, so the rules wrap its scan in `lineage_prune_condition`. Hybrid
+Scan is not ported: an index whose source drifted since its last refresh is
+not a candidate, and the conf asking for it raises.
 """
 
 from __future__ import annotations
@@ -14,18 +16,22 @@ from typing import Dict, List, Optional
 
 from ..actions import states
 from ..config import IndexConstants
+from ..engine.expr import Col, Expr, IsIn, Not
 from ..engine.logical import BucketSpec, LogicalPlan, SourceRelation
 from ..engine.schema import Schema
+from ..index import quarantine
 from ..index.log_entry import IndexLogEntry
 from ..index.signatures import create_provider
 from ..storage.filesystem import FileStatus
 
 
 class CandidateIndex:
-    """An applicable index (exact signature match)."""
+    """An applicable index (exact signature match) and the source files whose
+    rows it must prune by lineage at scan time (its folded deletes)."""
 
-    def __init__(self, entry: IndexLogEntry):
+    def __init__(self, entry: IndexLogEntry, deleted: Optional[List[str]] = None):
         self.entry = entry
+        self.deleted = deleted or []
 
 
 def _hash_scheme_compatible(entry: IndexLogEntry) -> bool:
@@ -36,7 +42,11 @@ def _hash_scheme_compatible(entry: IndexLogEntry) -> bool:
 
 
 def get_candidate_indexes(index_manager, plan: LogicalPlan) -> List[CandidateIndex]:
-    """ACTIVE covering indexes applicable to `plan` (a relation node)."""
+    """ACTIVE covering indexes applicable to `plan` (a relation node), less
+    the quarantined ones (`index/quarantine.py`). The deletes a refresh folded
+    (`entry.deleted_source_files()`) ride every candidate, exact matches
+    included: the signature covers the source after the delete, but the
+    index data holds those rows until a full rewrite (JAX :38-44)."""
     signature_map: Dict[str, Optional[str]] = {}
 
     def signature_valid(entry: IndexLogEntry) -> bool:
@@ -47,10 +57,18 @@ def get_candidate_indexes(index_manager, plan: LogicalPlan) -> List[CandidateInd
         return computed is not None and computed == sig.value
 
     return [
-        CandidateIndex(e)
+        CandidateIndex(e, e.deleted_source_files())
         for e in index_manager.get_indexes([states.ACTIVE])
-        if e.kind == "CoveringIndex" and e.created and _hash_scheme_compatible(e) and signature_valid(e)
+        if e.kind == "CoveringIndex" and e.created and not quarantine.is_quarantined(e.name)
+        and _hash_scheme_compatible(e) and signature_valid(e)
     ]
+
+
+def lineage_prune_condition(deleted: List[str]) -> Expr:
+    """The scan-time filter that prunes the rows of folded source files:
+    `NOT (_data_file_name IN deleted)`. It keeps bucket membership and the
+    order within a bucket, so the co-bucketed join stays sound over it."""
+    return Not(IsIn(Col(IndexConstants.DATA_FILE_NAME_COLUMN), list(deleted)))
 
 
 def index_files_as_statuses(entry: IndexLogEntry) -> List[FileStatus]:

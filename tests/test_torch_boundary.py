@@ -7,7 +7,8 @@
 (b) No file of the port (nor `chip_smoke.py`) imports `jax` or `hyperspace_tpu`.
 (c) A session built without `device=` asks for CUDA; with no card it raises
     instead of running on the CPU.
-(d) Features outside the slice raise NotImplementedError naming the feature.
+(d) Features outside the slice raise NotImplementedError naming the feature
+    (Hybrid Scan asked for in the conf, and `optimize_index`, among them).
 """
 
 import ast
@@ -122,7 +123,16 @@ CUT_OUTS = {
     "full outer joins": lambda s, l, r: l.join(r, hst.col("a") == hst.col("b"), "full"),
     "csv sources": lambda s, l, r: s.read.csv(s.warehouse),
     "json sources": lambda s, l, r: s.read.json(s.warehouse),
+    "hybrid scan": lambda s, l, r: _hybrid_scan_query(s, l),
+    "optimize": lambda s, l, r: hst.Hyperspace(s).optimize_index("li"),
 }
+
+
+def _hybrid_scan_query(s, l):
+    """A query with Hybrid Scan asked for: refused, never silently ignored."""
+    s.conf.set(hst.IndexConstants.INDEX_HYBRID_SCAN_ENABLED, "true")
+    hst.enable_hyperspace(s)
+    return l.filter(hst.col("a") == 1).collect()
 
 
 @pytest.mark.parametrize("feature", sorted(CUT_OUTS))

@@ -153,3 +153,84 @@ def test_a_lake_is_queried_by_the_other_package(lakes, owner, reader, query):
     if query == "lookup" and reader == "torch":
         assert torch_io.io_stats()["row_groups_skipped"] > before
     _equal(df.collect(), want)  # from the reader's caches
+
+
+# ---------------------------------------------------------------------------
+# The lifecycle across packages: each runs the next transition on the lake
+# the other wrote, and both query it after every step.
+# ---------------------------------------------------------------------------
+
+
+def _lifecycle_session(pkg, warehouse):
+    s, hs, cfg, enable, c = _session(pkg, warehouse)
+    k = hst.IndexConstants if pkg == "torch" else JaxIndexConstants
+    s.conf.set(k.INDEX_NUM_BUCKETS, 4)
+    s.conf.set(k.INDEX_LINEAGE_ENABLED, "true")
+    s.conf.set(k.INDEX_CACHE_EXPIRY_DURATION_SECONDS, 0)
+    enable(s)
+    return s, hs, cfg, c
+
+
+def _write_file(src, name, cols):
+    torch_io.write_parquet(Table.from_pydict(cols, "cpu"), os.path.join(src, name))
+
+
+def _lifecycle_rows(s, c, src, r):
+    """The join and a range lookup over the lake's current source."""
+    li = s.read.parquet(src)
+    return (
+        li.join(s.read.parquet(r), c("k") == c("k2")).select("k", "s", "w").collect(),
+        li.filter((c("k") >= 40) & (c("k") < 90)).select("k", "s").collect(),
+    )
+
+
+LIFECYCLE_STEPS = [
+    ("append, incremental", "refresh_index", ("li", "incremental"), "ACTIVE"),
+    ("delete a file, auto", "refresh_index", ("li", "auto"), "ACTIVE"),
+    ("full", "refresh_index", ("li", "full"), "ACTIVE"),
+    ("delete", "delete_index", ("li",), "DELETED"),
+    ("restore", "restore_index", ("li",), "ACTIVE"),
+    ("delete again", "delete_index", ("li",), "DELETED"),
+    ("vacuum", "vacuum_index", ("li",), "DOESNOTEXIST"),
+]
+
+
+@pytest.mark.parametrize("owner", ["jax", "torch"])
+def test_each_package_runs_the_next_transition_on_the_others_lake(tmp_path, monkeypatch, owner):
+    monkeypatch.setenv("HYPERSPACE_DISTRIBUTED", "0")
+    monkeypatch.setenv("HYPERSPACE_BUILD_DECODE_THREADS", "1")
+    rng = np.random.RandomState(21)
+    src, r = str(tmp_path / "l"), str(tmp_path / "r")
+
+    def keyed(keys):
+        return {"k": np.asarray(keys, np.int64), "s": np.array(["p", "q", "r"])[np.arange(len(keys)) % 3]}
+
+    _write_file(src, "part-00000.parquet", keyed(rng.randint(0, 150, 400)))
+    _write_file(src, "part-00001.parquet", keyed(rng.randint(0, 150, 300)))
+    _write_file(r, "part-00000.parquet", {"k2": np.arange(0, 150, 2, dtype=np.int64), "w": rng.rand(75)})
+    warehouse = str(tmp_path / "lake")
+    sessions = {pkg: _lifecycle_session(pkg, warehouse) for pkg in ("torch", "jax")}
+    s, hs, cfg, _ = sessions[owner]
+    hs.create_index(s.read.parquet(src), cfg("li", ["k"], ["s"]))
+    hs.create_index(s.read.parquet(r), cfg("ri", ["k2"], ["w"]))
+    other = "torch" if owner == "jax" else "jax"
+    for i, (label, method, args, state) in enumerate(LIFECYCLE_STEPS):
+        if label.startswith("append"):
+            _write_file(src, "part-00002.parquet", keyed(rng.randint(0, 150, 200)))
+        if label.startswith("delete a file"):
+            os.remove(os.path.join(src, "part-00000.parquet"))
+        actor = other if i % 2 == 0 else owner
+        getattr(sessions[actor][1], method)(*args)
+        for pkg in ("torch", "jax"):
+            states = {e.name: e.state for e in sessions[pkg][1]._manager.get_indexes()}
+            assert states["li"] == state, (label, pkg, states)
+        ts, _, _, tc = sessions["torch"]
+        plan = ts.read.parquet(src).filter(tc("k") == 3).select("k", "s").explain_string()
+        assert ("index=li" in plan) == (state == "ACTIVE"), (label, plan)
+        clear_all()
+        got = _lifecycle_rows(ts, tc, src, r)
+        js, _, _, jc = sessions["jax"]
+        want = _lifecycle_rows(js, jc, src, r)
+        for g, w in zip(got, want):
+            assert g.num_rows > 0, label
+            _equal(g, w)

@@ -448,3 +448,53 @@ def test_order_by_on_the_card_equals_np_lexsort_with_nan_and_signed_zeros(cuda_d
         perm = OrderByExec(keys, None).order(t)
         assert perm.is_cuda
         np.testing.assert_array_equal(perm.cpu().numpy(), np.lexsort(tuple(lanes)), err_msg=str(keys))
+
+
+@pytest.mark.cuda
+def test_a_two_version_index_joins_on_the_card_as_on_the_cpu(cuda_device, tmp_path):
+    """An incremental refresh leaves a lineage index over two version
+    directories whose buckets are no longer sorted by the key, and a deleted
+    source file folded into its entry: the co-bucketed join runs in hash mode
+    through K1 and K2 on the card and returns the CPU's rows in the CPU's
+    order."""
+    import os
+
+    import hyperspace_tpu_torch as hst
+    from hyperspace_tpu_torch.engine import io as torch_io
+    from hyperspace_tpu_torch.engine.table import Table
+
+    rng = np.random.RandomState(11)
+    src, r = str(tmp_path / "l"), str(tmp_path / "r")
+
+    def write(path, cols):
+        torch_io.write_parquet(Table.from_pydict(cols, "cpu"), path)
+
+    for i in range(3):
+        n = 4000
+        write(os.path.join(src, f"part-{i:05d}.parquet"),
+              {"k": rng.randint(0, 3000, n).astype(np.int64), "x": rng.rand(n)})
+    write(os.path.join(r, "part-00000.parquet"), {"k2": np.arange(3000, dtype=np.int64), "w": rng.rand(3000)})
+    sessions = {}
+    for dev in ("cpu", "cuda"):
+        s = hst.HyperspaceSession(warehouse=str(tmp_path / dev), device=dev)
+        s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, 8)
+        s.conf.set(hst.IndexConstants.INDEX_LINEAGE_ENABLED, "true")
+        hs = hst.Hyperspace(s)
+        hs.create_index(s.read.parquet(src), hst.IndexConfig("li", ["k"], ["x"]))
+        hs.create_index(s.read.parquet(r), hst.IndexConfig("ri", ["k2"], ["w"]))
+        hst.enable_hyperspace(s)
+        sessions[dev] = (s, hs)
+    write(os.path.join(src, "part-00003.parquet"), {"k": rng.randint(0, 3000, 500).astype(np.int64), "x": rng.rand(500)})
+    os.remove(os.path.join(src, "part-00000.parquet"))
+    out = {}
+    for dev, (s, hs) in sessions.items():
+        hs.refresh_index("li", "incremental")
+        q = s.read.parquet(src).join(s.read.parquet(r), hst.col("k") == hst.col("k2")).select("k", "x", "w")
+        assert "BucketedIndexScan" in q.explain_string()
+        k1, k2 = cuda_sort.launches, cuda_probe.launches
+        out[dev] = q.collect()
+        if dev == "cuda":
+            assert cuda_sort.launches > k1 and cuda_probe.launches > k2
+    assert out["cuda"].num_rows == out["cpu"].num_rows == 8500
+    for n in ("k", "x", "w"):
+        assert torch.equal(out["cuda"].column(n).data, out["cpu"].column(n).data), n

@@ -3,7 +3,9 @@
 - A cached run returns exactly what an uncached run does (torch.equal on
   every column, equal dictionaries), for joins, a filtered join, lookups and
   the Q3-shaped join → aggregate, and the JAX package's rows besides.
-- Rewriting a file (a new size or mtime) misses in every cache and memo.
+- Rewriting a file (a new size or mtime) misses in every cache and memo, and
+  so does a refreshed index: appended files change the bucketed scan's file
+  list, folded deletes the lineage prune condition.
 - The scan cache's byte budget evicts in LRU order (the shape of
   `tests/test_engine.py::test_scan_cache_stats_and_capacity_clamp`); the
   memos evict in one LRU order across their tags and die with their tables.
@@ -248,6 +250,57 @@ def test_a_rewritten_file_misses_every_cache_and_memo(tmp_path, monkeypatch):
     time.sleep(0.01)
     torch_io.write_parquet(orders.take(torch.arange(10)), path)
     assert ts.read.parquet(os.path.join(src, "orders")).collect().num_rows == 10
+
+
+@pytest.mark.parametrize("change", ["append", "delete"])
+def test_a_refreshed_index_never_serves_the_previous_generation(tmp_path, monkeypatch, change):
+    """The rewritten-file case, for a refresh: an appended file and an
+    incremental refresh change the bucketed scan's file list, so its concat
+    cache misses; a deleted file and a deletes-only refresh keep the file list
+    and change the lineage prune condition, so the filtered concat misses.
+    Either way the join memos miss, and the cached run equals an uncached run
+    of the new generation and the expected rows, never the old ones."""
+    monkeypatch.setenv("HYPERSPACE_DISTRIBUTED", "0")
+    data = _data(seed=9, n_orders=300)
+    src = str(tmp_path / "src")
+    li = data["lineitem"]
+    n = len(li["l_orderkey"])
+    for i, (a, b) in enumerate([(0, n // 3), (n // 3, 2 * n // 3)]):
+        part = {k: v[a:b] for k, v in li.items()}
+        torch_io.write_parquet(Table.from_pydict(part, "cpu"), os.path.join(src, "lineitem", f"part-{i:05d}.parquet"))
+    for name in ("orders", "partsupp"):
+        torch_io.write_parquet(Table.from_pydict(data[name], "cpu"), os.path.join(src, name, "part-00000.parquet"))
+    ts = hst.HyperspaceSession(warehouse=str(tmp_path / "wh"), device="cpu")
+    ts.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, 4)
+    ts.conf.set(hst.IndexConstants.INDEX_LINEAGE_ENABLED, "true")
+    hs = hst.Hyperspace(ts)
+    for table, name, indexed, included in INDEXES[:2]:
+        hs.create_index(ts.read.parquet(os.path.join(src, table)), hst.IndexConfig(name, indexed, included))
+    hst.enable_hyperspace(ts)
+    q = lambda: queries(ts, src, hst.col)["q_ord"]  # noqa: E731
+    old = q().collect()
+    q().collect()
+    if change == "append":
+        part = {k: v[2 * n // 3:] for k, v in li.items()}
+        torch_io.write_parquet(Table.from_pydict(part, "cpu"), os.path.join(src, "lineitem", "part-00002.parquet"))
+        hs.refresh_index("liOrd", "incremental")
+        kept = np.arange(n)
+    else:
+        os.remove(os.path.join(src, "lineitem", "part-00000.parquet"))
+        hs.refresh_index("liOrd", "incremental")
+        kept = np.arange(n // 3, 2 * n // 3)
+    before, memo_before = scan_cache.stats(), physical.memo_stats()
+    new = q().collect()
+    after, memo_after = scan_cache.stats(), physical.memo_stats()
+    cache = "bucketed_concat" if change == "append" else "filtered"
+    assert after[cache]["misses"] > before[cache]["misses"]
+    assert memo_after["pairs"]["misses"] > memo_before["pairs"]["misses"]
+    assert new.num_rows == len(kept) != old.num_rows
+    want = np.sort(li["l_extendedprice"][kept])
+    np.testing.assert_array_equal(np.sort(new.column("l_extendedprice").data.numpy()), want)
+    assert_identical(q().collect(), new)  # cached
+    clear()
+    assert_identical(q().collect(), new)  # uncached
 
 
 def test_the_scan_cache_budget_evicts_least_recently_used(tmp_path):

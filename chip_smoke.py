@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases env,kernels,strings,packed
     python3 chip_smoke.py --phases env,q3
     python3 chip_smoke.py --phases env,refresh
+    python3 chip_smoke.py --phases env,q13
 
 Phases, each failing loudly:
 
@@ -82,13 +83,28 @@ Phases, each failing loudly:
              version directory, `indexes()` without liR). Prints each
              refresh's seconds, the join's mode, the index files per side
              and cold, uncached p50 of 3 and cached p50 of 3 times.
-8. identity  the join, aggregate, Q3 (general joins, every group) and
-             string slices at SF 0.05 with device="cpu" and device="cuda":
-             identical index files, identical rows in order (sums at rtol
-             1e-9).
+8. q13       TPC-H Q13 whole (without its o_comment LIKE predicate, which
+             neither package has) in a directory of its own, over custQ13
+             (customer [c_custkey]) and ordQ13 (orders [o_custkey] with
+             o_orderkey): customer LEFT OUTER JOIN orders, count(o_orderkey)
+             per customer, count(*) per count, ORDER BY custdist DESC,
+             c_count DESC. Indexed (the co-bucketed left join, value mode,
+             K2) and disabled (the general join, no kernel): cold, uncached
+             p50 of 3, cached p50 of 3, a stage split and the outer join's
+             split (scans, pairs, the left assembly beside the inner one);
+             each equal to numpy's Q13 row for row and to each other, the
+             outer join's count to numpy's. Then, indexed, the mirror right
+             join, the semi join (Q4's core) and the anti join (Q22's core),
+             and a full outer join of o_custkey with 1% nulls (ordNullQ13,
+             hash mode: K1 then K2) with customer, each against numpy as a
+             multiset, count() equal to the collected rows.
+9. identity  the join, aggregate, Q3 (general joins, every group), Q13
+             (indexed and disabled) and string slices at SF 0.05 with
+             device="cpu" and device="cuda": identical index files,
+             identical rows in order (sums at rtol 1e-9).
 
 Kernel launches are counted from 0 at the start of each phase that drives
-the engine (main, q3, strings, packed, refresh) and summed over them. Prints one JSON
+the engine (main, q3, strings, packed, refresh, q13) and summed over them. Prints one JSON
 line of per-kernel results, the card's `nvidia-smi` line,
 and last `{"ok": true, "device": {...}}`. Exits non-zero without a result
 when no CUDA device is visible or the package is missing.
@@ -974,7 +990,7 @@ def cached_breakdown(df) -> dict:
     _, t["scan_left_s"] = wall(lambda: join.left.execute_concat(ctx))
     _, t["scan_right_s"] = wall(lambda: join.right.execute_concat(ctx))
     (left, right, li, ri), t["pairs_s"] = wall(lambda: join._pairs(ctx))
-    out, t["gather_s"] = wall(lambda: _assemble_join(left, right, li, ri).select(project.column_names))
+    out, t["gather_s"] = wall(lambda: _assemble_join(left, right, li, ri, join.how).select(project.column_names))
     _, t["to_host_s"] = wall(lambda: out.to("cpu"))
     return t
 
@@ -1067,7 +1083,7 @@ def stage_breakdown(torch, df) -> dict:
     t["probe_p50_s"] = float(np.median([wall(lambda: probe_classed(plan))[1] for _ in range(5)]))
     (li, ri), t["expand_s"] = wall(lambda: classed_pairs(plan, ranges))
     (li, ri), t["verify_s"] = wall(lambda: _verify_pairs(left, right, join.left_keys, join.right_keys, li, ri))
-    out, t["gather_s"] = wall(lambda: _assemble_join(left, right, li, ri).select(project.column_names))
+    out, t["gather_s"] = wall(lambda: _assemble_join(left, right, li, ri, join.how).select(project.column_names))
     _, t["to_host_s"] = wall(lambda: out.to("cpu"))
     t["mode"] = plan.mode
     t["classes"] = [[int(len(seg.ids)), seg.l.cap, seg.r.cap] for seg in plan.segments]
@@ -1198,13 +1214,13 @@ def check_q3(label: str, got: dict, want: dict, n: int = 10) -> None:
         raise AssertionError(f"{label}: revenue differs from numpy's Q3 beyond rtol 1e-9")
 
 
-def q3_stage_split(torch, df, uncached: bool) -> dict:
-    """Seconds of one `collect()` of Q3 by stage: each operator's own time
-    (its call's time less its children's, every call ended by a synchronize),
-    summed into the scans (with their filters), the bucketed join, the
-    general join (with its exchange and sort markers), the aggregate (with
-    the computed column), ORDER BY, LIMIT, the projection and the copy to the
-    host."""
+def query_stage_split(torch, df, uncached: bool) -> dict:
+    """Seconds of one `collect()` of a query (Q3, Q13) by stage: each
+    operator's own time (its call's time less its children's, every call
+    ended by a synchronize), summed into the scans (with their filters), the
+    bucketed join, the general join (with its exchange and sort markers), the
+    aggregates (with the computed column), ORDER BY, LIMIT, the projection
+    and the copy to the host."""
     from hyperspace_tpu_torch.engine.physical import ExecContext
 
     plan = df.physical_plan()
@@ -1330,8 +1346,8 @@ def phase_q3(torch, data, base: str):
         results[run] = out.to_numpy()
         times[run] = t
         log(f"[q3] {run} {json.dumps(t)}")
-        log(f"[q3] {run} uncached collect stages {json.dumps(q3_stage_split(torch, df, True))}")
-        log(f"[q3] {run} cached collect stages {json.dumps(q3_stage_split(torch, df, False))}")
+        log(f"[q3] {run} uncached collect stages {json.dumps(query_stage_split(torch, df, True))}")
+        log(f"[q3] {run} cached collect stages {json.dumps(query_stage_split(torch, df, False))}")
     a, b = results["indexed"], results["disabled"]
     ai, bi = np.argsort(a["l_orderkey"]), np.argsort(b["l_orderkey"])
     if not (np.array_equal(a["l_orderkey"][ai], b["l_orderkey"][bi])
@@ -1345,6 +1361,223 @@ def phase_q3(torch, data, base: str):
     launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches}
     log(f"[q3] both runs equal numpy's Q3 and each other; top rows {json.dumps(top)}; "
         f"launches {json.dumps(launches)}")
+    return launches, build_s, times
+
+
+# ---------------------------------------------------------------------------
+# TPC-H Q13 and the other join types: outer, semi and anti joins
+# ---------------------------------------------------------------------------
+
+Q13_INDEXES = [
+    ("customer", "custQ13", ["c_custkey"], []),
+    ("orders", "ordQ13", ["o_custkey"], ["o_orderkey"]),
+    ("orders_nullable", "ordNullQ13", ["o_custkey_n"], ["o_orderkey"]),
+]
+Q13_COLUMNS = ["c_count", "custdist"]
+JOIN_TYPE_INDEXES = {"right": ["custQ13", "ordQ13"], "semi": ["custQ13", "ordQ13"], "anti": ["custQ13", "ordQ13"],
+                     "full_nullable": ["custQ13", "ordNullQ13"]}
+
+
+def q13_query(read, col):
+    """TPC-H Q13 through either package's DataFrame API (`read(table)` gives
+    a source's DataFrame, `col` names a column), without its `o_comment NOT
+    LIKE '%special%requests%'` predicate (neither package has LIKE, and the
+    generator makes no o_comment): customer LEFT OUTER JOIN orders, each
+    customer's orders counted (count(o_orderkey) skips the nulls of a
+    customer with none), the customers of each count counted, by custdist
+    and c_count descending."""
+    return (
+        q13_join(read, col)
+        .group_by("c_custkey").agg(c_count=("o_orderkey", "count"))
+        .group_by("c_count").agg(custdist=("*", "count"))
+        .order_by(("custdist", False), ("c_count", False))
+    )
+
+
+def q13_join(read, col):
+    """Q13's outer join alone: every order beside its customer, and each
+    customer with no order beside null order columns."""
+    return read("customer").join(read("orders"), col("c_custkey") == col("o_custkey"), "left")
+
+
+def join_type_queries(read, col) -> dict:
+    """The other join types over Q13's tables (name → DataFrame): the mirror
+    of Q13's join, Q4's semi join core and Q22's anti join core (customers
+    with and without orders), and a full outer join of orders' o_custkey
+    with 1% nulls (`key_kind_sources`) with customer."""
+    cu, od = read("customer"), read("orders")
+    return {
+        "right": od.join(cu, col("o_custkey") == col("c_custkey"), "right").select("o_orderkey", "c_custkey"),
+        "semi": cu.join(od, col("c_custkey") == col("o_custkey"), "semi").select("c_custkey"),
+        "anti": cu.join(od, col("c_custkey") == col("o_custkey"), "anti").select("c_custkey"),
+        "full_nullable": read("orders_nullable").join(cu, col("o_custkey_n") == col("c_custkey"), "full")
+        .select("o_orderkey", "o_custkey_n", "c_custkey"),
+    }
+
+
+def orders_per_customer(data) -> np.ndarray:
+    cu, od = data["customer"]["c_custkey"], data["orders"]["o_custkey"]
+    return np.bincount(np.searchsorted(cu, od), minlength=len(cu))
+
+
+def expected_q13(data) -> dict:
+    """Q13 of the generated arrays with numpy: a `np.bincount` of o_custkey
+    over the customers, then of those counts, by custdist and c_count
+    descending (c_count is unique, so the order is total)."""
+    dist = np.bincount(orders_per_customer(data))
+    c_count = np.nonzero(dist)[0]
+    custdist = dist[c_count]
+    order = np.lexsort((-c_count, -custdist))
+    return {"c_count": c_count[order].astype(np.int64), "custdist": custdist[order].astype(np.int64)}
+
+
+def check_q13(label: str, got: dict, want: dict) -> None:
+    """Exact integer equality, row for row."""
+    if list(got) != Q13_COLUMNS or any(not np.array_equal(np.asarray(got[c]).astype(np.int64), want[c])
+                                       for c in Q13_COLUMNS):
+        raise AssertionError(f"{label}: {list(got)} {len(got.get('c_count', []))} rows differ from numpy's Q13 "
+                             f"({len(want['c_count'])} rows)")
+
+
+def expected_join_types(data, valid: np.ndarray) -> dict:
+    """`join_type_queries`' rows with numpy, nulls as -1 (every key is
+    positive), in any order. `valid` is o_custkey_n's validity."""
+    cu, od = data["customer"]["c_custkey"], data["orders"]
+    has_orders = orders_per_customer(data) > 0
+    ok, ck = od["o_orderkey"], od["o_custkey"]
+    lonely = cu[~has_orders]
+    none = np.full(len(lonely), -1, np.int64)
+    matched = np.zeros(len(cu), bool)
+    matched[np.searchsorted(cu, ck[valid])] = True
+    no_valid = cu[~matched]
+    nulls = np.full(int((~valid).sum()), -1, np.int64)
+    return {
+        "right": {"o_orderkey": np.concatenate([ok, none]), "c_custkey": np.concatenate([ck, lonely])},
+        "semi": {"c_custkey": cu[has_orders]},
+        "anti": {"c_custkey": lonely},
+        "full_nullable": {
+            "o_orderkey": np.concatenate([ok[valid], ok[~valid], np.full(len(no_valid), -1, np.int64)]),
+            "o_custkey_n": np.concatenate([ck[valid], nulls, np.full(len(no_valid), -1, np.int64)]),
+            "c_custkey": np.concatenate([ck[valid], nulls, no_valid]),
+        },
+    }
+
+
+def filled(table) -> dict:
+    """A collected table's int64 columns on the host, -1 at nulls."""
+    out = {}
+    for n, c in table.columns.items():
+        v = c.data.cpu().numpy().astype(np.int64)
+        out[n] = v if c.validity is None else np.where(c.validity.cpu().numpy(), v, -1)
+    return out
+
+
+def outer_join_split(torch, df) -> dict:
+    """Seconds of one uncached collect of a bare join by step (each ended by
+    a synchronize): the two sides' scans, the verified pairs, the assembly of
+    the join's type and, beside it, the inner assembly of the same pairs.
+    `outer_extra_share` is the outer assembly's time over the inner one as a
+    share of the join's scans, pairs and assembly."""
+    from hyperspace_tpu_torch.engine.physical import ExecContext, _assemble_join
+
+    join = df.physical_plan()
+    ctx = ExecContext(df.session)
+    clear_caches()
+    t = {}
+    for side in ("left", "right"):
+        node = getattr(join, side)
+        _, t[f"scan_{side}_s"] = wall(lambda: getattr(node, "execute_concat", node.execute)(ctx))
+    (left, right, li, ri), t["pairs_s"] = wall(lambda: join._pairs(ctx))
+    out, t["assemble_s"] = wall(lambda: _assemble_join(left, right, li, ri, join.how))
+    _, t["inner_assemble_s"] = wall(lambda: _assemble_join(left, right, li, ri, "inner"))
+    total = t["scan_left_s"] + t["scan_right_s"] + t["pairs_s"] + t["assemble_s"]
+    t.update(pairs=len(li), rows=out.num_rows,
+             outer_extra_share=(t["assemble_s"] - t["inner_assemble_s"]) / total)
+    return t
+
+
+def phase_q13(torch, data, base: str, seed: int):
+    import hyperspace_tpu_torch as hst
+    from hyperspace_tpu_torch.engine.physical import SortMergeJoinExec
+    from hyperspace_tpu_torch.ops import cuda_probe, cuda_sort
+
+    valid = key_kind_sources(torch, data, base, seed)["o_custkey_n"]
+    want = expected_q13(data)
+    want_types = {n: canonical(rows) for n, rows in expected_join_types(data, valid).items()}
+    n_cust, n_orders = len(data["customer"]["c_custkey"]), len(data["orders"]["o_orderkey"])
+    outer_rows = n_orders + n_cust - int((orders_per_customer(data) > 0).sum())
+    cuda_sort.launches = 0
+    cuda_probe.launches = 0
+    s = hst.HyperspaceSession(warehouse=os.path.join(base, "q13"), device=DEVICE)
+    s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, NUM_BUCKETS)
+    hs = hst.Hyperspace(s)
+    build_s = {}
+    for src, name, indexed, included in Q13_INDEXES:
+        df = s.read.parquet(os.path.join(base, "src", src))
+        _, build_s[name] = wall(lambda: hs.create_index(df, hst.IndexConfig(name, indexed, included)))
+    log(f"[q13] build seconds {json.dumps(build_s)}")
+
+    def read(t):
+        return s.read.parquet(os.path.join(base, "src", t))
+
+    df, outer = q13_query(read, hst.col), q13_join(read, hst.col)
+    results, times = {}, {}
+    for run in ("indexed", "disabled"):
+        (hst.enable_hyperspace if run == "indexed" else hst.disable_hyperspace)(s)
+        joins = [n for n in df.physical_plan().collect_nodes() if isinstance(n, SortMergeJoinExec)]
+        if [(j.bucketed, j.how) for j in joins] != [(run == "indexed", "left")] or (
+                run == "indexed" and scanned_indexes(df) != ["custQ13", "ordQ13"]):
+            raise AssertionError(f"q13 {run}: want one {'bucketed' if run == 'indexed' else 'general'} left join:\n"
+                                 f"{df.explain_string()}")
+        k1, k2 = cuda_sort.launches, cuda_probe.launches
+        clear_caches()
+        out, t_cold = wall(df.collect)
+        check_q13(f"q13 {run}", out.to_numpy(), want)
+        t = {"rows": out.num_rows, "collect_cold_s": t_cold}
+        out, t["uncached_p50_s"] = run_p50(df.collect, 3, uncached=True)
+        check_q13(f"q13 {run}", out.to_numpy(), want)
+        out, t["cached_p50_s"] = run_p50(df.collect, 3, uncached=False)
+        check_q13(f"q13 {run}", out.to_numpy(), want)
+        if df.count() != out.num_rows:
+            raise AssertionError(f"q13 {run}: count() {df.count()} != {out.num_rows} rows")
+        n_outer = outer.count()
+        if n_outer != outer_rows or outer.collect().num_rows != outer_rows:
+            raise AssertionError(f"q13 {run}: the outer join gives {n_outer} rows, numpy {outer_rows}")
+        t.update(outer_join_rows=n_outer, k1_launches=cuda_sort.launches - k1, k2_launches=cuda_probe.launches - k2)
+        if (t["k2_launches"] > 0) != (run == "indexed") or t["k1_launches"]:
+            raise AssertionError(f"q13 {run}: the indexed join must launch K2 alone, the general join no kernel: {t}")
+        results[run] = out.to_numpy()
+        times[run] = t
+        log(f"[q13] {run} {json.dumps(t)}")
+        log(f"[q13] {run} uncached collect stages {json.dumps(query_stage_split(torch, df, True))}")
+        log(f"[q13] {run} cached collect stages {json.dumps(query_stage_split(torch, df, False))}")
+        log(f"[q13] {run} outer join uncached split {json.dumps(outer_join_split(torch, outer))}")
+    if any(not np.array_equal(results["indexed"][c], results["disabled"][c]) for c in Q13_COLUMNS):
+        raise AssertionError("q13: the indexed and the disabled runs differ")
+    hst.enable_hyperspace(s)
+    for name, q in join_type_queries(read, hst.col).items():
+        join = next(n for n in q.physical_plan().collect_nodes() if isinstance(n, SortMergeJoinExec))
+        if scanned_indexes(q) != JOIN_TYPE_INDEXES[name] or not join.bucketed:
+            raise AssertionError(f"{name}: the plan does not join {JOIN_TYPE_INDEXES[name]}:\n{q.explain_string()}")
+        k1, k2 = cuda_sort.launches, cuda_probe.launches
+        clear_caches()
+        got, t_cold = wall(q.collect)
+        n = q.count()
+        rows = len(next(iter(want_types[name].values())))
+        if n != got.num_rows or n != rows or not same_multiset(filled(got), want_types[name]):
+            raise AssertionError(f"{name}: count() {n}, {got.num_rows} rows differ from numpy's {rows}")
+        t = {"how": join.how, "rows": n, "collect_cold_s": t_cold}
+        _, t["cached_p50_s"] = run_p50(q.collect, 3, uncached=False)
+        t.update(k1_launches=cuda_sort.launches - k1, k2_launches=cuda_probe.launches - k2)
+        if not t["k2_launches"] or (name == "full_nullable") != bool(t["k1_launches"]):
+            raise AssertionError(f"{name}: K2 must launch, and K1 exactly on the nullable key (hash mode): {t}")
+        times[name] = t
+        log(f"[q13] {name} {json.dumps(t)}")
+    launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches}
+    top = {c: v[:5].tolist() for c, v in results["indexed"].items()}
+    log(f"[q13] Q13 indexed and disabled equal numpy's Q13 and each other ({len(want['c_count'])} rows, first "
+        f"{json.dumps(top)}); right, semi, anti and the nullable full outer join equal numpy; launches "
+        f"{json.dumps(launches)}")
     return launches, build_s, times
 
 
@@ -1370,6 +1603,15 @@ def phase_identity(torch, seed: int, sf: float) -> None:
                 if index_scan(df) is None:
                     raise AssertionError(f"{name}: the plan does not scan the index:\n{df.explain_string()}")
                 results[i][name] = df.collect().to_numpy()
+            hs = hst.Hyperspace(s)
+            for src, name, indexed, included in Q13_INDEXES[:2]:
+                hs.create_index(s.read.parquet(os.path.join(base, "src", src)), hst.IndexConfig(name, indexed, included))
+            for run in ("indexed", "disabled"):
+                (hst.enable_hyperspace if run == "indexed" else hst.disable_hyperspace)(s)
+                q13 = q13_query(lambda t: s.read.parquet(os.path.join(base, "src", t)), hst.col)
+                if (scanned_indexes(q13) == ["custQ13", "ordQ13"]) != (run == "indexed"):
+                    raise AssertionError(f"q13 {run}: the plan's indexes are wrong:\n{q13.explain_string()}")
+                results[i][f"q13_{run}"] = q13.collect().to_numpy()
             root = os.path.join(wh, "indexes")
             files[i] = {
                 os.path.relpath(os.path.join(d, f), root): hashlib.sha256(open(os.path.join(d, f), "rb").read()).hexdigest()
@@ -1932,7 +2174,7 @@ KERNEL_META = {
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="env,kernels,main,q3,strings,packed,refresh,identity")
+    ap.add_argument("--phases", default="env,kernels,main,q3,strings,packed,refresh,q13,identity")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sf", type=float, default=1.0)
     ap.add_argument("--identity-sf", type=float, default=0.05)
@@ -1966,7 +2208,7 @@ def main() -> int:
             launches[kid] = launches.get(kid, 0) + n
 
     data = None
-    if {"main", "q3", "strings", "packed", "refresh"} & set(phases):
+    if {"main", "q3", "strings", "packed", "refresh", "q13"} & set(phases):
         t0 = time.perf_counter()
         data = tpch(args.sf, args.seed)
         log(f"[data] TPC-H SF{args.sf}: lineitem {len(data['lineitem']['l_orderkey'])} rows, orders "
@@ -1974,7 +2216,7 @@ def main() -> int:
             f"{len(data['customer']['c_custkey'])} (generated in {time.perf_counter() - t0:.2f} s)")
     base = tempfile.mkdtemp(prefix="hs_smoke_sf1_")
     try:
-        if {"main", "q3", "strings"} & set(phases):
+        if {"main", "q3", "strings", "q13"} & set(phases):
             write_sources(data, base)
         if "main" in phases:
             add(phase_main(torch, data, base)[0])
@@ -1986,6 +2228,8 @@ def main() -> int:
             add(phase_packed(torch, data, rng)[0])
         if "refresh" in phases:
             add(phase_refresh(torch, data, base)[0])
+        if "q13" in phases:
+            add(phase_q13(torch, data, base, args.seed)[0])
     finally:
         shutil.rmtree(base, ignore_errors=True)
     if "identity" in phases:

@@ -1,8 +1,9 @@
 """Logical plan IR (counterpart of `hyperspace_tpu/engine/logical.py`).
 
-The node set of the slice: relation scans, filters, projections, inner
-equi-joins, computed columns, grouped aggregates, ORDER BY and LIMIT. Class names are the JAX
-package's: the plan signature folds over them.
+The node set of the slice: relation scans, filters, projections, equi-joins
+of every type (inner, left, right and full outer, left semi and left anti),
+computed columns, grouped aggregates, ORDER BY and LIMIT. Class names are
+the JAX package's: the plan signature folds over them.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from ..exceptions import HyperspaceException, not_in_slice
+from ..exceptions import HyperspaceException
 from ..storage.filesystem import FileStatus
 from .expr import BinaryOp, Col, Expr, IsIn, IsNull, Lit, Not
 from .schema import Field, Schema
@@ -162,20 +163,51 @@ class ProjectNode(LogicalPlan):
         return f"Project [{', '.join(self.column_names)}]"
 
 
+_JOIN_TYPES = {
+    "inner": "inner",
+    "cross": "inner",
+    "left": "left",
+    "leftouter": "left",
+    "left_outer": "left",
+    "right": "right",
+    "rightouter": "right",
+    "right_outer": "right",
+    "full": "full",
+    "outer": "full",
+    "fullouter": "full",
+    "full_outer": "full",
+    "semi": "left_semi",
+    "leftsemi": "left_semi",
+    "left_semi": "left_semi",
+    "anti": "left_anti",
+    "leftanti": "left_anti",
+    "left_anti": "left_anti",
+}
+
+
+def normalize_join_type(how: str) -> str:
+    """Spark's join-type spellings → the canonical {inner, left, right, full,
+    left_semi, left_anti} (`logical.normalize_join_type` :327)."""
+    key = how.strip().lower().replace(" ", "")
+    if key not in _JOIN_TYPES:
+        raise HyperspaceException(f"Unsupported join type: {how}")
+    return _JOIN_TYPES[key]
+
+
 class JoinNode(LogicalPlan):
     def __init__(self, left: LogicalPlan, right: LogicalPlan, condition: Expr, how: str = "inner"):
-        if how.strip().lower() not in ("inner", "cross"):
-            raise not_in_slice(f"{how} joins")
         self.left = left
         self.right = right
         self.condition = condition
-        self.how = "inner"
+        self.how = normalize_join_type(how)
 
     def children(self):
         return (self.left, self.right)
 
     @property
     def output_schema(self) -> Schema:
+        if self.how in ("left_semi", "left_anti"):
+            return self.left.output_schema
         return Schema(list(self.left.output_schema.fields) + list(self.right.output_schema.fields))
 
     def with_children(self, children):

@@ -2,7 +2,7 @@
 
 The operators of the slice: file scans, bucketed index scans, filters,
 projections, computed columns, grouped aggregates, ORDER BY, LIMIT and the
-inner sort-merge join. A filter evaluates its predicate on the device
+sort-merge join of every type. A filter evaluates its predicate on the device
 (`engine/evaluate.py`) and keeps the surviving rows in order; a filter
 directly over a plain scan hands its condition to the scan, which skips the
 parquet row groups that cannot match (`engine/pushdown.py`).
@@ -15,7 +15,11 @@ pairs at once. Any other equi-join takes the general path: both sides' key64
 hashes are sorted and merged whole (`ops.join.merge_join_pairs`). Either way
 candidate pairs are verified by exact key equality (a 64-bit hash collision
 can never join unequal rows, and a null key matches nothing), and the payload
-columns are gathered, all as torch ops on the tables' device.
+columns are gathered, all as torch ops on the tables' device. The verified
+inner pairs are the one product of both paths: outer joins add the unmatched
+rows of a side beside all-null columns of the other, semi and anti joins keep
+left rows (`_assemble_join`), and every type's `count()` comes from the pair
+count and the matched rows of each side (`_count_from_match_stats`).
 
 Scans return their tables through the scan caches (`engine/scan_cache.py`),
 so a repeated query gets the same device tables, and the join's key64, layout,
@@ -390,46 +394,152 @@ class ProjectExec(PhysicalNode):
         return f"Project [{', '.join(self.column_names)}]"
 
 
-def _assemble_join(left: Table, right: Table, li: torch.Tensor, ri: torch.Tensor) -> Table:
-    """Inner-join output from verified pairs: left columns, then right columns
-    (a right name already on the left gets the `_r` suffix)."""
-    out: Dict[str, Column] = dict(left.take(li).columns)
-    for n, c in right.take(ri).columns.items():
+def _null_table_like(table: Table, n: int, device) -> Table:
+    """n rows of all-null columns with `table`'s schema, the fill side of an
+    outer join (physical.py:1573). A string column keeps its dictionary, or
+    takes [""] when it has none, so the concatenated dictionaries are the JAX
+    package's."""
+    invalid = torch.zeros(n, dtype=torch.bool, device=device)
+    out: Dict[str, Column] = {}
+    for name, c in table.columns.items():
+        if c.is_string:
+            d = c.dictionary if len(c.dictionary) else np.array([""], dtype="<U1")
+            out[name] = Column(c.dtype, torch.zeros(n, dtype=torch.int32, device=device), d, invalid)
+        else:
+            out[name] = Column(c.dtype, torch.zeros(n, dtype=c.data.dtype, device=device), None, invalid)
+    return Table(out)
+
+
+def _matched_mask(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """The n rows of a side that a verified pair names."""
+    mask = torch.zeros(n, dtype=torch.bool, device=idx.device)
+    mask[idx] = True
+    return mask
+
+
+def _assemble_join(left: Table, right: Table, li: torch.Tensor, ri: torch.Tensor, how: str) -> Table:
+    """The join's output from VERIFIED inner pairs (physical.py:1586): semi
+    keeps the left rows some pair names, anti the others, both ascending; the
+    outer types give the pairs, then the unmatched left rows (left, full),
+    then the unmatched right rows (right, full), beside all-null columns of
+    the other side. Null-key and hash-collision pairs were dropped by
+    verification, so their rows are unmatched: SQL's outer semantics for null
+    keys. Left columns come first; a right name already on the left gets the
+    `_r` suffix."""
+    if how == "left_semi":
+        return left.take(torch.unique(li))
+    if how == "left_anti":
+        return left.take(torch.nonzero(~_matched_mask(li, left.num_rows)).squeeze(1))
+    lt_parts, rt_parts = [left.take(li)], [right.take(ri)]
+    if how in ("left", "full"):
+        idx = torch.nonzero(~_matched_mask(li, left.num_rows)).squeeze(1)
+        if len(idx):
+            lt_parts.append(left.take(idx))
+            rt_parts.append(_null_table_like(right, len(idx), idx.device))
+    if how in ("right", "full"):
+        idx = torch.nonzero(~_matched_mask(ri, right.num_rows)).squeeze(1)
+        if len(idx):
+            lt_parts.append(_null_table_like(left, len(idx), idx.device))
+            rt_parts.append(right.take(idx))
+    lt = Table.concat(lt_parts) if len(lt_parts) > 1 else lt_parts[0]
+    rt = Table.concat(rt_parts) if len(rt_parts) > 1 else rt_parts[0]
+    out: Dict[str, Column] = dict(lt.columns)
+    for n, c in rt.columns.items():
         out[n if n not in out else f"{n}_r"] = c
     return Table(out)
+
+
+def _count_from_match_stats(how: str, n_pairs: int, lm: int, rm: int, n_left: int, n_right: int) -> int:
+    """The join's row count from (verified pairs, matched left rows, matched
+    right rows): the one home of each type's arithmetic (physical.py:2413),
+    all-zero stats for an empty side."""
+    if how == "inner":
+        return n_pairs
+    if how == "left_semi":
+        return lm
+    if how == "left_anti":
+        return n_left - lm
+    n = n_pairs
+    if how in ("left", "full"):
+        n += n_left - lm
+    if how in ("right", "full"):
+        n += n_right - rm
+    return n
+
+
+def _verified_keep(
+    left: Table, right: Table, left_keys: List[str], right_keys: List[str],
+    li: torch.Tensor, ri: torch.Tensor,
+) -> torch.Tensor:
+    """The candidate pairs whose keys are equal and valid: exact key equality
+    drops 64-bit hash collisions, and validity drops pairs with a null key
+    (null equals nothing, itself included, and null slots share a fill value,
+    so equality alone cannot see them; physical.py:1624). String keys compare
+    as codes over the two columns' union dictionary (`_aligned_key_codes`);
+    numeric keys compare in numpy's promoted type, as the JAX package's host
+    arrays do."""
+    from ..ops.bucket_join import probe_keys_promoted
+
+    keep = torch.ones(li.shape[0], dtype=torch.bool, device=li.device)
+    for lk, rk in zip(left_keys, right_keys):
+        lc, rc = left.column(lk), right.column(rk)
+        if lc.is_string != rc.is_string:
+            raise HyperspaceException("Join key type mismatch (string vs numeric)")
+        if lc.is_string:
+            la, ra = _aligned_key_codes(left, right, lk, rk)
+            keep &= la[li] == ra[ri]
+        else:
+            a, b = probe_keys_promoted(lc.data[li], rc.data[ri])
+            keep &= a == b
+        if lc.validity is not None:
+            keep &= lc.validity[li]
+        if rc.validity is not None:
+            keep &= rc.validity[ri]
+    return keep
 
 
 def _verify_pairs(
     left: Table, right: Table, left_keys: List[str], right_keys: List[str],
     li: torch.Tensor, ri: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Drop candidate pairs whose keys differ (64-bit hash collisions) by exact
-    key equality, and pairs with a null key: null equals nothing, itself
-    included, and null slots share a fill value, so equality alone cannot see
-    them (physical.py:1624). String keys compare as codes over the two
-    columns' union dictionary (`_aligned_key_codes`); numeric keys compare in
-    numpy's promoted type, as the JAX package's host arrays do."""
-    from ..ops.bucket_join import probe_keys_promoted
-
+    """The candidate pairs that `_verified_keep` keeps."""
     if len(li):
-        keep = torch.ones(li.shape[0], dtype=torch.bool, device=li.device)
-        for lk, rk in zip(left_keys, right_keys):
-            lc, rc = left.column(lk), right.column(rk)
-            if lc.is_string != rc.is_string:
-                raise HyperspaceException("Join key type mismatch (string vs numeric)")
-            if lc.is_string:
-                la, ra = _aligned_key_codes(left, right, lk, rk)
-                keep &= la[li] == ra[ri]
-            else:
-                a, b = probe_keys_promoted(lc.data[li], rc.data[ri])
-                keep &= a == b
-            if lc.validity is not None:
-                keep &= lc.validity[li]
-            if rc.validity is not None:
-                keep &= rc.validity[ri]
+        keep = _verified_keep(left, right, left_keys, right_keys, li, ri)
         if not bool(keep.all()):
             li, ri = li[keep], ri[keep]
     return li, ri
+
+
+def _verified_match_counts(keep: torch.Tensor, li: torch.Tensor, ri: torch.Tensor, n_left: int, n_right: int):
+    """(verified pairs, distinct matched left rows, distinct matched right
+    rows) of candidate pairs and their keep mask, by scatter-max masks and
+    one host sync (physical.py:2358): every join type's count without the
+    verified pairs."""
+    k32 = keep.to(torch.int32)
+    lmask = torch.zeros(n_left, dtype=torch.int32, device=li.device).scatter_reduce_(0, li, k32, "amax")
+    rmask = torch.zeros(n_right, dtype=torch.int32, device=ri.device).scatter_reduce_(0, ri, k32, "amax")
+    stats = torch.stack([keep.sum(), lmask.sum(), rmask.sum()]).tolist()
+    return int(stats[0]), int(stats[1]), int(stats[2])
+
+
+def _value_inner_count(lv: torch.Tensor, rv: torch.Tensor) -> int:
+    """The inner join's count over one null-free numeric key pair, on the
+    values (physical.py:2376): the right side sorted, the left values probed
+    by a left and a right `searchsorted`, the ranges summed. Both sides
+    compare in numpy's promoted type, as verification does. NaN equals
+    nothing: NaN probes count zero, and right NaNs are dropped before the
+    sort, since `torch.searchsorted` is not NaN-aware as numpy's is (an
+    infinite probe's range would take them in)."""
+    from ..ops.bucket_join import probe_keys_promoted
+
+    lv, rv = probe_keys_promoted(lv, rv)
+    if rv.is_floating_point():
+        rv = rv[~torch.isnan(rv)]
+    r_sorted = torch.sort(rv).values
+    counts = torch.searchsorted(r_sorted, lv, side="right") - torch.searchsorted(r_sorted, lv, side="left")
+    if lv.is_floating_point():
+        counts = torch.where(torch.isnan(lv), torch.zeros_like(counts), counts)
+    return int(counts.sum())
 
 
 # ---------------------------------------------------------------------------
@@ -718,13 +828,16 @@ def _joint_float_flags(lt: Table, rt: Table, lkeys: List[str], rkeys: List[str])
     return (l_flags if any(l_flags) else None, r_flags if any(r_flags) else None)
 
 
-def _join_pairs(left: Table, right: Table, left_keys: List[str], right_keys: List[str]):
-    """The general join's verified pairs: a merge of the two sides' key64
-    (physical.py:2274)."""
+def _candidate_pairs(left: Table, right: Table, left_keys: List[str], right_keys: List[str]):
+    """The general join's candidate pairs: a merge of the two sides' key64,
+    hashed in the joint float64 space where a key pair mixes kinds."""
     l_flags, r_flags = _joint_float_flags(left, right, left_keys, right_keys)
-    li, ri = merge_join_pairs(
-        _table_key64(left, left_keys, l_flags), _table_key64(right, right_keys, r_flags)
-    )
+    return merge_join_pairs(_table_key64(left, left_keys, l_flags), _table_key64(right, right_keys, r_flags))
+
+
+def _join_pairs(left: Table, right: Table, left_keys: List[str], right_keys: List[str]):
+    """The general join's verified pairs (physical.py:2274)."""
+    li, ri = _candidate_pairs(left, right, left_keys, right_keys)
     return _verify_pairs(left, right, left_keys, right_keys, li, ri)
 
 
@@ -809,21 +922,25 @@ class SortExec(_PassThroughExec):
 
 
 class SortMergeJoinExec(PhysicalNode):
-    """The inner sort-merge join. `bucketed`: the co-bucketed join over two
-    bucketed index scans, whose layout, probe ranges and verified pairs ride
-    the join memos. Otherwise the general join (physical.py:2502): both
+    """The sort-merge join of every type: inner, left, right and full outer,
+    left semi and left anti (`how`). `bucketed`: the co-bucketed join over
+    two bucketed index scans, whose layout, probe ranges and verified pairs
+    ride the join memos. Otherwise the general join (physical.py:2502): both
     children execute whole, a merge of their key64 gives the candidate pairs,
-    and the verified pairs are kept per table pair and relation signature."""
+    and the verified pairs are kept per table pair and relation signature.
+    Either way the verified inner pairs are assembled into the type's rows
+    (`_assemble_join`)."""
 
     name = "SortMergeJoin"
 
     def __init__(self, left: PhysicalNode, right: PhysicalNode, left_keys: List[str], right_keys: List[str],
-                 bucketed: bool = False):
+                 bucketed: bool = False, how: str = "inner"):
         self.left = left
         self.right = right
         self.left_keys = left_keys
         self.right_keys = right_keys
         self.bucketed = bucketed
+        self.how = how
 
     def children(self):
         return (self.left, self.right)
@@ -882,15 +999,23 @@ class SortMergeJoinExec(PhysicalNode):
 
     def execute(self, ctx) -> Table:
         left, right, li, ri = self._pairs(ctx)
-        return _assemble_join(left, right, li, ri)
+        return _assemble_join(left, right, li, ri, self.how)
 
     def execute_count(self, ctx) -> int:
-        """A query that collected these rows already holds the verified pairs;
-        otherwise value-mode probe counts compare the key values and are the
-        exact count with no pair expansion (physical.py:2685), and hash mode
-        and the general join count the verified pairs."""
+        """The join's row count without assembling its rows (physical.py:2473).
+        The general join takes `_general_count_fast`. A bucketed inner join
+        that a query collected already holds the verified pairs; otherwise
+        value-mode probe counts compare the key values and are the exact count
+        with no pair expansion (physical.py:2685), and hash mode counts the
+        verified pairs. A bucketed join of another type counts its verified
+        pairs and the rows of each side they name."""
         if not self.bucketed:
-            return len(self._general_pairs(ctx)[2])
+            return self._general_count_fast(ctx)
+        if self.how != "inner":
+            left, right, li, ri = self._pairs(ctx)
+            lm = int(_matched_mask(li, left.num_rows).sum())
+            rm = int(_matched_mask(ri, right.num_rows).sum()) if self.how in ("right", "full") else 0
+            return _count_from_match_stats(self.how, len(li), lm, rm, left.num_rows, right.num_rows)
         left, right, l_starts, r_starts, subkey, rows_key = self._sides(ctx)
         if left.num_rows == 0 or right.num_rows == 0:
             return 0
@@ -902,9 +1027,34 @@ class SortMergeJoinExec(PhysicalNode):
             return ranges.total
         return len(self._pairs(ctx)[2])
 
+    def _general_count_fast(self, ctx) -> int:
+        """The general join's count for every type, without the pairs memo
+        (physical.py:2780): it neither reads nor fills it, so a later collect
+        builds its pairs as it would have. An inner join on one null-free
+        numeric key pair counts on the values (`_value_inner_count`); any
+        other merges the key64, verifies the candidates and counts the
+        verified pairs and the rows of each side they name
+        (`_verified_match_counts`). Everything stays on the tables' device
+        but the counts."""
+        lt, rt = self.left.execute(ctx), self.right.execute(ctx)
+        n_left, n_right = lt.num_rows, rt.num_rows
+        if n_left == 0 or n_right == 0:
+            return _count_from_match_stats(self.how, 0, 0, 0, n_left, n_right)
+        if self.how == "inner":
+            lc, rc = _value_mode_column(lt, self.left_keys), _value_mode_column(rt, self.right_keys)
+            if lc is not None and rc is not None:
+                return _value_inner_count(lc.data, rc.data)
+        li, ri = _candidate_pairs(lt, rt, self.left_keys, self.right_keys)
+        n_pairs = lm = rm = 0
+        if len(li):
+            keep = _verified_keep(lt, rt, self.left_keys, self.right_keys, li, ri)
+            n_pairs, lm, rm = _verified_match_counts(keep, li, ri, n_left, n_right)
+        return _count_from_match_stats(self.how, n_pairs, lm, rm, n_left, n_right)
+
     def simple_string(self):
+        how = f" {self.how}" if self.how != "inner" else ""
         pairs = ", ".join(f"{l}={r}" for l, r in zip(self.left_keys, self.right_keys))
-        return f"SortMergeJoin [{pairs}]" + (" (bucketed, no exchange)" if self.bucketed else "")
+        return f"SortMergeJoin{how} [{pairs}]" + (" (bucketed, no exchange)" if self.bucketed else "")
 
 
 class WithColumnExec(PhysicalNode):
@@ -1215,17 +1365,22 @@ def plan_physical(
             raise HyperspaceException(f"Only equi-joins are supported: {logical.condition!r}")
         lschema, rschema = logical.left.output_schema, logical.right.output_schema
         lkeys, rkeys = _orient_join_keys(pairs, lschema, rschema)
+        how = logical.how
         lreq = rreq = None
         if required is not None:
             req = {key(r) for r in required}
             lreq = list(dict.fromkeys([n for n in lschema.names if key(n) in req] + lkeys))
             rreq = list(dict.fromkeys([n for n in rschema.names if key(n) in req] + rkeys))
+        if how in ("left_semi", "left_anti"):
+            rreq = list(dict.fromkeys(rkeys))  # the output is the left side's (physical.py:3173)
         lphys = plan_physical(logical.left, lreq, case_sensitive)
         rphys = plan_physical(logical.right, rreq, case_sensitive)
+        # Every type rides the bucketed path (physical.py:3182): its result
+        # derives from the verified inner pairs, as on the general path.
         if _bucketed(lphys) and _bucketed(rphys):
             keys = _bucketed_join_keys(lphys, rphys, lkeys, rkeys, key)
             if keys is not None:
-                return SortMergeJoinExec(lphys, rphys, keys[0], keys[1], bucketed=True)
+                return SortMergeJoinExec(lphys, rphys, keys[0], keys[1], bucketed=True, how=how)
         # The general join (physical.py:3252): a bucketed scan becomes a plain
         # read of its index files, and each side an exchange and a sort.
         if isinstance(lphys, BucketedIndexScanExec):
@@ -1234,6 +1389,6 @@ def plan_physical(
             rphys = ScanExec(rphys.relation, rphys.columns)
         lside = SortExec(lkeys, ShuffleExchangeExec(lkeys, lphys))
         rside = SortExec(rkeys, ShuffleExchangeExec(rkeys, rphys))
-        return SortMergeJoinExec(lside, rside, lkeys, rkeys, bucketed=False)
+        return SortMergeJoinExec(lside, rside, lkeys, rkeys, bucketed=False, how=how)
 
     raise not_in_slice(f"the {type(logical).__name__} operator")

@@ -1,14 +1,15 @@
 """The port's boundary: what it imports, where it runs, what it refuses.
 
 (a) A fresh process imports the port, builds, joins (indexed, then with the
-    general join), aggregates the join, orders and limits the groups and runs
-    an indexed string filter on the CPU, and ends with no JAX module and
-    no `hyperspace_tpu` module loaded.
+    general join), aggregates the join, orders and limits the groups, runs
+    an indexed left outer join and an indexed string filter on the CPU, and
+    ends with no JAX module and no `hyperspace_tpu` module loaded.
 (b) No file of the port (nor `chip_smoke.py`) imports `jax` or `hyperspace_tpu`.
 (c) A session built without `device=` asks for CUDA; with no card it raises
     instead of running on the CPU.
 (d) Features outside the slice raise NotImplementedError naming the feature
     (Hybrid Scan asked for in the conf, and `optimize_index`, among them).
+(e) A join type neither package knows raises HyperspaceException in both.
 """
 
 import ast
@@ -22,6 +23,9 @@ import pytest
 import torch
 
 import hyperspace_tpu_torch as hst
+from hyperspace_tpu import HyperspaceException as JaxHyperspaceException
+from hyperspace_tpu.engine import HyperspaceSession as JaxSession
+from hyperspace_tpu.engine import col as jax_col
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "hyperspace_tpu_torch")
@@ -60,6 +64,12 @@ def test_a_fresh_process_runs_the_slice_without_jax(tmp_path):
         hst.disable_hyperspace(s)
         assert q.count() == 3000 and "bucketed" not in q.explain_string()
         hst.enable_hyperspace(s)
+        half = s.read.parquet(base + "/r").filter(hst.col("b") < 250)
+        lj = s.read.parquet(base + "/l").join(half, hst.col("a") == hst.col("b"), "left")
+        assert "SortMergeJoin left [a=b] (bucketed, no exchange)" in lj.explain_string()
+        out = lj.collect()
+        assert lj.count() == out.num_rows == 3000
+        assert int((~out.column("y").validity).sum()) == int((k >= 250).sum()) > 0
         seg = np.array(["AIR", "MAIL", "SHIP", None] * 750, dtype=object)
         s.write_parquet({{"seg": seg, "v": rng.rand(3000)}}, base + "/s")
         hs.create_index(s.read.parquet(base + "/s"), hst.IndexConfig("si", ["seg"], ["v"]))
@@ -117,10 +127,6 @@ def session(tmp_path):
 
 
 CUT_OUTS = {
-    "left joins": lambda s, l, r: l.join(r, hst.col("a") == hst.col("b"), "left"),
-    "semi joins": lambda s, l, r: l.join(r, hst.col("a") == hst.col("b"), "semi"),
-    "anti joins": lambda s, l, r: l.join(r, hst.col("a") == hst.col("b"), "anti"),
-    "full outer joins": lambda s, l, r: l.join(r, hst.col("a") == hst.col("b"), "full"),
     "csv sources": lambda s, l, r: s.read.csv(s.warehouse),
     "json sources": lambda s, l, r: s.read.json(s.warehouse),
     "hybrid scan": lambda s, l, r: _hybrid_scan_query(s, l),
@@ -139,3 +145,14 @@ def _hybrid_scan_query(s, l):
 def test_features_outside_the_slice_raise_naming_the_feature(session, feature):
     with pytest.raises(NotImplementedError, match=feature.split()[0]):
         CUT_OUTS[feature](*session)
+
+
+@pytest.mark.parametrize("how", ["outer_left", "natural", "semi join"])
+def test_an_unknown_join_type_raises_in_both_packages(session, tmp_path, how):
+    _, l, r = session
+    with pytest.raises(hst.HyperspaceException, match=f"Unsupported join type: {how}"):
+        l.join(r, hst.col("a") == hst.col("b"), how)
+    js = JaxSession(warehouse=str(tmp_path / "jax"))
+    jl, jr = js.read.parquet(str(tmp_path / "l")), js.read.parquet(str(tmp_path / "r"))
+    with pytest.raises(JaxHyperspaceException, match=f"Unsupported join type: {how}"):
+        jl.join(jr, jax_col("a") == jax_col("b"), how)

@@ -4,8 +4,9 @@ Each package builds `test_torch_join.py`'s four indexes over the same source
 files in its own warehouse. Then the OTHER package opens that warehouse and
 runs q_ord (value-mode join), q_ps (hash-mode join), a range lookup through
 `FilterIndexRule` whose row groups are pruned by the footer zone maps, a
-join → group-by and the same ordered and limited, and a join on a nullable
-string key (two more indexes, `nameA` and `nameB`, hash mode). Its rows must equal those of the package that built the
+join → group-by and the same ordered and limited, a join on a nullable
+string key (two more indexes, `nameA` and `nameB`, hash mode), the same as a
+left outer join, and an anti join of lineitem with filtered orders. Its rows must equal those of the package that built the
 lake, in the same order, first uncached and then from its caches. The JAX
 package runs its sort path (`HYPERSPACE_FORCE_DEVICE_OPS=1`), whose group
 order is the port's. Tolerance: exact, except the aggregate's float sums
@@ -68,6 +69,9 @@ def queries(s, src, c):
         .order_by(("lines", False), "o_custkey")
         .limit(20),
         "string_key": rd("names_a").join(rd("names_b"), c("name") == c("nameb")).select("ida", "name", "w"),
+        "left_outer": rd("names_a").join(rd("names_b"), c("name") == c("nameb"), "left").select("ida", "name", "w"),
+        "anti": li.join(rd("orders").filter(c("o_custkey") < 150), c("l_orderkey") == c("o_orderkey"), "anti")
+        .select("l_orderkey", "l_quantity"),
     }
 
 
@@ -132,7 +136,9 @@ def _equal(got, want):
 
 
 @pytest.mark.parametrize("owner,reader", [("jax", "torch"), ("torch", "jax")])
-@pytest.mark.parametrize("query", ["q_ord", "q_ps", "lookup", "join_group_by", "join_order_limit", "string_key"])
+@pytest.mark.parametrize(
+    "query", ["q_ord", "q_ps", "lookup", "join_group_by", "join_order_limit", "string_key", "left_outer", "anti"]
+)
 def test_a_lake_is_queried_by_the_other_package(lakes, owner, reader, query):
     base, src = lakes
     warehouse = str(base / owner)
@@ -145,7 +151,7 @@ def test_a_lake_is_queried_by_the_other_package(lakes, owner, reader, query):
     df = queries(sr, src, cr)[query]
     plan = df.explain_string() if reader == "torch" else df.physical_plan().tree_string()
     index = {"q_ps": "liPs", "q_ord": "liOrd", "lookup": "liOrd", "join_group_by": "ordIdx",
-             "join_order_limit": "ordIdx", "string_key": "nameB"}[query]
+             "join_order_limit": "ordIdx", "string_key": "nameB", "left_outer": "nameB", "anti": "ordIdx"}[query]
     assert f"index={index}" in plan, plan
     clear_all()
     before = torch_io.io_stats()["row_groups_skipped"]

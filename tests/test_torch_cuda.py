@@ -498,3 +498,129 @@ def test_a_two_version_index_joins_on_the_card_as_on_the_cpu(cuda_device, tmp_pa
     assert out["cuda"].num_rows == out["cpu"].num_rows == 8500
     for n in ("k", "x", "w"):
         assert torch.equal(out["cuda"].column(n).data, out["cpu"].column(n).data), n
+
+
+def _outer_sources(tmp_path):
+    """Two sources with nullable int keys and a nullable string payload on
+    each side, written once for both devices."""
+    import os
+
+    from hyperspace_tpu_torch.engine import io as torch_io
+    from hyperspace_tpu_torch.engine.table import Table
+
+    rng = np.random.RandomState(12)
+    words = np.array(["ant", "bee", "cat", "dog", "eel"])
+    k = rng.randint(0, 400, 6000).astype(object)
+    k[::7] = None
+    s = words[rng.randint(0, 5, 6000)].astype(object)
+    s[::11] = None
+    k2 = rng.randint(100, 600, 900).astype(object)
+    k2[::13] = None
+    paths = {"l": str(tmp_path / "l"), "r": str(tmp_path / "r")}
+    torch_io.write_parquet(Table.from_pydict({"k": k, "s": s, "x": rng.rand(6000)}, "cpu"),
+                           os.path.join(paths["l"], "part-00000.parquet"))
+    torch_io.write_parquet(Table.from_pydict({"k2": k2, "t": words[rng.randint(0, 3, 900)], "w": rng.rand(900)}, "cpu"),
+                           os.path.join(paths["r"], "part-00000.parquet"))
+    return paths
+
+
+def _same_table(a, b):
+    assert a.column_names == b.column_names and a.num_rows == b.num_rows
+    for n in a.column_names:
+        ca, cb = a.column(n), b.column(n)
+        assert torch.equal(ca.data.cpu(), cb.data.cpu()), n
+        assert (ca.validity is None) == (cb.validity is None), n
+        if ca.validity is not None:
+            assert torch.equal(ca.validity.cpu(), cb.validity.cpu()), n
+        if ca.is_string:
+            np.testing.assert_array_equal(ca.dictionary, cb.dictionary)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["inner", "left", "right", "full", "left_semi", "left_anti"])
+def test_every_join_type_on_the_card_equals_the_cpu(cuda_device, tmp_path, how):
+    """The outer assembly (masks, `nonzero`, `unique`, the null-filled side,
+    the concatenation) and every type's count(), on the card, give the CPU's
+    rows in the CPU's order, through the bucketed join (hash mode: K1, K2)
+    and the general join."""
+    import hyperspace_tpu_torch as hst
+
+    paths = _outer_sources(tmp_path)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        s = hst.HyperspaceSession(warehouse=str(tmp_path / dev), device=dev)
+        s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, 8)
+        hs = hst.Hyperspace(s)
+        hs.create_index(s.read.parquet(paths["l"]), hst.IndexConfig("oL", ["k"], ["s", "x"]))
+        hs.create_index(s.read.parquet(paths["r"]), hst.IndexConfig("oR", ["k2"], ["t", "w"]))
+        for indexed in (True, False):
+            (hst.enable_hyperspace if indexed else hst.disable_hyperspace)(s)
+            q = s.read.parquet(paths["l"]).join(s.read.parquet(paths["r"]), hst.col("k") == hst.col("k2"), how)
+            assert ("bucketed, no exchange" in q.explain_string()) == indexed
+            k1, k2 = cuda_sort.launches, cuda_probe.launches
+            got = q.collect()
+            if dev == "cuda":
+                assert got.column("k").data.is_cuda
+                if indexed:
+                    assert cuda_sort.launches > k1 and cuda_probe.launches > k2
+            out[dev, indexed] = (got, q.count())
+    for indexed in (True, False):
+        _same_table(out["cuda", indexed][0], out["cpu", indexed][0])
+        assert out["cuda", indexed][1] == out["cpu", indexed][1] == out["cpu", indexed][0].num_rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["int32_int64", "float_nan", "int64_extremes", "two_keys", "nullable"])
+@pytest.mark.parametrize("how", ["inner", "left", "full", "left_anti"])
+def test_the_general_count_on_the_card_equals_the_cpu(cuda_device, case, how):
+    """`_general_count_fast` on the card: the value-direct branch (an inner
+    join on one null-free numeric key pair: numpy's promotion, NaN matching
+    nothing, int64 extremes) and the key64 merge with the scatter-max match
+    stats, each equal to the CPU's count and to the collected rows."""
+    from hyperspace_tpu_torch.engine.physical import (
+        ExecContext,
+        ShuffleExchangeExec,
+        SortExec,
+        SortMergeJoinExec,
+    )
+    from hyperspace_tpu_torch.engine.table import Column, Table
+
+    rng = np.random.RandomState(21)
+    n, m = 200_000, 30_000
+    pool = np.array([np.nan, -0.0, 0.0, np.inf, -np.inf])
+    ext = np.array([-(2**63), -(2**63) + 1, -1, 0, 2**63 - 1], np.int64)
+    lk, rk = {
+        "int32_int64": ([rng.randint(0, 5000, n).astype(np.int32)], [rng.randint(0, 6000, m).astype(np.int64)]),
+        "float_nan": ([np.where(rng.rand(n) < 0.2, pool[rng.randint(0, 5, n)], rng.randint(0, 5000, n))],
+                      [np.where(rng.rand(m) < 0.2, pool[rng.randint(0, 5, m)], rng.randint(0, 6000, m))]),
+        "int64_extremes": ([ext[rng.randint(0, 5, n)]], [ext[rng.randint(0, 5, 50)]]),
+        "two_keys": ([rng.randint(0, 500, n), rng.randint(0, 4, n)], [rng.randint(0, 600, m), rng.randint(0, 4, m)]),
+        "nullable": ([rng.randint(0, 5000, n)], [rng.randint(0, 6000, m)]),
+    }[case]
+
+    class _Rows:
+        """A planned side over a ready table."""
+
+        def __init__(self, table):
+            self.table = table
+
+        def execute(self, ctx):
+            return self.table
+
+    counts = {}
+    for dev in ("cpu", "cuda"):
+        def side(keys, prefix):
+            cols = {f"{prefix}{i}": Column.from_values(np.asarray(v), dev) for i, v in enumerate(keys)}
+            if case == "nullable":
+                c = cols[f"{prefix}0"]
+                valid = torch.from_numpy(np.random.RandomState(len(keys[0])).rand(len(keys[0])) >= 0.05).to(dev)
+                cols[f"{prefix}0"] = Column(c.dtype, c.data, None, valid)
+            return Table(cols)
+
+        lt, rt = side(lk, "a"), side(rk, "b")
+        lkeys, rkeys = list(lt.column_names), list(rt.column_names)
+        join = SortMergeJoinExec(SortExec(lkeys, ShuffleExchangeExec(lkeys, _Rows(lt))),
+                                 SortExec(rkeys, ShuffleExchangeExec(rkeys, _Rows(rt))), lkeys, rkeys, how=how)
+        ctx = ExecContext(None)
+        counts[dev] = (join._general_count_fast(ctx), join.execute(ctx).num_rows)
+    assert counts["cuda"] == counts["cpu"] and counts["cpu"][0] == counts["cpu"][1]

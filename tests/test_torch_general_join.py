@@ -260,3 +260,126 @@ def test_merge_join_pairs_equals_the_jax_merge_in_order(case):
         np.testing.assert_array_equal(li.numpy(), want[0])
         np.testing.assert_array_equal(ri.numpy(), want[1])
     assert li.dtype == ri.dtype == torch.int64
+
+
+# ---------------------------------------------------------------------------
+# `_general_count_fast`: the general join's count() without its pairs.
+# ---------------------------------------------------------------------------
+
+I64 = np.iinfo(np.int64)
+
+
+def _count_sources(seed=31, n=3000):
+    """Single-key shapes of the value-direct branch: int32 ⋈ int64, float
+    keys with NaN and ±0.0 on both sides, float32 ⋈ int64, int64 extremes."""
+    rng = np.random.RandomState(seed)
+    pool = np.array([np.nan, -0.0, 0.0, 1.5, -1.5, np.inf, -np.inf, 2.0])
+    lf = np.where(rng.rand(n) < 0.3, pool[rng.randint(0, 8, n)], rng.randint(0, 60, n).astype(np.float64))
+    rf = np.where(rng.rand(400) < 0.3, pool[rng.randint(0, 8, 400)], rng.randint(0, 60, 400).astype(np.float64))
+    ext = np.array([I64.min, I64.min + 1, -1, 0, 1, I64.max - 1, I64.max])
+    return {
+        "cl": {
+            "a32": rng.randint(-50, 50, n).astype(np.int32),
+            "f": lf,
+            "f32": rng.randint(0, 60, n).astype(np.float32),
+            "e": ext[rng.randint(0, 7, n)],
+        },
+        "cr": {
+            "b64": rng.randint(-60, 40, 400).astype(np.int64),
+            "g": rf,
+            "i64": rng.randint(0, 70, 400).astype(np.int64),
+            "e2": ext[rng.randint(0, 7, 400)],
+        },
+    }
+
+
+VALUE_COUNTS = {"int32_int64": ("a32", "b64"), "float_nan": ("f", "g"), "float32_int64": ("f32", "i64"),
+                "int64_extremes": ("e", "e2")}
+
+
+@pytest.fixture(scope="module")
+def count_paths(tmp_path_factory):
+    base = tmp_path_factory.mktemp("counts")
+    out = {}
+    for name, cols in _count_sources().items():
+        out[name] = str(base / name)
+        _write(out[name], cols)
+    return out
+
+
+def _spy(monkeypatch, name):
+    calls = []
+    fn = getattr(physical, name)
+
+    def spy(*args):
+        calls.append(1)
+        return fn(*args)
+
+    monkeypatch.setattr(physical, name, spy)
+    return calls
+
+
+@pytest.mark.parametrize("case", sorted(VALUE_COUNTS))
+def test_the_value_direct_count_equals_jax(count_paths, tmp_path, monkeypatch, case):
+    """An inner join on one null-free numeric key pair counts on the values:
+    numpy's promotion, NaN matching nothing, ±0.0 equal, int64 extremes."""
+    lk, rk = VALUE_COUNTS[case]
+    ts, js = _sessions(count_paths, tmp_path)
+
+    def q(s, c):
+        return s.read.parquet(count_paths["cl"]).join(s.read.parquet(count_paths["cr"]), c(lk) == c(rk))
+
+    value, hashed = _spy(monkeypatch, "_value_inner_count"), _spy(monkeypatch, "_verified_keep")
+    n = q(ts, hst.col).count()
+    assert value and not hashed
+    assert n == q(js, jax_col).count() == q(ts, hst.col).collect().num_rows > 0
+
+
+@pytest.mark.parametrize("how", ["inner", "left", "right", "full", "left_semi", "left_anti"])
+@pytest.mark.parametrize("name", ["two_keys", "int64_float64", "filtered_sides"])
+def test_the_general_count_of_every_type_equals_jax(paths, tmp_path, monkeypatch, name, how):
+    """Any general join but an inner one on one null-free numeric key pair
+    counts by the key64 merge, verification and the scatter-max match
+    stats."""
+    ts, js = _sessions(paths, tmp_path)
+
+    def q(rd, c):
+        j = QUERIES[name](rd, c)
+        while type(j.plan).__name__ != "JoinNode":
+            j = type(j)(j.session, j.plan.child)
+        return type(j)(j.session, type(j.plan)(j.plan.left, j.plan.right, j.plan.condition, how))
+
+    tq = q(lambda n: ts.read.parquet(paths[n]), hst.col)
+    jq = q(lambda n: js.read.parquet(paths[n]), jax_col)
+    assert _join(tq).how == how and not _join(tq).bucketed
+    value, stats = _spy(monkeypatch, "_value_inner_count"), _spy(monkeypatch, "_verified_match_counts")
+    n = tq.count()
+    by_value = how == "inner" and name != "two_keys"
+    assert (bool(value), bool(stats)) == (by_value, not by_value)
+    assert n == jq.count() == tq.collect().num_rows > 0
+
+
+def _join(df):
+    return next(n for n in df.physical_plan().collect_nodes() if isinstance(n, SortMergeJoinExec))
+
+
+@pytest.mark.parametrize("how", ["inner", "left", "full", "left_anti"])
+@pytest.mark.parametrize("name", ["one_key", "two_keys"])
+def test_a_count_leaves_the_pairs_memo_alone(paths, tmp_path, name, how):
+    """The count neither reads nor fills the pairs memo: a later collect
+    builds its pairs as it would have (one miss), and a repeated count adds
+    no hit."""
+    ts, _ = _sessions(paths, tmp_path)
+    rd = lambda n: ts.read.parquet(paths[n])  # noqa: E731
+    base = QUERIES[name](rd, hst.col)
+    while type(base.plan).__name__ != "JoinNode":
+        base = type(base)(base.session, base.plan.child)
+    tq = type(base)(base.session, type(base.plan)(base.plan.left, base.plan.right, base.plan.condition, how))
+    before = physical.memo_stats()["pairs"]
+    n = tq.count()
+    tq.count()
+    mid = physical.memo_stats()["pairs"]
+    assert mid == before
+    assert tq.collect().num_rows == n
+    after = physical.memo_stats()["pairs"]
+    assert after["misses"] == mid["misses"] + 1 and after["hits"] == mid["hits"]

@@ -513,8 +513,8 @@ def _verify_pairs(
 def _verified_match_counts(keep: torch.Tensor, li: torch.Tensor, ri: torch.Tensor, n_left: int, n_right: int):
     """(verified pairs, distinct matched left rows, distinct matched right
     rows) of candidate pairs and their keep mask, by scatter-max masks and
-    one host sync (physical.py:2358): every join type's count without the
-    verified pairs."""
+    one host sync (physical.py:2358): what every join type's count needs,
+    from candidates or, with an all-true mask, from verified pairs."""
     k32 = keep.to(torch.int32)
     lmask = torch.zeros(n_left, dtype=torch.int32, device=li.device).scatter_reduce_(0, li, k32, "amax")
     rmask = torch.zeros(n_right, dtype=torch.int32, device=ri.device).scatter_reduce_(0, ri, k32, "amax")
@@ -1013,9 +1013,9 @@ class SortMergeJoinExec(PhysicalNode):
             return self._general_count_fast(ctx)
         if self.how != "inner":
             left, right, li, ri = self._pairs(ctx)
-            lm = int(_matched_mask(li, left.num_rows).sum())
-            rm = int(_matched_mask(ri, right.num_rows).sum()) if self.how in ("right", "full") else 0
-            return _count_from_match_stats(self.how, len(li), lm, rm, left.num_rows, right.num_rows)
+            every = torch.ones(len(li), dtype=torch.bool, device=li.device)
+            stats = _verified_match_counts(every, li, ri, left.num_rows, right.num_rows)
+            return _count_from_match_stats(self.how, *stats, left.num_rows, right.num_rows)
         left, right, l_starts, r_starts, subkey, rows_key = self._sides(ctx)
         if left.num_rows == 0 or right.num_rows == 0:
             return 0

@@ -213,7 +213,12 @@ class Table:
                     for c in cols
                 ])
             encoded = all(c.encoded_read for c in cols)
-            if cols[0].is_string:
+            if cols[0].is_string and all(c.dictionary is cols[0].dictionary for c in cols):
+                # One dictionary object (a column taken apart and put back,
+                # as an outer join's assembly does): the union is itself, so
+                # the codes stand and nothing is sorted.
+                out[n] = Column(STRING, torch.cat([c.data for c in cols]), cols[0].dictionary, validity, encoded)
+            elif cols[0].is_string:
                 # One sort of all dictionaries: what folding `np.union1d` over
                 # them gives, without a sort of the growing union per table.
                 union = np.unique(np.concatenate([c.dictionary for c in cols]))

@@ -49,10 +49,13 @@ class LocalFileSystem:
     def list_status(self, path: str) -> List[FileStatus]:
         if not os.path.isdir(path):
             return []
-        return sorted(
-            (self._status(os.path.join(path, n)) for n in os.listdir(path)),
-            key=lambda s: s.path,
-        )
+        out = []
+        for n in os.listdir(path):
+            try:
+                out.append(self._status(os.path.join(path, n)))
+            except FileNotFoundError:
+                continue  # renamed or deleted since the listing (a writer's temp file): not there
+        return sorted(out, key=lambda s: s.path)
 
     def get_status(self, path: str) -> FileStatus:
         return self._status(path)

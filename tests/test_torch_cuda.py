@@ -544,6 +544,7 @@ def test_every_join_type_on_the_card_equals_the_cpu(cuda_device, tmp_path, how):
     rows in the CPU's order, through the bucketed join (hash mode: K1, K2)
     and the general join."""
     import hyperspace_tpu_torch as hst
+    from hyperspace_tpu_torch.engine.physical import ExecContext
 
     paths = _outer_sources(tmp_path)
     out = {}
@@ -560,7 +561,7 @@ def test_every_join_type_on_the_card_equals_the_cpu(cuda_device, tmp_path, how):
             k1, k2 = cuda_sort.launches, cuda_probe.launches
             got = q.collect()
             if dev == "cuda":
-                assert got.column("k").data.is_cuda
+                assert q.physical_plan().execute(ExecContext(s)).column("k").data.is_cuda
                 if indexed:
                     assert cuda_sort.launches > k1 and cuda_probe.launches > k2
             out[dev, indexed] = (got, q.count())

@@ -30,12 +30,7 @@ from hyperspace_tpu.hyperspace import disable_hyperspace as jax_disable
 from hyperspace_tpu.hyperspace import enable_hyperspace as jax_enable
 from hyperspace_tpu_torch.engine import physical, scan_cache
 from hyperspace_tpu_torch.engine.logical import JoinNode, normalize_join_type
-from hyperspace_tpu_torch.engine.physical import (
-    BucketedIndexScanExec,
-    ExecContext,
-    SortMergeJoinExec,
-    _classed_plan,
-)
+from hyperspace_tpu_torch.engine.physical import ExecContext, SortMergeJoinExec, _classed_plan
 from hyperspace_tpu_torch.engine.table import Table
 from test_torch_aggregate import assert_same, host_rows
 
@@ -103,7 +98,7 @@ class Lake:
     """One case's two sources and a covering index on each key, built by
     both packages in warehouses of their own."""
 
-    def __init__(self, base, name, lineage=False, num_buckets=4):
+    def __init__(self, base, name, lineage=False, num_buckets=4, right_included=None):
         self.base = str(base)
         left, right = LAKES[name]
         _write(os.path.join(self.base, "l"), left)
@@ -118,7 +113,8 @@ class Lake:
         for s, h, cfg in ((self.t, hst.Hyperspace(self.t), hst.IndexConfig),
                           (self.j, JaxHyperspace(self.j), JaxIndexConfig)):
             h.create_index(s.read.parquet(os.path.join(self.base, "l")), cfg("oL", [self.lk], [self.lp]))
-            h.create_index(s.read.parquet(os.path.join(self.base, "r")), cfg("oR", [self.rk], [self.rp]))
+            h.create_index(s.read.parquet(os.path.join(self.base, "r")),
+                           cfg("oR", [self.rk], [self.rp] if right_included is None else right_included))
 
     def indexed(self, on: bool) -> None:
         (hst.enable_hyperspace if on else hst.disable_hyperspace)(self.t)
@@ -233,6 +229,20 @@ def test_indexed_equals_disabled_with_the_plan_markers(lakes, how):
     assert f"SortMergeJoin {how} [k=rk] (bucketed, no exchange)" in plan
     assert tq.count() == plain_count == jq.count()
     assert_same(tq.collect(), plain, ordered=False)
+
+
+@pytest.mark.parametrize("how", HOWS)
+def test_a_right_index_of_the_key_alone_serves_semi_and_anti_joins(tmp_path, how):
+    """A semi or anti join outputs the left side alone, so the rule asks the
+    right index to cover only the keys (JAX `join_index_rule.py:449`); every
+    other type outputs the right payload, which that index lacks."""
+    case = Lake(tmp_path, "wide", right_included=[])
+    case.indexed(True)
+    tq, jq = case.join(how)
+    join = _join_node(tq)
+    assert join.bucketed == (how in ("left_semi", "left_anti"))
+    assert (join.how, jq.physical_plan().tree_string().count("bucketed, no exchange")) == (how, int(join.bucketed))
+    _check(tq, jq)
 
 
 def test_an_inner_join_shows_no_type(lakes):
@@ -371,3 +381,26 @@ def test_an_aggregate_over_an_outer_join_skips_the_filled_nulls(lakes, monkeypat
     assert int(got.column("rows").data.sum()) == case.join(how)[0].count()
     keys = np.unique(left["k"]) if how != "right" else np.intersect1d(left["k"], right["rk"])
     assert got.num_rows == len(keys) + (how != "left")
+
+
+def test_a_column_taken_apart_concatenates_without_a_union():
+    """The outer assembly's concatenation: parts that share one dictionary
+    object keep it and their codes, equal to the union path's result over
+    copies of the dictionary."""
+    import torch
+
+    from hyperspace_tpu_torch.engine.physical import _null_table_like
+    from hyperspace_tpu_torch.engine.table import Column
+
+    t = Table({"s": Column.from_values(np.array(["eel", "ant", "cat", None, "ant"], dtype=object), "cpu"),
+               "n": Column.from_values(np.arange(5, dtype=np.int64), "cpu")})
+    parts = [t.take(torch.tensor([0, 2])), _null_table_like(t, 2, "cpu"), t.take(torch.tensor([1, 3, 4]))]
+    same = Table.concat(parts)
+    assert same.column("s").dictionary is t.column("s").dictionary
+    copies = [Table({n: Column(c.dtype, c.data, None if c.dictionary is None else c.dictionary.copy(), c.validity)
+                     for n, c in p.columns.items()}) for p in parts]
+    union = Table.concat(copies)
+    assert_same(same, union)
+    assert torch.equal(same.column("s").data, union.column("s").data)
+    np.testing.assert_array_equal(same.column("s").dictionary, union.column("s").dictionary)
+    assert host_rows(same)["s"].tolist() == ["eel", "cat", None, None, "ant", None, "ant"]

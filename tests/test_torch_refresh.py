@@ -591,3 +591,15 @@ def test_the_rankers_prefer_the_index_with_fewer_folded_deletes(tmp_path, query)
         lambda rd, c: rd(src).join(rd(r), c("k") == c("k2")).select("k", "v", "w"))
     rows = tw.query(build, "bFresh")
     assert rows["k"] == ([3] if query == "filter" else rows["k"]) and 5 not in rows["k"]
+
+
+def test_a_file_gone_between_listing_and_stat_is_not_listed(tmp_path, monkeypatch):
+    """A writer's temp file renamed away after `os.listdir` saw it: the
+    listing leaves it out instead of failing the reader's query (the race of
+    `test_readers_stay_correct_across_refresh_generations`)."""
+    from hyperspace_tpu_torch.storage.filesystem import LocalFileSystem
+
+    write(str(tmp_path), "part-00000.parquet", {"k": np.array([1])})
+    listdir = os.listdir
+    monkeypatch.setattr(os, "listdir", lambda p: listdir(p) + ["part-00001.parquet.tmp"])
+    assert [os.path.basename(st.path) for st in LocalFileSystem().list_status(str(tmp_path))] == ["part-00000.parquet"]

@@ -72,17 +72,31 @@ Phases, each failing loudly:
              with o_custkey); q_ord's join, count and collect, at each step
              against a numpy join of the files that exist then: (a) fresh,
              value mode (K2); (b) file 3 appended, no refresh: the rule does
-             not fire (the general join); (c) `refresh_index("liR",
-             "incremental")`: two version directories, hash mode (K1, K2);
-             (d) file 0 deleted, `refresh_index("liR", "auto")`: incremental,
-             no data written, `deletedSourceFiles` = [file 0], its rows
-             pruned through the lineage column, hash mode; (e) full: one
-             version directory, no deletes, value mode; (f) delete (no
-             index), restore (index), a dead refresh's transient entry (the
-             stable generation answers), cancel, delete and vacuum (no
+             not fire (the general join); (b-h) the same with
+             `hyperspace.index.hybridscan.enabled`: the join stays
+             co-bucketed over liR and ordR, file 3's rows merged into liR's
+             buckets, hash mode (K1, K2), with the merge's split (index
+             scan, appended decode, bucketize hash and sort, concatenation
+             and dictionary union, interleaving gather), and a
+             FilterIndexRule lookup of a key of file 3 whose plan holds the
+             Union of the index and the appended file; (b-hd) file 0 moved
+             away as well, Hybrid Scan on: lineage prune plus merge, hash
+             mode; file 0 moved back and Hybrid Scan off; (c)
+             `refresh_index("liR", "incremental")`: two version
+             directories, hash mode (K1, K2); (d) file 0 deleted,
+             `refresh_index("liR", "auto")`: incremental, no data written,
+             `deletedSourceFiles` = [file 0], its rows pruned through the
+             lineage column, hash mode; (d-o) `optimize_index("liR")`: one
+             file a bucket in one new version directory, no deletes, value
+             mode, the compacted files' sha256 set equal to a from-scratch
+             `create_index` of the same source in a second warehouse; (e)
+             full: one version directory, no deletes, value mode; (f) delete
+             (no index), restore (index), a dead refresh's transient entry
+             (the stable generation answers), cancel, delete and vacuum (no
              version directory, `indexes()` without liR). Prints each
-             refresh's seconds, the join's mode, the index files per side
-             and cold, uncached p50 of 3 and cached p50 of 3 times.
+             refresh's and the compaction's seconds, the join's mode, the
+             index files per side and cold, uncached p50 of 3 and cached p50
+             of 3 times.
 8. q13       TPC-H Q13 whole (without its o_comment LIKE predicate, which
              neither package has) in a directory of its own, over custQ13
              (customer [c_custkey]) and ordQ13 (orders [o_custkey] with
@@ -2104,6 +2118,22 @@ def phase_refresh(torch, data, base: str):
     present.add(HELD_BACK)
     measure("b_appended_unrefreshed", present, "general", {})
 
+    s.conf.set(hst.IndexConstants.INDEX_HYBRID_SCAN_ENABLED, "true")
+    measure("b_h_hybrid", present, "hash", one_version)
+    clear_caches()
+    log(f"[refresh] b_h_hybrid merge split {json.dumps(merge_split(query()))}")
+    hybrid_lookup(s, data, src, bounds, present, steps)
+    held = os.path.join(root, "held")
+    os.makedirs(held)
+    os.rename(lineitem_file(src, 0), os.path.join(held, "part-00000.parquet"))  # keeps its mtime
+    present.discard(0)
+    measure("b_hd_hybrid_delete", present, "hash", one_version)
+    clear_caches()
+    log(f"[refresh] b_hd_hybrid_delete merge split {json.dumps(merge_split(query()))}")
+    os.rename(os.path.join(held, "part-00000.parquet"), lineitem_file(src, 0))
+    present.add(0)
+    s.conf.set(hst.IndexConstants.INDEX_HYBRID_SCAN_ENABLED, "false")
+
     _, seconds["incremental"] = wall(lambda: hs.refresh_index("liR", "incremental"))
     if version_dirs(entry()) != ["0", "1"]:
         raise AssertionError(f"refresh incremental: version directories {version_dirs(entry())}")
@@ -2120,9 +2150,22 @@ def phase_refresh(torch, data, base: str):
                              "a deletes-only refresh must fold the delete and write no data")
     measure("d_deletes_folded", present, "hash", {"liR": 2 * NUM_BUCKETS, "ordR": NUM_BUCKETS})
 
+    _, seconds["optimize"] = wall(lambda: hs.optimize_index("liR"))
+    e = entry()
+    names = [os.path.basename(p) for p in e.content.files()]
+    if e.deleted_source_files() or version_dirs(e) != ["2"] or sorted(set(names)) != sorted(names) \
+            or len(names) != NUM_BUCKETS:
+        raise AssertionError(f"optimize: deletes {e.deleted_source_files()}, versions {version_dirs(e)}, "
+                             f"{len(names)} files; want one file a bucket and no deletes")
+    measure("d_o_optimized", present, "value", one_version)
+    rebuilt = rebuild_shas(os.path.join(root, "rebuild"), src)
+    if sorted(sha256(p) for p in e.content.files()) != rebuilt:
+        raise AssertionError("optimize: the compacted files differ from a from-scratch create_index's")
+    log(f"[refresh] d_o_optimized: {len(names)} compacted files sha256-identical to a rebuild's")
+
     _, seconds["full"] = wall(lambda: hs.refresh_index("liR", "full"))
     e = entry()
-    if e.deleted_source_files() or version_dirs(e) != ["2"]:
+    if e.deleted_source_files() or version_dirs(e) != ["3"]:
         raise AssertionError(f"refresh full: deletes {e.deleted_source_files()}, versions {version_dirs(e)}")
     measure("e_full", present, "value", one_version)
 
@@ -2165,6 +2208,108 @@ def phase_refresh(torch, data, base: str):
     launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches}
     log(f"[refresh] seconds {json.dumps(seconds)}; every step equals numpy; launches {json.dumps(launches)}")
     return launches, seconds, steps
+
+
+def sha256(path: str) -> str:
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def rebuild_shas(warehouse: str, src: str) -> list:
+    """The sorted sha256 of liR's files built from scratch over the current
+    source in another warehouse (the compaction oracle)."""
+    import hyperspace_tpu_torch as hst
+
+    s = hst.HyperspaceSession(warehouse=warehouse, device=DEVICE)
+    s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, NUM_BUCKETS)
+    s.conf.set(hst.IndexConstants.INDEX_LINEAGE_ENABLED, "true")
+    hs = hst.Hyperspace(s)
+    table, name, indexed, included = REFRESH_INDEXES[0]
+    hs.create_index(s.read.parquet(os.path.join(src, table)), hst.IndexConfig(name, indexed, included))
+    e = next(e for e in hs._manager.get_indexes() if e.name == name)
+    return sorted(sha256(p) for p in e.content.files())
+
+
+def merge_split(df) -> dict:
+    """Seconds of the parts of one Hybrid Scan merge of `df`'s stale side
+    (the caller empties the caches), replayed step by step, each ended by a
+    synchronize: the index files' scan, the appended files' decode, the
+    bucketize's hash, sort and gather, the concatenation of the index rows
+    with the bucketized ones, within it the union of each string column's
+    dictionaries (host `np.unique`), and the interleaving gather. The replay
+    must equal the scan's own merge."""
+    import dataclasses
+
+    import torch
+
+    from hyperspace_tpu_torch.engine import io as engine_io
+    from hyperspace_tpu_torch.engine.physical import BucketedIndexScanExec, ExecContext, interleave_perm
+    from hyperspace_tpu_torch.ops.hashing import bucket_id
+    from hyperspace_tpu_torch.ops.partition import _bucket_key_sort, bucket_starts
+
+    scan = next(n for n in df.physical_plan().collect_nodes()
+                if isinstance(n, BucketedIndexScanExec) and n.relation.hybrid_append is not None)
+    spec = scan.relation.bucket_spec
+    ctx = ExecContext(df.session)
+    t = {}
+    plain = BucketedIndexScanExec(dataclasses.replace(scan.relation, hybrid_append=None), scan.columns)
+    (table, starts), t["index_scan_s"] = wall(lambda: plain._assemble(ctx))
+    appended, t["appended_decode_s"] = wall(lambda: scan._appended_rows(ctx))
+    cols = [appended.column(c) for c in spec.bucket_columns]
+    b, t["bucketize_hash_s"] = wall(lambda: bucket_id(cols, spec.num_buckets))
+    (perm, sorted_b), t["bucketize_sort_s"] = wall(lambda: _bucket_key_sort(b, cols, spec.num_buckets))
+    (sorted_a, a_starts), t["bucketize_gather_s"] = wall(
+        lambda: (appended.take(perm.long()), bucket_starts(sorted_b, spec.num_buckets)))
+    strings = [n for n, c in table.columns.items() if c.is_string]
+    pairs = [(table.column(n).dictionary, sorted_a.column(n).dictionary) for n in strings]
+    _, t["dictionary_union_s"] = wall(lambda: [np.unique(np.concatenate(p)) for p in pairs])
+    merged, t["concat_s"] = wall(lambda: engine_io.concat_tables([table, sorted_a]))
+    out, t["interleave_s"] = wall(
+        lambda: merged.take(interleave_perm(starts, a_starts, merged.num_rows, ctx.device)))
+    own, own_starts = scan._merge_appended(ctx, table, starts)
+    same = np.array_equal(own_starts, starts + a_starts) and all(
+        torch.equal(own.column(n).data, out.column(n).data) for n in out.column_names)
+    if not same:
+        raise AssertionError("merge split: the replayed merge differs from the scan's own")
+    t.update(index_rows=table.num_rows, appended_rows=appended.num_rows,
+             dictionaries={n: [len(p[0]), len(p[1]), len(merged.column(n).dictionary)] for n, p in zip(strings, pairs)})
+    return t
+
+
+def hybrid_lookup(s, data, src: str, bounds, present, steps: dict) -> None:
+    """Step (b-h)'s FilterIndexRule lookup: a key of the appended file 3,
+    answered by the Union of liR's bucket-pruned index scan and file 3,
+    against a numpy filter of the files present; cold, uncached p50 of 3 and
+    cached p50 of 3."""
+    import hyperspace_tpu_torch as hst
+
+    key = int(data["lineitem"]["l_orderkey"][bounds[HELD_BACK]])
+    cols = ["l_orderkey", "l_extendedprice", "l_discount"]
+    df = s.read.parquet(os.path.join(src, "lineitem")).filter(hst.col("l_orderkey") == key).select(*cols)
+    nodes = df.physical_plan().collect_nodes()
+    if "Union" not in [n.name for n in nodes] or not any(
+            getattr(getattr(n, "relation", None), "index_name", None) == "liR" for n in nodes):
+        raise AssertionError(f"refresh b_h lookup: no Union over liR:\n{df.explain_string()}")
+    li = data["lineitem"]
+    rows = np.concatenate([np.arange(bounds[i], bounds[i + 1]) for i in sorted(present)])
+    rows = rows[li["l_orderkey"][rows] == key]
+    want = canonical({c: li[c][rows] for c in cols})
+
+    def check(out):
+        if not same_multiset(out.to_numpy(), want):
+            raise AssertionError("refresh b_h lookup: rows differ from the numpy filter")
+
+    clear_caches()
+    out, t_cold = wall(df.collect)
+    check(out)
+    t = {"key": key, "rows": len(rows), "collect_cold_s": t_cold}
+    _, t["uncached_p50_s"] = run_p50(df.collect, 3, uncached=True)
+    out, t["cached_p50_s"] = run_p50(df.collect, 3, uncached=False)
+    check(out)
+    if df.count() != len(rows):
+        raise AssertionError("refresh b_h lookup: count() differs from the numpy filter")
+    steps["b_h_lookup"] = t
+    log(f"[refresh] b_h_lookup {json.dumps(t)}")
 
 
 KERNEL_META = {

@@ -2,7 +2,8 @@
 
 Counterpart of `hyperspace_tpu/config.py`, cut to the keys the ported slices
 read (build, JoinIndexRule and the co-bucketed join, FilterIndexRule, the scan
-layer, the aggregate, the index lifecycle and refresh). Key names,
+layer, the aggregate, the index lifecycle, refresh, Hybrid Scan and
+compaction). Key names,
 environment variables and defaults are the JAX package's, so a conf or an
 environment written for one package means the same to the other.
 """
@@ -11,8 +12,6 @@ from __future__ import annotations
 
 import os
 from typing import Dict, Optional
-
-from .exceptions import not_in_slice
 
 #: Row-group pushdown on/off (`engine/pushdown.py`); "0" = whole-file reads.
 ENV_SCAN_PUSHDOWN = "HYPERSPACE_SCAN_PUSHDOWN"
@@ -31,6 +30,10 @@ DEVICE_CACHE_BUDGET_DEFAULT = 2 << 30
 #: The refresh mode `Hyperspace.refresh_index(name)` takes when given none
 #: ("full" when unset; also "incremental" or "auto").
 ENV_REFRESH_MODE = "HYPERSPACE_REFRESH_MODE"
+#: Background-compaction trigger (`actions/optimize.needs_compaction`): an
+#: index needs compaction once a bucket is spread over this many files.
+ENV_COMPACT_TRIGGER_FILES = "HYPERSPACE_COMPACT_TRIGGER_FILES"
+COMPACT_TRIGGER_FILES_DEFAULT = 2
 
 
 def env_bytes(name: str, default: int) -> int:
@@ -53,9 +56,15 @@ class IndexConstants:
     INDEX_CACHE_TYPE = "hyperspace.index.cache.type"
     INDEX_CACHE_TYPE_DEFAULT = "CREATION_TIME_BASED"
 
-    # Hybrid Scan is not ported: the key set to true raises.
+    # Hybrid Scan: an index whose source gained files since its last refresh
+    # (or lost files, under lineage) still answers, the appended files merged
+    # in at query time (`rules/rule_utils.get_candidate_indexes`).
     INDEX_HYBRID_SCAN_ENABLED = "hyperspace.index.hybridscan.enabled"
     INDEX_HYBRID_SCAN_ENABLED_DEFAULT = False
+
+    # optimize_index "quick" merges only the index files below this size.
+    OPTIMIZE_FILE_SIZE_THRESHOLD = "hyperspace.index.optimize.fileSizeThreshold"
+    OPTIMIZE_FILE_SIZE_THRESHOLD_DEFAULT = 256 * 1024 * 1024
 
     # Lineage: the build adds the per-row source file path, which lets an
     # incremental refresh fold deleted source files (`actions/refresh.py`).
@@ -123,13 +132,11 @@ class HyperspaceConf:
             IndexConstants.INDEX_LINEAGE_ENABLED, IndexConstants.INDEX_LINEAGE_ENABLED_DEFAULT
         )
 
-    def refuse_hybrid_scan(self) -> None:
-        """Raise when the conf asks for Hybrid Scan, which the port does not
-        have: answering from the index alone would ignore the appended rows."""
-        if self._c.get_bool(
+    @property
+    def hybrid_scan_enabled(self) -> bool:
+        return self._c.get_bool(
             IndexConstants.INDEX_HYBRID_SCAN_ENABLED, IndexConstants.INDEX_HYBRID_SCAN_ENABLED_DEFAULT
-        ):
-            raise not_in_slice("hybrid scan")
+        )
 
     @property
     def cache_expiry_seconds(self) -> int:

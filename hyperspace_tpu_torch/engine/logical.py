@@ -2,7 +2,8 @@
 
 The node set of the slice: relation scans, filters, projections, equi-joins
 of every type (inner, left, right and full outer, left semi and left anti),
-computed columns, grouped aggregates, ORDER BY and LIMIT. Class names are
+computed columns, grouped aggregates, ORDER BY, LIMIT and the row union that
+Hybrid Scan's filter rewrite builds. Class names are
 the JAX package's: the plan signature folds over them.
 """
 
@@ -16,7 +17,7 @@ import numpy as np
 from ..exceptions import HyperspaceException
 from ..storage.filesystem import FileStatus
 from .expr import BinaryOp, Col, Expr, IsIn, IsNull, Lit, Not
-from .schema import Field, Schema
+from .schema import Field, Schema, dtype_from_numpy
 
 
 @dataclass(frozen=True)
@@ -33,7 +34,9 @@ class BucketSpec:
 class SourceRelation:
     """A file-backed source: root paths + resolved file inventory + schema +
     format. An index scan substituted by a rewrite carries its bucket spec,
-    index name and log entry id."""
+    index name and log entry id; under Hybrid Scan the join rule's also
+    carries the source files appended since the index was built
+    (`hybrid_append`), merged into its buckets at execution time."""
 
     root_paths: List[str]
     file_format: str
@@ -43,6 +46,7 @@ class SourceRelation:
     bucket_spec: Optional[BucketSpec] = None
     index_name: Optional[str] = None
     log_entry_id: Optional[int] = field(default=None, compare=False)
+    hybrid_append: Optional["HybridAppend"] = None
     # Names of the rules that pruned this scan's file list (bucket pruning).
     pruned_by: List[str] = field(default_factory=list)
     # Hive partitioning (`.columns`); no reader of the port sets it yet.
@@ -50,9 +54,24 @@ class SourceRelation:
 
     def __repr__(self):
         tag = f" index={self.index_name}" if self.index_name else ""
+        if self.hybrid_append is not None:
+            tag += f" (+{len(self.hybrid_append.files)} appended)"
         if self.pruned_by:
             tag += f" (files pruned by {','.join(self.pruned_by)})"
         return f"Relation[{self.file_format}]({','.join(self.root_paths)}{tag})"
+
+
+@dataclass
+class HybridAppend:
+    """Source files appended after the index was built and how to read them
+    (`logical.HybridAppend` :61): their format, schema and partition layout
+    are the source's, not the index's."""
+
+    files: List[FileStatus]
+    file_format: str
+    schema: Schema
+    root_paths: List[str] = field(default_factory=list)
+    partition_spec: Optional[object] = None
 
 
 class LogicalPlan:
@@ -161,6 +180,51 @@ class ProjectNode(LogicalPlan):
 
     def simple_string(self):
         return f"Project [{', '.join(self.column_names)}]"
+
+
+_NUMERIC_DTYPES = frozenset({"int32", "int64", "float32", "float64", "bool"})
+
+
+def _check_schema_compatible(op: str, a: Schema, b: Schema) -> None:
+    """A multi-child operator's schema contract (`logical._check_schema_compatible`
+    :204): names match case-insensitively by position; numeric widths may
+    differ (execution promotes), a string against a number fails here."""
+    if [n.lower() for n in a.names] != [n.lower() for n in b.names]:
+        raise ValueError(f"{op} children schemas differ: {a.names} vs {b.names}")
+    for fa, fb in zip(a.fields, b.fields):
+        if fa.dtype != fb.dtype and not (fa.dtype in _NUMERIC_DTYPES and fb.dtype in _NUMERIC_DTYPES):
+            raise ValueError(f"{op} column {fa.name!r} type mismatch: {fa.dtype} vs {fb.dtype}")
+
+
+class UnionNode(LogicalPlan):
+    """Row union of same-schema children (`logical.UnionNode` :220): the
+    Hybrid Scan filter shape, index data ∪ appended source files. Numeric
+    widths promote across children, as the concatenation promotes the data."""
+
+    def __init__(self, children: Sequence[LogicalPlan]):
+        self._children = list(children)
+        first = self._children[0].output_schema
+        dtypes = [f.dtype for f in first.fields]
+        for c in self._children[1:]:
+            sch = c.output_schema
+            _check_schema_compatible("Union", first, sch)
+            for i, fb in enumerate(sch.fields):
+                if dtypes[i] != fb.dtype:
+                    dtypes[i] = dtype_from_numpy(np.promote_types(np.dtype(dtypes[i]), np.dtype(fb.dtype)))
+        self._schema = Schema([Field(f.name, d) for f, d in zip(first.fields, dtypes)])
+
+    def children(self):
+        return tuple(self._children)
+
+    @property
+    def output_schema(self) -> Schema:
+        return self._schema
+
+    def with_children(self, children):
+        return UnionNode(children)
+
+    def simple_string(self):
+        return f"Union ({len(self._children)} children)"
 
 
 _JOIN_TYPES = {

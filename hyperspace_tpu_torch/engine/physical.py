@@ -1,7 +1,8 @@
 """Physical plan + executor (counterpart of `hyperspace_tpu/engine/physical.py`).
 
-The operators of the slice: file scans, bucketed index scans, filters,
-projections, computed columns, grouped aggregates, ORDER BY, LIMIT and the
+The operators of the slice: file scans, bucketed index scans (with Hybrid
+Scan's appended rows merged into their buckets), filters, projections, row
+unions, computed columns, grouped aggregates, ORDER BY, LIMIT and the
 sort-merge join of every type. A filter evaluates its predicate on the device
 (`engine/evaluate.py`) and keeps the surviving rows in order; a filter
 directly over a plain scan hands its condition to the scan, which skips the
@@ -42,6 +43,7 @@ from ..exceptions import HyperspaceException, not_in_slice
 from ..ops.aggregate import hash_aggregate
 from ..ops.hashing import key64
 from ..ops.join import merge_join_pairs
+from ..ops.partition import bucketize_table, sortable_lane
 from . import io as engine_io
 from .evaluate import evaluate_column, evaluate_predicate
 from .expr import Expr, canonical_condition_repr, extract_equi_join_keys
@@ -55,6 +57,7 @@ from .logical import (
     ProjectNode,
     ScanNode,
     SourceRelation,
+    UnionNode,
     WithColumnNode,
     internal_column,
 )
@@ -150,7 +153,20 @@ class ScanExec(PhysicalNode):
             return None
         return ScanPredicate.from_condition(self.pushdown, _resolution_case_sensitive(ctx, self.relation.schema.names))
 
+    def _hybrid_bucketed(self) -> Optional["BucketedIndexScanExec"]:
+        """The bucketed scan this scan reads through when it is a demoted
+        index scan (the general join reads a bucketed relation as a plain
+        scan) whose relation carries appended files: they are still merged
+        (physical.py:283-287). None otherwise."""
+        rel = self.relation
+        if rel.hybrid_append is None or rel.bucket_spec is None:
+            return None
+        return BucketedIndexScanExec(rel, self.columns)
+
     def execute(self, ctx) -> Table:
+        bucketed = self._hybrid_bucketed()
+        if bucketed is not None:
+            return bucketed.execute(ctx)
         files = [f.path for f in self.relation.files]
         if not files:
             return _empty_table(self.relation, self.columns, ctx.device)
@@ -161,6 +177,9 @@ class ScanExec(PhysicalNode):
         )
 
     def execute_count(self, ctx) -> int:
+        bucketed = self._hybrid_bucketed()
+        if bucketed is not None:
+            return bucketed.execute_count(ctx)
         return engine_io.footer_row_count(self.relation.files)
 
     def simple_string(self):
@@ -176,7 +195,10 @@ class BucketedIndexScanExec(PhysicalNode):
     `part-<bucket>` file naming contract of the bucketed writer. An index
     refreshed incrementally spreads a bucket over several version
     directories: its files are concatenated in `relation.files` order, as the
-    JAX package's `_assemble_buckets` does (physical.py:378)."""
+    JAX package's `_assemble_buckets` does (physical.py:378). Under Hybrid
+    Scan the relation carries the source files appended since the build
+    (`hybrid_append`): their rows are bucketized by the index's own hash and
+    each bucket's go after its index rows (`_merge_appended`)."""
 
     name = "BucketedIndexScan"
 
@@ -212,7 +234,46 @@ class BucketedIndexScanExec(PhysicalNode):
             starts[b + 1] += t.num_rows
         np.cumsum(starts, out=starts)
         kept = [t for t in tables if t.num_rows > 0]
-        return (engine_io.concat_tables(kept) if kept else self.empty_table(ctx)), starts
+        table = engine_io.concat_tables(kept) if kept else self.empty_table(ctx)
+        if self.relation.hybrid_append is not None:
+            return self._merge_appended(ctx, table, starts)
+        return table, starts
+
+    def _appended_rows(self, ctx) -> Table:
+        """The appended source files' rows in this scan's columns, file by
+        file in `hybrid_append.files` order; a requested lineage column holds
+        each row's file path (physical.py:446-464)."""
+        ha = self.relation.hybrid_append
+        wanted = _default_scan_columns(self.relation, self.columns) or self.relation.schema.names
+        source_cols = [c for c in wanted if not internal_column(c)]
+        lineage = [c for c in wanted if internal_column(c)]
+        paths = [f.path for f in ha.files]
+        tables = engine_io.decode_files([(p, source_cols, None, None) for p in paths], ctx.device, ctx.file_stats(paths))
+        parts = []
+        for path, t in zip(paths, tables):
+            if lineage:
+                cols = dict(t.columns)
+                codes = torch.zeros(t.num_rows, dtype=torch.int32, device=ctx.device)
+                cols[lineage[0]] = Column("string", codes, np.asarray([path]))
+                t = Table(cols)
+            parts.append(t)
+        return engine_io.concat_tables(parts).select(wanted)
+
+    def _merge_appended(self, ctx, table: Table, starts: np.ndarray) -> Tuple[Table, np.ndarray]:
+        """Hybrid Scan's merge (`_merge_appended`, physical.py:421): the
+        appended rows bucketized with the index's bucket columns and count,
+        then one concatenation (the string columns' dictionaries unite) and
+        one gather that puts each bucket's appended rows after its index rows,
+        in `bucketize_table` order. The bucket is then no longer sorted by
+        key, so the join pads it by hash (K1)."""
+        spec = self.relation.bucket_spec
+        appended = self._appended_rows(ctx)
+        if appended.num_rows == 0:
+            return table, starts
+        sorted_a, a_starts = bucketize_table(appended, list(spec.bucket_columns), spec.num_buckets)
+        merged = engine_io.concat_tables([table, sorted_a])
+        perm = interleave_perm(starts, a_starts, merged.num_rows, ctx.device)
+        return merged.take(perm), starts + a_starts
 
     def execute_pruned_concat(self, ctx, condition: Expr) -> Optional[Tuple[Table, np.ndarray]]:
         """The scan under `condition` with each `part-<bucket>` file decoded
@@ -220,8 +281,9 @@ class BucketedIndexScanExec(PhysicalNode):
         writes bounded, key-sorted row groups for this): a row subset of
         `execute_concat`'s table in the same order, so the condition applied
         afterwards gives identical rows and bucket bounds. None when pushdown
-        cannot apply or prunes nothing (the caller takes the plain path)."""
-        if not pushdown_enabled():
+        cannot apply (Hybrid Scan's appended rows included) or prunes nothing
+        (the caller takes the plain path)."""
+        if not pushdown_enabled() or self.relation.hybrid_append is not None:
             return None
         pred = ScanPredicate.from_condition(condition, _resolution_case_sensitive(ctx, self.relation.schema.names))
         if pred is None:
@@ -239,13 +301,19 @@ class BucketedIndexScanExec(PhysicalNode):
     def rows_token(self, ctx) -> Optional[tuple]:
         """Identity of this scan's rows and their order, whatever its columns:
         the index log entry id and every file's (path, size, mtime) as it is
-        on disk now. Join pairs computed against one projection of the scan
-        serve every other; a rewritten file changes the token. None when a
-        file cannot be stat'ed."""
+        on disk now, and so the appended files' under Hybrid Scan
+        (physical.py:550-571). Join pairs computed against one projection of
+        the scan serve every other; a rewritten or appended file changes the
+        token. None when a file cannot be stat'ed."""
         stats = ctx.file_stats([p for _, p in self._bucket_files()])
         if stats is None:
             return None
-        return (("log", self.relation.index_name, self.relation.log_entry_id), stats)
+        token = (("log", self.relation.index_name, self.relation.log_entry_id), stats)
+        ha = self.relation.hybrid_append
+        if ha is None:
+            return token
+        appended = ctx.file_stats([f.path for f in ha.files])
+        return None if appended is None else token + (("appended",) + appended,)
 
     def _concat_cache_key(self, ctx) -> Optional[tuple]:
         token = self.rows_token(ctx)
@@ -270,14 +338,37 @@ class BucketedIndexScanExec(PhysicalNode):
         return self.execute_concat(ctx)[0]
 
     def execute_count(self, ctx) -> int:
-        return engine_io.footer_row_count(self.relation.files)
+        """Footer row counts, the appended files' included (physical.py:627)."""
+        ha = self.relation.hybrid_append
+        return engine_io.footer_row_count(self.relation.files) + (
+            0 if ha is None else engine_io.footer_row_count(ha.files)
+        )
 
     def simple_string(self):
         spec = self.relation.bucket_spec
+        ha = self.relation.hybrid_append
         return (
             f"BucketedIndexScan index={self.relation.index_name} "
             f"buckets={spec.num_buckets} by {list(spec.bucket_columns)}"
+            + ("" if ha is None else f" (+{len(ha.files)} appended)")
         )
+
+
+def interleave_perm(starts: np.ndarray, a_starts: np.ndarray, n: int, device) -> torch.Tensor:
+    """The gather that turns [index rows in bucket order | appended rows in
+    bucket order] into bucket-major order with each bucket's index rows
+    first: output row p of bucket b, at offset o from the bucket's new start,
+    takes index row starts[b] + o while o is below the bucket's index rows,
+    else appended row a_starts[b] + o - (its index rows)."""
+    idx_counts = np.diff(starts)
+    new_starts = torch.as_tensor(starts + a_starts, device=device)
+    counts = torch.as_tensor(idx_counts + np.diff(a_starts), device=device)
+    b = torch.repeat_interleave(torch.arange(len(idx_counts), device=device), counts, output_size=n)
+    off = torch.arange(n, device=device) - new_starts[b]
+    idx_t = torch.as_tensor(starts, device=device)
+    own = torch.as_tensor(idx_counts, device=device)[b]
+    a_t = torch.as_tensor(a_starts, device=device)
+    return torch.where(off < own, idx_t[b] + off, int(starts[-1]) + a_t[b] + off - own)
 
 
 def _empty_column(dtype: str, device) -> Column:
@@ -392,6 +483,30 @@ class ProjectExec(PhysicalNode):
 
     def simple_string(self):
         return f"Project [{', '.join(self.column_names)}]"
+
+
+class UnionExec(PhysicalNode):
+    """Row union (physical.py:827): each child's table with the first
+    child's column order, concatenated; the count sums the children's."""
+
+    name = "Union"
+
+    def __init__(self, children: Sequence[PhysicalNode]):
+        self._children = list(children)
+
+    def children(self):
+        return tuple(self._children)
+
+    def execute(self, ctx) -> Table:
+        tables = [c.execute(ctx) for c in self._children]
+        names = tables[0].column_names
+        return Table.concat([t if t.column_names == names else t.select(names) for t in tables])
+
+    def execute_count(self, ctx) -> int:
+        return sum(c.execute_count(ctx) for c in self._children)
+
+    def simple_string(self):
+        return f"Union ({len(self._children)})"
 
 
 def _null_table_like(table: Table, n: int, device) -> Table:
@@ -770,14 +885,16 @@ def _node_relation_names(node) -> Optional[List[str]]:
 def _relation_sig(node) -> Optional[tuple]:
     """The identity of a general-join side's underlying relation for the
     general pairs memo (physical.py:2103): the index name, its log entry id
-    and every file's (path, size, mtime), so a refreshed index whose files
-    alias the old stats still misses."""
+    and every file's (path, size, mtime), the appended files' included, so a
+    refreshed index whose files alias the old stats still misses."""
     while node is not None and getattr(node, "relation", None) is None:
         node = getattr(node, "child", None)
     rel = getattr(node, "relation", None)
     if rel is None:
         return None
-    return (rel.index_name, rel.log_entry_id, tuple((f.path, f.size, f.modified_time) for f in rel.files))
+    sig = (rel.index_name, rel.log_entry_id, tuple((f.path, f.size, f.modified_time) for f in rel.files))
+    ha = rel.hybrid_append
+    return sig if ha is None else sig + (tuple((f.path, f.size, f.modified_time) for f in ha.files),)
 
 
 def _pair_subkey(left_keys, right_keys, lnode, rnode, left: Optional[Table] = None,
@@ -1123,19 +1240,9 @@ class HashAggregateExec(PhysicalNode):
 
 def _order_lane(c: Column) -> torch.Tensor:
     """An int64 lane whose stable ascending sort orders the column's values as
-    `np.lexsort` does: strings by dictionary code (the dictionary is sorted),
-    bools and ints as themselves, floats through their float64 bits mapped to
-    a monotone int64 after -0.0 becomes +0.0 and every NaN one NaN, so
-    signed zeros tie and NaNs tie after +inf, as under numpy's comparisons
-    (a radix sort of raw float bits would split both)."""
-    d = c.data
-    if not d.is_floating_point():
-        return d.to(torch.int64)
-    d = d.to(torch.float64)
-    d = torch.where(d == 0, torch.zeros((), dtype=d.dtype, device=d.device), d)
-    d = torch.where(torch.isnan(d), torch.full((), float("nan"), dtype=d.dtype, device=d.device), d)
-    bits = d.view(torch.int64)
-    return bits ^ ((bits >> 63) & 0x7FFFFFFFFFFFFFFF)
+    `np.lexsort` does (`ops.partition.sortable_lane`): strings by dictionary
+    code (the dictionary is sorted), signed zeros tied, NaNs tied after +inf."""
+    return sortable_lane(c.data).to(torch.int64)
 
 
 class OrderByExec(PhysicalNode):
@@ -1330,6 +1437,9 @@ def plan_physical(
             logical.column_names,
             plan_physical(logical.child, list(logical.column_names), case_sensitive),
         )
+
+    if isinstance(logical, UnionNode):
+        return UnionExec([plan_physical(c, required, case_sensitive) for c in logical.children()])
 
     if isinstance(logical, WithColumnNode):
         if required is not None and all(key(r) != key(logical.name) for r in required):

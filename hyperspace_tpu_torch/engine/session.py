@@ -159,6 +159,12 @@ class DataFrameReader:
     def json(self, *paths) -> DataFrame:
         return self._load(list(paths), "json")
 
+    def orc(self, *paths) -> DataFrame:
+        return self._load(list(paths), "orc")
+
+    def delta(self, path: str) -> DataFrame:
+        return self._load([path], "delta")
+
     def _load(self, path_list: List[str], file_format: str) -> DataFrame:
         files: List[FileStatus] = []
         for p in path_list:

@@ -2,8 +2,8 @@
 (counterpart of `hyperspace_tpu/hyperspace.py`; reference `Hyperspace.scala`,
 `package.scala:34-74`). `enable_hyperspace` registers `JoinIndexRule`, then
 `FilterIndexRule`, in the JAX package's order; its data-skipping rule is not
-ported. The facade creates, refreshes, deletes, restores, vacuums, cancels
-and lists indexes; `optimize_index` (compaction) is not ported."""
+ported. The facade creates, refreshes, compacts (`optimize_index`), deletes,
+restores, vacuums, cancels and lists indexes."""
 
 from __future__ import annotations
 
@@ -57,6 +57,9 @@ class Hyperspace:
         self._manager.refresh(index_name, mode or os.environ.get(ENV_REFRESH_MODE) or "full")
 
     def optimize_index(self, index_name: str, mode: str = "quick") -> None:
+        """Merge each bucket's index files into one ("quick": the files below
+        `hyperspace.index.optimize.fileSizeThreshold`; "full": all), and
+        drop the rows of folded deleted source files."""
         self._manager.optimize(index_name, mode)
 
     def cancel(self, index_name: str) -> None:

@@ -1,4 +1,4 @@
-"""Index management: create, refresh, delete, restore, vacuum, cancel, list.
+"""Index management: create, refresh, optimize, delete, restore, vacuum, cancel, list.
 
 Counterpart of `hyperspace_tpu/index/collection_manager.py` (reference
 `IndexCollectionManager.scala:26-191`, `CachingIndexCollectionManager.scala`
@@ -7,8 +7,8 @@ managers; resolving an index first reclaims the staging directories of dead
 writers. `CachingIndexCollectionManager` keeps the list of log entries for
 `hyperspace.index.cache.expiryDurationInSeconds` (300 s) and clears it
 before and after every mutation. The JAX package's event logger, metrics,
-data-skipping kind, optimize and the replica fleet's cross-process
-invalidation are not ported.
+data-skipping kind and the replica fleet's cross-process invalidation are
+not ported.
 """
 
 from __future__ import annotations
@@ -19,9 +19,10 @@ from typing import List, Optional, Sequence
 from ..actions import states
 from ..actions.create import CreateAction
 from ..actions.lifecycle import CancelAction, DeleteAction, RestoreAction, VacuumAction
+from ..actions.optimize import OptimizeAction
 from ..actions.refresh import NothingToRefreshError, RefreshAction, RefreshIncrementalAction
 from ..engine.table import Table
-from ..exceptions import HyperspaceException, not_in_slice
+from ..exceptions import HyperspaceException
 from . import quarantine
 from .builder import CoveringIndexBuilder
 from .data_manager import IndexDataManagerImpl
@@ -99,7 +100,12 @@ class IndexCollectionManager:
         quarantine.clear(index_name)
 
     def optimize(self, index_name: str, mode: str = "quick") -> None:
-        raise not_in_slice("optimize (index compaction)")
+        """Compact the index's per-bucket files into the next version
+        directory (:206-225): mode "quick" merges the small files, "full"
+        every file."""
+        log_mgr, data_mgr, _ = self._existing_log_manager(index_name)
+        OptimizeAction(self._session, log_mgr, self._next_data_path(data_mgr), mode).run()
+        quarantine.clear(index_name)
 
     def delete(self, index_name: str) -> None:
         log_mgr, _, _ = self._existing_log_manager(index_name)
@@ -261,6 +267,9 @@ class CachingIndexCollectionManager(IndexCollectionManager):
 
     def refresh(self, index_name: str, mode: str = "full") -> None:
         self._mutate(lambda: super(CachingIndexCollectionManager, self).refresh(index_name, mode))
+
+    def optimize(self, index_name: str, mode: str = "quick") -> None:
+        self._mutate(lambda: super(CachingIndexCollectionManager, self).optimize(index_name, mode))
 
     def delete(self, index_name: str) -> None:
         self._mutate(lambda: super(CachingIndexCollectionManager, self).delete(index_name))

@@ -13,7 +13,12 @@ path:
   `pallas_packed_build_sort` :252), when the composite fits int32;
 - every other key takes a chain of stable `torch.sort` passes, last key
   first (a least-significant-digit lexsort), the counterpart of `_sort_perm`
-  :34, a stable `lax.sort`.
+  :34, a stable `lax.sort`, and of the CPU build's `np.lexsort`
+  (`host_sort_perm` :86). A float key sorts through an int64 lane that ties
+  -0.0 with +0.0 and puts every NaN last, tied, as numpy's comparisons do.
+
+Compaction sorts every merged bucket at once with `sort_perm`, its source
+file rank a last key lane, so its files equal a rebuild's.
 """
 
 from __future__ import annotations
@@ -29,13 +34,28 @@ from .cuda_comp_sort import sort_comp_rows
 from .hashing import bucket_id
 
 
+def sortable_lane(d: torch.Tensor) -> torch.Tensor:
+    """A lane whose stable ascending sort orders `d` as `np.lexsort` does:
+    bools as int32, integers as themselves, floats through their float64 bits
+    mapped to a monotone int64 after -0.0 becomes +0.0 and every NaN one NaN,
+    so signed zeros tie and NaNs tie after +inf (a sort of the raw bits, as a
+    radix sort does, would split both)."""
+    if d.dtype == torch.bool:
+        return d.to(torch.int32)
+    if not d.is_floating_point():
+        return d
+    d = d.to(torch.float64)
+    d = torch.where(d == 0, torch.zeros((), dtype=d.dtype, device=d.device), d)
+    d = torch.where(torch.isnan(d), torch.full((), float("nan"), dtype=d.dtype, device=d.device), d)
+    bits = d.view(torch.int64)
+    return bits ^ ((bits >> 63) & 0x7FFFFFFFFFFFFFFF)
+
+
 def sort_perm(bucket: torch.Tensor, keys: Sequence[torch.Tensor]) -> torch.Tensor:
     """Permutation ordering rows by (bucket, key1, key2, ..., row)."""
     perm = torch.arange(bucket.shape[0], device=bucket.device)
     for lane in list(reversed(list(keys))) + [bucket]:
-        if lane.dtype == torch.bool:
-            lane = lane.to(torch.int32)
-        order = torch.sort(lane[perm], stable=True).indices
+        order = torch.sort(sortable_lane(lane)[perm], stable=True).indices
         perm = perm[order]
     return perm
 
@@ -86,6 +106,19 @@ def packed_build_sort(
     return head & (n_pad - 1), head >> (bits + log2np)
 
 
+def _bucket_key_sort(b: torch.Tensor, cols, num_buckets: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(perm, sorted bucket ids) by (bucket, key columns, row): K3 for one
+    dictionary key that packs, else the stable sort chain. Null slots sort by
+    their fill, as in the JAX package."""
+    res = None
+    if len(cols) == 1 and cols[0].is_string:
+        res = packed_build_sort(b, cols[0].data, len(cols[0].dictionary), num_buckets)
+    if res is None:
+        perm = sort_perm(b, [c.data for c in cols])
+        res = perm, b[perm]
+    return res
+
+
 def bucketize_table(
     table: Table, bucket_columns: Sequence[str], num_buckets: int
 ) -> Tuple[Table, np.ndarray]:
@@ -93,13 +126,6 @@ def bucketize_table(
     those columns within each bucket. Returns (reordered table, bucket start
     offsets): bucket b = rows[starts[b]:starts[b+1]]."""
     cols = [table.column(c) for c in bucket_columns]
-    lanes = [c.data for c in cols]
-    b = bucket_id(cols, num_buckets)
-    res = None
-    if len(cols) == 1 and cols[0].is_string:
-        res = packed_build_sort(b, lanes[0], len(cols[0].dictionary), num_buckets)
-    if res is None:
-        perm = sort_perm(b, lanes)
-        res = perm, b[perm]
-    perm, sorted_b = res
+    perm, sorted_b = _bucket_key_sort(bucket_id(cols, num_buckets), cols, num_buckets)
     return table.take(perm.long()), bucket_starts(sorted_b, num_buckets)
+

@@ -15,13 +15,17 @@ Parity: `hyperspace_tpu/rules/filter_index_rule.py` (reference
   other `part-<bucket>` file is skipped. A filter that leaves an indexed
   column free prunes nothing. (The JAX package hashes the head literal alone,
   which drops rows of a multi-column index; the port does not copy that.)
-- deletes folded by a refresh: the index scan sits under the lineage prune
-  filter, below the user's filter and the output projection (:132-138);
-- ranking: fewest folded deletes first, then first-candidate (:304);
-- any exception returns the original plan (:74-78), except a conf asking for
-  Hybrid Scan, which raises before the rule runs.
-Hybrid scan and usage events are not ported: an index whose source drifted
-since its last refresh is not a candidate.
+- deletes folded by a refresh, or files vanished under Hybrid Scan: the
+  index scan sits under the lineage prune filter, below the user's filter
+  and the output projection (:132-138);
+- Hybrid Scan (`hyperspace.index.hybridscan.enabled`): the user's filter
+  goes over `Union(Project(needed, index scan), Project(needed, scan of the
+  appended source files))`, so the appended rows answer beside the index's
+  (:139-160);
+- ranking: the least source drift first (appended and deleted files, each
+  costs work per query), then first-candidate (:300-303);
+- any exception returns the original plan (:74-78).
+Usage events are not ported.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from typing import List
 import numpy as np
 
 from ..engine.expr import BinaryOp, Col, IsIn, Lit
-from ..engine.logical import FilterNode, LogicalPlan, ProjectNode, ScanNode
+from ..engine.logical import FilterNode, LogicalPlan, ProjectNode, ScanNode, SourceRelation, UnionNode
 from ..engine.schema import BOOL, FLOAT64, INT32, INT64, STRING, Schema
 from ..engine.table import Column
 from ..index.log_entry import IndexLogEntry
@@ -72,10 +76,10 @@ class FilterIndexRule:
     def apply(self, plan: LogicalPlan, session) -> LogicalPlan:
         from ..hyperspace import _index_manager_for
 
-        session.hs_conf.refuse_hybrid_scan()
         try:
             index_manager = _index_manager_for(session)
             cs = session.hs_conf.case_sensitive
+            hybrid = session.hs_conf.hybrid_scan_enabled
 
             def rewrite(node: LogicalPlan) -> LogicalPlan:
                 m = _extract_filter_node(node)
@@ -87,7 +91,7 @@ class FilterIndexRule:
                 output_columns = project.column_names if project is not None else scan.output_schema.names
                 filter_columns = sorted(filt.condition.references())
                 usable = [
-                    c for c in get_candidate_indexes(index_manager, scan)
+                    c for c in get_candidate_indexes(index_manager, scan, hybrid)
                     if index_covers_plan(list(output_columns), filter_columns, c.entry, cs)
                 ]
                 if not usable:
@@ -99,9 +103,22 @@ class FilterIndexRule:
                     pruned_files = _bucket_pruned_files(best, filt.condition, cs)
                 index_child: LogicalPlan = ScanNode(_index_relation(best, files=pruned_files))
                 if chosen.deleted:
-                    # Prune the folded files' rows by lineage before the
-                    # projection drops the column.
+                    # Prune the folded or vanished files' rows by lineage
+                    # before the projection drops the column.
                     index_child = FilterNode(lineage_prune_condition(chosen.deleted), index_child)
+                if chosen.appended:
+                    # Hybrid Scan: the index data and the appended source
+                    # files, both projected to the columns the query needs so
+                    # that the union's schemas line up.
+                    needed = list(dict.fromkeys(list(output_columns) + filter_columns))
+                    rel = scan.relation
+                    appended = SourceRelation(
+                        root_paths=list(rel.root_paths), file_format=rel.file_format, schema=rel.schema,
+                        files=chosen.appended, options=dict(rel.options), partition_spec=rel.partition_spec,
+                    )
+                    index_child = UnionNode(
+                        [ProjectNode(needed, index_child), ProjectNode(needed, ScanNode(appended))]
+                    )
                 # Always project: the index stores its columns in
                 # indexed + included order, not the source's.
                 return ProjectNode(list(output_columns), FilterNode(filt.condition, index_child))
@@ -205,7 +222,7 @@ def _bucket_pruned_files(entry: IndexLogEntry, condition, case_sensitive: bool):
 
 
 def rank(candidates):
-    """FilterIndexRanker: the candidate with the fewest folded deletes (each
-    costs a lineage prune per query), then the first (reference ranking TODO
-    at :202-208)."""
-    return sorted(candidates, key=lambda c: len(c.deleted))[0]
+    """FilterIndexRanker: exact matches before Hybrid Scan ones, the least
+    source drift first (each appended file is read and each deleted one
+    pruned per query), then the first (reference ranking TODO at :202-208)."""
+    return sorted(candidates, key=lambda c: len(c.appended) + len(c.deleted))[0]

@@ -11,11 +11,17 @@ Parity: reference `index/rules/JoinIndexRule.scala:54-564`, via
   mapping, so bucket b of the left index holds exactly the keys bucket b of
   the right one holds;
 - the best-ranked pair substitutes both relations by bucketed index scans,
-  each under the lineage prune filter when its index has folded deletes
-  (:499-525); the filter keeps the buckets, so the join stays co-bucketed.
-Any exception returns the original plan, except a conf asking for Hybrid
-Scan, which raises. Star-join recognition (`HYPERSPACE_MULTIWAY`) is not
-ported yet.
+  each under the lineage prune filter when its index has folded deletes or,
+  under Hybrid Scan, vanished source files (:499-525); the filter keeps the
+  buckets, so the join stays co-bucketed;
+- Hybrid Scan (`hyperspace.index.hybridscan.enabled`): a side whose source
+  gained files since the index was built carries them on its relation
+  (`HybridAppend`, :469-490); the scan bucketizes their rows by the index's
+  own hash and merges them into its buckets, so the index data moves through
+  no exchange.
+Any exception returns the original plan. Star-join recognition
+(`HYPERSPACE_MULTIWAY`, with its Hybrid Scan branch :269-345) waits for
+`MultiwayJoinExec` (ROADMAP.md Queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from ..engine.expr import extract_equi_join_keys
 from ..engine.logical import (
     AggregateNode,
     FilterNode,
+    HybridAppend,
     JoinNode,
     LogicalPlan,
     OrderByNode,
@@ -118,14 +125,16 @@ def _compatible_pairs(l_candidates, r_candidates, l_to_r: Dict[str, str], cs: bo
 
 
 def rank_join_pairs(pairs):
-    """JoinIndexRanker: pairs with fewer folded deletes first (each costs a
-    lineage prune per query), then equal-bucket pairs, then higher bucket
-    counts (reference `rankers/JoinIndexRanker.scala:40-55`; JAX :135-160)."""
+    """JoinIndexRanker: exact-match pairs first (source drift, appended files
+    to merge and deleted ones to prune, costs work per query), then
+    equal-bucket pairs, then higher bucket counts (reference
+    `rankers/JoinIndexRanker.scala:40-55`; JAX :135-154)."""
 
     def key(p):
-        li, ri = p[0].entry, p[1].entry
+        lc, rc = p
+        li, ri = lc.entry, rc.entry
         return (
-            len(p[0].deleted) + len(p[1].deleted),
+            len(lc.appended) + len(rc.appended) + len(lc.deleted) + len(rc.deleted),
             0 if li.num_buckets == ri.num_buckets else 1,
             -(li.num_buckets + ri.num_buckets),
         )
@@ -139,10 +148,10 @@ class JoinIndexRule:
     def apply(self, plan: LogicalPlan, session) -> LogicalPlan:
         from ..hyperspace import _index_manager_for
 
-        session.hs_conf.refuse_hybrid_scan()
         try:
             index_manager = _index_manager_for(session)
             cs = session.hs_conf.case_sensitive
+            hybrid = session.hs_conf.hybrid_scan_enabled
             root_refs = set(_norm(plan.output_schema.names, cs) + _norm(_collect_expr_refs(plan), cs))
 
             def rewrite(node: LogicalPlan) -> LogicalPlan:
@@ -171,8 +180,10 @@ class JoinIndexRule:
                 # references + this join's keys (reference :407-418).
                 l_required = list(dict.fromkeys([n for n in lnames if _nkey(n, cs) in root_refs] + lkeys))
                 r_required = list(dict.fromkeys([n for n in rnames if _nkey(n, cs) in root_refs] + rkeys))
-                l_usable = _usable_indexes(get_candidate_indexes(index_manager, l_scan), lkeys, l_required, cs)
-                r_usable = _usable_indexes(get_candidate_indexes(index_manager, r_scan), rkeys, r_required, cs)
+                l_cands = get_candidate_indexes(index_manager, l_scan, hybrid)
+                r_cands = get_candidate_indexes(index_manager, r_scan, hybrid)
+                l_usable = _usable_indexes(l_cands, lkeys, l_required, cs)
+                r_usable = _usable_indexes(r_cands, rkeys, r_required, cs)
                 compatible = _compatible_pairs(l_usable, r_usable, l_to_r, cs)
                 if not compatible:
                     return node
@@ -180,6 +191,12 @@ class JoinIndexRule:
 
                 def substitute(side: LogicalPlan, scan: ScanNode, cand) -> LogicalPlan:
                     new_rel = _index_relation(cand.entry, with_bucket_spec=True)
+                    if cand.appended:
+                        rel = scan.relation
+                        new_rel.hybrid_append = HybridAppend(
+                            files=cand.appended, file_format=rel.file_format, schema=rel.schema,
+                            root_paths=list(rel.root_paths), partition_spec=rel.partition_spec,
+                        )
 
                     def replace(n: LogicalPlan) -> LogicalPlan:
                         if n is scan or (isinstance(n, ScanNode) and n.relation is scan.relation):

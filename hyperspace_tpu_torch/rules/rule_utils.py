@@ -5,9 +5,10 @@ signature provider recomputes the same signature on the query's relation
 (reference `RuleUtils.scala`); `_index_relation` (from the JAX package's
 `filter_index_rule.py` :312) builds the relation that substitutes an index
 for its source. Deletes that a refresh folded into the log entry ride every
-candidate, so the rules wrap its scan in `lineage_prune_condition`. Hybrid
-Scan is not ported: an index whose source drifted since its last refresh is
-not a candidate, and the conf asking for it raises.
+candidate, so the rules wrap its scan in `lineage_prune_condition`. With
+Hybrid Scan on, an index whose source drifted since its last refresh is a
+candidate too when the drift is recoverable (`hybrid_delta`): files appended
+since are merged in at query time, files that vanished are pruned by lineage.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from typing import Dict, List, Optional
 from ..actions import states
 from ..config import IndexConstants
 from ..engine.expr import Col, Expr, IsIn, Not
-from ..engine.logical import BucketSpec, LogicalPlan, SourceRelation
+from ..engine.logical import BucketSpec, LogicalPlan, ScanNode, SourceRelation
 from ..engine.schema import Schema
 from ..index import quarantine
 from ..index.log_entry import IndexLogEntry
@@ -26,11 +27,16 @@ from ..storage.filesystem import FileStatus
 
 
 class CandidateIndex:
-    """An applicable index (exact signature match) and the source files whose
-    rows it must prune by lineage at scan time (its folded deletes)."""
+    """An applicable index and the source-file delta since it was built
+    (`rule_utils.CandidateIndex` :175): the files appended (merged at
+    execution time) and the files whose rows it must prune by lineage at scan
+    time (vanished or folded). Both empty for an exact match with no folded
+    deletes."""
 
-    def __init__(self, entry: IndexLogEntry, deleted: Optional[List[str]] = None):
+    def __init__(self, entry: IndexLogEntry, appended: Optional[List[FileStatus]] = None,
+                 deleted: Optional[List[str]] = None):
         self.entry = entry
+        self.appended = appended or []
         self.deleted = deleted or []
 
 
@@ -41,12 +47,46 @@ def _hash_scheme_compatible(entry: IndexLogEntry) -> bool:
     return props.get(IndexConstants.HASH_SCHEME_KEY) in (None, IndexConstants.HASH_SCHEME_VERSION)
 
 
-def get_candidate_indexes(index_manager, plan: LogicalPlan) -> List[CandidateIndex]:
+def hybrid_delta(entry: IndexLogEntry, plan: LogicalPlan):
+    """(appended files, deleted paths) between the index's recorded source
+    inventory and the relation's current one, or None when Hybrid Scan cannot
+    answer from the index (JAX :54-92): a recorded file changed in place
+    (same path, other size or mtime) mixes old rows with new ones; a vanished
+    file is tolerable only when the index carries lineage, whose column lets
+    the scan prune its rows. None too when nothing drifted."""
+    if not isinstance(plan, ScanNode):
+        return None
+    recorded = {(f.name, f.size, f.modified_time) for r in entry.relations for f in r.data.file_infos()}
+    current = plan.relation.files
+    current_keys = {(f.path, f.size, f.modified_time) for f in current}
+    current_paths = {f.path for f in current}
+    deleted: List[str] = []
+    for name, size, mtime in recorded:
+        if (name, size, mtime) in current_keys:
+            continue
+        if name in current_paths:
+            return None  # changed in place: its rows are not separable
+        deleted.append(name)
+    if deleted and not entry.has_lineage():
+        return None
+    appended = [f for f in current if (f.path, f.size, f.modified_time) not in recorded]
+    if not appended and not deleted:
+        return None
+    return appended, sorted(deleted)
+
+
+def get_candidate_indexes(index_manager, plan: LogicalPlan, hybrid_scan: bool = False) -> List[CandidateIndex]:
     """ACTIVE covering indexes applicable to `plan` (a relation node), less
-    the quarantined ones (`index/quarantine.py`). The deletes a refresh folded
-    (`entry.deleted_source_files()`) ride every candidate, exact matches
-    included: the signature covers the source after the delete, but the
-    index data holds those rows until a full rewrite (JAX :38-44)."""
+    the quarantined ones (`index/quarantine.py`) and those bucketed under
+    another hash scheme. Exact applicability: the recorded signature provider
+    recomputes the same signature. With `hybrid_scan`, an index whose
+    inventory drifted recoverably (`hybrid_delta`) is a candidate as well.
+    The deletes a refresh folded (`entry.deleted_source_files()`) ride every
+    candidate, exact matches included: the signature covers the source after
+    the delete, but the index data holds those rows until a full rewrite or
+    a compaction (JAX :20-127). The JAX package also sets a per-index
+    staleness gauge here (`_update_staleness`); it waits for the port's
+    telemetry (ROADMAP.md Queue 1, item 12)."""
     signature_map: Dict[str, Optional[str]] = {}
 
     def signature_valid(entry: IndexLogEntry) -> bool:
@@ -56,12 +96,20 @@ def get_candidate_indexes(index_manager, plan: LogicalPlan) -> List[CandidateInd
         computed = signature_map[sig.provider]
         return computed is not None and computed == sig.value
 
-    return [
-        CandidateIndex(e, e.deleted_source_files())
-        for e in index_manager.get_indexes([states.ACTIVE])
-        if e.kind == "CoveringIndex" and e.created and not quarantine.is_quarantined(e.name)
-        and _hash_scheme_compatible(e) and signature_valid(e)
-    ]
+    out: List[CandidateIndex] = []
+    for e in index_manager.get_indexes([states.ACTIVE]):
+        if e.kind != "CoveringIndex" or not e.created or quarantine.is_quarantined(e.name):
+            continue
+        if not _hash_scheme_compatible(e):
+            continue
+        folded = e.deleted_source_files()
+        if signature_valid(e):
+            out.append(CandidateIndex(e, [], folded))
+        elif hybrid_scan:
+            delta = hybrid_delta(e, plan)
+            if delta is not None:
+                out.append(CandidateIndex(e, delta[0], sorted(set(delta[1]) | set(folded))))
+    return out
 
 
 def lineage_prune_condition(deleted: List[str]) -> Expr:

@@ -8,7 +8,7 @@
 (c) A session built without `device=` asks for CUDA; with no card it raises
     instead of running on the CPU.
 (d) Features outside the slice raise NotImplementedError naming the feature
-    (Hybrid Scan asked for in the conf, and `optimize_index`, among them).
+    (CSV, JSON, ORC and delta sources among them).
 (e) A join type neither package knows raises HyperspaceException in both.
 """
 
@@ -129,16 +129,9 @@ def session(tmp_path):
 CUT_OUTS = {
     "csv sources": lambda s, l, r: s.read.csv(s.warehouse),
     "json sources": lambda s, l, r: s.read.json(s.warehouse),
-    "hybrid scan": lambda s, l, r: _hybrid_scan_query(s, l),
-    "optimize": lambda s, l, r: hst.Hyperspace(s).optimize_index("li"),
+    "orc sources": lambda s, l, r: s.read.orc(s.warehouse),
+    "delta sources": lambda s, l, r: s.read.delta(s.warehouse),
 }
-
-
-def _hybrid_scan_query(s, l):
-    """A query with Hybrid Scan asked for: refused, never silently ignored."""
-    s.conf.set(hst.IndexConstants.INDEX_HYBRID_SCAN_ENABLED, "true")
-    hst.enable_hyperspace(s)
-    return l.filter(hst.col("a") == 1).collect()
 
 
 @pytest.mark.parametrize("feature", sorted(CUT_OUTS))

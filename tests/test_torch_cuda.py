@@ -625,3 +625,63 @@ def test_the_general_count_on_the_card_equals_the_cpu(cuda_device, case, how):
         ctx = ExecContext(None)
         counts[dev] = (join._general_count_fast(ctx), join.execute(ctx).num_rows)
     assert counts["cuda"] == counts["cpu"] and counts["cpu"][0] == counts["cpu"][1]
+
+
+@pytest.mark.cuda
+def test_hybrid_scan_and_compaction_on_the_card_equal_the_cpu(cuda_device, tmp_path):
+    """A float key with NaN and signed zeros, lineage on: a file appended with
+    no refresh is merged into the index's buckets (Hybrid Scan, hash mode: K1
+    and K2 on the card), then two incremental refreshes (an append, a delete)
+    and `optimize_index`. The card's rows, in order, and its compacted files
+    (sha256) equal the CPU's."""
+    import hashlib
+    import os
+
+    import hyperspace_tpu_torch as hst
+    from hyperspace_tpu_torch.engine import io as torch_io
+    from hyperspace_tpu_torch.engine.table import Table
+
+    rng = np.random.RandomState(5)
+    src, r = str(tmp_path / "l"), str(tmp_path / "r")
+    pool = np.array([np.nan, -0.0, 0.0, 1.5, -2.25, 3.0, np.inf] + list(np.arange(40.0)))
+
+    def write(path, n):
+        torch_io.write_parquet(Table.from_pydict({"k": pool[rng.randint(0, len(pool), n)], "x": rng.rand(n)}, "cpu"),
+                               path)
+
+    for i in range(3):
+        write(os.path.join(src, f"part-{i:05d}.parquet"), 3000)
+    torch_io.write_parquet(Table.from_pydict({"k2": pool.copy(), "w": rng.rand(len(pool))}, "cpu"),
+                           os.path.join(r, "part-00000.parquet"))
+    sessions = {}
+    for dev in ("cpu", "cuda"):
+        s = hst.HyperspaceSession(warehouse=str(tmp_path / dev), device=dev)
+        s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, 8)
+        s.conf.set(hst.IndexConstants.INDEX_LINEAGE_ENABLED, "true")
+        s.conf.set(hst.IndexConstants.INDEX_HYBRID_SCAN_ENABLED, "true")
+        hs = hst.Hyperspace(s)
+        hs.create_index(s.read.parquet(src), hst.IndexConfig("li", ["k"], ["x"]))
+        hs.create_index(s.read.parquet(r), hst.IndexConfig("ri", ["k2"], ["w"]))
+        hst.enable_hyperspace(s)
+        sessions[dev] = (s, hs)
+    write(os.path.join(src, "part-00003.parquet"), 700)
+    out, shas = {}, {}
+    for dev, (s, hs) in sessions.items():
+        q = s.read.parquet(src).join(s.read.parquet(r), hst.col("k") == hst.col("k2")).select("k", "x", "w")
+        assert "(+1 appended)" in q.explain_string()
+        k1, k2 = cuda_sort.launches, cuda_probe.launches
+        out[dev] = q.collect()
+        assert q.count() == out[dev].num_rows
+        if dev == "cuda":
+            assert cuda_sort.launches > k1 and cuda_probe.launches > k2
+    for n in ("k", "x", "w"):
+        assert torch.equal(out["cuda"].column(n).data.cpu(), out["cpu"].column(n).data), n
+    write(os.path.join(src, "part-00004.parquet"), 500)
+    os.remove(os.path.join(src, "part-00001.parquet"))
+    for dev, (s, hs) in sessions.items():
+        hs.refresh_index("li", "incremental")
+        hs.optimize_index("li")
+        e = next(e for e in hs._manager.get_indexes() if e.name == "li")
+        assert not e.deleted_source_files()
+        shas[dev] = {os.path.basename(p): hashlib.sha256(open(p, "rb").read()).hexdigest() for p in e.content.files()}
+    assert shas["cuda"] == shas["cpu"] and len(shas["cpu"]) == 8

@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases env,q3
     python3 chip_smoke.py --phases env,refresh
     python3 chip_smoke.py --phases env,q13
+    python3 chip_smoke.py --phases env,skipping,delta
 
 Phases, each failing loudly:
 
@@ -112,13 +113,48 @@ Phases, each failing loudly:
              and a full outer join of o_custkey with 1% nulls (ordNullQ13,
              hash mode: K1 then K2) with customer, each against numpy as a
              multiset, count() equal to the collected rows.
-9. identity  the join, aggregate, Q3 (general joins, every group), Q13
+9. skipping  BASELINE config 4 in a directory of its own: TPC-DS SF1's
+             store_sales row count (2,880,404) made with numpy from --seed
+             as 60 monthly files of 8,192-row row groups (`phase_skipping`
+             lists the generator's simplifications); ssSkip, a row-group
+             MinMax on ss_sold_date_sk and a 65,536-bit, 5-hash bloom on
+             ss_ticket_number. One day and one quarter grouped by store
+             (sum of ss_net_paid, count), one ticket, 20 tickets by IN and an
+             absent ticket, indexed and disabled, each against numpy with the
+             files kept of 60 (the day 1, the quarter 3, the absent ticket
+             0, every indexed query below 60); then a 61st month appended
+             (no pruning without Hybrid Scan, the 60 sketched files pruned
+             with it), an incremental refresh (all 61 pruned) and a month
+             deleted with no lineage under Hybrid Scan (still pruned).
+             Prints the sketch build and the rule's seconds (cold: the first
+             query reads the sketch file; warm) and cold, uncached p50 of 3
+             and cached p50 of 3 of each query.
+10. delta    BASELINE config 5's source in a directory of its own: lineitem
+             as a Delta table of 8 commits (file 3 held back, as phase
+             refresh splits it), orders as one file; liD (lineitem
+             [l_orderkey] with l_extendedprice, l_discount; lineage on) and
+             ordD (orders [o_orderkey] with o_custkey); q_ord's join, count
+             and collect at each step against a numpy join of the ACTIVE
+             snapshot: (a) fresh, value mode (K2); (b) file 3 committed, no
+             refresh: the general join, then Hybrid Scan's hash mode (K1,
+             K2); (c) incremental, hash mode; (d) a `remove` commit of file
+             0 with its parquet file left on disk, then auto:
+             `deletedSourceFiles` = [file 0]; (e) `optimize_index`, its
+             sha256 set equal to a from-scratch `create_index` over the same
+             snapshot in a second warehouse, value mode; (f) a MinMax
+             data-skipping index on l_orderkey: a key range inside file 5
+             keeps file 5 only, one inside the removed file 0 keeps none;
+             (g) an overwrite commit and a full refresh, value mode. Prints
+             each refresh's and the compaction's seconds, the join's mode
+             and cold, uncached p50 of 3 and cached p50 of 3 of each step.
+11. identity the join, aggregate, Q3 (general joins, every group), Q13
              (indexed and disabled) and string slices at SF 0.05 with
              device="cpu" and device="cuda": identical index files,
              identical rows in order (sums at rtol 1e-9).
 
 Kernel launches are counted from 0 at the start of each phase that drives
-the engine (main, q3, strings, packed, refresh, q13) and summed over them. Prints one JSON
+the engine (main, q3, strings, packed, refresh, q13, skipping, delta) and
+summed over them. Prints one JSON
 line of per-kernel results, the card's `nvidia-smi` line,
 and last `{"ok": true, "device": {...}}`. Exits non-zero without a result
 when no CUDA device is visible or the package is missing.
@@ -1102,6 +1138,13 @@ def stage_breakdown(torch, df) -> dict:
     t["mode"] = plan.mode
     t["classes"] = [[int(len(seg.ids)), seg.l.cap, seg.r.cap] for seg in plan.segments]
     t["outlier_buckets"] = int(len(plan.outlier_ids))
+    t.update(device_busy(df))
+    return t
+
+
+def device_busy(df) -> dict:
+    """The device's busy seconds (`torch.profiler` device self time) and
+    busy share of one uncached `collect()` of `df`."""
     from torch.profiler import ProfilerActivity, profile
 
     clear_caches()
@@ -1110,10 +1153,8 @@ def stage_breakdown(torch, df) -> dict:
     device_us = sum(
         getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) for e in prof.key_averages()
     )
-    t["profiled_collect_s"] = wall_s
-    t["device_busy_s"] = device_us / 1e6
-    t["device_busy_share"] = device_us / 1e6 / wall_s if device_us else None
-    return t
+    return {"profiled_collect_s": wall_s, "device_busy_s": device_us / 1e6,
+            "device_busy_share": device_us / 1e6 / wall_s if device_us else None}
 
 
 def layout_split(layout) -> dict:
@@ -2034,6 +2075,40 @@ def version_dirs(entry) -> list:
     return sorted({p.split("v__=")[1].split(os.sep)[0] for p in entry.content.files()})
 
 
+def measure_join(torch, phase: str, label: str, df, check, mode: str, files: dict) -> dict:
+    """One step of a live-table phase: q_ord's count and collect, cold,
+    uncached p50 of 3 and cached p50 of 3, each output checked (`check(out,
+    n)`); the join must run in `mode` over `files` index files a side, with
+    K1 in hash mode only and K2 in either co-bucketed mode. Logs the step
+    and, for a co-bucketed join, an uncached collect's stage breakdown."""
+    from hyperspace_tpu_torch.ops import cuda_probe, cuda_sort
+
+    k1, k2 = cuda_sort.launches, cuda_probe.launches
+    clear_caches()
+    n, t_count = wall(df.count)
+    clear_caches()
+    out, t_cold = wall(df.collect)
+    check(out, n)
+    got_mode, got_files = join_mode(df), index_files_per_side(df)
+    if got_mode != mode or got_files != files:
+        raise AssertionError(f"{phase} {label}: join {got_mode} over {got_files}, want {mode} over {files}:\n"
+                             f"{df.explain_string()}")
+    t = {"rows": n, "mode": got_mode, "index_files": got_files, "count_cold_s": t_count, "collect_cold_s": t_cold}
+    _, t["uncached_p50_s"] = run_p50(df.collect, 3, uncached=True)
+    out, t["cached_p50_s"] = run_p50(df.collect, 3, uncached=False)
+    check(out)
+    t["k1_launches"], t["k2_launches"] = cuda_sort.launches - k1, cuda_probe.launches - k2
+    if (mode == "hash" and not t["k1_launches"]) or (mode != "general" and not t["k2_launches"]):
+        raise AssertionError(f"{phase} {label}: kernels not launched ({t})")
+    if mode == "value" and t["k1_launches"]:
+        raise AssertionError(f"{phase} {label}: K1 launched in value mode ({t})")
+    log(f"[{phase}] {label} {json.dumps(t)}")
+    if mode != "general":
+        clear_caches()
+        log(f"[{phase}] {label} uncached collect breakdown {json.dumps(stage_breakdown(torch, df))}")
+    return t
+
+
 def phase_refresh(torch, data, base: str):
     """Steps (a)-(f): fresh, appended and unrefreshed, incremental, deletes
     folded by auto, full, then delete / restore / cancel / vacuum; each
@@ -2083,32 +2158,8 @@ def phase_refresh(torch, data, base: str):
     steps = {}
 
     def measure(label, present, mode, files):
-        df = query()
-        k1, k2 = cuda_sort.launches, cuda_probe.launches
-        clear_caches()
-        n, t_count = wall(df.count)
-        clear_caches()
-        out, t_cold = wall(df.collect)
-        check(label, present, out, n)
-        got_mode, got_files = join_mode(df), index_files_per_side(df)
-        if got_mode != mode or got_files != files:
-            raise AssertionError(f"refresh {label}: join {got_mode} over {got_files}, want {mode} over {files}:\n"
-                                 f"{df.explain_string()}")
-        t = {"rows": n, "mode": got_mode, "index_files": got_files, "count_cold_s": t_count,
-             "collect_cold_s": t_cold}
-        _, t["uncached_p50_s"] = run_p50(df.collect, 3, uncached=True)
-        out, t["cached_p50_s"] = run_p50(df.collect, 3, uncached=False)
-        check(label, present, out)
-        t["k1_launches"], t["k2_launches"] = cuda_sort.launches - k1, cuda_probe.launches - k2
-        if (mode == "hash" and not t["k1_launches"]) or (mode != "general" and not t["k2_launches"]):
-            raise AssertionError(f"refresh {label}: kernels not launched ({t})")
-        if mode == "value" and t["k1_launches"]:
-            raise AssertionError(f"refresh {label}: K1 launched in value mode ({t})")
-        steps[label] = t
-        log(f"[refresh] {label} {json.dumps(t)}")
-        if mode != "general":
-            clear_caches()
-            log(f"[refresh] {label} uncached collect breakdown {json.dumps(stage_breakdown(torch, df))}")
+        steps[label] = measure_join(torch, "refresh", label, query(),
+                                    lambda out, n=None: check(label, present, out, n), mode, files)
 
     present = set(range(REFRESH_FILES)) - {HELD_BACK}
     one_version = {"liR": NUM_BUCKETS, "ordR": NUM_BUCKETS}
@@ -2312,6 +2363,381 @@ def hybrid_lookup(s, data, src: str, bounds, present, steps: dict) -> None:
     log(f"[refresh] b_h_lookup {json.dumps(t)}")
 
 
+# ---------------------------------------------------------------------------
+# Phase skipping: a data-skipping index over TPC-DS store_sales (BASELINE config 4)
+# ---------------------------------------------------------------------------
+
+SS_ROWS = 2_880_404  # TPC-DS SF1 store_sales
+SS_FIRST_DATE_SK = 2450816  # d_date_sk of 1998-01-02
+SS_FIRST_DAY, SS_LAST_DAY = days("1998-01-02"), days("2002-12-31")
+SS_FILES = 60  # one a month
+SS_ROW_GROUP_ROWS = 8192
+SS_TICKET_COLUMNS = ["ss_ticket_number", "ss_item_sk", "ss_net_paid"]
+
+
+def date_sk(date: str) -> int:
+    return SS_FIRST_DATE_SK + days(date) - SS_FIRST_DAY
+
+
+def store_sales(rng, first_day: int, last_day: int, rows: int, ticket_base: int = 0):
+    """`rows` store_sales rows of the days [first_day, last_day] in date
+    order, and each row's month (0 = 1998-01). A ticket holds 8-16 rows (the
+    last one the remainder) of one date, store and customer; its number is a
+    random permutation over the tickets, unrelated to its date."""
+    sizes = rng.randint(8, 17, rows // 8 + 1)
+    n_t = int(np.searchsorted(np.cumsum(sizes), rows)) + 1
+    sizes = sizes[:n_t]
+    sizes[-1] -= int(sizes.sum()) - rows
+    t_day = np.sort(rng.randint(first_day, last_day + 1, n_t))
+    t_number = ticket_base + rng.permutation(n_t).astype(np.int64) + 1
+    t_store = rng.randint(1, 13, n_t).astype(np.int64)
+    t_cust = rng.randint(1, 100_001, n_t).astype(np.int64)
+    day = np.repeat(t_day, sizes).astype(np.int64)
+    quantity = rng.randint(1, 101, rows).astype(np.int64)
+    price = rng.randint(100, 20_001, rows).astype(np.float64)  # cents
+    discount = rng.randint(0, 31, rows)  # percent
+    cols = {
+        "ss_sold_date_sk": SS_FIRST_DATE_SK + day - SS_FIRST_DAY,
+        "ss_ticket_number": np.repeat(t_number, sizes),
+        "ss_item_sk": rng.randint(1, 18_001, rows).astype(np.int64),
+        "ss_customer_sk": np.repeat(t_cust, sizes),
+        "ss_store_sk": np.repeat(t_store, sizes),
+        "ss_quantity": quantity,
+        "ss_sales_price": price,
+        "ss_net_paid": np.round(quantity * price * (100 - discount) / 100),
+    }
+    month = day.astype("datetime64[D]").astype("datetime64[M]").astype(np.int64)
+    return cols, month - np.datetime64("1998-01", "M").astype(np.int64)
+
+
+def skip_queries(hst, cols, rng) -> dict:
+    """name → (build(df), row mask of the table's columns, result shape, files
+    the indexed scan must keep: an int, or (at least, below) for a bloom)."""
+    c = hst.col
+    day, new_day = date_sk("2000-06-15"), date_sk("2003-01-15")
+    lo, hi = date_sk("2001-07-01"), date_sk("2001-09-30")
+    tickets = cols["ss_ticket_number"]
+    one = int(tickets[len(tickets) // 3])
+    some = sorted({int(t) for t in tickets[rng.choice(len(tickets), 20, replace=False)]})
+
+    def by_store(df):
+        return df.group_by("ss_store_sk").agg(net_paid=("ss_net_paid", "sum"), sales=("*", "count"))
+
+    def ticket_rows(df):
+        return df.select(*SS_TICKET_COLUMNS)
+
+    d = "ss_sold_date_sk"
+    return {
+        "day": (lambda df: by_store(df.filter(c(d) == day)), lambda t: t[d] == day, "by_store", 1),
+        "quarter": (lambda df: by_store(df.filter((c(d) >= lo) & (c(d) <= hi))),
+                    lambda t: (t[d] >= lo) & (t[d] <= hi), "by_store", 3),
+        "ticket": (lambda df: ticket_rows(df.filter(c("ss_ticket_number") == one)),
+                   lambda t: t["ss_ticket_number"] == one, "rows", (1, SS_FILES)),
+        "tickets_in_20": (lambda df: ticket_rows(df.filter(c("ss_ticket_number").isin(*some))),
+                          lambda t: np.isin(t["ss_ticket_number"], some), "rows", (1, SS_FILES)),
+        "absent_ticket": (lambda df: ticket_rows(df.filter(c("ss_ticket_number") == 0)),
+                          lambda t: t["ss_ticket_number"] == 0, "rows", 0),
+        "new_month_day": (lambda df: by_store(df.filter(c(d) == new_day)), lambda t: t[d] == new_day, "by_store",
+                          None),
+    }
+
+
+def check_skip(label: str, out, want_cols: dict, shape: str) -> None:
+    """`out` against numpy over the selected rows: a group-by on ss_store_sk
+    (keys and counts exact, sums at rtol 1e-9) or the ticket rows as a
+    multiset."""
+    got = out.to_numpy()
+    if shape == "rows":
+        if not same_multiset(got, canonical({n: want_cols[n] for n in SS_TICKET_COLUMNS})):
+            raise AssertionError(f"skipping {label}: rows differ from the numpy filter")
+        return
+    keys, inv = np.unique(want_cols["ss_store_sk"], return_inverse=True)
+    order = np.argsort(got["ss_store_sk"], kind="stable")
+    if not (np.array_equal(got["ss_store_sk"][order], keys)
+            and np.array_equal(got["sales"][order], np.bincount(inv))
+            and np.allclose(got["net_paid"][order], np.bincount(inv, weights=want_cols["ss_net_paid"]),
+                            rtol=1e-9, atol=0)):
+        raise AssertionError(f"skipping {label}: the group-by differs from numpy's")
+
+
+def scan_relation(df):
+    """The one source scan of `df`'s optimized plan (the rule runs here)."""
+    from hyperspace_tpu_torch.engine.logical import ScanNode
+
+    (scan,) = [n for n in df.optimized_plan().collect_nodes() if isinstance(n, ScanNode)]
+    return scan.relation
+
+
+def phase_skipping(torch, base: str, seed: int):
+    """BASELINE config 4: a data-skipping index over store_sales.
+
+    The table is TPC-DS SF1's store_sales row count (2,880,404) made with
+    numpy from `seed`, written as 60 monthly files (1998-01 to 2002-12, a
+    lake loaded once a month) of 8,192-row row groups, rows in date order.
+    Simplifications of the TPC-DS generator: dates uniform over
+    1998-01-02..2002-12-31 (no seasonal weights); tickets of 8-16 rows of one
+    date, store and customer, numbered by a random permutation (so only a
+    bloom finds a ticket's file); item, quantity, price (cents) and discount
+    uniform and independent; net paid = quantity * price * (1 - discount),
+    rounded to cents; the other 14 columns and every dimension table left
+    out. ssSkip holds a row-group MinMax on ss_sold_date_sk and a bloom of
+    65,536 bits and 5 hashes on ss_ticket_number. Each query runs indexed and
+    disabled against numpy, then the mutations: a 61st month appended (no
+    pruning without Hybrid Scan, the 60 sketched files pruned with it), an
+    incremental refresh (all 61 sketched) and a file deleted with no lineage
+    under Hybrid Scan (still pruning)."""
+    import hyperspace_tpu_torch as hst
+    from hyperspace_tpu_torch.engine import io as engine_io
+    from hyperspace_tpu_torch.index.dataskipping import BloomFilterSketch, DataSkippingIndexConfig, MinMaxSketch
+    from hyperspace_tpu_torch.ops import cuda_probe, cuda_sort
+
+    rng = np.random.RandomState(seed + 12)
+    t0 = time.perf_counter()
+    cols, month = store_sales(rng, SS_FIRST_DAY, SS_LAST_DAY, SS_ROWS)
+    extra, _ = store_sales(rng, days("2003-01-01"), days("2003-01-31"), SS_ROWS // SS_FILES,
+                           ticket_base=int(cols["ss_ticket_number"].max()))
+    table = {n: np.concatenate([cols[n], extra[n]]) for n in cols}
+    bounds = np.append(np.searchsorted(month, np.arange(SS_FILES + 1)), len(table["ss_store_sk"]))
+    root = os.path.join(base, "skipping")
+    src = os.path.join(root, "store_sales")
+
+    def path(i):
+        return os.path.join(src, f"part-{i:05d}.parquet")
+
+    def write_month(i):
+        engine_io.write_parquet(source_table({n: v[bounds[i]:bounds[i + 1]] for n, v in table.items()}), path(i),
+                                SS_ROW_GROUP_ROWS)
+
+    for i in range(SS_FILES):
+        write_month(i)
+    present = set(range(SS_FILES))
+    log(f"[skipping] store_sales {SS_ROWS} rows in {SS_FILES} monthly files, "
+        f"{len(np.unique(cols['ss_ticket_number']))} tickets (made and written in {time.perf_counter() - t0:.2f} s)")
+    cuda_sort.launches = 0
+    cuda_probe.launches = 0
+    s = hst.HyperspaceSession(warehouse=root, device=DEVICE)
+    hs = hst.Hyperspace(s)
+    config = DataSkippingIndexConfig("ssSkip", [MinMaxSketch("ss_sold_date_sk", "rowgroup"),
+                                                BloomFilterSketch("ss_ticket_number", 65536, 5)])
+    _, build_s = wall(lambda: hs.create_index(s.read.parquet(src), config))
+    hst.enable_hyperspace(s)
+    queries = skip_queries(hst, cols, rng)
+    steps = {}
+
+    def run(label, name, files=None, index=True):
+        """One query: kept files, then cold, uncached p50 of 3 and cached p50
+        of 3, each output and count() against numpy over the files present."""
+        build, mask, shape, want_files = queries[name]
+        rows = np.concatenate([np.arange(bounds[i], bounds[i + 1]) for i in sorted(present)])
+        sel = rows[mask({n: v[rows] for n, v in table.items()})]
+        want = {n: v[sel] for n, v in table.items()}
+        df = build(s.read.parquet(src))
+        rel, t_plan = wall(lambda: scan_relation(df))
+        kept = len(rel.files)
+        want_files = files if files is not None else want_files if index else len(present)
+        ok = kept == want_files if isinstance(want_files, int) else want_files[0] <= kept < want_files[1]
+        if not ok or (index and kept >= len(present) and files is None):
+            raise AssertionError(f"skipping {label}: {kept} of {len(present)} files kept, want {want_files}:\n"
+                                 f"{df.explain_string()}")
+        clear_caches()
+        out, t_cold = wall(df.collect)
+        check_skip(label, out, want, shape)
+        t = {"files_kept": kept, "files": len(present), "pruned_by": rel.pruned_by, "rows": len(sel),
+             "plan_s": t_plan, "collect_cold_s": t_cold}
+        _, t["uncached_p50_s"] = run_p50(df.collect, 3, uncached=True)
+        out, t["cached_p50_s"] = run_p50(df.collect, 3, uncached=False)
+        check_skip(label, out, want, shape)
+        n = df.count()
+        if n != out.num_rows:
+            raise AssertionError(f"skipping {label}: count() {n} != {out.num_rows} rows")
+        t.update(device_busy(df))
+        steps[label] = t
+        log(f"[skipping] {label} {json.dumps(t)}")
+
+    first = queries["day"][0](s.read.parquet(src))
+    _, rule_cold = wall(lambda: scan_relation(first))  # reads the sketch file
+    _, rule_warm = wall(lambda: scan_relation(first))
+    log(f"[skipping] sketch build {build_s:.4f} s; rule cold {rule_cold:.4f} s, warm {rule_warm:.4f} s")
+    names = [n for n in queries if n != "new_month_day"]
+    for name in names:
+        run(f"{name}_indexed", name)
+    hst.disable_hyperspace(s)
+    for name in names:
+        run(f"{name}_disabled", name, index=False)
+    hst.enable_hyperspace(s)
+
+    write_month(SS_FILES)
+    present.add(SS_FILES)
+    run("m1_appended_no_hybrid_day", "day", files=SS_FILES + 1)
+    s.conf.set(hst.IndexConstants.INDEX_HYBRID_SCAN_ENABLED, "true")
+    run("m1_appended_hybrid_day", "day", files=2)
+    run("m1_appended_hybrid_new_month_day", "new_month_day", files=1)
+    s.conf.set(hst.IndexConstants.INDEX_HYBRID_SCAN_ENABLED, "false")
+    _, refresh_s = wall(lambda: hs.refresh_index("ssSkip", "incremental"))
+    run("m2_incremental_day", "day", files=1)
+    run("m2_incremental_new_month_day", "new_month_day", files=1)
+    august = (2001 - 1998) * 12 + 7  # 2001-08, inside the quarter
+    os.remove(path(august))
+    present.discard(august)
+    s.conf.set(hst.IndexConstants.INDEX_HYBRID_SCAN_ENABLED, "true")
+    run("m3_deleted_hybrid_quarter", "quarter", files=2)
+    run("m3_deleted_hybrid_day", "day", files=1)
+    seconds = {"sketch_build_s": build_s, "rule_cold_s": rule_cold, "rule_warm_s": rule_warm,
+               "incremental_refresh_s": refresh_s}
+    launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches}
+    log(f"[skipping] seconds {json.dumps(seconds)}; every query equals numpy; launches {json.dumps(launches)}")
+    return launches, seconds, steps
+
+
+# ---------------------------------------------------------------------------
+# Phase delta: the live-table steps over a Delta table (BASELINE config 5)
+# ---------------------------------------------------------------------------
+
+
+def lineitem_table(data, rows):
+    """A host table of lineitem's rows `rows` (an index array)."""
+    return source_table({n: ((v[0], v[1][rows]) if isinstance(v, tuple) else v[rows])
+                         for n, v in data["lineitem"].items()})
+
+
+def phase_delta(torch, data, base: str):
+    """Steps (a)-(g) over lineitem as a Delta table of 8 commits (file 3
+    held back, as phase refresh splits it); orders as one parquet file; each
+    step's join against numpy over the snapshot's rows."""
+    import hyperspace_tpu_torch as hst
+    from hyperspace_tpu_torch.engine import io as engine_io
+    from hyperspace_tpu_torch.engine.logical import ScanNode
+    from hyperspace_tpu_torch.index.dataskipping import DataSkippingIndexConfig, MinMaxSketch
+    from hyperspace_tpu_torch.ops import cuda_probe, cuda_sort
+    from hyperspace_tpu_torch.storage import delta as delta_log
+
+    root = os.path.join(base, "delta")
+    table, orders = os.path.join(root, "lineitem"), os.path.join(root, "orders")
+    bounds = refresh_bounds(data)
+    cuda_sort.launches = 0
+    cuda_probe.launches = 0
+    s = hst.HyperspaceSession(warehouse=root, device=DEVICE)
+    s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, NUM_BUCKETS)
+    s.conf.set(hst.IndexConstants.INDEX_LINEAGE_ENABLED, "true")
+    commit_file = {}
+
+    def commit(i):
+        before = {f.path for f in delta_log.active_files(table)} if delta_log.is_delta_table(table) else set()
+        s.write_delta(lineitem_table(data, np.arange(bounds[i], bounds[i + 1])), table)
+        (commit_file[i],) = {f.path for f in delta_log.active_files(table)} - before
+
+    t0 = time.perf_counter()
+    for i in range(REFRESH_FILES):
+        if i != HELD_BACK:
+            commit(i)
+    engine_io.write_parquet(source_table(data["orders"]), os.path.join(orders, "part-00000.parquet"))
+    log(f"[delta] lineitem as {REFRESH_FILES - 1} commits, orders as one file "
+        f"(written in {time.perf_counter() - t0:.2f} s)")
+    hs = hst.Hyperspace(s)
+    seconds = {}
+    _, seconds["create_liD"] = wall(lambda: hs.create_index(
+        s.read.delta(table), hst.IndexConfig("liD", ["l_orderkey"], ["l_extendedprice", "l_discount"])))
+    _, seconds["create_ordD"] = wall(lambda: hs.create_index(
+        s.read.parquet(orders), hst.IndexConfig("ordD", ["o_orderkey"], ["o_custkey"])))
+    hst.enable_hyperspace(s)
+
+    def query():
+        return s.read.delta(table).join(s.read.parquet(orders), hst.col("l_orderkey") == hst.col("o_orderkey")).select(
+            "l_extendedprice", "o_custkey")
+
+    def entry(name="liD"):
+        return next(e for e in hs._manager.get_indexes() if e.name == name)
+
+    steps = {}
+    present = set(range(REFRESH_FILES)) - {HELD_BACK}
+
+    def measure(label, mode, files):
+        want = expected_q_ord(data, bounds, present)
+
+        def check(out, n=None):
+            if n is not None and n != len(want["o_custkey"]):
+                raise AssertionError(f"delta {label}: count {n} != numpy join {len(want['o_custkey'])}")
+            if not same_multiset(out.to_numpy(), want):
+                raise AssertionError(f"delta {label}: collected rows differ from the numpy join")
+
+        steps[label] = measure_join(torch, "delta", label, query(), check, mode, files)
+
+    one_version = {"liD": NUM_BUCKETS, "ordD": NUM_BUCKETS}
+    measure("a_fresh", "value", one_version)
+    commit(HELD_BACK)
+    present.add(HELD_BACK)
+    measure("b_appended_unrefreshed", "general", {})
+    s.conf.set(hst.IndexConstants.INDEX_HYBRID_SCAN_ENABLED, "true")
+    measure("b_h_hybrid", "hash", one_version)
+    s.conf.set(hst.IndexConstants.INDEX_HYBRID_SCAN_ENABLED, "false")
+    _, seconds["incremental"] = wall(lambda: hs.refresh_index("liD", "incremental"))
+    if version_dirs(entry()) != ["0", "1"]:
+        raise AssertionError(f"delta incremental: version directories {version_dirs(entry())}")
+    measure("c_incremental", "hash", {"liD": 2 * NUM_BUCKETS, "ordD": NUM_BUCKETS})
+
+    delta_log.remove_file(table, os.path.relpath(commit_file[0], table))
+    present.discard(0)
+    if not os.path.exists(commit_file[0]) or commit_file[0] in [f.path for f in delta_log.active_files(table)]:
+        raise AssertionError("delta remove: the file must stay on disk and leave the snapshot")
+    _, seconds["removed_auto"] = wall(lambda: hs.refresh_index("liD", "auto"))
+    if entry().deleted_source_files() != [commit_file[0]]:
+        raise AssertionError(f"delta auto: deletedSourceFiles {entry().deleted_source_files()}, want file 0")
+    measure("d_removed_auto", "hash", {"liD": 2 * NUM_BUCKETS, "ordD": NUM_BUCKETS})
+
+    _, seconds["optimize"] = wall(lambda: hs.optimize_index("liD"))
+    e = entry()
+    if e.deleted_source_files() or len(e.content.files()) != NUM_BUCKETS:
+        raise AssertionError(f"delta optimize: deletes {e.deleted_source_files()}, {len(e.content.files())} files")
+    r = hst.HyperspaceSession(warehouse=os.path.join(root, "rebuild"), device=DEVICE)
+    r.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, NUM_BUCKETS)
+    r.conf.set(hst.IndexConstants.INDEX_LINEAGE_ENABLED, "true")
+    rh = hst.Hyperspace(r)
+    rh.create_index(r.read.delta(table), hst.IndexConfig("liD", ["l_orderkey"], ["l_extendedprice", "l_discount"]))
+    rebuilt = sorted(sha256(p) for p in next(x for x in rh._manager.get_indexes() if x.name == "liD").content.files())
+    if sorted(sha256(p) for p in e.content.files()) != rebuilt:
+        raise AssertionError("delta optimize: the compacted files differ from a from-scratch create_index's")
+    log(f"[delta] e_optimized: {NUM_BUCKETS} compacted files sha256-identical to a rebuild's")
+    measure("e_optimized", "value", one_version)
+
+    _, seconds["create_liSkipD"] = wall(lambda: hs.create_index(
+        s.read.delta(table), DataSkippingIndexConfig("liSkipD", [MinMaxSketch("l_orderkey")])))
+    keys = data["lineitem"]["l_orderkey"]
+    for label, i in (("f_skip_inside_file_5", 5), ("f_skip_inside_removed_file_0", 0)):
+        a, b = int(bounds[i]), int(bounds[i + 1])
+        lo, hi = int(keys[a + (b - a) // 3]), int(keys[a + (b - a) // 2])
+        df = s.read.delta(table).filter((hst.col("l_orderkey") >= lo) & (hst.col("l_orderkey") <= hi)).select(
+            "l_orderkey", "l_partkey")
+        (scan,) = [n for n in df.optimized_plan().collect_nodes() if isinstance(n, ScanNode)]
+        kept = [f.path for f in scan.relation.files]
+        want_kept = [commit_file[i]] if i in present else []
+        if kept != want_kept or commit_file[0] in kept:
+            raise AssertionError(f"delta {label}: kept {kept}, want {want_kept}")
+        rows = np.concatenate([np.arange(bounds[j], bounds[j + 1]) for j in sorted(present)])
+        rows = rows[(keys[rows] >= lo) & (keys[rows] <= hi)]
+        want = canonical({"l_orderkey": keys[rows], "l_partkey": data["lineitem"]["l_partkey"][rows]})
+        clear_caches()
+        out, t_cold = wall(df.collect)
+        if not same_multiset(out.to_numpy(), want) or df.count() != len(rows):
+            raise AssertionError(f"delta {label}: rows differ from the numpy filter")
+        t = {"files_kept": len(kept), "rows": len(rows), "collect_cold_s": t_cold}
+        _, t["uncached_p50_s"] = run_p50(df.collect, 3, uncached=True)
+        out, t["cached_p50_s"] = run_p50(df.collect, 3, uncached=False)
+        if not same_multiset(out.to_numpy(), want):
+            raise AssertionError(f"delta {label}: cached rows differ from the numpy filter")
+        steps[label] = t
+        log(f"[delta] {label} {json.dumps(t)}")
+
+    rows = np.concatenate([np.arange(bounds[j], bounds[j + 1]) for j in sorted(present)])
+    s.write_delta(lineitem_table(data, rows), table, "overwrite")
+    _, seconds["overwrite_full"] = wall(lambda: hs.refresh_index("liD", "full"))
+    if len(entry().content.files()) != NUM_BUCKETS or len(delta_log.active_files(table)) != 1:
+        raise AssertionError("delta full: want one version of the index over the one overwritten file")
+    measure("g_overwrite_full", "value", one_version)
+    launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches}
+    log(f"[delta] seconds {json.dumps(seconds)}; every step equals numpy; launches {json.dumps(launches)}")
+    return launches, seconds, steps
+
+
 KERNEL_META = {
     "K1": ("bucket_sort", "hyperspace_tpu_torch/csrc/bucket_sort.cu", "hyperspace_tpu/ops/pallas_sort.py:107"),
     "K2": ("range_probe", "hyperspace_tpu_torch/csrc/range_probe.cu", "hyperspace_tpu/ops/pallas_probe.py:129"),
@@ -2323,7 +2749,7 @@ KERNEL_META = {
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="env,kernels,main,q3,strings,packed,refresh,q13,identity")
+    ap.add_argument("--phases", default="env,kernels,main,q3,strings,packed,refresh,q13,skipping,delta,identity")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sf", type=float, default=1.0)
     ap.add_argument("--identity-sf", type=float, default=0.05)
@@ -2357,7 +2783,7 @@ def main() -> int:
             launches[kid] = launches.get(kid, 0) + n
 
     data = None
-    if {"main", "q3", "strings", "packed", "refresh", "q13"} & set(phases):
+    if {"main", "q3", "strings", "packed", "refresh", "q13", "delta"} & set(phases):
         t0 = time.perf_counter()
         data = tpch(args.sf, args.seed)
         log(f"[data] TPC-H SF{args.sf}: lineitem {len(data['lineitem']['l_orderkey'])} rows, orders "
@@ -2379,6 +2805,10 @@ def main() -> int:
             add(phase_refresh(torch, data, base)[0])
         if "q13" in phases:
             add(phase_q13(torch, data, base, args.seed)[0])
+        if "skipping" in phases:
+            add(phase_skipping(torch, base, args.seed)[0])
+        if "delta" in phases:
+            add(phase_delta(torch, data, base)[0])
     finally:
         shutil.rmtree(base, ignore_errors=True)
     if "identity" in phases:

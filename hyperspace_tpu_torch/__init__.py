@@ -7,12 +7,15 @@ and nullable columns; let `JoinIndexRule` rewrite an equi-join over two
 indexed relations into a shuffle-free co-bucketed merge join, and
 `FilterIndexRule` rewrite a filter into a scan of the index's matching hash
 buckets, whose parquet row groups are pruned by their footer zone maps; feed
-the join into computed columns and a grouped aggregate. Scans and the join's
-device work are cached across queries. Indexes are refreshed (full,
-incremental with lineage delete folding, auto), deleted, restored, vacuumed
-and cancelled through the JAX package's operation log. The sorts and searches on that path
-are hand-written CUDA kernels (`csrc/`). Tables live on the session's device,
-CUDA by default. The package imports torch, numpy and pyarrow, never jax or
+the join into computed columns and a grouped aggregate. Data-skipping
+indexes (MinMax and bloom sketches per source file) let
+`DataSkippingFilterRule` drop files from a filtered scan. Sources are parquet
+directories and Delta-style tables (`read.delta`, `write_delta`). Scans and
+the join's device work are cached across queries. Indexes are refreshed
+(full, incremental with lineage delete folding, auto), compacted, deleted,
+restored, vacuumed and cancelled through the JAX package's operation log.
+The sorts and searches on that path are hand-written CUDA kernels (`csrc/`).
+Tables live on the session's device, CUDA by default. The package imports torch, numpy and pyarrow, never jax or
 hyperspace_tpu.
 """
 
@@ -26,4 +29,5 @@ from .hyperspace import (  # noqa: F401
     enable_hyperspace,
     is_hyperspace_enabled,
 )
+from .index.dataskipping import BloomFilterSketch, DataSkippingIndexConfig, MinMaxSketch  # noqa: F401
 from .index.index_config import IndexConfig  # noqa: F401

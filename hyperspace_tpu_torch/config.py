@@ -2,8 +2,8 @@
 
 Counterpart of `hyperspace_tpu/config.py`, cut to the keys the ported slices
 read (build, JoinIndexRule and the co-bucketed join, FilterIndexRule, the scan
-layer, the aggregate, the index lifecycle, refresh, Hybrid Scan and
-compaction). Key names,
+layer, the aggregate, the index lifecycle, refresh, Hybrid Scan, compaction
+and data skipping). Key names,
 environment variables and defaults are the JAX package's, so a conf or an
 environment written for one package means the same to the other.
 """
@@ -85,6 +85,10 @@ class IndexConstants:
     # FilterIndexRule reads only the hash bucket(s) of a head-column equality.
     INDEX_FILTER_BUCKET_PRUNING = "hyperspace.index.filter.bucketPruning"
     INDEX_FILTER_BUCKET_PRUNING_DEFAULT = True
+
+    # Data-skipping indexes (`index/dataskipping.py`): the key is read by
+    # neither package's build, which writes one sketch file per version.
+    DATASKIPPING_TARGET_INDEX_DATA_FILE_SIZE = "hyperspace.index.dataskipping.targetIndexDataFileSize"
 
     # Column-name resolution (the spark.sql.caseSensitive analogue).
     RESOLUTION_CASE_SENSITIVE = "hyperspace.resolution.caseSensitive"

@@ -7,7 +7,9 @@ concatenates them in sorted file order over union dictionaries and copies
 each column to the device once. The writer turns a table back into arrow
 arrays (string columns as compacted dictionaries) and calls `pq.write_table`
 with the same arguments as the JAX package's writer, so equal tables give
-equal files. Only parquet is ported.
+equal files. Parquet and delta are ported; a delta table's data files are
+parquet, so they read, prune and cache exactly as parquet files do (the
+snapshot's file list comes from `storage/delta.py`).
 
 Reads go through the scan caches (`engine/scan_cache.py`): a file's decoded
 columns are cached on the device per (path, size, mtime), and so is a
@@ -54,8 +56,12 @@ def index_row_group_rows() -> int:
 DECODE_THREADS = 8
 
 
+#: The formats whose data files are parquet (`io._read_one` :244).
+PARQUET_SHAPED = ("parquet", "delta")
+
+
 def _check_format(file_format: str) -> None:
-    if file_format != "parquet":
+    if file_format not in PARQUET_SHAPED:
         raise not_in_slice(f"{file_format} sources")
 
 
@@ -252,7 +258,7 @@ def footer_metadata(path: str, file_format: str = "parquet", _pf=None, base=None
     unreadable footer: the scan then prunes nothing in that file. `_pf` lets
     a cold read parse the footer from its own open; `base` is the file's
     stat when the caller has it."""
-    if file_format != "parquet":
+    if file_format not in PARQUET_SHAPED:
         return None
     cache = global_scan_cache()
     base = base or file_base(path)

@@ -1319,7 +1319,7 @@ class LimitExec(PhysicalNode):
         if type(child) is not ScanExec:
             return None
         rel = child.relation
-        if rel.bucket_spec is not None or rel.file_format != "parquet" or len(rel.files) <= 1:
+        if rel.bucket_spec is not None or rel.file_format not in engine_io.PARQUET_SHAPED or len(rel.files) <= 1:
             return None
         picked, total = [], 0
         for f in rel.files:

@@ -11,8 +11,9 @@ import os
 from typing import List, Optional
 
 from ..config import HyperspaceConf, SessionConf
-from ..exceptions import HyperspaceException
+from ..exceptions import HyperspaceException, not_in_slice
 from ..ops.backend import resolve_device
+from ..storage import delta as delta_log
 from ..storage.filesystem import FileStatus, LocalFileSystem
 from . import io as engine_io
 from .expr import Expr
@@ -28,6 +29,7 @@ from .logical import (
     SourceRelation,
     WithColumnNode,
 )
+from .partitioning import discover
 from .physical import ExecContext, PhysicalNode, plan_physical
 from .table import Table
 
@@ -163,7 +165,17 @@ class DataFrameReader:
         return self._load(list(paths), "orc")
 
     def delta(self, path: str) -> DataFrame:
-        return self._load([path], "delta")
+        """A snapshot read of a delta table (`session.py:442`): the files are
+        the log's active set (`storage/delta.active_files`), never a listing
+        of the directory, which still holds the files a `remove` dropped."""
+        files = delta_log.active_files(path, self._session.fs)
+        if not files:
+            raise HyperspaceException(f"Delta table has no active files: {path}")
+        schema = engine_io.infer_schema([f.path for f in files], "delta")
+        rel = SourceRelation(
+            root_paths=[os.path.abspath(path)], file_format="delta", schema=schema, files=files,
+        )
+        return DataFrame(self._session, ScanNode(rel))
 
     def _load(self, path_list: List[str], file_format: str) -> DataFrame:
         files: List[FileStatus] = []
@@ -175,6 +187,10 @@ class DataFrameReader:
         files = [
             FileStatus(os.path.abspath(f.path), f.size, f.modified_time, f.is_dir) for f in files
         ]
+        if discover([os.path.abspath(p) for p in path_list], [f.path for f in files]) is not None:
+            # The JAX package appends the `key=value` columns to the schema;
+            # without them the port would answer with columns missing.
+            raise not_in_slice("hive-partitioned sources")
         rel = SourceRelation(
             root_paths=[os.path.abspath(p) for p in path_list],
             file_format=file_format,
@@ -215,3 +231,9 @@ class HyperspaceSession:
         """Write a Table (or a dict of numpy arrays) as `path/part-00000.parquet`."""
         t = data if isinstance(data, Table) else Table.from_pydict(data, "cpu")
         engine_io.write_parquet(t, os.path.join(path, "part-00000.parquet"), row_group_rows)
+
+    def write_delta(self, data, path: str, mode: str = "append") -> None:
+        """Commit a Table (or a dict of numpy arrays) to the delta table at
+        `path` as one new data file (mode "append" or "overwrite")."""
+        t = data if isinstance(data, Table) else Table.from_pydict(data, "cpu")
+        delta_log.write_delta(t, path, mode, self.fs)

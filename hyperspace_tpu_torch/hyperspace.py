@@ -1,24 +1,27 @@
 """The Hyperspace facade and the session enable/disable implicits
 (counterpart of `hyperspace_tpu/hyperspace.py`; reference `Hyperspace.scala`,
-`package.scala:34-74`). `enable_hyperspace` registers `JoinIndexRule`, then
-`FilterIndexRule`, in the JAX package's order; its data-skipping rule is not
-ported. The facade creates, refreshes, compacts (`optimize_index`), deletes,
-restores, vacuums, cancels and lists indexes."""
+`package.scala:34-74`). `enable_hyperspace` registers `JoinIndexRule`,
+`FilterIndexRule`, then `DataSkippingFilterRule`, in the JAX package's order.
+The facade creates covering and data-skipping indexes, refreshes, compacts
+(`optimize_index`, covering indexes only), deletes, restores, vacuums,
+cancels and lists them."""
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Optional, Union
 
 from .config import ENV_REFRESH_MODE
 from .engine.session import DataFrame, HyperspaceSession
 from .engine.table import Table
 from .index.collection_manager import CachingIndexCollectionManager
+from .index.dataskipping import DataSkippingIndexConfig
 from .index.index_config import IndexConfig
+from .rules.data_skipping_rule import DataSkippingFilterRule
 from .rules.filter_index_rule import FilterIndexRule
 from .rules.join_index_rule import JoinIndexRule
 
-_ALL_RULES = (JoinIndexRule, FilterIndexRule)
+_ALL_RULES = (JoinIndexRule, FilterIndexRule, DataSkippingFilterRule)
 
 _MANAGER_ATTR = "_hyperspace_index_manager"
 
@@ -37,7 +40,7 @@ class Hyperspace:
         self._session = session
         self._manager = _index_manager_for(session)
 
-    def create_index(self, df: DataFrame, index_config: IndexConfig) -> None:
+    def create_index(self, df: DataFrame, index_config: Union[IndexConfig, DataSkippingIndexConfig]) -> None:
         self._manager.create(df, index_config)
 
     def delete_index(self, index_name: str) -> None:
@@ -71,7 +74,9 @@ class Hyperspace:
 
 def enable_hyperspace(session: HyperspaceSession) -> HyperspaceSession:
     if not is_hyperspace_enabled(session):
-        session.extra_optimizations = session.extra_optimizations + [JoinIndexRule(), FilterIndexRule()]
+        session.extra_optimizations = session.extra_optimizations + [
+            JoinIndexRule(), FilterIndexRule(), DataSkippingFilterRule(),
+        ]
     return session
 
 

@@ -173,21 +173,25 @@ class CoveringIndexBuilder(IndexerBuilder):
         )
 
     def reconstruct_df(self, relation: Relation):
-        """The source again, over the logged root paths (listed anew)."""
+        """The source again, over the logged root paths: listed anew, or a
+        delta table's current snapshot (`builder.py:308-320`)."""
+        if relation.file_format == "delta":
+            return self._session.read.delta(*relation.root_paths)
         if relation.file_format != "parquet":
             raise not_in_slice(f"{relation.file_format} sources")
         return self._session.read.parquet(*relation.root_paths)
 
     def restrict_df_to_files(self, df, file_paths):
         """The same relation limited to `file_paths` (the files an incremental
-        refresh indexes)."""
+        refresh indexes); a delta table's files are read as the parquet
+        files they are (:322-336)."""
         from ..engine.session import DataFrame
 
         rel = df.plan.relation
         wanted = set(file_paths)
         sub = SourceRelation(
             root_paths=list(rel.root_paths),
-            file_format=rel.file_format,
+            file_format="parquet" if rel.file_format == "delta" else rel.file_format,
             schema=rel.schema,
             files=[f for f in rel.files if f.path in wanted],
             options=dict(rel.options),

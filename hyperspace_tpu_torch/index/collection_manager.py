@@ -6,9 +6,11 @@ and `Cache.scala`). Each action runs on the index's own log and data
 managers; resolving an index first reclaims the staging directories of dead
 writers. `CachingIndexCollectionManager` keeps the list of log entries for
 `hyperspace.index.cache.expiryDurationInSeconds` (300 s) and clears it
-before and after every mutation. The JAX package's event logger, metrics,
-data-skipping kind and the replica fleet's cross-process invalidation are
-not ported.
+before and after every mutation. A data-skipping index
+(`index/dataskipping.py`) is created and refreshed by its own builder,
+chosen by the config's type and by the log entry's kind. The JAX package's
+event logger, metrics and the replica fleet's cross-process invalidation
+are not ported.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from ..exceptions import HyperspaceException
 from . import quarantine
 from .builder import CoveringIndexBuilder
 from .data_manager import IndexDataManagerImpl
+from .dataskipping import DATA_SKIPPING_KIND, DataSkippingIndexBuilder, DataSkippingIndexConfig
 from .index_config import IndexConfig
 from .log_entry import IndexLogEntry
 from .log_manager import IndexLogManagerImpl
@@ -62,10 +65,20 @@ class IndexCollectionManager:
         latest = data_mgr.get_latest_version_id()
         return data_mgr.get_path(0 if latest is None else latest + 1)
 
+    def _builder_for_config(self, index_config):
+        if isinstance(index_config, DataSkippingIndexConfig):
+            return DataSkippingIndexBuilder(self._session)
+        return CoveringIndexBuilder(self._session)
+
+    def _builder_for_entry(self, entry: Optional[IndexLogEntry]):
+        if entry is not None and entry.kind == DATA_SKIPPING_KIND:
+            return DataSkippingIndexBuilder(self._session)
+        return CoveringIndexBuilder(self._session)
+
     def create(self, df, index_config: IndexConfig) -> None:
         log_mgr, data_mgr, index_path = self._managers_for(index_config.index_name)
         CreateAction(
-            df, index_config, CoveringIndexBuilder(self._session), log_mgr, index_path,
+            df, index_config, self._builder_for_config(index_config), log_mgr, index_path,
             self._next_data_path(data_mgr),
         ).run()
         quarantine.clear(index_config.index_name)  # fresh data supersedes corrupt files
@@ -78,7 +91,7 @@ class IndexCollectionManager:
         if mode not in REFRESH_MODES:
             raise HyperspaceException(f"Unsupported refresh mode '{mode}'; supported: full, incremental, auto.")
         log_mgr, data_mgr, index_path = self._existing_log_manager(index_name)
-        builder = CoveringIndexBuilder(self._session)
+        builder = self._builder_for_entry(log_mgr.get_latest_log())
         data_path = self._next_data_path(data_mgr)
 
         def make(cls):

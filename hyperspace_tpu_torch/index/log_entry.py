@@ -469,9 +469,13 @@ class IndexLogEntry(LogEntry):
         e.enabled = d.get("enabled", True)
         return e
 
-# Kinds the polymorphic LogEntry decode knows (the JAX package also registers
-# DataSkipping, not ported yet).
+# Kinds the polymorphic LogEntry decode knows; extension index kinds
+# (`index/dataskipping.py`) register themselves.
 _ENTRY_DECODERS = {
     "CoveringIndex": IndexLogEntry.from_json,
 }
+
+
+def register_entry_kind(kind: str, decoder) -> None:
+    _ENTRY_DECODERS[kind] = decoder
 

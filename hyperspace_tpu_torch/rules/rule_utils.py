@@ -1,6 +1,6 @@
 """Shared rule machinery (counterpart of `hyperspace_tpu/rules/rule_utils.py`).
 
-`get_candidate_indexes` keeps the ACTIVE covering indexes whose recorded
+`get_candidate_indexes` keeps the ACTIVE indexes of one kind whose recorded
 signature provider recomputes the same signature on the query's relation
 (reference `RuleUtils.scala`); `_index_relation` (from the JAX package's
 `filter_index_rule.py` :312) builds the relation that substitutes an index
@@ -47,13 +47,15 @@ def _hash_scheme_compatible(entry: IndexLogEntry) -> bool:
     return props.get(IndexConstants.HASH_SCHEME_KEY) in (None, IndexConstants.HASH_SCHEME_VERSION)
 
 
-def hybrid_delta(entry: IndexLogEntry, plan: LogicalPlan):
+def hybrid_delta(entry: IndexLogEntry, plan: LogicalPlan, deletes_without_lineage_ok: bool = False):
     """(appended files, deleted paths) between the index's recorded source
     inventory and the relation's current one, or None when Hybrid Scan cannot
     answer from the index (JAX :54-92): a recorded file changed in place
     (same path, other size or mtime) mixes old rows with new ones; a vanished
     file is tolerable only when the index carries lineage, whose column lets
-    the scan prune its rows. None too when nothing drifted."""
+    the scan prune its rows, or when the index kind keeps its data per source
+    file (`deletes_without_lineage_ok`: a data-skipping index, whose vanished
+    file simply leaves the scan). None too when nothing drifted."""
     if not isinstance(plan, ScanNode):
         return None
     recorded = {(f.name, f.size, f.modified_time) for r in entry.relations for f in r.data.file_infos()}
@@ -67,7 +69,7 @@ def hybrid_delta(entry: IndexLogEntry, plan: LogicalPlan):
         if name in current_paths:
             return None  # changed in place: its rows are not separable
         deleted.append(name)
-    if deleted and not entry.has_lineage():
+    if deleted and not deletes_without_lineage_ok and not entry.has_lineage():
         return None
     appended = [f for f in current if (f.path, f.size, f.modified_time) not in recorded]
     if not appended and not deleted:
@@ -75,8 +77,14 @@ def hybrid_delta(entry: IndexLogEntry, plan: LogicalPlan):
     return appended, sorted(deleted)
 
 
-def get_candidate_indexes(index_manager, plan: LogicalPlan, hybrid_scan: bool = False) -> List[CandidateIndex]:
-    """ACTIVE covering indexes applicable to `plan` (a relation node), less
+def get_candidate_indexes(
+    index_manager,
+    plan: LogicalPlan,
+    hybrid_scan: bool = False,
+    kind: str = "CoveringIndex",
+    deletes_without_lineage_ok: bool = False,
+) -> List[CandidateIndex]:
+    """ACTIVE indexes of `kind` applicable to `plan` (a relation node), less
     the quarantined ones (`index/quarantine.py`) and those bucketed under
     another hash scheme. Exact applicability: the recorded signature provider
     recomputes the same signature. With `hybrid_scan`, an index whose
@@ -85,8 +93,9 @@ def get_candidate_indexes(index_manager, plan: LogicalPlan, hybrid_scan: bool = 
     candidate, exact matches included: the signature covers the source after
     the delete, but the index data holds those rows until a full rewrite or
     a compaction (JAX :20-127). The JAX package also sets a per-index
-    staleness gauge here (`_update_staleness`); it waits for the port's
-    telemetry (ROADMAP.md Queue 1, item 12)."""
+    staleness gauge here (`_update_staleness`) and counts quarantined skips
+    per asking rule (its `rule_name`); both wait for the port's telemetry
+    (ROADMAP.md Queue 1, item 12)."""
     signature_map: Dict[str, Optional[str]] = {}
 
     def signature_valid(entry: IndexLogEntry) -> bool:
@@ -98,7 +107,7 @@ def get_candidate_indexes(index_manager, plan: LogicalPlan, hybrid_scan: bool = 
 
     out: List[CandidateIndex] = []
     for e in index_manager.get_indexes([states.ACTIVE]):
-        if e.kind != "CoveringIndex" or not e.created or quarantine.is_quarantined(e.name):
+        if e.kind != kind or not e.created or quarantine.is_quarantined(e.name):
             continue
         if not _hash_scheme_compatible(e):
             continue
@@ -106,7 +115,7 @@ def get_candidate_indexes(index_manager, plan: LogicalPlan, hybrid_scan: bool = 
         if signature_valid(e):
             out.append(CandidateIndex(e, [], folded))
         elif hybrid_scan:
-            delta = hybrid_delta(e, plan)
+            delta = hybrid_delta(e, plan, deletes_without_lineage_ok)
             if delta is not None:
                 out.append(CandidateIndex(e, delta[0], sorted(set(delta[1]) | set(folded))))
     return out

@@ -685,3 +685,51 @@ def test_hybrid_scan_and_compaction_on_the_card_equal_the_cpu(cuda_device, tmp_p
         assert not e.deleted_source_files()
         shas[dev] = {os.path.basename(p): hashlib.sha256(open(p, "rb").read()).hexdigest() for p in e.content.files()}
     assert shas["cuda"] == shas["cpu"] and len(shas["cpu"]) == 8
+
+
+def test_data_skipping_on_the_card_equals_the_cpu(cuda_device, tmp_path):
+    """Sketches of a delta table's files built on the card (torch min / max
+    and the bloom scatter there) equal the CPU's file byte for byte, and the
+    pruned queries keep the same files and give the same rows."""
+    import hashlib
+    import os
+
+    import hyperspace_tpu_torch as hst
+    from hyperspace_tpu_torch.index.dataskipping import BloomFilterSketch, DataSkippingIndexConfig, MinMaxSketch
+
+    rng = np.random.RandomState(11)
+    table = str(tmp_path / "t")
+    writer = hst.HyperspaceSession(warehouse=str(tmp_path), device="cpu")
+    for i in range(4):
+        k = np.sort(rng.randint(i * 1000, i * 1000 + 1000, 5000)).astype(np.int64)
+        x = rng.rand(5000)
+        x[rng.randint(0, 5000, 20)] = np.nan
+        writer.write_delta({"k": k, "x": x, "t": rng.randint(0, 10**9, 5000).astype(np.int64),
+                            "s": np.array([f"w{v}" for v in rng.randint(0, 300, 5000)])}, table)
+    config = [MinMaxSketch("k", "rowgroup"), MinMaxSketch("x"), BloomFilterSketch("t", 65536, 5),
+              BloomFilterSketch("s", 2048, 3)]
+    t_probe = int(writer.read.delta(table).collect().column("t").data[7000])
+    queries = [
+        lambda d: d.filter(hst.col("k") == 2500).select("k", "t"),
+        lambda d: d.filter((hst.col("k") >= 1200) & (hst.col("x") < 0.5)).select("k"),
+        lambda d: d.filter(hst.col("t") == t_probe).select("k", "t"),
+        lambda d: d.filter(hst.col("s").isin("w7", "nope")).select("s"),
+    ]
+    shas, rows = {}, {}
+    for dev in ("cpu", "cuda"):
+        s = hst.HyperspaceSession(warehouse=str(tmp_path / dev), device=dev)
+        hs = hst.Hyperspace(s)
+        hs.create_index(s.read.delta(table), DataSkippingIndexConfig("sk", config))
+        hst.enable_hyperspace(s)
+        (path,) = next(e for e in hs._manager.get_indexes() if e.name == "sk").content.files()
+        shas[dev] = hashlib.sha256(open(path, "rb").read()).hexdigest()
+        rows[dev] = []
+        for q in queries:
+            df = q(s.read.delta(table))
+            scan = next(n for n in df.optimized_plan().collect_nodes() if type(n).__name__ == "ScanNode")
+            out = df.collect()
+            rows[dev].append(([os.path.basename(f.path) for f in scan.relation.files],
+                              {n: out.column(n).decode().tolist() for n in out.column_names}, df.count()))
+    assert shas["cuda"] == shas["cpu"]
+    assert rows["cuda"] == rows["cpu"]
+    assert len(rows["cpu"][0][0]) == 1 and len(rows["cpu"][2][0]) < 4

@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases env,refresh
     python3 chip_smoke.py --phases env,q13
     python3 chip_smoke.py --phases env,skipping,delta
+    python3 chip_smoke.py --phases env,partitioned
 
 Phases, each failing loudly:
 
@@ -147,14 +148,44 @@ Phases, each failing loudly:
              (g) an overwrite commit and a full refresh, value mode. Prints
              each refresh's and the compaction's seconds, the join's mode
              and cold, uncached p50 of 3 and cached p50 of 3 of each step.
-11. identity the join, aggregate, Q3 (general joins, every group), Q13
+11. partitioned  TPC-DS Q3 in a directory of its own: store_sales (TPC-DS
+             SF1's 2,880,404 rows, the skipping phase's generator, with
+             ss_net_paid standing in for ss_ext_sales_price, which it does
+             not make) partitioned by ss_sold_date_sk, one file a day (1,825
+             days, 1998-01-02..2002-12-31) and 1% of tickets null-dated
+             under __HIVE_DEFAULT_PARTITION__ (this script's share, not
+             TPC-DS's rate); item (18,000 rows: i_item_sk 1..18,000,
+             i_manufact_id and i_brand_id uniform over 1..1,000, i_brand
+             named by its id) as ORC (parquet where pyarrow has no ORC);
+             date_dim (73,049 days from d_date_sk 2415022, 1900-01-02, the
+             date an ISO string) as CSV; all made with numpy from --seed.
+             (a) the read: schema (file columns, then ss_sold_date_sk
+             int64), count, a day's rows and is_null; (b) with lineage on,
+             ssItem (store_sales [ss_item_sk] with ss_net_paid and the
+             partition column, which the join rule must see configured)
+             and itemIdx (item [i_item_sk] with i_brand_id, i_brand,
+             i_manufact_id), timed; (c) TPC-DS Q3 (d_moy 11, i_manufact_id
+             128, by d_year, i_brand, i_brand_id, ORDER BY d_year, the sum
+             descending, i_brand_id, LIMIT 100) indexed (store_sales ⋈ item
+             co-bucketed: K2, K1 in hash mode; then the general join to
+             date_dim on the partition column, where a null date matches
+             nothing) and disabled, cold, uncached p50 of 3, cached p50 of 3
+             and an uncached run by stage, each in order against numpy (sums
+             at rtol 1e-9) and each other; (d) a day (2003-01-01) appended:
+             Q3 under Hybrid Scan, after an incremental refresh, and after
+             `optimize_index`, whose sha256 set must equal a rebuild's; (e)
+             a MinMax sketch on ss_sold_date_sk: a month's group-by keeps 30
+             of 1,827 files, indexed and disabled; (f) item again as JSON
+             lines under a covering index: a lookup equal to the ORC
+             index's and numpy's.
+12. identity the join, aggregate, Q3 (general joins, every group), Q13
              (indexed and disabled) and string slices at SF 0.05 with
              device="cpu" and device="cuda": identical index files,
              identical rows in order (sums at rtol 1e-9).
 
 Kernel launches are counted from 0 at the start of each phase that drives
-the engine (main, q3, strings, packed, refresh, q13, skipping, delta) and
-summed over them. Prints one JSON
+the engine (main, q3, strings, packed, refresh, q13, skipping, delta,
+partitioned) and summed over them. Prints one JSON
 line of per-kernel results, the card's `nvidia-smi` line,
 and last `{"ok": true, "device": {...}}`. Exits non-zero without a result
 when no CUDA device is visible or the package is missing.
@@ -2738,6 +2769,357 @@ def phase_delta(torch, data, base: str):
     return launches, seconds, steps
 
 
+# ---------------------------------------------------------------------------
+# Phase partitioned: TPC-DS Q3 over a date-partitioned store_sales
+# ---------------------------------------------------------------------------
+
+ITEM_ROWS = 18_000  # TPC-DS SF1 item
+DD_ROWS = 73_049  # TPC-DS date_dim
+DD_FIRST_SK, DD_FIRST_DATE = 2415022, "1900-01-02"
+NULL_DATE_SHARE = 0.01  # tickets with no sale date (this phase's choice, not TPC-DS's rate)
+PART_COLUMN = "ss_sold_date_sk"
+HIVE_NULL = "__HIVE_DEFAULT_PARTITION__"
+DS_Q3_COLUMNS = ["d_year", "i_brand_id", "i_brand", "sum_agg"]
+DS_INDEXES = [
+    # The JoinIndexRule counts only configured columns as covered (the JAX
+    # package's rules/join_index_rule.py:115), so Q3's join key to date_dim
+    # is configured; lineage would pull it in anyway.
+    ("store_sales", "ssItem", ["ss_item_sk"], ["ss_net_paid", PART_COLUMN]),
+    ("item", "itemIdx", ["i_item_sk"], ["i_brand_id", "i_brand", "i_manufact_id"]),
+]
+
+
+def tpcds_tables(rng, ss_rows: int, first_day: int, last_day: int, items: int = ITEM_ROWS,
+                 null_share: float = NULL_DATE_SHARE) -> dict:
+    """store_sales (the `store_sales` generator's rows of the days, a
+    `null_share` of tickets with a null sale date: `valid` False), item
+    (`items` rows, manufacturer and brand ids uniform over 1..1000, the brand
+    named by its id) and date_dim (TPC-DS's 73,049 days from 1900-01-02, the
+    date as an ISO string)."""
+    cols, _ = store_sales(rng, first_day, last_day, ss_rows)
+    cols["ss_item_sk"] = rng.randint(1, items + 1, ss_rows).astype(np.int64)
+    tickets = np.unique(cols["ss_ticket_number"])
+    dropped = tickets[rng.rand(len(tickets)) < null_share]
+    cols["valid"] = ~np.isin(cols["ss_ticket_number"], dropped)
+    brand_id = rng.randint(1, 1001, items).astype(np.int64)
+    item = {"i_item_sk": np.arange(1, items + 1, dtype=np.int64), "i_brand_id": brand_id,
+            "i_brand": np.array([f"brand #{b}" for b in brand_id]),
+            "i_manufact_id": rng.randint(1, 1001, items).astype(np.int64)}
+    dates = np.datetime64(DD_FIRST_DATE) + np.arange(DD_ROWS)
+    date_dim = {"d_date_sk": DD_FIRST_SK + np.arange(DD_ROWS, dtype=np.int64), "d_date": dates.astype(str),
+                "d_year": dates.astype("datetime64[Y]").astype(np.int64) + 1970,
+                "d_moy": dates.astype("datetime64[M]").astype(np.int64) % 12 + 1}
+    return {"store_sales": cols, "item": item, "date_dim": date_dim}
+
+
+def partition_dirs(cols: dict) -> list:
+    """(partition directory name, row indices) of store_sales by sale date,
+    the null dates last."""
+    null = np.iinfo(np.int64).max
+    key = np.where(cols["valid"], cols[PART_COLUMN], null)
+    order = np.argsort(key, kind="stable")
+    values, starts = np.unique(key[order], return_index=True)
+    ends = np.append(starts[1:], len(order))
+    return [(f"{PART_COLUMN}={HIVE_NULL if v == null else int(v)}", order[a:b])
+            for v, a, b in zip(values, starts, ends)]
+
+
+def write_store_sales_partitioned(cols: dict, root: str, dirs=None) -> int:
+    """One `part-00000.parquet` a day under `root/ss_sold_date_sk=<sk>/`,
+    without the partition column; the files written."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    names = [n for n in cols if n not in (PART_COLUMN, "valid")]
+    dirs = partition_dirs(cols) if dirs is None else dirs
+    for d, rows in dirs:
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+        pq.write_table(pa.table({n: cols[n][rows] for n in names}), os.path.join(root, d, "part-00000.parquet"))
+    return len(dirs)
+
+
+def ds_q3_query(read, col, n: int = 100):
+    """TPC-DS Q3 through either package's DataFrame API (`read(table)`):
+    store_sales ⋈ item (manufacturer 128) ⋈ date_dim (November) on the sale
+    date, the sales summed by year and brand, ORDER BY d_year, the sum
+    descending and the brand id, LIMIT n. ss_net_paid stands in for
+    ss_ext_sales_price, which the generator does not make."""
+    ss, item = read("store_sales"), read("item").filter(col("i_manufact_id") == 128)
+    dd = read("date_dim").filter(col("d_moy") == 11)
+    return (
+        ss.join(item, col("ss_item_sk") == col("i_item_sk"))
+        .join(dd, col(PART_COLUMN) == col("d_date_sk"))
+        .group_by("d_year", "i_brand", "i_brand_id")
+        .agg(sum_agg=("ss_net_paid", "sum"))
+        .order_by("d_year", ("sum_agg", False), "i_brand_id")
+        .limit(n)
+        .select(*DS_Q3_COLUMNS)
+    )
+
+
+def expected_ds_q3(tables: dict, rows=None) -> dict:
+    """Q3 of the generated arrays with numpy, every group in Q3's order;
+    `rows` restricts store_sales to the rows present (all by default)."""
+    ss, item, dd = tables["store_sales"], tables["item"], tables["date_dim"]
+    rows = np.arange(len(ss["valid"])) if rows is None else rows
+    rows = rows[ss["valid"][rows]]
+    it = ss["ss_item_sk"][rows] - 1
+    day = ss[PART_COLUMN][rows] - DD_FIRST_SK
+    keep = (item["i_manufact_id"][it] == 128) & (dd["d_moy"][day] == 11)
+    year, brand = dd["d_year"][day[keep]], item["i_brand_id"][it[keep]]
+    keys, inv = np.unique(np.stack([year, brand]), axis=1, return_inverse=True)
+    total = np.bincount(inv.reshape(-1), weights=ss["ss_net_paid"][rows][keep], minlength=keys.shape[1])
+    by = np.lexsort((keys[1], -total, keys[0]))
+    return {"d_year": keys[0][by], "i_brand_id": keys[1][by],
+            "i_brand": np.array([f"brand #{b}" for b in keys[1][by]]), "sum_agg": total[by]}
+
+
+def check_ds_q3(label: str, got: dict, want: dict, n: int = 100) -> None:
+    """`got` must be numpy's first n rows in order, sums at rtol 1e-9; rows
+    whose sums tie within the tolerance in one year may swap places."""
+    m = min(n, len(want["d_year"]))
+    if list(got) != DS_Q3_COLUMNS or len(got["d_year"]) != m:
+        raise AssertionError(f"{label}: columns {list(got)} and {len(got['d_year'])} rows, want {DS_Q3_COLUMNS}, {m}")
+    total, year = want["sum_agg"], want["d_year"]
+    tie = np.isclose(total[1:], total[:-1], rtol=1e-9, atol=0) & (year[1:] == year[:-1])
+    cls = np.concatenate([[0], np.cumsum(~tie)])
+    key = np.asarray(got["d_year"]).astype(np.int64) * 10_000 + np.asarray(got["i_brand_id"]).astype(np.int64)
+    wkey = year * 10_000 + want["i_brand_id"]
+    for c in np.unique(cls[:m]):
+        pos, members = np.nonzero(cls[:m] == c)[0], np.nonzero(cls == c)[0]
+        have, allowed = set(key[pos].tolist()), set(wkey[members].tolist())
+        if not (have <= allowed if members[-1] >= m else have == allowed):
+            raise AssertionError(f"{label}: rows {pos.tolist()} hold groups {sorted(have)}, numpy {sorted(allowed)}")
+    at = {k: i for i, k in enumerate(wkey.tolist())}
+    idx = np.array([at[k] for k in key.tolist()], np.int64)
+    if list(got["i_brand"]) != list(want["i_brand"][idx]):
+        raise AssertionError(f"{label}: i_brand differs from numpy's Q3")
+    if not np.allclose(np.asarray(got["sum_agg"], np.float64), total[idx], rtol=1e-9, atol=0):
+        raise AssertionError(f"{label}: sum_agg differs from numpy's Q3 beyond rtol 1e-9")
+
+
+def index_shas(hs, name: str) -> list:
+    return sorted(sha256(p) for p in next(e for e in hs._manager.get_indexes() if e.name == name).content.files())
+
+
+def phase_partitioned(torch, base: str, seed: int):
+    """TPC-DS SF1's store_sales (2,880,404 rows, the `store_sales`
+    generator's simplifications) partitioned by ss_sold_date_sk, one file a
+    day (1,825 days, 1998-01-02..2002-12-31) and one for the null dates (1%
+    of tickets); item (18,000 rows) as ORC, date_dim (73,049 rows) as CSV,
+    all made with numpy from `seed`. Steps, each against numpy: (a) the read
+    (schema, count, one day, is_null); (b) ssItem and itemIdx built with
+    lineage on; (c) TPC-DS Q3 indexed (the co-bucketed store_sales ⋈ item,
+    then the general join to date_dim on the partition column) and disabled,
+    cold, uncached p50 of 3, cached p50 of 3 and an uncached run by stage;
+    (d) a day appended: Q3 under Hybrid Scan, then after an incremental
+    refresh, then `optimize_index`, equal to a rebuild's sha256 set; (e) a
+    MinMax sketch on the partition column and a month's filter, indexed and
+    disabled; (f) item again as JSON lines, its covering index's lookup
+    against the ORC index's and numpy."""
+    import hyperspace_tpu_torch as hst
+    from hyperspace_tpu_torch.engine import io as engine_io
+    from hyperspace_tpu_torch.engine.physical import SortMergeJoinExec
+    from hyperspace_tpu_torch.index.dataskipping import DataSkippingIndexConfig, MinMaxSketch
+    from hyperspace_tpu_torch.ops import cuda_probe, cuda_sort
+
+    try:
+        import pyarrow.orc  # noqa: F401
+
+        item_format = "orc"
+    except ImportError:
+        item_format = "parquet"
+    rng = np.random.RandomState(seed + 13)
+    phase_t0 = time.perf_counter()
+    root = os.path.join(base, "partitioned")
+    src = {t: os.path.join(root, t) for t in ("store_sales", "item", "date_dim", "item_json")}
+    seconds = {}
+    t0 = time.perf_counter()
+    tables = tpcds_tables(rng, SS_ROWS, SS_FIRST_DAY, SS_LAST_DAY)
+    ss = tables["store_sales"]
+    seconds["generate"] = time.perf_counter() - t0
+    s = hst.HyperspaceSession(warehouse=root, device=DEVICE)
+    s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, NUM_BUCKETS)
+    s.conf.set(hst.IndexConstants.INDEX_LINEAGE_ENABLED, "true")
+    t0 = time.perf_counter()
+    n_files = write_store_sales_partitioned(ss, src["store_sales"])
+    getattr(s, f"write_{item_format}")(tables["item"], src["item"])
+    s.write_csv(tables["date_dim"], src["date_dim"])
+    seconds["write"] = time.perf_counter() - t0
+    log(f"[partitioned] store_sales {SS_ROWS} rows in {n_files} day files ({int((~ss['valid']).sum())} rows "
+        f"null-dated), item {ITEM_ROWS} rows as {item_format}, date_dim {DD_ROWS} rows as csv "
+        f"(made in {seconds['generate']:.2f} s, written in {seconds['write']:.2f} s)")
+    readers = {"store_sales": s.read.parquet, "item": getattr(s.read, item_format), "date_dim": s.read.csv,
+               "item_json": s.read.json}
+
+    def read(t):
+        return readers[t](src[t])
+
+    cuda_sort.launches = 0
+    cuda_probe.launches = 0
+
+    # (a) the read
+    c = hst.col
+    df, seconds["a_read_plan"] = wall(lambda: read("store_sales"))
+    names = [f.name for f in df.schema.fields]
+    want_names = [n for n in ss if n not in (PART_COLUMN, "valid")] + [PART_COLUMN]
+    if names != want_names or df.schema.field(PART_COLUMN).dtype != "int64":
+        raise AssertionError(f"partitioned (a): schema {df.schema}, want {want_names} with {PART_COLUMN} int64")
+    day = date_sk("2000-06-15")
+    checks = {"count": (df, SS_ROWS),
+              "one_day": (df.filter(c(PART_COLUMN) == day), int((ss["valid"] & (ss[PART_COLUMN] == day)).sum())),
+              "null_date": (df.filter(c(PART_COLUMN).is_null()), int((~ss["valid"]).sum()))}
+    for label, (q, want) in checks.items():
+        clear_caches()
+        got, seconds[f"a_{label}_cold"] = wall(q.count)
+        if got != want:
+            raise AssertionError(f"partitioned (a) {label}: count {got}, numpy {want}")
+    clear_caches()
+    day_rows, seconds["a_one_day_collect_cold"] = wall(checks["one_day"][0].select("ss_ticket_number", PART_COLUMN).collect)
+    sel = ss["valid"] & (ss[PART_COLUMN] == day)
+    if not same_multiset(day_rows.to_numpy(), canonical({"ss_ticket_number": ss["ss_ticket_number"][sel],
+                                                         PART_COLUMN: ss[PART_COLUMN][sel]})):
+        raise AssertionError("partitioned (a): the day's rows differ from numpy's")
+    log(f"[partitioned] (a) schema {names}; count, one day and is_null equal numpy")
+
+    # (b) the builds
+    hs = hst.Hyperspace(s)
+    engine_io.reset_io_stats()
+    for table, name, indexed, included in DS_INDEXES:
+        _, seconds[f"b_create_{name}"] = wall(lambda: hs.create_index(read(table), hst.IndexConfig(name, indexed, included)))
+    log(f"[partitioned] (b) builds {json.dumps({k: v for k, v in seconds.items() if k.startswith('b_')})}; "
+        f"scan parts {json.dumps(engine_io.io_stats()['seconds'])}")
+    hst.enable_hyperspace(s)
+
+    # (c) TPC-DS Q3
+    want = expected_ds_q3(tables)
+    q3 = ds_q3_query(read, c)
+    results, steps = {}, {}
+
+    def measure(label, expect_joins, want_q3, indexes=None):
+        joins = [n for n in q3.physical_plan().collect_nodes() if isinstance(n, SortMergeJoinExec)]
+        kinds = sorted("bucketed" if j.bucketed else "general" for j in joins)
+        if kinds != expect_joins or (indexes is not None and scanned_indexes(q3) != indexes):
+            raise AssertionError(f"partitioned {label}: joins {kinds}, want {expect_joins}:\n{q3.explain_string()}")
+        k1, k2 = cuda_sort.launches, cuda_probe.launches
+        clear_caches()
+        out, t_cold = wall(q3.collect)
+        check_ds_q3(f"partitioned {label}", out.to_numpy(), want_q3)
+        t = {"rows": out.num_rows, "collect_cold_s": t_cold}
+        out, t["uncached_p50_s"] = run_p50(q3.collect, 3, uncached=True)
+        check_ds_q3(f"partitioned {label}", out.to_numpy(), want_q3)
+        out, t["cached_p50_s"] = run_p50(q3.collect, 3, uncached=False)
+        check_ds_q3(f"partitioned {label}", out.to_numpy(), want_q3)
+        if q3.count() != out.num_rows:
+            raise AssertionError(f"partitioned {label}: count() {q3.count()} != {out.num_rows} rows")
+        t["k1_launches"], t["k2_launches"] = cuda_sort.launches - k1, cuda_probe.launches - k2
+        if "bucketed" in kinds and not t["k2_launches"]:
+            raise AssertionError(f"partitioned {label}: K2 never launched ({t})")
+        t.update(device_busy(q3))
+        steps[label] = t
+        results[label] = out.to_numpy()
+        log(f"[partitioned] {label} {json.dumps(t)}")
+        engine_io.reset_io_stats()
+        stages = query_stage_split(torch, q3, True)
+        log(f"[partitioned] {label} uncached collect stages {json.dumps(stages)}; its scans' parts "
+            f"{json.dumps(engine_io.io_stats()['seconds'])}")
+
+    measure("c_q3_indexed", ["bucketed", "general"], want, ["itemIdx", "ssItem"])
+    hst.disable_hyperspace(s)
+    measure("c_q3_disabled", ["general", "general"], want)
+    hst.enable_hyperspace(s)
+    a, b = results["c_q3_indexed"], results["c_q3_disabled"]
+    if not all(np.array_equal(a[k], b[k]) for k in ("d_year", "i_brand_id", "i_brand")) or not np.allclose(
+            a["sum_agg"], b["sum_agg"], rtol=1e-9, atol=0):
+        raise AssertionError("partitioned (c): the indexed and the disabled Q3 differ")
+    top = {k: (v[:5].tolist() if k != "sum_agg" else [round(float(x), 2) for x in v[:5]]) for k, v in a.items()}
+    log(f"[partitioned] (c) Q3 {len(a['d_year'])} rows, indexed = disabled = numpy; first rows {json.dumps(top)}")
+
+    # (d) one more day
+    new_day = date_sk("2003-01-01")
+    extra, _ = store_sales(rng, days("2003-01-01"), days("2003-01-01"), SS_ROWS // (SS_LAST_DAY - SS_FIRST_DAY + 1),
+                           ticket_base=int(ss["ss_ticket_number"].max()))
+    extra["ss_item_sk"] = rng.randint(1, ITEM_ROWS + 1, len(extra["ss_item_sk"])).astype(np.int64)
+    extra["valid"] = np.ones(len(extra["ss_item_sk"]), bool)
+    write_store_sales_partitioned(extra, src["store_sales"])
+    if not os.path.isdir(os.path.join(src["store_sales"], f"{PART_COLUMN}={new_day}")):
+        raise AssertionError("partitioned (d): the new day's directory was not written")
+    tables["store_sales"] = ss = {n: np.concatenate([ss[n], extra[n]]) for n in ss}
+    want = expected_ds_q3(tables)
+    q3 = ds_q3_query(read, c)  # a new read lists the new day
+    s.conf.set(hst.IndexConstants.INDEX_HYBRID_SCAN_ENABLED, "true")
+    if "(+1 appended)" not in q3.explain_string():
+        raise AssertionError(f"partitioned (d): no Hybrid Scan over the new day:\n{q3.explain_string()}")
+    measure("d_hybrid", ["bucketed", "general"], want, ["itemIdx", "ssItem"])
+    s.conf.set(hst.IndexConstants.INDEX_HYBRID_SCAN_ENABLED, "false")
+    _, seconds["d_incremental"] = wall(lambda: hs.refresh_index("ssItem", "incremental"))
+    measure("d_incremental", ["bucketed", "general"], want, ["itemIdx", "ssItem"])
+    _, seconds["d_optimize"] = wall(lambda: hs.optimize_index("ssItem"))
+    r = hst.HyperspaceSession(warehouse=os.path.join(root, "rebuild"), device=DEVICE)
+    r.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, NUM_BUCKETS)
+    r.conf.set(hst.IndexConstants.INDEX_LINEAGE_ENABLED, "true")
+    rh = hst.Hyperspace(r)
+    table, name, indexed, included = DS_INDEXES[0]
+    _, seconds["d_rebuild"] = wall(lambda: rh.create_index(r.read.parquet(src[table]),
+                                                           hst.IndexConfig(name, indexed, included)))
+    if index_shas(hs, "ssItem") != index_shas(rh, "ssItem"):
+        raise AssertionError("partitioned (d): the compacted ssItem differs from a from-scratch create_index's")
+    log(f"[partitioned] (d) optimized ssItem: {len(index_shas(hs, 'ssItem'))} files sha256-identical to a rebuild's")
+    measure("d_optimized", ["bucketed", "general"], want, ["itemIdx", "ssItem"])
+
+    # (e) a MinMax sketch on the partition column
+    _, seconds["e_create_sketch"] = wall(lambda: hs.create_index(
+        read("store_sales"), DataSkippingIndexConfig("ssDate", [MinMaxSketch(PART_COLUMN)])))
+    lo, hi = date_sk("2001-11-01"), date_sk("2001-11-30")
+    month = read("store_sales").filter((c(PART_COLUMN) >= lo) & (c(PART_COLUMN) <= hi)).group_by(
+        "ss_store_sk").agg(net_paid=("ss_net_paid", "sum"), sales=("*", "count"))
+    mask = ss["valid"] & (ss[PART_COLUMN] >= lo) & (ss[PART_COLUMN] <= hi)
+    want_cols = {n: v[mask] for n, v in ss.items()}
+    total_files = n_files + 1
+    for label, on in (("e_month_indexed", True), ("e_month_disabled", False)):
+        (hst.enable_hyperspace if on else hst.disable_hyperspace)(s)
+        kept = len(scan_relation(month).files)
+        if kept != (hi - lo + 1 if on else total_files):
+            raise AssertionError(f"partitioned {label}: {kept} of {total_files} files kept:\n{month.explain_string()}")
+        clear_caches()
+        out, t_cold = wall(month.collect)
+        check_skip(label, out, want_cols, "by_store")
+        t = {"files_kept": kept, "files": total_files, "collect_cold_s": t_cold}
+        _, t["uncached_p50_s"] = run_p50(month.collect, 3, uncached=True)
+        out, t["cached_p50_s"] = run_p50(month.collect, 3, uncached=False)
+        check_skip(label, out, want_cols, "by_store")
+        steps[label] = t
+        log(f"[partitioned] {label} {json.dumps(t)}")
+    hst.enable_hyperspace(s)
+
+    # (f) item again as JSON lines
+    s.write_json(tables["item"], src["item_json"])
+    json_config = hst.IndexConfig("itemJson", ["i_item_sk"], ["i_brand_id", "i_brand", "i_manufact_id"])
+    _, seconds["f_create_itemJson"] = wall(lambda: hs.create_index(read("item_json"), json_config))
+    key = int(tables["item"]["i_item_sk"][ITEM_ROWS // 3])
+    cols = ["i_item_sk", "i_brand_id", "i_brand", "i_manufact_id"]
+    answers = {}
+    for t in ("item_json", "item"):
+        q = read(t).filter(c("i_item_sk") == key).select(*cols)
+        name = "itemJson" if t == "item_json" else "itemIdx"
+        if f"index={name}" not in q.explain_string():
+            raise AssertionError(f"partitioned (f): the lookup over {t} does not scan {name}:\n{q.explain_string()}")
+        answers[t] = q.collect().to_numpy()
+    numpy_row = {n: tables["item"][n][[key - 1]] for n in cols}
+    for t, got in answers.items():
+        if not all(np.array_equal(np.asarray(got[n]).astype(numpy_row[n].dtype), numpy_row[n]) for n in cols):
+            raise AssertionError(f"partitioned (f): the lookup over {t} gives {got}, numpy {numpy_row}")
+    same_files = index_shas(hs, "itemJson") == index_shas(hs, "itemIdx")
+    log(f"[partitioned] (f) lookup of i_item_sk {key} over JSON and {item_format} equals numpy; the two indexes' "
+        f"sha256 sets equal: {same_files} (lineage names each source's files)")
+    launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches}
+    if not launches["K2"]:
+        raise AssertionError("partitioned: K2 never launched")
+    seconds["phase"] = time.perf_counter() - phase_t0
+    log(f"[partitioned] seconds {json.dumps(seconds)}; every step equals numpy; launches {json.dumps(launches)}")
+    return launches, seconds, steps
+
+
 KERNEL_META = {
     "K1": ("bucket_sort", "hyperspace_tpu_torch/csrc/bucket_sort.cu", "hyperspace_tpu/ops/pallas_sort.py:107"),
     "K2": ("range_probe", "hyperspace_tpu_torch/csrc/range_probe.cu", "hyperspace_tpu/ops/pallas_probe.py:129"),
@@ -2749,7 +3131,8 @@ KERNEL_META = {
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="env,kernels,main,q3,strings,packed,refresh,q13,skipping,delta,identity")
+    ap.add_argument("--phases",
+                    default="env,kernels,main,q3,strings,packed,refresh,q13,skipping,delta,partitioned,identity")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sf", type=float, default=1.0)
     ap.add_argument("--identity-sf", type=float, default=0.05)
@@ -2809,6 +3192,8 @@ def main() -> int:
             add(phase_skipping(torch, base, args.seed)[0])
         if "delta" in phases:
             add(phase_delta(torch, data, base)[0])
+        if "partitioned" in phases:
+            add(phase_partitioned(torch, base, args.seed)[0])
     finally:
         shutil.rmtree(base, ignore_errors=True)
     if "identity" in phases:

@@ -9,11 +9,13 @@ indexed relations into a shuffle-free co-bucketed merge join, and
 buckets, whose parquet row groups are pruned by their footer zone maps; feed
 the join into computed columns and a grouped aggregate. Data-skipping
 indexes (MinMax and bloom sketches per source file) let
-`DataSkippingFilterRule` drop files from a filtered scan. Sources are parquet
-directories and Delta-style tables (`read.delta`, `write_delta`). Scans and
+`DataSkippingFilterRule` drop files from a filtered scan. Sources are parquet,
+CSV, JSON-lines and ORC directories, Hive-partitioned or not, and
+Delta-style tables (`read.delta`, `write_delta`). Scans and
 the join's device work are cached across queries. Indexes are refreshed
 (full, incremental with lineage delete folding, auto), compacted, deleted,
-restored, vacuumed and cancelled through the JAX package's operation log.
+restored, vacuumed and cancelled through the JAX package's operation log,
+kept on the local disk or any fsspec store (`index/factories.py`).
 The sorts and searches on that path are hand-written CUDA kernels (`csrc/`).
 Tables live on the session's device, CUDA by default. The package imports torch, numpy and pyarrow, never jax or
 hyperspace_tpu.

@@ -1,4 +1,4 @@
-"""File IO: parquet listing, reading into device tables, and the bucketed writer.
+"""File IO: data-file listing, reading into device tables, and the writers.
 
 Counterpart of `hyperspace_tpu/engine/io.py`, pyarrow-backed as that module
 is. A read decodes each file's requested columns on the host (string columns
@@ -7,9 +7,20 @@ concatenates them in sorted file order over union dictionaries and copies
 each column to the device once. The writer turns a table back into arrow
 arrays (string columns as compacted dictionaries) and calls `pq.write_table`
 with the same arguments as the JAX package's writer, so equal tables give
-equal files. Parquet and delta are ported; a delta table's data files are
-parquet, so they read, prune and cache exactly as parquet files do (the
-snapshot's file list comes from `storage/delta.py`).
+equal files. A delta table's data files are parquet, so they read, prune and
+cache exactly as parquet files do (the snapshot's file list comes from
+`storage/delta.py`). ORC reads through `pyarrow.orc`, CSV through
+`pyarrow.csv` (no timestamp parsing, an empty cell is null) and JSON lines
+through the standard library, as the JAX package reads them; their writers
+are its writers. Footer metadata, pushdown and footer row counts stay
+parquet's.
+
+A Hive-partitioned read (`partitions=(PartitionSpec, root_paths)`) decodes
+each file's own columns only, cached as the file's raw content, and appends
+the partition columns, path facts, to the concatenation
+(`engine/partitioning.partition_columns`); the concatenation's cache key
+carries the partition layout, so a partitioned read and a plain read of the
+same files never share an entry.
 
 Reads go through the scan caches (`engine/scan_cache.py`): a file's decoded
 columns are cached on the device per (path, size, mtime), and so is a
@@ -23,6 +34,7 @@ can hold a matching row decode, cached under keys of their own.
 
 from __future__ import annotations
 
+import json
 import os
 import threading
 import time
@@ -32,14 +44,16 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import pyarrow as pa
+import pyarrow.csv as pa_csv
 import pyarrow.parquet as pq
 import torch
 
 from ..config import ENV_INDEX_ROW_GROUP_ROWS, INDEX_ROW_GROUP_ROWS_DEFAULT
-from ..exceptions import HyperspaceException, not_in_slice
-from ..storage.filesystem import FileStatus, LocalFileSystem
+from ..exceptions import HyperspaceException
+from ..storage.filesystem import FileStatus, FileSystem, LocalFileSystem
 from ..util.path_utils import is_data_path
 from . import encoding as _encoding
+from .partitioning import partition_columns, values_for
 from .pushdown import ZoneStats
 from .scan_cache import file_base, global_concat_cache, global_scan_cache
 from .schema import BOOL, FLOAT32, FLOAT64, INT32, INT64, STRING, Field, Schema
@@ -59,13 +73,23 @@ DECODE_THREADS = 8
 #: The formats whose data files are parquet (`io._read_one` :244).
 PARQUET_SHAPED = ("parquet", "delta")
 
+#: Each format's data-file extensions (`io._FORMAT_EXTENSIONS` :54); a delta
+#: table's data files are parquet.
+FORMAT_EXTENSIONS = {
+    "parquet": (".parquet",),
+    "delta": (".parquet",),
+    "csv": (".csv",),
+    "json": (".json",),
+    "orc": (".orc",),
+}
+
 
 def _check_format(file_format: str) -> None:
-    if file_format not in PARQUET_SHAPED:
-        raise not_in_slice(f"{file_format} sources")
+    if file_format not in FORMAT_EXTENSIONS:
+        raise HyperspaceException(f"Unsupported file format: {file_format}")
 
 
-def list_data_files(path: str, file_format: str, fs: Optional[LocalFileSystem] = None) -> List[FileStatus]:
+def list_data_files(path: str, file_format: str, fs: Optional[FileSystem] = None) -> List[FileStatus]:
     """Data files under a root path (file or directory, recursive), with the
     metadata filter applied to every component below the root."""
     _check_format(file_format)
@@ -75,10 +99,11 @@ def list_data_files(path: str, file_format: str, fs: Optional[LocalFileSystem] =
     if not fs.is_dir(path):
         return [fs.get_status(path)]
     rootnorm = os.path.normpath(path)
+    exts = FORMAT_EXTENSIONS[file_format]
     out = []
     for st in fs.list_leaf_files(path):
         rel = os.path.relpath(os.path.normpath(st.path), rootnorm)
-        if all(is_data_path(p) for p in rel.split(os.sep)) and st.path.endswith(".parquet"):
+        if all(is_data_path(p) for p in rel.split(os.sep)) and st.path.endswith(exts):
             out.append(st)
     return out
 
@@ -115,11 +140,54 @@ def arrow_schema_to_schema(sch: pa.Schema) -> Schema:
 
 
 def infer_schema(files: List[str], file_format: str) -> Schema:
-    """Schema from the first file's footer."""
+    """Schema of the first file in sorted order (`io.infer_schema` :1153):
+    from a parquet footer or an ORC file's schema; a CSV or JSON file is
+    decoded."""
     _check_format(file_format)
     if not files:
         raise HyperspaceException("No data files to infer schema from.")
-    return arrow_schema_to_schema(pq.read_schema(sorted(files)[0]))
+    first = sorted(files)[0]
+    if file_format in PARQUET_SHAPED:
+        return arrow_schema_to_schema(pq.read_schema(first))
+    if file_format == "orc":
+        from pyarrow import orc as pa_orc
+
+        return arrow_schema_to_schema(pa_orc.ORCFile(first).schema)
+    return _arrow_to_table(_read_other(first, file_format, None)).schema
+
+
+def _read_json_lines(path: str) -> pa.Table:
+    """Line-delimited JSON by the standard library (`io._read_json_lines`
+    :301): unlike `pyarrow.json` it never reads a date-like string as a
+    timestamp."""
+    rows = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if line:
+                rows.append(json.loads(line))
+    if not rows:
+        raise HyperspaceException(f"Empty JSON file: {path}")
+    return pa.table({n: pa.array([r[n] for r in rows]) for n in rows[0]})
+
+
+def _read_other(path: str, file_format: str, columns: Optional[List[str]]) -> pa.Table:
+    """One ORC, CSV or JSON file as arrow (`io._read_one` :277-298). A CSV
+    keeps date-like strings (no timestamp parsers; `pyarrow.csv` still types
+    ISO dates `date32`, which the conversion casts back to strings) and
+    reads an empty cell as null."""
+    with _timed("decode"):
+        if file_format == "orc":
+            from pyarrow import orc as pa_orc
+
+            return pa_orc.ORCFile(path).read(columns=columns)
+        if file_format == "csv":
+            at = pa_csv.read_csv(
+                path, convert_options=pa_csv.ConvertOptions(timestamp_parsers=[], strings_can_be_null=True)
+            )
+        else:
+            at = _read_json_lines(path)
+        return at.select(columns) if columns else at
 
 
 class RowGroupMeta:
@@ -421,22 +489,24 @@ def _pool() -> ThreadPoolExecutor:
     return _POOL
 
 
-def _decode_into_cache(jobs: List[tuple], device) -> List[Table]:
+def _decode_into_cache(jobs: List[tuple], device, file_format: str = "parquet") -> List[Table]:
     """The miss half of `decode_files` (`io._decode_into_cache` :572): each
     job's file is decoded in the columns the cache lacks (all of them when it
-    cannot tell), the arrow reads on the decode threads, the conversions
-    here, one copy to the device per column for the batch, and every table
-    cached. The caller counted the misses."""
+    cannot tell; a file of another format than parquet decodes whole
+    anyway), the arrow reads on the decode threads, the conversions here,
+    one copy to the device per column for the batch, and every table cached.
+    The caller counted the misses."""
     cache = global_scan_cache()
     reads = []
     for path, cols, meta, sel, base in jobs:
-        missing = cache.missing_columns(path, cols, sel, device, base)
+        missing = cache.missing_columns(path, cols, sel, device, base) if file_format in PARQUET_SHAPED else None
         reads.append(missing if missing and missing != list(cols or []) else cols)
     args = [(job[0], rd, job[3], job[4]) for job, rd in zip(jobs, reads)]
-    if len(args) > 1:
-        arrows = list(_pool().map(lambda a: _read_arrow(*a), args))
-    else:
-        arrows = [_read_arrow(*a) for a in args]
+
+    def read(a):
+        return _read_arrow(*a) if file_format in PARQUET_SHAPED else _read_other(a[0], file_format, a[1])
+
+    arrows = list(_pool().map(read, args)) if len(args) > 1 else [read(a) for a in args]
     with _timed("convert"):
         hosts = _convert_batch(arrows)
     out = []
@@ -474,12 +544,13 @@ def _record_decoded_bytes(meta: Optional[FileFooterMeta], sel: tuple, decoded_co
     _count("bytes_skipped", sum(cols_bytes(rg) for i, rg in enumerate(meta.row_groups) if i not in keep))
 
 
-def pushdown_selections(ordered: List[str], pushdown):
+def pushdown_selections(ordered: List[str], pushdown, file_format: str = "parquet"):
     """Per-file (meta, sel) of one scan, aligned with `ordered` (sel None =
-    every row group), or None when pushdown does not apply or prunes nothing
-    anywhere: the caller then reads exactly as without pushdown, with the
-    same cache keys (`io._pushdown_selections` :485). Counts nothing."""
-    if pushdown is None:
+    every row group), or None when pushdown does not apply (no predicate,
+    not parquet) or prunes nothing anywhere: the caller then reads exactly
+    as without pushdown, with the same cache keys (`io._pushdown_selections`
+    :485). Counts nothing."""
+    if pushdown is None or file_format not in PARQUET_SHAPED:
         return None
     out = []
     for p in ordered:
@@ -522,24 +593,34 @@ def file_stats(files: List[str]) -> Optional[tuple]:
     return None if any(b is None for b in bases) else bases
 
 
-def concat_cache_probe(ordered: List[str], columns: Optional[List[str]], device, selection_marker=None):
+def concat_cache_probe(
+    ordered: List[str], columns: Optional[List[str]], device, selection_marker=None, file_format="parquet",
+    partitions=None,
+):
     """(key, cached table or None) of a multi-file scan in the plain concat
-    cache. The key holds every file's (path, size, mtime), the columns and
-    the device; a pushdown's selections key a pruned concat apart from the
-    whole one (`io.concat_cache_probe` :968)."""
+    cache. The key holds the format, every file's (path, size, mtime), the
+    columns, the partition layout and the device; a pushdown's selections
+    key a pruned concat apart from the whole one (`io.concat_cache_probe`
+    :968)."""
     if len(ordered) <= 1:
         return None, None
     stats = file_stats(ordered)
     if stats is None:
         return None, None
-    key = ("concat", stats, ("<all>",) if columns is None else tuple(columns), str(device))
+    part = None
+    if partitions is not None:
+        spec, roots = partitions
+        part = (tuple(spec.columns), tuple(spec.dtypes), tuple(roots))
+    key = ("concat", file_format, stats, ("<all>",) if columns is None else tuple(columns), part, str(device))
     if selection_marker is not None:
         key += (("rgsel", selection_marker),)
     hit = global_concat_cache().get(key)
     return key, None if hit is None else hit[0]
 
 
-def decode_files(jobs: List[tuple], device, bases: Optional[tuple] = None) -> List[Table]:
+def decode_files(
+    jobs: List[tuple], device, bases: Optional[tuple] = None, file_format: str = "parquet"
+) -> List[Table]:
     """`jobs` of (path, columns, meta, sel) as tables on `device` through the
     per-file scan cache: the port's `file_table` / `pruned_file_table`
     (`io.py` :551, :685) for a whole scan at once. `sel` None reads the whole
@@ -566,7 +647,7 @@ def decode_files(jobs: List[tuple], device, bases: Optional[tuple] = None) -> Li
             cold.append((path, cols, meta, None, bases[i]))
         else:
             cold.append((path, selection_columns(cols, meta), meta, tuple(sel), bases[i]))
-    for i, t in zip(missing, _decode_into_cache(cold, device) if cold else []):
+    for i, t in zip(missing, _decode_into_cache(cold, device, file_format) if cold else []):
         tables[i] = t
     return tables
 
@@ -576,6 +657,60 @@ def concat_tables(tables: List[Table]) -> Table:
         return tables[0] if len(tables) == 1 else Table.concat(tables)
 
 
+def file_columns_for(columns: Optional[List[str]], partitions) -> Optional[List[str]]:
+    """The columns to decode from the files for a wanted projection
+    (`io.file_columns_for` :533): partition columns are path facts, not file
+    content. None = every file column (also when only partition columns are
+    wanted: `_file_jobs` then asks a parquet file for one column, which
+    gives the row count)."""
+    if partitions is None or columns is None:
+        return columns
+    pset = {c.lower() for c in partitions[0].columns}
+    file_columns = [c for c in columns if c.lower() not in pset]
+    return file_columns or None
+
+
+def _file_jobs(paths: List[str], file_format: str, columns, partitions, selections, bases) -> List[tuple]:
+    """`decode_files` jobs of one read: each file's columns and row groups."""
+    file_cols = file_columns_for(columns, partitions)
+    jobs = []
+    for p, (meta, sel), base in zip(paths, selections, bases):
+        cols = file_cols
+        if cols is None and columns is not None and file_format in PARQUET_SHAPED:
+            meta = meta or footer_metadata(p, base=base)
+            cols = meta.names[:1] if meta is not None and meta.names else None
+        jobs.append((p, cols, meta, sel))
+    return jobs
+
+
+def decorate(table: Table, paths: List[str], counts: List[int], partitions, columns, device) -> Table:
+    """The rows of `paths` (`counts[i]` rows of file i, in that order) with
+    the partition columns appended and the wanted columns selected
+    (`io.decorate_file_table` :805, for a whole read at once)."""
+    if partitions is None:
+        return table
+    spec, roots = partitions
+    values = [values_for(spec, roots, p) for p in paths]
+    t = Table({**table.columns, **dict(partition_columns(spec, values, counts, columns, device))})
+    return t.select(columns) if columns is not None else t
+
+
+def read_in_order(
+    paths: List[str], file_format: str, columns: Optional[List[str]], device, partitions=None, selections=None,
+    bases=None,
+):
+    """(the files' rows concatenated in the given order, each file's row
+    count): every file through the per-file scan cache, the partition
+    columns appended once for all of them. No concatenation cache."""
+    device = torch.device(device)
+    selections = selections or [(None, None)] * len(paths)
+    bases = bases or _stat_all(paths)
+    jobs = _file_jobs(paths, file_format, columns, partitions, selections, bases)
+    tables = decode_files(jobs, device, bases, file_format)
+    counts = [t.num_rows for t in tables]
+    return decorate(concat_tables(tables), paths, counts, partitions, columns, device), counts
+
+
 def read_files(
     files: List[str],
     file_format: str,
@@ -583,6 +718,7 @@ def read_files(
     device,
     pushdown=None,
     pruning_stats: Optional[dict] = None,
+    partitions=None,
 ) -> Table:
     """Read and concatenate data files, in sorted path order, onto `device`
     (`io.read_files` :1014). Each file's table comes through the per-file scan
@@ -590,30 +726,31 @@ def read_files(
     `ScanPredicate`) decodes only the row groups whose footer zone maps can
     satisfy it; when it prunes nothing the read is the pushdown-free read,
     cache keys included. An all-pruned file gives its 0-row table, so types
-    and union dictionaries are those of the whole read."""
+    and union dictionaries are those of the whole read. `partitions` =
+    (PartitionSpec, root_paths) appends a Hive layout's columns."""
     _check_format(file_format)
     if not files:
         raise HyperspaceException("No data files to read.")
     device = torch.device(device)
     ordered = sorted(files)
-    selections = pushdown_selections(ordered, pushdown)
+    selections = pushdown_selections(ordered, pushdown, file_format)
     marker = None if selections is None else tuple(sel for _, sel in selections)
-    key, cached = concat_cache_probe(ordered, columns, device, marker)
+    key, cached = concat_cache_probe(ordered, columns, device, marker, file_format, partitions)
     if cached is not None:
         return cached
-    if selections is None:
-        selections = [(None, None)] * len(ordered)
-    else:
+    if selections is not None:
         record_pruning(selections, pruning_stats)
-    out = concat_tables(decode_files([(p, columns, m, s) for p, (m, s) in zip(ordered, selections)], device))
+    out, _ = read_in_order(ordered, file_format, columns, device, partitions, selections)
     if key is not None:
         global_concat_cache().put(key, out, None)
     return out
 
 
-def footer_row_count(files: List[FileStatus]) -> int:
+def footer_row_count(files: List[FileStatus], file_format: str = "parquet") -> Optional[int]:
     """Total row count from parquet footers (through the footer cache), with
-    no column decode."""
+    no column decode; None for another format (no row-count metadata)."""
+    if file_format not in PARQUET_SHAPED:
+        return None
     total = 0
     for f in files:
         meta = footer_metadata(f.path)
@@ -645,3 +782,25 @@ def write_parquet(table: Table, path: str, row_group_rows: Optional[int] = None)
         pq.write_table(at, path)
     else:
         pq.write_table(at, path, row_group_size=int(row_group_rows))
+
+
+def write_orc(table: Table, path: str) -> None:
+    from pyarrow import orc as pa_orc
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    pa_orc.write_table(table_to_arrow(table), path)
+
+
+def write_csv(table: Table, path: str) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    pa_csv.write_csv(table_to_arrow(table), path)
+
+
+def write_json(table: Table, path: str) -> None:
+    """Line-delimited JSON (pyarrow has no JSON writer; `io.write_json` :1258)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    cols = {n: c.decode_objects() for n, c in table.columns.items()}
+    with open(path, "w") as f:
+        for i in range(table.num_rows):
+            row = {n: v[i].item() if hasattr(v[i], "item") else v[i] for n, v in cols.items()}
+            f.write(json.dumps(row) + "\n")

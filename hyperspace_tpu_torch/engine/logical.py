@@ -49,7 +49,8 @@ class SourceRelation:
     hybrid_append: Optional["HybridAppend"] = None
     # Names of the rules that pruned this scan's file list (bucket pruning).
     pruned_by: List[str] = field(default_factory=list)
-    # Hive partitioning (`.columns`); no reader of the port sets it yet.
+    # Hive partitioning (`engine/partitioning.PartitionSpec`), None when the
+    # source has no `key=value` layout.
     partition_spec: Optional[object] = None
 
     def __repr__(self):

@@ -122,6 +122,13 @@ def _resolution_case_sensitive(ctx, schema_names) -> bool:
     return cs or len({n.lower() for n in schema_names}) != len(schema_names)
 
 
+def partitions_of(relation) -> Optional[tuple]:
+    """The (PartitionSpec, root paths) a read of a Hive-partitioned source
+    takes, None for any other source."""
+    spec = relation.partition_spec
+    return None if spec is None else (spec, relation.root_paths)
+
+
 def _default_scan_columns(relation: SourceRelation, columns: Optional[List[str]]) -> Optional[List[str]]:
     """The columns a scan reads when `columns` is None ("everything"): for an
     index relation its visible schema, since the lineage column is read only
@@ -149,7 +156,10 @@ class ScanExec(PhysicalNode):
     def _pushdown_pred(self, ctx):
         """The compiled `ScanPredicate`, or None when pushdown cannot apply
         (disabled, a bucketed relation, or no prunable conjunct)."""
-        if self.pushdown is None or self.relation.bucket_spec is not None or not pushdown_enabled():
+        rel = self.relation
+        if self.pushdown is None or rel.bucket_spec is not None or rel.file_format not in engine_io.PARQUET_SHAPED:
+            return None
+        if not pushdown_enabled():
             return None
         return ScanPredicate.from_condition(self.pushdown, _resolution_case_sensitive(ctx, self.relation.schema.names))
 
@@ -173,14 +183,16 @@ class ScanExec(PhysicalNode):
         self.pruning = {}
         return engine_io.read_files(
             files, self.relation.file_format, _default_scan_columns(self.relation, self.columns), ctx.device,
-            pushdown=self._pushdown_pred(ctx), pruning_stats=self.pruning,
+            pushdown=self._pushdown_pred(ctx), pruning_stats=self.pruning, partitions=partitions_of(self.relation),
         )
 
     def execute_count(self, ctx) -> int:
+        """Footer row counts; a format without them is read (physical.py:310)."""
         bucketed = self._hybrid_bucketed()
         if bucketed is not None:
             return bucketed.execute_count(ctx)
-        return engine_io.footer_row_count(self.relation.files)
+        n = engine_io.footer_row_count(self.relation.files, self.relation.file_format)
+        return n if n is not None else self.execute(ctx).num_rows
 
     def simple_string(self):
         cols = f" [{', '.join(self.columns)}]" if self.columns else ""
@@ -241,23 +253,20 @@ class BucketedIndexScanExec(PhysicalNode):
 
     def _appended_rows(self, ctx) -> Table:
         """The appended source files' rows in this scan's columns, file by
-        file in `hybrid_append.files` order; a requested lineage column holds
-        each row's file path (physical.py:446-464)."""
+        file in `hybrid_append.files` order, in the source's format and
+        partition layout; a requested lineage column holds each row's file
+        path (physical.py:438-464)."""
         ha = self.relation.hybrid_append
         wanted = _default_scan_columns(self.relation, self.columns) or self.relation.schema.names
         source_cols = [c for c in wanted if not internal_column(c)]
         lineage = [c for c in wanted if internal_column(c)]
         paths = [f.path for f in ha.files]
-        tables = engine_io.decode_files([(p, source_cols, None, None) for p in paths], ctx.device, ctx.file_stats(paths))
-        parts = []
-        for path, t in zip(paths, tables):
-            if lineage:
-                cols = dict(t.columns)
-                codes = torch.zeros(t.num_rows, dtype=torch.int32, device=ctx.device)
-                cols[lineage[0]] = Column("string", codes, np.asarray([path]))
-                t = Table(cols)
-            parts.append(t)
-        return engine_io.concat_tables(parts).select(wanted)
+        t, counts = engine_io.read_in_order(
+            paths, ha.file_format, source_cols, ctx.device, partitions_of(ha), bases=ctx.file_stats(paths),
+        )
+        if lineage:
+            t = Table({**t.columns, lineage[0]: lineage_column(paths, counts, ctx.device)})
+        return t.select(wanted)
 
     def _merge_appended(self, ctx, table: Table, starts: np.ndarray) -> Tuple[Table, np.ndarray]:
         """Hybrid Scan's merge (`_merge_appended`, physical.py:421): the
@@ -340,9 +349,10 @@ class BucketedIndexScanExec(PhysicalNode):
     def execute_count(self, ctx) -> int:
         """Footer row counts, the appended files' included (physical.py:627)."""
         ha = self.relation.hybrid_append
-        return engine_io.footer_row_count(self.relation.files) + (
-            0 if ha is None else engine_io.footer_row_count(ha.files)
-        )
+        appended = 0 if ha is None else engine_io.footer_row_count(ha.files, ha.file_format)
+        if appended is None:
+            return self.execute(ctx).num_rows
+        return engine_io.footer_row_count(self.relation.files) + appended
 
     def simple_string(self):
         spec = self.relation.bucket_spec
@@ -352,6 +362,18 @@ class BucketedIndexScanExec(PhysicalNode):
             f"buckets={spec.num_buckets} by {list(spec.bucket_columns)}"
             + ("" if ha is None else f" (+{len(ha.files)} appended)")
         )
+
+
+def lineage_column(paths: List[str], counts: List[int], device) -> Column:
+    """The `_data_file_name` column of consecutive runs of rows, run i
+    holding `counts[i]` rows of file `paths[i]`: what concatenating each
+    file's one-value column gives, a dictionary over the union of the paths,
+    built by one `repeat_interleave`."""
+    names = np.asarray(paths)
+    dictionary = np.unique(names)
+    codes = torch.as_tensor(np.searchsorted(dictionary, names).astype(np.int32), device=device)
+    reps = torch.as_tensor(np.asarray(counts, dtype=np.int64), device=device)
+    return Column("string", torch.repeat_interleave(codes, reps, output_size=int(sum(counts))), dictionary)
 
 
 def interleave_perm(starts: np.ndarray, a_starts: np.ndarray, n: int, device) -> torch.Tensor:
@@ -1319,7 +1341,12 @@ class LimitExec(PhysicalNode):
         if type(child) is not ScanExec:
             return None
         rel = child.relation
-        if rel.bucket_spec is not None or rel.file_format not in engine_io.PARQUET_SHAPED or len(rel.files) <= 1:
+        if (
+            rel.bucket_spec is not None
+            or rel.partition_spec is not None
+            or rel.file_format not in engine_io.PARQUET_SHAPED
+            or len(rel.files) <= 1
+        ):
             return None
         picked, total = [], 0
         for f in rel.files:

@@ -8,13 +8,14 @@ plugs the rewrite rules into. The device defaults to CUDA.
 from __future__ import annotations
 
 import os
+import re
 from typing import List, Optional
 
 from ..config import HyperspaceConf, SessionConf
-from ..exceptions import HyperspaceException, not_in_slice
+from ..exceptions import HyperspaceException
 from ..ops.backend import resolve_device
 from ..storage import delta as delta_log
-from ..storage.filesystem import FileStatus, LocalFileSystem
+from ..storage.filesystem import FileStatus, FileSystem, LocalFileSystem
 from . import io as engine_io
 from .expr import Expr
 from .logical import (
@@ -31,6 +32,7 @@ from .logical import (
 )
 from .partitioning import discover
 from .physical import ExecContext, PhysicalNode, plan_physical
+from .schema import Schema
 from .table import Table
 
 
@@ -178,26 +180,36 @@ class DataFrameReader:
         return DataFrame(self._session, ScanNode(rel))
 
     def _load(self, path_list: List[str], file_format: str) -> DataFrame:
+        """A source over the files under `path_list` (`session._read` :383).
+        Paths are made absolute (a URL-scheme path passes through), so the
+        spelling of a root never changes the partition discovery; a Hive
+        `key=value` layout appends its columns to the schema."""
         files: List[FileStatus] = []
         for p in path_list:
             files.extend(engine_io.list_data_files(p, file_format, self._session.fs))
         if not files:
             raise HyperspaceException(f"No {file_format} files found under {path_list}")
         schema = engine_io.infer_schema([f.path for f in files], file_format)
-        files = [
-            FileStatus(os.path.abspath(f.path), f.size, f.modified_time, f.is_dir) for f in files
-        ]
-        if discover([os.path.abspath(p) for p in path_list], [f.path for f in files]) is not None:
-            # The JAX package appends the `key=value` columns to the schema;
-            # without them the port would answer with columns missing.
-            raise not_in_slice("hive-partitioned sources")
+        roots = [_absolute(p) for p in path_list]
+        files = [FileStatus(_absolute(f.path), f.size, f.modified_time, f.is_dir) for f in files]
+        spec = discover(roots, [f.path for f in files])
+        if spec is not None:
+            clash = [c for c in spec.columns if c in schema]
+            if clash:
+                raise HyperspaceException(f"Partition column(s) also present in data files: {clash}")
+            schema = Schema(list(schema.fields) + spec.fields)
         rel = SourceRelation(
-            root_paths=[os.path.abspath(p) for p in path_list],
-            file_format=file_format,
-            schema=schema,
-            files=files,
+            root_paths=roots, file_format=file_format, schema=schema, files=files, partition_spec=spec,
         )
         return DataFrame(self._session, ScanNode(rel))
+
+
+_URL = re.compile(r"^[A-Za-z][A-Za-z0-9+.-]*://")
+
+
+def _absolute(path: str) -> str:
+    """An absolute local path; a URL-scheme path (s3://, memory://) as it is."""
+    return path if _URL.match(path) else os.path.abspath(path)
 
 
 class HyperspaceSession:
@@ -208,7 +220,7 @@ class HyperspaceSession:
         warehouse: str = ".",
         device=None,
         conf: Optional[SessionConf] = None,
-        fs: Optional[LocalFileSystem] = None,
+        fs: Optional[FileSystem] = None,
     ):
         self.warehouse = warehouse
         self.device = resolve_device(device)
@@ -231,6 +243,20 @@ class HyperspaceSession:
         """Write a Table (or a dict of numpy arrays) as `path/part-00000.parquet`."""
         t = data if isinstance(data, Table) else Table.from_pydict(data, "cpu")
         engine_io.write_parquet(t, os.path.join(path, "part-00000.parquet"), row_group_rows)
+
+    def write_orc(self, data, path: str) -> None:
+        """Write a Table (or a dict of numpy arrays) as `path/part-00000.orc`."""
+        t = data if isinstance(data, Table) else Table.from_pydict(data, "cpu")
+        engine_io.write_orc(t, os.path.join(path, "part-00000.orc"))
+
+    def write_csv(self, data, path: str) -> None:
+        t = data if isinstance(data, Table) else Table.from_pydict(data, "cpu")
+        engine_io.write_csv(t, os.path.join(path, "part-00000.csv"))
+
+    def write_json(self, data, path: str) -> None:
+        """Line-delimited JSON, one object a row."""
+        t = data if isinstance(data, Table) else Table.from_pydict(data, "cpu")
+        engine_io.write_json(t, os.path.join(path, "part-00000.json"))
 
     def write_delta(self, data, path: str, mode: str = "append") -> None:
         """Commit a Table (or a dict of numpy arrays) to the delta table at

@@ -7,9 +7,11 @@ device, bucketize (hash + stable in-bucket sort, `ops/partition.py`), write one
 `part-<bucket>.parquet` per non-empty bucket with bounded row groups, inside a
 staging directory committed by one rename. `derive_log_entry` (:265) builds
 the same metadata record, field for field. With lineage on
-(`hyperspace.index.lineage.enabled`) each source file is read on its own, in
-inventory order, and its rows get the file's path in the `_data_file_name`
-string column (:79-107), which lets a refresh fold deleted source files.
+(`hyperspace.index.lineage.enabled`) the source files are read in inventory
+order, and each row gets its file's path in the `_data_file_name` string
+column (:79-107), which lets a refresh fold deleted source files; the
+partition columns of a Hive-partitioned source that the config leaves out
+are indexed too, between the configured columns and the lineage column.
 """
 
 from __future__ import annotations
@@ -18,16 +20,14 @@ import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import List
 
-import numpy as np
-import torch
-
 from ..actions.create import IndexerBuilder
 from ..config import IndexConstants
 from ..engine import io as engine_io
 from ..engine.logical import ScanNode, SourceRelation
+from ..engine.physical import lineage_column, partitions_of
 from ..engine.schema import STRING, Field, Schema
-from ..engine.table import Column, Table
-from ..exceptions import HyperspaceException, not_in_slice
+from ..engine.table import Table
+from ..exceptions import HyperspaceException
 from ..ops.partition import bucketize_table
 from ..util.resolver_utils import resolve_all
 from .index_config import IndexConfig
@@ -80,8 +80,7 @@ class CoveringIndexBuilder(IndexerBuilder):
     def _missing_partition_columns(rel: SourceRelation, wanted: List[str]) -> List[str]:
         """Partition columns not already selected: lineage mode indexes them
         so that a lineage row maps back to its source partition (reference
-        `CreateActionBase.scala:176-188`). None while the relation has no
-        partition spec, as every relation of the port's readers."""
+        `CreateActionBase.scala:176-188`)."""
         if rel.partition_spec is None:
             return []
         have = {w.lower() for w in wanted}
@@ -94,17 +93,14 @@ class CoveringIndexBuilder(IndexerBuilder):
         rel = df.plan.relation
         wanted = indexed + included
         device = self._session.device
+        partitions = partitions_of(rel)
         if not self._session.hs_conf.lineage_enabled:
-            return engine_io.read_files([f.path for f in rel.files], rel.file_format, wanted, device)
+            return engine_io.read_files([f.path for f in rel.files], rel.file_format, wanted, device,
+                                        partitions=partitions)
         wanted = wanted + self._missing_partition_columns(rel, wanted)
-        parts = []
-        for f in rel.files:
-            t = engine_io.read_files([f.path], rel.file_format, wanted, device)
-            cols = dict(t.columns)
-            codes = torch.zeros(t.num_rows, dtype=torch.int32, device=device)
-            cols[IndexConstants.DATA_FILE_NAME_COLUMN] = Column(STRING, codes, np.asarray([f.path]))
-            parts.append(Table(cols))
-        return engine_io.concat_tables(parts)
+        paths = [f.path for f in rel.files]
+        t, counts = engine_io.read_in_order(paths, rel.file_format, wanted, device, partitions)
+        return Table({**t.columns, IndexConstants.DATA_FILE_NAME_COLUMN: lineage_column(paths, counts, device)})
 
     def _write_serial(self, df, index_config: IndexConfig, index_data_path: str) -> None:
         indexed, _ = self._resolved_columns(df, index_config)
@@ -173,13 +169,15 @@ class CoveringIndexBuilder(IndexerBuilder):
         )
 
     def reconstruct_df(self, relation: Relation):
-        """The source again, over the logged root paths: listed anew, or a
-        delta table's current snapshot (`builder.py:308-320`)."""
-        if relation.file_format == "delta":
-            return self._session.read.delta(*relation.root_paths)
-        if relation.file_format != "parquet":
-            raise not_in_slice(f"{relation.file_format} sources")
-        return self._session.read.parquet(*relation.root_paths)
+        """The source again, over the logged root paths, by the logged format:
+        listed anew (partitions discovered anew), or a delta table's current
+        snapshot (`builder.py:307-320`)."""
+        reader = self._session.read
+        readers = {"parquet": reader.parquet, "csv": reader.csv, "json": reader.json, "orc": reader.orc,
+                   "delta": reader.delta}
+        if relation.file_format not in readers:
+            raise HyperspaceException(f"Unsupported file format: {relation.file_format}")
+        return readers[relation.file_format](*relation.root_paths)
 
     def restrict_df_to_files(self, df, file_paths):
         """The same relation limited to `file_paths` (the files an incremental

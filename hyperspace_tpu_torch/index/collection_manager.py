@@ -8,7 +8,9 @@ writers. `CachingIndexCollectionManager` keeps the list of log entries for
 `hyperspace.index.cache.expiryDurationInSeconds` (300 s) and clears it
 before and after every mutation. A data-skipping index
 (`index/dataskipping.py`) is created and refreshed by its own builder,
-chosen by the config's type and by the log entry's kind. The JAX package's
+chosen by the config's type and by the log entry's kind. The log and data
+managers and their filesystem come from the factories of
+`index/factories.py` (the filesystem by the index path's scheme). The JAX package's
 event logger, metrics and the replica fleet's cross-process invalidation
 are not ported.
 """
@@ -27,11 +29,10 @@ from ..engine.table import Table
 from ..exceptions import HyperspaceException
 from . import quarantine
 from .builder import CoveringIndexBuilder
-from .data_manager import IndexDataManagerImpl
 from .dataskipping import DATA_SKIPPING_KIND, DataSkippingIndexBuilder, DataSkippingIndexConfig
+from .factories import FileSystemFactory, IndexDataManagerFactory, IndexLogManagerFactory
 from .index_config import IndexConfig
 from .log_entry import IndexLogEntry
-from .log_manager import IndexLogManagerImpl
 from .path_resolver import PathResolver
 from .staging import reclaim_orphans
 
@@ -39,8 +40,17 @@ REFRESH_MODES = ("full", "incremental", "auto")
 
 
 class IndexCollectionManager:
-    def __init__(self, session):
+    def __init__(
+        self,
+        session,
+        log_manager_factory: Optional[IndexLogManagerFactory] = None,
+        data_manager_factory: Optional[IndexDataManagerFactory] = None,
+        fs_factory: Optional[FileSystemFactory] = None,
+    ):
         self._session = session
+        self._log_factory = log_manager_factory or IndexLogManagerFactory()
+        self._data_factory = data_manager_factory or IndexDataManagerFactory()
+        self._fs_factory = fs_factory or FileSystemFactory()
         self._resolver = PathResolver(session.conf, session.fs, warehouse=session.warehouse)
 
     def _managers_for(self, name: str):
@@ -49,8 +59,8 @@ class IndexCollectionManager:
         and never touched)."""
         index_path = self._resolver.get_index_path(name)
         reclaim_orphans(index_path)
-        fs = self._session.fs
-        return IndexLogManagerImpl(index_path, fs), IndexDataManagerImpl(index_path, fs), index_path
+        fs = self._fs_factory.create(index_path)
+        return self._log_factory.create(index_path, fs), self._data_factory.create(index_path, fs), index_path
 
     def _existing_log_manager(self, name: str):
         """An existing index's managers (reference `withLogManager`,
@@ -151,7 +161,7 @@ class IndexCollectionManager:
         for st in fs.list_status(system):
             if not st.is_dir:
                 continue
-            log_mgr = IndexLogManagerImpl(st.path, fs)
+            log_mgr = self._log_factory.create(st.path, self._fs_factory.create(st.path))
             entry = log_mgr.get_latest_log()
             if entry is not None and entry.state in states.TRANSIENT_STATES:
                 entry = log_mgr.get_latest_stable_log()
@@ -252,8 +262,8 @@ class CachingIndexCollectionManager(IndexCollectionManager):
     runs, and a failed action's transient entry must be read, not trusted
     from the cache (:382-496)."""
 
-    def __init__(self, session):
-        super().__init__(session)
+    def __init__(self, session, **factories):
+        super().__init__(session, **factories)
         self._cache = IndexCacheFactory.create(session.hs_conf.cache_type, session)
 
     def get_indexes(self, states_filter: Optional[Sequence[str]] = None) -> List[IndexLogEntry]:

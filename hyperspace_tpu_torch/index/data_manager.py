@@ -8,11 +8,24 @@ import os
 from typing import List, Optional
 
 from ..config import IndexConstants
-from ..storage.filesystem import LocalFileSystem
+from ..storage.filesystem import FileSystem, LocalFileSystem
 
 
-class IndexDataManagerImpl:
-    def __init__(self, index_path: str, fs: Optional[LocalFileSystem] = None):
+class IndexDataManager:
+    """The contract (reference `IndexDataManager.scala:26-36`)."""
+
+    def get_latest_version_id(self) -> Optional[int]:
+        raise NotImplementedError
+
+    def get_path(self, version_id: int) -> str:
+        raise NotImplementedError
+
+    def delete(self, version_id: int) -> None:
+        raise NotImplementedError
+
+
+class IndexDataManagerImpl(IndexDataManager):
+    def __init__(self, index_path: str, fs: Optional[FileSystem] = None):
         self._index_path = index_path
         self._fs = fs or LocalFileSystem()
 

@@ -46,6 +46,7 @@ from ..actions.create import IndexerBuilder
 from ..config import IndexConstants
 from ..engine import io as engine_io
 from ..engine.logical import ScanNode
+from ..engine.physical import partitions_of
 from ..engine.schema import STRING, Schema
 from ..engine.table import Column, Table
 from ..exceptions import HyperspaceException
@@ -272,8 +273,9 @@ class DataSkippingIndexBuilder(IndexerBuilder):
         rel = df.plan.relation
         cols = list(dict.fromkeys(s.column for s in index_config.sketches))
         rows: Dict[str, list] = {FILE_COLUMN: []}
+        partitions = partitions_of(rel)
         for f in rel.files:
-            t = engine_io.read_files([f.path], rel.file_format, cols, self._session.device)
+            t = engine_io.read_files([f.path], rel.file_format, cols, self._session.device, partitions=partitions)
             rows[FILE_COLUMN].append(f.path)
             for s in index_config.sketches:
                 c = t.column(s.column)

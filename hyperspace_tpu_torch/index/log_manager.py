@@ -4,7 +4,8 @@ Parity: reference `index/IndexLogManager.scala` — numbered JSON entries under
 `<indexRoot>/_hyperspace_log/<id>`; `write_log` refuses existing ids and commits
 via temp file + atomic rename (`:146-162`); a `latestStable` pointer copy
 (`:113-130`). Counterpart of `hyperspace_tpu/index/log_manager.py` without its
-retry and fault-injection hooks.
+retry and fault-injection hooks. The entries live on any `FileSystem`
+(`index/factories.py` picks it by the index path's scheme).
 """
 
 from __future__ import annotations
@@ -14,15 +15,41 @@ from typing import Optional
 
 from ..actions.states import STABLE_STATES
 from ..config import IndexConstants
-from ..storage.filesystem import LocalFileSystem
+from ..storage.filesystem import FileSystem, LocalFileSystem
 from ..util import json_utils
 from .log_entry import LogEntry
 
 LATEST_STABLE = "latestStable"
 
 
-class IndexLogManagerImpl:
-    def __init__(self, index_path: str, fs: Optional[LocalFileSystem] = None):
+class IndexLogManager:
+    """The contract (reference `IndexLogManager.scala:33-55`)."""
+
+    def get_log(self, log_id: int) -> Optional[LogEntry]:
+        raise NotImplementedError
+
+    def get_latest_id(self) -> Optional[int]:
+        raise NotImplementedError
+
+    def get_latest_log(self) -> Optional[LogEntry]:
+        latest = self.get_latest_id()
+        return self.get_log(latest) if latest is not None else None
+
+    def get_latest_stable_log(self) -> Optional[LogEntry]:
+        raise NotImplementedError
+
+    def create_latest_stable_log(self, log_id: int) -> bool:
+        raise NotImplementedError
+
+    def delete_latest_stable_log(self) -> bool:
+        raise NotImplementedError
+
+    def write_log(self, log_id: int, entry: LogEntry) -> bool:
+        raise NotImplementedError
+
+
+class IndexLogManagerImpl(IndexLogManager):
+    def __init__(self, index_path: str, fs: Optional[FileSystem] = None):
         self._index_path = index_path
         self._fs = fs or LocalFileSystem()
 
@@ -46,10 +73,6 @@ class IndexLogManagerImpl:
             return None
         ids = [int(st.name) for st in self._fs.list_status(self._log_dir) if st.name.isdigit()]
         return max(ids) if ids else None
-
-    def get_latest_log(self) -> Optional[LogEntry]:
-        latest = self.get_latest_id()
-        return self.get_log(latest) if latest is not None else None
 
     def get_latest_stable_log(self) -> Optional[LogEntry]:
         stable = self._read(self._path_for(LATEST_STABLE))

@@ -7,10 +7,7 @@
 (b) No file of the port (nor `chip_smoke.py`) imports `jax` or `hyperspace_tpu`.
 (c) A session built without `device=` asks for CUDA; with no card it raises
     instead of running on the CPU.
-(d) Features outside the slice raise NotImplementedError naming the feature
-    (CSV, JSON and ORC sources, and Hive-partitioned directories, which the
-    port refuses rather than read without their partition columns).
-(e) A join type neither package knows raises HyperspaceException in both.
+(d) A join type neither package knows raises HyperspaceException in both.
 """
 
 import ast
@@ -125,43 +122,6 @@ def session(tmp_path):
     s.write_parquet({"a": np.arange(10, dtype=np.int64), "x": np.ones(10)}, str(tmp_path / "l"))
     s.write_parquet({"b": np.arange(10, dtype=np.int64), "y": np.ones(10)}, str(tmp_path / "r"))
     return s, s.read.parquet(str(tmp_path / "l")), s.read.parquet(str(tmp_path / "r"))
-
-
-CUT_OUTS = {
-    "csv sources": lambda s, l, r: s.read.csv(s.warehouse),
-    "json sources": lambda s, l, r: s.read.json(s.warehouse),
-    "orc sources": lambda s, l, r: s.read.orc(s.warehouse),
-    "hive-partitioned sources": lambda s, l, r: s.read.parquet(_hive_lake(s.warehouse)),
-}
-
-
-def _hive_lake(base: str) -> str:
-    """`T/p=1/f.parquet` and `T/p=2/f.parquet`, each with one column `k`."""
-    root = os.path.join(base, "T")
-    for p in (1, 2):
-        d = os.path.join(root, f"p={p}")
-        hst.HyperspaceSession(warehouse=base, device="cpu").write_parquet({"k": np.arange(3, dtype=np.int64)}, d)
-        os.replace(os.path.join(d, "part-00000.parquet"), os.path.join(d, "f.parquet"))
-    return root
-
-
-@pytest.mark.parametrize("feature", sorted(CUT_OUTS))
-def test_features_outside_the_slice_raise_naming_the_feature(session, feature):
-    with pytest.raises(NotImplementedError, match=feature.split()[0]):
-        CUT_OUTS[feature](*session)
-
-
-def test_a_hive_partitioned_lake_is_refused_not_read_without_its_partition_columns(tmp_path):
-    """The JAX package reads `p` from the path as a column; the port, which
-    carries no partition columns yet, raises instead of dropping it."""
-    root = _hive_lake(str(tmp_path))
-    jt = JaxSession(warehouse=str(tmp_path / "jax")).read.parquet(root).collect()
-    assert jt.column_names == ["k", "p"]
-    assert jt.to_pydict()["p"] == [1, 1, 1, 2, 2, 2]
-    s = hst.HyperspaceSession(warehouse=str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="hive-partitioned sources"):
-        s.read.parquet(root)
-    assert s.read.parquet(os.path.join(root, "p=1")).collect().column_names == ["k"]  # one partition's files
 
 
 @pytest.mark.parametrize("how", ["outer_left", "natural", "semi join"])

@@ -733,3 +733,61 @@ def test_data_skipping_on_the_card_equals_the_cpu(cuda_device, tmp_path):
     assert shas["cuda"] == shas["cpu"]
     assert rows["cuda"] == rows["cpu"]
     assert len(rows["cpu"][0][0]) == 1 and len(rows["cpu"][2][0]) < 4
+
+
+@pytest.mark.cuda
+def test_a_partitioned_lineage_build_and_query_on_the_card_equal_the_cpu(cuda_device, tmp_path):
+    """A Hive-partitioned source (an int partition with a null, a string
+    partition, several files a partition): the lineage index built on the
+    card (the partition columns' constants made there) equals the CPU's
+    byte for byte, and filters and a co-bucketed join on the nullable
+    partition column (a null day matches nothing) give the CPU's rows."""
+    import hashlib
+    import os
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    import hyperspace_tpu_torch as hst
+
+    rng = np.random.RandomState(17)
+    src, dim = str(tmp_path / "events"), str(tmp_path / "days")
+    for day in ("20", "21", "22", "__HIVE_DEFAULT_PARTITION__"):
+        for region in ("north", "south"):
+            for j in range(2):
+                n = int(rng.randint(200, 900))
+                path = os.path.join(src, f"day={day}", f"region={region}", f"part-{j:05d}.parquet")
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                pq.write_table(pa.table({"k": rng.randint(0, 300, n).astype(np.int64), "x": rng.rand(n)}), path)
+    os.makedirs(dim)
+    pq.write_table(pa.table({"day_id": np.array([20, 21, 22, 23], np.int64), "label": ["a", "b", "c", "d"]}),
+                   os.path.join(dim, "part-00000.parquet"))
+    out, shas = {}, {}
+    for dev in ("cpu", "cuda"):
+        s = hst.HyperspaceSession(warehouse=str(tmp_path / dev), device=dev)
+        s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, 8)
+        s.conf.set(hst.IndexConstants.INDEX_LINEAGE_ENABLED, "true")
+        hs = hst.Hyperspace(s)
+        hs.create_index(s.read.parquet(src), hst.IndexConfig("ev", ["k"], ["x"]))
+        hs.create_index(s.read.parquet(src), hst.IndexConfig("ev2", ["k"], ["x", "day"]))
+        hs.create_index(s.read.parquet(src), hst.IndexConfig("evDay", ["day"], ["k"]))
+        hs.create_index(s.read.parquet(dim), hst.IndexConfig("dimIdx", ["day_id"], ["label"]))
+        hst.enable_hyperspace(s)
+        shas[dev] = {
+            e.name: {p.split(str(tmp_path / dev))[-1]: hashlib.sha256(open(p, "rb").read()).hexdigest()
+                     for p in e.content.files()}
+            for e in hs._manager.get_indexes()
+        }
+        ev = s.read.parquet(src)
+        queries = [
+            ev.filter(hst.col("region") == "south").select("k", "x", "day", "region"),
+            ev.filter(hst.col("day").is_null()).select("k", "region"),
+            ev.filter(hst.col("k") == 7).select("k", "x"),
+            ev.join(s.read.parquet(dim), hst.col("day") == hst.col("day_id")).select("k", "label"),
+        ]
+        assert "BucketedIndexScan index=evDay" in queries[3].explain_string()
+        out[dev] = [(q.count(), {n: c.decode_objects().tolist() for n, c in q.collect().columns.items()})
+                    for q in queries]
+    assert shas["cuda"] == shas["cpu"] and len(shas["cpu"]) == 4
+    assert out["cuda"] == out["cpu"]
+    assert out["cpu"][1][0] > 0 and None not in out["cpu"][3][1]["k"]

@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases env,q13
     python3 chip_smoke.py --phases env,skipping,delta
     python3 chip_smoke.py --phases env,partitioned
+    python3 chip_smoke.py --phases env,setops
 
 Phases, each failing loudly:
 
@@ -178,14 +179,40 @@ Phases, each failing loudly:
              of 1,827 files, indexed and disabled; (f) item again as JSON
              lines under a covering index: a lookup equal to the ORC
              index's and numpy's.
-12. identity the join, aggregate, Q3 (general joins, every group), Q13
+12. setops   TPC-DS Q38 and Q87 at SF1 in a directory of its own
+             (`setops_tables`, all made with numpy from --seed): store_sales
+             (2,880,404 rows, the skipping phase's generator),
+             catalog_sales (1,441,548) and web_sales (719,384) as orders of
+             8-16 lines of one date and billed customer, customer (100,000:
+             names drawn from 2,000 first and 4,000 last generated names, 1%
+             of each null), date_dim with d_month_seq; 1% of the year-2000
+             store tickets have their (customer, date) repeated by one
+             catalog and one web order (this script's share). ssCust,
+             csCust, wsCust (each channel's sales [customer] with the sale
+             date) and custIdx (customer [c_customer_sk] with both names)
+             make every branch's sales ⋈ customer co-bucketed (K2; K1 in
+             hash mode), then a general join to date_dim's year 2000 and the
+             distinct (c_last_name, c_first_name, d_date). (a) Q38 (the
+             branches intersected) and Q87 (store minus catalog minus web)
+             count() indexed and disabled, cold, uncached p50 of 3 and cached
+             p50 of 3, an uncached run by stage, the device's busy share and
+             the store branch's distinct split (the host's dictionary
+             hashing against the whole aggregate);
+             (b) Q38's and Q87's rows: numpy's sets, in the store branch's
+             order; (c) the branches unioned and deduplicated; (d) Q38 over
+             three views, still indexed; (e) `Hyperspace.explain` verbose:
+             the four indexes used, ShuffleExchange 12 disabled and 6
+             enabled; (f) Q38's plan serialized and back, the same count and
+             plan; (g) a UDF (the last name's initial) over Q38's rows,
+             grouped, against numpy; (h) `show(20)` and `scalar()`.
+13. identity the join, aggregate, Q3 (general joins, every group), Q13
              (indexed and disabled) and string slices at SF 0.05 with
              device="cpu" and device="cuda": identical index files,
              identical rows in order (sums at rtol 1e-9).
 
 Kernel launches are counted from 0 at the start of each phase that drives
 the engine (main, q3, strings, packed, refresh, q13, skipping, delta,
-partitioned) and summed over them. Prints one JSON
+partitioned, setops) and summed over them. Prints one JSON
 line of per-kernel results, the card's `nvidia-smi` line,
 and last `{"ok": true, "device": {...}}`. Exits non-zero without a result
 when no CUDA device is visible or the package is missing.
@@ -197,6 +224,7 @@ import argparse
 import hashlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1305,8 +1333,8 @@ def query_stage_split(torch, df, uncached: bool) -> dict:
     operator's own time (its call's time less its children's, every call
     ended by a synchronize), summed into the scans (with their filters), the
     bucketed join, the general join (with its exchange and sort markers), the
-    aggregates (with the computed column), ORDER BY, LIMIT, the projection
-    and the copy to the host."""
+    aggregates (with the computed column), ORDER BY, LIMIT, the projection,
+    the set operations and the copy to the host."""
     from hyperspace_tpu_torch.engine.physical import ExecContext
 
     plan = df.physical_plan()
@@ -1319,6 +1347,7 @@ def query_stage_split(torch, df, uncached: bool) -> dict:
             "Scan": "scans_s", "BucketedIndexScan": "scans_s", "Filter": "scans_s", "Sort": "general_join_s",
             "ShuffleExchange": "general_join_s", "WithColumn": "aggregate_s", "HashAggregate": "aggregate_s",
             "OrderBy": "order_by_s", "Limit": "limit_s", "Project": "project_s",
+            "Intersect": "set_op_s", "Except": "set_op_s", "Union": "set_op_s",
         }[node.name]
 
     def wrap(node, method):
@@ -2794,8 +2823,7 @@ def tpcds_tables(rng, ss_rows: int, first_day: int, last_day: int, items: int = 
     """store_sales (the `store_sales` generator's rows of the days, a
     `null_share` of tickets with a null sale date: `valid` False), item
     (`items` rows, manufacturer and brand ids uniform over 1..1000, the brand
-    named by its id) and date_dim (TPC-DS's 73,049 days from 1900-01-02, the
-    date as an ISO string)."""
+    named by its id) and date_dim (`date_dim_table`)."""
     cols, _ = store_sales(rng, first_day, last_day, ss_rows)
     cols["ss_item_sk"] = rng.randint(1, items + 1, ss_rows).astype(np.int64)
     tickets = np.unique(cols["ss_ticket_number"])
@@ -2805,11 +2833,17 @@ def tpcds_tables(rng, ss_rows: int, first_day: int, last_day: int, items: int = 
     item = {"i_item_sk": np.arange(1, items + 1, dtype=np.int64), "i_brand_id": brand_id,
             "i_brand": np.array([f"brand #{b}" for b in brand_id]),
             "i_manufact_id": rng.randint(1, 1001, items).astype(np.int64)}
+    return {"store_sales": cols, "item": item, "date_dim": date_dim_table()}
+
+
+def date_dim_table() -> dict:
+    """TPC-DS's date_dim: 73,049 days from 1900-01-02, the date an ISO
+    string, and d_month_seq counting months from 1900-01 (2000-01 is 1200)."""
     dates = np.datetime64(DD_FIRST_DATE) + np.arange(DD_ROWS)
-    date_dim = {"d_date_sk": DD_FIRST_SK + np.arange(DD_ROWS, dtype=np.int64), "d_date": dates.astype(str),
-                "d_year": dates.astype("datetime64[Y]").astype(np.int64) + 1970,
-                "d_moy": dates.astype("datetime64[M]").astype(np.int64) % 12 + 1}
-    return {"store_sales": cols, "item": item, "date_dim": date_dim}
+    year = dates.astype("datetime64[Y]").astype(np.int64) + 1970
+    moy = dates.astype("datetime64[M]").astype(np.int64) % 12 + 1
+    return {"d_date_sk": DD_FIRST_SK + np.arange(DD_ROWS, dtype=np.int64), "d_date": dates.astype(str),
+            "d_year": year, "d_moy": moy, "d_month_seq": (year - 1900) * 12 + moy - 1}
 
 
 def partition_dirs(cols: dict) -> list:
@@ -3120,6 +3154,324 @@ def phase_partitioned(torch, base: str, seed: int):
     return launches, seconds, steps
 
 
+# ---------------------------------------------------------------------------
+# Phase setops: TPC-DS Q38 and Q87 over co-bucketed joins
+# ---------------------------------------------------------------------------
+
+CS_ROWS = 1_441_548  # TPC-DS SF1 catalog_sales
+WS_ROWS = 719_384  # TPC-DS SF1 web_sales
+CUSTOMER_ROWS = 100_000  # TPC-DS SF1 customer
+FIRST_NAMES, LAST_NAMES = 2_000, 4_000  # generated names to draw from (this script's choice)
+NULL_NAME_SHARE = 0.01  # customers with a null first or last name (this script's choice)
+PLANT_SHARE = 0.01  # year-2000 store tickets whose (customer, date) a catalog and a web order repeat (this script's choice)
+MONTH_SEQ_2000 = 1200  # d_month_seq of 2000-01
+SYLLABLES = np.array(["ba", "ce", "di", "fo", "gu", "ha", "je", "ki", "lo", "mu", "na", "pe", "qui", "ro", "su",
+                      "ta", "ve", "wi", "xo", "ya", "ze", "an", "el", "in", "or", "us"])
+CHANNELS = {  # sales table: (its sale date column, its customer column)
+    "store_sales": ("ss_sold_date_sk", "ss_customer_sk"),
+    "catalog_sales": ("cs_sold_date_sk", "cs_bill_customer_sk"),
+    "web_sales": ("ws_sold_date_sk", "ws_bill_customer_sk"),
+}
+SETOPS_INDEXES = [
+    ("store_sales", "ssCust", ["ss_customer_sk"], ["ss_sold_date_sk"]),
+    ("catalog_sales", "csCust", ["cs_bill_customer_sk"], ["cs_sold_date_sk"]),
+    ("web_sales", "wsCust", ["ws_bill_customer_sk"], ["ws_sold_date_sk"]),
+    ("customer", "custIdx", ["c_customer_sk"], ["c_first_name", "c_last_name"]),
+]
+SETOPS_SF1 = {"ss_rows": SS_ROWS, "cs_rows": CS_ROWS, "ws_rows": WS_ROWS, "customers": CUSTOMER_ROWS,
+              "first_names": FIRST_NAMES, "last_names": LAST_NAMES}
+
+
+def generated_names(rng, n: int) -> np.ndarray:
+    """`n` distinct three-syllable names, capitalised."""
+    k = len(SYLLABLES)
+    picks = rng.choice(k ** 3, n, replace=False)
+    return np.array([(SYLLABLES[p // k // k] + SYLLABLES[p // k % k] + SYLLABLES[p % k]).capitalize() for p in picks])
+
+
+def channel_orders(rng, rows: int, first_day: int, last_day: int, customers: int, plant=None):
+    """(sale date_sk, customer_sk) of `rows` sales lines in orders of 8-16
+    lines of one date and customer, as the store tickets are, in date order;
+    `plant` = (date_sk, customer_sk) arrays that as many random orders take."""
+    sizes = rng.randint(8, 17, rows // 8 + 1)
+    n_o = int(np.searchsorted(np.cumsum(sizes), rows)) + 1
+    sizes = sizes[:n_o]
+    sizes[-1] -= int(sizes.sum()) - rows
+    o_date = SS_FIRST_DATE_SK + rng.randint(first_day, last_day + 1, n_o).astype(np.int64) - SS_FIRST_DAY
+    o_cust = rng.randint(1, customers + 1, n_o).astype(np.int64)
+    if plant is not None:
+        at = rng.choice(n_o, len(plant[0]), replace=False)
+        o_date[at], o_cust[at] = plant
+    order = np.argsort(o_date, kind="stable")
+    return np.repeat(o_date[order], sizes), np.repeat(o_cust[order], sizes)
+
+
+def setops_tables(rng, ss_rows: int, cs_rows: int, ws_rows: int, customers: int, first_names: int,
+                  last_names: int, first_day: int = SS_FIRST_DAY, last_day: int = SS_LAST_DAY,
+                  plant_share: float = PLANT_SHARE) -> dict:
+    """Q38's and Q87's tables: store_sales (the `store_sales` generator's
+    rows, customers folded into 1..`customers`), catalog_sales and web_sales
+    (`channel_orders`: the sale date and the billed customer), customer
+    (`customers` rows, names drawn from `first_names` and `last_names`
+    generated names, each null for `NULL_NAME_SHARE` of customers) and
+    date_dim. A `plant_share` of the year-2000 store tickets has its
+    (customer, date) repeated by one catalog order and one web order, so that
+    Q38 does not come out empty by chance."""
+    ss, _ = store_sales(rng, first_day, last_day, ss_rows)
+    ss["ss_customer_sk"] = (ss["ss_customer_sk"] - 1) % customers + 1
+    starts = np.concatenate([[0], np.nonzero(np.diff(ss["ss_ticket_number"]))[0] + 1])
+    t_date, t_cust = ss["ss_sold_date_sk"][starts], ss["ss_customer_sk"][starts]
+    y2000 = np.nonzero((t_date >= date_sk("2000-01-01")) & (t_date <= date_sk("2000-12-31")))[0]
+    picked = rng.choice(y2000, int(round(plant_share * len(y2000))), replace=False)
+    plant = (t_date[picked], t_cust[picked])
+    tables = {"store_sales": ss}
+    for table, rows in (("catalog_sales", cs_rows), ("web_sales", ws_rows)):
+        date, cust = channel_orders(rng, rows, first_day, last_day, customers, plant)
+        tables[table] = dict(zip(CHANNELS[table], (date, cust)))
+    names = {}
+    for col, n in (("c_first_name", first_names), ("c_last_name", last_names)):
+        drawn = generated_names(rng, n)[rng.randint(0, n, customers)].astype(object)
+        drawn[rng.rand(customers) < NULL_NAME_SHARE] = None
+        names[col] = drawn
+    tables["customer"] = {"c_customer_sk": np.arange(1, customers + 1, dtype=np.int64), **names}
+    tables["date_dim"] = date_dim_table()
+    return tables
+
+
+def last_initial(name):
+    """The UDF of phase setops: the first letter of a last name."""
+    return None if name is None else name[:1]
+
+
+def channel_branch(read, col, table: str):
+    """One branch of Q38 and Q87 through either package's DataFrame API:
+    the channel's sales ⋈ customer ⋈ date_dim (d_month_seq 1200-1211), the
+    distinct (c_last_name, c_first_name, d_date). The customer join comes
+    first, so that two covering indexes make it co-bucketed."""
+    date_col, cust_col = CHANNELS[table]
+    dd = read("date_dim").filter((col("d_month_seq") >= MONTH_SEQ_2000) & (col("d_month_seq") <= MONTH_SEQ_2000 + 11))
+    return (
+        read(table).join(read("customer"), col(cust_col) == col("c_customer_sk"))
+        .join(dd, col(date_col) == col("d_date_sk"))
+        .select("c_last_name", "c_first_name", "d_date")
+        .distinct()
+    )
+
+
+def q38_query(read, col):
+    """TPC-DS Q38's rows: the customers and days seen in all three channels."""
+    store, catalog, web = (channel_branch(read, col, t) for t in CHANNELS)
+    return store.intersect(catalog).intersect(web)
+
+
+def q87_query(read, col):
+    """TPC-DS Q87's rows: the customers and days seen in the stores only."""
+    store, catalog, web = (channel_branch(read, col, t) for t in CHANNELS)
+    return store.subtract(catalog).subtract(web)
+
+
+def expected_setops(tables: dict) -> dict:
+    """Each branch's rows, Q38's, Q87's and the union's as numpy-made sets of
+    (c_last_name, c_first_name, d_date), None at a null name."""
+    dd, cust = tables["date_dim"], tables["customer"]
+    in_year = (dd["d_month_seq"] >= MONTH_SEQ_2000) & (dd["d_month_seq"] <= MONTH_SEQ_2000 + 11)
+    out = {}
+    for table, (date_col, cust_col) in CHANNELS.items():
+        day = tables[table][date_col] - DD_FIRST_SK
+        who = tables[table][cust_col] - 1
+        keep = in_year[day]
+        out[table] = set(zip(cust["c_last_name"][who[keep]], cust["c_first_name"][who[keep]],
+                             dd["d_date"][day[keep]].tolist()))
+    store, catalog, web = (out[t] for t in CHANNELS)
+    out.update(q38=store & catalog & web, q87=store - catalog - web, union=store | catalog | web)
+    return out
+
+
+def row_set(table) -> list:
+    """A collected table's rows as tuples of Python values, None at nulls."""
+    cols = table.to_numpy()
+    return list(zip(*(np.asarray(v, dtype=object).tolist() for v in cols.values())))
+
+
+def check_setop_rows(label: str, rows: list, want: set, left_rows: list) -> None:
+    """`rows` must be numpy's set, each row once, in the order of the left
+    branch's rows (the left side's first occurrence, the JAX package's rule)."""
+    if len(rows) != len(set(rows)) or set(rows) != want:
+        raise AssertionError(f"{label}: {len(rows)} rows ({len(set(rows))} distinct), numpy {len(want)}")
+    at = {r: i for i, r in enumerate(left_rows)}
+    pos = [at[r] for r in rows]
+    if pos != sorted(pos):
+        raise AssertionError(f"{label}: the rows are not in the left branch's order")
+
+
+def distinct_split(q) -> dict:
+    """Seconds of the first branch's distinct in one more run: the host's
+    blake2b of each string key column's dictionary (both seeds, as `key64`
+    takes them) beside the whole `hash_aggregate` over the same table."""
+    from hyperspace_tpu_torch.engine.physical import ExecContext, HashAggregateExec
+    from hyperspace_tpu_torch.ops.aggregate import hash_aggregate
+    from hyperspace_tpu_torch.ops.hashing import _SEED1, _SEED2, host_hash_dictionary
+
+    agg = next(n for n in q.physical_plan().collect_nodes() if isinstance(n, HashAggregateExec))
+    t = agg.child.execute(ExecContext(q.session))
+    dictionaries = [t.column(k).dictionary for k in agg.group_keys if t.column(k).is_string]
+    out = {"rows": t.num_rows, "dictionary_entries": sum(len(d) for d in dictionaries)}
+    _, out["host_dictionary_hash_s"] = wall(lambda: [host_hash_dictionary(d, seed) for d in dictionaries
+                                                     for seed in (_SEED1, _SEED2)])
+    _, out["aggregate_s"] = wall(lambda: hash_aggregate(t, agg.group_keys, agg.aggs))
+    return out
+
+
+def phase_setops(torch, base: str, seed: int, sizes: dict = SETOPS_SF1):
+    """TPC-DS Q38 and Q87 at SF1 in a directory of its own (`setops_tables`:
+    store_sales 2,880,404 rows, catalog_sales 1,441,548, web_sales 719,384,
+    customer 100,000, date_dim 73,049, made with numpy from `seed`); the
+    covering indexes ssCust, csCust, wsCust and custIdx make each branch's
+    sales ⋈ customer co-bucketed (K2; K1 in hash mode). Steps, each against
+    numpy: (a) Q38 and Q87 indexed and disabled, count() cold, uncached p50
+    of 3 and cached p50 of 3, an uncached run by stage; (b) Q38's rows in the
+    left branch's order; (c) the three branches unioned and deduplicated;
+    (d) Q38 over three views; (e) `Hyperspace.explain`, verbose; (f) Q38's
+    plan serialized and back; (g) a UDF over Q38's rows, grouped; (h) show
+    and scalar."""
+    import hyperspace_tpu_torch as hst
+    from hyperspace_tpu_torch.engine.physical import SortMergeJoinExec
+    from hyperspace_tpu_torch.ops import cuda_probe, cuda_sort
+    from hyperspace_tpu_torch.serde import deserialize_plan, serialize_plan
+
+    rng = np.random.RandomState(seed + 17)
+    phase_t0 = time.perf_counter()
+    root = os.path.join(base, "setops")
+    seconds = {}
+    t0 = time.perf_counter()
+    tables = setops_tables(rng, **sizes)
+    seconds["generate"] = time.perf_counter() - t0
+    s = hst.HyperspaceSession(warehouse=root, device=DEVICE)
+    s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, NUM_BUCKETS)
+    t0 = time.perf_counter()
+    for t, cols in tables.items():
+        s.write_parquet(cols, os.path.join(root, t))
+    seconds["write"] = time.perf_counter() - t0
+    want = expected_setops(tables)
+    log(f"[setops] rows {json.dumps({t: len(next(iter(c.values()))) for t, c in tables.items()})}; numpy: "
+        f"{json.dumps({k: len(v) for k, v in want.items()})} (made in {seconds['generate']:.2f} s, written in "
+        f"{seconds['write']:.2f} s)")
+
+    def read(t):
+        return s.read.parquet(os.path.join(root, t))
+
+    c = hst.col
+    cuda_sort.launches = 0
+    cuda_probe.launches = 0
+    hs = hst.Hyperspace(s)
+    for table, name, indexed, included in SETOPS_INDEXES:
+        _, seconds[f"create_{name}"] = wall(lambda: hs.create_index(read(table), hst.IndexConfig(name, indexed, included)))
+    hst.enable_hyperspace(s)
+    index_names = sorted(n for _, n, _, _ in SETOPS_INDEXES)
+    steps = {}
+
+    def check_plan(label, q, indexed):
+        joins = sorted("bucketed" if j.bucketed else "general"
+                       for j in q.physical_plan().collect_nodes() if isinstance(j, SortMergeJoinExec))
+        want_joins = sorted(["bucketed", "general"] * 3) if indexed else ["general"] * 6
+        if joins != want_joins or sorted(set(scanned_indexes(q))) != (index_names if indexed else []):
+            raise AssertionError(f"setops {label}: joins {joins}, indexes {scanned_indexes(q)}:\n{q.explain_string()}")
+
+    # (a) Q38 and Q87, indexed and disabled
+    for label, make in (("q38", q38_query), ("q87", q87_query)):
+        for indexed in (True, False):
+            (hst.enable_hyperspace if indexed else hst.disable_hyperspace)(s)
+            step = f"a_{label}_{'indexed' if indexed else 'disabled'}"
+            q = make(read, c)
+            check_plan(step, q, indexed)
+            k1, k2 = cuda_sort.launches, cuda_probe.launches
+            clear_caches()
+            n, t_cold = wall(q.count)
+            t = {"count": n, "count_cold_s": t_cold}
+            n_u, t["uncached_p50_s"] = run_p50(q.count, 3, uncached=True)
+            n_c, t["cached_p50_s"] = run_p50(q.count, 3, uncached=False)
+            if not n == n_u == n_c == len(want[label]):
+                raise AssertionError(f"setops {step}: counts {n}, {n_u}, {n_c}; numpy {len(want[label])}")
+            t["k1_launches"], t["k2_launches"] = cuda_sort.launches - k1, cuda_probe.launches - k2
+            if indexed and not t["k2_launches"]:
+                raise AssertionError(f"setops {step}: K2 never launched ({t})")
+            stages = query_stage_split(torch, q, True)
+            stages["distinct_s"] = stages.pop("aggregate_s")
+            t["stages"] = stages
+            t.update(device_busy(q))
+            t["store_distinct"] = distinct_split(q)
+            steps[step] = t
+            log(f"[setops] {step} {json.dumps(t)}")
+    hst.enable_hyperspace(s)
+
+    # (b) Q38's rows
+    q38 = q38_query(read, c)
+    out, seconds["b_q38_collect_cold"] = wall(q38.collect)
+    store_rows = row_set(channel_branch(read, c, "store_sales").collect())
+    if set(store_rows) != want["store_sales"]:
+        raise AssertionError("setops (b): the store branch's rows differ from numpy's")
+    q38_rows = row_set(out)
+    check_setop_rows("setops (b) q38", q38_rows, want["q38"], store_rows)
+    check_setop_rows("setops (b) q87", row_set(q87_query(read, c).collect()), want["q87"], store_rows)
+    log(f"[setops] (b) Q38's {len(q38_rows)} rows and Q87's equal numpy's sets, in the store branch's order")
+
+    # (c) the union
+    store, catalog, web = (channel_branch(read, c, t) for t in CHANNELS)
+    n, seconds["c_union_distinct_count_cold"] = wall(store.union(catalog).union(web).distinct().count)
+    if n != len(want["union"]):
+        raise AssertionError(f"setops (c): union distinct {n}, numpy {len(want['union'])}")
+
+    # (d) views
+    for t, df in zip(CHANNELS, (store, catalog, web)):
+        s.create_view(f"{t}_branch", df)
+    via_views = (s.read.view("store_sales_branch").intersect(s.read.view("CATALOG_SALES_BRANCH"))
+                 .intersect(s.read.view("web_sales_branch")))
+    check_plan("(d) views", via_views, True)
+    n, seconds["d_views_count"] = wall(via_views.count)
+    if n != len(want["q38"]):
+        raise AssertionError(f"setops (d): Q38 over views counts {n}, numpy {len(want['q38'])}")
+
+    # (e) explain
+    text = []
+    _, seconds["e_explain"] = wall(lambda: hs.explain(q38, verbose=True, redirect=text.append))
+    used = text[0].split("Indexes used:")[1].split("Physical operator stats:")[0]
+    named = sorted(line.split(":")[0] for line in used.splitlines() if ":" in line and not line.startswith("="))
+    m = re.search(r"ShuffleExchange\s*\|\s*(\d+)\|\s*(\d+)\|\s*(-?\d+)", text[0])
+    if named != index_names or m is None or (int(m.group(1)), int(m.group(2))) != (12, 6):
+        raise AssertionError(f"setops (e): explain names {named}, exchanges {m and m.groups()}:\n{text[0]}")
+    log(f"[setops] (e) explain: indexes used {named}; ShuffleExchange disabled {m.group(1)}, enabled {m.group(2)}")
+
+    # (f) the plan serialized and back
+    back = hst.DataFrame(s, deserialize_plan(serialize_plan(q38.plan)))
+    n, seconds["f_serde_count"] = wall(back.count)
+    if n != len(want["q38"]) or back.explain_string() != q38.explain_string():
+        raise AssertionError(f"setops (f): the deserialized Q38 counts {n} or explains otherwise")
+
+    # (g) a UDF over Q38's rows: host work by contract
+    initials = q38.with_column("initial", hst.udf(last_initial, "string")(c("c_last_name")))
+    by_initial = initials.group_by("initial").agg(n=("*", "count"))
+    got, seconds["g_udf_collect"] = wall(by_initial.collect)
+    _, seconds["g_q38_collect_cached"] = wall(q38.collect)
+    counts = {}
+    for last, _, _ in want["q38"]:
+        counts[last_initial(last)] = counts.get(last_initial(last), 0) + 1
+    g = got.to_numpy()
+    if dict(zip(g["initial"].tolist(), g["n"].tolist())) != counts:
+        raise AssertionError(f"setops (g): counts by initial differ from numpy's {counts}")
+
+    # (h) show and scalar
+    q38.show(20, redirect=log)
+    n, seconds["h_scalar"] = wall(q38.group_by().agg(n=("d_date", "count")).scalar)
+    if n != len(want["q38"]):
+        raise AssertionError(f"setops (h): scalar() {n}, numpy {len(want['q38'])}")
+    launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches}
+    if not launches["K2"]:
+        raise AssertionError("setops: K2 never launched")
+    seconds["phase"] = time.perf_counter() - phase_t0
+    log(f"[setops] seconds {json.dumps(seconds)}; every step equals numpy; launches {json.dumps(launches)}")
+    return launches, seconds, steps
+
+
 KERNEL_META = {
     "K1": ("bucket_sort", "hyperspace_tpu_torch/csrc/bucket_sort.cu", "hyperspace_tpu/ops/pallas_sort.py:107"),
     "K2": ("range_probe", "hyperspace_tpu_torch/csrc/range_probe.cu", "hyperspace_tpu/ops/pallas_probe.py:129"),
@@ -3132,7 +3484,7 @@ KERNEL_META = {
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="env,kernels,main,q3,strings,packed,refresh,q13,skipping,delta,partitioned,identity")
+                    default="env,kernels,main,q3,strings,packed,refresh,q13,skipping,delta,partitioned,setops,identity")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sf", type=float, default=1.0)
     ap.add_argument("--identity-sf", type=float, default=0.05)
@@ -3194,6 +3546,8 @@ def main() -> int:
             add(phase_delta(torch, data, base)[0])
         if "partitioned" in phases:
             add(phase_partitioned(torch, base, args.seed)[0])
+        if "setops" in phases:
+            add(phase_setops(torch, base, args.seed)[0])
     finally:
         shutil.rmtree(base, ignore_errors=True)
     if "identity" in phases:

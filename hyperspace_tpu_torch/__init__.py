@@ -11,7 +11,10 @@ the join into computed columns and a grouped aggregate. Data-skipping
 indexes (MinMax and bloom sketches per source file) let
 `DataSkippingFilterRule` drop files from a filtered scan. Sources are parquet,
 CSV, JSON-lines and ORC directories, Hive-partitioned or not, and
-Delta-style tables (`read.delta`, `write_delta`). Scans and
+Delta-style tables (`read.delta`, `write_delta`). Frames union,
+intersect, subtract and deduplicate on the device, compute host-evaluated
+user functions (`udf`), register as named views, explain their plans with
+indexes and without, and serialize their logical plans (`serde`). Scans and
 the join's device work are cached across queries. Indexes are refreshed
 (full, incremental with lineage delete folding, auto), compacted, deleted,
 restored, vacuumed and cancelled through the JAX package's operation log,
@@ -22,7 +25,7 @@ hyperspace_tpu.
 """
 
 from .config import IndexConstants, SessionConf  # noqa: F401
-from .engine.expr import col, lit  # noqa: F401
+from .engine.expr import col, lit, udf  # noqa: F401
 from .engine.session import DataFrame, HyperspaceSession  # noqa: F401
 from .exceptions import HyperspaceException  # noqa: F401
 from .hyperspace import (  # noqa: F401

@@ -2,8 +2,8 @@
 
 Counterpart of `hyperspace_tpu/config.py`, cut to the keys the ported slices
 read (build, JoinIndexRule and the co-bucketed join, FilterIndexRule, the scan
-layer, the aggregate, the index lifecycle, refresh, Hybrid Scan, compaction
-and data skipping). Key names,
+layer, the aggregate, the index lifecycle, refresh, Hybrid Scan, compaction,
+data skipping and explain). Key names,
 environment variables and defaults are the JAX package's, so a conf or an
 environment written for one package means the same to the other.
 """
@@ -89,6 +89,11 @@ class IndexConstants:
     # Data-skipping indexes (`index/dataskipping.py`): the key is read by
     # neither package's build, which writes one sketch file per version.
     DATASKIPPING_TARGET_INDEX_DATA_FILE_SIZE = "hyperspace.index.dataskipping.targetIndexDataFileSize"
+
+    # Explain display modes (reference `IndexConstants.scala:45-52`).
+    DISPLAY_MODE = "hyperspace.explain.displayMode"
+    HIGHLIGHT_BEGIN_TAG = "hyperspace.explain.displayMode.highlight.beginTag"
+    HIGHLIGHT_END_TAG = "hyperspace.explain.displayMode.highlight.endTag"
 
     # Column-name resolution (the spark.sql.caseSensitive analogue).
     RESOLUTION_CASE_SENSITIVE = "hyperspace.resolution.caseSensitive"

@@ -4,7 +4,8 @@ The eager `evaluate` :104, `evaluate_column` :281 and `evaluate_predicate`
 :703, as torch ops on the table's device. String comparisons against a
 literal translate to code-space integer compares on the host (one binary
 search of the sorted dictionary per literal, `_str_lit_compare` :79); no
-string reaches the device.
+string reaches the device. A user function (`Udf`) is the one expression
+evaluated on the host, by its contract (`_evaluate_udf`).
 
 Null semantics (SQL/Spark) ride a validity lane: every result carries an
 optional bool tensor of the non-null slots. Comparisons and arithmetic
@@ -27,7 +28,7 @@ import numpy as np
 import torch
 
 from ..exceptions import HyperspaceException
-from .expr import BinaryOp, Col, Expr, IsIn, IsNull, Lit, Not
+from .expr import BinaryOp, Col, Expr, IsIn, IsNull, Lit, Not, Udf
 from .schema import TORCH_DTYPES
 from .table import Column, Table, align_dictionaries
 
@@ -169,6 +170,9 @@ def evaluate(expr: Expr, table: Table) -> _Val:
     if isinstance(expr, Lit):
         return _Val("lit", value=expr.value)
 
+    if isinstance(expr, Udf):
+        return _evaluate_udf(expr, table)
+
     if isinstance(expr, IsNull):
         v = evaluate(expr.child, table)
         if v.kind == "lit":
@@ -256,6 +260,59 @@ def evaluate(expr: Expr, table: Table) -> _Val:
         return _Val("num", _compare(op, _numeric_operand(l, r), _numeric_operand(r, l)), valid=valid)
 
     raise HyperspaceException(f"Cannot evaluate expression: {expr!r}")
+
+
+def _host_argument(a: Expr, table: Table):
+    """A UDF argument on the host: ("lit", value) or ("arr", values, valid)
+    with strings decoded and `valid` None when every row is valid."""
+    if isinstance(a, Col):
+        c = table.column(a.name)
+        return ("arr", c.decode(), None if c.validity is None else c.validity.cpu().numpy())
+    v = evaluate(a, table)
+    if v.kind == "lit":
+        return ("lit", v.value)
+    data = v.arr.cpu().numpy()
+    if v.kind == "str":
+        data = np.asarray(v.dictionary)[data]
+    if data.ndim == 0:  # arithmetic of literals: a per-row constant
+        return ("lit", data.item())
+    valid = None if v.valid is None else v.valid.cpu().numpy()
+    if valid is not None and valid.ndim == 0:
+        valid = np.full(data.shape, bool(valid))
+    return ("arr", data, valid)
+
+
+def _evaluate_udf(expr: Udf, table: Table) -> _Val:
+    """A user function, on the host by contract (`evaluate._evaluate_udf`
+    :255): its arguments decoded, None at null slots, one call a row; the
+    result takes the declared type, None a null, and goes back to the
+    table's device."""
+    n = table.num_rows
+    device = _device_of(table)
+    prepared = [_host_argument(a, table) for a in expr.args]
+    out = []
+    for i in range(n):
+        args = []
+        for arg in prepared:
+            if arg[0] == "lit":
+                args.append(arg[1])
+            elif arg[2] is not None and not arg[2][i]:
+                args.append(None)
+            else:
+                x = arg[1][i]
+                args.append(x.item() if hasattr(x, "item") else x)
+        out.append(expr.fn(*args))
+    if expr.dtype == "string":
+        if n == 0:
+            return _Val("str", torch.empty(0, dtype=torch.int32, device=device), np.empty(0, "<U1"))
+        col = Column.from_values(np.asarray(out, dtype=object), device)
+        return _Val("str", col.data, col.dictionary, valid=col.validity)
+    npdtype = np.dtype(expr.dtype)
+    null_mask = np.fromiter((v is None for v in out), bool, count=n)
+    fill = np.zeros((), npdtype).item()
+    filled = np.asarray([fill if v is None else v for v in out], dtype=npdtype)
+    valid = torch.from_numpy(~null_mask).to(device) if null_mask.any() else None
+    return _Val("num", torch.from_numpy(filled).to(device), valid=valid)
 
 
 def evaluate_column(expr: Expr, table: Table) -> Column:

@@ -4,13 +4,15 @@
 The rules pattern-match the tree (`EqualTo`/`And` CNF for joins, reference
 `JoinIndexRule.scala:188-194`; head-column equality for bucket pruning), so
 the shapes are the JAX package's: comparisons, `and`/`or` and the arithmetic
-`+ - * /` as `BinaryOp` (a literal on either side), `Not`, `IsNull` and
-`IsIn`. User functions are not ported.
+`+ - * /` as `BinaryOp` (a literal on either side), `Not`, `IsNull`, `IsIn`
+and the host-evaluated user function `Udf`.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Set
+import itertools
+import weakref
+from typing import List, Optional, Sequence, Set
 
 
 class Expr:
@@ -170,6 +172,71 @@ class IsIn(Expr):
         return f"({self.child!r} in {self.values!r})"
 
 
+class Udf(Expr):
+    """A user-defined column function applied row by row to its argument
+    expressions (`expr.Udf` :173).
+
+    Evaluated on the host by contract: the argument columns are decoded on
+    the host, a null arrives as None, the function runs once a row in Python,
+    and a None it returns is a null; the result column goes back to the
+    session's device. The rewrite rules still apply around a UDF (an index
+    fires when the UDF reads only columns it covers)."""
+
+    def __init__(self, fn, dtype: str, args: Sequence[Expr], name: Optional[str] = None):
+        self.fn = fn
+        self.dtype = dtype
+        self.args = list(args)
+        self.name = name or getattr(fn, "__name__", "udf")
+
+    def children(self) -> Sequence[Expr]:
+        return tuple(self.args)
+
+    def __repr__(self):
+        # The repr keys the scan caches and join memos, so it carries the
+        # function's identity: two lambdas over the same arguments differ.
+        args = ", ".join(repr(a) for a in self.args)
+        return f"udf:{self.name}#{_udf_uid(self.fn)}({args})"
+
+
+_udf_uids: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_udf_uids_strong: dict = {}  # id(fn) -> (fn, uid) for callables that take no weak reference
+_udf_counter = itertools.count()
+
+
+def _udf_uid(fn) -> int:
+    """A number per function object, never reused (unlike `id()`): weakly
+    keyed, so it dies with its function. A callable that takes no weak
+    reference (a numpy ufunc) is kept by a strong entry, which pins its id."""
+    try:
+        u = _udf_uids.get(fn)
+        if u is None:
+            u = next(_udf_counter)
+            _udf_uids[fn] = u
+        return u
+    except TypeError:
+        ent = _udf_uids_strong.get(id(fn))
+        if ent is None or ent[0] is not fn:
+            ent = (fn, next(_udf_counter))
+            _udf_uids_strong[id(fn)] = ent
+        return ent[1]
+
+
+def udf(fn, dtype: str, name: Optional[str] = None):
+    """A plain Python function as a column-expression factory (`expr.udf`
+    :236):
+
+        tier = udf(lambda q: "big" if q > 25 else "small", "string")
+        df.with_column("tier", tier(col("qty")))
+
+    `dtype` declares the result type ("int64", "float64", "bool", "string",
+    ...). See `Udf` for the host evaluation and the null contract."""
+
+    def make(*args) -> Udf:
+        return Udf(fn, dtype, [_lit(a) for a in args], name)
+
+    return make
+
+
 def _lit(v) -> Expr:
     return v if isinstance(v, Expr) else Lit(v)
 
@@ -201,6 +268,9 @@ def canonical_condition_repr(e: Expr, case_sensitive: bool = False) -> str:
             return f"({walk(x.child)} is {'not ' if x.negated else ''}null)"
         if isinstance(x, IsIn):
             return f"({walk(x.child)} in {x.values!r})"
+        if isinstance(x, Udf):
+            args = ", ".join(walk(a) for a in x.args)
+            return f"udf:{x.name}#{_udf_uid(x.fn)}({args})"
         return repr(x)
 
     return walk(e)

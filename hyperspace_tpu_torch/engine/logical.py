@@ -2,9 +2,10 @@
 
 The node set of the slice: relation scans, filters, projections, equi-joins
 of every type (inner, left, right and full outer, left semi and left anti),
-computed columns, grouped aggregates, ORDER BY, LIMIT and the row union that
-Hybrid Scan's filter rewrite builds. Class names are
-the JAX package's: the plan signature folds over them.
+computed columns, grouped aggregates, ORDER BY, LIMIT, the row union (of
+`DataFrame.union` and of Hybrid Scan's filter rewrite) and the DISTINCT set
+operations INTERSECT and EXCEPT. Class names are the JAX package's: the plan
+signature and the serialized plan fold over them.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import numpy as np
 
 from ..exceptions import HyperspaceException
 from ..storage.filesystem import FileStatus
-from .expr import BinaryOp, Col, Expr, IsIn, IsNull, Lit, Not
+from .expr import BinaryOp, Col, Expr, IsIn, IsNull, Lit, Not, Udf
 from .schema import Field, Schema, dtype_from_numpy
 
 
@@ -228,6 +229,44 @@ class UnionNode(LogicalPlan):
         return f"Union ({len(self._children)} children)"
 
 
+class SetOpNode(LogicalPlan):
+    """The DISTINCT set operations (`logical.SetOpNode` :264): output rows are
+    deduplicated and nulls equal each other. The schema contract is
+    `UnionNode`'s, so a string against a number fails here."""
+
+    op = ""
+
+    def __init__(self, left: LogicalPlan, right: LogicalPlan):
+        self.left = left
+        self.right = right
+        _check_schema_compatible(self.op, left.output_schema, right.output_schema)
+
+    def children(self):
+        return (self.left, self.right)
+
+    @property
+    def output_schema(self) -> Schema:
+        return self.left.output_schema
+
+    def with_children(self, children):
+        return type(self)(children[0], children[1])
+
+    def simple_string(self):
+        return self.op
+
+
+class IntersectNode(SetOpNode):
+    """The distinct rows present in both children."""
+
+    op = "Intersect"
+
+
+class ExceptNode(SetOpNode):
+    """The distinct rows of the left child absent from the right."""
+
+    op = "Except"
+
+
 _JOIN_TYPES = {
     "inner": "inner",
     "cross": "inner",
@@ -302,6 +341,8 @@ def infer_expr_dtype(e: Expr, schema: Schema) -> str:
         raise HyperspaceException(f"Cannot type literal: {v!r}")
     if isinstance(e, (Not, IsNull, IsIn)):
         return "bool"
+    if isinstance(e, Udf):
+        return e.dtype  # declared by udf(fn, dtype)
     if isinstance(e, BinaryOp):
         if e.op in BinaryOp.COMPARISONS or e.op in BinaryOp.BOOLEAN:
             return "bool"
@@ -441,6 +482,37 @@ class LimitNode(LogicalPlan):
 
     def simple_string(self):
         return f"Limit {self.n}"
+
+
+def push_filters_below_computed(plan: LogicalPlan) -> LogicalPlan:
+    """`Filter > WithColumn` becomes `WithColumn > Filter` when the predicate
+    does not name the computed column (`logical.push_filters_below_computed`
+    :598), so that `.with_column(...).filter(...)` still meets the rules'
+    `Filter > Scan` pattern. The sink passes through stacks of computed
+    columns and of filters between them in one pass; a filter moves only when
+    such a computed column sits beneath it, so plain filter stacks keep their
+    order."""
+
+    def sinkable(refs, child: LogicalPlan) -> bool:
+        while isinstance(child, FilterNode):
+            child = child.child
+        return isinstance(child, WithColumnNode) and child.name.lower() not in refs
+
+    def sink(cond: Expr, refs, child: LogicalPlan) -> LogicalPlan:
+        if isinstance(child, WithColumnNode) and child.name.lower() not in refs:
+            return WithColumnNode(child.name, child.expr, sink(cond, refs, child.child))
+        if isinstance(child, FilterNode) and sinkable(refs, child.child):
+            return FilterNode(child.condition, sink(cond, refs, child.child))
+        return FilterNode(cond, child)
+
+    def swap(node: LogicalPlan) -> LogicalPlan:
+        if isinstance(node, FilterNode):
+            refs = {r.lower() for r in node.condition.references()}
+            if sinkable(refs, node.child):
+                return sink(node.condition, refs, node.child)
+        return node
+
+    return plan.transform_up(swap)
 
 
 def find_single_relation(plan: LogicalPlan) -> Optional[ScanNode]:

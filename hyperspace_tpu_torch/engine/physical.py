@@ -2,11 +2,12 @@
 
 The operators of the slice: file scans, bucketed index scans (with Hybrid
 Scan's appended rows merged into their buckets), filters, projections, row
-unions, computed columns, grouped aggregates, ORDER BY, LIMIT and the
-sort-merge join of every type. A filter evaluates its predicate on the device
-(`engine/evaluate.py`) and keeps the surviving rows in order; a filter
-directly over a plain scan hands its condition to the scan, which skips the
-parquet row groups that cannot match (`engine/pushdown.py`).
+unions, the DISTINCT set operations, computed columns, grouped aggregates,
+ORDER BY, LIMIT and the sort-merge join of every type. A filter evaluates
+its predicate on the device (`engine/evaluate.py`) and keeps the surviving
+rows in order; a filter directly over a plain scan hands its condition to
+the scan, which skips the parquet row groups that cannot match
+(`engine/pushdown.py`).
 
 The join has two paths. When `JoinIndexRule` has put both sides on
 compatible covering indexes, they arrive hash-partitioned into the same
@@ -49,7 +50,9 @@ from .evaluate import evaluate_column, evaluate_predicate
 from .expr import Expr, canonical_condition_repr, extract_equi_join_keys
 from .logical import (
     AggregateNode,
+    ExceptNode,
     FilterNode,
+    IntersectNode,
     JoinNode,
     LimitNode,
     LogicalPlan,
@@ -101,8 +104,13 @@ class PhysicalNode:
     def simple_string(self) -> str:
         return self.name
 
+    def format_line(self, indent: int) -> str:
+        """This node's line of the tree, the one place of its format (the
+        explain renderer highlights lines of it)."""
+        return "  " * indent + ("+- " if indent else "") + self.simple_string()
+
     def tree_string(self, indent: int = 0) -> str:
-        lines = ["  " * indent + ("+- " if indent else "") + self.simple_string()]
+        lines = [self.format_line(indent)]
         for c in self.children():
             lines.append(c.tree_string(indent + 1))
         return "\n".join(lines)
@@ -529,6 +537,86 @@ class UnionExec(PhysicalNode):
 
     def simple_string(self):
         return f"Union ({len(self._children)})"
+
+
+def _column_codes(c: Column) -> Tuple[torch.Tensor, int]:
+    """Int64 codes of a column's values under the set operations' row
+    equality, and a bound above them: a null equals a null, -0.0 equals 0.0,
+    and a NaN equals nothing, not even another NaN (the JAX package's
+    `np.unique` over `_key_records`, `ops/aggregate.py:375`). Values get
+    codes 0..m-1 by `torch.unique`, every null m, and each NaN row a code of
+    its own above that."""
+    data = c.data
+    nan = None
+    if data.is_floating_point():
+        d = data.to(torch.float64)
+        nan = torch.isnan(d)
+        d = torch.where(d == 0.0, torch.zeros((), dtype=d.dtype, device=d.device), d)  # -0.0 as 0.0
+        lane = d.view(torch.int64)
+    else:
+        lane = data.to(torch.int64)
+    uniq, codes = torch.unique(lane, return_inverse=True)
+    m = uniq.numel()
+    if c.validity is not None:
+        codes = torch.where(c.validity, codes, torch.full((), m, dtype=codes.dtype, device=codes.device))
+    if nan is not None:
+        if c.validity is not None:
+            nan &= c.validity
+        rows = torch.arange(len(codes), dtype=codes.dtype, device=codes.device)
+        return torch.where(nan, m + 1 + rows, codes), m + 1 + len(codes)
+    return codes, m + 1
+
+
+def _row_ids(table: Table) -> Tuple[torch.Tensor, int]:
+    """Dense ids of a table's whole rows and their count: equal rows share an
+    id, unequal rows never do. The columns fold in one at a time, each step a
+    `torch.unique` over (ids so far, the column's codes), so the ids stay
+    dense: no hash, no collision and no overflow. Rows on the table's device."""
+    ids, n_ids = None, 1
+    for c in table.columns.values():
+        codes, bound = _column_codes(c)
+        key = codes if ids is None else ids * bound + codes
+        uniq, ids = torch.unique(key, return_inverse=True)
+        n_ids = uniq.numel()
+    return ids, n_ids
+
+
+class SetOpExec(PhysicalNode):
+    """INTERSECT and EXCEPT with DISTINCT semantics over whole rows
+    (`physical.SetOpExec` :850), on the tables' device. The two sides go
+    through one `Table.concat`, so string codes share a dictionary; each row
+    gets a dense id (`_row_ids`); the first left row of each id is found by a
+    `scatter_reduce` "amin", and the ids present on the right are marked by
+    `index_fill_`. The survivors are the left side's first occurrences, in
+    left order."""
+
+    def __init__(self, op: str, left: PhysicalNode, right: PhysicalNode):
+        self.op = op  # "intersect" | "except"
+        self.left = left
+        self.right = right
+
+    @property
+    def name(self):
+        return self.op.capitalize()
+
+    def children(self):
+        return (self.left, self.right)
+
+    def execute(self, ctx) -> Table:
+        lt = self.left.execute(ctx)
+        rt = self.right.execute(ctx)
+        nl = lt.num_rows
+        if nl == 0:
+            return lt
+        combined = lt if rt.num_rows == 0 else Table.concat([lt, rt.select(lt.column_names)])
+        ids, n_ids = _row_ids(combined)
+        device = ids.device
+        first = torch.full((n_ids,), nl, dtype=torch.int64, device=device).scatter_reduce_(
+            0, ids[:nl], torch.arange(nl, device=device), "amin"
+        )
+        on_right = torch.zeros(n_ids, dtype=torch.bool, device=device).index_fill_(0, ids[nl:], True)
+        keep = (first < nl) & (on_right if self.op == "intersect" else ~on_right)
+        return lt.take(torch.sort(first[keep]).values)
 
 
 def _null_table_like(table: Table, n: int, device) -> Table:
@@ -1467,6 +1555,15 @@ def plan_physical(
 
     if isinstance(logical, UnionNode):
         return UnionExec([plan_physical(c, required, case_sensitive) for c in logical.children()])
+
+    if isinstance(logical, (IntersectNode, ExceptNode)):
+        # Row equality spans every column, so neither side is pruned to the
+        # columns above (physical.py:3103); a projection above prunes the output.
+        return SetOpExec(
+            "intersect" if isinstance(logical, IntersectNode) else "except",
+            plan_physical(logical.left, None, case_sensitive),
+            plan_physical(logical.right, None, case_sensitive),
+        )
 
     if isinstance(logical, WithColumnNode):
         if required is not None and all(key(r) != key(logical.name) for r in required):

@@ -1,26 +1,30 @@
 """Session + DataFrame API (counterpart of `hyperspace_tpu/engine/session.py`).
 
-A session carries the conf, the filesystem, the device its tables live on and
-the optimizer extension point (`extra_optimizations`) that `enable_hyperspace`
-plugs the rewrite rules into. The device defaults to CUDA.
+A session carries the conf, the filesystem, the device its tables live on,
+its named views and the optimizer extension point (`extra_optimizations`)
+that `enable_hyperspace` plugs the rewrite rules into. The device defaults to
+CUDA.
 """
 
 from __future__ import annotations
 
 import os
 import re
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 from ..config import HyperspaceConf, SessionConf
-from ..exceptions import HyperspaceException
+from ..exceptions import HyperspaceException, not_in_slice
 from ..ops.backend import resolve_device
 from ..storage import delta as delta_log
 from ..storage.filesystem import FileStatus, FileSystem, LocalFileSystem
+from ..util.resolver_utils import resolution_key
 from . import io as engine_io
 from .expr import Expr
 from .logical import (
     AggregateNode,
+    ExceptNode,
     FilterNode,
+    IntersectNode,
     JoinNode,
     LimitNode,
     LogicalPlan,
@@ -28,7 +32,9 @@ from .logical import (
     ProjectNode,
     ScanNode,
     SourceRelation,
+    UnionNode,
     WithColumnNode,
+    push_filters_below_computed,
 )
 from .partitioning import discover
 from .physical import ExecContext, PhysicalNode, plan_physical
@@ -89,6 +95,44 @@ class DataFrame:
     def limit(self, n: int) -> "DataFrame":
         return DataFrame(self.session, LimitNode(n, self.plan))
 
+    def union(self, other: "DataFrame") -> "DataFrame":
+        """UNION ALL of frames of one schema; `.distinct()` after it is the
+        set union."""
+        return DataFrame(self.session, UnionNode([self.plan, other.plan]))
+
+    unionAll = union
+
+    def intersect(self, other: "DataFrame") -> "DataFrame":
+        """The distinct rows present in both frames (SQL INTERSECT; a null
+        equals a null)."""
+        return DataFrame(self.session, IntersectNode(self.plan, other.plan))
+
+    def subtract(self, other: "DataFrame") -> "DataFrame":
+        """The distinct rows of this frame absent from `other` (SQL EXCEPT)."""
+        return DataFrame(self.session, ExceptNode(self.plan, other.plan))
+
+    def distinct(self) -> "DataFrame":
+        """The distinct rows: a group-by of every column with no aggregate."""
+        return DataFrame(self.session, AggregateNode(self.plan.output_schema.names, [], self.plan))
+
+    def drop(self, *columns: str) -> "DataFrame":
+        """Every column but the named ones (a name not present is ignored, as
+        in Spark), matched under `hyperspace.resolution.caseSensitive`."""
+        cs = self.session.hs_conf.case_sensitive
+        gone = {resolution_key(c, cs) for c in columns}
+        keep = [n for n in self.plan.output_schema.names if resolution_key(n, cs) not in gone]
+        if not keep:
+            raise HyperspaceException("drop() would remove every column")
+        return self.select(keep)
+
+    def scalar(self):
+        """The one value of a 1x1 result (a scalar subquery composed eagerly):
+        `df.filter(col("x") > other.group_by().agg(m=("x", "max")).scalar())`."""
+        t = self.collect()
+        if t.num_rows != 1 or len(t.column_names) != 1:
+            raise HyperspaceException(f"scalar() requires a 1x1 result, got {t.num_rows}x{len(t.column_names)}")
+        return t.rows()[0][0]
+
     # -- actions ------------------------------------------------------------
 
     @property
@@ -110,8 +154,43 @@ class DataFrame:
     def count(self) -> int:
         return int(self.physical_plan().execute_count(ExecContext(self.session)))
 
+    def to_pydict(self) -> Dict[str, list]:
+        return self.collect().to_pydict()
+
+    def sorted_rows(self):
+        return self.collect().sorted_rows()
+
     def explain_string(self) -> str:
         return self.physical_plan().tree_string()
+
+    def explain(self, analyze: bool = False, redirect=None):
+        """The physical plan tree, returned, or passed to `redirect` (e.g.
+        `print`) when one is given. `analyze=True` is not ported yet."""
+        if analyze:
+            raise not_in_slice("explain(analyze=True)")
+        s = self.explain_string()
+        if redirect is not None:
+            redirect(s)
+            return None
+        return s
+
+    def show(self, n: int = 20, redirect=print) -> None:
+        """The first `n` rows as Spark's formatted text (`session.show` :308)."""
+        t = self.limit(n + 1).collect()
+        names = t.column_names
+        cells = [["null" if v is None else str(v) for v in t.column(c).decode_objects()[:n]] for c in names]
+        widths = [max(len(name), *(len(x) for x in col)) if col else len(name) for name, col in zip(names, cells)]
+        sep = "+" + "+".join("-" * (w + 2) for w in widths) + "+"
+
+        def fmt(vals):
+            return "|" + "|".join(f" {v:>{w}} " for v, w in zip(vals, widths)) + "|"
+
+        lines = [sep, fmt(names), sep]
+        lines += [fmt([col[i] for col in cells]) for i in range(min(n, t.num_rows))]
+        lines.append(sep)
+        if t.num_rows > n:
+            lines.append(f"only showing top {n} row{'s' if n != 1 else ''}")
+        redirect("\n".join(lines))
 
 
 class GroupedDataFrame:
@@ -165,6 +244,10 @@ class DataFrameReader:
 
     def orc(self, *paths) -> DataFrame:
         return self._load(list(paths), "orc")
+
+    def view(self, name: str) -> DataFrame:
+        """A view registered with `session.create_view`."""
+        return self._session.view(name)
 
     def delta(self, path: str) -> DataFrame:
         """A snapshot read of a delta table (`session.py:442`): the files are
@@ -229,12 +312,34 @@ class HyperspaceSession:
         self.fs = fs or LocalFileSystem()
         # Rule protocol: rule.apply(plan, session) -> plan.
         self.extra_optimizations: List = []
+        self._views: Dict[str, LogicalPlan] = {}
 
     @property
     def read(self) -> DataFrameReader:
         return DataFrameReader(self)
 
+    def create_view(self, name: str, df: DataFrame, replace: bool = True) -> None:
+        """Register `df`'s logical plan under `name` (`session.create_view`
+        :569). Reading the view gives that plan, so the rules see straight
+        through it. View names are case-insensitive whatever the conf says."""
+        key = name.lower()
+        if not replace and key in self._views:
+            raise HyperspaceException(f"View already exists: {name}")
+        self._views[key] = df.plan
+
+    def drop_view(self, name: str) -> bool:
+        return self._views.pop(name.lower(), None) is not None
+
+    def view(self, name: str) -> DataFrame:
+        plan = self._views.get(name.lower())
+        if plan is None:
+            raise HyperspaceException(f"View not found: {name}")
+        return DataFrame(self, plan)
+
     def optimize(self, plan: LogicalPlan) -> LogicalPlan:
+        """Filters sink below computed columns first, so that the rules meet
+        `Filter > Scan` (`session.optimize` :593); then each rule runs."""
+        plan = push_filters_below_computed(plan)
         for rule in self.extra_optimizations:
             plan = rule.apply(plan, self)
         return plan

@@ -192,6 +192,18 @@ class Table:
         """Host values per column: strings decoded, None at null slots."""
         return {n: c.decode_objects() for n, c in self.columns.items()}
 
+    def to_pydict(self) -> Dict[str, list]:
+        return {n: c.decode_objects().tolist() for n, c in self.columns.items()}
+
+    def rows(self) -> List[tuple]:
+        decoded = [c.decode_objects() for c in self.columns.values()]
+        return [tuple(col[i] for col in decoded) for i in range(self.num_rows)]
+
+    def sorted_rows(self) -> List[tuple]:
+        """Rows in a canonical order, for comparing results (`table.sorted_rows`
+        :199): sorted by each value's string form."""
+        return sorted(self.rows(), key=lambda r: tuple(str(x) for x in r))
+
     @staticmethod
     def from_pydict(data: Dict[str, list], device) -> "Table":
         return Table({n: Column.from_values(np.asarray(v), device) for n, v in data.items()})

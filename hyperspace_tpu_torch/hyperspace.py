@@ -4,7 +4,7 @@
 `FilterIndexRule`, then `DataSkippingFilterRule`, in the JAX package's order.
 The facade creates covering and data-skipping indexes, refreshes, compacts
 (`optimize_index`, covering indexes only), deletes, restores, vacuums,
-cancels and lists them."""
+cancels and lists them, and explains a query's plan with them and without."""
 
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ from .engine.table import Table
 from .index.collection_manager import CachingIndexCollectionManager
 from .index.dataskipping import DataSkippingIndexConfig
 from .index.index_config import IndexConfig
+from .plananalysis.plan_analyzer import explain_string
 from .rules.data_skipping_rule import DataSkippingFilterRule
 from .rules.filter_index_rule import FilterIndexRule
 from .rules.join_index_rule import JoinIndexRule
@@ -70,6 +71,13 @@ class Hyperspace:
 
     def indexes(self) -> Table:
         return self._manager.indexes()
+
+    def explain(self, df: DataFrame, verbose: bool = False, redirect=None) -> None:
+        """The plan with indexes against the plan without, and the indexes
+        used (reference `Hyperspace.scala:101-104`); `verbose` adds the
+        physical operator counts. Printed, or passed to `redirect`."""
+        s = explain_string(df, self._session, self._manager.indexes(), verbose)
+        (redirect or print)(s)
 
 
 def enable_hyperspace(session: HyperspaceSession) -> HyperspaceSession:

@@ -1,0 +1,8 @@
+"""Plan analysis: the explain subsystem (counterpart of `hyperspace_tpu/plananalysis`,
+cut to the plan diff; `explain(analyze=True)`, the fingerprint and the
+planner are not ported yet)."""
+
+from .buffer_stream import BufferStream  # noqa: F401
+from .display_mode import ConsoleMode, DisplayMode, HTMLMode, PlainTextMode, create_display_mode  # noqa: F401
+from .op_analyzer import PhysicalOperatorComparison, compare_operators, count_operators  # noqa: F401
+from .plan_analyzer import explain_string  # noqa: F401

@@ -687,6 +687,7 @@ def test_hybrid_scan_and_compaction_on_the_card_equal_the_cpu(cuda_device, tmp_p
     assert shas["cuda"] == shas["cpu"] and len(shas["cpu"]) == 8
 
 
+@pytest.mark.cuda
 def test_data_skipping_on_the_card_equals_the_cpu(cuda_device, tmp_path):
     """Sketches of a delta table's files built on the card (torch min / max
     and the bloom scatter there) equal the CPU's file byte for byte, and the
@@ -791,3 +792,51 @@ def test_a_partitioned_lineage_build_and_query_on_the_card_equal_the_cpu(cuda_de
     assert shas["cuda"] == shas["cpu"] and len(shas["cpu"]) == 4
     assert out["cuda"] == out["cpu"]
     assert out["cpu"][1][0] > 0 and None not in out["cpu"][3][1]["k"]
+
+
+def last_initial(name):
+    return None if name is None else name[:1]
+
+
+@pytest.mark.cuda
+def test_set_operations_on_the_card_equal_the_cpu(cuda_device, tmp_path):
+    """Q38 and Q87 over co-bucketed joins at a small size, the NaN / ±0.0 /
+    null set operations and a UDF, on the card and on the CPU: identical
+    rows in identical order (the set operation's row ids, first occurrences
+    and membership computed on the card)."""
+    import os
+
+    import chip_smoke
+    import hyperspace_tpu_torch as hst
+
+    rng = np.random.RandomState(5)
+    tables = chip_smoke.setops_tables(rng, 4000, 2000, 1000, 300, 40, 60, chip_smoke.days("1999-12-01"),
+                                      chip_smoke.days("2000-02-29"), plant_share=0.2)
+    nan = float("nan")
+    tables["a"] = {"x": np.array([1.0, nan, -0.0, 0.0, nan, 2.0, None], dtype=object)}
+    tables["b"] = {"x": np.array([nan, 0.0, 2.0, None], dtype=object)}
+    writer = hst.HyperspaceSession(warehouse=str(tmp_path), device="cpu")
+    for t, cols in tables.items():
+        writer.write_parquet(cols, str(tmp_path / t))
+    rows = {}
+    for dev in ("cpu", "cuda"):
+        s = hst.HyperspaceSession(warehouse=str(tmp_path / dev), device=dev)
+        s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, 8)
+        hs = hst.Hyperspace(s)
+
+        def read(t, s=s):
+            return s.read.parquet(os.path.join(str(tmp_path), t))
+
+        for table, name, indexed, included in chip_smoke.SETOPS_INDEXES:
+            hs.create_index(read(table), hst.IndexConfig(name, indexed, included))
+        hst.enable_hyperspace(s)
+        q38, q87 = chip_smoke.q38_query(read, hst.col), chip_smoke.q87_query(read, hst.col)
+        a, b = read("a"), read("b")
+        initials = q38.with_column("initial", hst.udf(last_initial, "string")(hst.col("c_last_name")))
+        frames = [q38, q87, a.intersect(b), a.subtract(b), a.distinct(), a.union(b),
+                  initials.group_by("initial").agg(n=("*", "count"))]
+        rows[dev] = [[repr(r) for r in f.collect().rows()] for f in frames] + [[q38.count(), q87.count()]]
+        assert sorted(set(chip_smoke.scanned_indexes(q38))) == sorted(n for _, n, _, _ in chip_smoke.SETOPS_INDEXES)
+    assert rows["cuda"] == rows["cpu"]
+    assert rows["cpu"][2] == [repr((-0.0,)), repr((2.0,)), repr((None,))]
+    assert len(rows["cpu"][0]) >= 5 and len(rows["cpu"][1]) >= 5

@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases env,skipping,delta
     python3 chip_smoke.py --phases env,partitioned
     python3 chip_smoke.py --phases env,setops
+    python3 chip_smoke.py --phases env,star
 
 Phases, each failing loudly:
 
@@ -205,14 +206,37 @@ Phases, each failing loudly:
              enabled; (f) Q38's plan serialized and back, the same count and
              plan; (g) a UDF (the last name's initial) over Q38's rows,
              grouped, against numpy; (h) `show(20)` and `scalar()`.
-13. identity the join, aggregate, Q3 (general joins, every group), Q13
+13. star     TPC-DS Q3 and Q55 as star joins in a directory of their own
+             (`star_tables`, made with numpy from --seed): store_sales
+             (2,880,404 rows, the skipping phase's generator, plus
+             ss_ext_sales_price = ss_quantity * ss_sales_price as int64
+             cents, TPC-DS's decimal(7,2) held exactly; not indexed) as 60
+             monthly files, item (18,000 rows as phase partitioned makes
+             them, plus i_manager_id over 1..100) and date_dim under
+             dateIdx (d_date_sk with d_year, d_moy) and itemIdx (i_item_sk
+             with i_brand_id, i_brand, i_manufact_id, i_manager_id). The
+             star stream hashes the fact's keys into each dimension's
+             buckets, pads and sorts (K1) and probes (K2). (a) Q3, (b) Q55
+             and (c) Q55 with a float sum of ss_net_paid (the direct-cells
+             path), each four ways: the star stream, `HYPERSPACE_MULTIWAY=0`
+             (the cascade), `HYPERSPACE_QUERY_STREAMING=0` and disabled, each
+             planning `MultiwayJoinExec` where the JAX package does, each
+             against numpy (integers exactly, floats at rtol 1e-9): cold
+             count(), uncached and cached collect() p50 of 3, the star's
+             stage split (`last_join_stages()`), an uncached run by
+             operator (scans against the star stream or the joins), the
+             device's busy share, K1 and K2 launches; (d) a streamed scan aggregate over the 60 files
+             (count, sums, min, max, avg by store) and its one-pass twin;
+             (e) 1,000 items appended as a second item file and a month of
+             sales over every item: Q55 under Hybrid Scan.
+14. identity the join, aggregate, Q3 (general joins, every group), Q13
              (indexed and disabled) and string slices at SF 0.05 with
              device="cpu" and device="cuda": identical index files,
              identical rows in order (sums at rtol 1e-9).
 
 Kernel launches are counted from 0 at the start of each phase that drives
 the engine (main, q3, strings, packed, refresh, q13, skipping, delta,
-partitioned, setops) and summed over them. Prints one JSON
+partitioned, setops, star) and summed over them. Prints one JSON
 line of per-kernel results, the card's `nvidia-smi` line,
 and last `{"ok": true, "device": {...}}`. Exits non-zero without a result
 when no CUDA device is visible or the package is missing.
@@ -1347,7 +1371,7 @@ def query_stage_split(torch, df, uncached: bool) -> dict:
             "Scan": "scans_s", "BucketedIndexScan": "scans_s", "Filter": "scans_s", "Sort": "general_join_s",
             "ShuffleExchange": "general_join_s", "WithColumn": "aggregate_s", "HashAggregate": "aggregate_s",
             "OrderBy": "order_by_s", "Limit": "limit_s", "Project": "project_s",
-            "Intersect": "set_op_s", "Except": "set_op_s", "Union": "set_op_s",
+            "Intersect": "set_op_s", "Except": "set_op_s", "Union": "set_op_s", "MultiwayJoin": "star_join_s",
         }[node.name]
 
     def wrap(node, method):
@@ -3119,8 +3143,11 @@ def phase_partitioned(torch, base: str, seed: int):
         out, t_cold = wall(month.collect)
         check_skip(label, out, want_cols, "by_store")
         t = {"files_kept": kept, "files": total_files, "collect_cold_s": t_cold}
-        _, t["uncached_p50_s"] = run_p50(month.collect, 3, uncached=True)
-        out, t["cached_p50_s"] = run_p50(month.collect, 3, uncached=False)
+        # Streamed file by file over 1,827 files the disabled month takes
+        # seconds a run on the card: one run of each kind keeps the phase short.
+        runs = 3 if on else 1
+        _, t[f"uncached_p50_of_{runs}_s"] = run_p50(month.collect, runs, uncached=True)
+        out, t[f"cached_p50_of_{runs}_s"] = run_p50(month.collect, runs, uncached=False)
         check_skip(label, out, want_cols, "by_store")
         steps[label] = t
         log(f"[partitioned] {label} {json.dumps(t)}")
@@ -3307,16 +3334,18 @@ def check_setop_rows(label: str, rows: list, want: set, left_rows: list) -> None
 def distinct_split(q) -> dict:
     """Seconds of the first branch's distinct in one more run: the host's
     blake2b of each string key column's dictionary (both seeds, as `key64`
-    takes them) beside the whole `hash_aggregate` over the same table."""
+    takes them), what a first query over a dictionary pays, beside the whole
+    `hash_aggregate` over the same table, which the dictionary-hash memo
+    spares it."""
     from hyperspace_tpu_torch.engine.physical import ExecContext, HashAggregateExec
     from hyperspace_tpu_torch.ops.aggregate import hash_aggregate
-    from hyperspace_tpu_torch.ops.hashing import _SEED1, _SEED2, host_hash_dictionary
+    from hyperspace_tpu_torch.ops.hashing import _SEED1, _SEED2, _hash_strings
 
     agg = next(n for n in q.physical_plan().collect_nodes() if isinstance(n, HashAggregateExec))
     t = agg.child.execute(ExecContext(q.session))
     dictionaries = [t.column(k).dictionary for k in agg.group_keys if t.column(k).is_string]
     out = {"rows": t.num_rows, "dictionary_entries": sum(len(d) for d in dictionaries)}
-    _, out["host_dictionary_hash_s"] = wall(lambda: [host_hash_dictionary(d, seed) for d in dictionaries
+    _, out["host_dictionary_hash_s"] = wall(lambda: [_hash_strings(d, seed) for d in dictionaries
                                                      for seed in (_SEED1, _SEED2)])
     _, out["aggregate_s"] = wall(lambda: hash_aggregate(t, agg.group_keys, agg.aggs))
     return out
@@ -3472,6 +3501,339 @@ def phase_setops(torch, base: str, seed: int, sizes: dict = SETOPS_SF1):
     return launches, seconds, steps
 
 
+# ---------------------------------------------------------------------------
+# Phase star: TPC-DS Q3 and Q55 as star joins over store_sales
+# ---------------------------------------------------------------------------
+
+STAR_INDEXES = [
+    ("date_dim", "dateIdx", ["d_date_sk"], ["d_year", "d_moy"]),
+    ("item", "itemIdx", ["i_item_sk"], ["i_brand_id", "i_brand", "i_manufact_id", "i_manager_id"]),
+]
+STAR_Q3_COLUMNS = ["d_year", "i_brand_id", "i_brand", "sum_agg"]
+STAR_Q55_COLUMNS = ["i_brand_id", "i_brand", "ext_price"]
+STAR_APPENDED_ITEMS = 1_000
+STAR_WAYS = ("star", "cascade", "no_streaming", "disabled")
+
+
+def star_tables(rng, ss_rows: int, items: int = ITEM_ROWS) -> dict:
+    """store_sales (the `store_sales` generator's rows of 1998-01-02..
+    2002-12-31, items drawn over 1..items, and ss_ext_sales_price =
+    ss_quantity * ss_sales_price: TPC-DS's decimal(7,2) held exactly as
+    int64 cents), each row's month (0 = 1998-01), item (as `tpcds_tables`
+    makes it, plus i_manager_id uniform over TPC-DS's 1..100) and date_dim."""
+    cols, month = store_sales(rng, SS_FIRST_DAY, SS_LAST_DAY, ss_rows)
+    cols["ss_item_sk"] = rng.randint(1, items + 1, ss_rows).astype(np.int64)
+    cols["ss_ext_sales_price"] = (cols["ss_quantity"] * cols["ss_sales_price"]).astype(np.int64)
+    return {"store_sales": cols, "month": month, "item": star_items(rng, 1, items), "date_dim": date_dim_table()}
+
+
+def star_items(rng, first: int, items: int) -> dict:
+    brand_id = rng.randint(1, 1001, items).astype(np.int64)
+    return {"i_item_sk": np.arange(first, first + items, dtype=np.int64), "i_brand_id": brand_id,
+            "i_brand": np.array([f"brand #{b}" for b in brand_id]),
+            "i_manufact_id": rng.randint(1, 1001, items).astype(np.int64),
+            "i_manager_id": rng.randint(1, 101, items).astype(np.int64)}
+
+
+def write_star_tables(s, tables: dict, root: str, files: int = SS_FILES) -> None:
+    """store_sales as `files` monthly files (phase skipping's layout), item
+    and date_dim as one file each."""
+    from hyperspace_tpu_torch.engine import io as engine_io
+
+    ss, month = tables["store_sales"], tables["month"]
+    bounds = np.searchsorted(month, np.arange(files + 1) * (month.max() + 1) / files)
+    for i in range(files):
+        engine_io.write_parquet(source_table({n: v[bounds[i]:bounds[i + 1]] for n, v in ss.items()}),
+                                os.path.join(root, "store_sales", f"part-{i:05d}.parquet"), SS_ROW_GROUP_ROWS)
+    s.write_parquet(tables["item"], os.path.join(root, "item"))
+    s.write_parquet(tables["date_dim"], os.path.join(root, "date_dim"))
+
+
+def star_q3_query(read, col, measure: str = "ss_ext_sales_price", n: int = 100):
+    """TPC-DS Q3 as a star: store_sales ⋈ date_dim (November) ⋈ item
+    (manufacturer 128), the sales summed by year and brand, ORDER BY d_year,
+    the sum descending and the brand id, LIMIT n."""
+    dd = read("date_dim").filter(col("d_moy") == 11)
+    item = read("item").filter(col("i_manufact_id") == 128)
+    return (
+        read("store_sales").join(dd, col("ss_sold_date_sk") == col("d_date_sk"))
+        .join(item, col("ss_item_sk") == col("i_item_sk"))
+        .group_by("d_year", "i_brand_id", "i_brand").agg(sum_agg=(measure, "sum"))
+        .order_by("d_year", ("sum_agg", False), "i_brand_id").limit(n).select(*STAR_Q3_COLUMNS)
+    )
+
+
+def star_q55_query(read, col, measure: str = "ss_ext_sales_price", n: int = 100):
+    """TPC-DS Q55 as a star: store_sales ⋈ date_dim (November 1999) ⋈ item
+    (manager 28), the sales summed by brand, ORDER BY the sum descending and
+    the brand id, LIMIT n."""
+    dd = read("date_dim").filter((col("d_moy") == 11) & (col("d_year") == 1999))
+    item = read("item").filter(col("i_manager_id") == 28)
+    return (
+        read("store_sales").join(dd, col("ss_sold_date_sk") == col("d_date_sk"))
+        .join(item, col("ss_item_sk") == col("i_item_sk"))
+        .group_by("i_brand_id", "i_brand").agg(ext_price=(measure, "sum"))
+        .order_by(("ext_price", False), "i_brand_id").limit(n).select(*STAR_Q55_COLUMNS)
+    )
+
+
+STAR_QUERIES = {  # step: (query, measure)
+    "a_q3": (star_q3_query, "ss_ext_sales_price"),
+    "b_q55": (star_q55_query, "ss_ext_sales_price"),
+    "c_q55_float": (star_q55_query, "ss_net_paid"),
+}
+
+
+def expected_star(tables: dict, step: str) -> dict:
+    """A step's query over the generated arrays with numpy, every group in
+    the query's order (integer sums exact, float sums by `np.add.at`)."""
+    ss, item, dd = tables["store_sales"], tables["item"], tables["date_dim"]
+    measure = STAR_QUERIES[step][1]
+    it = np.searchsorted(item["i_item_sk"], ss["ss_item_sk"])
+    day = ss["ss_sold_date_sk"] - DD_FIRST_SK
+    if step == "a_q3":
+        keep = (item["i_manufact_id"][it] == 128) & (dd["d_moy"][day] == 11)
+        key_cols = {"d_year": dd["d_year"][day[keep]], "i_brand_id": item["i_brand_id"][it[keep]]}
+    else:
+        keep = (item["i_manager_id"][it] == 28) & (dd["d_moy"][day] == 11) & (dd["d_year"][day] == 1999)
+        key_cols = {"i_brand_id": item["i_brand_id"][it[keep]]}
+    keys, inv = np.unique(np.stack(list(key_cols.values())), axis=1, return_inverse=True)
+    vals = ss[measure][keep]
+    total = np.zeros(keys.shape[1], vals.dtype)
+    np.add.at(total, inv.reshape(-1), vals)
+    brand = keys[-1]
+    by = np.lexsort((brand, -total, keys[0])) if step == "a_q3" else np.lexsort((brand, -total))
+    out = {n: keys[i][by] for i, n in enumerate(key_cols)}
+    out["i_brand"] = np.array([f"brand #{b}" for b in brand[by]])
+    out["sum_agg" if step == "a_q3" else "ext_price"] = total[by]
+    return {n: out[n] for n in (STAR_Q3_COLUMNS if step == "a_q3" else STAR_Q55_COLUMNS)}
+
+
+def check_star_rows(label: str, got: dict, want: dict, n: int = 100) -> None:
+    """`got` must be numpy's first n rows in order: integer sums exactly,
+    float sums at rtol 1e-9, where rows whose float sums tie within that
+    tolerance (in one year for Q3) may swap places."""
+    names = list(want)
+    total, m = want[names[-1]], min(n, len(want[names[-1]]))
+    if list(got) != names or len(got[names[-1]]) != m:
+        raise AssertionError(f"{label}: columns {list(got)}, {len(got[names[-1]])} rows; want {names}, {m}")
+    lead = want["d_year"] if "d_year" in want else np.zeros(len(total), np.int64)
+    exact = np.issubdtype(total.dtype, np.integer)
+    tie = (total[1:] == total[:-1]) if exact else np.isclose(total[1:], total[:-1], rtol=1e-9, atol=0)
+    cls = np.concatenate([[0], np.cumsum(~(tie & (lead[1:] == lead[:-1])))])
+    key = np.asarray(got["i_brand_id"]).astype(np.int64) + 10_000 * (
+        np.asarray(got["d_year"]).astype(np.int64) if "d_year" in got else 0)
+    wkey = want["i_brand_id"] + 10_000 * (want["d_year"] if "d_year" in want else 0)
+    for c in np.unique(cls[:m]):
+        pos, members = np.nonzero(cls[:m] == c)[0], np.nonzero(cls == c)[0]
+        have, allowed = set(key[pos].tolist()), set(wkey[members].tolist())
+        if not (have <= allowed if members[-1] >= m else have == allowed):
+            raise AssertionError(f"{label}: rows {pos.tolist()} hold groups {sorted(have)}, numpy {sorted(allowed)}")
+        if exact and not np.array_equal(key[pos], wkey[members[: len(pos)]]):
+            raise AssertionError(f"{label}: rows {pos.tolist()} out of numpy's order")
+    at = {k: i for i, k in enumerate(wkey.tolist())}
+    idx = np.array([at[k] for k in key.tolist()], np.int64)
+    if list(got["i_brand"]) != list(want["i_brand"][idx]):
+        raise AssertionError(f"{label}: i_brand differs from numpy's")
+    sums = np.asarray(got[names[-1]])
+    if exact and not np.array_equal(sums.astype(np.int64), total[idx]):
+        raise AssertionError(f"{label}: {names[-1]} differs from numpy's")
+    if not exact and not np.allclose(sums.astype(np.float64), total[idx], rtol=1e-9, atol=0):
+        raise AssertionError(f"{label}: {names[-1]} differs from numpy's beyond rtol 1e-9")
+
+
+def star_way(hst, s, way: str):
+    """Set one way of running a star query: the star stream (defaults), the
+    cascade (`HYPERSPACE_MULTIWAY=0`), no streaming
+    (`HYPERSPACE_QUERY_STREAMING=0`) or Hyperspace disabled; whether it must
+    plan a `MultiwayJoinExec` (where the JAX package plans one)."""
+    for flag in ("HYPERSPACE_MULTIWAY", "HYPERSPACE_QUERY_STREAMING"):
+        os.environ.pop(flag, None)
+    if way == "cascade":
+        os.environ["HYPERSPACE_MULTIWAY"] = "0"
+    if way == "no_streaming":
+        os.environ["HYPERSPACE_QUERY_STREAMING"] = "0"
+    (hst.disable_hyperspace if way == "disabled" else hst.enable_hyperspace)(s)
+    return way in ("star", "no_streaming")
+
+
+def star_store_query(read):
+    """(d): a grouped aggregate over the 60 files, streamed by default."""
+    return read("store_sales").group_by("ss_store_sk").agg(
+        n=("*", "count"), ext=("ss_ext_sales_price", "sum"), paid=("ss_net_paid", "sum"),
+        qmin=("ss_quantity", "min"), qmax=("ss_quantity", "max"), avg_paid=("ss_net_paid", "avg"))
+
+
+def expected_store_agg(ss: dict) -> dict:
+    keys, inv = np.unique(ss["ss_store_sk"], return_inverse=True)
+    n = np.bincount(inv)
+    ext = np.zeros(len(keys), np.int64)
+    np.add.at(ext, inv, ss["ss_ext_sales_price"])
+    paid = np.bincount(inv, weights=ss["ss_net_paid"])
+    qmin = np.full(len(keys), np.iinfo(np.int64).max)
+    np.minimum.at(qmin, inv, ss["ss_quantity"])
+    qmax = np.zeros(len(keys), np.int64)
+    np.maximum.at(qmax, inv, ss["ss_quantity"])
+    return {"ss_store_sk": keys, "n": n, "ext": ext, "paid": paid, "qmin": qmin, "qmax": qmax, "avg_paid": paid / n}
+
+
+def check_store_agg(label: str, got: dict, want: dict) -> None:
+    order = np.argsort(got["ss_store_sk"], kind="stable")
+    for k in ("ss_store_sk", "n", "ext", "qmin", "qmax"):
+        if not np.array_equal(np.asarray(got[k])[order].astype(np.int64), want[k]):
+            raise AssertionError(f"{label}: {k} differs from numpy's")
+    for k in ("paid", "avg_paid"):
+        if not np.allclose(np.asarray(got[k])[order].astype(np.float64), want[k], rtol=1e-9, atol=0):
+            raise AssertionError(f"{label}: {k} differs from numpy's beyond rtol 1e-9")
+
+
+def star_stage_split(stats: dict) -> dict:
+    """The stage split of a star stream's record: per dimension its pad,
+    probe (with expand) and verify seconds, then the stream's own stages."""
+    out = {d["index"]: {k: d.get(k) for k in ("pairs", "memo", "pad_s", "probe_s", "verify_s")}
+           for d in stats["star_dims"]}
+    out.update({k: stats.get(k) for k in ("pad_s", "probe_s", "expand_s", "verify_s", "gather_s", "eval_s",
+                                          "partial_s", "merge_s", "finalize_s", "wall_s", "chunks", "pairs",
+                                          "direct_cells")})
+    return out
+
+
+def phase_star(torch, base: str, seed: int, ss_rows: int = SS_ROWS):
+    """TPC-DS Q3 and Q55 as star joins in a directory of their own
+    (`star_tables`, made with numpy from `seed`): store_sales (2,880,404
+    rows, not indexed) as 60 monthly files, item (18,000 rows) and date_dim
+    (73,049) under covering indexes dateIdx and itemIdx. Each star query
+    hashes the fact's keys into each dimension's buckets, pads and sorts the
+    classes (K1) and probes them (K2). Steps, each against numpy: (a) Q3,
+    (b) Q55, (c) Q55 with a float sum of ss_net_paid (the direct-cells
+    path), each run four ways: the star stream (`join_mode == "star"`), the
+    cascade (`HYPERSPACE_MULTIWAY=0`), streaming off
+    (`HYPERSPACE_QUERY_STREAMING=0`) and disabled, each with its plan's
+    `MultiwayJoinExec` where the JAX package plans one; cold count(),
+    uncached and cached collect() p50 of 3, the star's stage split, the
+    device's busy share and K1 and K2 launches; (d) a streamed scan
+    aggregate over the 60 files and its one-pass twin; (e) 1,000 items
+    appended as a second item file and a month of store_sales rows over all
+    items appended: Q55 under Hybrid Scan."""
+    import hyperspace_tpu_torch as hst
+    from hyperspace_tpu_torch.engine import io as engine_io
+    from hyperspace_tpu_torch.engine.physical import MultiwayJoinExec
+    from hyperspace_tpu_torch.ops import cuda_probe, cuda_sort
+    from hyperspace_tpu_torch.telemetry.profiling import last_join_stages, last_query_stages
+
+    rng = np.random.RandomState(seed + 19)
+    phase_t0 = time.perf_counter()
+    root = os.path.join(base, "star")
+    seconds = {}
+    tables, seconds["generate"] = wall(lambda: star_tables(rng, ss_rows))
+    s = hst.HyperspaceSession(warehouse=root, device=DEVICE)
+    s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, NUM_BUCKETS)
+    _, seconds["write"] = wall(lambda: write_star_tables(s, tables, root))
+
+    def read(t):
+        return s.read.parquet(os.path.join(root, t))
+
+    c = hst.col
+    cuda_sort.launches = 0
+    cuda_probe.launches = 0
+    hs = hst.Hyperspace(s)
+    for table, name, indexed, included in STAR_INDEXES:
+        _, seconds[f"create_{name}"] = wall(lambda: hs.create_index(read(table), hst.IndexConfig(name, indexed,
+                                                                                                  included)))
+    log(f"[star] store_sales {ss_rows} rows in {SS_FILES} files, item {len(tables['item']['i_item_sk'])}, date_dim "
+        f"{DD_ROWS}; {json.dumps(seconds)}")
+    steps = {}
+
+    def measure(step, way, q, want, check):
+        wants_star = star_way(hst, s, way)
+        stars = [n for n in q.physical_plan().collect_nodes() if isinstance(n, MultiwayJoinExec)]
+        if len(stars) != int(wants_star) or (stars and len(stars[0].dims) != 2):
+            raise AssertionError(f"star {step} {way}: {len(stars)} MultiwayJoinExec:\n{q.explain_string()}")
+        label = f"{step}_{way}"
+        k1, k2 = cuda_sort.launches, cuda_probe.launches
+        clear_caches()
+        before = last_join_stages()
+        n, t_cold = wall(q.count)
+        t = {"count": n, "count_cold_s": t_cold}
+        out, t["uncached_p50_s"] = run_p50(q.collect, 3, uncached=True)
+        check(label, out.to_numpy(), want)
+        stats = last_join_stages()
+        streamed = stats is not None and stats != before and stats.get("join_mode") == "star"
+        if streamed != (way == "star"):
+            raise AssertionError(f"star {label}: the star stream ran {streamed} ({stats})")
+        if streamed:
+            t["stages_uncached"] = star_stage_split(stats)
+        out, t["cached_p50_s"] = run_p50(q.collect, 3, uncached=False)
+        check(label, out.to_numpy(), want)
+        if n != out.num_rows:
+            raise AssertionError(f"star {label}: count() {n} != {out.num_rows} rows")
+        if streamed:
+            t["stages_cached"] = star_stage_split(last_join_stages())
+        t["k1_launches"], t["k2_launches"] = cuda_sort.launches - k1, cuda_probe.launches - k2
+        if way == "star" and not (t["k1_launches"] and t["k2_launches"]):
+            raise AssertionError(f"star {label}: K1 or K2 never launched ({t})")
+        t.update(device_busy(q))
+        engine_io.reset_io_stats()
+        t["stages"] = query_stage_split(torch, q, True)
+        t["scan_parts"] = engine_io.io_stats()["seconds"]
+        steps[label] = t
+        log(f"[star] {label} {json.dumps(t)}")
+        return out
+
+    for step, (make, measure_col) in STAR_QUERIES.items():
+        want = expected_star(tables, step)
+        q = make(read, c, measure_col)
+        for way in STAR_WAYS:
+            measure(step, way, q, want, check_star_rows)
+    star_way(hst, s, "star")
+    log(f"[star] (a)-(c) Q3, Q55 and the float Q55 equal numpy in all four ways")
+
+    # (d) the streamed scan aggregate
+    want = expected_store_agg(tables["store_sales"])
+    q = star_store_query(read)
+    for way in ("star", "no_streaming"):
+        star_way(hst, s, way)
+        before = last_query_stages()
+        clear_caches()
+        out, t_cold = wall(q.collect)
+        check_store_agg(f"star d_{way}", out.to_numpy(), want)
+        stats = last_query_stages()
+        streamed = stats is not None and stats != before
+        if streamed != (way == "star") or (streamed and stats["chunks"] != SS_FILES):
+            raise AssertionError(f"star d_{way}: streamed {streamed} ({stats})")
+        t = {"collect_cold_s": t_cold, "stream": stats if streamed else None}
+        out, t["uncached_p50_s"] = run_p50(q.collect, 3, uncached=True)
+        check_store_agg(f"star d_{way}", out.to_numpy(), want)
+        _, t["cached_p50_s"] = run_p50(q.collect, 3, uncached=False)
+        t.update(device_busy(q))
+        steps[f"d_store_agg_{way}"] = t
+        log(f"[star] d_store_agg_{way} {json.dumps(t)}")
+    star_way(hst, s, "star")
+
+    # (e) Hybrid Scan: items appended, and a month of sales over all items
+    new_items = star_items(rng, ITEM_ROWS + 1, STAR_APPENDED_ITEMS)
+    s.write_parquet(new_items, os.path.join(root, "item_new"))
+    os.replace(os.path.join(root, "item_new", "part-00000.parquet"), os.path.join(root, "item", "part-00001.parquet"))
+    extra, _ = store_sales(rng, days("1999-11-01"), days("1999-11-30"), ss_rows // SS_FILES,
+                           ticket_base=int(tables["store_sales"]["ss_ticket_number"].max()))
+    extra["ss_item_sk"] = rng.randint(1, ITEM_ROWS + STAR_APPENDED_ITEMS + 1, len(extra["ss_item_sk"])).astype(np.int64)
+    extra["ss_ext_sales_price"] = (extra["ss_quantity"] * extra["ss_sales_price"]).astype(np.int64)
+    engine_io.write_parquet(source_table(extra), os.path.join(root, "store_sales", f"part-{SS_FILES:05d}.parquet"))
+    tables["store_sales"] = {n: np.concatenate([v, extra[n]]) for n, v in tables["store_sales"].items()}
+    tables["item"] = {n: np.concatenate([v, new_items[n]]) for n, v in tables["item"].items()}
+    s.conf.set(hst.IndexConstants.INDEX_HYBRID_SCAN_ENABLED, "true")
+    q = star_q55_query(read, c)
+    if "(+1 appended)" not in q.explain_string():
+        raise AssertionError(f"star (e): no Hybrid Scan over the appended items:\n{q.explain_string()}")
+    measure("e_q55_hybrid", "star", q, expected_star(tables, "b_q55"), check_star_rows)
+    s.conf.set(hst.IndexConstants.INDEX_HYBRID_SCAN_ENABLED, "false")
+
+    launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches}
+    seconds["phase"] = time.perf_counter() - phase_t0
+    log(f"[star] seconds {json.dumps(seconds)}; every step equals numpy; launches {json.dumps(launches)}")
+    return launches, seconds, steps
+
+
 KERNEL_META = {
     "K1": ("bucket_sort", "hyperspace_tpu_torch/csrc/bucket_sort.cu", "hyperspace_tpu/ops/pallas_sort.py:107"),
     "K2": ("range_probe", "hyperspace_tpu_torch/csrc/range_probe.cu", "hyperspace_tpu/ops/pallas_probe.py:129"),
@@ -3484,7 +3846,8 @@ KERNEL_META = {
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="env,kernels,main,q3,strings,packed,refresh,q13,skipping,delta,partitioned,setops,identity")
+                    default="env,kernels,main,q3,strings,packed,refresh,q13,skipping,delta,partitioned,setops,star,"
+                            "identity")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sf", type=float, default=1.0)
     ap.add_argument("--identity-sf", type=float, default=0.05)
@@ -3509,7 +3872,16 @@ def main() -> int:
     _kernels.library()
     log(f"[env] kernels built in {_kernels.build_seconds:.2f} s")
     rng = np.random.RandomState(args.seed)
-    shapes = phase_kernels(torch, rng) if "kernels" in phases else []
+    phase_seconds = {}
+
+    def timed_phase(name, fn, *args):
+        """Run one phase, keeping its wall seconds for the `[phases]` line."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_seconds[name] = round(time.perf_counter() - t0, 2)
+        return out
+
+    shapes = timed_phase("kernels", phase_kernels, torch, rng) if "kernels" in phases else []
     launches = {}
 
     def add(counts: dict) -> None:
@@ -3529,29 +3901,32 @@ def main() -> int:
         if {"main", "q3", "strings", "q13"} & set(phases):
             write_sources(data, base)
         if "main" in phases:
-            add(phase_main(torch, data, base)[0])
+            add(timed_phase("main", phase_main, torch, data, base)[0])
         if "q3" in phases:
-            add(phase_q3(torch, data, base)[0])
+            add(timed_phase("q3", phase_q3, torch, data, base)[0])
         if "strings" in phases:
-            add(phase_strings(torch, data, base, args.seed)[0])
+            add(timed_phase("strings", phase_strings, torch, data, base, args.seed)[0])
         if "packed" in phases:
-            add(phase_packed(torch, data, rng)[0])
+            add(timed_phase("packed", phase_packed, torch, data, rng)[0])
         if "refresh" in phases:
-            add(phase_refresh(torch, data, base)[0])
+            add(timed_phase("refresh", phase_refresh, torch, data, base)[0])
         if "q13" in phases:
-            add(phase_q13(torch, data, base, args.seed)[0])
+            add(timed_phase("q13", phase_q13, torch, data, base, args.seed)[0])
         if "skipping" in phases:
-            add(phase_skipping(torch, base, args.seed)[0])
+            add(timed_phase("skipping", phase_skipping, torch, base, args.seed)[0])
         if "delta" in phases:
-            add(phase_delta(torch, data, base)[0])
+            add(timed_phase("delta", phase_delta, torch, data, base)[0])
         if "partitioned" in phases:
-            add(phase_partitioned(torch, base, args.seed)[0])
+            add(timed_phase("partitioned", phase_partitioned, torch, base, args.seed)[0])
         if "setops" in phases:
-            add(phase_setops(torch, base, args.seed)[0])
+            add(timed_phase("setops", phase_setops, torch, base, args.seed)[0])
+        if "star" in phases:
+            add(timed_phase("star", phase_star, torch, base, args.seed)[0])
     finally:
         shutil.rmtree(base, ignore_errors=True)
     if "identity" in phases:
-        phase_identity(torch, args.seed, args.identity_sf)
+        timed_phase("identity", phase_identity, torch, args.seed, args.identity_sf)
+    log(f"[phases] seconds {json.dumps(phase_seconds)}")
     kernels = []
     for kid, (name, source, replaces) in KERNEL_META.items():
         main_shape = next((s for s in shapes if s["kernel"] == kid), None)

@@ -69,6 +69,29 @@ def index_row_group_rows() -> int:
 #: Files decoded at once by a scan (pyarrow releases the GIL).
 DECODE_THREADS = 8
 
+#: The streamed read's decode workers (`io.decode_pool_size` :140): "1" is
+#: the serial path, a larger value a cap; unset = min(16, files).
+ENV_DECODE_THREADS = "HYPERSPACE_BUILD_DECODE_THREADS"
+#: Files the streamed read decodes ahead of its consumer (`prefetch_depth`
+#: :152), 16 when unset.
+ENV_PREFETCH_FILES = "HYPERSPACE_QUERY_PREFETCH_FILES"
+_DEFAULT_PREFETCH_FILES = 16
+
+
+def decode_pool_size(n_files: int) -> int:
+    """Decode workers for `n_files` files under `HYPERSPACE_BUILD_DECODE_THREADS`."""
+    raw = int(os.environ.get(ENV_DECODE_THREADS, "0") or 0)
+    if raw == 1:
+        return 1
+    if raw > 1:
+        return min(raw, n_files)
+    return min(16, n_files)
+
+
+def prefetch_depth() -> int:
+    """Files the streamed read keeps in flight (at least 1)."""
+    return max(1, int(os.environ.get(ENV_PREFETCH_FILES, _DEFAULT_PREFETCH_FILES) or _DEFAULT_PREFETCH_FILES))
+
 
 #: The formats whose data files are parquet (`io._read_one` :244).
 PARQUET_SHAPED = ("parquet", "delta")
@@ -744,6 +767,64 @@ def read_files(
     if key is not None:
         global_concat_cache().put(key, out, None)
     return out
+
+
+def iter_file_tables(
+    files: List[str], file_format: str, columns: Optional[List[str]], device, partitions=None, on_decode=None,
+    pushdown=None, pruning_stats: Optional[dict] = None,
+):
+    """The files' tables one by one in sorted path order, decoded on a pool
+    up to `prefetch_depth()` files ahead of the consumer (`iter_file_tables`
+    :876): the streamed read. Each file goes through the per-file scan cache
+    (no concatenation cache: the stream never concatenates). A `pushdown`
+    keeps only the row groups its zone maps cannot exclude, and an all-pruned
+    file yields its 0-row table, so types promote as in the whole read. A
+    Hive layout's partition columns are appended file by file
+    (`decorate`). Tables come in file order, whatever order their decodes
+    finish in; a failed decode raises at its file's place in that order and
+    caches nothing (the cache holds only finished decodes). `on_decode(s)`
+    sees each file's decode seconds."""
+    if not files:
+        return
+    _check_format(file_format)
+    device = torch.device(device)
+    ordered = sorted(files)
+    selections = pushdown_selections(ordered, pushdown, file_format)
+    sel_of = {}
+    if selections is not None:
+        record_pruning(selections, pruning_stats)
+        sel_of = dict(zip(ordered, selections))
+
+    def decode_one(path: str) -> Table:
+        t0 = time.monotonic()
+        base = file_base(path)
+        jobs = _file_jobs([path], file_format, columns, partitions, [sel_of.get(path, (None, None))], (base,))
+        t = decode_files(jobs, device, (base,), file_format)[0]
+        if on_decode is not None:
+            on_decode(time.monotonic() - t0)
+        return decorate(t, [path], [t.num_rows], partitions, columns, device)
+
+    depth = prefetch_depth()
+    workers = min(decode_pool_size(len(ordered)), depth)
+    if workers <= 1:
+        for f in ordered:
+            yield decode_one(f)
+        return
+    from collections import deque
+
+    pool = ThreadPoolExecutor(max_workers=workers, thread_name_prefix="hs-stream")
+    try:
+        pending: deque = deque()
+        i = 0
+        while i < len(ordered) or pending:
+            while i < len(ordered) and len(pending) < depth:
+                pending.append(pool.submit(decode_one, ordered[i]))
+                i += 1
+            yield pending.popleft().result()
+    finally:
+        # Undelivered decodes are cancelled; running ones finish into the
+        # cache harmlessly.
+        pool.shutdown(wait=False, cancel_futures=True)
 
 
 def footer_row_count(files: List[FileStatus], file_format: str = "parquet") -> Optional[int]:

@@ -3,8 +3,9 @@
 The node set of the slice: relation scans, filters, projections, equi-joins
 of every type (inner, left, right and full outer, left semi and left anti),
 computed columns, grouped aggregates, ORDER BY, LIMIT, the row union (of
-`DataFrame.union` and of Hybrid Scan's filter rewrite) and the DISTINCT set
-operations INTERSECT and EXCEPT. Class names are the JAX package's: the plan
+`DataFrame.union` and of Hybrid Scan's filter rewrite), the DISTINCT set
+operations INTERSECT and EXCEPT, and the star join `JoinIndexRule` wraps
+around a cascade of inner joins. Class names are the JAX package's: the plan
 signature and the serialized plan fold over them.
 """
 
@@ -319,6 +320,53 @@ class JoinNode(LogicalPlan):
 
     def simple_string(self):
         return f"Join {self.how} on {self.condition!r}"
+
+
+@dataclass
+class StarDimension:
+    """One dimension of a recognized star join (`logical.StarDimension`
+    :364): its covering-index subplan (`plan`, an index scan, under the
+    lineage prune filter when the index has deleted files, built as the
+    binary rewrite builds it), the fact→dimension key mapping and the columns
+    the query needs of the dimension. `plan` is not a child of the
+    `StarJoinNode`: later rules leave it alone, and the cascade never runs
+    it."""
+
+    plan: "LogicalPlan"
+    fact_keys: List[str]
+    dim_keys: List[str]
+    dim_required: List[str]
+    index_name: Optional[str]
+    num_buckets: int
+
+
+class StarJoinNode(LogicalPlan):
+    """An N-way star join (one fact, two or more dimensions, inner
+    equi-joins on fact keys) that `JoinIndexRule` recognized over a left-deep
+    cascade of binary joins (`logical.StarJoinNode` :383). `cascade`, the
+    untouched cascaded plan, is the only child, so later rules rewrite it as
+    they would without the wrapper, and it is what every consumer but the
+    streamed star aggregate executes. `dims` lists the dimensions innermost
+    join first (the cascade's fold order)."""
+
+    def __init__(self, cascade: LogicalPlan, dims: Sequence[StarDimension], fact_required: Sequence[str]):
+        self.cascade = cascade
+        self.dims = list(dims)
+        self.fact_required = list(fact_required)
+
+    def children(self):
+        return (self.cascade,)
+
+    @property
+    def output_schema(self) -> Schema:
+        return self.cascade.output_schema
+
+    def with_children(self, children):
+        return StarJoinNode(children[0], self.dims, self.fact_required)
+
+    def simple_string(self):
+        names = ", ".join(d.index_name or "?" for d in self.dims)
+        return f"StarJoin ({len(self.dims)} dims: {names})"
 
 
 def infer_expr_dtype(e: Expr, schema: Schema) -> str:

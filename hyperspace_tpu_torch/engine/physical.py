@@ -3,7 +3,10 @@
 The operators of the slice: file scans, bucketed index scans (with Hybrid
 Scan's appended rows merged into their buckets), filters, projections, row
 unions, the DISTINCT set operations, computed columns, grouped aggregates,
-ORDER BY, LIMIT and the sort-merge join of every type. A filter evaluates
+ORDER BY, LIMIT, the sort-merge join of every type and the multiway star
+join. A grouped aggregate over a multi-file scan or a star join streams
+(`engine/streaming.py`): the scan, filter, projection and computed column
+also run chunk by chunk (`execute_stream`). A filter evaluates
 its predicate on the device (`engine/evaluate.py`) and keeps the surviving
 rows in order; a filter directly over a plain scan hands its condition to
 the scan, which skips the parquet row groups that cannot match
@@ -60,6 +63,7 @@ from .logical import (
     ProjectNode,
     ScanNode,
     SourceRelation,
+    StarJoinNode,
     UnionNode,
     WithColumnNode,
     internal_column,
@@ -193,6 +197,29 @@ class ScanExec(PhysicalNode):
             files, self.relation.file_format, _default_scan_columns(self.relation, self.columns), ctx.device,
             pushdown=self._pushdown_pred(ctx), pruning_stats=self.pruning, partitions=partitions_of(self.relation),
         )
+
+    def can_stream(self) -> bool:
+        """A plain file read feeds the streamed aggregate; a demoted index
+        scan with appended rows merges buckets, whole-scan work
+        (physical.py:319)."""
+        return self.relation.hybrid_append is None and bool(self.relation.files)
+
+    def execute_stream(self, ctx, stages=None):
+        """The scan as ordered chunks (physical.py:325): each file's table
+        (decoded ahead of the consumer, through the per-file scan cache,
+        pruned by the pushdown) in row slices of `query_chunk_rows()`.
+        Concatenating the chunks gives `execute`'s table."""
+        from .streaming import query_chunk_rows, split_chunks
+
+        on_decode = None if stages is None else (lambda s: stages.add("decode", s))
+        chunk_rows = query_chunk_rows()
+        self.pruning = {}
+        for t in engine_io.iter_file_tables(
+            [f.path for f in self.relation.files], self.relation.file_format,
+            _default_scan_columns(self.relation, self.columns), ctx.device, partitions_of(self.relation),
+            on_decode=on_decode, pushdown=self._pushdown_pred(ctx), pruning_stats=self.pruning,
+        ):
+            yield from split_chunks(t, chunk_rows)
 
     def execute_count(self, ctx) -> int:
         """Footer row counts; a format without them is read (physical.py:310)."""
@@ -436,6 +463,19 @@ class FilterExec(PhysicalNode):
         t = self.child.execute(ctx)
         return self._strip_internal(t if t.num_rows == 0 else t.take(self._keep(t)))
 
+    def execute_stream(self, ctx, stages=None):
+        """The filter chunk by chunk (physical.py:692); an empty chunk still
+        flows, carrying the schema of an empty result."""
+        from ..telemetry.profiling import timed
+
+        for t in self.child.execute_stream(ctx, stages):
+            if t.num_rows == 0:
+                yield self._strip_internal(t)
+                continue
+            with timed(stages, "eval"):
+                out = self._strip_internal(t.take(self._keep(t)))
+            yield out
+
     def _strip_internal(self, t: Table) -> Table:
         """Drop an index scan's lineage column once this filter, the delete
         prune and the column's only reader, has evaluated: the logical schema
@@ -480,8 +520,10 @@ class FilterExec(PhysicalNode):
         return canonical_condition_repr(self.condition, cs)
 
     def rows_token(self, ctx) -> Optional[tuple]:
-        """The filtered scan's row identity: the scan's and the condition."""
-        token = self.child.rows_token(ctx)
+        """The filtered scan's row identity: the scan's and the condition;
+        None over a scan that states none (physical.py:787)."""
+        child_token = getattr(self.child, "rows_token", None)
+        token = None if child_token is None else child_token(ctx)
         return None if token is None else ("filtered-rows", token, self._condition_key(ctx))
 
     def simple_string(self):
@@ -510,6 +552,10 @@ class ProjectExec(PhysicalNode):
 
     def execute_count(self, ctx) -> int:
         return self.child.execute_count(ctx)
+
+    def execute_stream(self, ctx, stages=None):
+        for t in self.child.execute_stream(ctx, stages):
+            yield t.select(self.column_names)
 
     def simple_string(self):
         return f"Project [{', '.join(self.column_names)}]"
@@ -978,8 +1024,12 @@ def _peek_two_table(tag: str, left: Table, right: Table, subkey: tuple, rows_key
 
 
 def _pair_rows_key(lnode, rnode, ctx) -> Optional[tuple]:
-    """The two children's row identities, when both state one."""
-    ltok, rtok = lnode.rows_token(ctx), rnode.rows_token(ctx)
+    """The two children's row identities, when both state one (a plain
+    scan states none, physical.py:1993)."""
+    lt, rt = getattr(lnode, "rows_token", None), getattr(rnode, "rows_token", None)
+    if lt is None or rt is None:
+        return None
+    ltok, rtok = lt(ctx), rt(ctx)
     return None if ltok is None or rtok is None else (ltok, rtok)
 
 
@@ -1284,6 +1334,36 @@ class SortMergeJoinExec(PhysicalNode):
         return f"SortMergeJoin{how} [{pairs}]" + (" (bucketed, no exchange)" if self.bucketed else "")
 
 
+class MultiwayJoinExec(PhysicalNode):
+    """An N-way star join planned from a `StarJoinNode` (physical.py:2965).
+    `cascade` is the cascade of binary joins planned as if the wrapper did
+    not exist; `execute` and `execute_count` run it, so every consumer but
+    the streamed star aggregate gets the cascade's answer. `fact` and `dims`
+    (dim_exec, fact_keys, dim_keys, index_name, num_buckets per dimension,
+    innermost join first) are what `streaming.stream_star_aggregate`
+    probes."""
+
+    name = "MultiwayJoin"
+
+    def __init__(self, fact: PhysicalNode, dims, cascade: PhysicalNode):
+        self.fact = fact
+        self.dims = list(dims)
+        self.cascade = cascade
+
+    def children(self):
+        return (self.fact,) + tuple(d[0] for d in self.dims) + (self.cascade,)
+
+    def execute(self, ctx) -> Table:
+        return self.cascade.execute(ctx)
+
+    def execute_count(self, ctx) -> int:
+        return self.cascade.execute_count(ctx)
+
+    def simple_string(self):
+        names = ", ".join(d[3] or "?" for d in self.dims)
+        return f"MultiwayJoin ({len(self.dims)} dims: {names})"
+
+
 class WithColumnExec(PhysicalNode):
     """A computed column (physical.py:991): replaces a same-named column in
     place, else appends; the value conforms to the declared type."""
@@ -1301,6 +1381,15 @@ class WithColumnExec(PhysicalNode):
 
     def execute(self, ctx) -> Table:
         return self.apply(self.child.execute(ctx))
+
+    def execute_stream(self, ctx, stages=None):
+        """Row-wise, so chunk by chunk equals whole (physical.py:1009)."""
+        from ..telemetry.profiling import timed
+
+        for t in self.child.execute_stream(ctx, stages):
+            with timed(stages, "eval"):
+                out = self.apply(t)
+            yield out
 
     def apply(self, t: Table) -> Table:
         new_col = evaluate_column(self.expr, t)
@@ -1327,8 +1416,11 @@ class WithColumnExec(PhysicalNode):
 
 class HashAggregateExec(PhysicalNode):
     """Grouped aggregation by a key64 sort and segment reductions
-    (`ops.aggregate.hash_aggregate`). The JAX package's streamed and fused
-    join-aggregate variants (physical.py:1222) are not ported."""
+    (`ops.aggregate.hash_aggregate`), tried in the JAX device program's order
+    (physical.py:1236): the streamed star join aggregate, then the streamed
+    scan aggregate, then the one-pass aggregate of the child's table (over a
+    bucketed join it gives the answer of the JAX package's fused join
+    aggregate, which stands in that slot)."""
 
     name = "HashAggregate"
 
@@ -1341,7 +1433,53 @@ class HashAggregateExec(PhysicalNode):
         return (self.child,)
 
     def execute(self, ctx) -> Table:
-        return hash_aggregate(self.child.execute(ctx), self.group_keys, self.aggs)
+        out = self._try_stream_star_agg(ctx)
+        if out is None:
+            out = self._try_stream_agg(ctx)
+        if out is None:
+            out = hash_aggregate(self.child.execute(ctx), self.group_keys, self.aggs)
+        return out
+
+    def _streamable(self) -> bool:
+        from ..ops.aggregate import streaming_agg_supported
+        from .streaming import streaming_enabled
+
+        return streaming_enabled() and streaming_agg_supported(self.group_keys, self.aggs)
+
+    def _try_stream_star_agg(self, ctx) -> Optional[Table]:
+        """The streamed star join aggregate when this aggregate sits on a
+        WithColumn/Project chain over a `MultiwayJoinExec` and the gates are
+        on (physical.py:1253); None otherwise, and the star join runs its
+        cascade."""
+        from ..ops.bucket_join import size_classes_enabled
+        from .streaming import multiway_enabled, stream_star_aggregate
+
+        if not (multiway_enabled() and size_classes_enabled() and self._streamable()):
+            return None
+        chain: List[PhysicalNode] = []
+        node = self.child
+        while isinstance(node, (WithColumnExec, ProjectExec)):
+            chain.append(node)
+            node = node.child
+        if not isinstance(node, MultiwayJoinExec):
+            return None
+        return stream_star_aggregate(self, node, chain, ctx)
+
+    def _try_stream_agg(self, ctx) -> Optional[Table]:
+        """The streamed scan aggregate when this aggregate sits on a
+        Filter/Project/WithColumn chain over a plain scan of two or more
+        files (physical.py:1323); a single file has nothing to overlap and
+        stays one-pass."""
+        from .streaming import stream_aggregate
+
+        if not self._streamable():
+            return None
+        node = self.child
+        while isinstance(node, (FilterExec, ProjectExec, WithColumnExec)):
+            node = node.child
+        if type(node) is not ScanExec or not node.can_stream() or len(node.relation.files) < 2:
+            return None
+        return stream_aggregate(self, ctx)
 
     def simple_string(self):
         aggs = ", ".join(f"{o}={fn}({c if c is not None else '*'})" for o, fn, c in self.aggs)
@@ -1625,4 +1763,35 @@ def plan_physical(
         rside = SortExec(rkeys, ShuffleExchangeExec(rkeys, rphys))
         return SortMergeJoinExec(lside, rside, lkeys, rkeys, bucketed=False, how=how)
 
+    if isinstance(logical, StarJoinNode):
+        return _plan_star(logical, required, case_sensitive)
+
     raise not_in_slice(f"the {type(logical).__name__} operator")
+
+
+def _plan_star(logical: StarJoinNode, required, case_sensitive: bool) -> PhysicalNode:
+    """A `MultiwayJoinExec` of a star join (physical.py:3258): the cascade
+    planned as if unwrapped, the fact re-derived from the cascade's left
+    spine (later rules may have rewritten it), and each dimension's
+    covering-index subplan. The plain cascade when the spine no longer
+    matches the dimensions or a dimension lost its bucketed scan."""
+    cascade = plan_physical(logical.cascade, required, case_sensitive)
+    try:
+        chain: List[JoinNode] = []
+        cur: LogicalPlan = logical.cascade
+        while isinstance(cur, JoinNode):
+            chain.append(cur)
+            cur = cur.left
+        if len(chain) != len(logical.dims) or any(j.how != "inner" for j in chain):
+            return cascade
+        fact = plan_physical(cur, list(logical.fact_required), case_sensitive)
+        dims = []
+        for d in logical.dims:
+            dim_phys = plan_physical(d.plan, list(d.dim_required), case_sensitive)
+            probe = dim_phys.child if isinstance(dim_phys, FilterExec) else dim_phys
+            if not isinstance(probe, BucketedIndexScanExec):
+                return cascade
+            dims.append((dim_phys, list(d.fact_keys), list(d.dim_keys), d.index_name, int(d.num_buckets)))
+        return MultiwayJoinExec(fact, dims, cascade)
+    except HyperspaceException:
+        return cascade

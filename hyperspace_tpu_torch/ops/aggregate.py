@@ -24,7 +24,15 @@ Groups come out in the order of the stable key64 sort, the order of the JAX
 package's sort paths (its device program, and its host path under
 `HYPERSPACE_FORCE_DEVICE_OPS=1`). Its direct-address host path
 (`_direct_host_aggregate` :591, a shortcut of its CPU backend) orders groups
-differently and is not ported, nor is the streaming `StreamAggregator`.
+differently and is not ported: the port follows the device program.
+
+`StreamAggregator` (:910-1459) is the chunk-carry GROUP BY of the streamed
+executors (`engine/streaming.py`): each chunk reduces to per-group partial
+states by the same key64 sort and segment reductions, and the carried states
+merge by exact key records. Under a direct-cells hint (`direct_stream_hint`:
+the chunks are gathers of null-free, bounded integer or dictionary key
+columns) it accumulates into dense per-cell tensors instead, and its groups
+come out in cell order, as the JAX device program's star stream gives them.
 
 SQL semantics: null group keys form one group; sum, min, max and avg ignore
 null inputs and are NULL for an all-null group; count(col) counts non-null
@@ -42,6 +50,8 @@ import torch
 from ..engine.schema import BOOL, FLOAT32, FLOAT64, INT32, INT64, STRING, TORCH_DTYPES
 from ..engine.table import Column, Table
 from ..exceptions import HyperspaceException
+from ..engine.table import _dtype_of
+from ..telemetry.profiling import timed
 from .hashing import key64
 
 #: (out_name, fn, column | None); column None only for count(*).
@@ -346,3 +356,333 @@ def hash_aggregate(table: Table, group_keys, aggs: Sequence[AggTriple]) -> Table
     for out_name, col, dtype, vals, validity in reduced:
         out[out_name] = _out_column(col, dtype, vals, validity)
     return Table(out)
+
+
+# ---------------------------------------------------------------------------
+# The chunk-carry aggregator of the streamed executors (aggregate.py:812-1459)
+# ---------------------------------------------------------------------------
+
+#: The direct-cells budget (`_DIRECT_CELL_BUDGET` :546): 4M cells, 32 MB a
+#: dense int64 accumulator.
+_DIRECT_CELL_BUDGET = 1 << 22
+
+#: The functions the stream carries: scalar states only (a count_distinct
+#: state is a set of values).
+STREAMING_AGG_FNS = ("count", "sum", "avg", "min", "max")
+
+_STATE_PREFIX = "__hs_"
+
+
+def streaming_agg_supported(group_keys, aggs: Sequence[AggTriple]) -> bool:
+    """A grouped aggregate of scalar-state functions whose keys do not take
+    the state columns' names (:823)."""
+    if not group_keys:
+        return False
+    if any(fn not in STREAMING_AGG_FNS for _, fn, _ in aggs):
+        return False
+    return not any(str(k).startswith(_STATE_PREFIX) for k in group_keys)
+
+
+def _direct_layout(key_cols, aggs: Sequence[AggTriple]):
+    """The direct-address cell layout of key columns (`_direct_layout` :549):
+    (los, ranges, strides, cells), or None when the shape does not qualify
+    (a min or max aggregate, a nullable or float key, an empty integer key,
+    more cells than the budget). String keys range over their dictionary's
+    codes, bool keys over 0..1, integer keys over their min..max; the cell id
+    is mixed-radix, the last key fastest."""
+    if any(fn in ("min", "max") for _, fn, _ in aggs):
+        return None
+    los, ranges = [], []
+    for c in key_cols:
+        if c.validity is not None:
+            return None
+        if c.is_string:
+            lo, hi = 0, max(len(c.dictionary) - 1, 0)
+        elif c.data.dtype == torch.bool:
+            lo, hi = 0, 1
+        elif not c.data.is_floating_point():
+            if len(c) == 0:
+                return None
+            lo, hi = torch.stack([c.data.min(), c.data.max()]).to(torch.int64).tolist()
+        else:
+            return None
+        los.append(int(lo))
+        ranges.append(int(hi) - int(lo) + 1)
+    cells = 1
+    for r in ranges:
+        cells *= r
+        if cells > _DIRECT_CELL_BUDGET:
+            return None
+    strides = [1] * len(ranges)
+    for i in range(len(ranges) - 2, -1, -1):
+        strides[i] = strides[i + 1] * ranges[i + 1]
+    return los, ranges, strides, cells
+
+
+def direct_stream_hint(key_cols, aggs: Sequence[AggTriple]):
+    """The direct-cells hint of a stream whose chunks are gathers of the
+    source columns `key_cols` (:838): every gathered key lies in the
+    source's value range, so the stream can accumulate into one dense cell
+    array with no state tables and no carry merge. (los, ranges, strides,
+    cells, key_meta) or None; key_meta rebuilds the key columns from cell
+    ids."""
+    layout = _direct_layout(key_cols, aggs)
+    if layout is None:
+        return None
+    key_meta = [(c.dtype, c.dictionary if c.is_string else None, c.data.dtype) for c in key_cols]
+    return layout + (key_meta,)
+
+
+class StreamAggregator:
+    """Chunk-carry GROUP BY (`StreamAggregator` :910): `add_chunk` each
+    table chunk, then `finalize`.
+
+    A chunk reduces to per-group partial states by the one-pass path's key64
+    sort and segment reductions (the JAX device program's `_partial_device`
+    :1239): a state is (value, non-null count), avg carries its sum, and the
+    states form a small table of the group keys and the state columns. The
+    carried states merge by exact key records (`_key_records` over the
+    concatenated state tables: string keys re-encode over union
+    dictionaries, and a 64-bit collision never merges two groups). Merging
+    waits until the pending states outgrow the carry; the fold stays left to
+    right whatever the cadence, so the result does not depend on it. Float
+    sums add in row order within a segment (`torch.segment_reduce`, no
+    atomics), so the card's answer is the same on every run. A group's
+    answer is the same whatever the chunking, one chunk included (see
+    `_compact`).
+
+    Under a direct-cells hint every chunk folds into dense per-cell
+    accumulators (`_add_chunk_direct` :1025); float sums sort the chunk's
+    rows by cell stably and reduce each cell's segment in row order, the
+    order of the reference's `np.bincount`.
+
+    `finalize` gives the groups in the JAX device program's order: cell
+    order under a hint, else ascending key64."""
+
+    def __init__(self, group_keys, aggs: Sequence[AggTriple], stages=None, direct_hint=None):
+        self.group_keys = list(group_keys)
+        self.aggs = [tuple(a) for a in aggs]
+        if not streaming_agg_supported(self.group_keys, self.aggs):
+            raise HyperspaceException("aggregate shape not streamable")
+        self._stages = stages
+        self._carry: Optional[Table] = None
+        self._pending: list = []
+        self._pending_rows = 0
+        self._in_dtypes: list = [None] * len(self.aggs)
+        self.chunks = 0
+        self.rows = 0
+        self._direct = direct_hint
+        self._dcounts: Optional[torch.Tensor] = None
+        self._dstates: Optional[list] = None
+
+    def add_chunk(self, t: Table) -> None:
+        # Input types promote across chunks as the one-pass path's concat
+        # promotes them, an empty chunk's included (:967-985).
+        for i, (_out, _fn, cname) in enumerate(self.aggs):
+            if cname is None:
+                continue
+            cur, new = self._in_dtypes[i], t.column(cname).dtype
+            if cur is None or cur == new or STRING in (cur, new):
+                self._in_dtypes[i] = new if cur is None else cur
+            else:
+                promoted = torch.promote_types(TORCH_DTYPES[cur], TORCH_DTYPES[new])
+                self._in_dtypes[i] = next(k for k, v in TORCH_DTYPES.items() if v == promoted and k != STRING)
+        if t.num_rows == 0:
+            return
+        with timed(self._stages, "partial"):
+            if self._direct is not None:
+                self._add_chunk_direct(t)
+            else:
+                partial = self._partial(t)
+        self.chunks += 1
+        self.rows += t.num_rows
+        if self._direct is not None:
+            return
+        self._pending.append(partial)
+        self._pending_rows += partial.num_rows
+        carry_rows = self._carry.num_rows if self._carry is not None else 0
+        if self._pending_rows >= max(1 << 16, carry_rows):
+            with timed(self._stages, "merge"):
+                self._compact()
+
+    # -- direct cells ---------------------------------------------------------
+
+    def _add_chunk_direct(self, t: Table) -> None:
+        los, _ranges, strides, cells, _meta = self._direct
+        dev = _device(t)
+        gid0 = torch.zeros(t.num_rows, dtype=torch.int64, device=dev)
+        for k, lo, st in zip(self.group_keys, los, strides):
+            c = t.column(k)
+            if c.validity is not None:
+                # The hint promised null-free source keys: chunks with a null
+                # key are not gathers of them.
+                raise HyperspaceException("direct-hint chunk carries null keys")
+            gid0 += (c.data.to(torch.int64) - lo) * st
+        counts = torch.bincount(gid0, minlength=cells)
+        if self._dcounts is None:
+            self._dcounts = torch.zeros(cells, dtype=torch.int64, device=dev)
+            self._dstates = [[None, None] for _ in self.aggs]  # per agg: [valid counts, values]
+        self._dcounts += counts
+        for i, (_out, fn, cname) in enumerate(self.aggs):
+            if cname is None:
+                continue  # count(*) reads the row counts
+            col, state = t.column(cname), self._dstates[i]
+            if col.validity is None:
+                g, data, nv = gid0, col.data, counts
+                if state[0] is not None:
+                    state[0] += counts
+            else:
+                g, data = gid0[col.validity], col.data[col.validity]
+                nv = torch.bincount(g, minlength=cells)
+                if state[0] is None:
+                    # Every earlier chunk was all-valid: their valid counts
+                    # are their row counts.
+                    state[0] = self._dcounts - counts
+                state[0] += nv
+            if fn == "count":
+                continue
+            if data.is_floating_point():
+                order = torch.sort(g, stable=True).indices
+                s = torch.segment_reduce(data.to(torch.float64)[order], "sum", lengths=nv, unsafe=True)
+            else:
+                s = torch.zeros(cells, dtype=torch.int64, device=dev).index_add_(0, g, data.to(torch.int64))
+            if state[1] is None:
+                state[1] = s
+            else:
+                if state[1].dtype != s.dtype:
+                    common = torch.promote_types(state[1].dtype, s.dtype)
+                    state[1], s = state[1].to(common), s.to(common)
+                state[1] += s
+
+    def _finalize_direct(self) -> Optional[Table]:
+        if self._dcounts is None or self.rows == 0:
+            return None
+        los, ranges, strides, _cells, key_meta = self._direct
+        present = torch.nonzero(self._dcounts).squeeze(1)
+        counts_p = self._dcounts[present]
+        out = {}
+        for k, (dtype, dictionary, tdtype), lo, rng, st in zip(self.group_keys, key_meta, los, ranges, strides):
+            vals = lo + torch.div(present, st, rounding_mode="floor") % rng
+            out[k] = Column(dtype, vals.to(tdtype), dictionary, None)
+        for i, (out_name, fn, _cname) in enumerate(self.aggs):
+            dtype = result_dtype(fn, self._in_dtypes[i])
+            nv_cells, val_cells = self._dstates[i]
+            nv = counts_p if nv_cells is None else nv_cells[present]
+            if fn == "count":
+                out[out_name] = _out_column(None, dtype, nv, None)
+                continue
+            vals = val_cells[present]
+            if fn == "avg":
+                vals = vals.to(torch.float64) / torch.clamp(nv, min=1).to(torch.float64)
+            out[out_name] = _out_column(None, dtype, vals, nv > 0)
+        return Table(out)
+
+    # -- partial states and the carry ------------------------------------------
+
+    @staticmethod
+    def _state_col(vals: torch.Tensor, n_valid: torch.Tensor, dictionary) -> Column:
+        """A state value column: all-null groups hold 0 (code 0 of a string
+        state, which always indexes its dictionary) and are invalid."""
+        anyv = n_valid > 0
+        data = torch.where(anyv, vals, torch.zeros((), dtype=vals.dtype, device=vals.device))
+        if dictionary is not None:
+            return Column(STRING, data.to(torch.int32), dictionary, anyv.clone())
+        return Column(_dtype_of(data), data, None, anyv.clone())
+
+    def _state_table(self, keys: Table, states: list) -> Table:
+        out = dict(keys.columns)
+        for i, (vals_col, n_valid) in enumerate(states):
+            if vals_col is not None:
+                out[f"{_STATE_PREFIX}v{i}"] = vals_col
+            out[f"{_STATE_PREFIX}n{i}"] = Column(INT64, n_valid.to(torch.int64))
+        return Table(out)
+
+    def _partial(self, t: Table) -> Table:
+        """One chunk's per-group states by the key64 sort and the segment
+        reductions of the one-pass path."""
+        key_cols = [t.column(k) for k in self.group_keys]
+        perm, boundary, gid = _group_ids(key_cols, key64(key_cols))
+        starts = torch.nonzero(boundary).squeeze(1)
+        n_groups = int(starts.shape[0])
+        ends = torch.cat([starts[1:], torch.tensor([t.num_rows], device=starts.device)])
+        seg_rows = ends - starts
+        states = []
+        for _out, fn, cname in self.aggs:
+            col = t.column(cname) if cname is not None else None
+            vals, n_valid = _segment_reduce("sum" if fn == "avg" else fn, col, perm, gid, seg_rows, n_groups)
+            if fn == "count":
+                states.append((None, n_valid))
+                continue
+            states.append((self._state_col(vals, n_valid, col.dictionary if col.is_string else None), n_valid))
+        return self._state_table(t.select(self.group_keys).take(perm[starts]), states)
+
+    def _compact(self) -> None:
+        if not self._pending:
+            return
+        parts = ([self._carry] if self._carry is not None else []) + self._pending
+        self._pending = []
+        self._pending_rows = 0
+        # Even a lone partial merges: rows whose key64s collide (a null hashes
+        # as its fill value) interleave in the chunk's sort, so its segments
+        # may repeat a key tuple. The JAX package keeps a lone partial as it
+        # is and splits such groups (ROADMAP.md Queue 3). The concatenation
+        # re-encodes string keys and string min/max states over union
+        # dictionaries, so codes compare across chunks.
+        pt = Table.concat(parts) if len(parts) > 1 else parts[0]
+        dev = _device(pt)
+        _uniq, first_idx, inverse = np.unique(
+            _key_records([pt.column(k) for k in self.group_keys]), return_index=True, return_inverse=True
+        )
+        n_groups = len(first_idx)
+        inv = torch.from_numpy(inverse.reshape(-1).astype(np.int64)).to(dev)
+        out = dict(pt.select(self.group_keys).take(torch.from_numpy(first_idx).to(dev)).columns)
+        for i, (_out, fn, _cname) in enumerate(self.aggs):
+            contrib = pt.column(f"{_STATE_PREFIX}n{i}").data
+            nv = torch.zeros(n_groups, dtype=torch.int64, device=dev).index_add_(0, inv, contrib)
+            out[f"{_STATE_PREFIX}n{i}"] = Column(INT64, nv)
+            if fn == "count":
+                continue
+            vcol = pt.column(f"{_STATE_PREFIX}v{i}")
+            mask = contrib > 0
+            g, vals = inv[mask], vcol.data[mask]
+            if fn in ("sum", "avg"):
+                if vals.is_floating_point():
+                    # Each group's states add in row order (the carry first,
+                    # then the chunks as they came), as `np.add.at` does.
+                    order = torch.sort(g, stable=True).indices
+                    lengths = torch.bincount(g, minlength=n_groups)
+                    acc = torch.segment_reduce(vals[order], "sum", lengths=lengths, unsafe=True)
+                else:
+                    acc = torch.zeros(n_groups, dtype=vals.dtype, device=dev).index_add_(0, g, vals)
+            else:
+                acc = torch.full((n_groups,), _minmax_fill(vals.dtype, fn), dtype=vals.dtype, device=dev)
+                acc = acc.scatter_reduce_(0, g, vals, "amin" if fn == "min" else "amax")
+            out[f"{_STATE_PREFIX}v{i}"] = self._state_col(acc, nv, vcol.dictionary if vcol.is_string else None)
+        self._carry = Table(out)
+
+    def finalize(self) -> Optional[Table]:
+        """The aggregate of every chunk so far; None when no chunk held rows
+        (the caller owns the empty-input result)."""
+        if self._direct is not None:
+            with timed(self._stages, "finalize"):
+                return self._finalize_direct()
+        with timed(self._stages, "merge"):
+            self._compact()
+        if self._carry is None:
+            return None
+        carry = self._carry
+        with timed(self._stages, "finalize"):
+            order = torch.sort(key64([carry.column(k) for k in self.group_keys]), stable=True).indices
+            out = {k: carry.column(k).take(order) for k in self.group_keys}
+            for i, (out_name, fn, _cname) in enumerate(self.aggs):
+                nv = carry.column(f"{_STATE_PREFIX}n{i}").data[order]
+                dtype = result_dtype(fn, self._in_dtypes[i])
+                if fn == "count":
+                    out[out_name] = _out_column(None, dtype, nv, None)
+                    continue
+                vcol = carry.column(f"{_STATE_PREFIX}v{i}").take(order)
+                vals = vcol.data
+                if fn == "avg":
+                    vals = vals.to(torch.float64) / torch.clamp(nv, min=1).to(torch.float64)
+                out[out_name] = _out_column(vcol, dtype, vals, nv > 0)
+        return Table(out)

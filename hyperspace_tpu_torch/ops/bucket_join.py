@@ -18,6 +18,10 @@ bucket b of the right. The bucket axis becomes a batch dimension:
 4. `classed_pairs` expands the ranges into (left_row, right_row) candidate
    pairs in bucket-major order, with torch ops on the tables' device.
 
+A star join's fact was never bucketed on a dimension's keys: its rows are
+hashed into the dimension's buckets and laid out in their order on the fly
+(`fact_bucket_layout`), and such a pair always pads by hash.
+
 `pad_buckets_by_codes` and `probe_code_ranges` are the packed code-mode reps
 of one low-cardinality string key (kernels K4 and K5). As in the JAX package,
 they are an ops-level API that no engine operator calls yet.
@@ -29,6 +33,7 @@ the session's device, and only the kernels' wrappers tell CPU from CUDA.
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -48,6 +53,16 @@ _PAD = torch.iinfo(torch.int64).max
 #: default `HYPERSPACE_JOIN_OUTLIER_FACTOR`).
 OUTLIER_FACTOR = 8.0
 _MAX_CLASSES = 8
+
+
+#: The size-classed layout's gate, read where the JAX package's streamed
+#: joins read it (`size_classes_enabled` :46): "0" keeps a star query on the
+#: cascade. The dense layout it would otherwise select is not ported.
+ENV_SIZE_CLASSES = "HYPERSPACE_JOIN_SIZE_CLASSES"
+
+
+def size_classes_enabled() -> bool:
+    return os.environ.get(ENV_SIZE_CLASSES, "") != "0"
 
 
 def _cap_pow2(n: int) -> int:
@@ -229,6 +244,21 @@ def _build_side(vals: torch.Tensor, starts: np.ndarray, ids: np.ndarray, mode: s
         keys, order = pad_buckets_by_hash(vals, gstarts, lens_t, cap)
         return _ClassSide(keys, lens_t, order, gstarts, cap)
     return _ClassSide(pad_buckets_by_value(vals, gstarts, lens_t, cap), lens_t, None, gstarts, cap)
+
+
+def fact_bucket_layout(bucket_ids: torch.Tensor, num_buckets: int) -> Tuple[torch.Tensor, np.ndarray]:
+    """Bucket-order layout of a probe side that was never bucketed on a star
+    dimension's keys (`fact_bucket_layout` :872): `perm` reorders its rows
+    stably into ascending bucket order, and `starts` (host, num_buckets + 1)
+    bound each bucket's slice, the (rows, starts) contract
+    `build_classed_plan` takes of a bucketed index. Stability keeps each
+    bucket's rows in table order, so repeated probes and the pair memos
+    agree."""
+    bid = bucket_ids.to(torch.int64)
+    perm = torch.sort(bid, stable=True).indices
+    starts = np.zeros(num_buckets + 1, np.int64)
+    np.cumsum(torch.bincount(bid, minlength=num_buckets).cpu().numpy(), out=starts[1:])
+    return perm, starts
 
 
 def build_classed_plan(

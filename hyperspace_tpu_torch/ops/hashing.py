@@ -10,7 +10,9 @@ computes the same functions: `fmix32` :100, `_mix_combine` :111, `_words_u32`
 A key lane is a tensor of numeric values, or a `Column`: a string column
 hashes through its dictionary (one 4-byte blake2b per distinct value on the
 host, then a gather through the codes on the device), so the string bytes are
-touched once per dictionary entry. Null slots hash their fill value (numeric
+touched once per dictionary entry; the hashes of a dictionary are memoized
+per dictionary object and seed, so a later query over the same column hashes
+nothing. Null slots hash their fill value (numeric
 0, string code 0), as in the JAX package.
 
 torch has no uint32 shifts or compares on every device, so each lane is an
@@ -22,6 +24,8 @@ wrap, and those are all that is kept.
 from __future__ import annotations
 
 import hashlib
+import threading
+import weakref
 from typing import Optional, Sequence
 
 import numpy as np
@@ -71,9 +75,17 @@ def hash_device_values(x: torch.Tensor, seed: int, force_float: bool = False) ->
     return fmix32(h)
 
 
-def host_hash_dictionary(dictionary: np.ndarray, seed: int) -> torch.Tensor:
-    """uint32 hash (in int64 lanes, on the host) of each dictionary entry: a
-    4-byte blake2b of its UTF-8 bytes, the seed as little-endian salt."""
+# The dictionary-hash memo (`hashing.py` :153-200): one blake2b pass per
+# (dictionary object, seed), not per query, with its copies on each device.
+# Entries are keyed weakly, so they die with their dictionaries and a reused
+# id never serves a dead dictionary's hashes.
+_dict_hash_cache: dict = {}
+_dict_hash_lock = threading.RLock()
+
+
+def _hash_strings(dictionary: np.ndarray, seed: int) -> torch.Tensor:
+    """A 4-byte blake2b of each entry's UTF-8 bytes, the seed as
+    little-endian salt, as uint32 values in int64 lanes on the host."""
     out = np.empty(len(dictionary), dtype=np.uint32)
     salt = int(seed).to_bytes(4, "little")
     for i, s in enumerate(dictionary):
@@ -82,14 +94,45 @@ def host_hash_dictionary(dictionary: np.ndarray, seed: int) -> torch.Tensor:
     return torch.from_numpy(out.astype(np.int64))
 
 
+def host_hash_dictionary(dictionary: np.ndarray, seed: int, device=None) -> torch.Tensor:
+    """uint32 hash (in int64 lanes) of each dictionary entry, on `device`
+    (the host when None), memoized per dictionary object and seed."""
+    dev = torch.device("cpu" if device is None else device)
+    key = (id(dictionary), int(seed))
+    with _dict_hash_lock:
+        ent = _dict_hash_cache.get(key)
+        if ent is not None and ent[0]() is dictionary:
+            copies = ent[1]
+            if dev not in copies:
+                copies[dev] = copies[torch.device("cpu")].to(dev)
+            return copies[dev]
+    host = _hash_strings(dictionary, seed)
+    copies = {torch.device("cpu"): host}
+    if dev.type != "cpu":
+        copies[dev] = host.to(dev)
+
+    def _evict(wr, key=key):
+        with _dict_hash_lock:
+            ent_now = _dict_hash_cache.get(key)
+            if ent_now is not None and ent_now[0] is wr:
+                _dict_hash_cache.pop(key, None)
+
+    try:
+        ref = weakref.ref(dictionary, _evict)
+    except TypeError:  # a container that takes no weak reference: not memoized
+        return copies[dev]
+    with _dict_hash_lock:
+        _dict_hash_cache[key] = (ref, copies)
+    return copies[dev]
+
+
 def column_hash_u32(lane, seed: int, force_float: bool = False) -> torch.Tensor:
     """uint32 hash (in an int64 lane) of one key lane: a numeric tensor, or a
     Column (string columns through their dictionary; codes may be narrow)."""
     if isinstance(lane, torch.Tensor):
         return hash_device_values(lane, seed, force_float)
     if lane.is_string:
-        table = host_hash_dictionary(lane.dictionary, seed).to(lane.data.device)
-        return table[lane.data.long()]
+        return host_hash_dictionary(lane.dictionary, seed, lane.data.device)[lane.data.long()]
     return hash_device_values(lane.data, seed, force_float)
 
 

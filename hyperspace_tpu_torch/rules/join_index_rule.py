@@ -19,9 +19,18 @@ Parity: reference `index/rules/JoinIndexRule.scala:54-564`, via
   (`HybridAppend`, :469-490); the scan bucketizes their rows by the index's
   own hash and merges them into its buckets, so the index data moves through
   no exchange.
-Any exception returns the original plan. Star-join recognition
-(`HYPERSPACE_MULTIWAY`, with its Hybrid Scan branch :269-345) waits for
-`MultiwayJoinExec` (ROADMAP.md Queue 1, item 9).
+Any exception returns the original plan.
+
+After the binary rewrite the rule recognizes a star join (`_wrap_star`,
+`_try_star` :220-400): a left-deep chain of two or more inner equi-joins of
+one fact with dimensions, each dimension a relation under row filters with a
+covering bucketed index on exactly its keys, the keys of each join exclusive
+to the fact and that dimension, and each key pair of one hash kind. The
+chain is wrapped in a `StarJoinNode` that keeps the cascade as its child;
+the physical planner makes it a `MultiwayJoinExec`. A dimension whose source
+gained files carries them as a `HybridAppend`, and one with deleted files
+the lineage prune filter, as the binary rewrite does. `HYPERSPACE_MULTIWAY=0`
+turns recognition off (:555-562).
 """
 
 from __future__ import annotations
@@ -39,9 +48,12 @@ from ..engine.logical import (
     OrderByNode,
     ProjectNode,
     ScanNode,
+    StarDimension,
+    StarJoinNode,
     WithColumnNode,
     find_single_relation,
 )
+from ..engine.streaming import multiway_enabled
 from ..util.resolver_utils import resolution_key
 from .rule_utils import _index_relation, get_candidate_indexes, lineage_prune_condition
 
@@ -142,6 +154,158 @@ def rank_join_pairs(pairs):
     return sorted(pairs, key=key)
 
 
+def _rank_single(cands):
+    """A star dimension's covering indexes ranked as `rank_join_pairs` ranks
+    pairs, on one side: exact-match indexes first (no appended files to
+    merge, no deleted ones to prune), then more buckets (:165)."""
+    return sorted(cands, key=lambda c: (len(c.appended) + len(c.deleted), -c.entry.num_buckets))
+
+
+def _only_scan_filter(plan: LogicalPlan) -> bool:
+    """A star side is a relation under row filters only: filters keep each
+    row's identity, so the side's table is the one the cascade sees (:174)."""
+    return all(isinstance(n, (FilterNode, ScanNode)) for n in plan.collect_nodes())
+
+
+_KIND = {"float32": "f", "float64": "f", "string": "s"}
+
+
+def _key_kind(schema, name: str, cs: bool) -> Optional[str]:
+    """The hash kind ("i", "f" or "s") of one join key: the index hashed each
+    column in its own kind, so a fact key must hash in the dimension key's
+    kind to land in the dimension's buckets (:189)."""
+    for f in schema.fields:
+        if _nkey(f.name, cs) == _nkey(name, cs):
+            return _KIND.get(f.dtype, "i")
+    return None
+
+
+def _wrap_star(plan: LogicalPlan, root_refs, hybrid: bool, index_manager, cs: bool) -> LogicalPlan:
+    """The plan with the join chain under its single-child spine wrapped in
+    a `StarJoinNode` when the chain is a star; untouched otherwise (:201)."""
+    spine: List[LogicalPlan] = []
+    node = plan
+    while not isinstance(node, JoinNode):
+        kids = node.children()
+        if len(kids) != 1:
+            return plan
+        spine.append(node)
+        node = kids[0]
+    star = _try_star(node, root_refs, hybrid, index_manager, cs)
+    if star is None:
+        return plan
+    out: LogicalPlan = star
+    for op in reversed(spine):
+        out = op.with_children([out])
+    return out
+
+
+def _try_star(top: JoinNode, root_refs, hybrid: bool, index_manager, cs: bool):
+    """A `StarJoinNode` over the left-deep inner equi-join chain under `top`,
+    or None when the shape or the coverage does not hold (:222): two or more
+    inner joins; the fact and each dimension a relation under row filters;
+    each join's keys exclusive to the fact and that dimension across the
+    whole star; one hash kind per key pair; and each dimension covered by a
+    bucketed index on exactly its keys (the innermost one may already be an
+    index scan of the binary rewrite, kept when it covers)."""
+    chain: List[JoinNode] = []
+    cur: LogicalPlan = top
+    while isinstance(cur, JoinNode):
+        if cur.how != "inner":
+            return None
+        chain.append(cur)
+        cur = cur.left
+    if len(chain) < 2:
+        return None
+    fact_scan = find_single_relation(cur)
+    if fact_scan is None or not _only_scan_filter(cur):
+        return None
+    fact_names = fact_scan.output_schema.names
+    fact_set = set(_norm(fact_names, cs))
+
+    # Innermost join first: the cascade's fold order, which fixes the
+    # output's column naming (collision suffixes) and the dimensions' order.
+    dims_raw = []
+    for join in reversed(chain):
+        dscan = find_single_relation(join.right)
+        if dscan is None or not _only_scan_filter(join.right):
+            return None
+        dims_raw.append((join, dscan))
+    dim_name_sets = [set(_norm(d.output_schema.names, cs)) for _, d in dims_raw]
+
+    dims: List[StarDimension] = []
+    for i, (join, dscan) in enumerate(dims_raw):
+        pairs = extract_equi_join_keys(join.condition)
+        if not pairs:
+            return None
+        dnames = dscan.output_schema.names
+        oriented = _orient_pairs(pairs, fact_names, dnames, cs)
+        if oriented is None:
+            return None
+        f_to_d = _one_to_one(oriented, cs)
+        if f_to_d is None:
+            return None
+        fkeys = list(dict.fromkeys(f for f, _ in oriented))
+        dkeys = [f_to_d[_nkey(k, cs)] for k in fkeys]
+        # A fact key named in a dimension, or a dimension key named in the
+        # fact or another dimension, resolves otherwise (or suffixed) in the
+        # cascade: such a star stays there.
+        if any(_nkey(k, cs) in s for k in fkeys for s in dim_name_sets):
+            return None
+        for k in dkeys:
+            nk = _nkey(k, cs)
+            if nk in fact_set or any(nk in s for j, s in enumerate(dim_name_sets) if j != i):
+                return None
+        for fk, dk in zip(fkeys, dkeys):
+            if _key_kind(fact_scan.output_schema, fk, cs) != _key_kind(dscan.output_schema, dk, cs):
+                return None
+        dim_required = list(dict.fromkeys(
+            [n for n in dnames if _nkey(n, cs) in root_refs or _nkey(n + "_r", cs) in root_refs] + dkeys
+        ))
+
+        rel = dscan.relation
+        if rel.index_name:
+            # The binary rewrite's index scan (the innermost join): kept when
+            # bucketed on exactly this dimension's keys and covering.
+            spec = rel.bucket_spec
+            if spec is None or set(_norm(list(spec.bucket_columns), cs)) != set(_norm(dkeys, cs)):
+                return None
+            if not set(_norm(dim_required, cs)) <= set(_norm(rel.schema.names, cs)):
+                return None
+            dim_plan: LogicalPlan = join.right
+            index_name, num_buckets = rel.index_name, spec.num_buckets
+        else:
+            cands = get_candidate_indexes(index_manager, dscan, hybrid)
+            usable = _usable_indexes(cands, dkeys, dim_required, cs)
+            if not usable:
+                return None
+            cand = _rank_single(usable)[0]
+            new_rel = _index_relation(cand.entry, with_bucket_spec=True)
+            if cand.appended:
+                src = dscan.relation
+                new_rel.hybrid_append = HybridAppend(
+                    files=cand.appended, file_format=src.file_format, schema=src.schema,
+                    root_paths=list(src.root_paths), partition_spec=src.partition_spec,
+                )
+
+            def replace(n, _scan=dscan, _rel=new_rel, _deleted=cand.deleted):
+                if n is _scan or (isinstance(n, ScanNode) and n.relation is _scan.relation):
+                    new_scan: LogicalPlan = ScanNode(_rel)
+                    if _deleted:
+                        new_scan = FilterNode(lineage_prune_condition(_deleted), new_scan)
+                    return new_scan
+                return n
+
+            dim_plan = join.right.transform_up(replace)
+            index_name, num_buckets = cand.entry.name, cand.entry.num_buckets
+        dims.append(StarDimension(dim_plan, fkeys, dkeys, dim_required, index_name, num_buckets))
+
+    fact_required = list(dict.fromkeys(
+        [n for n in fact_names if _nkey(n, cs) in root_refs] + [k for d in dims for k in d.fact_keys]
+    ))
+    return StarJoinNode(top, dims, fact_required)
+
+
 class JoinIndexRule:
     """Rule protocol: apply(plan, session) -> plan."""
 
@@ -215,7 +379,10 @@ class JoinIndexRule:
                     node.how,
                 )
 
-            return plan.transform_up(rewrite)
+            new_plan = plan.transform_up(rewrite)
+            if multiway_enabled():
+                new_plan = _wrap_star(new_plan, root_refs, hybrid, index_manager, cs)
+            return new_plan
         except Exception as e:  # the reference's non-fatal rule policy
             logging.getLogger("hyperspace_tpu_torch.rules").warning(
                 "JoinIndexRule failed; query falls back to the original plan: %s: %s",

@@ -1,0 +1,110 @@
+"""Per-stage timings of the streamed executors (counterpart of
+`hyperspace_tpu/telemetry/profiling.py` `StageTimings` :32,
+`record_query_stages` :164 and `record_join_stages` :189).
+
+A streamed scan aggregate (`engine/streaming.stream_aggregate`) and a
+streamed star join (`stream_star_aggregate`) each fill one `StageTimings`
+and record its summary; `last_query_stages()` and `last_join_stages()` read
+the newest. The summaries carry the JAX package's field names (`<stage>_s`,
+`wall_s`, `overlap_ratio`, `mode`, `stage_counts`, and what the executor adds:
+`chunks`, `join_mode`, `star_dims` ...), so both packages' records read
+alike.
+
+On a CUDA device every timed block ends with a synchronization of that
+device (`StageTimings(device=...)`): the card runs the block's work
+asynchronously, and without it a stage's seconds would be the host's
+launch time, not the work's.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+import time
+from collections import deque
+from typing import Dict, Iterator, Optional
+
+import torch
+
+
+class StageTimings:
+    """Thread-safe per-stage busy seconds and counts of one streamed
+    operation, plus its wall clock: `overlap_ratio` = the stages' sum over
+    the wall (above 1 when stages ran at once)."""
+
+    def __init__(self, mode: str = "", device=None):
+        self._lock = threading.Lock()
+        self._stages: Dict[str, float] = {}
+        self._counts: Dict[str, int] = {}
+        self.mode = mode
+        dev = None if device is None else torch.device(device)
+        self._sync = dev if dev is not None and dev.type == "cuda" else None
+        self._t0 = time.monotonic()
+        self._wall: Optional[float] = None
+
+    def add(self, stage: str, seconds: float) -> None:
+        with self._lock:
+            self._stages[stage] = self._stages.get(stage, 0.0) + float(seconds)
+            self._counts[stage] = self._counts.get(stage, 0) + 1
+
+    @contextlib.contextmanager
+    def timed(self, stage: str) -> Iterator[None]:
+        t0 = time.monotonic()
+        try:
+            yield
+        finally:
+            if self._sync is not None:
+                torch.cuda.synchronize(self._sync)
+            self.add(stage, time.monotonic() - t0)
+
+    def finish(self) -> None:
+        if self._wall is None:
+            self._wall = time.monotonic() - self._t0
+
+    def summary(self) -> dict:
+        self.finish()
+        with self._lock:
+            wall = self._wall or 0.0
+            busy = sum(self._stages.values())
+            out = {f"{k}_s": round(v, 4) for k, v in sorted(self._stages.items())}
+            out["wall_s"] = round(wall, 4)
+            out["overlap_ratio"] = round(busy / wall, 3) if wall > 0 else None
+            out["mode"] = self.mode
+            out["stage_counts"] = dict(sorted(self._counts.items()))
+        return out
+
+
+def timed(stages: Optional[StageTimings], stage: str):
+    """`stages.timed(stage)`, or nothing when no stages are kept."""
+    return contextlib.nullcontext() if stages is None else stages.timed(stage)
+
+
+# The newest summaries of streamed scan aggregates and streamed joins,
+# bounded so that a long-lived session keeps a fixed amount.
+_QUERY_STAGES: "deque[dict]" = deque(maxlen=16)
+_JOIN_STAGES: "deque[dict]" = deque(maxlen=16)
+_lock = threading.Lock()
+
+
+def record_query_stages(summary: dict) -> None:
+    """Record one streamed scan aggregate's summary."""
+    with _lock:
+        _QUERY_STAGES.append(dict(summary))
+
+
+def last_query_stages() -> Optional[dict]:
+    """The newest streamed scan aggregate's summary (None if none ran)."""
+    with _lock:
+        return dict(_QUERY_STAGES[-1]) if _QUERY_STAGES else None
+
+
+def record_join_stages(summary: dict) -> None:
+    """Record one streamed join's summary."""
+    with _lock:
+        _JOIN_STAGES.append(dict(summary))
+
+
+def last_join_stages() -> Optional[dict]:
+    """The newest streamed join's summary (None if none ran)."""
+    with _lock:
+        return dict(_JOIN_STAGES[-1]) if _JOIN_STAGES else None

@@ -840,3 +840,60 @@ def test_set_operations_on_the_card_equal_the_cpu(cuda_device, tmp_path):
     assert rows["cuda"] == rows["cpu"]
     assert rows["cpu"][2] == [repr((-0.0,)), repr((2.0,)), repr((None,))]
     assert len(rows["cpu"][0]) >= 5 and len(rows["cpu"][1]) >= 5
+
+
+@pytest.mark.cuda
+def test_the_star_stream_and_the_streamed_scan_on_the_card_equal_the_cpu(cuda_device, tmp_path):
+    """Phase star's Q3, Q55 and float Q55 as star streams (K1 and K2 in each
+    dimension's hash-mode layout) and the streamed store aggregate over six
+    files, on the card and on the CPU: identical integer results and group
+    order, float sums at rtol 1e-9 (the card's segment sums add in another
+    order than the CPU's), each equal to numpy."""
+    import os
+
+    import chip_smoke
+    import hyperspace_tpu_torch as hst
+    from hyperspace_tpu_torch.telemetry.profiling import last_join_stages, last_query_stages
+
+    for flag in ("HYPERSPACE_MULTIWAY", "HYPERSPACE_QUERY_STREAMING", "HYPERSPACE_JOIN_CHUNK_ROWS"):
+        os.environ.pop(flag, None)
+    tables = chip_smoke.star_tables(np.random.RandomState(19), 80_000)
+    writer = hst.HyperspaceSession(warehouse=str(tmp_path / "writer"), device="cpu")
+    chip_smoke.write_star_tables(writer, tables, str(tmp_path), 6)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        s = hst.HyperspaceSession(warehouse=str(tmp_path / dev), device=dev)
+        s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, 16)
+        hs = hst.Hyperspace(s)
+
+        def read(t, s=s):
+            return s.read.parquet(os.path.join(str(tmp_path), t))
+
+        for table, name, indexed, included in chip_smoke.STAR_INDEXES:
+            hs.create_index(read(table), hst.IndexConfig(name, indexed, included))
+        hst.enable_hyperspace(s)
+        launches = cuda_sort.launches, cuda_probe.launches
+        results = []
+        for step, (make, measure) in chip_smoke.STAR_QUERIES.items():
+            before = last_join_stages()
+            got = make(read, hst.col, measure).collect().to_numpy()
+            stats = last_join_stages()
+            assert stats != before and stats["join_mode"] == "star"
+            chip_smoke.check_star_rows(f"{step} {dev}", got, chip_smoke.expected_star(tables, step))
+            results.append(got)
+        before = last_query_stages()
+        got = chip_smoke.star_store_query(read).collect().to_numpy()
+        assert last_query_stages() != before and last_query_stages()["chunks"] == 6
+        chip_smoke.check_store_agg(f"d {dev}", got, chip_smoke.expected_store_agg(tables["store_sales"]))
+        results.append(got)
+        if dev == "cuda":
+            assert cuda_sort.launches > launches[0] and cuda_probe.launches > launches[1]
+        out[dev] = results
+    for cpu, card in zip(out["cpu"], out["cuda"]):
+        assert list(cpu) == list(card)
+        for name in cpu:
+            a, b = np.asarray(cpu[name]), np.asarray(card[name])
+            if a.dtype.kind == "f":
+                np.testing.assert_allclose(b, a, rtol=1e-9, atol=0)
+            else:
+                assert a.tolist() == b.tolist(), name

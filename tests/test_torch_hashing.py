@@ -120,3 +120,48 @@ def test_dictionary_hash_matches():
         np.testing.assert_array_equal(
             torch_hashing.host_hash_dictionary(d, seed).numpy(), np.asarray(jax_hashing.host_hash_dictionary(d, seed))[: len(d)]
         )
+
+
+def test_dictionary_hash_memo_hashes_once_and_stays_bit_identical(monkeypatch):
+    """The memo (`hashing.py` :153-200): a second call on the same
+    dictionary object and seed hashes nothing and returns the same values;
+    another seed or another (equal) dictionary object hashes again; the
+    values stay the JAX package's."""
+    calls = []
+    real = torch_hashing._hash_strings
+
+    def counted(dictionary, seed):
+        calls.append((id(dictionary), seed))
+        return real(dictionary, seed)
+
+    monkeypatch.setattr(torch_hashing, "_hash_strings", counted)
+    d = np.array([f"name-{i:04d}" for i in range(500)] + ["é", ""])
+    seed = 0x9747B28C
+    first = torch_hashing.host_hash_dictionary(d, seed).clone()
+    again = torch_hashing.host_hash_dictionary(d, seed)
+    assert len(calls) == 1
+    assert torch.equal(first, again)
+    np.testing.assert_array_equal(again.numpy(), np.asarray(jax_hashing.host_hash_dictionary(d, seed))[: len(d)])
+    torch_hashing.host_hash_dictionary(d, 0x85EBCA6B)
+    assert len(calls) == 2
+    twin = d.copy()
+    assert torch.equal(torch_hashing.host_hash_dictionary(twin, seed), first)
+    assert len(calls) == 3
+    from hyperspace_tpu_torch.engine.table import Column as TorchColumn
+
+    codes = torch.as_tensor(np.arange(len(d), dtype=np.int32))
+    hashed = torch_hashing.column_hash_u32(TorchColumn("string", codes, d), seed)
+    assert len(calls) == 3  # the column's dictionary is `d`: served by the memo
+    assert torch.equal(hashed, first)
+
+
+def test_dictionary_hash_memo_dies_with_its_dictionary():
+    import gc
+
+    d = np.array(["a", "b", "c"])
+    torch_hashing.host_hash_dictionary(d, 7)
+    key = (id(d), 7)
+    assert key in torch_hashing._dict_hash_cache
+    del d
+    gc.collect()
+    assert key not in torch_hashing._dict_hash_cache

@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases env,partitioned
     python3 chip_smoke.py --phases env,setops
     python3 chip_smoke.py --phases env,star
+    python3 chip_smoke.py --phases env,resilience
 
 Phases, each failing loudly:
 
@@ -229,14 +230,45 @@ Phases, each failing loudly:
              (count, sums, min, max, avg by store) and its one-pass twin;
              (e) 1,000 items appended as a second item file and a month of
              sales over every item: Q55 under Hybrid Scan.
-14. identity the join, aggregate, Q3 (general joins, every group), Q13
+14. resilience  the planner's model arm and the resilience layer, in a
+             directory of its own over the TPC-H tables `tpch()` makes. (a)
+             ROADMAP Queue 3's probe at SF1's lineitem row count: 8 parquet
+             files of 750,000 rows (`g` an int in 0..99, `p` = rand × 1000,
+             18 float64 fillers, from --seed), `group_by("g").agg(s=("p",
+             "sum"), c=("*", "count"))` at default flags, cold (footers
+             uncached: the default 4,000,000-row chunk, one chunk a file) and
+             warm (the planner shapes the chunk to pow2(64 MiB / decoded
+             bytes a row) from the footers, so more chunks): the chunk
+             counts, the decided chunk_rows, its arithmetic and the
+             calibration (the measured host-to-device rate; hash_quantize
+             on); both equal numpy (counts exact, sums at rtol 1e-9). (b)
+             TPC-H Q3 indexed (liQ3 and ordQ3: value mode, K2) and a
+             string-key join (custName ⋈ custName2: hash mode, K1 and K2)
+             under `HYPERSPACE_FAULTS=io.decode:0.3:transient` (seed 3,
+             12 retries): the clean runs' rows; prints the decode calls,
+             injections, retries and K1/K2 launches. (c) one bucket file of
+             liQ3 overwritten: the next Q3 warns once and quarantines liQ3,
+             its answer (the general join, no kernel) equals numpy; then
+             `refresh_index("liQ3", "auto")` lifts the mark and Q3 is
+             indexed again (K2) and equal to numpy. (d)
+             `HYPERSPACE_QUERY_TIMEOUT_S=0.05` with a 0.2 s hang at every
+             decode: `QueryTimeoutError`, and the scan caches' columns and
+             tables and the join memos' entries the same before and after;
+             then the query without the deadline equals numpy. (e) orders as
+             5 files under ordLive (lineage on), file 4 appended: a
+             transient fault at `refresh.merge` and then at
+             `compact.commit` each fail clean (the stable entry and its
+             version directories unchanged, no staging directory), a lookup
+             answers, and the retried action succeeds and serves lookups
+             through the index.
+15. identity the join, aggregate, Q3 (general joins, every group), Q13
              (indexed and disabled) and string slices at SF 0.05 with
              device="cpu" and device="cuda": identical index files,
              identical rows in order (sums at rtol 1e-9).
 
 Kernel launches are counted from 0 at the start of each phase that drives
 the engine (main, q3, strings, packed, refresh, q13, skipping, delta,
-partitioned, setops, star) and summed over them. Prints one JSON
+partitioned, setops, star, resilience) and summed over them. Prints one JSON
 line of per-kernel results, the card's `nvidia-smi` line,
 and last `{"ok": true, "device": {...}}`. Exits non-zero without a result
 when no CUDA device is visible or the package is missing.
@@ -3834,6 +3866,308 @@ def phase_star(torch, base: str, seed: int, ss_rows: int = SS_ROWS):
     return launches, seconds, steps
 
 
+# ---------------------------------------------------------------------------
+# Resilience and the planner's model arm: chunk shaping, faults, corruption,
+# deadlines and the live-table fault windows
+# ---------------------------------------------------------------------------
+
+PROBE_FILES = 8  # SF1's lineitem rows (6,000,000) as 8 files of 750,000
+PROBE_ROWS = 750_000
+PROBE_FILLERS = 18
+FAULT_SPEC = "io.decode:0.3:transient"
+FAULT_SEED = "3"  # io.decode's draws at rate 0.3 begin ..X..X.X.....X..X
+LIVE_FILES = 5  # orders as 5 files of o_orderkey ranges; file 4 appended later
+
+
+def write_probe_files(rng, root: str) -> dict:
+    """ROADMAP Queue 3's probe at SF1's lineitem row count: `g` an int in
+    0..99, `p` = rand × 1000 and 18 float64 fillers, made from the seed and
+    written with pyarrow. Returns numpy's group sums and counts."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    os.makedirs(root, exist_ok=True)
+    sums, counts = np.zeros(100), np.zeros(100, np.int64)
+    for i in range(PROBE_FILES):
+        g = rng.randint(0, 100, PROBE_ROWS).astype(np.int64)
+        p = rng.rand(PROBE_ROWS) * 1000
+        cols = {"g": g, "p": p}
+        for j in range(PROBE_FILLERS):
+            cols[f"f{j:02d}"] = rng.rand(PROBE_ROWS)
+        pq.write_table(pa.table(cols), os.path.join(root, f"part-{i:05d}.parquet"))
+        sums += np.bincount(g, weights=p, minlength=100)
+        counts += np.bincount(g, minlength=100)
+    return {"g": np.arange(100), "s": sums, "c": counts}
+
+
+def check_probe_agg(label: str, got: dict, want: dict) -> None:
+    order = np.argsort(got["g"])
+    if not np.array_equal(np.asarray(got["g"])[order], want["g"]):
+        raise AssertionError(f"{label}: groups differ from numpy's")
+    if not np.array_equal(np.asarray(got["c"])[order], want["c"]):
+        raise AssertionError(f"{label}: counts differ from numpy's")
+    if not np.allclose(np.asarray(got["s"])[order], want["s"], rtol=1e-9, atol=0):
+        raise AssertionError(f"{label}: sums differ from numpy's beyond rtol 1e-9")
+
+
+def entry_counts() -> dict:
+    """Decoded columns in the per-file scan cache, tables in the other scan
+    caches, and entries of the join memos: what a query leaves on the card."""
+    from hyperspace_tpu_torch.engine import physical, scan_cache
+
+    st = scan_cache.stats()
+    return {"scan_columns": st["scan"]["columns"], "bucketed_concat": st["bucketed_concat"]["entries"],
+            "concat": st["concat"]["entries"], "filtered": st["filtered"]["entries"],
+            "memos": physical.device_cache_stats()["entries"]}
+
+
+def phase_resilience(torch, data, base: str, seed: int):
+    """Steps (a)-(e) of the resilience phase (module docstring, phase 14)."""
+    import warnings
+
+    import hyperspace_tpu_torch as hst
+    from hyperspace_tpu_torch import resilience
+    from hyperspace_tpu_torch.engine import io as engine_io
+    from hyperspace_tpu_torch.engine import physical
+    from hyperspace_tpu_torch.exceptions import QueryTimeoutError, TransientError
+    from hyperspace_tpu_torch.index import quarantine
+    from hyperspace_tpu_torch.index.staging import STAGING_PREFIX
+    from hyperspace_tpu_torch.ops import cuda_probe, cuda_sort
+    from hyperspace_tpu_torch.plananalysis import costmodel, planner
+    from hyperspace_tpu_torch.telemetry import faults
+    from hyperspace_tpu_torch.telemetry.profiling import last_query_stages
+
+    phase_t0 = time.perf_counter()
+    root = os.path.join(base, "resilience")
+    cuda_sort.launches = 0
+    cuda_probe.launches = 0
+    quarantine.clear()
+    faults.clear()
+    faults.reset_counters()
+    resilience.reset_counters()
+    seconds, steps = {}, {}
+
+    # (a) the planner shapes a warm aggregate's chunks from its footers.
+    t0 = time.perf_counter()
+    want = write_probe_files(np.random.RandomState(seed), os.path.join(root, "probe"))
+    seconds["a_data"] = time.perf_counter() - t0
+    s = hst.HyperspaceSession(warehouse=root, device=DEVICE)
+    probe = s.read.parquet(os.path.join(root, "probe")).group_by("g").agg(s=("p", "sum"), c=("*", "count"))
+    clear_caches()
+    runs = {}
+    for run in ("cold", "warm"):
+        out, t = wall(probe.collect)
+        check_probe_agg(f"resilience (a) {run}", out.to_numpy(), want)
+        d = planner.last_decisions()
+        runs[run] = {"chunks": last_query_stages()["chunks"], "chunk_rows": d.decisions["chunk_rows"].value,
+                     "hash_quantize": d.decisions["hash_quantize"].arm, "calibration": d.calibration_source,
+                     "collect_s": t}
+    st = costmodel.collect_stats(probe.physical_plan())
+    per_row = st.decoded_bytes / st.rows
+    shaped = costmodel._pow2(int(costmodel._TARGET_CHUNK_BYTES / per_row))
+    cal = costmodel.current_calibration(torch.device(DEVICE))
+    arithmetic = {"warm_files": st.warm_files, "files": st.n_files, "rows": st.rows,
+                  "decoded_bytes": st.decoded_bytes, "bytes_per_row": per_row,
+                  "64MiB_over_bytes_per_row": costmodel._TARGET_CHUNK_BYTES / per_row, "pow2": shaped,
+                  "calibration": {"source": cal.source, "memcpy_gbps": cal.memcpy_gbps}}
+    log(f"[resilience] (a) runs {json.dumps(runs)}; chunk arithmetic from the footers {json.dumps(arithmetic)}")
+    if runs["cold"]["chunk_rows"] != costmodel._DEFAULT_CHUNK_ROWS or runs["warm"]["chunk_rows"] != shaped:
+        raise AssertionError(f"resilience (a): decided chunk_rows {runs}, want 4,000,000 cold and {shaped} warm")
+    if not runs["warm"]["chunks"] > runs["cold"]["chunks"]:
+        raise AssertionError(f"resilience (a): warm must stream more chunks than cold: {runs}")
+    if runs["warm"]["hash_quantize"] != "on" or cal.source != "measured":
+        raise AssertionError(f"resilience (a): a CUDA session's decisions: {runs}, calibration {cal}")
+    steps["a_planner"] = {"runs": runs, "arithmetic": arithmetic}
+    del want, probe
+    shutil.rmtree(os.path.join(root, "probe"), ignore_errors=True)
+
+    # (b) Q3 indexed (value mode, K2) and a string-key join (hash mode, K1
+    # and K2) under transient decode faults: the rows of the clean runs.
+    s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, NUM_BUCKETS)
+    hs = hst.Hyperspace(s)
+    key_kind_sources(torch, data, base, seed)
+    t0 = time.perf_counter()
+    for src, name, indexed, included in Q3_INDEXES + [KEY_KIND_INDEXES[0], KEY_KIND_INDEXES[1]]:
+        hs.create_index(s.read.parquet(os.path.join(base, "src", src)), hst.IndexConfig(name, indexed, included))
+    seconds["b_build"] = time.perf_counter() - t0
+    hst.enable_hyperspace(s)
+
+    def rd(t):
+        return s.read.parquet(os.path.join(base, "src", t))
+
+    q3 = q3_query(rd, hst.col)
+    names = (rd("customer").join(rd("customer_copy"), hst.col("c_name") == hst.col("c2_name"))
+             .select("c_custkey", "c2_custkey"))
+    q3_want = expected_q3(data)
+    if scanned_indexes(q3) != ["liQ3", "ordQ3"] or scanned_indexes(names) != ["custName", "custName2"]:
+        raise AssertionError(f"resilience (b): the plans do not scan the indexes:\n{q3.explain_string()}\n"
+                             f"{names.explain_string()}")
+    clean = {}
+    for label, df in (("q3", q3), ("string_key", names)):
+        clear_caches()
+        clean[label], seconds[f"b_{label}_clean_s"] = wall(df.collect)
+    check_q3("resilience (b) q3", clean["q3"].to_numpy(), q3_want)
+    cu = data["customer"]
+    if not same_multiset(clean["string_key"].to_numpy(), canonical({"c_custkey": cu["c_custkey"],
+                                                                     "c2_custkey": cu["c_custkey"]})):
+        raise AssertionError("resilience (b): the string-key join differs from numpy's")
+    saved = {k: os.environ.get(k) for k in ("HYPERSPACE_FAULTS", "HYPERSPACE_FAULTS_SEED", "HYPERSPACE_IO_RETRIES",
+                                            "HYPERSPACE_RETRY_BACKOFF_S")}
+    # Thread order decides which file draws which call, so the retry bound
+    # is raised as the JAX package's chaos leg raises it (0.3^13 a file).
+    os.environ.update({"HYPERSPACE_FAULTS": FAULT_SPEC, "HYPERSPACE_FAULTS_SEED": FAULT_SEED,
+                       "HYPERSPACE_IO_RETRIES": "12", "HYPERSPACE_RETRY_BACKOFF_S": "0.001"})
+    try:
+        chaos = {}
+        for label, df in (("q3", q3), ("string_key", names)):
+            k1, k2 = cuda_sort.launches, cuda_probe.launches
+            clear_caches()
+            got, t = wall(df.collect)
+            if not all(np.array_equal(a, b) for a, b in zip(got.to_numpy().values(), clean[label].to_numpy().values())):
+                raise AssertionError(f"resilience (b) {label}: rows under {FAULT_SPEC} differ from the clean run's")
+            chaos[label] = {"collect_s": t, "k1_launches": cuda_sort.launches - k1,
+                            "k2_launches": cuda_probe.launches - k2}
+        chaos.update(decode_calls=faults.call_count("io.decode"), injected=faults.injected_count("io.decode"),
+                     retries=resilience.counters().get("io.retries.attempts", 0))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    log(f"[resilience] (b) under {FAULT_SPEC} (seed {FAULT_SEED}) {json.dumps(chaos)}; the rows equal the clean "
+        "runs'")
+    if not chaos["injected"] or not chaos["retries"]:
+        raise AssertionError(f"resilience (b): no fault was injected or retried: {chaos}")
+    if not (chaos["q3"]["k2_launches"] and chaos["string_key"]["k1_launches"] and chaos["string_key"]["k2_launches"]):
+        raise AssertionError(f"resilience (b): K1 and K2 must launch under faults: {chaos}")
+    steps["b_faults"] = chaos
+
+    # (c) a corrupt bucket file of liQ3: quarantine, the source's answer
+    # through the general join, then a refresh lifts the mark.
+    entry = [e for e in hs._manager.get_indexes() if e.name == "liQ3"][0]
+    victim = sorted(p for p in entry.content.files() if p.endswith(".parquet"))[0]
+    with open(victim, "wb") as f:
+        f.write(b"not a parquet file")
+    clear_caches()
+    k1, k2 = cuda_sort.launches, cuda_probe.launches
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        got, t = wall(q3.collect)
+    said = [str(w.message) for w in caught if issubclass(w.category, RuntimeWarning)]
+    corrupt = {"collect_s": t, "warnings": len(said), "quarantined": sorted(quarantine.snapshot()),
+               "k1_launches": cuda_sort.launches - k1, "k2_launches": cuda_probe.launches - k2,
+               "plan_indexes": scanned_indexes(q3)}
+    if len(said) != 1 or "'liQ3' quarantined" not in said[0] or corrupt["quarantined"] != ["liQ3"]:
+        raise AssertionError(f"resilience (c): want one warning quarantining liQ3: {said} {corrupt}")
+    if corrupt["k1_launches"] or corrupt["k2_launches"] or corrupt["plan_indexes"]:
+        raise AssertionError(f"resilience (c): the fallback must run the general join, no kernel: {corrupt}")
+    check_q3("resilience (c) fallback", got.to_numpy(), q3_want)
+    _, corrupt["refresh_s"] = wall(lambda: hs.refresh_index("liQ3", "auto"))
+    if quarantine.is_quarantined("liQ3") or scanned_indexes(q3) != ["liQ3", "ordQ3"]:
+        raise AssertionError(f"resilience (c): the refresh did not lift the mark:\n{q3.explain_string()}")
+    clear_caches()
+    k2 = cuda_probe.launches
+    got, corrupt["after_refresh_collect_s"] = wall(q3.collect)
+    corrupt["after_refresh_k2_launches"] = cuda_probe.launches - k2
+    check_q3("resilience (c) after refresh", got.to_numpy(), q3_want)
+    if not corrupt["after_refresh_k2_launches"]:
+        raise AssertionError(f"resilience (c): K2 did not launch after the refresh: {corrupt}")
+    log(f"[resilience] (c) corrupt {os.path.basename(victim)} of liQ3 {json.dumps(corrupt)}; both answers equal "
+        "numpy's Q3")
+    steps["c_corruption"] = corrupt
+
+    # (d) a deadline: a hang at every decode outlives 0.05 s; the timed-out
+    # query leaves no entry on the card.
+    clear_caches()
+    before = entry_counts()
+    os.environ["HYPERSPACE_QUERY_TIMEOUT_S"] = "0.05"
+    t0 = time.perf_counter()
+    try:
+        with faults.inject("io.decode", rate=1.0, kind="hang0.2"):
+            q3.collect()
+        raise AssertionError("resilience (d): the query outlived its deadline without QueryTimeoutError")
+    except QueryTimeoutError as e:
+        deadline = {"raised_after_s": time.perf_counter() - t0, "message": str(e)[:120]}
+    finally:
+        os.environ.pop("HYPERSPACE_QUERY_TIMEOUT_S", None)
+    torch.cuda.synchronize()
+    after = entry_counts()
+    deadline.update(before=before, after=after)
+    if after != before:
+        raise AssertionError(f"resilience (d): the timed-out query left entries: {before} -> {after}")
+    got, deadline["collect_s"] = wall(q3.collect)
+    check_q3("resilience (d) after the deadline", got.to_numpy(), q3_want)
+    deadline["after_success"] = entry_counts()
+    log(f"[resilience] (d) {json.dumps(deadline)}")
+    steps["d_deadline"] = deadline
+
+    # (e) the live-table fault windows of refresh and compaction.
+    live_src = os.path.join(root, "orders_live")
+    od = data["orders"]
+    bounds = np.linspace(0, len(od["o_orderkey"]), LIVE_FILES + 1).astype(np.int64)
+
+    def write_live(i):
+        lo, hi = int(bounds[i]), int(bounds[i + 1])
+        engine_io.write_parquet(source_table({"o_orderkey": od["o_orderkey"][lo:hi], "o_custkey": od["o_custkey"][lo:hi]}),
+                                os.path.join(live_src, f"part-{i:05d}.parquet"))
+
+    for i in range(LIVE_FILES - 1):
+        write_live(i)
+    s.conf.set(hst.IndexConstants.INDEX_LINEAGE_ENABLED, "true")
+    live = {}
+    _, live["create_s"] = wall(lambda: hs.create_index(s.read.parquet(live_src),
+                                                      hst.IndexConfig("ordLive", ["o_orderkey"], ["o_custkey"])))
+    s.conf.set(hst.IndexConstants.INDEX_LINEAGE_ENABLED, "false")
+
+    def lookup(row: int, indexed: bool) -> None:
+        key = int(od["o_orderkey"][row])
+        df = s.read.parquet(live_src).filter(hst.col("o_orderkey") == key).select("o_orderkey", "o_custkey")
+        if indexed and "ordLive" not in df.explain_string():
+            raise AssertionError(f"resilience (e): the lookup does not scan ordLive:\n{df.explain_string()}")
+        got = df.collect().to_numpy()
+        if got["o_orderkey"].tolist() != [key] or got["o_custkey"].tolist() != [int(od["o_custkey"][row])]:
+            raise AssertionError(f"resilience (e): lookup of {key} gave {got}")
+
+    def state() -> tuple:
+        hs._manager.clear_cache()
+        e = [e for e in hs._manager.get_indexes() if e.name == "ordLive"][0]
+        return e.state, sorted({os.path.basename(os.path.dirname(p)) for p in e.content.files()})
+
+    write_live(LIVE_FILES - 1)
+    appended = int(bounds[LIVE_FILES - 1])
+    for window, action in (("refresh.merge", lambda: hs.refresh_index("ordLive", "incremental")),
+                           ("compact.commit", lambda: hs.optimize_index("ordLive"))):
+        stable = state()
+        try:
+            with faults.inject(window, kind="transient"):
+                action()
+            raise AssertionError(f"resilience (e): {window} did not fail")
+        except TransientError:
+            pass
+        staging = [n for n in os.listdir(os.path.join(root, "indexes", "ordLive")) if n.startswith(STAGING_PREFIX)]
+        if state() != stable or staging:
+            raise AssertionError(f"resilience (e) {window}: {state()} after the fault, {stable} before; "
+                                 f"staging {staging}")
+        clear_caches()
+        lookup(0, indexed=window == "compact.commit")  # the stable generation answers
+        _, live[f"{window}_retry_s"] = wall(action)
+        clear_caches()
+        lookup(appended, indexed=True)
+        lookup(0, indexed=True)
+        live[window] = {"stable": stable, "after_retry": state()}
+    log(f"[resilience] (e) {json.dumps(live)}; each fault failed clean and the stable generation answered")
+    steps["e_live"] = live
+
+    launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches}
+    seconds["phase"] = time.perf_counter() - phase_t0
+    log(f"[resilience] seconds {json.dumps(seconds)}; reliability {json.dumps(resilience.reliability_rollup())}; "
+        f"launches {json.dumps(launches)}")
+    quarantine.clear()
+    faults.clear()
+    return launches, seconds, steps
+
+
 KERNEL_META = {
     "K1": ("bucket_sort", "hyperspace_tpu_torch/csrc/bucket_sort.cu", "hyperspace_tpu/ops/pallas_sort.py:107"),
     "K2": ("range_probe", "hyperspace_tpu_torch/csrc/range_probe.cu", "hyperspace_tpu/ops/pallas_probe.py:129"),
@@ -3847,7 +4181,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="env,kernels,main,q3,strings,packed,refresh,q13,skipping,delta,partitioned,setops,star,"
-                            "identity")
+                            "resilience,identity")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sf", type=float, default=1.0)
     ap.add_argument("--identity-sf", type=float, default=0.05)
@@ -3890,7 +4224,7 @@ def main() -> int:
             launches[kid] = launches.get(kid, 0) + n
 
     data = None
-    if {"main", "q3", "strings", "packed", "refresh", "q13", "delta"} & set(phases):
+    if {"main", "q3", "strings", "packed", "refresh", "q13", "delta", "resilience"} & set(phases):
         t0 = time.perf_counter()
         data = tpch(args.sf, args.seed)
         log(f"[data] TPC-H SF{args.sf}: lineitem {len(data['lineitem']['l_orderkey'])} rows, orders "
@@ -3898,7 +4232,7 @@ def main() -> int:
             f"{len(data['customer']['c_custkey'])} (generated in {time.perf_counter() - t0:.2f} s)")
     base = tempfile.mkdtemp(prefix="hs_smoke_sf1_")
     try:
-        if {"main", "q3", "strings", "q13"} & set(phases):
+        if {"main", "q3", "strings", "q13", "resilience"} & set(phases):
             write_sources(data, base)
         if "main" in phases:
             add(timed_phase("main", phase_main, torch, data, base)[0])
@@ -3922,6 +4256,8 @@ def main() -> int:
             add(timed_phase("setops", phase_setops, torch, base, args.seed)[0])
         if "star" in phases:
             add(timed_phase("star", phase_star, torch, base, args.seed)[0])
+        if "resilience" in phases:
+            add(timed_phase("resilience", phase_resilience, torch, data, base, args.seed)[0])
     finally:
         shutil.rmtree(base, ignore_errors=True)
     if "identity" in phases:

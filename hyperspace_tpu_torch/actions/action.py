@@ -81,8 +81,21 @@ class Action:
         final_id = self.base_id + 2
         entry = self._write(final_id, self.final_state)
         if entry.state in states.STABLE_STATES:
-            self._log_manager.delete_latest_stable_log()
-            if not self._log_manager.create_latest_stable_log(final_id):
+            # The numbered entry is committed either way; a failed pointer
+            # refresh is reported, classified (`action.end` :102). The create
+            # replaces any pointer, so a failed delete is harmless.
+            try:
+                self._log_manager.delete_latest_stable_log()
+            except Exception:
+                pass
+            try:
+                created = self._log_manager.create_latest_stable_log(final_id)
+            except Exception as e:
+                raise LogCommitError(
+                    f"Committed log id {final_id} but the latestStable pointer refresh failed "
+                    f"({type(e).__name__}: {e}); readers fall back to the id scan."
+                ) from e
+            if not created:
                 raise LogCommitError(
                     f"Committed log id {final_id} but could not refresh the "
                     "latestStable pointer; readers fall back to the id scan."

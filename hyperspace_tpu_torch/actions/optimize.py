@@ -9,10 +9,10 @@ below `hyperspace.index.optimize.fileSizeThreshold` (256 MB), "full" every
 file. An entry with folded deletes has every part file rewritten without the
 deleted files' rows, and its `deletedSourceFiles` set is cleared.
 
-Two parts of the JAX action wait for the port's telemetry and resilience
-(ROADMAP.md Queue 1, item 12): the `compact.commit` fault point inside the
-staged commit, and the warm handoff into the scan cache with the per-bucket
-deadline checks (`_warm_handoff`, `resilience.check_deadline`).
+Each bucket's write checks the query deadline; the window after every
+compacted bucket is staged and before the rename publishes them is the
+`compact.commit` fault point; then the compacted generation is decoded into
+the scan cache (`refresh._warm_handoff`) before the log commit.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import resilience
 from ..config import (
     COMPACT_TRIGGER_FILES_DEFAULT,
     ENV_COMPACT_TRIGGER_FILES,
@@ -37,8 +38,10 @@ from ..engine.schema import Schema
 from ..engine.table import Table
 from ..exceptions import HyperspaceException
 from ..index.log_entry import DELETED_SOURCE_FILES_KEY, Content, FileInfo, IndexLogEntry, LogEntry
+from ..index.builder import build_writers
 from ..index.staging import stage_commit
 from ..ops.partition import bucket_starts, sort_perm
+from ..telemetry import faults as _faults
 from . import states
 from .action import Action, _recover_stable
 
@@ -46,7 +49,6 @@ OPTIMIZE_MODES = ("quick", "full")
 
 _BUCKET_RE = re.compile(r"part-(\d+)")
 _VERSION_RE = re.compile(r"v__=(\d+)")
-_WRITERS = 8
 
 
 def _compact_trigger_files() -> int:
@@ -204,21 +206,30 @@ class OptimizeAction(Action):
         perm = sort_perm(bucket, lanes)
         starts = bucket_starts(bucket[perm], prev.num_buckets)
         host = merged.take(perm).to("cpu")
+        sc = resilience.current_scope()
         with stage_commit(self._index_data_path) as stage:
             os.makedirs(stage, exist_ok=True)
 
             def write(b: int) -> None:
-                lo, hi = int(starts[b]), int(starts[b + 1])
-                if hi <= lo:
-                    return  # every row deleted: no file, as the build writes none
-                engine_io.write_parquet(
-                    host.slice(lo, hi), os.path.join(stage, f"part-{b:05d}.parquet"),
-                    row_group_rows=engine_io.index_row_group_rows(),
-                )
+                with resilience.use_scope(sc):
+                    resilience.check_deadline("optimize.bucket")
+                    lo, hi = int(starts[b]), int(starts[b + 1])
+                    if hi <= lo:
+                        return  # every row deleted: no file, as the build writes none
+                    engine_io.write_parquet(
+                        host.slice(lo, hi), os.path.join(stage, f"part-{b:05d}.parquet"),
+                        row_group_rows=engine_io.index_row_group_rows(),
+                    )
 
             # Parquet encode releases the GIL: the files are written concurrently.
-            with ThreadPoolExecutor(max_workers=_WRITERS) as pool:
+            with ThreadPoolExecutor(max_workers=build_writers()) as pool:
                 list(pool.map(write, sorted(per_bucket)))
+            # The compaction commit window: every bucket is staged, the rename
+            # has not happened. A fault here deletes the staging directory.
+            _faults.check("compact.commit")
+        from .refresh import _warm_handoff
+
+        _warm_handoff(self._index_data_path, prev.schema_json, device)
 
     def log_entry(self) -> LogEntry:
         prev = self._previous_entry()

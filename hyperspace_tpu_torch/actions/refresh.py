@@ -6,20 +6,52 @@ from the source its log entry records, into the next version directory.
 `RefreshIncrementalAction` indexes only the source files appended since the
 recorded inventory and folds the deleted ones through the lineage column:
 their paths join the entry's `deletedSourceFiles` and readers prune their
-rows at scan time, so a refresh that only sees deletes writes no data. The
-JAX package's warm handoff into the scan cache and its `refresh.merge` fault
-point are not ported.
+rows at scan time, so a refresh that only sees deletes writes no data.
+
+The warm handoff (`_warm_handoff`): after an action committed its data
+directory and before its log entry moves readers onto it, the new files are
+decoded into the scan cache on the session's device, so the first query of
+the new generation hits the cache (and the planner sees warm footers).
+`HYPERSPACE_REFRESH_WARM_HANDOFF=0` turns it off. The incremental refresh's
+merge window, between its data commit and its log commit, is the
+`refresh.merge` fault point.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 from ..exceptions import HyperspaceException
 from ..index.log_entry import DELETED_SOURCE_FILES_KEY, Content, IndexLogEntry, LogEntry
+from ..telemetry import faults as _faults
 from . import states
 from .action import Action, _recover_stable
 from .create import IndexerBuilder
+
+
+ENV_REFRESH_WARM_HANDOFF = "HYPERSPACE_REFRESH_WARM_HANDOFF"
+
+
+def _warm_handoff(index_data_path: str, schema_json: str, device) -> None:
+    """Decode a freshly committed version directory's parquet files, in the
+    index schema's columns, into the scan cache on `device` (`refresh.py`
+    :40). Best effort: the data and log commits are already right, so a
+    failure here never fails the action."""
+    if os.environ.get(ENV_REFRESH_WARM_HANDOFF, "1") == "0":
+        return
+    try:
+        from ..engine import io as engine_io
+        from ..engine.schema import Schema
+
+        if not os.path.isdir(index_data_path):
+            return
+        files = sorted(os.path.join(index_data_path, n) for n in os.listdir(index_data_path) if n.endswith(".parquet"))
+        if files:
+            cols = list(Schema.from_json_string(schema_json).names)
+            engine_io.decode_files([(f, cols, None, None) for f in files], device)
+    except Exception:
+        pass
 
 
 class NothingToRefreshError(HyperspaceException):
@@ -75,6 +107,7 @@ class RefreshAction(Action):
     def op(self) -> None:
         config = self._builder.config_from_entry(self._previous_entry())
         self._builder.write(self._source_df(), config, self._index_data_path)
+        _warm_handoff(self._index_data_path, self._previous_entry().schema_json, self._builder._session.device)
 
     def log_entry(self) -> LogEntry:
         # Derived fresh per phase: the end() entry inventories what op() wrote.
@@ -142,6 +175,11 @@ class RefreshIncrementalAction(RefreshAction):
             config = self._builder.config_from_entry(self._previous_entry())
             sub_df = self._builder.restrict_df_to_files(self._source_df(), [f.path for f in appended])
             self._builder.write(sub_df, config, self._index_data_path)
+            _warm_handoff(self._index_data_path, self._previous_entry().schema_json, self._builder._session.device)
+        # The merge window: the delta directory is committed, the merged log
+        # entry is not. A transient fault fails the refresh cleanly; a hang
+        # is the crash window between the data commit and the log commit.
+        _faults.check("refresh.merge")
 
     def log_entry(self) -> LogEntry:
         entry = super().log_entry()  # content = the new version directory only

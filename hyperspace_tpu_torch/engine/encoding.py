@@ -31,7 +31,15 @@ _ENCODED_DICT_MAX = 1 << 20
 
 
 def encoded_exec_enabled() -> bool:
-    return os.environ.get(ENV_ENCODED_EXEC, "") != "0"
+    """The flag when `HYPERSPACE_ENCODED_EXEC` is set ("0" off), else the
+    planner's decision, else on."""
+    raw = os.environ.get(ENV_ENCODED_EXEC, "")
+    if raw != "":
+        return raw != "0"
+    from ..plananalysis.planner import decided_value
+
+    decided = decided_value("encoded_exec")
+    return True if decided is None else bool(decided)
 
 
 def _stringish_value_type(t: "pa.DataType") -> bool:

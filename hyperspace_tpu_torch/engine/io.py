@@ -30,6 +30,14 @@ beside them. A `ScanPredicate` (`engine/pushdown.py`) handed to `read_files`
 prunes whole row groups through those zone maps: only the row groups that
 can hold a matching row decode, cached under keys of their own.
 `HYPERSPACE_SCAN_PUSHDOWN=0` turns pruning off.
+
+Every decode, footer parse and parquet write is a fault point
+(`telemetry/faults.py`: `io.decode`, `io.footer`, `storage.write`, and
+`pool.worker` in the decode pools) run under `resilience.retry_io`, so a
+transient fault is retried and only a finished decode is cached. Reads check
+the query deadline between files (`resilience.check_deadline`). The copies
+to a CUDA device count their bytes and seconds (`h2d_stats`): the planner
+prices a byte moved at that measured rate.
 """
 
 from __future__ import annotations
@@ -48,9 +56,11 @@ import pyarrow.csv as pa_csv
 import pyarrow.parquet as pq
 import torch
 
+from .. import resilience as _resilience
 from ..config import ENV_INDEX_ROW_GROUP_ROWS, INDEX_ROW_GROUP_ROWS_DEFAULT
-from ..exceptions import HyperspaceException
+from ..exceptions import HyperspaceException, QueryTimeoutError, RetryBudgetExceededError
 from ..storage.filesystem import FileStatus, FileSystem, LocalFileSystem
+from ..telemetry import faults as _faults
 from ..util.path_utils import is_data_path
 from . import encoding as _encoding
 from .partitioning import partition_columns, values_for
@@ -199,6 +209,7 @@ def _read_other(path: str, file_format: str, columns: Optional[List[str]]) -> pa
     keeps date-like strings (no timestamp parsers; `pyarrow.csv` still types
     ISO dates `date32`, which the conversion casts back to strings) and
     reads an empty cell as null."""
+    _faults.check("io.decode")
     with _timed("decode"):
         if file_format == "orc":
             from pyarrow import orc as pa_orc
@@ -295,6 +306,9 @@ _COUNTS = {
 #: space), the copy to the device and the concatenation, each in the scan's
 #: own thread.
 SCAN_SECONDS = {"decode": 0.0, "convert": 0.0, "to_device": 0.0, "concat": 0.0}
+#: Bytes and seconds of the copies to a CUDA device: the measured
+#: host-to-device rate the planner's calibration reads.
+_H2D = {"bytes": 0, "seconds": 0.0}
 _stats_lock = threading.Lock()
 
 
@@ -325,6 +339,15 @@ def reset_io_stats() -> None:
             _COUNTS[k] = 0
         for k in SCAN_SECONDS:
             SCAN_SECONDS[k] = 0.0
+        _H2D["bytes"], _H2D["seconds"] = 0, 0.0
+
+
+def h2d_stats() -> dict:
+    """Bytes copied to a CUDA device by the scans, their seconds (ended by
+    a synchronization) and the rate in GB/s (None before any copy)."""
+    with _stats_lock:
+        b, s = _H2D["bytes"], _H2D["seconds"]
+    return {"bytes": b, "seconds": s, "gb_per_s": (b / s / 1e9) if b and s > 0 else None}
 
 
 def _stat_value(v):
@@ -358,12 +381,18 @@ def footer_metadata(path: str, file_format: str = "parquet", _pf=None, base=None
         _count("footer_hits")
         return meta
     _count("footer_misses")
-    try:
+
+    def parse() -> FileFooterMeta:
+        _faults.check("io.footer")
         if _pf is not None:
-            meta = FileFooterMeta(_pf.metadata, _pf.schema_arrow)
-        else:
-            with pq.ParquetFile(path) as pf:
-                meta = FileFooterMeta(pf.metadata, pf.schema_arrow)
+            return FileFooterMeta(_pf.metadata, _pf.schema_arrow)
+        with pq.ParquetFile(path) as pf:
+            return FileFooterMeta(pf.metadata, pf.schema_arrow)
+
+    try:
+        meta = _resilience.retry_io("io.footer", parse)
+    except (QueryTimeoutError, RetryBudgetExceededError):
+        raise  # query contracts, not pruning details
     except Exception:
         return None  # a corrupt footer costs the pruning, never the scan
     cache.put_meta(path, meta, _meta_nbytes(meta), base)
@@ -417,6 +446,7 @@ def _read_arrow(path: str, columns: Optional[List[str]], sel=None, base=None) ->
     `io._read_row_groups_one` :654). String columns whose chunks are all
     dictionary-encoded read as dictionaries; a cold footer is parsed from
     this read's own open."""
+    _faults.check("io.decode")
     meta = global_scan_cache().get_meta(path, base)
     if meta is not None:
         _count("footer_hits")
@@ -480,11 +510,16 @@ def _to_device_batched(hosts: List[Table], device) -> List[Table]:
     with _timed("to_device"):
         if device.type == "cpu":
             return hosts
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)  # the copies alone: no earlier work, no context start
+        t0 = time.perf_counter()
+        moved = 0
         out: List[Dict[str, Column]] = [{} for _ in hosts]
         for n in dict.fromkeys(n for h in hosts for n in h.column_names):
             idx = [i for i, h in enumerate(hosts) if n in h.columns]
             cols = [hosts[i].columns[n] for i in idx]
             sizes = [len(c) for c in cols]
+            moved += sum(c.data.numel() * c.data.element_size() for c in cols)
             if len({c.data.dtype for c in cols}) == 1:
                 data = _joined([c.data for c in cols]).to(device).split(sizes)
             else:
@@ -492,12 +527,18 @@ def _to_device_batched(hosts: List[Table], device) -> List[Table]:
             valid = [None] * len(cols)
             nullable = [k for k, c in enumerate(cols) if c.validity is not None]
             if nullable:
+                moved += sum(sizes[k] for k in nullable)
                 parts = _joined([cols[k].validity for k in nullable]).to(device).split([sizes[k] for k in nullable])
                 for k, v in zip(nullable, parts):
                     valid[k] = v
             for k, i in enumerate(idx):
                 c = cols[k]
                 out[i][n] = Column(c.dtype, data[k], c.dictionary, valid[k], c.encoded_read)
+        if moved and device.type == "cuda":
+            torch.cuda.synchronize(device)
+            with _stats_lock:
+                _H2D["bytes"] += moved
+                _H2D["seconds"] += time.perf_counter() - t0
         return [Table({n: o[n] for n in h.column_names}) for h, o in zip(hosts, out)]
 
 
@@ -527,9 +568,23 @@ def _decode_into_cache(jobs: List[tuple], device, file_format: str = "parquet") 
     args = [(job[0], rd, job[3], job[4]) for job, rd in zip(jobs, reads)]
 
     def read(a):
-        return _read_arrow(*a) if file_format in PARQUET_SHAPED else _read_other(a[0], file_format, a[1])
+        if file_format in PARQUET_SHAPED:
+            return _resilience.retry_io("io.decode", lambda: _read_arrow(*a))
+        return _resilience.retry_io("io.decode", lambda: _read_other(a[0], file_format, a[1]))
 
-    arrows = list(_pool().map(read, args)) if len(args) > 1 else [read(a) for a in args]
+    if len(args) > 1 and decode_pool_size(len(args)) > 1:
+        sc = _resilience.current_scope()
+
+        def worker(a):
+            with _resilience.use_scope(sc):
+                _faults.check("pool.worker")
+                return read(a)
+
+        arrows = list(_pool().map(worker, args))
+    else:
+        arrows = [read(a) for a in args]  # retry_io checks the deadline before each
+    # A batch that outlived the query's deadline caches nothing.
+    _resilience.check_deadline("io.decode_files")
     with _timed("convert"):
         hosts = _convert_batch(arrows)
     out = []
@@ -754,6 +809,7 @@ def read_files(
     _check_format(file_format)
     if not files:
         raise HyperspaceException("No data files to read.")
+    _resilience.check_deadline("io.read_files")
     device = torch.device(device)
     ordered = sorted(files)
     selections = pushdown_selections(ordered, pushdown, file_format)
@@ -795,19 +851,24 @@ def iter_file_tables(
         record_pruning(selections, pruning_stats)
         sel_of = dict(zip(ordered, selections))
 
+    sc = _resilience.current_scope()
+
     def decode_one(path: str) -> Table:
-        t0 = time.monotonic()
-        base = file_base(path)
-        jobs = _file_jobs([path], file_format, columns, partitions, [sel_of.get(path, (None, None))], (base,))
-        t = decode_files(jobs, device, (base,), file_format)[0]
-        if on_decode is not None:
-            on_decode(time.monotonic() - t0)
-        return decorate(t, [path], [t.num_rows], partitions, columns, device)
+        with _resilience.use_scope(sc):
+            _faults.check("pool.worker")
+            t0 = time.monotonic()
+            base = file_base(path)
+            jobs = _file_jobs([path], file_format, columns, partitions, [sel_of.get(path, (None, None))], (base,))
+            t = decode_files(jobs, device, (base,), file_format)[0]
+            if on_decode is not None:
+                on_decode(time.monotonic() - t0)
+            return decorate(t, [path], [t.num_rows], partitions, columns, device)
 
     depth = prefetch_depth()
     workers = min(decode_pool_size(len(ordered)), depth)
     if workers <= 1:
         for f in ordered:
+            _resilience.check_deadline("io.iter_file_tables")
             yield decode_one(f)
         return
     from collections import deque
@@ -817,6 +878,7 @@ def iter_file_tables(
         pending: deque = deque()
         i = 0
         while i < len(ordered) or pending:
+            _resilience.check_deadline("io.iter_file_tables")
             while i < len(ordered) and len(pending) < depth:
                 pending.append(pool.submit(decode_one, ordered[i]))
                 i += 1
@@ -829,13 +891,16 @@ def iter_file_tables(
 
 def footer_row_count(files: List[FileStatus], file_format: str = "parquet") -> Optional[int]:
     """Total row count from parquet footers (through the footer cache), with
-    no column decode; None for another format (no row-count metadata)."""
+    no column decode; None for another format (no row-count metadata) or an
+    unreadable footer."""
     if file_format not in PARQUET_SHAPED:
         return None
     total = 0
     for f in files:
         meta = footer_metadata(f.path)
-        total += meta.num_rows if meta is not None else pq.ParquetFile(f.path).metadata.num_rows
+        if meta is None:
+            return None  # unreadable: the caller reads the files, under its guard
+        total += meta.num_rows
     return total
 
 
@@ -856,13 +921,21 @@ def table_to_arrow(table: Table, encode_dictionaries: bool = False) -> pa.Table:
 
 
 def write_parquet(table: Table, path: str, row_group_rows: Optional[int] = None) -> None:
-    """`row_group_rows` bounds the written row groups (None = pyarrow's default)."""
+    """`row_group_rows` bounds the written row groups (None = pyarrow's
+    default). The `storage.write` fault point and retry site
+    (`io.checked_write_table` :1214): a retried write truncates the partial
+    file, so the committed bytes are one clean encode."""
     at = table_to_arrow(table, encode_dictionaries=True)
+
+    def write() -> None:
+        _faults.check("storage.write")
+        if row_group_rows is None:
+            pq.write_table(at, path)
+        else:
+            pq.write_table(at, path, row_group_size=int(row_group_rows))
+
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    if row_group_rows is None:
-        pq.write_table(at, path)
-    else:
-        pq.write_table(at, path, row_group_size=int(row_group_rows))
+    _resilience.retry_io("storage.write", write)
 
 
 def write_orc(table: Table, path: str) -> None:

@@ -47,9 +47,16 @@ def packed_codes_mode() -> str:
 
 
 def packed_codes_enabled() -> bool:
+    """The flag when `HYPERSPACE_PACKED_CODES` is set, else the planner's
+    decision, else `HYPERSPACE_ENCODED_DEVICE`'s gate."""
     mode = packed_codes_mode()
     if mode != "auto":
         return mode == "force"
+    from ..plananalysis.planner import decided_value
+
+    decided = decided_value("packed_codes")
+    if decided is not None:
+        return bool(decided)
     from .encoded_device import encoded_device_enabled
 
     return encoded_device_enabled()

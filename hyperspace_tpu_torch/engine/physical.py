@@ -29,10 +29,16 @@ count and the matched rows of each side (`_count_from_match_stats`).
 Scans return their tables through the scan caches (`engine/scan_cache.py`),
 so a repeated query gets the same device tables, and the join's key64, layout,
 probe ranges and verified pairs are kept in the join memos below.
+
+Every read of an index relation runs under `_corruption_guard`: a decode
+failure of an index data file becomes a `CorruptIndexError` naming the
+index, on which `DataFrame.collect`/`count` quarantine it and re-plan over
+the source.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import re
 import threading
@@ -43,7 +49,8 @@ import numpy as np
 import torch
 
 from ..config import DEVICE_CACHE_BUDGET_DEFAULT, ENV_DEVICE_CACHE_BUDGET, env_bytes
-from ..exceptions import HyperspaceException, not_in_slice
+from .. import resilience as _resilience
+from ..exceptions import CorruptIndexError, HyperspaceException, not_in_slice
 from ..ops.aggregate import hash_aggregate
 from ..ops.hashing import key64
 from ..ops.join import merge_join_pairs
@@ -141,6 +148,29 @@ def partitions_of(relation) -> Optional[tuple]:
     return None if spec is None else (spec, relation.root_paths)
 
 
+@contextlib.contextmanager
+def _corruption_guard(relation: SourceRelation):
+    """Re-raise a decode failure of an index relation's data as a
+    `CorruptIndexError` naming the index (`physical._corruption_guard` :200).
+    Only decode-layer types count: the pyarrow family, `ValueError`,
+    `OSError` and `EOFError`. A classified `HyperspaceException` (an
+    exhausted transient fault, a timeout, a spent retry budget) passes
+    unchanged, and an engine bug (a bare `TypeError`, ...) stays raw."""
+    try:
+        yield
+    except HyperspaceException:
+        raise
+    except Exception as e:
+        import pyarrow as pa
+
+        if relation.index_name and isinstance(e, (ValueError, OSError, EOFError, pa.lib.ArrowException)):
+            raise CorruptIndexError(
+                f"index '{relation.index_name}' data failed to decode ({type(e).__name__}: {e})",
+                index_name=relation.index_name,
+            ) from e
+        raise
+
+
 def _default_scan_columns(relation: SourceRelation, columns: Optional[List[str]]) -> Optional[List[str]]:
     """The columns a scan reads when `columns` is None ("everything"): for an
     index relation its visible schema, since the lineage column is read only
@@ -193,10 +223,11 @@ class ScanExec(PhysicalNode):
         if not files:
             return _empty_table(self.relation, self.columns, ctx.device)
         self.pruning = {}
-        return engine_io.read_files(
-            files, self.relation.file_format, _default_scan_columns(self.relation, self.columns), ctx.device,
-            pushdown=self._pushdown_pred(ctx), pruning_stats=self.pruning, partitions=partitions_of(self.relation),
-        )
+        with _corruption_guard(self.relation):
+            return engine_io.read_files(
+                files, self.relation.file_format, _default_scan_columns(self.relation, self.columns), ctx.device,
+                pushdown=self._pushdown_pred(ctx), pruning_stats=self.pruning, partitions=partitions_of(self.relation),
+            )
 
     def can_stream(self) -> bool:
         """A plain file read feeds the streamed aggregate; a demoted index
@@ -214,12 +245,13 @@ class ScanExec(PhysicalNode):
         on_decode = None if stages is None else (lambda s: stages.add("decode", s))
         chunk_rows = query_chunk_rows()
         self.pruning = {}
-        for t in engine_io.iter_file_tables(
-            [f.path for f in self.relation.files], self.relation.file_format,
-            _default_scan_columns(self.relation, self.columns), ctx.device, partitions_of(self.relation),
-            on_decode=on_decode, pushdown=self._pushdown_pred(ctx), pruning_stats=self.pruning,
-        ):
-            yield from split_chunks(t, chunk_rows)
+        with _corruption_guard(self.relation):
+            for t in engine_io.iter_file_tables(
+                [f.path for f in self.relation.files], self.relation.file_format,
+                _default_scan_columns(self.relation, self.columns), ctx.device, partitions_of(self.relation),
+                on_decode=on_decode, pushdown=self._pushdown_pred(ctx), pruning_stats=self.pruning,
+            ):
+                yield from split_chunks(t, chunk_rows)
 
     def execute_count(self, ctx) -> int:
         """Footer row counts; a format without them is read (physical.py:310)."""
@@ -275,7 +307,8 @@ class BucketedIndexScanExec(PhysicalNode):
         sel_of = selections or {}
         cols = _default_scan_columns(self.relation, self.columns)
         jobs = [(p, cols) + sel_of.get(p, (None, None)) for _, p in bucket_files]
-        tables = engine_io.decode_files(jobs, ctx.device, ctx.file_stats([p for _, p in bucket_files]))
+        with _corruption_guard(self.relation):
+            tables = engine_io.decode_files(jobs, ctx.device, ctx.file_stats([p for _, p in bucket_files]))
         starts = np.zeros(self.relation.bucket_spec.num_buckets + 1, dtype=np.int64)
         for (b, _), t in zip(bucket_files, tables):
             starts[b + 1] += t.num_rows
@@ -311,6 +344,7 @@ class BucketedIndexScanExec(PhysicalNode):
         in `bucketize_table` order. The bucket is then no longer sorted by
         key, so the join pads it by hash (K1)."""
         spec = self.relation.bucket_spec
+        _resilience.check_deadline("hybrid.merge_appended")
         appended = self._appended_rows(ctx)
         if appended.num_rows == 0:
             return table, starts
@@ -385,9 +419,10 @@ class BucketedIndexScanExec(PhysicalNode):
         """Footer row counts, the appended files' included (physical.py:627)."""
         ha = self.relation.hybrid_append
         appended = 0 if ha is None else engine_io.footer_row_count(ha.files, ha.file_format)
-        if appended is None:
+        n = engine_io.footer_row_count(self.relation.files)
+        if appended is None or n is None:
             return self.execute(ctx).num_rows
-        return engine_io.footer_row_count(self.relation.files) + appended
+        return n + appended
 
     def simple_string(self):
         spec = self.relation.bucket_spec
@@ -850,9 +885,10 @@ _recency: Dict[tuple, None] = {}
 
 
 def device_cache_stats() -> Dict[str, int]:
-    """Bytes the memos hold, lifetime evictions and the budget."""
+    """Entries and bytes the memos hold, lifetime evictions and the budget."""
     with _cache_lock:
-        return {"bytes": _device_cache_bytes, "evictions": _device_cache_evictions, "budget": _DEVICE_CACHE_BUDGET_BYTES}
+        return {"entries": len(_recency), "bytes": _device_cache_bytes, "evictions": _device_cache_evictions,
+                "budget": _DEVICE_CACHE_BUDGET_BYTES}
 
 
 def memo_stats() -> Dict[str, Dict[str, int]]:
@@ -1577,16 +1613,17 @@ class LimitExec(PhysicalNode):
         picked, total = [], 0
         for f in rel.files:
             picked.append(f)
-            try:
-                total += engine_io.footer_row_count([f])
-            except (OSError, ValueError):  # an unreadable footer: the plain read reports it
+            n = engine_io.footer_row_count([f])
+            if n is None:  # an unreadable footer: the plain read reports it
                 return None
+            total += n
             if total >= self.n:
                 break
         if len(picked) == len(rel.files):
             return None
         cols = _default_scan_columns(rel, child.columns)
-        t = engine_io.read_files([f.path for f in picked], rel.file_format, cols, ctx.device)
+        with _corruption_guard(rel):
+            t = engine_io.read_files([f.path for f in picked], rel.file_format, cols, ctx.device)
         return t.select(project.column_names) if project is not None else t
 
     def execute_count(self, ctx) -> int:

@@ -32,8 +32,15 @@ from .expr import BinaryOp, Col, Expr, IsIn, IsNull, Lit, split_conjuncts
 
 def pushdown_enabled() -> bool:
     """Default on; `HYPERSPACE_SCAN_PUSHDOWN=0` turns every row-group pruning
-    decision off (whole files decode as before the pushdown)."""
-    return os.environ.get(ENV_SCAN_PUSHDOWN, "") != "0"
+    decision off (whole files decode as before the pushdown). Unset, the
+    planner's decision rules when it made one."""
+    raw = os.environ.get(ENV_SCAN_PUSHDOWN, "")
+    if raw != "":
+        return raw != "0"
+    from ..plananalysis.planner import decided_value
+
+    decided = decided_value("pushdown")
+    return True if decided is None else bool(decided)
 
 
 _FLIPPED = {"<": ">", "<=": ">=", ">": "<", ">=": "<=", "==": "==", "!=": "!="}

@@ -116,6 +116,14 @@ class ScanCache(_LruBytes):
             capacity_bytes = env_bytes(ENV_SCAN_CACHE_BUDGET, SCAN_CACHE_BUDGET_DEFAULT)
         super().__init__(capacity_bytes)
 
+    def stats(self) -> dict:
+        """The LRU's counters, and `columns`: the entries that hold decoded
+        columns (on their device), footers and name lists left out."""
+        out = super().stats()
+        with self._lock:
+            out["columns"] = sum(1 for k in self._entries if k[-1][0] == "col")
+        return out
+
     @staticmethod
     def _col_key(n: str, sel, device) -> tuple:
         """A column entry's kind: a whole-file decode, or one of the row

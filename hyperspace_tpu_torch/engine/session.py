@@ -147,12 +147,50 @@ class DataFrame:
             self.optimized_plan(), case_sensitive=self.session.hs_conf.case_sensitive
         )
 
+    def _run_with_quarantine_fallback(self, runner):
+        """Plan, decide the planner's knobs and run (`session.py:173-224`). A
+        `CorruptIndexError` quarantines the index it names, warns and
+        re-plans: the rules then skip that index, so the query answers from
+        the source. Each round quarantines a new index; a repeated mark
+        propagates the error."""
+        import warnings
+
+        from ..exceptions import CorruptIndexError
+        from ..index import quarantine
+        from ..plananalysis import planner
+
+        while True:
+            phys = self.physical_plan()
+            planner.refuse_outcome_store()
+            decisions = planner.decide(phys, None, self.session.device)
+            try:
+                with planner.decisions_scope(decisions):
+                    return runner(phys)
+            except CorruptIndexError as e:
+                if not quarantine.mark(e.index_name, reason=str(e), path=e.path):
+                    raise
+                warnings.warn(
+                    f"hyperspace: index '{e.index_name}' quarantined after a corrupt data file; the query "
+                    f"falls back to the source scan and stays correct ({e}). Refresh or rebuild the index "
+                    "to lift the quarantine.",
+                    RuntimeWarning,
+                    stacklevel=3,
+                )
+
     def collect(self) -> Table:
         """Execute on the session's device; the result comes back to the host."""
-        return self.physical_plan().execute(ExecContext(self.session)).to("cpu")
+        from .. import resilience
+
+        with resilience.query_scope("query:collect"):
+            return self._run_with_quarantine_fallback(
+                lambda phys: phys.execute(ExecContext(self.session)).to("cpu")
+            )
 
     def count(self) -> int:
-        return int(self.physical_plan().execute_count(ExecContext(self.session)))
+        from .. import resilience
+
+        with resilience.query_scope("query:count"):
+            return int(self._run_with_quarantine_fallback(lambda phys: phys.execute_count(ExecContext(self.session))))
 
     def to_pydict(self) -> Dict[str, list]:
         return self.collect().to_pydict()

@@ -25,7 +25,11 @@ chunk has streamed, so a failure mid-stream leaves nothing partial.
 
 `HYPERSPACE_QUERY_STREAMING=0` turns both off (the one-pass aggregate and
 the cascade answer), `HYPERSPACE_MULTIWAY=0` the star stream and, in
-`JoinIndexRule`, star recognition. Streamed integer, count, min and max
+`JoinIndexRule`, star recognition. A flag left unset hands its knob to the
+planner (`plananalysis/planner.py`): the gates read `decided_value` only
+then, and on a warm aggregate over a million rows or more the planner shapes
+`query_chunk_rows` from the footers. Both streams check the query deadline
+at every chunk boundary (`resilience.check_deadline`). Streamed integer, count, min and max
 results equal the one-pass path's exactly; float sums and averages fold
 chunk by chunk, so they may differ from it in the last bits. The JAX
 package's streamed binary join aggregate (`stream_join_aggregate` :317) is
@@ -41,6 +45,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from .. import resilience
 from ..telemetry.profiling import timed
 from .table import Table
 
@@ -54,22 +59,43 @@ ENV_MULTIWAY = "HYPERSPACE_MULTIWAY"
 
 
 def multiway_enabled() -> bool:
-    """On unless `HYPERSPACE_MULTIWAY` is "0": gates star recognition in
-    `JoinIndexRule` and the star stream."""
-    return os.environ.get(ENV_MULTIWAY, "") != "0"
+    """Gates star recognition in `JoinIndexRule` and the star stream: the
+    flag when `HYPERSPACE_MULTIWAY` is set ("0" off), else the planner's
+    decision, else on."""
+    raw = os.environ.get(ENV_MULTIWAY, "")
+    if raw != "":
+        return raw != "0"
+    from ..plananalysis.planner import decided_value
+
+    decided = decided_value("multiway")
+    return True if decided is None else bool(decided)
 
 
 def streaming_enabled() -> bool:
-    """On unless `HYPERSPACE_QUERY_STREAMING` is "0"."""
-    return os.environ.get(ENV_QUERY_STREAMING, "") != "0"
+    """The flag when `HYPERSPACE_QUERY_STREAMING` is set ("0" off), else
+    the planner's decision, else on."""
+    raw = os.environ.get(ENV_QUERY_STREAMING, "")
+    if raw != "":
+        return raw != "0"
+    from ..plananalysis.planner import decided_value
+
+    decided = decided_value("streaming")
+    return True if decided is None else bool(decided)
 
 
 def query_chunk_rows() -> int:
+    """`HYPERSPACE_QUERY_CHUNK_ROWS` when set, else the planner's shaped
+    chunk, else 4,000,000."""
     raw = os.environ.get(ENV_QUERY_CHUNK_ROWS, "")
-    try:
-        return max(1, int(raw)) if raw != "" else _DEFAULT_QUERY_CHUNK_ROWS
-    except ValueError:
-        return _DEFAULT_QUERY_CHUNK_ROWS
+    if raw != "":
+        try:
+            return max(1, int(raw))
+        except ValueError:
+            return _DEFAULT_QUERY_CHUNK_ROWS
+    from ..plananalysis.planner import decided_value
+
+    decided = decided_value("chunk_rows")
+    return max(1, int(decided)) if decided is not None else _DEFAULT_QUERY_CHUNK_ROWS
 
 
 def join_chunk_rows() -> int:
@@ -99,6 +125,7 @@ def stream_aggregate(agg_exec, ctx) -> Optional[Table]:
     template: Optional[Table] = None
     n_chunks = 0
     for chunk in agg_exec.child.execute_stream(ctx, stages):
+        resilience.check_deadline("query.stream")
         if template is None:
             template = chunk.slice(0, 0)
         elif template.schema != chunk.schema:
@@ -239,7 +266,7 @@ def stream_star_aggregate(agg_exec, star_exec, chain, ctx) -> Optional[Table]:
     stream (see the module docstring). None when the shape does not apply:
     an empty fact or dimension, or a float sum with no direct-cells hint;
     the `MultiwayJoinExec` then runs its cascade."""
-    from ..exceptions import HyperspaceException
+    from ..exceptions import CorruptIndexError, HyperspaceException, QueryTimeoutError, RetryBudgetExceededError
     from ..ops.aggregate import StreamAggregator, _empty_result, direct_stream_hint
     from ..telemetry.profiling import StageTimings, record_join_stages
     from . import physical as phys
@@ -250,6 +277,11 @@ def stream_star_aggregate(agg_exec, star_exec, chain, ctx) -> Optional[Table]:
         for dim_exec, fkeys, dkeys, index_name, num_buckets in star_exec.dims:
             dt, d_starts = dim_exec.execute_concat(ctx)
             dim_sides.append((dim_exec, fkeys, dkeys, index_name, num_buckets, dt, d_starts))
+    except (CorruptIndexError, QueryTimeoutError, RetryBudgetExceededError):
+        # A corrupt dimension is quarantined by the session, a deadline or a
+        # spent budget ends the query: none of them declines to the cascade
+        # (the JAX package's :600 declines on each; ROADMAP Queue 3).
+        raise
     except HyperspaceException:
         return None
     if fact.num_rows == 0 or any(s[5].num_rows == 0 for s in dim_sides):
@@ -333,6 +365,7 @@ def stream_star_aggregate(agg_exec, star_exec, chain, ctx) -> Optional[Table]:
     template: Optional[Table] = None
     n_chunks = 0
     for lo, hi in zip(bounds, bounds[1:]):
+        resilience.check_deadline("query.star_stream")
         t = build_chunk(lo, hi)
         if template is None:
             template = t.slice(0, 0)

@@ -4,13 +4,16 @@
 `FilterIndexRule`, then `DataSkippingFilterRule`, in the JAX package's order.
 The facade creates covering and data-skipping indexes, refreshes, compacts
 (`optimize_index`, covering indexes only), deletes, restores, vacuums,
-cancels and lists them, and explains a query's plan with them and without."""
+cancels and lists them, and explains a query's plan with them and without.
+Create, refresh and optimize each run in a `resilience.query_scope` of their
+own: one deadline and retry budget for the build."""
 
 from __future__ import annotations
 
 import os
 from typing import Optional, Union
 
+from . import resilience
 from .config import ENV_REFRESH_MODE
 from .engine.session import DataFrame, HyperspaceSession
 from .engine.table import Table
@@ -42,7 +45,8 @@ class Hyperspace:
         self._manager = _index_manager_for(session)
 
     def create_index(self, df: DataFrame, index_config: Union[IndexConfig, DataSkippingIndexConfig]) -> None:
-        self._manager.create(df, index_config)
+        with resilience.query_scope("build:create_index"):
+            self._manager.create(df, index_config)
 
     def delete_index(self, index_name: str) -> None:
         self._manager.delete(index_name)
@@ -58,13 +62,15 @@ class Hyperspace:
         files and fold the deleted ones through lineage; "auto": incremental
         when it can, full when it cannot, nothing when the index is fresh.
         None takes `HYPERSPACE_REFRESH_MODE`, else "full"."""
-        self._manager.refresh(index_name, mode or os.environ.get(ENV_REFRESH_MODE) or "full")
+        with resilience.query_scope("build:refresh_index"):
+            self._manager.refresh(index_name, mode or os.environ.get(ENV_REFRESH_MODE) or "full")
 
     def optimize_index(self, index_name: str, mode: str = "quick") -> None:
         """Merge each bucket's index files into one ("quick": the files below
         `hyperspace.index.optimize.fileSizeThreshold`; "full": all), and
         drop the rows of folded deleted source files."""
-        self._manager.optimize(index_name, mode)
+        with resilience.query_scope("build:optimize_index"):
+            self._manager.optimize(index_name, mode)
 
     def cancel(self, index_name: str) -> None:
         self._manager.cancel(index_name)

@@ -45,7 +45,17 @@ from .log_entry import (
 from .signatures import create_provider
 from .staging import stage_commit
 
-_WRITERS = 8
+#: Parquet writers of a build or a compaction (`build_pipeline.py:79`):
+#: "1" writes the buckets one after another, in bucket order.
+ENV_WRITERS = "HYPERSPACE_BUILD_WRITERS"
+_DEFAULT_WRITERS = 8
+
+
+def build_writers() -> int:
+    try:
+        return max(1, int(os.environ.get(ENV_WRITERS, "") or _DEFAULT_WRITERS))
+    except ValueError:
+        return _DEFAULT_WRITERS
 
 
 class CoveringIndexBuilder(IndexerBuilder):
@@ -121,7 +131,7 @@ class CoveringIndexBuilder(IndexerBuilder):
             )
 
         # Parquet encode releases the GIL: bucket files are written concurrently.
-        with ThreadPoolExecutor(max_workers=_WRITERS) as pool:
+        with ThreadPoolExecutor(max_workers=build_writers()) as pool:
             list(pool.map(write_bucket, range(num_buckets)))
 
     def _index_schema(self, df, index_config: IndexConfig) -> Schema:

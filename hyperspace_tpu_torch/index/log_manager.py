@@ -3,9 +3,10 @@
 Parity: reference `index/IndexLogManager.scala` — numbered JSON entries under
 `<indexRoot>/_hyperspace_log/<id>`; `write_log` refuses existing ids and commits
 via temp file + atomic rename (`:146-162`); a `latestStable` pointer copy
-(`:113-130`). Counterpart of `hyperspace_tpu/index/log_manager.py` without its
-retry and fault-injection hooks. The entries live on any `FileSystem`
-(`index/factories.py` picks it by the index path's scheme).
+(`:113-130`). Counterpart of `hyperspace_tpu/index/log_manager.py`: every
+entry and pointer write is the `log.write` fault point under
+`resilience.retry_io` (`log_manager.py:121-144`). The entries live on any
+`FileSystem` (`index/factories.py` picks it by the index path's scheme).
 """
 
 from __future__ import annotations
@@ -13,9 +14,12 @@ from __future__ import annotations
 import os
 from typing import Optional
 
+from .. import resilience as _resilience
 from ..actions.states import STABLE_STATES
 from ..config import IndexConstants
+from ..exceptions import is_transient
 from ..storage.filesystem import FileSystem, LocalFileSystem
+from ..telemetry import faults as _faults
 from ..util import json_utils
 from .log_entry import LogEntry
 
@@ -95,12 +99,35 @@ class IndexLogManagerImpl(IndexLogManager):
         path = self._path_for(LATEST_STABLE)
         if self._fs.exists(path):
             self._fs.delete(path)
-        return self._fs.atomic_write_text(path, json_utils.to_json(entry.to_json()))
+        return self._atomic_write_with_retry(path, json_utils.to_json(entry.to_json()))
+
+    def _atomic_write_with_retry(self, path: str, text: str) -> bool:
+        """The atomic commit under retry: a transient fault raised after our
+        own rename landed is recognized by reading the target back, so a
+        retry never takes our own write for a lost race. False is a real
+        OCC loss, never retried."""
+
+        def attempt() -> bool:
+            _faults.check("log.write")
+            try:
+                return self._fs.atomic_write_text(path, text)
+            except BaseException as e:
+                if is_transient(e) and self._content_is(path, text):
+                    return True
+                raise
+
+        return _resilience.retry_io("log.write", attempt)
+
+    def _content_is(self, path: str, text: str) -> bool:
+        try:
+            return self._fs.exists(path) and self._fs.read_text(path) == text
+        except Exception:
+            return False
 
     def delete_latest_stable_log(self) -> bool:
         path = self._path_for(LATEST_STABLE)
         if self._fs.exists(path):
-            self._fs.delete(path)
+            _resilience.retry_io("log.write", lambda: self._fs.delete(path))
         return True
 
     def write_log(self, log_id: int, entry: LogEntry) -> bool:
@@ -108,7 +135,7 @@ class IndexLogManagerImpl(IndexLogManager):
         The entry's id is set only after the commit wins."""
         d = entry.to_json()
         d["id"] = log_id
-        ok = self._fs.atomic_write_text(self._path_for(log_id), json_utils.to_json(d))
+        ok = self._atomic_write_with_retry(self._path_for(log_id), json_utils.to_json(d))
         if ok:
             entry.id = log_id
         return ok

@@ -19,6 +19,7 @@ import uuid
 from typing import Iterator, List, Optional, Tuple
 
 from ..exceptions import ConcurrentWriteError
+from ..util.procs import pid_alive
 
 STAGING_PREFIX = ".staging-"
 
@@ -55,21 +56,6 @@ def _owner_of(name: str) -> Tuple[Optional[str], int]:
         return None, -1
 
 
-def _pid_alive(pid: int) -> bool:
-    """Whether `pid` is a live process on this host. Anything but a definite
-    ProcessLookupError counts as alive: a reclaim must never delete what
-    might be live (`util/procs.pid_alive`)."""
-    if pid <= 0:
-        return False
-    try:
-        os.kill(pid, 0)
-        return True
-    except ProcessLookupError:
-        return False
-    except OSError:  # PermissionError included: it exists, or it is unknown
-        return True
-
-
 @contextlib.contextmanager
 def stage_commit(final_path: str) -> Iterator[str]:
     """Yield a staging directory for the build of `final_path`; commit it by
@@ -101,7 +87,7 @@ def stage_commit(final_path: str) -> Iterator[str]:
 def _is_orphan(path: str, name: str) -> bool:
     host, pid = _owner_of(name)
     if host == socket.gethostname() and pid > 0:
-        return not _pid_alive(pid)
+        return not pid_alive(pid)
     try:
         age = time.time() - os.stat(path).st_mtime
     except OSError:

@@ -62,7 +62,14 @@ ENV_SIZE_CLASSES = "HYPERSPACE_JOIN_SIZE_CLASSES"
 
 
 def size_classes_enabled() -> bool:
-    return os.environ.get(ENV_SIZE_CLASSES, "") != "0"
+    """The flag when set ("0" off), else the planner's decision, else on."""
+    raw = os.environ.get(ENV_SIZE_CLASSES, "")
+    if raw != "":
+        return raw != "0"
+    from ..plananalysis.planner import decided_value
+
+    decided = decided_value("join_size_classes")
+    return True if decided is None else bool(decided)
 
 
 def _cap_pow2(n: int) -> int:

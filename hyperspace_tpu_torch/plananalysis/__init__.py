@@ -1,6 +1,6 @@
-"""Plan analysis: the explain subsystem (counterpart of `hyperspace_tpu/plananalysis`,
-cut to the plan diff; `explain(analyze=True)`, the fingerprint and the
-planner are not ported yet)."""
+"""Plan analysis: the explain subsystem and the planner's decision path
+(counterpart of `hyperspace_tpu/plananalysis`; `explain(analyze=True)`, the
+fingerprint and the planner's outcome store are not ported yet)."""
 
 from .buffer_stream import BufferStream  # noqa: F401
 from .display_mode import ConsoleMode, DisplayMode, HTMLMode, PlainTextMode, create_display_mode  # noqa: F401

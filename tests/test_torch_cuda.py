@@ -897,3 +897,117 @@ def test_the_star_stream_and_the_streamed_scan_on_the_card_equal_the_cpu(cuda_de
                 np.testing.assert_allclose(b, a, rtol=1e-9, atol=0)
             else:
                 assert a.tolist() == b.tolist(), name
+
+
+def _faults_lake(tmp_path, n_files=4, rows=2000):
+    """A plain source of `n_files` files, keys 0.. in file order, `v` = k % 7."""
+    import os
+
+    from hyperspace_tpu_torch.engine import io as engine_io
+    from hyperspace_tpu_torch.engine.table import Table
+
+    src = os.path.join(str(tmp_path), "src")
+    for i in range(n_files):
+        k = np.arange(i * rows, (i + 1) * rows, dtype=np.int64)
+        engine_io.write_parquet(Table.from_pydict({"k": k, "v": k % 7}, "cpu"), os.path.join(src, f"part-{i:05d}.parquet"))
+    return src
+
+
+@pytest.mark.cuda
+def test_a_cuda_session_decides_hash_quantize_on(cuda_device, tmp_path):
+    """On a CUDA session the planner's hash-quantize arm is "on" (on the CPU
+    "off"), and after the scans' copies the calibration is the measured
+    host-to-device rate."""
+    import hyperspace_tpu_torch as hst
+    from hyperspace_tpu_torch.engine import io as engine_io
+    from hyperspace_tpu_torch.plananalysis import planner
+
+    src = _faults_lake(tmp_path)
+    engine_io.reset_io_stats()
+    arms = {}
+    for dev in ("cpu", "cuda"):
+        s = hst.HyperspaceSession(warehouse=str(tmp_path / dev), device=dev)
+        s.read.parquet(src).group_by("v").agg(t=("k", "sum")).collect()
+        arms[dev] = planner.last_decisions()
+    assert arms["cuda"].to_ledger()["hash_quantize"]["arm"] == "on"
+    assert arms["cpu"].to_ledger()["hash_quantize"]["arm"] == "off"
+    assert engine_io.h2d_stats()["bytes"] > 0
+    s = hst.HyperspaceSession(warehouse=str(tmp_path / "again"), device="cuda")
+    s.read.parquet(src).group_by("v").agg(t=("k", "sum")).collect()
+    assert planner.last_decisions().calibration_source == "measured"
+
+
+@pytest.mark.cuda
+def test_corruption_falls_back_with_device_tensors(cuda_device, tmp_path):
+    """A corrupt bucket file of an index on a CUDA session: the query warns,
+    quarantines the index and answers from the source on the card, equal to
+    the CPU's answer; the fallback never reads the index's files again."""
+    import os
+    import warnings
+
+    import hyperspace_tpu_torch as hst
+    from hyperspace_tpu_torch.engine import physical, scan_cache
+    from hyperspace_tpu_torch.index import quarantine
+
+    src = _faults_lake(tmp_path, n_files=2)
+    rows = {}
+    try:
+        for dev in ("cpu", "cuda"):
+            quarantine.clear()
+            s = hst.HyperspaceSession(warehouse=str(tmp_path / dev), device=dev)
+            s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, 3)
+            hs = hst.Hyperspace(s)
+            hs.create_index(s.read.parquet(src), hst.IndexConfig("fidx", ["k"], ["v"]))
+            hst.enable_hyperspace(s)
+            q = s.read.parquet(src).filter(hst.col("k") > 42).select("k", "v")
+            clean = q.collect().sorted_rows()
+            vdir = os.path.join(str(tmp_path / dev), "indexes", "fidx", "v__=0")
+            with open(os.path.join(vdir, sorted(os.listdir(vdir))[0]), "wb") as f:
+                f.write(b"not a parquet file")
+            scan_cache.clear_scan_caches()
+            physical.clear_device_memos()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                got = q.collect()
+                n = q.count()
+            assert sum("quarantined" in str(w.message) for w in caught) == 1
+            assert quarantine.is_quarantined("fidx") and n == got.num_rows
+            rows[dev] = got.sorted_rows()
+            assert rows[dev] == clean
+    finally:
+        quarantine.clear()
+    assert rows["cuda"] == rows["cpu"] and len(rows["cpu"]) == 4000 - 43
+
+
+@pytest.mark.cuda
+def test_a_timed_out_query_leaves_no_device_cache_entry(cuda_device, tmp_path, monkeypatch):
+    """A query past `HYPERSPACE_QUERY_TIMEOUT_S` under a decode hang raises
+    `QueryTimeoutError` on a CUDA session and leaves no decoded column, no
+    table and no memo entry on the card; without the deadline it answers."""
+    import hyperspace_tpu_torch as hst
+    from hyperspace_tpu_torch.engine import physical, scan_cache
+    from hyperspace_tpu_torch.exceptions import QueryTimeoutError
+    from hyperspace_tpu_torch.telemetry import faults
+
+    src = _faults_lake(tmp_path)
+    s = hst.HyperspaceSession(warehouse=str(tmp_path / "w"), device="cuda")
+    scan_cache.clear_scan_caches()
+    physical.clear_device_memos()
+
+    def entries():
+        st = scan_cache.stats()
+        return (st["scan"]["columns"], st["concat"]["entries"], st["bucketed_concat"]["entries"],
+                physical.device_cache_stats()["entries"])
+
+    assert entries() == (0, 0, 0, 0)
+    monkeypatch.setenv("HYPERSPACE_QUERY_TIMEOUT_S", "0.1")
+    with faults.inject("io.decode", rate=1.0, kind="hang0.3"):
+        with pytest.raises(QueryTimeoutError):
+            s.read.parquet(src).collect()
+    torch.cuda.synchronize()
+    assert entries() == (0, 0, 0, 0)
+    monkeypatch.delenv("HYPERSPACE_QUERY_TIMEOUT_S")
+    out = s.read.parquet(src).collect()
+    got = out.to_numpy()
+    assert np.array_equal(got["k"], np.arange(8000)) and np.array_equal(got["v"], np.arange(8000) % 7)
+    assert entries()[0] > 0  # the decoded columns, cached on the card

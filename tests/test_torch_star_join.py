@@ -624,3 +624,43 @@ def test_warm_star_hits_per_dimension_memos(tmp_path, monkeypatch):
     ts, js = twin.both(_last)
     assert [d["memo"] for d in ts["star_dims"]] == ["hit", "hit"] == [d["memo"] for d in js["star_dims"]]
     assert warm == cold
+
+
+def test_nan_float_group_keys_stream_no_phantom_groups(tmp_path, monkeypatch):
+    """ROADMAP Queue 3's star probe: a fact of 600 rows in 2 files grouped by
+    its float column `f` (drawn from [NaN, 1.5, 2.0] by `RandomState(5)`,
+    NaN at each file's first row), joined to two indexed int dimensions, at
+    default flags. The port's star stream equals both packages' answers with
+    streaming off and the disabled query. The JAX package's star stream
+    pads its chunk by repeating the first row, and a NaN first key makes
+    each pad row a phantom group of count 0; the port folds real rows only."""
+    rng = np.random.RandomState(5)
+    f = rng.choice(np.array([np.nan, 1.5, 2.0]), 600)
+    f[0] = f[300] = np.nan
+    fact = {"k1": rng.randint(0, 20, 600).astype(np.int64), "k2": rng.randint(0, 10, 600).astype(np.int64),
+            "f": f, "v": rng.randint(0, 100, 600).astype(np.int64)}
+    dims = [("dim1", {"d1": np.arange(20, dtype=np.int64), "g1": np.arange(20, dtype=np.int64) % 3}),
+            ("dim2", {"d2": np.arange(10, dtype=np.int64), "g2": np.arange(10, dtype=np.int64) % 2})]
+    twin = make_star(tmp_path, fact, dims)
+
+    def q(p):
+        c = p.col
+        return (p.read("fact").join(p.read("dim1"), c("k1") == c("d1")).join(p.read("dim2"), c("k2") == c("d2"))
+                .group_by("f").agg(c=("*", "count"), s=("v", "sum")))
+
+    assert len(_stars(twin.t, q(twin.t))) == len(_stars(twin.j, q(twin.j))) == 1
+    streamed, jax_streamed = twin.both(lambda p: q(p).collect().rows())
+    assert last_join_stages()["join_mode"] == "star"
+    def reprs(rows):  # a NaN key never equals another NaN in a list
+        return sorted(repr(tuple(x.item() if hasattr(x, "item") else x for x in r)) for r in rows)
+
+    monkeypatch.setenv("HYPERSPACE_QUERY_STREAMING", "0")
+    _clear()
+    one_pass, jax_one_pass = twin.both(lambda p: q(p).collect().rows())
+    monkeypatch.delenv("HYPERSPACE_QUERY_STREAMING")
+    twin.t.off(twin.t.s)
+    disabled = q(twin.t).collect().rows()
+    assert reprs(streamed) == reprs(one_pass) == reprs(jax_one_pass) == reprs(disabled)
+    assert len(streamed) == int(np.isnan(f).sum()) + 2 and all(r[1] > 0 for r in streamed)
+    phantoms = [r for r in jax_streamed if r[1] == 0]
+    assert phantoms and reprs(r for r in jax_streamed if r[1] > 0) == reprs(streamed)

@@ -388,3 +388,41 @@ def test_a_lone_partial_with_a_null_key_keeps_its_groups(tmp_path, monkeypatch):
     one_pass = q(twin.t).collect().rows()
     assert sorted(streamed, key=str) == sorted(one_pass, key=str) == [(0, 2, 2), (1, 1, 4), (None, 2, 4)]
     assert len(jax_streamed) == 6 and {r[0] for r in jax_streamed} == {0, 1, None}
+
+
+def _row_reprs(rows):
+    """Rows as sorted reprs of Python values: a NaN key never equals another
+    NaN in a list."""
+    return sorted(repr(tuple(x.item() if hasattr(x, "item") else x for x in r)) for r in rows)
+
+
+def test_nan_float_group_keys_stream_no_phantom_groups(tmp_path, monkeypatch):
+    """ROADMAP Queue 3's scan probe: 400 rows of `g` drawn from
+    [NaN, 1.5, 2.0] by `RandomState(5)`, rows 0 and 200 (each file's first)
+    NaN, 2 files of 200 rows. Each NaN key is a group of its own. The
+    port's streamed answer equals both packages' one-pass answers
+    (`HYPERSPACE_QUERY_STREAMING=0`). The JAX device program pads each chunk
+    to a power of two by repeating its first row, and a first key of NaN
+    makes each pad row a phantom group of count 0; the port folds real rows
+    only."""
+    twin = Twin(tmp_path)
+    rng = np.random.RandomState(5)
+    g = rng.choice(np.array([np.nan, 1.5, 2.0]), 400)
+    g[0] = g[200] = np.nan
+    data = {"g": g, "v": rng.randint(0, 100, 400).astype(np.int64)}
+    _write_files(twin, "src", data, 2)
+
+    def q(p):
+        return p.read("src").group_by("g").agg(c=("*", "count"), s=("v", "sum"))
+
+    streamed, jax_streamed = twin.both(lambda p: q(p).collect().rows())
+    assert last_query_stages()["chunks"] == 2
+    monkeypatch.setenv("HYPERSPACE_QUERY_STREAMING", "0")
+    one_pass, jax_one_pass = twin.both(lambda p: q(p).collect().rows())
+    n_nan = int(np.isnan(g).sum())
+    assert len(streamed) == n_nan + 2
+    assert _row_reprs(streamed) == _row_reprs(one_pass) == _row_reprs(jax_one_pass)
+    assert all(r[1] > 0 for r in streamed)
+    phantoms = [r for r in jax_streamed if r[1] == 0]
+    assert phantoms and len(jax_streamed) == len(streamed) + len(phantoms)
+    assert _row_reprs(r for r in jax_streamed if r[1] > 0) == _row_reprs(streamed)

@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases env,setops
     python3 chip_smoke.py --phases env,star
     python3 chip_smoke.py --phases env,resilience
+    python3 chip_smoke.py --phases env,analyze
 
 Phases, each failing loudly:
 
@@ -261,14 +262,30 @@ Phases, each failing loudly:
              version directories unchanged, no staging directory), a lookup
              answers, and the retried action succeeds and serves lookups
              through the index.
-15. identity the join, aggregate, Q3 (general joins, every group), Q13
+15. analyze  `explain(analyze=True)` at the main phase's width in a
+             directory of its own: TPC-H Q3 over liQ3 and ordQ3 (value mode:
+             K2) and TPC-DS Q55 as a star over phase star's tables and
+             indexes (hash mode: K1, K2), each uncached under
+             `HYPERSPACE_DEVICE_TIMING=all`: rows equal collect() with every
+             sink off and numpy, every operator line annotated, the ledger's
+             rows_produced the row count, device_time_s in (0, the root's
+             wall], and the registry's K1 and K2 counts risen by exactly the
+             calls of their C entries (more than 0 over the phase). Then Q55
+             under `HYPERSPACE_TRACE_FILE` and `HYPERSPACE_TIMELINE_DIR`: one
+             query in the JSONL, each stage its own lane in the Chrome trace.
+             Last, cached Q3's p50 of 15 with everything off,
+             `HYPERSPACE_TRACING=1`, `HYPERSPACE_ACCOUNTING=1` and
+             `HYPERSPACE_DEVICE_TIMING=all`, the four in turns, printed.
+16. identity the join, aggregate, Q3 (general joins, every group), Q13
              (indexed and disabled) and string slices at SF 0.05 with
              device="cpu" and device="cuda": identical index files,
              identical rows in order (sums at rtol 1e-9).
 
-Kernel launches are counted from 0 at the start of each phase that drives
-the engine (main, q3, strings, packed, refresh, q13, skipping, delta,
-partitioned, setops, star, resilience) and summed over them. Prints one JSON
+Kernel launches are read from the metrics registry
+(`kernel.launches.<label>`, which each wrapper's read-only `launches`
+reads), set to 0 at the start of each phase that drives the engine (main,
+q3, strings, packed, refresh, q13, skipping, delta, partitioned, setops,
+star, resilience, analyze) and summed over them. Prints one JSON
 line of per-kernel results, the card's `nvidia-smi` line,
 and last `{"ok": true, "device": {...}}`. Exits non-zero without a result
 when no CUDA device is visible or the package is missing.
@@ -1004,6 +1021,22 @@ def clear_caches() -> None:
     physical.clear_device_memos()
 
 
+def reset_launches(*modules) -> None:
+    """Set the launch counts of the kernel wrappers `modules` to 0: their
+    registry counters (`kernel.launches.<label>`), which each wrapper's
+    read-only `launches` reads."""
+    from hyperspace_tpu_torch.telemetry import compile_log
+
+    compile_log.reset_launches(*(m.LABEL for m in modules))
+
+
+def registry_launches() -> dict:
+    """Every kernel's launch count in the metrics registry, by kernel id."""
+    from hyperspace_tpu_torch.telemetry import compile_log, metrics
+
+    return {kid: metrics.counter(f"kernel.launches.{label}").value for kid, label in compile_log.LABELS.items()}
+
+
 def cache_stats() -> dict:
     from hyperspace_tpu_torch.engine import io as engine_io
     from hyperspace_tpu_torch.engine import physical, scan_cache
@@ -1077,8 +1110,8 @@ def phase_main(torch, data, base: str):
 
     want = {n: canonical(rows) for n, rows in zip(("q_ord", "q_ps"), expected_rows(data))}
     want_agg = expected_q3_agg(data)
-    cuda_sort.launches = 0
-    cuda_probe.launches = 0
+    reset_launches(cuda_sort)
+    reset_launches(cuda_probe)
     s, build_s = build(base, DEVICE)
     log(f"[main] build seconds {json.dumps(build_s)}")
     qs = dict(queries(s, base), q3_agg=q3_agg(s, base))
@@ -1481,8 +1514,8 @@ def phase_q3(torch, data, base: str):
     from hyperspace_tpu_torch.ops import cuda_probe, cuda_sort
 
     want = expected_q3(data)
-    cuda_sort.launches = 0
-    cuda_probe.launches = 0
+    reset_launches(cuda_sort)
+    reset_launches(cuda_probe)
     s = hst.HyperspaceSession(warehouse=os.path.join(base, "q3"), device=DEVICE)
     s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, NUM_BUCKETS)
     hs = hst.Hyperspace(s)
@@ -1678,8 +1711,8 @@ def phase_q13(torch, data, base: str, seed: int):
     want_types = {n: canonical(rows) for n, rows in expected_join_types(data, valid).items()}
     n_cust, n_orders = len(data["customer"]["c_custkey"]), len(data["orders"]["o_orderkey"])
     outer_rows = n_orders + n_cust - int((orders_per_customer(data) > 0).sum())
-    cuda_sort.launches = 0
-    cuda_probe.launches = 0
+    reset_launches(cuda_sort)
+    reset_launches(cuda_probe)
     s = hst.HyperspaceSession(warehouse=os.path.join(base, "q13"), device=DEVICE)
     s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, NUM_BUCKETS)
     hs = hst.Hyperspace(s)
@@ -1977,9 +2010,9 @@ def phase_strings(torch, data, base: str, seed: int):
     import hyperspace_tpu_torch as hst
     from hyperspace_tpu_torch.ops import cuda_comp_sort, cuda_probe, cuda_sort
 
-    cuda_comp_sort.launches = 0
-    cuda_sort.launches = 0
-    cuda_probe.launches = 0
+    reset_launches(cuda_comp_sort)
+    reset_launches(cuda_sort)
+    reset_launches(cuda_probe)
     s, build_s, k3 = build_string_indexes(torch, base, DEVICE, os.path.join(base, "strings"))
     log(f"[strings] build seconds {json.dumps(build_s)}; K3 launches per build {json.dumps(k3)}")
     if k3 != {"custSeg": 1, "liShip": 0}:
@@ -2093,8 +2126,8 @@ def phase_packed(torch, data, rng):
     from hyperspace_tpu_torch.ops import bucket_join, cuda_packed_probe, cuda_packed_sort
 
     inputs = packed_inputs(torch, data, rng)
-    cuda_packed_sort.launches = 0
-    cuda_packed_probe.launches = 0
+    reset_launches(cuda_packed_sort)
+    reset_launches(cuda_packed_probe)
     results = {}
     for name, (card, (l_codes, l_starts), (r_codes, r_starts)) in inputs.items():
         lc, rc = torch.from_numpy(l_codes).to(DEVICE), torch.from_numpy(r_codes).to(DEVICE)
@@ -2244,8 +2277,8 @@ def phase_refresh(torch, data, base: str):
         if i != HELD_BACK:
             write_lineitem_file(data, src, bounds, i)
     engine_io.write_parquet(source_table(data["orders"]), os.path.join(src, "orders", "part-00000.parquet"))
-    cuda_sort.launches = 0
-    cuda_probe.launches = 0
+    reset_launches(cuda_sort)
+    reset_launches(cuda_probe)
     s = hst.HyperspaceSession(warehouse=root, device=DEVICE)
     s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, NUM_BUCKETS)
     s.conf.set(hst.IndexConstants.INDEX_LINEAGE_ENABLED, "true")
@@ -2629,8 +2662,8 @@ def phase_skipping(torch, base: str, seed: int):
     present = set(range(SS_FILES))
     log(f"[skipping] store_sales {SS_ROWS} rows in {SS_FILES} monthly files, "
         f"{len(np.unique(cols['ss_ticket_number']))} tickets (made and written in {time.perf_counter() - t0:.2f} s)")
-    cuda_sort.launches = 0
-    cuda_probe.launches = 0
+    reset_launches(cuda_sort)
+    reset_launches(cuda_probe)
     s = hst.HyperspaceSession(warehouse=root, device=DEVICE)
     hs = hst.Hyperspace(s)
     config = DataSkippingIndexConfig("ssSkip", [MinMaxSketch("ss_sold_date_sk", "rowgroup"),
@@ -2730,8 +2763,8 @@ def phase_delta(torch, data, base: str):
     root = os.path.join(base, "delta")
     table, orders = os.path.join(root, "lineitem"), os.path.join(root, "orders")
     bounds = refresh_bounds(data)
-    cuda_sort.launches = 0
-    cuda_probe.launches = 0
+    reset_launches(cuda_sort)
+    reset_launches(cuda_probe)
     s = hst.HyperspaceSession(warehouse=root, device=DEVICE)
     s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, NUM_BUCKETS)
     s.conf.set(hst.IndexConstants.INDEX_LINEAGE_ENABLED, "true")
@@ -3045,8 +3078,8 @@ def phase_partitioned(torch, base: str, seed: int):
     def read(t):
         return readers[t](src[t])
 
-    cuda_sort.launches = 0
-    cuda_probe.launches = 0
+    reset_launches(cuda_sort)
+    reset_launches(cuda_probe)
 
     # (a) the read
     c = hst.col
@@ -3422,8 +3455,8 @@ def phase_setops(torch, base: str, seed: int, sizes: dict = SETOPS_SF1):
         return s.read.parquet(os.path.join(root, t))
 
     c = hst.col
-    cuda_sort.launches = 0
-    cuda_probe.launches = 0
+    reset_launches(cuda_sort)
+    reset_launches(cuda_probe)
     hs = hst.Hyperspace(s)
     for table, name, indexed, included in SETOPS_INDEXES:
         _, seconds[f"create_{name}"] = wall(lambda: hs.create_index(read(table), hst.IndexConfig(name, indexed, included)))
@@ -3766,8 +3799,8 @@ def phase_star(torch, base: str, seed: int, ss_rows: int = SS_ROWS):
         return s.read.parquet(os.path.join(root, t))
 
     c = hst.col
-    cuda_sort.launches = 0
-    cuda_probe.launches = 0
+    reset_launches(cuda_sort)
+    reset_launches(cuda_probe)
     hs = hst.Hyperspace(s)
     for table, name, indexed, included in STAR_INDEXES:
         _, seconds[f"create_{name}"] = wall(lambda: hs.create_index(read(table), hst.IndexConfig(name, indexed,
@@ -3939,8 +3972,8 @@ def phase_resilience(torch, data, base: str, seed: int):
 
     phase_t0 = time.perf_counter()
     root = os.path.join(base, "resilience")
-    cuda_sort.launches = 0
-    cuda_probe.launches = 0
+    reset_launches(cuda_sort)
+    reset_launches(cuda_probe)
     quarantine.clear()
     faults.clear()
     faults.reset_counters()
@@ -4168,6 +4201,199 @@ def phase_resilience(torch, data, base: str, seed: int):
     return launches, seconds, steps
 
 
+# ---------------------------------------------------------------------------
+# explain(analyze=True), the trace, the ledgers and the telemetry's cost
+# ---------------------------------------------------------------------------
+
+ANALYZE_COST_RUNS = 15
+ANALYZE_SINKS = ("HYPERSPACE_TRACE_FILE", "HYPERSPACE_TIMELINE_DIR", "HYPERSPACE_TRACING", "HYPERSPACE_ACCOUNTING",
+                 "HYPERSPACE_DEVICE_TIMING")
+#: The C entries each kernel's wrapper calls, by kernel id.
+KERNEL_ENTRIES = {"K1": ("hs_bucket_sort",), "K2": ("hs_range_probe_i64", "hs_range_probe_f64")}
+
+
+class EntryCounter:
+    """Counts the calls of the kernels' C entries (the launches, seen below
+    the wrappers and their registry counts) while installed."""
+
+    def __init__(self, lib):
+        self.lib, self.calls, self._orig = lib, {k: 0 for k in KERNEL_ENTRIES}, {}
+
+    def __enter__(self):
+        for kid, names in KERNEL_ENTRIES.items():
+            for name in names:
+                orig = self._orig[name] = getattr(self.lib, name)
+
+                def counted(*args, _orig=orig, _kid=kid):
+                    self.calls[_kid] += 1
+                    return _orig(*args)
+
+                setattr(self.lib, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, orig in self._orig.items():
+            setattr(self.lib, name, orig)
+
+
+def tree_part(text: str) -> list:
+    return text.split("\nRule decisions:")[0].splitlines()
+
+
+def check_annotated(label: str, text: str) -> None:
+    """Every operator line of the analyzed tree carries an annotation: its
+    measured time and rows, or the mark of a node that did not run; the root
+    ran."""
+    lines = [ln for ln in tree_part(text) if re.match(r"^\s*(\+- )?[A-Z]\w+", ln)
+             and not ln.lstrip().startswith(("EXPLAIN", "query_id", "planning"))]
+    if not lines or "[time=" not in lines[0]:
+        raise AssertionError(f"{label}: the root line carries no time:\n{text}")
+    bare = [ln for ln in lines if "[time=" not in ln and "[not executed" not in ln]
+    if bare:
+        raise AssertionError(f"{label}: operator lines without an annotation: {bare}")
+
+
+def phase_analyze(torch, data, base: str, seed: int):
+    """`explain(analyze=True)` at the main phase's width in a directory of
+    its own: TPC-H Q3 over liQ3 and ordQ3 (the co-bucketed join, value mode:
+    K2; then the general join) and TPC-DS Q55 as a star (phase star's
+    tables and indexes: hash mode, K1 and K2), each uncached under
+    `HYPERSPACE_DEVICE_TIMING=all`: the rows equal collect() with every sink
+    off and numpy; every operator line is annotated; the ledger's
+    rows_produced is the row count; device_time_s lies in (0, the root's
+    wall]; the registry's K1 and K2 counts rose by exactly the calls of
+    their C entries. Then `HYPERSPACE_TRACE_FILE` and
+    `HYPERSPACE_TIMELINE_DIR`: the JSONL parses, one query_id, and the
+    Chrome trace gives each stage its own lane. Last the cost of the
+    telemetry: cached Q3's p50 over the same runs with everything off,
+    `HYPERSPACE_TRACING=1`, `HYPERSPACE_ACCOUNTING=1` and
+    `HYPERSPACE_DEVICE_TIMING=all`, run in turns (prints, not checks)."""
+    import hyperspace_tpu_torch as hst
+    from hyperspace_tpu_torch.ops import _kernels, cuda_probe, cuda_sort
+    from hyperspace_tpu_torch.plananalysis.analyze import explain_analyze
+    from hyperspace_tpu_torch.telemetry import accounting, tracing
+
+    for k in ANALYZE_SINKS:
+        os.environ.pop(k, None)
+    root = os.path.join(base, "analyze")
+    seconds = {}
+    s = hst.HyperspaceSession(warehouse=os.path.join(root, "wh"), device=DEVICE)
+    s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, NUM_BUCKETS)
+    hs = hst.Hyperspace(s)
+    for src, name, indexed, included in Q3_INDEXES:
+        df = s.read.parquet(os.path.join(base, "src", src))
+        _, seconds[f"create_{name}"] = wall(lambda: hs.create_index(df, hst.IndexConfig(name, indexed, included)))
+    tables, seconds["star_generate"] = wall(lambda: star_tables(np.random.RandomState(seed + 19), SS_ROWS))
+    star_root = os.path.join(root, "star")
+    _, seconds["star_write"] = wall(lambda: write_star_tables(s, tables, star_root))
+
+    def star_read(t):
+        return s.read.parquet(os.path.join(star_root, t))
+
+    for table, name, indexed, included in STAR_INDEXES:
+        _, seconds[f"create_{name}"] = wall(lambda: hs.create_index(star_read(table), hst.IndexConfig(
+            name, indexed, included)))
+    hst.enable_hyperspace(s)
+    log(f"[analyze] setup seconds {json.dumps(seconds)}")
+    q3 = q3_query(lambda t: s.read.parquet(os.path.join(base, "src", t)), hst.col)
+    q55 = star_q55_query(star_read, hst.col)
+    want_q3, want_q55 = expected_q3(data), expected_star(tables, "b_q55")
+
+    def check_rows(name, got):
+        if name == "q3":
+            check_q3("analyze q3", got, want_q3)
+        else:
+            check_star_rows("analyze q55", got, want_q55)
+
+    lib = _kernels.library()
+    totals = {"K1": 0, "K2": 0}
+    for name, df in (("q3", q3), ("q55", q55)):
+        clear_caches()
+        plain = df.collect().to_numpy()
+        check_rows(name, plain)
+        clear_caches()
+        reset_launches(cuda_sort, cuda_probe)
+        os.environ["HYPERSPACE_DEVICE_TIMING"] = "all"
+        try:
+            with EntryCounter(lib) as entries:
+                (text, result), t_analyze = wall(lambda: explain_analyze(df))
+        finally:
+            os.environ.pop("HYPERSPACE_DEVICE_TIMING", None)
+        got = result.to_numpy()
+        check_rows(name, got)
+        if list(got) != list(plain) or any(not np.array_equal(got[c], plain[c]) for c in got):
+            raise AssertionError(f"analyze {name}: the analyzed rows differ from collect() with every sink off")
+        check_annotated(f"analyze {name}", text)
+        trace = tracing.last_trace()
+        led = accounting.ledger_for(trace.query_id).to_dict()
+        if led.get("rows_produced") != result.num_rows:
+            raise AssertionError(f"analyze {name}: rows_produced {led.get('rows_produced')} != {result.num_rows}")
+        dev_s, wall_s = led.get("device_time_s", 0.0), led["wall_s"]
+        if not 0.0 < dev_s <= wall_s:
+            raise AssertionError(f"analyze {name}: device_time_s {dev_s} not in (0, wall {wall_s}]")
+        reg = registry_launches()
+        for kid in ("K1", "K2"):
+            if reg[kid] != entries.calls[kid]:
+                raise AssertionError(f"analyze {name}: registry {kid} {reg[kid]} != {entries.calls[kid]} calls")
+            totals[kid] += reg[kid]
+        log(f"[analyze] {name} {json.dumps({'rows': result.num_rows, 'explain_analyze_s': t_analyze, 'wall_s': wall_s, 'device_time_s': dev_s, 'host_time_s': led.get('host_time_s'), 'launches_registry': {k: reg[k] for k in ('K1', 'K2')}, 'entry_calls': entries.calls, 'decode_files': led.get('decode_files'), 'bytes_decoded': led.get('bytes_decoded', 0), 'device_upload_bytes': led.get('device_upload_bytes', 0), 'd2h_bytes': led.get('d2h_bytes', 0), 'pad_ratio': led.get('pad_ratio'), 'stages': led.get('stages')})}")
+        for line in text.split("\nPlanner:")[0].splitlines():
+            log(f"[analyze] {name} | {line}")
+    if totals["K1"] == 0 or totals["K2"] == 0:
+        raise AssertionError(f"analyze: K1 and K2 must both launch, got {totals}")
+
+    trace_file, tdir = os.path.join(root, "trace.jsonl"), os.path.join(root, "timelines")
+    os.environ["HYPERSPACE_TRACE_FILE"], os.environ["HYPERSPACE_TIMELINE_DIR"] = trace_file, tdir
+    try:
+        clear_caches()
+        q55.collect()
+    finally:
+        os.environ.pop("HYPERSPACE_TRACE_FILE", None)
+        os.environ.pop("HYPERSPACE_TIMELINE_DIR", None)
+    with open(trace_file) as fh:
+        spans = [json.loads(line) for line in fh]
+    qids = {sp["query_id"] for sp in spans}
+    ids = {sp["span_id"] for sp in spans}
+    if len(qids) != 1 or any(sp["parent_id"] is not None and sp["parent_id"] not in ids for sp in spans):
+        raise AssertionError(f"analyze: the JSONL holds {len(qids)} queries or an unresolved parent")
+    with open(os.path.join(tdir, f"timeline-{qids.pop()}.json")) as fh:
+        doc = json.load(fh)
+    lanes = {e["args"]["name"]: e["tid"] for e in doc["traceEvents"] if e["ph"] == "M"}
+    stage_lanes = {ln: tid for ln, tid in lanes.items() if ln.startswith("stage:")}
+    if len(stage_lanes) < 3 or len(set(stage_lanes.values())) != len(stage_lanes):
+        raise AssertionError(f"analyze: the Chrome trace's stage lanes {stage_lanes}")
+    by_lane = {}
+    for e in doc["traceEvents"]:
+        if e["ph"] == "X" and e["name"].startswith("join:") and e["name"] != "join:stages":
+            by_lane.setdefault(e["tid"], set()).add(e["name"])
+    if any(len(names) != 1 for names in by_lane.values()):
+        raise AssertionError(f"analyze: a lane holds two stages: {by_lane}")
+    log(f"[analyze] trace: {len(spans)} spans, one query; timeline lanes {sorted(lanes)}")
+
+    settings = (("off", None), ("HYPERSPACE_TRACING=1", ("HYPERSPACE_TRACING", "1")),
+                ("HYPERSPACE_ACCOUNTING=1", ("HYPERSPACE_ACCOUNTING", "1")),
+                ("HYPERSPACE_DEVICE_TIMING=all", ("HYPERSPACE_DEVICE_TIMING", "all")))
+    q3.collect()
+    seconds_of = {label: [] for label, _ in settings}
+    for r in range(ANALYZE_COST_RUNS):  # the settings in turns, each round starting one later
+        for label, env in settings[r % 4:] + settings[: r % 4]:
+            if env is not None:
+                os.environ[env[0]] = env[1]
+            try:
+                out, t = wall(q3.collect)
+            finally:
+                if env is not None:
+                    os.environ.pop(env[0], None)
+            check_q3(f"analyze cost {label}", out.to_numpy(), want_q3)
+            seconds_of[label].append(t)
+    cost = {label: float(np.median(ts)) for label, ts in seconds_of.items()}
+    for label, p50 in cost.items():
+        log(f"[analyze] telemetry cost: cached q3 p50 of {ANALYZE_COST_RUNS} with {label}: {p50:.6f} s")
+    log(f"[analyze] both queries' analyzed rows equal collect() and numpy; launches {json.dumps(totals)}")
+    return totals, seconds, cost
+
+
+
 KERNEL_META = {
     "K1": ("bucket_sort", "hyperspace_tpu_torch/csrc/bucket_sort.cu", "hyperspace_tpu/ops/pallas_sort.py:107"),
     "K2": ("range_probe", "hyperspace_tpu_torch/csrc/range_probe.cu", "hyperspace_tpu/ops/pallas_probe.py:129"),
@@ -4181,7 +4407,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="env,kernels,main,q3,strings,packed,refresh,q13,skipping,delta,partitioned,setops,star,"
-                            "resilience,identity")
+                            "resilience,analyze,identity")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sf", type=float, default=1.0)
     ap.add_argument("--identity-sf", type=float, default=0.05)
@@ -4224,7 +4450,7 @@ def main() -> int:
             launches[kid] = launches.get(kid, 0) + n
 
     data = None
-    if {"main", "q3", "strings", "packed", "refresh", "q13", "delta", "resilience"} & set(phases):
+    if {"main", "q3", "strings", "packed", "refresh", "q13", "delta", "resilience", "analyze"} & set(phases):
         t0 = time.perf_counter()
         data = tpch(args.sf, args.seed)
         log(f"[data] TPC-H SF{args.sf}: lineitem {len(data['lineitem']['l_orderkey'])} rows, orders "
@@ -4232,7 +4458,7 @@ def main() -> int:
             f"{len(data['customer']['c_custkey'])} (generated in {time.perf_counter() - t0:.2f} s)")
     base = tempfile.mkdtemp(prefix="hs_smoke_sf1_")
     try:
-        if {"main", "q3", "strings", "q13", "resilience"} & set(phases):
+        if {"main", "q3", "strings", "q13", "resilience", "analyze"} & set(phases):
             write_sources(data, base)
         if "main" in phases:
             add(timed_phase("main", phase_main, torch, data, base)[0])
@@ -4258,6 +4484,8 @@ def main() -> int:
             add(timed_phase("star", phase_star, torch, base, args.seed)[0])
         if "resilience" in phases:
             add(timed_phase("resilience", phase_resilience, torch, data, base, args.seed)[0])
+        if "analyze" in phases:
+            add(timed_phase("analyze", phase_analyze, torch, data, base, args.seed)[0])
     finally:
         shutil.rmtree(base, ignore_errors=True)
     if "identity" in phases:

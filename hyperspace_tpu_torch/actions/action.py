@@ -3,7 +3,11 @@
 Parity: reference `actions/Action.scala:34-104` — `run()` = validate → begin → op
 → end, where `begin()` writes log id base+1 with the transient state and `end()`
 writes id base+2 with the final state, then refreshes the `latestStable`
-pointer. Counterpart of `hyperspace_tpu/actions/action.py` without telemetry.
+pointer. Counterpart of `hyperspace_tpu/actions/action.py`: the run is
+wrapped in the action's CRUD events ("Operation Started.", "Operation
+Succeeded.", "Operation Failed: ..."), logged to `event_logger`, which the
+collection manager sets from `hyperspace.eventLoggerClass`. With the no-op
+logger no event is built.
 """
 
 from __future__ import annotations
@@ -13,6 +17,8 @@ from typing import Optional
 
 from ..exceptions import ConcurrentWriteError, HyperspaceException, LogCommitError
 from ..index.log_entry import LogEntry
+from ..telemetry.event_logging import EventLogger, NoOpEventLogger
+from ..telemetry.events import HyperspaceEvent, HyperspaceIndexCRUDEvent
 from . import states
 
 
@@ -33,8 +39,11 @@ def _recover_stable(log_manager, orphan: LogEntry, missing_ok: bool = False) -> 
 
 
 class Action:
-    """Subclasses define transient_state, final_state, validate(), op() and
-    log_entry()."""
+    """Subclasses define transient_state, final_state, validate(), op(),
+    log_entry() and their `event_class`."""
+
+    event_class = HyperspaceIndexCRUDEvent
+    event_logger: EventLogger = NoOpEventLogger()
 
     def __init__(self, log_manager):
         self._log_manager = log_manager
@@ -101,8 +110,30 @@ class Action:
                     "latestStable pointer; readers fall back to the id scan."
                 )
 
+    def event_index_name(self) -> str:
+        """The index the events name: the previous log entry's."""
+        try:
+            return self._previous_entry().name
+        except Exception:
+            return ""
+
+    def event(self, message: str) -> HyperspaceEvent:
+        return self.event_class(index_name=self.event_index_name(), message=message)
+
+    def _log(self, message: str) -> None:
+        if not isinstance(self.event_logger, NoOpEventLogger):
+            self.event_logger.log_event(self.event(message))
+
     def run(self) -> None:
-        self.validate()
-        self.begin()
-        self.op()
-        self.end()
+        """validate, begin, op, end, inside the action's events (reference
+        `Action.scala:83-101`): a failure is logged and re-raised."""
+        self._log("Operation Started.")
+        try:
+            self.validate()
+            self.begin()
+            self.op()
+            self.end()
+        except Exception as e:
+            self._log(f"Operation Failed: {e}")
+            raise
+        self._log("Operation Succeeded.")

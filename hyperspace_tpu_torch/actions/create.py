@@ -11,6 +11,7 @@ from __future__ import annotations
 from ..exceptions import HyperspaceException
 from ..index.index_config import IndexConfig
 from ..index.log_entry import IndexLogEntry, LogEntry
+from ..telemetry.events import CreateActionEvent
 from . import states
 from .action import Action, _recover_stable
 
@@ -46,6 +47,11 @@ class IndexerBuilder:
 
 
 class CreateAction(Action):
+    event_class = CreateActionEvent
+
+    def event_index_name(self) -> str:
+        return self._config.index_name
+
     def __init__(
         self,
         df,

@@ -2,8 +2,8 @@
 
 Counterpart of `hyperspace_tpu/actions/lifecycle.py` (reference
 `DeleteAction.scala`, `RestoreAction.scala`, `VacuumAction.scala:38-52`,
-`CancelAction.scala:28-76`), with the same state transitions and log ids and
-no event logger. Each carries the previous log entry forward with a new
+`CancelAction.scala:28-76`), with the same state transitions, log ids and
+events. Each carries the previous log entry forward with a new
 state; only vacuum touches data, deleting every version directory.
 """
 
@@ -14,6 +14,7 @@ from typing import Optional
 
 from ..exceptions import HyperspaceException
 from ..index.log_entry import LogEntry
+from ..telemetry.events import CancelActionEvent, DeleteActionEvent, RestoreActionEvent, VacuumActionEvent
 from . import states
 from .action import Action
 
@@ -44,6 +45,8 @@ class _EntryTransitionAction(Action):
 class DeleteAction(_EntryTransitionAction):
     """Soft delete: ACTIVE → DELETING → DELETED; the data stays."""
 
+    event_class = DeleteActionEvent
+
     transient_state = states.DELETING
     final_state = states.DELETED
 
@@ -53,6 +56,8 @@ class DeleteAction(_EntryTransitionAction):
 
 class RestoreAction(_EntryTransitionAction):
     """DELETED → RESTORING → ACTIVE."""
+
+    event_class = RestoreActionEvent
 
     transient_state = states.RESTORING
     final_state = states.ACTIVE
@@ -64,6 +69,8 @@ class RestoreAction(_EntryTransitionAction):
 class VacuumAction(_EntryTransitionAction):
     """Hard delete: DELETED → VACUUMING → DOESNOTEXIST, removing every data
     version directory (reference `:46-52`)."""
+
+    event_class = VacuumActionEvent
 
     transient_state = states.VACUUMING
     final_state = states.DOESNOTEXIST
@@ -86,6 +93,8 @@ class CancelAction(_EntryTransitionAction):
     """Roll a stuck transient state back to the last stable one (reference
     `CancelAction.scala:28-76`): VACUUMING → DOESNOTEXIST; no stable entry at
     all → DOESNOTEXIST; otherwise the latest stable entry's state."""
+
+    event_class = CancelActionEvent
 
     transient_state = states.CANCELLING
 

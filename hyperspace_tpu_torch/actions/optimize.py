@@ -42,6 +42,7 @@ from ..index.builder import build_writers
 from ..index.staging import stage_commit
 from ..ops.partition import bucket_starts, sort_perm
 from ..telemetry import faults as _faults
+from ..telemetry.events import OptimizeActionEvent
 from . import states
 from .action import Action, _recover_stable
 
@@ -83,6 +84,8 @@ def needs_compaction(entry: IndexLogEntry) -> bool:
 
 
 class OptimizeAction(Action):
+    event_class = OptimizeActionEvent
+
     def __init__(self, session, log_manager, index_data_path: str, mode: str = "quick"):
         super().__init__(log_manager)
         if mode not in OPTIMIZE_MODES:

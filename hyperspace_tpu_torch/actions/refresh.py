@@ -25,6 +25,7 @@ from typing import Optional
 from ..exceptions import HyperspaceException
 from ..index.log_entry import DELETED_SOURCE_FILES_KEY, Content, IndexLogEntry, LogEntry
 from ..telemetry import faults as _faults
+from ..telemetry.events import RefreshActionEvent
 from . import states
 from .action import Action, _recover_stable
 from .create import IndexerBuilder
@@ -61,6 +62,8 @@ class NothingToRefreshError(HyperspaceException):
 
 
 class RefreshAction(Action):
+    event_class = RefreshActionEvent
+
     def __init__(self, builder: IndexerBuilder, log_manager, index_path: str, index_data_path: str):
         super().__init__(log_manager)
         self._builder = builder

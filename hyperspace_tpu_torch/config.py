@@ -95,6 +95,10 @@ class IndexConstants:
     HIGHLIGHT_BEGIN_TAG = "hyperspace.explain.displayMode.highlight.beginTag"
     HIGHLIGHT_END_TAG = "hyperspace.explain.displayMode.highlight.endTag"
 
+    # The dotted path of the telemetry event logger class
+    # (`telemetry/event_logging.py`); unset = the no-op logger.
+    EVENT_LOGGER_CLASS = "hyperspace.eventLoggerClass"
+
     # Column-name resolution (the spark.sql.caseSensitive analogue).
     RESOLUTION_CASE_SENSITIVE = "hyperspace.resolution.caseSensitive"
     RESOLUTION_CASE_SENSITIVE_DEFAULT = False
@@ -164,6 +168,10 @@ class HyperspaceConf:
             IndexConstants.RESOLUTION_CASE_SENSITIVE,
             IndexConstants.RESOLUTION_CASE_SENSITIVE_DEFAULT,
         )
+
+    @property
+    def event_logger_class(self) -> Optional[str]:
+        return self._c.get(IndexConstants.EVENT_LOGGER_CLASS)
 
     @property
     def filter_bucket_pruning(self) -> bool:

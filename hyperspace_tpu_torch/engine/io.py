@@ -38,6 +38,15 @@ transient fault is retried and only a finished decode is cached. Reads check
 the query deadline between files (`resilience.check_deadline`). The copies
 to a CUDA device count their bytes and seconds (`h2d_stats`): the planner
 prices a byte moved at that measured rate.
+
+Telemetry, under the JAX package's names: the footer and pruning counters
+mirror into the registry (`io.footer.*`, `io.pruning.*`); each file decode
+ticks `io.decode.files`, `io.decode.seconds` and the `io.decode.in_flight`
+gauge and charges the query's ledger (`decode_files`, `decode_task_s`); a
+pruned decode charges `bytes_decoded` / `bytes_skipped`; a copy to the card
+is the `h2d` stage and charges `device_upload_bytes`
+(`device_observatory.record_h2d`). The decode pools' workers adopt the
+submitting query's ledger, scope and stage (`decode` by default).
 """
 
 from __future__ import annotations
@@ -60,7 +69,11 @@ from .. import resilience as _resilience
 from ..config import ENV_INDEX_ROW_GROUP_ROWS, INDEX_ROW_GROUP_ROWS_DEFAULT
 from ..exceptions import HyperspaceException, QueryTimeoutError, RetryBudgetExceededError
 from ..storage.filesystem import FileStatus, FileSystem, LocalFileSystem
+from ..telemetry import accounting as _accounting
+from ..telemetry import device_observatory as _devobs
 from ..telemetry import faults as _faults
+from ..telemetry import metrics as _metrics
+from ..telemetry import stage_ledger as _stage_ledger
 from ..util.path_utils import is_data_path
 from . import encoding as _encoding
 from .partitioning import partition_columns, values_for
@@ -312,9 +325,57 @@ _H2D = {"bytes": 0, "seconds": 0.0}
 _stats_lock = threading.Lock()
 
 
+#: `_COUNTS` name -> the registry counter it mirrors.
+_REGISTRY_COUNTS = {
+    "footer_hits": _metrics.counter("io.footer.hits"),
+    "footer_misses": _metrics.counter("io.footer.misses"),
+    "row_groups_scanned": _metrics.counter("io.pruning.row_groups_scanned"),
+    "row_groups_skipped": _metrics.counter("io.pruning.row_groups_skipped"),
+    "bytes_decoded": _metrics.counter("io.pruning.bytes_decoded"),
+    "bytes_skipped": _metrics.counter("io.pruning.bytes_skipped"),
+}
+_DECODE_FILES = _metrics.counter("io.decode.files")
+_DECODE_SECONDS = _metrics.histogram("io.decode.seconds")
+_DECODE_IN_FLIGHT = _metrics.gauge("io.decode.in_flight")
+_DECODE_IN_FLIGHT_PEAK = _metrics.gauge("io.decode.in_flight_peak")
+
+
 def _count(name: str, n: int = 1) -> None:
     with _stats_lock:
         _COUNTS[name] += n
+    _REGISTRY_COUNTS[name].inc(n)
+
+
+@contextmanager
+def _decode_accounting():
+    """One file decode: the in-flight gauge while it runs, then the decode
+    counters and the query's `decode_files` / `decode_task_s`."""
+    _DECODE_IN_FLIGHT.inc()
+    _DECODE_IN_FLIGHT_PEAK.set_max(_DECODE_IN_FLIGHT.value)
+    t0 = time.monotonic()
+    try:
+        yield
+    finally:
+        dt = time.monotonic() - t0
+        _DECODE_IN_FLIGHT.dec()
+        _DECODE_FILES.inc()
+        _DECODE_SECONDS.observe(dt)
+        _accounting.add("decode_files", 1)
+        _accounting.add("decode_task_s", dt)
+
+
+@contextmanager
+def adopt(led, sc, stage):
+    """Run a pool worker's body as the submitting query: its ledger, its
+    resilience scope and its stage."""
+    with _accounting.use_ledger(led), _resilience.use_scope(sc), _stage_ledger.stage_scope(stage):
+        yield
+
+
+def submitter():
+    """What a pool's workers adopt (`adopt`): the caller's ledger, scope and
+    stage, `decode` by default."""
+    return _accounting.current_ledger(), _resilience.current_scope(), _stage_ledger.worker_stage("decode")
 
 
 @contextmanager
@@ -507,9 +568,9 @@ def _convert_batch(arrows: List[pa.Table]) -> List[Table]:
 def _to_device_batched(hosts: List[Table], device) -> List[Table]:
     """Host tables on `device` with one copy per column for the whole batch,
     split back into per-file views on the device."""
-    with _timed("to_device"):
-        if device.type == "cpu":
-            return hosts
+    if device.type == "cpu":
+        return hosts
+    with _timed("to_device"), _stage_ledger.stage_scope("h2d"):
         if device.type == "cuda":
             torch.cuda.synchronize(device)  # the copies alone: no earlier work, no context start
         t0 = time.perf_counter()
@@ -536,9 +597,12 @@ def _to_device_batched(hosts: List[Table], device) -> List[Table]:
                 out[i][n] = Column(c.dtype, data[k], c.dictionary, valid[k], c.encoded_read)
         if moved and device.type == "cuda":
             torch.cuda.synchronize(device)
+            seconds = time.perf_counter() - t0
             with _stats_lock:
                 _H2D["bytes"] += moved
-                _H2D["seconds"] += time.perf_counter() - t0
+                _H2D["seconds"] += seconds
+            _devobs.record_h2d(moved, seconds)
+            _accounting.add("device_upload_bytes", moved)
         return [Table({n: o[n] for n in h.column_names}) for h, o in zip(hosts, out)]
 
 
@@ -568,15 +632,16 @@ def _decode_into_cache(jobs: List[tuple], device, file_format: str = "parquet") 
     args = [(job[0], rd, job[3], job[4]) for job, rd in zip(jobs, reads)]
 
     def read(a):
-        if file_format in PARQUET_SHAPED:
-            return _resilience.retry_io("io.decode", lambda: _read_arrow(*a))
-        return _resilience.retry_io("io.decode", lambda: _read_other(a[0], file_format, a[1]))
+        with _decode_accounting():
+            if file_format in PARQUET_SHAPED:
+                return _resilience.retry_io("io.decode", lambda: _read_arrow(*a))
+            return _resilience.retry_io("io.decode", lambda: _read_other(a[0], file_format, a[1]))
 
     if len(args) > 1 and decode_pool_size(len(args)) > 1:
-        sc = _resilience.current_scope()
+        sub = submitter()
 
         def worker(a):
-            with _resilience.use_scope(sc):
+            with adopt(*sub):
                 _faults.check("pool.worker")
                 return read(a)
 
@@ -618,8 +683,13 @@ def _record_decoded_bytes(meta: Optional[FileFooterMeta], sel: tuple, decoded_co
         return sum(rg.col_bytes.get(c, 0) for c in decoded_cols) if rg.col_bytes else rg.total_bytes
 
     keep = set(sel)
-    _count("bytes_decoded", sum(cols_bytes(rg) for i, rg in enumerate(meta.row_groups) if i in keep))
-    _count("bytes_skipped", sum(cols_bytes(rg) for i, rg in enumerate(meta.row_groups) if i not in keep))
+    decoded = sum(cols_bytes(rg) for i, rg in enumerate(meta.row_groups) if i in keep)
+    skipped = sum(cols_bytes(rg) for i, rg in enumerate(meta.row_groups) if i not in keep)
+    _count("bytes_decoded", decoded)
+    _count("bytes_skipped", skipped)
+    # The ledger's mirror: the same values at the same site.
+    _accounting.add("bytes_decoded", decoded)
+    _accounting.add("bytes_skipped", skipped)
 
 
 def pushdown_selections(ordered: List[str], pushdown, file_format: str = "parquet"):
@@ -851,10 +921,10 @@ def iter_file_tables(
         record_pruning(selections, pruning_stats)
         sel_of = dict(zip(ordered, selections))
 
-    sc = _resilience.current_scope()
+    sub = submitter()
 
     def decode_one(path: str) -> Table:
-        with _resilience.use_scope(sc):
+        with adopt(*sub):
             _faults.check("pool.worker")
             t0 = time.monotonic()
             base = file_base(path)

@@ -34,6 +34,13 @@ Every read of an index relation runs under `_corruption_guard`: a decode
 failure of an index data file becomes a `CorruptIndexError` naming the
 index, on which `DataFrame.collect`/`count` quarantine it and re-plan over
 the source.
+
+While a trace records, every operator's `execute`, `execute_count` and
+`execute_concat` opens an `op:<name>` span carrying `node_id` (what
+`explain(analyze=True)` joins the tree on) and `rows_out`; scans add their
+cache verdict (`bucketed_cache`) and row-group pruning, the co-bucketed join
+its pair-memo verdict (`pairs_memo`). Off, the wrapper is one predicate.
+The memos count into the metrics registry (`memo.<tag>.hits|misses`).
 """
 
 from __future__ import annotations
@@ -55,6 +62,8 @@ from ..ops.aggregate import hash_aggregate
 from ..ops.hashing import key64
 from ..ops.join import merge_join_pairs
 from ..ops.partition import bucketize_table, sortable_lane
+from ..telemetry import metrics as _metrics
+from ..telemetry import tracing as _tracing
 from . import io as engine_io
 from .evaluate import evaluate_column, evaluate_predicate
 from .expr import Expr, canonical_condition_repr, extract_equi_join_keys
@@ -100,8 +109,40 @@ class ExecContext:
         return self.session.device
 
 
+def _traced_node_method(kind: str, fn):
+    """`fn` (an executor entry point) in an `op:<name>` span while tracing
+    records; one predicate otherwise."""
+    import functools
+
+    @functools.wraps(fn)
+    def wrapper(self, ctx):
+        if not _tracing.active():
+            return fn(self, ctx)
+        with _tracing.span(f"op:{self.name}", node_id=id(self), op=self.simple_string(), kind=kind) as sp:
+            out = fn(self, ctx)
+            rows = getattr(out, "num_rows", None)
+            if rows is None and isinstance(out, tuple) and out:
+                rows = getattr(out[0], "num_rows", None)  # execute_concat
+            if rows is None and isinstance(out, int):
+                rows = out  # execute_count
+            if rows is not None:
+                sp.set_attr("rows_out", int(rows))
+            return out
+
+    wrapper._hyperspace_traced = True
+    return wrapper
+
+
 class PhysicalNode:
     name = "Physical"
+
+    def __init_subclass__(cls, **kwargs):
+        # Every operator's entry points are span-wrapped at class creation.
+        super().__init_subclass__(**kwargs)
+        for m in ("execute", "execute_count", "execute_concat"):
+            fn = cls.__dict__.get(m)
+            if callable(fn) and not getattr(fn, "_hyperspace_traced", False):
+                setattr(cls, m, _traced_node_method(m, fn))
 
     def children(self) -> Sequence["PhysicalNode"]:
         return ()
@@ -146,6 +187,14 @@ def partitions_of(relation) -> Optional[tuple]:
     takes, None for any other source."""
     spec = relation.partition_spec
     return None if spec is None else (spec, relation.root_paths)
+
+
+def _set_pruning_attrs(stats: Dict[str, int]) -> None:
+    """One scan's row-group pruning on the ambient span (nothing pruned:
+    nothing set)."""
+    if stats:
+        _tracing.set_attr("row_groups_scanned", int(stats.get("row_groups_scanned", 0)))
+        _tracing.set_attr("row_groups_skipped", int(stats.get("row_groups_skipped", 0)))
 
 
 @contextlib.contextmanager
@@ -224,10 +273,12 @@ class ScanExec(PhysicalNode):
             return _empty_table(self.relation, self.columns, ctx.device)
         self.pruning = {}
         with _corruption_guard(self.relation):
-            return engine_io.read_files(
+            out = engine_io.read_files(
                 files, self.relation.file_format, _default_scan_columns(self.relation, self.columns), ctx.device,
                 pushdown=self._pushdown_pred(ctx), pruning_stats=self.pruning, partitions=partitions_of(self.relation),
             )
+        _set_pruning_attrs(self.pruning)
+        return out
 
     def can_stream(self) -> bool:
         """A plain file read feeds the streamed aggregate; a demoted index
@@ -252,6 +303,7 @@ class ScanExec(PhysicalNode):
                 on_decode=on_decode, pushdown=self._pushdown_pred(ctx), pruning_stats=self.pruning,
             ):
                 yield from split_chunks(t, chunk_rows)
+        _set_pruning_attrs(self.pruning)
 
     def execute_count(self, ctx) -> int:
         """Footer row counts; a format without them is read (physical.py:310)."""
@@ -370,8 +422,13 @@ class BucketedIndexScanExec(PhysicalNode):
         selections = engine_io.pushdown_selections(paths, pred)
         if selections is None:
             return None
-        engine_io.record_pruning(selections)
-        return self._assemble(ctx, dict(zip(paths, selections)))
+        stats: Dict[str, int] = {}
+        engine_io.record_pruning(selections, stats)
+        out = self._assemble(ctx, dict(zip(paths, selections)))
+        # The pruned path never consults the bucketed-concat cache.
+        _tracing.set_attr("bucketed_cache", "pruned-bypass")
+        _set_pruning_attrs(stats)
+        return out
 
     def empty_table(self, ctx) -> Table:
         return _empty_table(self.relation, self.columns, ctx.device)
@@ -406,7 +463,11 @@ class BucketedIndexScanExec(PhysicalNode):
         if key is not None:
             hit = global_bucketed_cache().get(key)
             if hit is not None:
+                _tracing.set_attr("bucketed_cache", "hit")
                 return hit
+            _tracing.set_attr("bucketed_cache", "miss")
+        else:
+            _tracing.set_attr("bucketed_cache", "uncacheable")
         table, starts = self._assemble(ctx)
         if key is not None:
             global_bucketed_cache().put(key, table, starts)
@@ -875,6 +936,12 @@ _verify_cache: Dict[tuple, tuple] = {}
 _CACHES = {"k64": _key64_cache, "cpad": _classed_cache, "pairs": _pairs_cache, "ver": _verify_cache}
 _TWO_TABLE_TAGS = ("cpad", "pairs", "ver")
 _MEMO_COUNTS = {t: {"hits": 0, "misses": 0} for t in _CACHES}
+_MEMO_HITS = {t: _metrics.counter(f"memo.{t}.hits") for t in _CACHES}
+_MEMO_MISSES = {t: _metrics.counter(f"memo.{t}.misses") for t in _CACHES}
+_MEMO_PEEK_HITS = {t: _metrics.counter(f"memo.{t}.peek_hits") for t in _CACHES}
+_MEMO_EVICTIONS = _metrics.counter("memo.evictions")
+_MEMO_BYTES = _metrics.gauge("memo.device_cache.bytes")
+_MEMO_BYTES_PEAK = _metrics.gauge("memo.device_cache.bytes_peak")
 _cache_lock = threading.RLock()  # weakref callbacks may fire inside a guarded section
 _DEVICE_CACHE_BUDGET_BYTES = env_bytes(ENV_DEVICE_CACHE_BUDGET, DEVICE_CACHE_BUDGET_DEFAULT)
 _device_cache_bytes = 0
@@ -914,6 +981,7 @@ def clear_device_memos() -> None:
             c.clear()
         _recency.clear()
         _device_cache_bytes = 0
+        _MEMO_BYTES.set(0)
 
 
 def _val_nbytes(val) -> int:
@@ -945,6 +1013,7 @@ def _drop_entry(tag: str, key) -> None:
         dropped = _CACHES[tag].pop(key, None)
         if dropped is not None:
             _device_cache_bytes -= _entry_nbytes(tag, dropped)
+            _MEMO_BYTES.set(_device_cache_bytes)
 
 
 def _evict_over_budget(protect: tuple) -> None:
@@ -952,17 +1021,21 @@ def _evict_over_budget(protect: tuple) -> None:
     budget, never the entry just inserted (`protect`)."""
     global _device_cache_evictions
     with _cache_lock:
+        _MEMO_BYTES.set(_device_cache_bytes)
+        _MEMO_BYTES_PEAK.set_max(_device_cache_bytes)
         while _device_cache_bytes > _DEVICE_CACHE_BUDGET_BYTES:
             victim = next((rk for rk in _recency if rk != protect), None)
             if victim is None:
                 return
             _drop_entry(*victim)
             _device_cache_evictions += 1
+            _MEMO_EVICTIONS.inc()
 
 
 def _count(tag: str, what: str) -> None:
     with _cache_lock:
         _MEMO_COUNTS[tag][what] += 1
+    (_MEMO_HITS if what == "hits" else _MEMO_MISSES)[tag].inc()
 
 
 def _cached_by_table(tag: str, table: Table, subkey, compute):
@@ -976,7 +1049,7 @@ def _cached_by_table(tag: str, table: Table, subkey, compute):
             hit = ent[1].get(subkey, _MISS)
             if hit is not _MISS:
                 _touch(tag, key)
-                _MEMO_COUNTS[tag]["hits"] += 1
+                _count(tag, "hits")
                 return hit
     _count(tag, "misses")
     val = compute()
@@ -1023,7 +1096,7 @@ def _cached_two_table(tag: str, left: Table, right: Table, subkey: tuple, comput
         ent = cache.get(key)
         if ent is not None and valid(ent):
             _touch(tag, key)
-            _MEMO_COUNTS[tag]["hits"] += 1
+            _count(tag, "hits")
             return ent[2]
     _count(tag, "misses")
     val = compute()
@@ -1055,6 +1128,7 @@ def _peek_two_table(tag: str, left: Table, right: Table, subkey: tuple, rows_key
         if ent is not None and valid(ent):
             _touch(tag, key)
             _MEMO_COUNTS[tag]["hits"] += 1
+            _MEMO_PEEK_HITS[tag].inc()
             return True, ent[2]
     return False, None
 
@@ -1289,10 +1363,11 @@ class SortMergeJoinExec(PhysicalNode):
         ranges = _cached_two_table("pairs", left, right, ("cprobe", plan.mode) + subkey, lambda: probe_classed(plan), rows_key)
         return plan, ranges
 
-    def _pairs(self, ctx):
+    def _pairs(self, ctx, verdict: bool = True):
         """Both sides and their verified pairs (li, ri), through the pairs
         memo: in bucket-major order for the bucketed join, in `merge_join_pairs`'
-        order for the general one."""
+        order for the general one. `verdict`: the bucketed join's memo hit or
+        miss goes on the ambient span (`pairs_memo`)."""
         from ..ops.bucket_join import classed_pairs
 
         if not self.bucketed:
@@ -1302,12 +1377,17 @@ class SortMergeJoinExec(PhysicalNode):
             empty = torch.empty(0, dtype=torch.int64, device=ctx.device)
             return left, right, empty, empty
 
+        computed = []
+
         def compute():
+            computed.append(True)
             plan, ranges = self._plan_and_ranges(left, right, l_starts, r_starts, subkey, rows_key)
             li, ri = classed_pairs(plan, ranges)
             return _verify_pairs(left, right, self.left_keys, self.right_keys, li, ri)
 
         li, ri = _cached_two_table("pairs", left, right, subkey, compute, rows_key)
+        if verdict:
+            _tracing.set_attr("pairs_memo", "miss" if computed else "hit")
         return left, right, li, ri
 
     def execute(self, ctx) -> Table:
@@ -1471,10 +1551,37 @@ class HashAggregateExec(PhysicalNode):
     def execute(self, ctx) -> Table:
         out = self._try_stream_star_agg(ctx)
         if out is None:
+            out = self._try_fused_join_agg(ctx)
+        if out is None:
             out = self._try_stream_agg(ctx)
         if out is None:
             out = hash_aggregate(self.child.execute(ctx), self.group_keys, self.aggs)
         return out
+
+    def _try_fused_join_agg(self, ctx) -> Optional[Table]:
+        """The JAX device program's fused join aggregate slot
+        (physical.py:1350): a grouped aggregate with no count_distinct over a
+        WithColumn/Project chain over a bucketed inner join of two non-empty
+        sides aggregates the join's rows without executing the join and the
+        chain as operators, so they open no span (the JAX package's analyzed
+        tree marks them not executed). The rows are `execute`'s; None when
+        the shape does not apply."""
+        if not self.group_keys or any(fn == "count_distinct" for _, fn, _ in self.aggs):
+            return None
+        chain: List[PhysicalNode] = []
+        node = self.child
+        while isinstance(node, (WithColumnExec, ProjectExec)):
+            chain.append(node)
+            node = node.child
+        if not (isinstance(node, SortMergeJoinExec) and node.bucketed and node.how == "inner"):
+            return None
+        left, right, li, ri = node._pairs(ctx, verdict=False)
+        if left.num_rows == 0 or right.num_rows == 0:
+            return None
+        t = _assemble_join(left, right, li, ri, "inner")
+        for op in reversed(chain):
+            t = op.apply(t) if isinstance(op, WithColumnExec) else t.select(op.column_names)
+        return hash_aggregate(t, self.group_keys, self.aggs)
 
     def _streamable(self) -> bool:
         from ..ops.aggregate import streaming_agg_supported

@@ -27,8 +27,12 @@ tensor it did not allocate.
   multi-file scans, and filtered bucketed scans, so that neither plain scans
   nor filters with changing literals evict the join's entries.
 
-Hit and miss counts are plain counters behind `stats()`; the JAX package's
-metrics registry is telemetry and is not ported.
+Hits, misses, evictions and bytes are kept per instance (`stats()`) and, for
+the four process-wide caches, mirrored into the metrics registry under the
+JAX package's names (`cache.scan.*`, `cache.bucketed_concat.*`,
+`cache.concat.*`, `cache.filtered.*`). The bytes an insert charges and an
+eviction frees go to the query's ledger (`cache_bytes_charged`,
+`cache_bytes_evicted`).
 """
 
 from __future__ import annotations
@@ -39,6 +43,8 @@ from collections import OrderedDict
 from typing import List, Optional, Tuple
 
 from ..config import CONCAT_CACHE_BUDGET_DEFAULT, ENV_SCAN_CACHE_BUDGET, SCAN_CACHE_BUDGET_DEFAULT, env_bytes
+from ..telemetry import accounting as _accounting
+from ..telemetry import metrics as _metrics
 from .table import Column, Table
 
 
@@ -69,7 +75,7 @@ def file_base(path: str):
 class _LruBytes:
     """An LRU map whose entries end with their byte charge."""
 
-    def __init__(self, capacity_bytes: int):
+    def __init__(self, capacity_bytes: int, name: Optional[str] = None):
         self._capacity = int(capacity_bytes)
         self._lock = threading.Lock()
         self._entries: "OrderedDict[tuple, tuple]" = OrderedDict()
@@ -77,6 +83,21 @@ class _LruBytes:
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+        # Only a named (process-wide) cache reports to the registry; an
+        # instance a test makes gets private metric objects.
+        make_c, make_g = (_metrics.counter, _metrics.gauge) if name else (_metrics.Counter, _metrics.Gauge)
+        self._m_hits = make_c(f"cache.{name}.hits")
+        self._m_misses = make_c(f"cache.{name}.misses")
+        self._m_evictions = make_c(f"cache.{name}.evictions")
+        self._m_bytes = make_g(f"cache.{name}.bytes")
+
+    def _count_get(self, hit: bool, n: int = 1) -> None:
+        if hit:
+            self.hits += n
+            self._m_hits.inc(n)
+        else:
+            self.misses += n
+            self._m_misses.inc(n)
 
     def stats(self) -> dict:
         return {
@@ -85,14 +106,22 @@ class _LruBytes:
         }
 
     def _evict_to_capacity_locked(self) -> None:
+        evicted = 0
         while self._bytes > self._capacity and self._entries:
             _, ent = self._entries.popitem(last=False)
             self._bytes -= ent[-1]
+            evicted += ent[-1]
             self.evictions += 1
+            self._m_evictions.inc()
+        if evicted:
+            _accounting.add("cache_bytes_evicted", evicted)
+        self._m_bytes.set(self._bytes)
 
     def _insert_locked(self, key, ent: tuple) -> None:
         self._entries[key] = ent
         self._bytes += ent[-1]
+        if ent[-1]:
+            _accounting.add("cache_bytes_charged", ent[-1])
         self._evict_to_capacity_locked()
 
     def set_capacity(self, capacity_bytes: int) -> None:
@@ -105,16 +134,17 @@ class _LruBytes:
         with self._lock:
             self._entries.clear()
             self._bytes = 0
+            self._m_bytes.set(0)
 
 
 class ScanCache(_LruBytes):
     """Per-column store behind a table-level get/put API. A get that
     assembles a table from its columns counts one hit."""
 
-    def __init__(self, capacity_bytes: Optional[int] = None):
+    def __init__(self, capacity_bytes: Optional[int] = None, name: Optional[str] = None):
         if capacity_bytes is None:
             capacity_bytes = env_bytes(ENV_SCAN_CACHE_BUDGET, SCAN_CACHE_BUDGET_DEFAULT)
-        super().__init__(capacity_bytes)
+        super().__init__(capacity_bytes, name)
 
     def stats(self) -> dict:
         """The LRU's counters, and `columns`: the entries that hold decoded
@@ -162,11 +192,11 @@ class ScanCache(_LruBytes):
                         break
                     cols[n] = ent[0]
             if cols is None:
-                self.misses += record
+                self._count_get(False, int(record))
                 return None
             for n in names:
                 self._entries.move_to_end(base + (self._col_key(n, sel, device),))
-            self.hits += record
+            self._count_get(True, int(record))
             return Table(cols)
 
     def missing_columns(
@@ -225,17 +255,17 @@ class BucketedConcatCache(_LruBytes):
     """Whole scans: (table, starts) under a key that holds the scan's file
     inventory, so any rewrite of one of its files changes the key."""
 
-    def __init__(self, capacity_bytes: int = CONCAT_CACHE_BUDGET_DEFAULT):
-        super().__init__(capacity_bytes)
+    def __init__(self, capacity_bytes: int = CONCAT_CACHE_BUDGET_DEFAULT, name: Optional[str] = None):
+        super().__init__(capacity_bytes, name)
 
     def get(self, key) -> Optional[Tuple[Table, object]]:
         with self._lock:
             hit = self._entries.get(key)
             if hit is None:
-                self.misses += 1
+                self._count_get(False)
                 return None
             self._entries.move_to_end(key)
-            self.hits += 1
+            self._count_get(True)
             return hit[0], hit[1]
 
     def contains(self, key) -> bool:
@@ -250,10 +280,10 @@ class BucketedConcatCache(_LruBytes):
                 self._insert_locked(key, (table, starts, size))
 
 
-_GLOBAL = ScanCache()
-_BUCKETED = BucketedConcatCache()
-_CONCAT = BucketedConcatCache()
-_FILTERED = BucketedConcatCache()
+_GLOBAL = ScanCache(name="scan")
+_BUCKETED = BucketedConcatCache(name="bucketed_concat")
+_CONCAT = BucketedConcatCache(name="concat")
+_FILTERED = BucketedConcatCache(name="filtered")
 
 
 def global_scan_cache() -> ScanCache:

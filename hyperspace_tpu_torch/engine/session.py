@@ -13,7 +13,7 @@ import re
 from typing import Dict, List, Optional
 
 from ..config import HyperspaceConf, SessionConf
-from ..exceptions import HyperspaceException, not_in_slice
+from ..exceptions import HyperspaceException
 from ..ops.backend import resolve_device
 from ..storage import delta as delta_log
 from ..storage.filesystem import FileStatus, FileSystem, LocalFileSystem
@@ -148,24 +148,32 @@ class DataFrame:
         )
 
     def _run_with_quarantine_fallback(self, runner):
-        """Plan, decide the planner's knobs and run (`session.py:173-224`). A
-        `CorruptIndexError` quarantines the index it names, warns and
-        re-plans: the rules then skip that index, so the query answers from
-        the source. Each round quarantines a new index; a repeated mark
-        propagates the error."""
+        """Plan (the `plan` span), fingerprint, decide the planner's knobs
+        and run (`session.py:173-224`). A `CorruptIndexError` quarantines the
+        index it names, warns and re-plans: the rules then skip that index,
+        so the query answers from the source. Each round quarantines a new
+        index; a repeated mark propagates the error."""
+        import time
         import warnings
 
         from ..exceptions import CorruptIndexError
         from ..index import quarantine
-        from ..plananalysis import planner
+        from ..plananalysis import attribution, planner
+        from ..telemetry import accounting, tracing
 
+        accounting.note_device(self.session.device)
         while True:
-            phys = self.physical_plan()
+            with tracing.span("plan"):
+                phys = self.physical_plan()
+            fp = self._attach_fingerprint(phys)
             planner.refuse_outcome_store()
-            decisions = planner.decide(phys, None, self.session.device)
+            decisions = planner.decide(phys, fp, self.session.device)
             try:
                 with planner.decisions_scope(decisions):
-                    return runner(phys)
+                    t0 = time.monotonic()
+                    out = runner(phys)
+                planner.observe(decisions, time.monotonic() - t0, stages=attribution.query_stage_walls())
+                return out
             except CorruptIndexError as e:
                 if not quarantine.mark(e.index_name, reason=str(e), path=e.path):
                     raise
@@ -177,20 +185,50 @@ class DataFrame:
                     stacklevel=3,
                 )
 
+    def _attach_fingerprint(self, phys: PhysicalNode) -> Optional[str]:
+        """The plan's fingerprint (`plananalysis.fingerprint`) on the ambient
+        ledger and span, and returned; None, computed not at all, when no
+        ledger or span sink would read it. Never fails the query."""
+        from ..plananalysis import fingerprint
+        from ..telemetry import accounting, tracing
+
+        try:
+            if not fingerprint.fingerprint_wanted():
+                return None
+            fp = fingerprint.plan_fingerprint(phys)
+        except Exception:
+            return None
+        accounting.set_value("plan_fingerprint", fp)
+        sp = tracing.current_span()
+        if sp is not None:
+            sp.set_attr("plan_fingerprint", fp)
+        return fp
+
     def collect(self) -> Table:
         """Execute on the session's device; the result comes back to the host."""
         from .. import resilience
+        from ..telemetry import accounting, tracing
+        from ..telemetry.device_observatory import table_to_host
 
         with resilience.query_scope("query:collect"):
-            return self._run_with_quarantine_fallback(
-                lambda phys: phys.execute(ExecContext(self.session)).to("cpu")
-            )
+            with tracing.query_span("query:collect") as root:
+                out = self._run_with_quarantine_fallback(
+                    lambda phys: table_to_host(phys.execute(ExecContext(self.session)))
+                )
+                root.set_attr("rows_out", int(out.num_rows))
+                accounting.set_value("rows_produced", int(out.num_rows))
+                return out
 
     def count(self) -> int:
         from .. import resilience
+        from ..telemetry import accounting, tracing
 
         with resilience.query_scope("query:count"):
-            return int(self._run_with_quarantine_fallback(lambda phys: phys.execute_count(ExecContext(self.session))))
+            with tracing.query_span("query:count") as root:
+                n = int(self._run_with_quarantine_fallback(lambda phys: phys.execute_count(ExecContext(self.session))))
+                root.set_attr("rows_out", n)
+                accounting.set_value("rows_produced", n)
+                return n
 
     def to_pydict(self) -> Dict[str, list]:
         return self.collect().to_pydict()
@@ -203,10 +241,15 @@ class DataFrame:
 
     def explain(self, analyze: bool = False, redirect=None):
         """The physical plan tree, returned, or passed to `redirect` (e.g.
-        `print`) when one is given. `analyze=True` is not ported yet."""
+        `print`) when one is given. `analyze=True` executes the query once
+        under a trace and annotates the tree with what each node did
+        (`plananalysis.analyze`)."""
         if analyze:
-            raise not_in_slice("explain(analyze=True)")
-        s = self.explain_string()
+            from ..plananalysis.analyze import explain_analyze_string
+
+            s = explain_analyze_string(self)
+        else:
+            s = self.explain_string()
         if redirect is not None:
             redirect(s)
             return None
@@ -377,9 +420,12 @@ class HyperspaceSession:
     def optimize(self, plan: LogicalPlan) -> LogicalPlan:
         """Filters sink below computed columns first, so that the rules meet
         `Filter > Scan` (`session.optimize` :593); then each rule runs."""
+        from ..telemetry import tracing
+
         plan = push_filters_below_computed(plan)
         for rule in self.extra_optimizations:
-            plan = rule.apply(plan, self)
+            with tracing.span(f"rule:{type(rule).__name__}"):
+                plan = rule.apply(plan, self)
         return plan
 
     def write_parquet(self, data, path: str, row_group_rows: Optional[int] = None) -> None:

@@ -59,6 +59,11 @@ class QueryTimeoutError(HyperspaceException):
         self.timeout_s = timeout_s
 
 
+class CompileTimeoutError(QueryTimeoutError):
+    """The kernel library's build ran past `HYPERSPACE_COMPILE_TIMEOUT_S`;
+    its `nvcc` processes were killed."""
+
+
 class RetryBudgetExceededError(PermanentError):
     """One query spent its retry budget (`HYPERSPACE_QUERY_RETRY_BUDGET`):
     each site's fault is transient, but the query's is systemic."""

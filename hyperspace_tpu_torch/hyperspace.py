@@ -6,7 +6,8 @@ The facade creates covering and data-skipping indexes, refreshes, compacts
 (`optimize_index`, covering indexes only), deletes, restores, vacuums,
 cancels and lists them, and explains a query's plan with them and without.
 Create, refresh and optimize each run in a `resilience.query_scope` of their
-own: one deadline and retry budget for the build."""
+own (one deadline and retry budget for the build) and a root span of their
+own (`build:create_index`, `build:refresh_index`, `build:optimize_index`)."""
 
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import os
 from typing import Optional, Union
 
 from . import resilience
+from .telemetry import tracing
 from .config import ENV_REFRESH_MODE
 from .engine.session import DataFrame, HyperspaceSession
 from .engine.table import Table
@@ -46,7 +48,8 @@ class Hyperspace:
 
     def create_index(self, df: DataFrame, index_config: Union[IndexConfig, DataSkippingIndexConfig]) -> None:
         with resilience.query_scope("build:create_index"):
-            self._manager.create(df, index_config)
+            with tracing.query_span("build:create_index", index_name=index_config.index_name):
+                self._manager.create(df, index_config)
 
     def delete_index(self, index_name: str) -> None:
         self._manager.delete(index_name)
@@ -62,15 +65,18 @@ class Hyperspace:
         files and fold the deleted ones through lineage; "auto": incremental
         when it can, full when it cannot, nothing when the index is fresh.
         None takes `HYPERSPACE_REFRESH_MODE`, else "full"."""
+        mode = mode or os.environ.get(ENV_REFRESH_MODE) or "full"
         with resilience.query_scope("build:refresh_index"):
-            self._manager.refresh(index_name, mode or os.environ.get(ENV_REFRESH_MODE) or "full")
+            with tracing.query_span("build:refresh_index", index_name=index_name, mode=mode):
+                self._manager.refresh(index_name, mode)
 
     def optimize_index(self, index_name: str, mode: str = "quick") -> None:
         """Merge each bucket's index files into one ("quick": the files below
         `hyperspace.index.optimize.fileSizeThreshold`; "full": all), and
         drop the rows of folded deleted source files."""
         with resilience.query_scope("build:optimize_index"):
-            self._manager.optimize(index_name, mode)
+            with tracing.query_span("build:optimize_index", index_name=index_name, mode=mode):
+                self._manager.optimize(index_name, mode)
 
     def cancel(self, index_name: str) -> None:
         self._manager.cancel(index_name)

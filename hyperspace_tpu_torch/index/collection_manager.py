@@ -27,6 +27,7 @@ from ..actions.optimize import OptimizeAction
 from ..actions.refresh import NothingToRefreshError, RefreshAction, RefreshIncrementalAction
 from ..engine.table import Table
 from ..exceptions import HyperspaceException
+from ..telemetry.event_logging import EventLoggerFactory
 from . import quarantine
 from .builder import CoveringIndexBuilder
 from .dataskipping import DATA_SKIPPING_KIND, DataSkippingIndexBuilder, DataSkippingIndexConfig
@@ -70,6 +71,12 @@ class IndexCollectionManager:
             raise HyperspaceException(f"Index with name {name} could not be found.")
         return log_mgr, data_mgr, index_path
 
+    def _run(self, action) -> None:
+        """Run `action` with the session's event logger
+        (`hyperspace.eventLoggerClass`)."""
+        action.event_logger = EventLoggerFactory.get_logger(self._session.hs_conf.event_logger_class)
+        action.run()
+
     @staticmethod
     def _next_data_path(data_mgr) -> str:
         latest = data_mgr.get_latest_version_id()
@@ -87,10 +94,10 @@ class IndexCollectionManager:
 
     def create(self, df, index_config: IndexConfig) -> None:
         log_mgr, data_mgr, index_path = self._managers_for(index_config.index_name)
-        CreateAction(
+        self._run(CreateAction(
             df, index_config, self._builder_for_config(index_config), log_mgr, index_path,
             self._next_data_path(data_mgr),
-        ).run()
+        ))
         quarantine.clear(index_config.index_name)  # fresh data supersedes corrupt files
 
     def refresh(self, index_name: str, mode: str = "full") -> None:
@@ -119,7 +126,7 @@ class IndexCollectionManager:
                 action = make(RefreshAction)  # the documented remedy of a quarantined index
             except HyperspaceException:
                 action = make(RefreshAction)
-        action.run()
+        self._run(action)
         quarantine.clear(index_name)
 
     def optimize(self, index_name: str, mode: str = "quick") -> None:
@@ -127,26 +134,26 @@ class IndexCollectionManager:
         directory (:206-225): mode "quick" merges the small files, "full"
         every file."""
         log_mgr, data_mgr, _ = self._existing_log_manager(index_name)
-        OptimizeAction(self._session, log_mgr, self._next_data_path(data_mgr), mode).run()
+        self._run(OptimizeAction(self._session, log_mgr, self._next_data_path(data_mgr), mode))
         quarantine.clear(index_name)
 
     def delete(self, index_name: str) -> None:
         log_mgr, _, _ = self._existing_log_manager(index_name)
-        DeleteAction(log_mgr).run()
+        self._run(DeleteAction(log_mgr))
 
     def restore(self, index_name: str) -> None:
         log_mgr, _, _ = self._existing_log_manager(index_name)
-        RestoreAction(log_mgr).run()
+        self._run(RestoreAction(log_mgr))
 
     def vacuum(self, index_name: str) -> None:
         log_mgr, data_mgr, index_path = self._existing_log_manager(index_name)
-        VacuumAction(data_mgr, log_mgr).run()
+        self._run(VacuumAction(data_mgr, log_mgr))
         reclaim_orphans(index_path)
         quarantine.clear(index_name)
 
     def cancel(self, index_name: str) -> None:
         log_mgr, _, _ = self._existing_log_manager(index_name)
-        CancelAction(log_mgr).run()
+        self._run(CancelAction(log_mgr))
 
     def get_indexes(self, states_filter: Optional[Sequence[str]] = None) -> List[IndexLogEntry]:
         """Latest entry of every index, filtered by state. A transient latest

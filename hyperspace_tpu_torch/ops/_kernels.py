@@ -6,6 +6,11 @@ interface, and loaded with `ctypes`. The build runs at first use, into
 `build/hyperspace_tpu_torch/` beside the package, keyed by a hash of the
 sources and flags, so an edit rebuilds and an unchanged tree reuses the
 library. No PyTorch header is compiled: a build takes seconds.
+
+A build runs through `telemetry.compile_log.observed_build` (timed, counted,
+the `device.compile` fault point), and `HYPERSPACE_COMPILE_TIMEOUT_S` bounds
+its `nvcc` processes: past it they are killed and a `CompileTimeoutError`
+is raised.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ import ctypes
 import hashlib
 import os
 import shutil
+import signal
 import subprocess
 import tempfile
 import threading
@@ -68,9 +74,47 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _popen(cmd) -> subprocess.Popen:
+    """A compiler process in a session of its own, so that `_kill` also ends
+    the tools it starts (cicc, ptxas)."""
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, start_new_session=True)
+
+
+def _kill(p: subprocess.Popen) -> None:
+    try:
+        os.killpg(p.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    p.communicate()
+
+
+def _communicate(p: subprocess.Popen, cmd, deadline: Optional[float]) -> bytes:
+    """`p`'s output, waiting at most until `deadline` (monotonic seconds)."""
+    from ..exceptions import CompileTimeoutError
+    from ..telemetry import compile_log
+
+    try:
+        out, _ = p.communicate(timeout=None if deadline is None else max(0.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        _kill(p)
+        compile_log.note_deadline_exceeded()
+        limit = compile_log.compile_timeout_s()
+        raise CompileTimeoutError(
+            f"{' '.join(cmd)} did not finish within HYPERSPACE_COMPILE_TIMEOUT_S={limit:g}s",
+            elapsed_s=limit, timeout_s=limit,
+        ) from None
+    if p.returncode != 0:
+        raise RuntimeError(f"{' '.join(cmd)} failed:\n{out.decode(errors='replace')}")
+    return out
+
+
 def _build(target: str) -> None:
     global build_seconds
+    from ..telemetry import compile_log
+
     t0 = time.monotonic()
+    limit = compile_log.compile_timeout_s()
+    deadline = t0 + limit if limit > 0 else None
     nvcc = _nvcc()
     os.makedirs(_BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
@@ -79,16 +123,17 @@ def _build(target: str) -> None:
             obj = os.path.join(tmp, name + ".o")
             objs.append(obj)
             cmd = [nvcc, *_FLAGS, "-c", os.path.join(_CSRC, name), "-o", obj]
-            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-        for cmd, p in procs:
-            out, _ = p.communicate()
-            if p.returncode != 0:
-                raise RuntimeError(f"{' '.join(cmd)} failed:\n{out.decode(errors='replace')}")
+            procs.append((cmd, _popen(cmd)))
+        try:
+            for cmd, p in procs:
+                _communicate(p, cmd, deadline)
+        finally:
+            for _, p in procs:  # a failed or timed-out build leaves no compiler running
+                if p.poll() is None:
+                    _kill(p)
         lib_tmp = os.path.join(tmp, "lib.so")
         cmd = [nvcc, *_FLAGS, "-shared", *objs, "-o", lib_tmp]
-        p = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-        if p.returncode != 0:
-            raise RuntimeError(f"{' '.join(cmd)} failed:\n{p.stdout.decode(errors='replace')}")
+        _communicate(_popen(cmd), cmd, deadline)
         os.replace(lib_tmp, target)  # atomic: a concurrent loader sees all or nothing
     build_seconds = time.monotonic() - t0
 
@@ -102,7 +147,9 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             target = os.path.join(_BUILD_DIR, f"libhyperspace_tpu_torch_{_digest()}.so")
             if not os.path.exists(target):
-                _build(target)
+                from ..telemetry import compile_log
+
+                compile_log.observed_build(_build, target)
             lib = ctypes.CDLL(target)
             for fn, argtypes in _SIGNATURES.items():
                 getattr(lib, fn).argtypes = list(argtypes)

@@ -44,6 +44,7 @@ from .cuda_packed_probe import probe_packed
 from .cuda_packed_sort import sort_codes_packed
 from .cuda_probe import range_probe
 from .cuda_sort import sort_rows
+from ..telemetry import device_observatory as _devobs
 from .join import host_merge_pairs
 
 _PAD = torch.iinfo(torch.int64).max
@@ -247,6 +248,8 @@ def _build_side(vals: torch.Tensor, starts: np.ndarray, ids: np.ndarray, mode: s
     lens_t[: len(ids)] = torch.as_tensor(lens, device=dev)
     gstarts = torch.zeros(b_pad, dtype=torch.int64, device=dev)
     gstarts[: len(ids)] = torch.as_tensor(starts[ids].astype(np.int64), device=dev)
+    rows, item = int(lens.sum()), vals.element_size()
+    _devobs.record_pad("join_class", rows * item, (b_pad * cap - rows) * item)
     if mode == "hash":
         keys, order = pad_buckets_by_hash(vals, gstarts, lens_t, cap)
         return _ClassSide(keys, lens_t, order, gstarts, cap)
@@ -467,6 +470,8 @@ def pad_buckets_by_codes(
     padded, lengths = _pad_scatter_codes(codes, starts, num_buckets, cap, bits)
     sorted_codes, order = sort_codes_packed(pack_rows(padded, bits), bits)
     words = pack_rows(sorted_codes, bits)
+    rows = int(starts_np[-1])
+    _devobs.record_pad("join_buckets", -(-rows * bits // 8), -(-(num_buckets * cap - rows) * bits // 8))
     return PackedCodeBuckets(words, bits, lengths, order, starts_np, cap)
 
 

@@ -13,10 +13,11 @@ from __future__ import annotations
 
 import torch
 
+from ..telemetry import compile_log as _compile_log
 from . import _kernels
 
-#: Launches of the CUDA kernel since the count was last set to 0.
-launches = 0
+#: The launch label (K3); `launches` is its registry count (read-only).
+LABEL = _compile_log.LABELS["K3"]
 
 #: Keys per block of a radix pass: 2048 spreads a 262,144-key row over 128
 #: blocks; from 2^21 keys a matrix takes 4096, which halves the blocks' fixed
@@ -36,7 +37,6 @@ def sort_comp_rows(v: torch.Tensor) -> torch.Tensor:
     """Each row of an int32 [B, cap] matrix (cap a power of two) ascending."""
     if v.device.type == "cpu":
         return sort_comp_rows_plain(v)
-    global launches
     if v.device.type != "cuda":
         raise ValueError(f"sort_comp_rows: unsupported device {v.device}")
     if v.dtype != torch.int32 or v.dim() != 2 or not v.is_contiguous():
@@ -59,10 +59,14 @@ def sort_comp_rows(v: torch.Tensor) -> torch.Tensor:
     work = torch.empty(scratch_words + status_words + rows * _PASSES * _DIGITS // 2 + _PASSES // 2,
                        dtype=torch.int64, device=v.device)
     scratch = work.data_ptr()
-    err = _kernels.library().hs_comp_sort(
-        v.data_ptr(), out.data_ptr(), scratch, scratch + 8 * scratch_words, rows, cap, tile,
-        _kernels.stream(v.device),
-    )
-    _kernels.check(err, "hs_comp_sort")
-    launches += 1
+    lib = _kernels.library()  # built before the probe: a build is no device time
+    with _compile_log.observed_launch(LABEL, v.device):
+        err = lib.hs_comp_sort(
+            v.data_ptr(), out.data_ptr(), scratch, scratch + 8 * scratch_words, rows, cap, tile,
+            _kernels.stream(v.device),
+        )
+        _kernels.check(err, "hs_comp_sort")
     return out
+
+
+_compile_log.launch_view(__name__, LABEL)

@@ -15,11 +15,12 @@ from typing import Tuple
 import torch
 
 from ..engine.packed_codes import PACKED_BITS, lanes_per_word, unpack_rows
+from ..telemetry import compile_log as _compile_log
 from . import _kernels
-from .cuda_probe import range_probe_plain
 
-#: Launches of the CUDA kernel since the count was last set to 0.
-launches = 0
+#: The launch label (K5); `launches` is its registry count (read-only).
+LABEL = _compile_log.LABELS["K5"]
+from .cuda_probe import range_probe_plain
 
 
 def probe_packed_plain(lw, rw, bits: int, l_len, r_len) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -35,7 +36,6 @@ def probe_packed(lw, rw, bits: int, l_len, r_len) -> Tuple[torch.Tensor, torch.T
         raise ValueError(f"probe_packed: bits must be one of {PACKED_BITS}, got {bits}")
     if lw.device.type == "cpu":
         return probe_packed_plain(lw, rw, bits, l_len, r_len)
-    global launches
     dev = lw.device
     if dev.type != "cuda" or rw.device != dev:
         raise ValueError(f"probe_packed: unsupported devices {dev}, {rw.device}")
@@ -54,12 +54,13 @@ def probe_packed(lw, rw, bits: int, l_len, r_len) -> Tuple[torch.Tensor, torch.T
     if rows == 0 or cap_l == 0:
         return out.unbind(0)
     lo_ptr = out.data_ptr()
-    err = _kernels.library().hs_packed_probe(
-        lw.data_ptr(), rw.data_ptr(), l_len.data_ptr(), r_len.data_ptr(), lo_ptr, lo_ptr + 4 * rows * cap_l,
-        rows, cap_l, cap_r, bits, l_len.dtype == torch.int64, _kernels.stream(dev),
-    )
-    _kernels.check(err, "hs_packed_probe")
-    launches += 1
+    lib = _kernels.library()  # built before the probe: a build is no device time
+    with _compile_log.observed_launch(LABEL, dev):
+        err = lib.hs_packed_probe(
+            lw.data_ptr(), rw.data_ptr(), l_len.data_ptr(), r_len.data_ptr(), lo_ptr, lo_ptr + 4 * rows * cap_l,
+            rows, cap_l, cap_r, bits, l_len.dtype == torch.int64, _kernels.stream(dev),
+        )
+        _kernels.check(err, "hs_packed_probe")
     return out.unbind(0)
 
 
@@ -71,3 +72,6 @@ def _lengths(l_len, r_len, device):
             or l_len.device != device or r_len.device != device):
         l_len, r_len = (x.to(device=device, dtype=torch.int64) for x in (l_len, r_len))
     return l_len.contiguous(), r_len.contiguous()
+
+
+_compile_log.launch_view(__name__, LABEL)

@@ -18,10 +18,11 @@ from typing import Tuple
 import torch
 
 from ..engine.packed_codes import PACKED_BITS, lanes_per_word, unpack_rows
+from ..telemetry import compile_log as _compile_log
 from . import _kernels
 
-#: Launches of the CUDA kernel since the count was last set to 0.
-launches = 0
+#: The launch label (K4); `launches` is its registry count (read-only).
+LABEL = _compile_log.LABELS["K4"]
 
 #: Slots a block of the kernel sorts; longer rows are cut into chunks of this
 #: many, counted by a first launch.
@@ -43,7 +44,6 @@ def sort_codes_packed(words: torch.Tensor, bits: int) -> Tuple[torch.Tensor, tor
         raise ValueError(f"sort_codes_packed: bits must be one of {PACKED_BITS}, got {bits}")
     if words.device.type == "cpu":
         return sort_codes_packed_plain(words, bits)
-    global launches
     if words.device.type != "cuda":
         raise ValueError(f"sort_codes_packed: unsupported device {words.device}")
     if words.dtype != torch.int32 or words.dim() != 2 or not words.is_contiguous():
@@ -63,10 +63,14 @@ def sort_codes_packed(words: torch.Tensor, bits: int) -> Tuple[torch.Tensor, tor
     if rows == 0:
         return codes, order
     base = out.data_ptr()
-    err = _kernels.library().hs_packed_sort(
-        words.data_ptr(), base, base + 4 * n, base + 8 * n if hist else None, rows, cap, bits, CHUNK_SLOTS,
-        _kernels.stream(words.device),
-    )
-    _kernels.check(err, "hs_packed_sort")
-    launches += 1
+    lib = _kernels.library()  # built before the probe: a build is no device time
+    with _compile_log.observed_launch(LABEL, words.device):
+        err = lib.hs_packed_sort(
+            words.data_ptr(), base, base + 4 * n, base + 8 * n if hist else None, rows, cap, bits, CHUNK_SLOTS,
+            _kernels.stream(words.device),
+        )
+        _kernels.check(err, "hs_packed_sort")
     return codes, order
+
+
+_compile_log.launch_view(__name__, LABEL)

@@ -15,10 +15,11 @@ from typing import Tuple
 
 import torch
 
+from ..telemetry import compile_log as _compile_log
 from . import _kernels
 
-#: Launches of the CUDA kernel since the count was last set to 0.
-launches = 0
+#: The launch label (K2); `launches` is its registry count (read-only).
+LABEL = _compile_log.LABELS["K2"]
 
 _WIDEN = (torch.int8, torch.int16, torch.int32)
 
@@ -47,7 +48,6 @@ def range_probe(ls, rs, l_len, r_len) -> Tuple[torch.Tensor, torch.Tensor]:
     Lengths clamp to [0, cap] (on the card inside the kernel, with no sync)."""
     if ls.device.type == "cpu":
         return range_probe_plain(ls, rs, l_len, r_len)
-    global launches
     if ls.device.type != "cuda" or rs.device != ls.device:
         raise ValueError(f"range_probe: unsupported devices {ls.device}, {rs.device}")
     if ls.dtype in _WIDEN:
@@ -73,13 +73,16 @@ def range_probe(ls, rs, l_len, r_len) -> Tuple[torch.Tensor, torch.Tensor]:
     lo, counts = torch.empty((2, rows, cap_l), dtype=torch.int32, device=ls.device)
     if rows == 0 or cap_l == 0:
         return lo, counts
-    lib = _kernels.library()
-    fn = lib.hs_range_probe_i64 if ls.dtype == torch.int64 else lib.hs_range_probe_f64
-    err = fn(
-        ls.data_ptr(), rs.data_ptr(), l_len.data_ptr(), r_len.data_ptr(),
-        lo.data_ptr(), counts.data_ptr(), rows, cap_l, cap_r,
-        _kernels.stream(ls.device),
-    )
-    _kernels.check(err, "hs_range_probe")
-    launches += 1
+    lib = _kernels.library()  # built before the probe: a build is no device time
+    with _compile_log.observed_launch(LABEL, ls.device):
+        fn = lib.hs_range_probe_i64 if ls.dtype == torch.int64 else lib.hs_range_probe_f64
+        err = fn(
+            ls.data_ptr(), rs.data_ptr(), l_len.data_ptr(), r_len.data_ptr(),
+            lo.data_ptr(), counts.data_ptr(), rows, cap_l, cap_r,
+            _kernels.stream(ls.device),
+        )
+        _kernels.check(err, "hs_range_probe")
     return lo, counts
+
+
+_compile_log.launch_view(__name__, LABEL)

@@ -14,10 +14,11 @@ from typing import Tuple
 
 import torch
 
+from ..telemetry import compile_log as _compile_log
 from . import _kernels
 
-#: Launches of the CUDA kernel since the count was last set to 0.
-launches = 0
+#: The launch label (K1); `launches` is its registry count (read-only).
+LABEL = _compile_log.LABELS["K1"]
 
 #: Pairs a block of the kernel sorts in shared memory (4096 or 8192): a row of
 #: up to a tile is sorted in one launch, longer rows add one merge pass over
@@ -36,7 +37,6 @@ def sort_rows(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     matrix whose cap is a power of two."""
     if keys.device.type == "cpu":
         return sort_rows_plain(keys)
-    global launches
     if keys.device.type != "cuda":
         raise ValueError(f"sort_rows: unsupported device {keys.device}")
     if keys.dtype != torch.int64 or keys.dim() != 2:
@@ -54,11 +54,15 @@ def sort_rows(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     # The merge passes ping-pong through a scratch copy of both outputs
     # (rows * cap int64 keys, then as many int32 slots).
     scratch = torch.empty(rows * cap * 3 // 2, dtype=torch.int64, device=keys.device) if cap > tile else None
-    err = _kernels.library().hs_bucket_sort(
-        keys.data_ptr(), out_keys.data_ptr(), order.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), rows, cap, tile,
-        _kernels.stream(keys.device),
-    )
-    _kernels.check(err, "hs_bucket_sort")
-    launches += 1
+    lib = _kernels.library()  # built before the probe: a build is no device time
+    with _compile_log.observed_launch(LABEL, keys.device):
+        err = lib.hs_bucket_sort(
+            keys.data_ptr(), out_keys.data_ptr(), order.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), rows, cap, tile,
+            _kernels.stream(keys.device),
+        )
+        _kernels.check(err, "hs_bucket_sort")
     return out_keys, order
+
+
+_compile_log.launch_view(__name__, LABEL)

@@ -19,12 +19,15 @@ answers its flag's default.
 port has no gate for it: its kernels are built once for every shape, so a
 pow2 padding of hashed batches buys nothing.
 
-Not ported yet: the outcome store that learns from measured walls (ROADMAP
-Queue 1 item 6) and the plan fingerprints it keys on (item 5). Until then a
-query planned with `HYPERSPACE_PLANNER_DIR` set or `HYPERSPACE_HISTORY=1`
-raises `not_in_slice` rather than model without learning. The decisions of
-the last planned query are kept for the tests (`last_decisions`) until the
-ledger comes with item 5.
+The decisions land on the query's ledger and root span (`_record`, the
+ledger's `planner` field), and at the ledger's close `annotate_close` adds
+the measured wall and each knob's drift, at stage grain too. `observe`
+feeds a measured wall to the outcome store, which is not ported yet (ROADMAP
+Queue 1 item 6): it returns where the JAX package's returns with no store
+configured. Until the store comes, a query planned with
+`HYPERSPACE_PLANNER_DIR` set or `HYPERSPACE_HISTORY=1` raises
+`not_in_slice` rather than model without learning. The decisions of the
+last planned query stay readable for the tests (`last_decisions`).
 """
 
 from __future__ import annotations
@@ -195,6 +198,7 @@ def _decide(phys, fingerprint: Optional[str], device) -> PlanDecisions:
         else:
             decisions[knob] = Decision(knob, model_v, alt_v, pred_m, pred_a, "model")
     pd = PlanDecisions(fingerprint, decisions, cal.source)
+    _record(pd)
     with _activity_lock:
         for knob, d in decisions.items():
             if d.source != "pinned":
@@ -202,6 +206,52 @@ def _decide(phys, fingerprint: Optional[str], device) -> PlanDecisions:
                 a["decisions"] += 1
         _last = pd
     return pd
+
+
+def _record(pd: PlanDecisions) -> None:
+    """The decisions on the ambient ledger and span, at decide time."""
+    try:
+        from ..telemetry import accounting, tracing
+
+        d = pd.to_ledger()
+        accounting.set_value("planner", d)
+        sp = tracing.current_span()
+        if sp is not None:
+            sp.set_attr("planner", d)
+    except Exception:
+        pass
+
+
+def observe(pd: Optional[PlanDecisions], wall_s: float, pruning=None, stages=None) -> None:
+    """Feed one query's measured wall (and stage walls) to the outcome
+    store. No store is ported, so this returns as the JAX package's does
+    with none configured (`planner.observe` :677-681)."""
+
+
+def annotate_close(led, wall_s: float) -> None:
+    """At the ledger's close: the measured wall beside the decisions, each
+    knob's `drift_x`, and with stage vectors its `stage_actual_s` and
+    `stage_drift_x` (`planner.annotate_close`; no history baseline)."""
+    from . import attribution as _attribution
+
+    p = led.get("planner")
+    if not isinstance(p, dict):
+        return
+    p["actual_wall_s"] = round(float(wall_s), 6)
+    stages = led.get("stages")
+    stage_walls = None
+    if isinstance(stages, dict) and stages:
+        stage_walls = {st: vec.get("wall_s", 0.0) for st, vec in stages.items()
+                       if isinstance(vec, dict) and vec.get("wall_s")}
+    for knob, d in p.items():
+        if isinstance(d, dict) and isinstance(d.get("predicted_s"), (int, float)):
+            pred = d["predicted_s"]
+            d["drift_x"] = round(wall_s / pred, 3) if pred and pred > 0 else None
+            if stage_walls:
+                stage_s = _attribution.knob_stage_seconds(knob, stage_walls)
+                if stage_s is not None:
+                    d["stage_actual_s"] = round(stage_s, 6)
+                    d["stage_drift_x"] = round(stage_s / pred, 3) if pred and pred > 0 else None
 
 
 def last_decisions() -> Optional[PlanDecisions]:

@@ -17,9 +17,12 @@ retry budgets (counterpart of `hyperspace_tpu/resilience.py`).
 - `use_scope(scope)` adopts a scope on a pool thread (a worker starts in a
   fresh context; its submitter hands over `current_scope()`).
 
-The counters are plain module counters (`counters()`); the JAX package's
-ledger, spans, serving lanes and yield hook (`lane_scope`,
-`register_yield_hook`) wait for the port's serving layer.
+The counters live in the metrics registry (`io.retries.attempts`,
+`io.retries.exhausted`, `io.retries.<point>`, `query.timeouts`;
+`counters()` reads them); a retry is also charged to the query's ledger
+(`io_retries`) and to the ambient span. The scope carries the query's stage
+ledger (`telemetry.stage_ledger`). The JAX package's serving lanes and yield
+hook (`lane_scope`, `register_yield_hook`) wait for the port's serving layer.
 """
 
 from __future__ import annotations
@@ -33,6 +36,9 @@ import time
 from typing import Callable, Dict, Iterator, Optional, TypeVar
 
 from .exceptions import QueryTimeoutError, RetryBudgetExceededError, is_transient
+from .telemetry import accounting as _accounting
+from .telemetry import metrics as _metrics
+from .telemetry import tracing as _tracing
 
 ENV_IO_RETRIES = "HYPERSPACE_IO_RETRIES"
 ENV_RETRY_BACKOFF_S = "HYPERSPACE_RETRY_BACKOFF_S"
@@ -44,25 +50,26 @@ _DEFAULT_BACKOFF_S = 0.02
 _DEFAULT_RETRY_BUDGET = 256
 _BACKOFF_CAP_S = 2.0
 
-_counts_lock = threading.Lock()
-_COUNTS: Dict[str, int] = {}
+_RETRY_ATTEMPTS = _metrics.counter("io.retries.attempts")
+_RETRY_EXHAUSTED = _metrics.counter("io.retries.exhausted")
+_TIMEOUTS = _metrics.counter("query.timeouts")
 
 
-def _tick(name: str, n: int = 1) -> None:
-    with _counts_lock:
-        _COUNTS[name] = _COUNTS.get(name, 0) + n
+def _is_resilience_counter(name: str) -> bool:
+    return name.startswith("io.retries.") or name == "query.timeouts"
 
 
 def counters() -> Dict[str, int]:
-    """`io.retries.attempts`, `io.retries.exhausted`, `io.retries.<point>`
-    and `query.timeouts` since start (or `reset_counters`)."""
-    with _counts_lock:
-        return dict(_COUNTS)
+    """The registry's `io.retries.attempts`, `io.retries.exhausted`,
+    `io.retries.<point>` and `query.timeouts` that are not 0."""
+    return {n: v for n, v in _metrics.snapshot()["counters"].items() if v and _is_resilience_counter(n)}
 
 
 def reset_counters() -> None:
-    with _counts_lock:
-        _COUNTS.clear()
+    """Zero those registry counters (tests)."""
+    for n in _metrics.snapshot()["counters"]:
+        if _is_resilience_counter(n):
+            _metrics.counter(n).reset()
 
 
 def max_retries() -> int:
@@ -100,7 +107,8 @@ def query_timeout_s() -> Optional[float]:
 class QueryScope:
     """Deadline, retry budget and planner decisions of one root action."""
 
-    __slots__ = ("name", "start_mono", "deadline_mono", "timeout_s", "_lock", "retries", "plan_decisions")
+    __slots__ = ("name", "start_mono", "deadline_mono", "timeout_s", "_lock", "retries", "plan_decisions",
+                 "stage_ledger")
 
     def __init__(self, name: str, timeout_s: Optional[float]):
         self.name = name
@@ -112,6 +120,9 @@ class QueryScope:
         #: The planner's `PlanDecisions` of the running query, so that pool
         #: workers that adopt the scope see the same decisions.
         self.plan_decisions = None
+        #: The query's per-stage cost vectors (`telemetry.stage_ledger`),
+        #: made at the first stage bracket; every adopting worker bills it.
+        self.stage_ledger = None
 
     def charge_retry(self) -> int:
         with self._lock:
@@ -165,7 +176,7 @@ def check_deadline(where: str = "") -> None:
     now = time.monotonic()
     if now < sc.deadline_mono:
         return
-    _tick("query.timeouts")
+    _TIMEOUTS.inc()
     elapsed = now - sc.start_mono
     at = f" at {where}" if where else ""
     raise QueryTimeoutError(
@@ -185,16 +196,17 @@ def remaining_s() -> Optional[float]:
 
 
 def reliability_rollup(snapshot: Optional[dict] = None) -> dict:
-    """The reliability summary (`resilience.reliability_rollup` :266) over
-    `counters()` (or a snapshot of it), the fault counters and the
-    quarantine."""
+    """The reliability summary (`resilience.reliability_rollup` :266) over a
+    `metrics.snapshot()` (taken now when none is given; a `counters()` dict
+    is read as its counters) and the quarantine."""
     from .index import quarantine as _quarantine
-    from .telemetry import faults as _faults
 
-    c = counters() if snapshot is None else snapshot
+    if snapshot is None:
+        snapshot = _metrics.snapshot()
+    c = snapshot.get("counters", snapshot)
     q = _quarantine.stats()
     return {
-        "faults_injected": _faults.injected_count(),
+        "faults_injected": c.get("faults.injected", 0),
         "io_retries": c.get("io.retries.attempts", 0),
         "retries_exhausted": c.get("io.retries.exhausted", 0),
         "query_timeouts": c.get("query.timeouts", 0),
@@ -220,7 +232,7 @@ def retry_io(point: str, fn: Callable[[], T]) -> T:
             transient = is_transient(e)
             if not transient or attempt >= retries:
                 if transient:
-                    _tick("io.retries.exhausted")
+                    _RETRY_EXHAUSTED.inc()
                 raise
             attempt += 1
             sc = _scope.get()
@@ -229,8 +241,12 @@ def retry_io(point: str, fn: Callable[[], T]) -> T:
                     f"query '{sc.name}' exceeded its retry budget "
                     f"({retry_budget()} retries; HYPERSPACE_QUERY_RETRY_BUDGET)"
                 ) from e
-            _tick("io.retries.attempts")
-            _tick(f"io.retries.{point}")
+            _RETRY_ATTEMPTS.inc()
+            _metrics.counter(f"io.retries.{point}").inc()
+            _accounting.add("io_retries", 1)
+            sp = _tracing.current_span()
+            if sp is not None:
+                sp.inc_attr("io_retries", 1)
             delay = min(_backoff_base_s() * (2 ** (attempt - 1)), _BACKOFF_CAP_S) * (0.5 + random.random())
             rem = remaining_s()
             if rem is not None:

@@ -24,7 +24,6 @@ item 12).
 from __future__ import annotations
 
 import json
-import logging
 import math
 from typing import Dict, List, Optional
 
@@ -46,7 +45,9 @@ from ..index.dataskipping import (
 )
 from ..index.log_entry import IndexLogEntry
 from ..util.resolver_utils import resolution_key
-from .rule_utils import get_candidate_indexes
+from ..telemetry.event_logging import log_event
+from ..telemetry.events import HyperspaceIndexUsageEvent
+from .rule_utils import get_candidate_indexes, log_rule_failure, record_rule_decision
 
 _MINMAX_OPS = ("==", "<", "<=", ">", ">=")
 _BLOOM_OPS = ("==", "in")
@@ -160,7 +161,7 @@ class DataSkippingFilterRule:
                 # leaves the scan itself, so deletes need no lineage.
                 candidates = get_candidate_indexes(
                     index_manager, scan, hybrid_scan=session.hs_conf.hybrid_scan_enabled,
-                    kind=DATA_SKIPPING_KIND, deletes_without_lineage_ok=True,
+                    kind=DATA_SKIPPING_KIND, deletes_without_lineage_ok=True, rule_name="DataSkippingFilterRule",
                 )
                 if not candidates:
                     return node
@@ -169,6 +170,8 @@ class DataSkippingFilterRule:
                     return node
                 kept = self._kept_files(scan.relation, candidates, conjuncts, cs)
                 if kept is None:
+                    record_rule_decision("DataSkippingFilterRule", False, reason="no-files-pruned",
+                                         candidates=[c.entry.name for c in candidates])
                     return node
                 files, used = kept
                 rel = scan.relation
@@ -176,13 +179,19 @@ class DataSkippingFilterRule:
                     root_paths=list(rel.root_paths), file_format=rel.file_format, schema=rel.schema,
                     files=files, options=dict(rel.options), pruned_by=used, partition_spec=rel.partition_spec,
                 )
-                return FilterNode(node.condition, ScanNode(pruned))
+                new_node = FilterNode(node.condition, ScanNode(pruned))
+                n_pruned = len(rel.files) - len(files)
+                record_rule_decision("DataSkippingFilterRule", True, indexes=used, files_pruned=n_pruned,
+                                     files_total=len(rel.files))
+                log_event(session, HyperspaceIndexUsageEvent(
+                    index_names=used, plan_before=node.tree_string(), plan_after=new_node.tree_string(),
+                    message=f"Data skipping index applied ({n_pruned} of {len(rel.files)} files pruned).",
+                ))
+                return new_node
 
             return plan.transform_up(rewrite)
         except Exception as e:  # never break the user's query over an index problem
-            logging.getLogger("hyperspace_tpu_torch.rules").warning(
-                "DataSkippingFilterRule failed; query falls back to the original plan: %s: %s", type(e).__name__, e
-            )
+            log_rule_failure(session, "DataSkippingFilterRule", e)
             return plan
 
     def _kept_files(self, rel: SourceRelation, candidates, conjuncts, cs: bool) -> Optional[tuple]:

@@ -25,12 +25,12 @@ Parity: `hyperspace_tpu/rules/filter_index_rule.py` (reference
 - ranking: the least source drift first (appended and deleted files, each
   costs work per query), then first-candidate (:300-303);
 - any exception returns the original plan (:74-78).
-Usage events are not ported.
+Each match records its decision (`record_rule_decision`); an applied
+rewrite logs a `HyperspaceIndexUsageEvent`, a failure `log_rule_failure`.
 """
 
 from __future__ import annotations
 
-import logging
 import os
 import re
 from typing import List
@@ -44,7 +44,16 @@ from ..engine.table import Column
 from ..index.log_entry import IndexLogEntry
 from ..ops.hashing import bucket_id
 from ..util.resolver_utils import resolve, resolve_all
-from .rule_utils import _index_relation, get_candidate_indexes, index_files_as_statuses, lineage_prune_condition
+from ..telemetry.event_logging import log_event
+from ..telemetry.events import HyperspaceIndexUsageEvent
+from .rule_utils import (
+    _index_relation,
+    get_candidate_indexes,
+    index_files_as_statuses,
+    lineage_prune_condition,
+    log_rule_failure,
+    record_rule_decision,
+)
 
 
 def _extract_filter_node(plan: LogicalPlan):
@@ -90,11 +99,14 @@ class FilterIndexRule:
                     return node  # already rewritten
                 output_columns = project.column_names if project is not None else scan.output_schema.names
                 filter_columns = sorted(filt.condition.references())
-                usable = [
-                    c for c in get_candidate_indexes(index_manager, scan, hybrid)
-                    if index_covers_plan(list(output_columns), filter_columns, c.entry, cs)
-                ]
+                candidates = get_candidate_indexes(index_manager, scan, hybrid, rule_name="FilterIndexRule")
+                if not candidates:
+                    record_rule_decision("FilterIndexRule", False, reason="no-candidate-index")
+                    return node
+                usable = [c for c in candidates if index_covers_plan(list(output_columns), filter_columns, c.entry, cs)]
                 if not usable:
+                    record_rule_decision("FilterIndexRule", False, reason="not-covering",
+                                         candidates=[c.entry.name for c in candidates])
                     return node
                 chosen = rank(usable)
                 best = chosen.entry
@@ -121,13 +133,21 @@ class FilterIndexRule:
                     )
                 # Always project: the index stores its columns in
                 # indexed + included order, not the source's.
-                return ProjectNode(list(output_columns), FilterNode(filt.condition, index_child))
+                new_plan = ProjectNode(list(output_columns), FilterNode(filt.condition, index_child))
+                record_rule_decision(
+                    "FilterIndexRule", True, indexes=[best.name],
+                    bucket_pruned_files=None if pruned_files is None else len(pruned_files),
+                    hybrid_appended=len(chosen.appended), lineage_pruned=len(chosen.deleted),
+                )
+                log_event(session, HyperspaceIndexUsageEvent(
+                    index_names=[best.name], plan_before=node.tree_string(), plan_after=new_plan.tree_string(),
+                    message="Filter index rule applied.",
+                ))
+                return new_plan
 
             return plan.transform_up(rewrite)
         except Exception as e:  # never break the user's query over an index problem
-            logging.getLogger("hyperspace_tpu_torch.rules").warning(
-                "FilterIndexRule failed; query falls back to the original plan: %s: %s", type(e).__name__, e
-            )
+            log_rule_failure(session, "FilterIndexRule", e)
             return plan
 
 

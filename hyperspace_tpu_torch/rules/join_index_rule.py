@@ -31,11 +31,14 @@ the physical planner makes it a `MultiwayJoinExec`. A dimension whose source
 gained files carries them as a `HybridAppend`, and one with deleted files
 the lineage prune filter, as the binary rewrite does. `HYPERSPACE_MULTIWAY=0`
 turns recognition off (:555-562).
+
+Each matched join records its decision (`record_rule_decision`), an applied
+rewrite or a recognized star also a `HyperspaceIndexUsageEvent`; a failure
+goes to `log_rule_failure`.
 """
 
 from __future__ import annotations
 
-import logging
 from typing import Dict, List, Optional, Tuple
 
 from ..engine.expr import extract_equi_join_keys
@@ -55,7 +58,15 @@ from ..engine.logical import (
 )
 from ..engine.streaming import multiway_enabled
 from ..util.resolver_utils import resolution_key
-from .rule_utils import _index_relation, get_candidate_indexes, lineage_prune_condition
+from ..telemetry.event_logging import log_event
+from ..telemetry.events import HyperspaceIndexUsageEvent
+from .rule_utils import (
+    _index_relation,
+    get_candidate_indexes,
+    lineage_prune_condition,
+    log_rule_failure,
+    record_rule_decision,
+)
 
 
 def _nkey(name: str, cs: bool) -> str:
@@ -180,7 +191,7 @@ def _key_kind(schema, name: str, cs: bool) -> Optional[str]:
     return None
 
 
-def _wrap_star(plan: LogicalPlan, root_refs, hybrid: bool, index_manager, cs: bool) -> LogicalPlan:
+def _wrap_star(plan: LogicalPlan, root_refs, hybrid: bool, index_manager, cs: bool, session=None) -> LogicalPlan:
     """The plan with the join chain under its single-child spine wrapped in
     a `StarJoinNode` when the chain is a star; untouched otherwise (:201)."""
     spine: List[LogicalPlan] = []
@@ -194,6 +205,13 @@ def _wrap_star(plan: LogicalPlan, root_refs, hybrid: bool, index_manager, cs: bo
     star = _try_star(node, root_refs, hybrid, index_manager, cs)
     if star is None:
         return plan
+    names = [d.index_name for d in star.dims]
+    record_rule_decision("JoinIndexRule", True, star_dims=len(star.dims), indexes=names,
+                         buckets=[d.num_buckets for d in star.dims])
+    log_event(session, HyperspaceIndexUsageEvent(
+        index_names=names, plan_before=node.tree_string(), plan_after=star.tree_string(),
+        message="Multiway star-join recognized.",
+    ))
     out: LogicalPlan = star
     for op in reversed(spine):
         out = op.with_children([out])
@@ -275,7 +293,7 @@ def _try_star(top: JoinNode, root_refs, hybrid: bool, index_manager, cs: bool):
             dim_plan: LogicalPlan = join.right
             index_name, num_buckets = rel.index_name, spec.num_buckets
         else:
-            cands = get_candidate_indexes(index_manager, dscan, hybrid)
+            cands = get_candidate_indexes(index_manager, dscan, hybrid, rule_name="JoinIndexRule")
             usable = _usable_indexes(cands, dkeys, dim_required, cs)
             if not usable:
                 return None
@@ -334,9 +352,11 @@ class JoinIndexRule:
                 rnames = r_scan.output_schema.names
                 oriented = _orient_pairs(pairs, lnames, rnames, cs)
                 if oriented is None:
+                    record_rule_decision("JoinIndexRule", False, reason="unresolvable-join-columns")
                     return node
                 l_to_r = _one_to_one(oriented, cs)
                 if l_to_r is None:
+                    record_rule_decision("JoinIndexRule", False, reason="not-one-to-one-keys")
                     return node
                 lkeys = list(dict.fromkeys(l for l, _ in oriented))
                 rkeys = [l_to_r[_nkey(k, cs)] for k in lkeys]
@@ -344,12 +364,17 @@ class JoinIndexRule:
                 # references + this join's keys (reference :407-418).
                 l_required = list(dict.fromkeys([n for n in lnames if _nkey(n, cs) in root_refs] + lkeys))
                 r_required = list(dict.fromkeys([n for n in rnames if _nkey(n, cs) in root_refs] + rkeys))
-                l_cands = get_candidate_indexes(index_manager, l_scan, hybrid)
-                r_cands = get_candidate_indexes(index_manager, r_scan, hybrid)
+                l_cands = get_candidate_indexes(index_manager, l_scan, hybrid, rule_name="JoinIndexRule")
+                r_cands = get_candidate_indexes(index_manager, r_scan, hybrid, rule_name="JoinIndexRule")
                 l_usable = _usable_indexes(l_cands, lkeys, l_required, cs)
                 r_usable = _usable_indexes(r_cands, rkeys, r_required, cs)
                 compatible = _compatible_pairs(l_usable, r_usable, l_to_r, cs)
                 if not compatible:
+                    record_rule_decision(
+                        "JoinIndexRule", False,
+                        reason="no-compatible-index-pair" if l_cands or r_cands else "no-candidate-index",
+                        left_usable=[c.entry.name for c in l_usable], right_usable=[c.entry.name for c in r_usable],
+                    )
                     return node
                 lc, rc = rank_join_pairs(compatible)[0]
 
@@ -372,20 +397,25 @@ class JoinIndexRule:
 
                     return side.transform_up(replace)
 
-                return JoinNode(
-                    substitute(node.left, l_scan, lc),
-                    substitute(node.right, r_scan, rc),
-                    node.condition,
-                    node.how,
+                new_plan = JoinNode(
+                    substitute(node.left, l_scan, lc), substitute(node.right, r_scan, rc), node.condition, node.how
                 )
+                li, ri = lc.entry, rc.entry
+                record_rule_decision(
+                    "JoinIndexRule", True, indexes=[li.name, ri.name], buckets=[li.num_buckets, ri.num_buckets],
+                    hybrid_appended=len(lc.appended) + len(rc.appended),
+                    lineage_pruned=len(lc.deleted) + len(rc.deleted),
+                )
+                log_event(session, HyperspaceIndexUsageEvent(
+                    index_names=[li.name, ri.name], plan_before=node.tree_string(),
+                    plan_after=new_plan.tree_string(), message="Join index rule applied.",
+                ))
+                return new_plan
 
             new_plan = plan.transform_up(rewrite)
             if multiway_enabled():
-                new_plan = _wrap_star(new_plan, root_refs, hybrid, index_manager, cs)
+                new_plan = _wrap_star(new_plan, root_refs, hybrid, index_manager, cs, session)
             return new_plan
         except Exception as e:  # the reference's non-fatal rule policy
-            logging.getLogger("hyperspace_tpu_torch.rules").warning(
-                "JoinIndexRule failed; query falls back to the original plan: %s: %s",
-                type(e).__name__, e,
-            )
+            log_rule_failure(session, "JoinIndexRule", e)
             return plan

@@ -9,10 +9,20 @@ candidate, so the rules wrap its scan in `lineage_prune_condition`. With
 Hybrid Scan on, an index whose source drifted since its last refresh is a
 candidate too when the drift is recoverable (`hybrid_delta`): files appended
 since are merged in at query time, files that vanished are pruned by lineage.
+
+Telemetry (`rule_utils.py:130-260`): `record_rule_decision` counts each
+decision (`rule.<Rule>.applied|skipped`) and, while a trace records, appends
+it to the ambient `rule:<Rule>` span, where `explain(analyze=True)` reads
+it; `log_rule_failure` warns, records the failure as a skipped decision and
+logs a `HyperspaceRuleFailureEvent`; candidate selection keeps the per-index
+staleness gauge (`index.staleness_s.<name>`) and counts quarantined skips
+per asking rule.
 """
 
 from __future__ import annotations
 
+import logging
+import time
 from typing import Dict, List, Optional
 
 from ..actions import states
@@ -24,6 +34,9 @@ from ..index import quarantine
 from ..index.log_entry import IndexLogEntry
 from ..index.signatures import create_provider
 from ..storage.filesystem import FileStatus
+from ..telemetry import metrics, tracing
+from ..telemetry.event_logging import log_event
+from ..telemetry.events import HyperspaceRuleFailureEvent
 
 
 class CandidateIndex:
@@ -83,6 +96,7 @@ def get_candidate_indexes(
     hybrid_scan: bool = False,
     kind: str = "CoveringIndex",
     deletes_without_lineage_ok: bool = False,
+    rule_name: Optional[str] = None,
 ) -> List[CandidateIndex]:
     """ACTIVE indexes of `kind` applicable to `plan` (a relation node), less
     the quarantined ones (`index/quarantine.py`) and those bucketed under
@@ -92,10 +106,9 @@ def get_candidate_indexes(
     The deletes a refresh folded (`entry.deleted_source_files()`) ride every
     candidate, exact matches included: the signature covers the source after
     the delete, but the index data holds those rows until a full rewrite or
-    a compaction (JAX :20-127). The JAX package also sets a per-index
-    staleness gauge here (`_update_staleness`) and counts quarantined skips
-    per asking rule (its `rule_name`); both wait for the port's telemetry
-    (ROADMAP.md Queue 1, item 12)."""
+    a compaction (JAX :20-127). A quarantined skip counts in
+    `rule.<rule_name>.quarantined`, and every candidate refreshes its
+    staleness gauge (`_update_staleness`)."""
     signature_map: Dict[str, Optional[str]] = {}
 
     def signature_valid(entry: IndexLogEntry) -> bool:
@@ -107,18 +120,63 @@ def get_candidate_indexes(
 
     out: List[CandidateIndex] = []
     for e in index_manager.get_indexes([states.ACTIVE]):
-        if e.kind != kind or not e.created or quarantine.is_quarantined(e.name):
+        if e.kind != kind or not e.created:
+            continue
+        if quarantine.is_quarantined(e.name):
+            metrics.counter(f"rule.{rule_name}.quarantined" if rule_name else "rule.quarantined").inc()
             continue
         if not _hash_scheme_compatible(e):
             continue
         folded = e.deleted_source_files()
         if signature_valid(e):
             out.append(CandidateIndex(e, [], folded))
+            _update_staleness(e, [])
         elif hybrid_scan:
             delta = hybrid_delta(e, plan, deletes_without_lineage_ok)
             if delta is not None:
                 out.append(CandidateIndex(e, delta[0], sorted(set(delta[1]) | set(folded))))
+                _update_staleness(e, delta[0])
     return out
+
+
+def _update_staleness(entry: IndexLogEntry, appended) -> None:
+    """`index.staleness_s.<name>`: now less the newest unindexed source
+    file's mtime, 0 when the index covers the source (:130)."""
+    staleness = 0.0
+    if appended:
+        staleness = max(0.0, time.time() - max(f.modified_time for f in appended) / 1000.0)
+    metrics.gauge(f"index.staleness_s.{entry.name}").set(round(staleness, 3))
+
+
+def record_rule_decision(rule_name: str, applied: bool, reason: Optional[str] = None,
+                         indexes: Optional[List[str]] = None, **extra) -> None:
+    """One rule decision at a node that matched the rule's pattern: the
+    `rule.<Rule>.applied|skipped` counter, and while a trace records, a
+    decision on the ambient span (:203-230)."""
+    metrics.counter(f"rule.{rule_name}.{'applied' if applied else 'skipped'}").inc()
+    sp = tracing.current_span()
+    if sp is not None:
+        d = {"rule": rule_name, "applied": applied}
+        if reason:
+            d["reason"] = reason
+        if indexes:
+            d["indexes"] = list(indexes)
+        d.update(extra)
+        sp.append_attr("decisions", d)
+
+
+def log_rule_failure(session, rule_name: str, exc: BaseException) -> None:
+    """A rule raised and the query keeps its original plan: a warning, a
+    skipped decision naming the error, and a `HyperspaceRuleFailureEvent`
+    (:232-260)."""
+    logging.getLogger("hyperspace_tpu_torch.rules").warning(
+        "%s failed; query falls back to the original plan: %s: %s", rule_name, type(exc).__name__, exc
+    )
+    record_rule_decision(rule_name, False, reason=f"error: {type(exc).__name__}: {exc}")
+    log_event(session, HyperspaceRuleFailureEvent(
+        rule_name=rule_name, exception=f"{type(exc).__name__}: {exc}",
+        message=f"{rule_name} failed; original plan returned.",
+    ))
 
 
 def lineage_prune_condition(deleted: List[str]) -> Expr:

@@ -12,8 +12,10 @@ Points (`FAULT_POINTS`):
 - `storage.write`: a parquet file write (`engine.io.write_parquet`);
 - `log.write`: an operation-log write (`index.log_manager`);
 - `pool.worker`: a decode pool task body (`engine.io`);
-- `device.compile` and `serve.admit`: declared for the telemetry and serving
-  layers, which the port does not have yet; nothing calls them;
+- `device.compile`: the kernel library's build
+  (`telemetry.compile_log.observed_build`);
+- `serve.admit`: declared for the serving layer, which the port does not
+  have yet; nothing calls it;
 - `refresh.merge`: after an incremental refresh's data directory committed,
   before its log entry (`actions.refresh.RefreshIncrementalAction.op`);
 - `compact.commit`: after every compacted bucket is staged, before the
@@ -33,9 +35,10 @@ proceeds); `limit` caps the injections of the spec (blank or 0: no cap);
 Determinism: a decision hashes (seed, point, call index), with the seed from
 `HYPERSPACE_FAULTS_SEED` (default "0") and the call index from a per-point
 counter, bit for bit as the JAX package does, so both packages inject at the
-same calls of the same run. The counters are plain module counters
-(`injected_count`, `call_count`); the query ledger the JAX package charges
-does not exist in the port yet.
+same calls of the same run. `injected_count` and `call_count` read the
+module's per-point counters; an injection also ticks the registry's
+`faults.injected` and `faults.<point>.injected` and the query ledger's
+`faults_injected`.
 """
 
 from __future__ import annotations
@@ -48,6 +51,8 @@ import time
 from typing import Dict, Iterator, Optional
 
 from ..exceptions import HyperspaceException, PermanentError, TransientError
+from . import accounting as _accounting
+from . import metrics as _metrics
 
 ENV_FAULTS = "HYPERSPACE_FAULTS"
 ENV_FAULTS_SEED = "HYPERSPACE_FAULTS_SEED"
@@ -171,6 +176,9 @@ def check(point: str) -> None:
             _injections[point] = _injections.get(point, 0) + 1
     if not fire:
         return
+    _metrics.counter("faults.injected").inc()
+    _metrics.counter(f"faults.{point}.injected").inc()
+    _accounting.add("faults_injected", 1)
     if spec.kind == "hang":
         time.sleep(spec.hang_s)
         return
@@ -202,9 +210,13 @@ def clear() -> None:
 
 
 def reset_counters() -> None:
+    """Zero the per-point counters and the registry's fault counters."""
     with _lock:
         _calls.clear()
         _injections.clear()
+    _metrics.counter("faults.injected").reset()
+    for point in FAULT_POINTS:
+        _metrics.counter(f"faults.{point}.injected").reset()
 
 
 def injected_count(point: Optional[str] = None) -> int:

@@ -14,6 +14,14 @@ On a CUDA device every timed block ends with a synchronization of that
 device (`StageTimings(device=...)`): the card runs the block's work
 asynchronously, and without it a stage's seconds would be the host's
 launch time, not the work's.
+
+Every timed block is also a stage of the stage ledger
+(`stage_ledger.stage_scope`), so what the block charges to the query's
+ledger bills that stage. A summary carries the kernel launches made during
+its operation (`launches`, per label: the JAX package's Pallas-fallback
+delta has no counterpart, the port never falls back), feeds the
+`latency.<kind>.wall` and `latency.stage.<kind>.<stage>` histograms, and
+becomes stage spans of the ambient trace (`tracing.record_stage_spans`).
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from typing import Dict, Iterator, Optional
 
 import torch
 
+from . import stage_ledger
 
 class StageTimings:
     """Thread-safe per-stage busy seconds and counts of one streamed
@@ -41,6 +50,7 @@ class StageTimings:
         self._sync = dev if dev is not None and dev.type == "cuda" else None
         self._t0 = time.monotonic()
         self._wall: Optional[float] = None
+        self._launches0 = _launch_counts()
 
     def add(self, stage: str, seconds: float) -> None:
         with self._lock:
@@ -51,7 +61,8 @@ class StageTimings:
     def timed(self, stage: str) -> Iterator[None]:
         t0 = time.monotonic()
         try:
-            yield
+            with stage_ledger.stage_scope(stage):
+                yield
         finally:
             if self._sync is not None:
                 torch.cuda.synchronize(self._sync)
@@ -71,7 +82,40 @@ class StageTimings:
             out["overlap_ratio"] = round(busy / wall, 3) if wall > 0 else None
             out["mode"] = self.mode
             out["stage_counts"] = dict(sorted(self._counts.items()))
+        now = _launch_counts()
+        delta = {k: v - self._launches0.get(k, 0) for k, v in now.items() if v - self._launches0.get(k, 0) > 0}
+        if delta:
+            out["launches"] = delta
         return out
+
+
+def _launch_counts() -> Dict[str, int]:
+    """Every kernel label's launch count so far."""
+    from . import compile_log
+
+    return {label: p["launches"] for label, p in compile_log.program_summary().items() if p["launches"]}
+
+
+def _observe_stage_histograms(kind: str, summary: dict) -> None:
+    """`latency.<kind>.wall` and `latency.stage.<kind>.<stage>` of one summary."""
+    from . import metrics
+
+    wall = summary.get("wall_s")
+    if isinstance(wall, (int, float)):
+        metrics.histogram(f"latency.{kind}.wall").observe(wall)
+    for key, val in summary.items():
+        if key.endswith("_s") and key != "wall_s" and isinstance(val, (int, float)):
+            metrics.histogram(f"latency.stage.{kind}.{key[:-2]}").observe(val)
+
+
+def _record(kind: str, history: "deque[dict]", summary: dict) -> None:
+    from . import tracing
+
+    d = dict(summary)
+    with _lock:
+        history.append(d)
+    _observe_stage_histograms(kind, d)
+    tracing.record_stage_spans(kind, d)
 
 
 def timed(stages: Optional[StageTimings], stage: str):
@@ -88,8 +132,7 @@ _lock = threading.Lock()
 
 def record_query_stages(summary: dict) -> None:
     """Record one streamed scan aggregate's summary."""
-    with _lock:
-        _QUERY_STAGES.append(dict(summary))
+    _record("query", _QUERY_STAGES, summary)
 
 
 def last_query_stages() -> Optional[dict]:
@@ -100,8 +143,7 @@ def last_query_stages() -> Optional[dict]:
 
 def record_join_stages(summary: dict) -> None:
     """Record one streamed join's summary."""
-    with _lock:
-        _JOIN_STAGES.append(dict(summary))
+    _record("join", _JOIN_STAGES, summary)
 
 
 def last_join_stages() -> Optional[dict]:

@@ -1011,3 +1011,89 @@ def test_a_timed_out_query_leaves_no_device_cache_entry(cuda_device, tmp_path, m
     got = out.to_numpy()
     assert np.array_equal(got["k"], np.arange(8000)) and np.array_equal(got["v"], np.arange(8000) % 7)
     assert entries()[0] > 0  # the decoded columns, cached on the card
+
+
+@pytest.mark.cuda
+def test_launch_labels_count_each_kernel_launch_in_the_registry(cuda_device):
+    """Each wrapper's launch adds one to its label's registry counter and to
+    its span; its module's `launches` reads that counter."""
+    from hyperspace_tpu_torch.telemetry import compile_log, metrics, tracing
+
+    compile_log.reset_launches()
+    keys = torch.from_numpy(_sort_input(3, 4, 64)).to(cuda_device)
+    args = [torch.from_numpy(a).to(cuda_device) for a in _probe_input(4, 4, 64, 128, 20, np.int64)]
+    with tracing.capture() as cap:
+        with tracing.query_span("query:labels"):
+            cuda_sort.sort_rows(keys)
+            cuda_probe.range_probe(*args)
+            cuda_probe.range_probe(*args)
+    for mod, n in ((cuda_sort, 1), (cuda_probe, 2)):
+        assert mod.launches == n == metrics.counter(f"kernel.launches.{mod.LABEL}").value
+        assert compile_log.program_summary()[mod.LABEL]["launches"] == n
+        assert cap.trace.root.attrs[f"launches.{mod.LABEL}"] == n
+    cuda_sort.sort_rows(keys.cpu())
+    assert cuda_sort.launches == 1
+
+
+@pytest.mark.cuda
+def test_cuda_event_probes_bill_device_time_at_the_ledger_close(cuda_device, monkeypatch):
+    """Under `HYPERSPACE_DEVICE_TIMING=all` every launch gets a pair of CUDA
+    events, read only when the ledger closes: device_time_s > 0 and no larger
+    than the wall; off, no event is made."""
+    from hyperspace_tpu_torch.telemetry import accounting
+    from hyperspace_tpu_torch.telemetry import device_observatory as dv
+
+    keys = torch.from_numpy(_sort_input(5, 64, 4096)).to(cuda_device)
+    made = []
+    real = dv._make_event
+    monkeypatch.setattr(dv, "_make_event", lambda device: made.append(1) or real(device))
+    monkeypatch.delenv("HYPERSPACE_DEVICE_TIMING", raising=False)
+    cuda_sort.sort_rows(keys)
+    assert made == []
+    monkeypatch.setenv("HYPERSPACE_DEVICE_TIMING", "all")
+    dv.reset()
+    with accounting.ledger_scope("qid-card", "query:card") as led:
+        for _ in range(3):
+            cuda_sort.sort_rows(keys)
+        assert len(led.probes) == 3 and len(made) == 6
+    d = accounting.ledger_for("qid-card").to_dict()
+    assert 0.0 < d["device_time_s"] <= d["wall_s"]
+    assert dv.device_summary()[cuda_sort.LABEL]["calls"] == 3
+
+
+@pytest.mark.cuda
+def test_explain_analyze_on_the_card_counts_the_star_launches(cuda_device, tmp_path, monkeypatch):
+    """The star's analyzed run on the card: rows equal collect(), the K1 and
+    K2 launches in the registry rose, the ledger's device time lies in
+    (0, wall] and the device samples its live bytes."""
+    import os
+
+    import chip_smoke
+    import hyperspace_tpu_torch as hst
+    from hyperspace_tpu_torch.plananalysis.analyze import explain_analyze
+    from hyperspace_tpu_torch.telemetry import accounting, compile_log, tracing
+
+    tables = chip_smoke.star_tables(np.random.RandomState(19), 40_000)
+    s = hst.HyperspaceSession(warehouse=str(tmp_path / "wh"), device="cuda")
+    s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, 16)
+    chip_smoke.write_star_tables(s, tables, str(tmp_path), 4)
+    hs = hst.Hyperspace(s)
+
+    def read(t):
+        return s.read.parquet(os.path.join(str(tmp_path), t))
+
+    for table, name, indexed, included in chip_smoke.STAR_INDEXES:
+        hs.create_index(read(table), hst.IndexConfig(name, indexed, included))
+    hst.enable_hyperspace(s)
+    q = chip_smoke.star_q55_query(read, hst.col)
+    plain = q.collect().to_numpy()
+    chip_smoke.clear_caches()
+    compile_log.reset_launches()
+    monkeypatch.setenv("HYPERSPACE_DEVICE_TIMING", "all")
+    text, table = explain_analyze(q)
+    got = table.to_numpy()
+    assert list(got) == list(plain) and all(np.array_equal(got[c], plain[c]) for c in got)
+    assert cuda_sort.launches > 0 and cuda_probe.launches > 0
+    assert f"{cuda_sort.LABEL}: {cuda_sort.launches}" in text
+    d = accounting.ledger_for(tracing.last_trace().query_id).to_dict()
+    assert 0.0 < d["device_time_s"] <= d["wall_s"] and d["device_live_bytes"] > 0

@@ -159,8 +159,12 @@ def test_explain_prints_without_redirect_and_dataframe_explain(tmp_path, capsys)
     assert q.explain() == q.explain_string() == twin.j.read("t").filter(twin.j.col("c3") == "x").explain()
     got = []
     assert q.explain(redirect=got.append) is None and got == [q.explain_string()]
-    with pytest.raises(NotImplementedError, match="explain\\(analyze=True\\)"):
-        q.explain(analyze=True)
+    analyzed = q.explain(analyze=True)
+    tree = analyzed.split("Rule decisions:")[0]
+    assert "EXPLAIN ANALYZE" in tree and "rows=" + str(q.count()) in tree
+    assert q.explain_string().splitlines()[0] in tree
+    got.clear()
+    assert q.explain(analyze=True, redirect=got.append) is None and "Resource ledger (this query):" in got[0]
 
 
 # -- tests/test_explain_serde.py: plan serialization -----------------------------

@@ -17,6 +17,7 @@ from hyperspace_tpu.ops.bucket_join import _probe, _probe_host
 from hyperspace_tpu.ops.pallas_probe import probe_pallas
 from hyperspace_tpu.ops.pallas_sort import sort_padded_with_order
 from hyperspace_tpu_torch.ops import cuda_probe, cuda_sort
+from hyperspace_tpu_torch.telemetry import compile_log
 
 PAD = np.iinfo(np.int64).max
 
@@ -123,8 +124,7 @@ def test_probe_plain_matches_pallas_and_host_probe_on_unsorted_left_rows(seed, r
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
-    cuda_sort.launches = 0
-    cuda_probe.launches = 0
+    compile_log.reset_launches(cuda_sort.LABEL, cuda_probe.LABEL)
     keys = torch.from_numpy(_sort_input(5, 4, 64))
     assert [torch.equal(a, b) for a, b in zip(cuda_sort.sort_rows(keys), cuda_sort.sort_rows_plain(keys))] == [True, True]
     args = [torch.from_numpy(a) for a in _probe_input(6, 4, 64, 128, 20)]

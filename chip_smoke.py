@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phases env,star
     python3 chip_smoke.py --phases env,resilience
     python3 chip_smoke.py --phases env,analyze
+    python3 chip_smoke.py --phases env,history
 
 Phases, each failing loudly:
 
@@ -276,7 +277,22 @@ Phases, each failing loudly:
              Last, cached Q3's p50 of 15 with everything off,
              `HYPERSPACE_TRACING=1`, `HYPERSPACE_ACCOUNTING=1` and
              `HYPERSPACE_DEVICE_TIMING=all`, the four in turns, printed.
-16. identity the join, aggregate, Q3 (general joins, every group), Q13
+16. history  the workload history store, the exporter, the planner's outcome
+             store and profile capture, at the main phase's width in a
+             directory of its own (Q3 and star Q55 as in analyze): history,
+             the exporter's frames, a profile directory and device timing
+             on, each query uncached 10 times: every answer equals numpy's
+             and the one with everything off, the store holds one baseline
+             a class with 10 samples (Q55's with device seconds). Then Q3
+             under a 2 s decode hang: one anomaly, on the root span, in a
+             frame and in a capture, whose `torch.profiler` window over a
+             star Q55 names K1's and K2's kernels. A child process folds the
+             same directories alike; the exporter's last frame is final,
+             carries live device bytes, and the Prometheus text names K1's
+             and K2's launch counters. Prints the planner learning over a
+             warm aggregate and cached Q3's p50 with everything off,
+             history on and the exporter running, in turns.
+17. identity the join, aggregate, Q3 (general joins, every group), Q13
              (indexed and disabled) and string slices at SF 0.05 with
              device="cpu" and device="cuda": identical index files,
              identical rows in order (sums at rtol 1e-9).
@@ -285,7 +301,7 @@ Kernel launches are read from the metrics registry
 (`kernel.launches.<label>`, which each wrapper's read-only `launches`
 reads), set to 0 at the start of each phase that drives the engine (main,
 q3, strings, packed, refresh, q13, skipping, delta, partitioned, setops,
-star, resilience, analyze) and summed over them. Prints one JSON
+star, resilience, analyze, history) and summed over them. Prints one JSON
 line of per-kernel results, the card's `nvidia-smi` line,
 and last `{"ok": true, "device": {...}}`. Exits non-zero without a result
 when no CUDA device is visible or the package is missing.
@@ -4394,6 +4410,325 @@ def phase_analyze(torch, data, base: str, seed: int):
 
 
 
+# ---------------------------------------------------------------------------
+# The workload history, the metrics exporter, the planner's outcome store and
+# profile capture
+# ---------------------------------------------------------------------------
+
+HISTORY_RUNS = 10
+HISTORY_COST_RUNS = 15
+HISTORY_HANG = "io.decode:1:hang2:1"
+HISTORY_WINDOW_S = "3"
+HISTORY_ENVS = ("HYPERSPACE_HISTORY", "HYPERSPACE_HISTORY_DIR", "HYPERSPACE_METRICS_FILE",
+                "HYPERSPACE_METRICS_INTERVAL_S", "HYPERSPACE_PROFILE_DIR", "HYPERSPACE_PROFILE_WINDOW_S",
+                "HYPERSPACE_PROFILE_MIN_INTERVAL_S", "HYPERSPACE_DEVICE_TIMING", "HYPERSPACE_PLANNER_MIN_SAMPLES",
+                "HYPERSPACE_TRACING", "HYPERSPACE_FAULTS", "HYPERSPACE_MULTIWAY")
+#: The `__global__` names of K1 (`csrc/bucket_sort.cu`) and K2
+#: (`csrc/range_probe.cu`) as a profiler's kernel events name them.
+K1_GLOBALS, K2_GLOBALS = ("sort_tiles", "merge_runs"), ("windowed_probe",)
+
+#: The child of step (c): another process opens the same directories and
+#: prints what it folds. It imports nothing of the JAX package.
+HISTORY_CHILD = """
+import json, os, sys
+sys.path.insert(0, sys.argv[1])
+from hyperspace_tpu_torch.plananalysis import planner
+from hyperspace_tpu_torch.telemetry import history
+assert not any(m == "jax" or m.startswith("jax.") or m.split(".")[0] == "hyperspace_tpu" for m in sys.modules)
+fields = ("rows_produced", "decode_files", "bytes_decoded")
+base = {fp: [b["n"]] + [b.get(f) for f in fields] for fp, b in history.get_store().baselines().items()}
+out = {fp: [v["n"]] for fp, v in ((json.dumps(k), v) for k, v in planner.outcome_summary().items())}
+print(json.dumps({"baselines": base, "outcomes": out}))
+"""
+
+
+def card_check(ok: bool, msg: str) -> None:
+    """A check of what only a card can show (kernel launches, CUDA events,
+    CUDA kernels in a profile, live device bytes)."""
+    if not ok:
+        raise AssertionError(msg)
+
+
+def same_answer(label: str, got: dict, want: dict) -> None:
+    """`got` equals `want` column by column: exactly, float columns at rtol
+    1e-12 (the chunk arms' last bits)."""
+    if list(got) != list(want) or any(len(got[c]) != len(want[c]) for c in want):
+        raise AssertionError(f"{label}: columns or rows differ from the answer with everything off")
+    for c in want:
+        a, b = np.asarray(got[c]), np.asarray(want[c])
+        ok = np.allclose(a, b, rtol=1e-12, atol=0) if a.dtype.kind == "f" else np.array_equal(a, b)
+        if not ok:
+            raise AssertionError(f"{label}: {c} differs from the answer with everything off")
+
+
+def phase_history(torch, data, base: str, seed: int, ss_rows: int = SS_ROWS):
+    """The history slice at the main phase's width, in a directory of its
+    own: TPC-H Q3 over liQ3 and ordQ3 (K2) and TPC-DS Q55 as a star over
+    phase star's tables (K1 and K2), the planner at its default.
+    (a) Each query once with everything off, then `HYPERSPACE_HISTORY=1`, a
+    history and a profile directory, the exporter (`HYPERSPACE_METRICS_FILE`,
+    0.5 s frames) and `HYPERSPACE_DEVICE_TIMING=all`: each query uncached
+    HISTORY_RUNS times in turns; every answer equals numpy's and the one with
+    everything off; `history.records` rose by the queries run; the store holds
+    one baseline a class with HISTORY_RUNS samples; Q55's has device seconds.
+    (b) One more uncached Q3 under `HISTORY_HANG`, traced: `history.anomalies`
+    ticks once, the root span carries `history_anomaly`, a capture directory
+    names the query; once its profiler window has started, Q55 runs in it
+    (the star pinned, so K1 and K2 launch whatever the outcome store
+    learned) and the window's Chrome trace names K1's and K2's kernels. (c) A child process folds the same
+    directories to the same baselines and outcome keys. (d) The exporter's
+    final frame, every line parsing, live device bytes, the Prometheus names
+    of K1's and K2's launch counters. (e) Prints: the planner over a warm
+    aggregate repeated 8 times (`HYPERSPACE_PLANNER_MIN_SAMPLES=2`), and
+    cached Q3's p50 with everything off, with history on and with the
+    exporter running, in turns (and, to split history's cost, with the
+    ledger alone and with history but the planner off)."""
+    import hyperspace_tpu_torch as hst
+    from hyperspace_tpu_torch.ops import cuda_probe, cuda_sort
+    from hyperspace_tpu_torch.plananalysis import planner
+    from hyperspace_tpu_torch.telemetry import accounting, exporter, faults, history, metrics, tracing
+    from hyperspace_tpu_torch.telemetry import device_observatory as dv
+
+    for k in HISTORY_ENVS:
+        os.environ.pop(k, None)
+    root = os.path.join(base, "history")
+    seconds = {}
+    s = hst.HyperspaceSession(warehouse=os.path.join(root, "wh"), device=DEVICE)
+    s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, NUM_BUCKETS)
+    hs = hst.Hyperspace(s)
+    for src, name, indexed, included in Q3_INDEXES:
+        df = s.read.parquet(os.path.join(base, "src", src))
+        _, seconds[f"create_{name}"] = wall(lambda: hs.create_index(df, hst.IndexConfig(name, indexed, included)))
+    tables, seconds["star_generate"] = wall(lambda: star_tables(np.random.RandomState(seed + 23), ss_rows))
+    star_root = os.path.join(root, "star")
+    _, seconds["star_write"] = wall(lambda: write_star_tables(s, tables, star_root))
+
+    def star_read(t):
+        return s.read.parquet(os.path.join(star_root, t))
+
+    for table, name, indexed, included in STAR_INDEXES:
+        _, seconds[f"create_{name}"] = wall(lambda: hs.create_index(star_read(table), hst.IndexConfig(
+            name, indexed, included)))
+    hst.enable_hyperspace(s)
+    log(f"[history] setup seconds {json.dumps(seconds)}")
+    queries = {"q3": q3_query(lambda t: s.read.parquet(os.path.join(base, "src", t)), hst.col),
+               "q55": star_q55_query(star_read, hst.col)}
+    want = {"q3": expected_q3(data), "q55": expected_star(tables, "b_q55")}
+
+    def check(name, label, got):
+        if name == "q3":
+            check_q3(f"history {label}", got, want["q3"])
+        else:
+            check_star_rows(f"history {label}", got, want["q55"])
+
+    plain = {}
+    for name, df in queries.items():
+        clear_caches()
+        plain[name] = df.collect().to_numpy()
+        check(name, f"{name} off", plain[name])
+
+    hist_dir, prof_dir = os.path.join(root, "hist"), os.path.join(root, "prof")
+    frames_path = os.path.join(root, "metrics.jsonl")
+    os.environ.update({"HYPERSPACE_HISTORY": "1", "HYPERSPACE_HISTORY_DIR": hist_dir,
+                       "HYPERSPACE_METRICS_FILE": frames_path, "HYPERSPACE_METRICS_INTERVAL_S": "0.5",
+                       "HYPERSPACE_PROFILE_DIR": prof_dir, "HYPERSPACE_PROFILE_WINDOW_S": HISTORY_WINDOW_S,
+                       "HYPERSPACE_PROFILE_MIN_INTERVAL_S": "0", "HYPERSPACE_DEVICE_TIMING": "all"})
+    try:
+        if not exporter.start():
+            raise AssertionError("history: the exporter did not start from HYPERSPACE_METRICS_FILE")
+        # (a) the baselines
+        reset_launches(cuda_sort, cuda_probe)
+        records0 = metrics.counter("history.records").value
+        anomalies0 = metrics.counter("history.anomalies").value
+        fps, walls, arms = {}, {n: [] for n in queries}, {n: [] for n in queries}
+        for r in range(HISTORY_RUNS):
+            for name, df in queries.items():
+                clear_caches()
+                out, t = wall(df.collect)
+                got = out.to_numpy()
+                check(name, f"{name} run {r}", got)
+                same_answer(f"history {name} run {r}", got, plain[name])
+                led = accounting.recent_ledgers()[-1].to_dict()
+                fps.setdefault(name, led["plan_fingerprint"])
+                if led["plan_fingerprint"] != fps[name]:
+                    raise AssertionError(f"history {name}: run {r} planned another class")
+                walls[name].append(round(led["wall_s"], 4))
+                arms[name].append({k: f"{d.arm}/{d.source}" for k, d in planner.last_decisions().decisions.items()
+                                   if d.source != "model"})
+        launches = {kid: n for kid, n in registry_launches().items() if kid in ("K1", "K2")}
+        records = metrics.counter("history.records").value - records0
+        if records != 2 * HISTORY_RUNS:
+            raise AssertionError(f"history: history.records rose by {records}, want {2 * HISTORY_RUNS}")
+        store = history.get_store()
+        baselines = store.baselines()
+        if set(baselines) != set(fps.values()) or any(baselines[fp]["n"] != HISTORY_RUNS for fp in fps.values()):
+            raise AssertionError(f"history: baselines {({fp: b['n'] for fp, b in baselines.items()})}, want "
+                                 f"{HISTORY_RUNS} for each of {fps}")
+        card_check(baselines[fps["q55"]].get("device_time_s", 0) > 0, "history: Q55's baseline has no device seconds")
+        card_check(launches["K1"] > 0 and launches["K2"] > 0, f"history (a): K1 and K2 must launch, got {launches}")
+        baseline_anomalies = metrics.counter("history.anomalies").value - anomalies0
+        for name in queries:
+            b = baselines[fps[name]]
+            log(f"[history] (a) {name} {json.dumps({'fingerprint': fps[name], 'walls_s': walls[name], 'n': b['n'], 'wall_p50_s': b.get('wall_p50_s'), 'wall_mean_s': b['wall_mean_s'], 'wall_std_s': b['wall_std_s'], 'device_time_s': b.get('device_time_s', 0), 'rows_produced': b.get('rows_produced'), 'decode_files': b.get('decode_files'), 'bytes_decoded': b.get('bytes_decoded')})}")
+            log(f"[history] (a) {name} planner arms off the model, by run: {json.dumps(arms[name])}")
+        log(f"[history] (a) launches {json.dumps(launches)}; anomalies while the "
+            f"baselines formed: {baseline_anomalies}")
+
+        # (b) one anomaly, its capture, and a profiler window over Q55
+        if dv._trace_thread[0] is not None:
+            dv._trace_thread[0].join(timeout=60)  # a baseline anomaly's window
+        faults.reset_counters()
+        os.environ.update({"HYPERSPACE_FAULTS": HISTORY_HANG, "HYPERSPACE_TRACING": "1"})
+        anomalies1 = metrics.counter("history.anomalies").value
+        try:
+            clear_caches()
+            out, t_hang = wall(queries["q3"].collect)
+        finally:
+            for k in ("HYPERSPACE_FAULTS", "HYPERSPACE_TRACING"):
+                os.environ.pop(k, None)
+        check("q3", "q3 under the hang", out.to_numpy())
+        same_answer("history q3 under the hang", out.to_numpy(), plain["q3"])
+        if metrics.counter("history.anomalies").value - anomalies1 != 1:
+            raise AssertionError(f"history (b): history.anomalies rose by "
+                                 f"{metrics.counter('history.anomalies').value - anomalies1}, want 1")
+        verdict = tracing.last_trace().root.attrs.get("history_anomaly")
+        if not verdict or verdict.get("fingerprint") != fps["q3"]:
+            raise AssertionError(f"history (b): the root span's history_anomaly is {verdict}")
+        cap_dir = os.path.join(prof_dir, "capture")
+        with open(os.path.join(cap_dir, "capture.json")) as fh:
+            manifest = json.load(fh)
+        captures = sorted(n for n in os.listdir(prof_dir) if n.startswith("capture"))
+        if manifest["detail"].get("query_id") != verdict["query_id"] or len(captures) != 1 + baseline_anomalies:
+            raise AssertionError(f"history (b): captures {captures}, manifest {manifest['detail']}")
+        if not dv._trace_started.wait(timeout=120):
+            raise AssertionError("history (b): the capture's profiler window did not start")
+        os.environ["HYPERSPACE_MULTIWAY"] = "1"
+        try:
+            reset_launches(cuda_sort, cuda_probe)
+            clear_caches()
+            out, t_window = wall(queries["q55"].collect)
+        finally:
+            os.environ.pop("HYPERSPACE_MULTIWAY", None)
+        window_launches = registry_launches()
+        check("q55", "q55 in the window", out.to_numpy())
+        same_answer("history q55 in the window", out.to_numpy(), plain["q55"])
+        dv._trace_thread[0].join(timeout=120)
+        with open(os.path.join(cap_dir, "trace.json")) as fh:
+            status = json.load(fh)
+        kernel_names = set()
+        if status.get("trace"):
+            with open(os.path.join(cap_dir, status["chrome_trace"])) as fh:
+                kernel_names = {e.get("name", "") for e in json.load(fh)["traceEvents"] if e.get("cat") == "kernel"}
+        k1_seen = sorted({g for g in K1_GLOBALS for n in kernel_names if g in n})
+        k2_seen = sorted({g for g in K2_GLOBALS for n in kernel_names if g in n})
+        log(f"[history] (b) hang {HISTORY_HANG}: q3 {t_hang:.4f} s; verdict {json.dumps(verdict)}; q55 in the "
+            f"window {t_window:.4f} s, K1 {window_launches['K1']} / K2 {window_launches['K2']} launches; trace "
+            f"{json.dumps(status)}; {len(kernel_names)} kernel names, K1 {k1_seen}, K2 {k2_seen}")
+        card_check(status.get("trace") is True and "CUDA" in status.get("activities", []),
+                   f"history (b): the window did not trace the card: {status}")
+        card_check(bool(k1_seen) and bool(k2_seen), f"history (b): the window's trace names K1 {k1_seen}, K2 "
+                                                    f"{k2_seen} among {sorted(kernel_names)[:20]}")
+        for kid in ("K1", "K2"):
+            launches[kid] += window_launches[kid]
+
+        # (c) another process reads the same directories
+        env = {k: v for k, v in os.environ.items() if k not in ("HYPERSPACE_METRICS_FILE", "HYPERSPACE_PROFILE_DIR")}
+        child = subprocess.run([sys.executable, "-c", HISTORY_CHILD, os.path.dirname(os.path.abspath(__file__))],
+                               env=env, capture_output=True, text=True, timeout=300)
+        if child.returncode != 0:
+            raise AssertionError(f"history (c): the child failed: {child.stderr[-3000:]}")
+        seen = json.loads(child.stdout.strip().splitlines()[-1])
+        mine = {fp: [b["n"]] + [b.get(f) for f in ("rows_produced", "decode_files", "bytes_decoded")]
+                for fp, b in history.get_store().baselines().items()}
+        if seen["baselines"] != mine:
+            raise AssertionError(f"history (c): the child folds {seen['baselines']}, this process {mine}")
+        outcomes = {json.dumps(list(k)): [v["n"]] for k, v in planner.outcome_summary().items()}
+        if seen["outcomes"] != outcomes:
+            raise AssertionError(f"history (c): the child's outcome summary {seen['outcomes']} != {outcomes}")
+        log(f"[history] (c) a child folds the same {len(mine)} baselines and {len(outcomes)} outcome keys")
+    finally:
+        exporter.stop()
+        for k in HISTORY_ENVS:
+            os.environ.pop(k, None)
+
+    # (d) the exporter's stream
+    with open(frames_path) as fh:
+        frames = [json.loads(line) for line in fh]
+    if not frames or frames[-1].get("final") is not True:
+        raise AssertionError("history (d): the exporter's last frame is not final")
+    named = [a for fr in frames for a in (fr.get("history") or {}).get("anomalies", [])
+             if a.get("query_id") == verdict["query_id"]]
+    if len(named) != 1:
+        raise AssertionError(f"history (d): {len(named)} frames name the anomaly")
+    live = max(fr.get("device_live_bytes", 0) for fr in frames)
+    card_check(live > 0, "history (d): no frame carries device_live_bytes")
+    prom = exporter.prometheus_text()
+    prom_names = [exporter._prom_name(f"kernel.launches.{m.LABEL}") for m in (cuda_sort, cuda_probe)]
+    missing = [n for n in prom_names if f"# TYPE hyperspace_{n} counter" not in prom]
+    if missing:
+        raise AssertionError(f"history (d): the Prometheus text lacks {missing}")
+    log(f"[history] (d) {len(frames)} frames, the last final; peak device_live_bytes {live}; Prometheus names "
+        f"{prom_names}")
+
+    # (e) prints: the planner learning on a warm aggregate, and the cost
+    os.environ.update({"HYPERSPACE_PLANNER_DIR": os.path.join(root, "planner-warm"),
+                       "HYPERSPACE_PLANNER_MIN_SAMPLES": "2"})
+    try:
+        agg = star_store_query(star_read)
+        want_agg = expected_store_agg(tables["store_sales"])
+        planner.reset()
+        agg.collect()  # warms the footers and the caches
+        learned = []
+        for r in range(8):
+            out, t = wall(agg.collect)
+            check_store_agg(f"history warm aggregate {r}", out.to_numpy(), want_agg)
+            pd = planner.last_decisions()
+            learned.append([round(t, 4), {k: f"{d.arm}/{d.source}" for k, d in pd.decisions.items()
+                                          if d.source != "model"}])
+        log(f"[history] (e) warm aggregate x8 (seconds, arms off the model): {json.dumps(learned)}")
+        log(f"[history] (e) activity {json.dumps(planner.activity_summary())}")
+    finally:
+        for k in ("HYPERSPACE_PLANNER_DIR", "HYPERSPACE_PLANNER_MIN_SAMPLES"):
+            os.environ.pop(k, None)
+        planner.reset()
+    # The three ways the slice adds, and two that split history's cost: the
+    # ledger alone, and history with the planner (and so its learning) off.
+    settings = {"off": {}, "HYPERSPACE_ACCOUNTING=1": {"HYPERSPACE_ACCOUNTING": "1"},
+                "HYPERSPACE_HISTORY=1 HYPERSPACE_PLANNER=0": {"HYPERSPACE_PLANNER": "0"},
+                "HYPERSPACE_HISTORY=1": {}, "exporter": {}}
+    labels = list(settings)
+    q3 = queries["q3"]
+    q3.collect()
+    seconds_of = {label: [] for label in labels}
+    learned_arms = []
+    for r in range(HISTORY_COST_RUNS):
+        for label in labels[r % len(labels):] + labels[: r % len(labels)]:
+            env = dict(settings[label])
+            if label.startswith("HYPERSPACE_HISTORY=1"):
+                env.update({"HYPERSPACE_HISTORY": "1", "HYPERSPACE_HISTORY_DIR": os.path.join(root, "cost")})
+            os.environ.update(env)
+            if label == "exporter":
+                exporter.start(os.path.join(root, "cost.jsonl"), 0.5)
+            try:
+                out, t = wall(q3.collect)
+            finally:
+                for k in env:
+                    os.environ.pop(k, None)
+                exporter.stop()
+            if label == "HYPERSPACE_HISTORY=1":
+                learned_arms.append({k: f"{d.arm}/{d.source}" for k, d in planner.last_decisions().decisions.items()
+                                     if d.source != "model"})
+            check_q3(f"history cost {label}", out.to_numpy(), want["q3"])
+            seconds_of[label].append(t)
+    planner.reset()
+    log(f"[history] cost: the learning planner's arms off the model, by run: {json.dumps(learned_arms)}")
+    history.reset_stores()
+    cost = {label: float(np.median(ts)) for label, ts in seconds_of.items()}
+    for label, p50 in cost.items():
+        log(f"[history] cost: cached q3 p50 of {HISTORY_COST_RUNS} with {label}: {p50:.6f} s")
+    return launches, seconds, cost
+
+
 KERNEL_META = {
     "K1": ("bucket_sort", "hyperspace_tpu_torch/csrc/bucket_sort.cu", "hyperspace_tpu/ops/pallas_sort.py:107"),
     "K2": ("range_probe", "hyperspace_tpu_torch/csrc/range_probe.cu", "hyperspace_tpu/ops/pallas_probe.py:129"),
@@ -4407,7 +4742,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="env,kernels,main,q3,strings,packed,refresh,q13,skipping,delta,partitioned,setops,star,"
-                            "resilience,analyze,identity")
+                            "resilience,analyze,history,identity")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sf", type=float, default=1.0)
     ap.add_argument("--identity-sf", type=float, default=0.05)
@@ -4450,7 +4785,7 @@ def main() -> int:
             launches[kid] = launches.get(kid, 0) + n
 
     data = None
-    if {"main", "q3", "strings", "packed", "refresh", "q13", "delta", "resilience", "analyze"} & set(phases):
+    if {"main", "q3", "strings", "packed", "refresh", "q13", "delta", "resilience", "analyze", "history"} & set(phases):
         t0 = time.perf_counter()
         data = tpch(args.sf, args.seed)
         log(f"[data] TPC-H SF{args.sf}: lineitem {len(data['lineitem']['l_orderkey'])} rows, orders "
@@ -4458,7 +4793,7 @@ def main() -> int:
             f"{len(data['customer']['c_custkey'])} (generated in {time.perf_counter() - t0:.2f} s)")
     base = tempfile.mkdtemp(prefix="hs_smoke_sf1_")
     try:
-        if {"main", "q3", "strings", "q13", "resilience", "analyze"} & set(phases):
+        if {"main", "q3", "strings", "q13", "resilience", "analyze", "history"} & set(phases):
             write_sources(data, base)
         if "main" in phases:
             add(timed_phase("main", phase_main, torch, data, base)[0])
@@ -4486,6 +4821,8 @@ def main() -> int:
             add(timed_phase("resilience", phase_resilience, torch, data, base, args.seed)[0])
         if "analyze" in phases:
             add(timed_phase("analyze", phase_analyze, torch, data, base, args.seed)[0])
+        if "history" in phases:
+            add(timed_phase("history", phase_history, torch, data, base, args.seed)[0])
     finally:
         shutil.rmtree(base, ignore_errors=True)
     if "identity" in phases:

@@ -166,13 +166,17 @@ class DataFrame:
             with tracing.span("plan"):
                 phys = self.physical_plan()
             fp = self._attach_fingerprint(phys)
-            planner.refuse_outcome_store()
             decisions = planner.decide(phys, fp, self.session.device)
             try:
                 with planner.decisions_scope(decisions):
+                    pr0 = planner.prune_counters()
                     t0 = time.monotonic()
                     out = runner(phys)
-                planner.observe(decisions, time.monotonic() - t0, stages=attribution.query_stage_walls())
+                # Only a success teaches: a quarantine retry's partial wall
+                # would poison the arm.
+                planner.observe(decisions, time.monotonic() - t0,
+                                pruning=planner.prune_counters(pr0) if pr0 is not None else None,
+                                stages=attribution.query_stage_walls())
                 return out
             except CorruptIndexError as e:
                 if not quarantine.mark(e.index_name, reason=str(e), path=e.path):
@@ -188,12 +192,13 @@ class DataFrame:
     def _attach_fingerprint(self, phys: PhysicalNode) -> Optional[str]:
         """The plan's fingerprint (`plananalysis.fingerprint`) on the ambient
         ledger and span, and returned; None, computed not at all, when no
-        ledger or span sink would read it. Never fails the query."""
-        from ..plananalysis import fingerprint
+        history store, ledger, span sink or learning planner would read it.
+        Never fails the query."""
+        from ..plananalysis import fingerprint, planner
         from ..telemetry import accounting, tracing
 
         try:
-            if not fingerprint.fingerprint_wanted():
+            if not fingerprint.fingerprint_wanted() and not (planner.planner_enabled() and planner.outcome_dir()):
                 return None
             fp = fingerprint.plan_fingerprint(phys)
         except Exception:
@@ -379,6 +384,10 @@ def _absolute(path: str) -> str:
 class HyperspaceSession:
     """One session = conf + filesystem + device + optimizer rules + warehouse."""
 
+    #: The last session made: where the history store lives by default
+    #: (`telemetry.history.history_dir`).
+    _active: Optional["HyperspaceSession"] = None
+
     def __init__(
         self,
         warehouse: str = ".",
@@ -394,6 +403,7 @@ class HyperspaceSession:
         # Rule protocol: rule.apply(plan, session) -> plan.
         self.extra_optimizations: List = []
         self._views: Dict[str, LogicalPlan] = {}
+        HyperspaceSession._active = self
 
     @property
     def read(self) -> DataFrameReader:

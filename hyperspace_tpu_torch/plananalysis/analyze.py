@@ -138,7 +138,6 @@ def explain_analyze(df):
                 with tracing.span("plan"):
                     phys = df.physical_plan()
                 fp = df._attach_fingerprint(phys)
-                _planner.refuse_outcome_store()
                 pd = _planner.decide(phys, fp, session.device)
                 with _planner.decisions_scope(pd):
                     t0 = _time.monotonic()

@@ -24,6 +24,7 @@ import os
 from typing import Optional
 
 from ..telemetry import accounting as _accounting
+from ..telemetry import history as _history
 from ..telemetry import tracing as _tracing
 
 FLAG_KEYS = (
@@ -151,10 +152,11 @@ def plan_fingerprint(node, posture: Optional[dict] = None) -> str:
 
 
 def fingerprint_wanted() -> bool:
-    """Whether a fingerprint reaches a consumer: an open ledger or a span
-    sink. The workload history store, the JAX package's third consumer, is
-    not ported (ROADMAP Queue 1 item 6). Off: one contextvar read and the
+    """Whether a fingerprint reaches a consumer: the history store, an open
+    ledger or a span sink. Off: one env read, one contextvar read and the
     sink check."""
+    if _history.enabled():
+        return True
     if _accounting.current_ledger() is not None:
         return True
     return _tracing.active()

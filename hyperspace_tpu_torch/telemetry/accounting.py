@@ -23,10 +23,11 @@ device sampled at close (at most once a second, with its age), and absent
 for a CPU session.
 
 A closed ledger lands on the root span (`attrs["ledger"]`), in a bounded
-history (`recent_ledgers`, `ledger_for`), in the `accounting.<field>`
-counters and in the `latency.<root name>` histogram. The JAX package's
-exporter, workload history and replica id are not ported: `enabled()`
-treats the exporter as not running and `HYPERSPACE_HISTORY` as off.
+history (`recent_ledgers`, `ledger_for`), in the exporter's bounded queue
+(`drain_pending`), in the `accounting.<field>` counters, in the
+`latency.<root name>` histogram and, under `HYPERSPACE_HISTORY=1`, in the
+workload history store (`history.land`). The replica id waits for the
+serving layer.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ import time
 from collections import deque
 from typing import Iterator, List, Optional
 
+from . import history as _history
 from . import metrics as _metrics
 from . import stage_ledger as _stage_ledger
 
@@ -78,6 +80,9 @@ TENANT_OVERFLOW = "<other>"
 
 _RECENT: "deque[QueryLedger]" = deque(maxlen=32)
 _recent_lock = threading.Lock()
+#: Closed ledgers for the exporter's next frame; bounded, so with no
+#: exporter the oldest age out.
+_PENDING: "deque[dict]" = deque(maxlen=256)
 
 
 class QueryLedger:
@@ -129,23 +134,17 @@ class QueryLedger:
             return out
 
 
-def exporter_running() -> bool:
-    """Whether the continuous metrics exporter runs: always False, since the
-    exporter is not ported yet (ROADMAP Queue 1 item 6)."""
-    return False
-
-
 def enabled() -> bool:
-    """Whether query scopes carry a ledger: `HYPERSPACE_ACCOUNTING=1`, a
-    tenant label, or an active span sink (the exporter and the history store
-    are not ported, so they never ask)."""
-    if os.environ.get(ENV_ACCOUNTING) == "1":
+    """Whether query scopes carry a ledger: `HYPERSPACE_ACCOUNTING=1`,
+    `HYPERSPACE_HISTORY=1` (the store lands closed ledgers), a tenant label,
+    an active span sink or a running exporter."""
+    if os.environ.get(ENV_ACCOUNTING) == "1" or _history.enabled():
         return True
     if _tenant.get() is not None:
         return True
-    from . import tracing
+    from . import exporter, tracing
 
-    return tracing.active() or exporter_running()
+    return tracing.active() or exporter.running()
 
 
 def current_ledger() -> Optional[QueryLedger]:
@@ -342,8 +341,11 @@ def _close(led: QueryLedger, root, t0: float) -> None:
             root.set_attr("ledger", d)
         except Exception:
             pass
+    if _history.enabled():
+        _history.land(d, root)
     with _recent_lock:
         _RECENT.append(led)
+        _PENDING.append(d)
 
 
 def recent_ledgers() -> List[QueryLedger]:
@@ -360,8 +362,20 @@ def ledger_for(query_id: str) -> Optional[QueryLedger]:
     return None
 
 
+def drain_pending() -> List[dict]:
+    """Every ledger closed since the last drain, oldest first (the
+    exporter's frames)."""
+    out: List[dict] = []
+    with _recent_lock:
+        while _PENDING:
+            out.append(_PENDING.popleft())
+    return out
+
+
 def reset() -> None:
-    """Forget the closed ledgers and the tenant rollup (tests)."""
+    """Forget the closed ledgers, the exporter's queue and the tenant rollup
+    (tests)."""
     with _recent_lock:
         _RECENT.clear()
+        _PENDING.clear()
     reset_tenant_rollup()

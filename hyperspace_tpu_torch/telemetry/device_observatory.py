@@ -1,6 +1,5 @@
 """Device cost observatory: where device time, transfer bytes and padding go
-(counterpart of `hyperspace_tpu/telemetry/device_observatory.py`, without
-its profile capture, which waits for the history and SLO layers).
+(counterpart of `hyperspace_tpu/telemetry/device_observatory.py`).
 
 - **Per-kernel device time.** `probe_start` / `probe_finish` bracket each
   kernel launch (`compile_log.observed_launch`). Under
@@ -24,10 +23,27 @@ its profile capture, which waits for the history and SLO layers).
   on the ledger, which derives `pad_ratio`.
 - **Encoded staging.** `record_encoded_stage` keeps the JAX package's
   encoded-vs-flat split and its names.
+- **Profile capture.** `maybe_capture(reason, detail)`, called by the
+  history store's anomaly, writes `capture.json` into
+  `HYPERSPACE_PROFILE_DIR/capture/` at once (reason, kernel launches, device
+  time, pads, transfers, the last ledgers) and opens a
+  `torch.profiler.profile` window of `HYPERSPACE_PROFILE_WINDOW_S` on a
+  daemon thread: CUDA activity (every kernel the process launches in the
+  window) when this process holds a CUDA context, the CPU otherwise. The
+  window opens once the profiler has started (the first in a process waits
+  for CUPTI to initialize; `_trace_started` is set then) and lands as
+  `trace.chrome.json`, its status in `trace.json` (`window_s`, `trace`,
+  `error`, `started_after_s`). One window at a time per process (CUPTI
+  allows one profiler): a capture during a window keeps its manifest and
+  skips the trace. Captures are rate limited
+  (`HYPERSPACE_PROFILE_MIN_INTERVAL_S`, counted in
+  `profiler.captures_suppressed`) and keep `HYPERSPACE_PROFILE_KEEP`
+  directories. A capture never raises into the query.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import threading
 import time
@@ -38,6 +54,15 @@ from . import metrics as _metrics
 ENV_DEVICE_TIMING = "HYPERSPACE_DEVICE_TIMING"
 ENV_TIMING_INTERVAL_S = "HYPERSPACE_DEVICE_TIMING_INTERVAL_S"
 _DEFAULT_TIMING_INTERVAL_S = 0.25
+ENV_PROFILE_DIR = "HYPERSPACE_PROFILE_DIR"
+ENV_PROFILE_KEEP = "HYPERSPACE_PROFILE_KEEP"
+ENV_PROFILE_WINDOW_S = "HYPERSPACE_PROFILE_WINDOW_S"
+ENV_PROFILE_MIN_INTERVAL_S = "HYPERSPACE_PROFILE_MIN_INTERVAL_S"
+_DEFAULT_PROFILE_KEEP = 3
+_DEFAULT_PROFILE_WINDOW_S = 2.0
+_DEFAULT_PROFILE_MIN_INTERVAL_S = 60.0
+#: The window's Chrome trace, beside `trace.json` in a capture directory.
+CHROME_TRACE_NAME = "trace.chrome.json"
 
 _H2D_BYTES = _metrics.counter("transfer.h2d.bytes")
 _H2D_COUNT = _metrics.counter("transfer.h2d.count")
@@ -48,6 +73,8 @@ _PAD_PADDED = _metrics.counter("pad.bytes_padded")
 _ENC_FLAT = _metrics.counter("device.encoded.bytes_flat")
 _ENC_STAGED = _metrics.counter("device.encoded.bytes_staged")
 _ENC_PACKED = _metrics.counter("device.encoded.bytes_packed")
+_CAPTURES = _metrics.counter("profiler.captures")
+_CAPTURES_SUPPRESSED = _metrics.counter("profiler.captures_suppressed")
 
 _lock = threading.Lock()
 _last_probe: Dict[str, float] = {}
@@ -57,6 +84,14 @@ _encoded_sites: Dict[str, list] = {}
 _transfers: Dict[str, list] = {"h2d": [0, 0, 0.0], "d2h": [0, 0, 0.0]}
 #: Probes taken outside any ledger: (label, start, end, stage).
 _pending: List[tuple] = []
+_last_capture: list = [-1e18]
+_capture_seq = 0
+#: Set while a profiler window runs: one at a time per process.
+_trace_in_flight = threading.Event()
+#: Set once the newest window's profiler has started recording.
+_trace_started = threading.Event()
+#: The window's thread, joined (bounded) at exit.
+_trace_thread: list = [None]
 
 
 def timing_mode() -> str:
@@ -317,3 +352,136 @@ def reset() -> None:
         for t in _transfers.values():
             t[0] = t[1] = 0
             t[2] = 0.0
+        _last_capture[0] = -1e18
+
+
+def _env_num(key: str, default, cast, floor):
+    try:
+        return max(floor, cast(os.environ.get(key, "") or default))
+    except ValueError:
+        return default
+
+
+def profile_keep() -> int:
+    return _env_num(ENV_PROFILE_KEEP, _DEFAULT_PROFILE_KEEP, int, 1)
+
+
+def _profile_window_s() -> float:
+    return _env_num(ENV_PROFILE_WINDOW_S, _DEFAULT_PROFILE_WINDOW_S, float, 0.05)
+
+
+def _profile_min_interval_s() -> float:
+    return _env_num(ENV_PROFILE_MIN_INTERVAL_S, _DEFAULT_PROFILE_MIN_INTERVAL_S, float, 0.0)
+
+
+def _drain_trace_thread() -> None:
+    t = _trace_thread[0]
+    if t is not None and t.is_alive():
+        t.join(timeout=_profile_window_s() + 15.0)
+
+
+def maybe_capture(reason: str, detail: Optional[dict] = None) -> Optional[str]:
+    """One capture into `HYPERSPACE_PROFILE_DIR`: its directory, or None when
+    the knob is unset, the rate limit holds or the capture failed."""
+    global _capture_seq
+    base_dir = os.environ.get(ENV_PROFILE_DIR)
+    if not base_dir:
+        return None
+    now = time.monotonic()
+    with _lock:
+        if now - _last_capture[0] < _profile_min_interval_s():
+            _CAPTURES_SUPPRESSED.inc()
+            return None
+        _last_capture[0] = now
+        _capture_seq += 1
+        seq = _capture_seq
+    try:
+        from . import accounting as _accounting
+        from . import compile_log as _compile_log
+        from . import rotation as _rotation
+
+        cap_dir = os.path.join(base_dir, "capture")
+        os.makedirs(base_dir, exist_ok=True)
+        _rotation.rotate_dir(cap_dir, keep=profile_keep())
+        os.makedirs(cap_dir, exist_ok=True)
+        window_s = _profile_window_s()
+        manifest = {
+            "schema_version": 1,
+            "reason": reason,
+            "seq": seq,
+            "ts": time.time(),
+            "window_s": window_s,
+            "detail": detail or {},
+            "programs": _compile_log.program_summary(),
+            "device": device_summary(),
+            "pads": pad_summary(),
+            "transfers": transfer_summary(),
+            "recent_ledgers": [led.to_dict() for led in _accounting.recent_ledgers()[-8:]],
+        }
+        with open(os.path.join(cap_dir, "capture.json"), "w") as f:
+            json.dump(manifest, f, indent=1, sort_keys=True, default=str)
+        _CAPTURES.inc()
+        with _lock:
+            start_trace = not _trace_in_flight.is_set()
+            if start_trace:
+                _trace_in_flight.set()
+        if start_trace:
+            _trace_started.clear()
+            t = threading.Thread(target=_trace_window, args=(cap_dir, window_s),
+                                 name="hyperspace-profile-capture", daemon=True)
+            if _trace_thread[0] is None:
+                import atexit
+
+                atexit.register(_drain_trace_thread)
+            _trace_thread[0] = t
+            t.start()
+        else:
+            with open(os.path.join(cap_dir, "trace.json"), "w") as f:
+                json.dump({"window_s": window_s, "trace": False, "error": "skipped: trace already in flight"}, f)
+        return cap_dir
+    except Exception:
+        return None
+
+
+def _trace_window(cap_dir: str, window_s: float) -> None:
+    """One `torch.profiler` window into `cap_dir` (the daemon thread): CUDA
+    activity too when this process holds a CUDA context. The window runs
+    `window_s` from the profiler's start, which on the first window of a
+    process waits for CUPTI's initialization (`started_after_s`); the status,
+    an error included, lands in `trace.json`."""
+    status = {"window_s": window_s, "trace": False}
+    prof = None
+    t0 = time.monotonic()
+    try:
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if torch.cuda.is_initialized():
+            activities.append(ProfilerActivity.CUDA)
+        status["activities"] = sorted(a.name for a in activities)
+        # One cycle a window: accumulating changes nothing and keeps the
+        # profiler from warning that it clears events between cycles.
+        p = profile(activities=activities, acc_events=True)
+        p.start()
+        prof = p
+        status["started_after_s"] = round(time.monotonic() - t0, 3)
+        _trace_started.set()
+        time.sleep(window_s)
+    except Exception as e:
+        status["error"] = f"{type(e).__name__}: {e}"
+    finally:
+        if prof is not None:
+            try:
+                prof.stop()
+                prof.export_chrome_trace(os.path.join(cap_dir, CHROME_TRACE_NAME))
+                status["trace"] = True
+                status["chrome_trace"] = CHROME_TRACE_NAME
+            except Exception as e:
+                status["error"] = f"{type(e).__name__}: {e}"
+        _trace_in_flight.clear()
+        try:
+            with open(os.path.join(cap_dir, "trace.json"), "w") as f:
+                json.dump(status, f)
+        except OSError:
+            pass

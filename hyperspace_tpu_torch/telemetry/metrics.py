@@ -177,6 +177,56 @@ class Histogram:
                     out[key] = None if v is None else round(v, 6)
             return out
 
+    def dump_state(self) -> dict:
+        """The JSON state the history store checkpoints (`metrics.py:201` of
+        the JAX package, same keys): count, total, min/max and the non-empty
+        bucket slots by index."""
+        with self._lock:
+            out = {"count": self.count, "total": round(self.total, 9)}
+            if self.min is not None:
+                out["min"] = self.min
+                out["max"] = self.max
+            buckets = {str(i): n for i, n in enumerate(self._buckets) if n}
+            if buckets:
+                out["buckets"] = buckets
+            return out
+
+    def merge_state(self, state: dict) -> None:
+        """Add a `dump_state` payload into this histogram. Everything is
+        parsed before anything changes: a malformed record neither raises
+        nor half-merges; a non-number min or max is dropped."""
+        if not isinstance(state, dict):
+            return
+        try:
+            count = int(state.get("count", 0))
+            total = float(state.get("total", 0.0))
+        except (TypeError, ValueError):
+            return
+
+        def num(v):
+            return float(v) if isinstance(v, (int, float)) and not isinstance(v, bool) else None
+
+        mn, mx = num(state.get("min")), num(state.get("max"))
+        buckets = []
+        raw = state.get("buckets")
+        if isinstance(raw, dict):
+            for key, n in raw.items():
+                try:
+                    i, cnt = int(key), int(n)
+                except (TypeError, ValueError):
+                    continue
+                if 0 <= i < _N_BUCKETS:
+                    buckets.append((i, cnt))
+        with self._lock:
+            self.count += count
+            self.total += total
+            if mn is not None:
+                self.min = mn if self.min is None else min(self.min, mn)
+            if mx is not None:
+                self.max = mx if self.max is None else max(self.max, mx)
+            for i, cnt in buckets:
+                self._buckets[i] += cnt
+
     def export_state(self) -> Tuple[int, float, List[Tuple[float, int]]]:
         """(count, total, cumulative buckets) read under one lock hold."""
         with self._lock:

@@ -25,7 +25,8 @@ the stage summaries of the streamed executors (`<kind>:stages` and
 
 JSONL (`HYPERSPACE_TRACE_FILE`): one line per span, written when the root
 ends, `{"query_id", "span_id", "parent_id", "name", "start_s", "duration_s",
-"status", "attrs"}`, the schema `tools/hstimeline.py` reads.
+"status", "attrs"}`, the schema `tools/hstimeline.py` reads. The file
+rotates at `HYPERSPACE_TRACE_MAX_MB` (`rotation.append`).
 """
 
 from __future__ import annotations
@@ -393,9 +394,12 @@ def _finalize(trace: QueryTrace) -> None:
     path = os.environ.get(ENV_TRACE_FILE)
     if path:
         try:
+            from . import rotation as _rotation
+
             lines = "".join(json.dumps(s, default=str) + "\n" for s in _closed_spans(trace))
-            with _export_lock, open(path, "a") as fh:
-                fh.write(lines)
+            # One whole trace per append, rotated at HYPERSPACE_TRACE_MAX_MB.
+            with _export_lock:
+                _rotation.append(path, lines, _rotation.ENV_TRACE_MAX_MB)
         except Exception:
             pass
     tdir = os.environ.get(ENV_TIMELINE_DIR)

@@ -1097,3 +1097,104 @@ def test_explain_analyze_on_the_card_counts_the_star_launches(cuda_device, tmp_p
     assert f"{cuda_sort.LABEL}: {cuda_sort.launches}" in text
     d = accounting.ledger_for(tracing.last_trace().query_id).to_dict()
     assert 0.0 < d["device_time_s"] <= d["wall_s"] and d["device_live_bytes"] > 0
+
+
+@pytest.mark.cuda
+def test_the_exporter_samples_live_bytes_from_an_existing_cuda_context(cuda_device, tmp_path):
+    """Once the process holds a CUDA context the exporter's frame carries
+    `torch.cuda.memory_allocated`, read on the exporter's own thread."""
+    import json
+
+    from hyperspace_tpu_torch.telemetry import accounting, exporter
+
+    held = torch.ones(1 << 20, dtype=torch.int64, device=cuda_device)
+    assert torch.cuda.is_initialized()
+    # The sampler reads at most once a second and hands out the last reading
+    # meanwhile: let this stream's first frame take a fresh one.
+    accounting._device_sample[0] = -accounting._DEVICE_SAMPLE_MIN_INTERVAL_S
+    path = str(tmp_path / "m.jsonl")
+    ex = exporter.MetricsExporter(path, interval_s=0.05).start()
+    ex.stop()
+    with open(path) as f:
+        frames = [json.loads(line) for line in f]
+    assert frames[-1]["final"] is True
+    assert any(fr.get("device_live_bytes", 0) >= held.numel() * 8 for fr in frames)
+
+
+@pytest.mark.cuda
+def test_a_real_capture_window_names_the_probe_kernel(cuda_device, tmp_path, monkeypatch):
+    """A capture's `torch.profiler` window, opened on its daemon thread,
+    records CUDA activity of the whole process: K2's `windowed_probe`
+    launched on this thread once the window has started is in its Chrome
+    trace."""
+    import json
+    import os
+
+    from hyperspace_tpu_torch.telemetry import device_observatory as dv
+
+    monkeypatch.setenv(dv.ENV_PROFILE_DIR, str(tmp_path / "prof"))
+    monkeypatch.setenv(dv.ENV_PROFILE_WINDOW_S, "1.5")
+    monkeypatch.setenv(dv.ENV_PROFILE_MIN_INTERVAL_S, "0")
+    args = [torch.from_numpy(a).to(cuda_device) for a in _probe_input(6, 64, 1024, 4096, 500, np.int64)]
+    cuda_probe.range_probe(*args)  # builds the library outside the window
+    torch.cuda.synchronize()
+    dv.reset()
+    cap = dv.maybe_capture("anomaly", {"test": "card"})
+    assert cap is not None and os.path.exists(os.path.join(cap, "capture.json"))
+    assert dv._trace_started.wait(timeout=120)  # the first window waits for CUPTI
+    for _ in range(20):
+        cuda_probe.range_probe(*args)
+        torch.cuda.synchronize()
+    dv._trace_thread[0].join(timeout=60)
+    with open(os.path.join(cap, "trace.json")) as f:
+        status = json.load(f)
+    assert status["trace"] is True and "CUDA" in status["activities"], status
+    with open(os.path.join(cap, status["chrome_trace"])) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    assert any("windowed_probe" in n for n in names)
+
+
+@pytest.mark.cuda
+def test_history_on_under_timing_lands_device_seconds(cuda_device, tmp_path, monkeypatch):
+    """`HYPERSPACE_HISTORY=1` with CUDA-event timing: each closed ledger of a
+    co-bucketed join on the card lands with its device seconds, and the
+    class baseline folds them; rows equal the CPU's."""
+    import os
+
+    import chip_smoke
+    import hyperspace_tpu_torch as hst
+    from hyperspace_tpu_torch.plananalysis import planner
+    from hyperspace_tpu_torch.telemetry import history
+
+    rng = np.random.RandomState(8)
+    n = 20_000
+    src = {"a": {"k": rng.randint(0, 3000, n).astype(np.int64), "x": rng.rand(n)},
+           "b": {"k2": np.arange(3000, dtype=np.int64), "y": rng.rand(3000)}}
+    monkeypatch.setenv("HYPERSPACE_HISTORY", "1")
+    monkeypatch.setenv("HYPERSPACE_HISTORY_DIR", str(tmp_path / "hist"))
+    monkeypatch.setenv("HYPERSPACE_DEVICE_TIMING", "all")
+    history.reset_stores()
+    planner.reset()
+    rows = {}
+    for dev in ("cpu", "cuda"):
+        s = hst.HyperspaceSession(warehouse=str(tmp_path / f"wh-{dev}"), device=dev)
+        s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, 8)
+        hs = hst.Hyperspace(s)
+        for name, cols in src.items():
+            path = str(tmp_path / f"{dev}-{name}")
+            s.write_parquet(cols, path)
+            key = "k" if name == "a" else "k2"
+            hs.create_index(s.read.parquet(path), hst.IndexConfig(f"{name}Idx{dev}", [key], list(cols)[1:]))
+        hst.enable_hyperspace(s)
+        a, b = s.read.parquet(str(tmp_path / f"{dev}-a")), s.read.parquet(str(tmp_path / f"{dev}-b"))
+        q = a.join(b, hst.col("k") == hst.col("k2")).select("k", "x", "y")
+        for _ in range(3):
+            chip_smoke.clear_caches()
+            rows[dev] = q.collect().sorted_rows()
+    assert rows["cpu"] == rows["cuda"]
+    store = history.get_store()
+    card = [b for b in store.baselines().values() if b.get("device_time_s", 0) > 0]
+    assert card and card[0]["n"] == 3 and card[0]["rows_produced"] == 3 * len(rows["cuda"])
+    assert os.listdir(str(tmp_path / "hist" / "planner"))
+    history.reset_stores()
+    planner.reset()

@@ -1,12 +1,14 @@
-"""The planner's model arm in the port against the JAX package.
+"""The planner in the port against the JAX package.
 
-The model-only cases of `tests/test_planner.py` (`TestDecisions` :84,
-`TestZeroCostOff` :149, `TestCostModel` :451, the pruning-prior and
-`TestMultiwayKnob` :599 estimate and `collect_stats` cases) run in both
-packages over the same parquet files: each knob's arm and source, the plan
+The cases of `tests/test_planner.py` (`TestDecisions` :84,
+`TestZeroCostOff` :149, `TestSelfCorrection` :258, `TestCostModel` :451,
+`TestPruneSelectivity` :509, `TestMultiwayKnob` :599) run in both packages
+over the same parquet files: each knob's arm and source, the plan
 statistics, and, with `HYPERSPACE_PLANNER_MEMCPY_GBPS` pinning the
-bandwidth, each arm's predicted seconds (rtol 1e-12). The JAX package's
-outcome store, fingerprints and ledger are not ported; its decisions are
+bandwidth, each arm's predicted seconds (rtol 1e-12). The self-correction
+cases feed both packages the same synthetic walls: both flip at the same
+query to the same arm, and an outcome store written by either re-folds in
+the other to the same `outcome_summary()`. The JAX package's decisions are
 read from `planner.decide` directly, the port's also from
 `planner.last_decisions()` after a query.
 
@@ -20,6 +22,7 @@ sums agree bit for bit (tolerance 0); the warm sums differ from the cold
 ones in the last bits, as the reference's do.
 """
 
+import glob
 import os
 
 import numpy as np
@@ -29,22 +32,26 @@ import pytest
 
 import hyperspace_tpu_torch as hst
 from hyperspace_tpu.engine import HyperspaceSession as JaxSession
+from hyperspace_tpu.engine import col as jax_col
 from hyperspace_tpu.engine.scan_cache import global_bucketed_cache as jax_bucketed_cache
 from hyperspace_tpu.engine.scan_cache import global_concat_cache as jax_concat_cache
 from hyperspace_tpu.engine.scan_cache import global_scan_cache as jax_scan_cache
 from hyperspace_tpu.plananalysis import costmodel as jax_costmodel
 from hyperspace_tpu.plananalysis import planner as jax_planner
+from hyperspace_tpu.telemetry import history as jax_history
 from hyperspace_tpu.telemetry.profiling import last_query_stages as jax_last_query_stages
 from hyperspace_tpu_torch.engine import io as engine_io
-from hyperspace_tpu_torch.engine import physical, scan_cache
+from hyperspace_tpu_torch.engine import physical, scan_cache, streaming
 from hyperspace_tpu_torch.exceptions import HyperspaceException
 from hyperspace_tpu_torch.plananalysis import costmodel, planner
+from hyperspace_tpu_torch.telemetry import history
 from hyperspace_tpu_torch.telemetry.profiling import last_query_stages
 from test_torch_aggregate import assert_same
 
 PLANNER_ENVS = (
-    planner.ENV_PLANNER, planner.ENV_PLANNER_DIR, costmodel.ENV_MEMCPY_GBPS, "HYPERSPACE_HISTORY",
-    "HYPERSPACE_HISTORY_DIR", "HYPERSPACE_ACCOUNTING", "HYPERSPACE_FORCE_DEVICE_OPS",
+    planner.ENV_PLANNER, planner.ENV_PLANNER_DIR, planner.ENV_MIN_SAMPLES, planner.ENV_DRIFT_X,
+    costmodel.ENV_MEMCPY_GBPS, "HYPERSPACE_HISTORY", "HYPERSPACE_HISTORY_DIR", "HYPERSPACE_ACCOUNTING",
+    "HYPERSPACE_FORCE_DEVICE_OPS",
 )
 
 
@@ -67,6 +74,8 @@ def _clean_planner(monkeypatch):
     yield
     planner.reset()
     jax_planner.reset()
+    history.reset_stores()
+    jax_history.reset_stores()
 
 
 class Pair:
@@ -205,17 +214,28 @@ def test_gates_follow_the_decisions_in_scope(pair):
     assert all(g() for g in gates.values())
 
 
-def test_the_outcome_store_is_refused_not_skipped(pair, monkeypatch, tmp_path):
-    """With `HYPERSPACE_PLANNER_DIR` set (or history on) the JAX planner
-    learns; the port raises `not_in_slice` rather than model without it."""
+def test_the_outcome_store_learns_under_both_settings(pair, monkeypatch, tmp_path):
+    """With `HYPERSPACE_PLANNER_DIR` set, or history on (its `planner/`
+    beside the session's `.hyperspace_history`), the port answers and lands
+    one outcome record per query, as the JAX planner does."""
     src = pair.source()
-    for env, value in (("HYPERSPACE_PLANNER_DIR", str(tmp_path / "p")), ("HYPERSPACE_HISTORY", "1")):
+    homes = (("HYPERSPACE_PLANNER_DIR", str(tmp_path / "p"), str(tmp_path / "p")),
+             ("HYPERSPACE_HISTORY", "1", os.path.join(pair.base, ".hyperspace_history", "planner")))
+    for env, value, home in homes:
         with monkeypatch.context() as m:
             m.setenv(env, value)
-            with pytest.raises(NotImplementedError, match="outcome store"):
-                _agg(pair.t, src).collect()
-            m.setenv(planner.ENV_PLANNER, "0")
-            assert _agg(pair.t, src).collect().num_rows == 7
+            assert planner.outcome_dir() == home
+            for _ in range(2):
+                assert _agg(pair.t, src).collect().num_rows == 7
+            recs = [r for f in glob.glob(os.path.join(home, "planner-*.jsonl"))
+                    for r in history.iter_file_records(f)]
+            assert len(recs) == 2 and {r["kind"] for r in recs} == {"planner_outcome"}
+            fps = {r["fingerprint"] for r in recs}
+            assert len(fps) == 1 and set(recs[0]["outcomes"]) == set(costmodel.KNOBS)
+            summary = planner.outcome_summary()
+            assert {k[0] for k in summary} == fps and all(v["n"] == 2 for v in summary.values())
+        planner.reset()
+        history.reset_stores()
 
 
 # -- tests/test_planner.py: TestZeroCostOff -------------------------------------
@@ -368,6 +388,195 @@ def test_learned_selectivity_prices_the_pushdown_arm():
     sharp = costmodel.estimate(costmodel.PlanStats(**kw), cal, prune_selectivity=0.1)["pushdown"]
     static = costmodel.estimate(costmodel.PlanStats(**kw), cal)["pushdown"]
     assert sharp[2] < static[2] and sharp[3] == static[3]
+
+
+# -- tests/test_planner.py: TestPruneSelectivity (the store's half) --------------
+
+
+def test_store_folds_and_refolds_pruning_counters(tmp_path, monkeypatch):
+    monkeypatch.setenv(planner.ENV_PLANNER_DIR, str(tmp_path / "ps"))
+    store = planner._outcome_store()
+    assert store.prune_selectivity("fp-sel") is None
+    outcomes = {"pushdown": {"arm": "on", "wall_s": 0.01, "predicted_s": 0.01}}
+    store.observe("fp-sel", outcomes, pruning=(2, 8))
+    store.observe("fp-sel", outcomes, pruning=(0, 10))
+    assert store.prune_selectivity("fp-sel") == pytest.approx(0.1)
+    planner.reset()  # a restart re-folds the records
+    store2 = planner._outcome_store()
+    assert store2.prune_selectivity("fp-sel") == pytest.approx(0.1)
+    assert jax_planner._outcome_store().prune_selectivity("fp-sel") == pytest.approx(0.1)
+    store2.observe("fp-sel", outcomes, pruning=("x", None))  # ignored, never fatal
+    assert store2.prune_selectivity("fp-sel") == pytest.approx(0.1)
+
+
+def test_prune_counters_delta_clamped():
+    base = planner.prune_counters()
+    assert base is not None and len(base) == 2
+    assert planner.prune_counters(base) == (0, 0)
+    assert planner.prune_counters((10**12, 10**12)) == (0, 0)
+    assert planner.prune_counters(("x",)) is None
+
+
+def test_decided_query_records_pruning_delta(pair, tmp_path, monkeypatch):
+    """A decided, filtered query lands its row-group delta in the store, and
+    both packages learn the same selectivity of the same class."""
+    src = os.path.join(pair.base, "pruned")
+    pair.t.write_parquet({"k": [i % 7 for i in range(600)], "v": [float(i) for i in range(600)]}, src,
+                         row_group_rows=100)
+    learned = {}
+    for name, s, mod, col in (("torch", pair.t, planner, hst.col), ("jax", pair.j, jax_planner, jax_col)):
+        monkeypatch.setenv(planner.ENV_PLANNER_DIR, str(tmp_path / f"pe-{name}"))
+
+        def q():
+            return s.read.parquet(src).filter(col("v") < 150.0).group_by("k").agg(t=("v", "sum"))
+
+        q().collect()  # cold: warms the footers
+        q().collect()  # warm zone maps prune
+        store = mod._outcome_store()
+        learned[name] = {fp: store.prune_selectivity(fp) for fp, _k, _a in store.summary()}
+    assert learned["torch"] == learned["jax"]
+    sels = [v for v in learned["torch"].values() if v is not None]
+    assert sels and all(0.0 < v < 1.0 for v in sels)
+
+
+# -- tests/test_planner.py: TestSelfCorrection ----------------------------------
+
+
+def _bad_chunk_estimate(stats, cal, prune_selectivity=None):
+    """A measurably wrong model arm: tiny chunks, priced cheap."""
+    est = {k: (True, False, 0.0, 0.0) for k in costmodel.KNOBS}
+    est["chunk_rows"] = (512, 4_000_000, 0.006, 0.006)
+    est["hash_quantize"] = (False, True, 0.0, 0.0)
+    return est
+
+
+def _self_correct(mod, phys, n, walls, fp="fp-selfcorrect"):
+    """Decide and observe `n` queries of one class, the wall set by the
+    chosen chunk arm; the (value, source) of each."""
+    log = []
+    for _ in range(n):
+        pd = mod.decide(phys, fp)
+        d = pd.decisions["chunk_rows"]
+        log.append((d.value, d.source))
+        mod.observe(pd, walls[d.value])
+    return log
+
+
+def _summary_of(mod) -> dict:
+    return {k: {f: v[f] for f in ("n", "mean_wall_s", "mean_predicted_s")} for k, v in mod.outcome_summary().items()}
+
+
+def test_wrong_arm_flips_at_the_jax_packages_query_and_survives_restart(pair, tmp_path, monkeypatch):
+    src = pair.source()
+    monkeypatch.setenv(planner.ENV_MIN_SAMPLES, "2")
+    monkeypatch.setenv(planner.ENV_DRIFT_X, "1.0")
+    monkeypatch.setattr(costmodel, "estimate", _bad_chunk_estimate)
+    monkeypatch.setattr(jax_costmodel, "estimate", _bad_chunk_estimate)
+    walls = {512: 0.2, 4_000_000: 0.05}
+    logs, dirs = {}, {}
+    for name, s, mod in (("torch", pair.t, planner), ("jax", pair.j, jax_planner)):
+        dirs[name] = str(tmp_path / f"store-{name}")
+        monkeypatch.setenv(planner.ENV_PLANNER_DIR, dirs[name])
+        logs[name] = _self_correct(mod, _agg(s, src).physical_plan(), 6, walls)
+    assert logs["torch"] == logs["jax"]
+    log = logs["torch"]
+    assert log[0] == (512, "model") and "explore" in {src_ for _, src_ in log}
+    assert log[-1] == (4_000_000, "measured")
+    monkeypatch.setenv(planner.ENV_PLANNER_DIR, dirs["torch"])
+    phys = _agg(pair.t, src).physical_plan()
+    with planner.decisions_scope(planner.decide(phys, "fp-selfcorrect")):
+        assert streaming.query_chunk_rows() == 4_000_000  # the gate runs the flipped arm
+    act = planner.activity_summary()["chunk_rows"]
+    assert act["explorations"] >= 1 and act["measured_flips"] >= 1
+    planner.reset()  # restart: the flip re-folds from disk
+    assert glob.glob(os.path.join(dirs["torch"], "planner-*.jsonl"))
+    assert _self_correct(planner, phys, 1, walls) == [(4_000_000, "measured")]
+
+
+def test_a_store_written_by_either_package_refolds_in_the_other(pair, tmp_path, monkeypatch):
+    src = pair.source()
+    monkeypatch.setenv(planner.ENV_MIN_SAMPLES, "2")
+    monkeypatch.setenv(planner.ENV_DRIFT_X, "1.0")
+    monkeypatch.setattr(costmodel, "estimate", _bad_chunk_estimate)
+    monkeypatch.setattr(jax_costmodel, "estimate", _bad_chunk_estimate)
+    walls = {512: 0.2, 4_000_000: 0.05}
+    for writer, s, mod, reader in (("torch", pair.t, planner, jax_planner), ("jax", pair.j, jax_planner, planner)):
+        monkeypatch.setenv(planner.ENV_PLANNER_DIR, str(tmp_path / f"by-{writer}"))
+        _self_correct(mod, _agg(s, src).physical_plan(), 5, walls)
+        written = _summary_of(mod)
+        reader.reset()
+        assert written and _summary_of(reader) == written
+        planner.reset()
+        jax_planner.reset()
+
+
+def test_no_learning_without_persistent_home(pair, tmp_path, monkeypatch):
+    src = pair.source()
+    monkeypatch.setattr(costmodel, "estimate", _bad_chunk_estimate)
+    log = _self_correct(planner, _agg(pair.t, src).physical_plan(), 5, {512: 0.2, 4_000_000: 0.05})
+    assert all(v == 512 and s == "model" for v, s in log)
+    assert planner.outcome_summary() == {} and not glob.glob(str(tmp_path / "**" / "planner-*.jsonl"),
+                                                             recursive=True)
+
+
+def test_history_dir_sidecar_default(pair, tmp_path, monkeypatch):
+    hdir = str(tmp_path / "hist")
+    monkeypatch.setenv("HYPERSPACE_HISTORY", "1")
+    monkeypatch.setenv("HYPERSPACE_HISTORY_DIR", hdir)
+    assert planner.outcome_dir() == jax_planner.outcome_dir() == os.path.join(hdir, "planner")
+    planner.observe(planner.decide(_agg(pair.t, pair.source()).physical_plan(), "fp-sidecar"), 0.01)
+    assert glob.glob(os.path.join(hdir, "planner", "planner-*.jsonl"))
+
+
+def test_outcome_persistence_is_bounded(tmp_path, monkeypatch):
+    store_dir = str(tmp_path / "store")
+    monkeypatch.setenv(planner.ENV_PLANNER_DIR, store_dir)
+    store = planner._outcome_store()
+    for _ in range(planner._PERSIST_CAP + 20):
+        store.observe("fp-cap", {"streaming": {"arm": "on", "wall_s": 0.01, "predicted_s": 0.0}})
+    lines = []
+    for f in glob.glob(os.path.join(store_dir, "planner-*.jsonl")):
+        with open(f) as fh:
+            lines += fh.read().splitlines()
+    assert len(lines) == planner._PERSIST_CAP == jax_planner._PERSIST_CAP
+    assert store.stat("fp-cap", "streaming", "on").n == planner._PERSIST_CAP + 20
+    assert jax_planner._outcome_store().stat("fp-cap", "streaming", "on").n == planner._PERSIST_CAP
+
+
+def test_explores_one_knob_at_a_time(pair, tmp_path, monkeypatch):
+    src = pair.source()
+    monkeypatch.setenv(planner.ENV_PLANNER_DIR, str(tmp_path / "s"))
+    monkeypatch.setenv(planner.ENV_MIN_SAMPLES, "1")
+    monkeypatch.setenv(planner.ENV_DRIFT_X, "1.0")
+
+    def two_drifting(stats, cal, prune_selectivity=None):
+        est = {k: (True, False, 0.0, 0.0) for k in costmodel.KNOBS}
+        est["streaming"] = (True, False, 0.01, 0.01)
+        est["pushdown"] = (True, False, 0.01, 0.01)
+        est["chunk_rows"] = (4_000_000, 4_000_000, 0.0, 0.0)
+        est["hash_quantize"] = (False, True, 0.0, 0.0)
+        return est
+
+    monkeypatch.setattr(costmodel, "estimate", two_drifting)
+    phys = _agg(pair.t, src).physical_plan()
+    planner.observe(planner.decide(phys, "fp-onekn"), 0.5)  # both knobs drift far
+    exploring = [k for k, d in planner.decide(phys, "fp-onekn").decisions.items() if d.source == "explore"]
+    assert len(exploring) == 1
+
+
+def test_annotate_close_joins_the_history_baseline(pair, tmp_path, monkeypatch):
+    """With history on the ledger's planner dict carries the class's
+    `baseline_mean_s` and `vs_baseline_x` from the second query on."""
+    from hyperspace_tpu_torch.telemetry import accounting
+
+    monkeypatch.setenv("HYPERSPACE_HISTORY", "1")
+    monkeypatch.setenv("HYPERSPACE_HISTORY_DIR", str(tmp_path / "hist"))
+    src = pair.source()
+    _agg(pair.t, src).collect()
+    assert "baseline_mean_s" not in accounting.recent_ledgers()[-1].to_dict()["planner"]
+    _agg(pair.t, src).collect()
+    p = accounting.recent_ledgers()[-1].to_dict()["planner"]
+    assert p["baseline_mean_s"] > 0 and p["vs_baseline_x"] > 0
 
 
 # -- tests/test_planner.py: TestMultiwayKnob ------------------------------------

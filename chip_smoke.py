@@ -13,6 +13,7 @@
     python3 chip_smoke.py --phases env,resilience
     python3 chip_smoke.py --phases env,analyze
     python3 chip_smoke.py --phases env,history
+    python3 chip_smoke.py --phases env,kernels,serve
 
 Phases, each failing loudly:
 
@@ -292,7 +293,23 @@ Phases, each failing loudly:
              and K2's launch counters. Prints the planner learning over a
              warm aggregate and cached Q3's p50 with everything off,
              history on and the exporter running, in turns.
-17. identity the join, aggregate, Q3 (general joins, every group), Q13
+17. serve    the serving layer and the replica fleet at the main phase's
+             width, in a directory of its own (liQ3, ordQ3, liOrd, ordIdx,
+             liPs, psIdx): serial answers of Q3 (K2), Q9's join (K1, K2),
+             q3_agg and 48 point lookups (FilterIndexRule, keys from
+             --seed) against numpy; then through `hs.server()`, 4 tenants,
+             caches emptied before each run: the lookups alone and with 16
+             batch collects in a seeded interleaving (4 workers and 1; the
+             mix also with the interpreter's switch interval and the
+             workers' priority left alone), every answer equal to its
+             serial one exactly; lookup p50 / p99 and throughput printed.
+             8 identical cold Q3s decode one cold Q3's files. A second
+             replica, a child process importing only the port, joins a
+             registry (`HYPERSPACE_REPLICAS=1`): both answer Q3 alike, each
+             runs the lookups whose file it owns and the two decode counts
+             sum to one cold run's, a `refresh_index` here flips the child's
+             index cache through the epoch file, the child exits cleanly.
+18. identity the join, aggregate, Q3 (general joins, every group), Q13
              (indexed and disabled) and string slices at SF 0.05 with
              device="cpu" and device="cuda": identical index files,
              identical rows in order (sums at rtol 1e-9).
@@ -301,7 +318,7 @@ Kernel launches are read from the metrics registry
 (`kernel.launches.<label>`, which each wrapper's read-only `launches`
 reads), set to 0 at the start of each phase that drives the engine (main,
 q3, strings, packed, refresh, q13, skipping, delta, partitioned, setops,
-star, resilience, analyze, history) and summed over them. Prints one JSON
+star, resilience, analyze, history, serve) and summed over them. Prints one JSON
 line of per-kernel results, the card's `nvidia-smi` line,
 and last `{"ok": true, "device": {...}}`. Exits non-zero without a result
 when no CUDA device is visible or the package is missing.
@@ -937,10 +954,29 @@ def expected_rows(data):
 
 
 def canonical(rows: dict) -> dict:
-    """Columns reordered by a lexsort of all of them: equal multisets of rows
-    give equal canonical columns."""
-    order = np.lexsort([rows[n] for n in reversed(list(rows))])
-    return {n: rows[n][order] for n in rows}
+    """Columns reordered by a lexsort of all of them (first column first):
+    equal multisets of rows give equal canonical columns. Numeric columns
+    are stable-sorted on a card when one is visible (the CPU tests call this
+    too), one pass a column, last column first, as `np.lexsort` orders them
+    (NaN last); others on the host."""
+    import torch
+
+    dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    names = list(rows)
+    n = len(rows[names[0]]) if names else 0
+    order = torch.arange(n, device=dev)
+    for name in reversed(names):
+        col = np.asarray(rows[name])
+        if col.dtype.kind in "biuf":
+            if col.dtype.kind == "b":
+                col = col.view(np.uint8)
+            keys = torch.from_numpy(np.ascontiguousarray(col)).to(dev)[order]
+            order = order[torch.sort(keys, stable=True).indices]
+        else:
+            host = order.cpu().numpy()
+            order = torch.from_numpy(host[np.argsort(col[host], kind="stable")]).to(dev)
+    order = order.cpu().numpy()
+    return {name: np.asarray(rows[name])[order] for name in names}
 
 
 def same_multiset(got: dict, want_canonical: dict) -> bool:
@@ -4729,6 +4765,368 @@ def phase_history(torch, data, base: str, seed: int, ss_rows: int = SS_ROWS):
     return launches, seconds, cost
 
 
+SERVE_INDEXES = Q3_INDEXES + INDEXES  # Q3's, q3_agg's (liOrd, ordIdx) and Q9's join (liPs, psIdx)
+SERVE_LOOKUPS = 48  # interactive point lookups
+SERVE_BATCH = 16  # batch Q3 / Q9 join / q3_agg collects
+SERVE_TENANTS = 4
+SERVE_WORKERS = 4
+SERVE_FLIGHT = 8  # identical cold Q3 collects
+SERVE_ENVS = ("HYPERSPACE_REPLICAS", "HYPERSPACE_REPLICA_DIR")
+
+
+def digest(cols: dict) -> str:
+    """sha256 of a `to_numpy()` result: its column names, dtypes and bytes
+    (an object column by its values' reprs)."""
+    h = hashlib.sha256()
+    for name, arr in cols.items():
+        arr = np.asarray(arr)
+        h.update(f"{name}:{arr.dtype}:{len(arr)}".encode())
+        h.update(repr(arr.tolist()).encode() if arr.dtype.kind == "O" else np.ascontiguousarray(arr).tobytes())
+    return h.hexdigest()
+
+
+def serve_queries(s, hst, base: str) -> dict:
+    """The served queries of phase serve over a session with its indexes."""
+
+    def rd(t):
+        return s.read.parquet(os.path.join(base, "src", t))
+
+    return {"q3": q3_query(rd, hst.col), "q9_join": queries(s, base)["q_ps"], "q3_agg": q3_agg(s, base)}
+
+
+def serve_lookup(s, hst, base: str, key: int):
+    """A point lookup of one order's lines: FilterIndexRule over the
+    l_orderkey indexes, one bucket file."""
+    return s.read.parquet(os.path.join(base, "src", "lineitem")).filter(hst.col("l_orderkey") == int(key)).select(
+        "l_orderkey", "l_extendedprice", "l_discount")
+
+
+def lookup_file(df) -> str:
+    """The one index file a lookup reads: its fleet routing key."""
+    rel = index_scan(df)
+    if rel is None or len(rel.files) != 1:
+        raise AssertionError(f"serve: a lookup does not read one index file:\n{df.explain_string()}")
+    return rel.files[0].path
+
+
+SERVE_CHILD = """
+import json, os, sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import chip_smoke as cs
+import hyperspace_tpu_torch as hst
+from hyperspace_tpu_torch.engine import io as engine_io
+from hyperspace_tpu_torch.serve import replicas
+from hyperspace_tpu_torch.telemetry import metrics
+assert not any(m == "jax" or m.startswith("jax.") or m.split(".")[0] == "hyperspace_tpu" for m in sys.modules)
+warehouse, base, device = sys.argv[2], sys.argv[3], sys.argv[4]
+s = hst.HyperspaceSession(warehouse=warehouse, device=device)
+s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, cs.NUM_BUCKETS)
+hs = hst.Hyperspace(s)
+hst.enable_hyperspace(s)
+srv = hs.server(max_concurrent=2)
+q3 = cs.serve_queries(s, hst, base)["q3"]
+print(json.dumps({"ready": replicas.replica_id()}), flush=True)
+for line in sys.stdin:
+    cmd = json.loads(line)
+    out = {}
+    if cmd["cmd"] in ("q3", "lookups"):
+        cs.clear_caches()
+        d0 = engine_io.io_stats()["decode_files"]
+        if cmd["cmd"] == "q3":
+            out["digest"] = cs.digest(srv.run(q3.collect, tenant="child").to_numpy())
+        else:
+            taken = {}
+            for k, path in cmd["files"].items():
+                if replicas.owns(path):
+                    df = cs.serve_lookup(s, hst, base, int(k))
+                    if cs.lookup_file(df) != path:
+                        raise AssertionError(f"the lookup of {k} reads {cs.lookup_file(df)}, not {path}")
+                    taken[k] = cs.digest(srv.run(df.collect, tenant="child", lane="interactive").to_numpy())
+            out["digests"] = taken
+        out["decode_files"] = engine_io.io_stats()["decode_files"] - d0
+        if device == "cuda":
+            import torch
+            out["device_bytes"] = torch.cuda.memory_allocated()
+            out["device_peak_bytes"] = torch.cuda.max_memory_allocated()
+    elif cmd["cmd"] == "entry":
+        entry = next(e for e in hs._manager.get_indexes() if e.name == cmd["name"])
+        out = {"id": entry.id, "observed": metrics.counter("replicas.invalidations.observed").value}
+    elif cmd["cmd"] == "exit":
+        srv.close()
+        replicas.leave_fleet()
+        print(json.dumps({"bye": True}), flush=True)
+        break
+    print(json.dumps(out), flush=True)
+"""
+
+
+def serve_latencies(srv, jobs) -> tuple:
+    """Submit `jobs` (name, lane, tenant, thunk) in order, all at once; wait
+    for each. (outputs as numpy dicts, seconds from each submission to its
+    result, the wall from the first submission to the last result)."""
+    done = {}
+    t0 = time.perf_counter()
+    futs = []
+    for i, (_, lane, tenant, fn) in enumerate(jobs):
+        t_sub = time.perf_counter()
+        fut = srv.submit(fn, tenant=tenant, lane=lane)
+        fut.add_done_callback(lambda f, i=i, t_sub=t_sub: done.__setitem__(i, time.perf_counter() - t_sub))
+        futs.append(fut)
+    outs = [f.result(600).to_numpy() for f in futs]
+    return outs, [done[i] for i in range(len(jobs))], time.perf_counter() - t0
+
+
+def phase_serve(torch, data, base: str, seed: int):
+    """The serving layer and the replica fleet at SF1, in a directory of its
+    own: liQ3 and ordQ3 (Q3), liOrd and ordIdx (q3_agg), liPs and psIdx
+    (Q9's join: hash mode, K1 then K2).
+    (1) Serial answers: Q3 (value mode, K2) and q3_agg against numpy, Q9's
+    join against a numpy join, and SERVE_LOOKUPS point lookups
+    (`l_orderkey == k`, keys drawn from `RandomState(seed)` over the orders,
+    FilterIndexRule on one bucket file) against numpy.
+    (2) `hs.server(max_concurrent=SERVE_WORKERS)`, SERVE_TENANTS tenants,
+    caches emptied before each run: the lookups alone (interactive lane);
+    the lookups and SERVE_BATCH batch collects (Q3, Q9's join, q3_agg in
+    turn) in a seeded interleaving; both again at max_concurrent 1,
+    and at SERVE_WORKERS with `HYPERSPACE_SERVE_GIL_SWITCH_S=0` and
+    `HYPERSPACE_SERVE_BATCH_NICE=0` (the interpreter's switch interval and
+    the workers' priority left alone). Every served answer equals its
+    serial answer (rows and order, exactly).
+    Prints the lookups' p50 / p99 from submission to result, alone and
+    under the batch load, the throughput at 1 and SERVE_WORKERS workers, and
+    the phase's K1 and K2 launches (both above 0).
+    (3) Single flight: SERVE_FLIGHT identical cold Q3 collects decode as
+    many files (`io_stats()["decode_files"]`) as one cold Q3.
+    (4) The fleet (`HYPERSPACE_REPLICAS=1`, a registry of its own): a child
+    process importing only the port joins as a second replica; both answer
+    Q3 with the same rows; each replica runs the lookups whose index file
+    it owns (`serve.replicas.owns`), both at once, and the two decode counts
+    sum to one cold run's; `refresh_index("ordQ3")` here flips the child's index cache
+    through the epoch file at once (its default TTL is 300 s); the child
+    exits cleanly. Prints each replica's device bytes."""
+    import hyperspace_tpu_torch as hst
+    from hyperspace_tpu_torch.engine import io as engine_io
+    from hyperspace_tpu_torch.ops import cuda_probe, cuda_sort
+    from hyperspace_tpu_torch.serve import replicas
+    from hyperspace_tpu_torch.telemetry import metrics
+
+    for k in SERVE_ENVS:
+        os.environ.pop(k, None)
+    reset_launches(cuda_sort, cuda_probe)
+    root = os.path.join(base, "serve")
+    warehouse = os.path.join(root, "wh")
+    s = hst.HyperspaceSession(warehouse=warehouse, device=DEVICE)
+    s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, NUM_BUCKETS)
+    hs = hst.Hyperspace(s)
+    seconds = {}
+    for src, name, indexed, included in SERVE_INDEXES:
+        df = s.read.parquet(os.path.join(base, "src", src))
+        _, seconds[f"create_{name}"] = wall(lambda: hs.create_index(df, hst.IndexConfig(name, indexed, included)))
+    hst.enable_hyperspace(s)
+    log(f"[serve] build seconds {json.dumps(seconds)}")
+
+    # (1) serial answers
+    batch = serve_queries(s, hst, base)
+    rng = np.random.RandomState(seed)
+    keys = [int(k) for k in rng.choice(data["orders"]["o_orderkey"], SERVE_LOOKUPS, replace=False)]
+    lookups = {k: serve_lookup(s, hst, base, k) for k in keys}
+    li = data["lineitem"]
+    want_ps = canonical(expected_rows(data)[1])
+    clear_caches()
+    serial = {}
+    for name, df in batch.items():
+        serial[name] = df.collect().to_numpy()
+    check_q3("serve serial q3", serial["q3"], expected_q3(data))
+    if not same_multiset(serial["q9_join"], want_ps):
+        raise AssertionError("serve: Q9's join differs from the numpy join")
+    check_q3_agg(serial["q3_agg"], expected_q3_agg(data))
+    files, lookup_s = {}, []
+    for k, df in lookups.items():
+        files[k] = lookup_file(df)
+        t0 = time.perf_counter()
+        serial[k] = df.collect().to_numpy()
+        lookup_s.append(time.perf_counter() - t0)
+        rows = np.nonzero(li["l_orderkey"] == k)[0]
+        want = canonical({"l_orderkey": li["l_orderkey"][rows], "l_extendedprice": li["l_extendedprice"][rows],
+                          "l_discount": li["l_discount"][rows]})
+        if not same_multiset(serial[k], want):
+            raise AssertionError(f"serve: the lookup of order {k} differs from numpy")
+    log(f"[serve] (1) serial answers equal numpy: Q3, Q9's join ({len(serial['q9_join']['l_quantity'])} rows), "
+        f"q3_agg, {len(keys)} lookups over {len(set(files.values()))} index files; a lookup alone, first run, "
+        f"p50 {np.median(lookup_s):.6f} s, max {max(lookup_s):.6f} s")
+
+    # (2) mixed traffic
+    def job(i, name):
+        if name in batch:
+            return (name, "batch", f"tenant{i % SERVE_TENANTS}", batch[name].collect)
+        return (name, "interactive", f"tenant{i % SERVE_TENANTS}", lookups[name].collect)
+
+    alone = [job(i, k) for i, k in enumerate(keys)]
+    order = list(keys) + [list(batch)[i % len(batch)] for i in range(SERVE_BATCH)]
+    mixed = [job(i, n) for i, n in enumerate(np.random.RandomState(seed + 1).permutation(np.array(order, object)))]
+
+    switch = sys.getswitchinterval()
+
+    def served(jobs, workers, env=None):
+        clear_caches()
+        os.environ.update(env or {})
+        if env:
+            sys.setswitchinterval(switch)  # the server lowers it only when asked
+        with hs.server(max_concurrent=workers) as srv:
+            outs, lat, total = serve_latencies(srv, jobs)
+        for (name, _, _, _), out in zip(jobs, outs):
+            if list(out) != list(serial[name]) or any(
+                    not np.array_equal(np.asarray(out[c]), np.asarray(serial[name][c])) for c in out):
+                raise AssertionError(f"serve: the served {name} differs from its serial answer")
+        inter = [t for (name, lane, _, _), t in zip(jobs, lat) if lane == "interactive"]
+        return {"interactive_p50_s": float(np.percentile(inter, 50)), "interactive_p99_s": float(np.percentile(inter, 99)),
+                "queries": len(jobs), "wall_s": total, "queries_per_s": len(jobs) / total}
+
+    results = {"alone": served(alone, SERVE_WORKERS), "alone_1_worker": served(alone, 1),
+               "mixed": served(mixed, SERVE_WORKERS), "mixed_1_worker": served(mixed, 1)}
+    # The same traffic with the interpreter's switch interval and the batch
+    # workers' priority left as they were: what the two host knobs do.
+    knobs = {"HYPERSPACE_SERVE_GIL_SWITCH_S": "0", "HYPERSPACE_SERVE_BATCH_NICE": "0"}
+    try:
+        results["mixed_knobs_off"] = served(mixed, SERVE_WORKERS, knobs)
+    finally:
+        for k in knobs:
+            os.environ.pop(k, None)
+    launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches}
+    card_check(launches["K1"] > 0 and launches["K2"] > 0, f"serve (2): K1 and K2 must launch, got {launches}")
+    log(f"[serve] (2) {nvidia_smi_line()}: every served answer equals its serial answer; "
+        f"{json.dumps(results)}; launches so far {json.dumps(launches)}")
+
+    # (3) single flight
+    clear_caches()
+    d0 = engine_io.io_stats()["decode_files"]
+    _, t_one = wall(batch["q3"].collect)
+    one_cold = engine_io.io_stats()["decode_files"] - d0
+    clear_caches()
+    before = {n: metrics.counter(n).value for n in ("serve.singleflight.dedup_hits", "serve.singleflight.leaders")}
+    d0 = engine_io.io_stats()["decode_files"]
+    with hs.server(max_concurrent=SERVE_WORKERS) as srv:
+        outs, lat, total = serve_latencies(srv, [("q3", "interactive", f"tenant{i % SERVE_TENANTS}",
+                                                  batch["q3"].collect) for i in range(SERVE_FLIGHT)])
+    flight = engine_io.io_stats()["decode_files"] - d0
+    if any(digest(o) != digest(serial["q3"]) for o in outs):
+        raise AssertionError("serve (3): a deduplicated Q3 differs from its serial answer")
+    if flight != one_cold:
+        raise AssertionError(f"serve (3): {SERVE_FLIGHT} identical cold Q3s decoded {flight} files, one cold run "
+                             f"{one_cold}")
+    deltas = {n: metrics.counter(n).value - v for n, v in before.items()}
+    log(f"[serve] (3) {SERVE_FLIGHT} identical cold Q3 collects decoded {flight} files = one cold Q3's {one_cold} "
+        f"({t_one:.4f} s alone); {total:.4f} s for the {SERVE_FLIGHT}; {json.dumps(deltas)}")
+
+    # (4) the fleet
+    registry = os.path.join(root, "registry")
+    os.environ.update({"HYPERSPACE_REPLICAS": "1", "HYPERSPACE_REPLICA_DIR": registry})
+    clear_caches()
+    d0 = engine_io.io_stats()["decode_files"]
+    t0 = time.perf_counter()
+    for k, df in lookups.items():
+        df.collect()
+    t_one_process = time.perf_counter() - t0
+    lookups_cold = engine_io.io_stats()["decode_files"] - d0
+    err_path = os.path.join(root, "child.err")
+    with open(err_path, "w") as err:
+        child = subprocess.Popen(
+            [sys.executable, "-c", SERVE_CHILD, os.path.dirname(os.path.abspath(__file__)), warehouse, base, DEVICE],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=err, text=True, env=dict(os.environ))
+
+    def child_err() -> str:
+        with open(err_path) as fh:
+            return fh.read()[-3000:]
+
+    def tell(cmd: dict) -> None:
+        child.stdin.write(json.dumps(cmd) + "\n")
+        child.stdin.flush()
+
+    def answer() -> dict:
+        line = child.stdout.readline()
+        if not line:
+            raise AssertionError(f"serve (4): the child died: {child_err()}")
+        return json.loads(line)
+
+    def ask(cmd: dict) -> dict:
+        tell(cmd)
+        return answer()
+
+    try:
+        t0 = time.perf_counter()
+        ready = json.loads(child.stdout.readline() or "{}")
+        if "ready" not in ready:
+            raise AssertionError(f"serve (4): the child did not start: {child_err()}")
+        with hs.server(max_concurrent=SERVE_WORKERS) as srv:
+            me, peer = replicas.replica_id(), ready["ready"]
+            deadline = time.monotonic() + 60
+            while set(replicas.live_replicas(refresh=True)) != {me, peer}:
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"serve (4): the registry lists {replicas.live_replicas(refresh=True)}")
+                time.sleep(0.05)
+            t_ready = time.perf_counter() - t0
+            members = replicas.live_replicas()
+            clear_caches()
+            mine_q3 = digest(srv.run(batch["q3"].collect, tenant="parent").to_numpy())
+            theirs = ask({"cmd": "q3"})
+            if not mine_q3 == theirs["digest"] == digest(serial["q3"]):
+                raise AssertionError("serve (4): the replicas' Q3 rows differ")
+            owner = {k: replicas.owner_of(files[k], members) for k in keys}
+            clear_caches()
+            d0 = engine_io.io_stats()["decode_files"]
+            mine = {}
+            t0 = time.perf_counter()
+            tell({"cmd": "lookups", "files": {str(k): files[k] for k in keys}})  # both serve their shares at once
+            for k in keys:
+                if replicas.owns(files[k]):
+                    mine[k] = digest(srv.run(lookups[k].collect, tenant="parent", lane="interactive").to_numpy())
+            mine_decodes = engine_io.io_stats()["decode_files"] - d0
+            theirs = answer()
+            t_fleet = time.perf_counter() - t0
+            taken = {int(k): d for k, d in theirs["digests"].items()}
+            if sorted(mine) != sorted(k for k in keys if owner[k] == me) or sorted(taken) != sorted(
+                    k for k in keys if owner[k] == peer):
+                raise AssertionError("serve (4): the replicas did not split the lookups by owner_of")
+            if any(d != digest(serial[k]) for part in (mine, taken) for k, d in part.items()):
+                raise AssertionError("serve (4): a routed lookup differs from its serial answer")
+            if mine_decodes + theirs["decode_files"] != lookups_cold:
+                raise AssertionError(f"serve (4): the replicas decoded {mine_decodes} + {theirs['decode_files']} "
+                                     f"files, one cold run {lookups_cold}")
+            before_entry = ask({"cmd": "entry", "name": "ordQ3"})
+            _, t_refresh = wall(lambda: hs.refresh_index("ordQ3", "full"))
+            latest = next(e.id for e in hs._manager.get_indexes() if e.name == "ordQ3")
+            t_flip = time.perf_counter()
+            after_entry = ask({"cmd": "entry", "name": "ordQ3"})
+            t_flip = time.perf_counter() - t_flip
+            if not (after_entry["id"] == latest > before_entry["id"]) or after_entry["observed"] <= before_entry[
+                    "observed"]:
+                raise AssertionError(f"serve (4): the child saw ordQ3 {before_entry} then {after_entry}, the "
+                                     f"latest id is {latest}")
+            parent_bytes = torch.cuda.memory_allocated() if DEVICE == "cuda" else None
+            bye = ask({"cmd": "exit"})
+            child.wait(timeout=60)
+            if child.returncode != 0 or not bye.get("bye"):
+                raise AssertionError(f"serve (4): the child exited {child.returncode}: {child_err()}")
+        log(f"[serve] (4) {nvidia_smi_line()}: a second replica ready in {t_ready:.2f} s; Q3 equal in both; lookups "
+            f"split {len(mine)} here / {len(taken)} there, decoding {mine_decodes} + {theirs['decode_files']} files "
+            f"= one cold run's {lookups_cold}; the 48 cold lookups in {t_fleet:.4f} s across the two replicas "
+            f"(the child clears its caches first), {t_one_process:.4f} s in one process alone; refresh_index(ordQ3) "
+            f"{t_refresh:.4f} s, the child saw entry "
+            f"{before_entry['id']} -> {after_entry['id']} in {t_flip:.4f} s; device bytes: this replica "
+            f"{parent_bytes}, the child {theirs.get('device_bytes')} (peak {theirs.get('device_peak_bytes')})")
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait(timeout=30)
+        replicas.leave_fleet()
+        for k in SERVE_ENVS:
+            os.environ.pop(k, None)
+    launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches}
+    log(f"[serve] launches {json.dumps(launches)}")
+    return launches, seconds, results
+
+
 KERNEL_META = {
     "K1": ("bucket_sort", "hyperspace_tpu_torch/csrc/bucket_sort.cu", "hyperspace_tpu/ops/pallas_sort.py:107"),
     "K2": ("range_probe", "hyperspace_tpu_torch/csrc/range_probe.cu", "hyperspace_tpu/ops/pallas_probe.py:129"),
@@ -4742,7 +5140,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="env,kernels,main,q3,strings,packed,refresh,q13,skipping,delta,partitioned,setops,star,"
-                            "resilience,analyze,history,identity")
+                            "resilience,analyze,history,serve,identity")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sf", type=float, default=1.0)
     ap.add_argument("--identity-sf", type=float, default=0.05)
@@ -4785,7 +5183,8 @@ def main() -> int:
             launches[kid] = launches.get(kid, 0) + n
 
     data = None
-    if {"main", "q3", "strings", "packed", "refresh", "q13", "delta", "resilience", "analyze", "history"} & set(phases):
+    if {"main", "q3", "strings", "packed", "refresh", "q13", "delta", "resilience", "analyze", "history",
+            "serve"} & set(phases):
         t0 = time.perf_counter()
         data = tpch(args.sf, args.seed)
         log(f"[data] TPC-H SF{args.sf}: lineitem {len(data['lineitem']['l_orderkey'])} rows, orders "
@@ -4793,7 +5192,7 @@ def main() -> int:
             f"{len(data['customer']['c_custkey'])} (generated in {time.perf_counter() - t0:.2f} s)")
     base = tempfile.mkdtemp(prefix="hs_smoke_sf1_")
     try:
-        if {"main", "q3", "strings", "q13", "resilience", "analyze", "history"} & set(phases):
+        if {"main", "q3", "strings", "q13", "resilience", "analyze", "history", "serve"} & set(phases):
             write_sources(data, base)
         if "main" in phases:
             add(timed_phase("main", phase_main, torch, data, base)[0])
@@ -4823,6 +5222,8 @@ def main() -> int:
             add(timed_phase("analyze", phase_analyze, torch, data, base, args.seed)[0])
         if "history" in phases:
             add(timed_phase("history", phase_history, torch, data, base, args.seed)[0])
+        if "serve" in phases:
+            add(timed_phase("serve", phase_serve, torch, data, base, args.seed)[0])
     finally:
         shutil.rmtree(base, ignore_errors=True)
     if "identity" in phases:

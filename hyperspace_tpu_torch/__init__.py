@@ -20,6 +20,9 @@ the join's device work are cached across queries. Indexes are refreshed
 restored, vacuumed and cancelled through the JAX package's operation log,
 kept on the local disk or any fsspec store (`index/factories.py`).
 The sorts and searches on that path are hand-written CUDA kernels (`csrc/`).
+Many tenants' concurrent queries run through `Hyperspace.server()` (a
+`QueryServer`: priority lanes, admission, single-flight caches, SLOs, and
+with `HYPERSPACE_REPLICAS=1` a fleet of processes over one lake).
 Tables live on the session's device, CUDA by default. The package imports torch, numpy and pyarrow, never jax or
 hyperspace_tpu.
 """
@@ -36,3 +39,12 @@ from .hyperspace import (  # noqa: F401
 )
 from .index.dataskipping import BloomFilterSketch, DataSkippingIndexConfig, MinMaxSketch  # noqa: F401
 from .index.index_config import IndexConfig  # noqa: F401
+
+
+def __getattr__(name):
+    # The serving layer loads on first use.
+    if name == "QueryServer":
+        from .serve import QueryServer
+
+        return QueryServer
+    raise AttributeError(name)

@@ -47,6 +47,16 @@ pruned decode charges `bytes_decoded` / `bytes_skipped`; a copy to the card
 is the `h2d` stage and charges `device_upload_bytes`
 (`device_observatory.record_h2d`). The decode pools' workers adopt the
 submitting query's ledger, scope and stage (`decode` by default).
+
+Concurrent queries share that work (`serve.singleflight`): a footer parse,
+each file's decode (keyed by path, projection, row-group selection, stat and
+device, so a pruned decode never aliases a whole-file one) and a multi-file
+scan's assembly run once for all who ask at the same time; the others wait
+and read what the leader cached. A batch decode leads the files no flight
+holds, decodes them as one batch, finishes their flights, and only then
+waits on the files other queries lead. In a replica fleet each file read
+goes through `serve.replicas.coordinate_decode` (the owner reads directly,
+another replica under the on-lake lease).
 """
 
 from __future__ import annotations
@@ -68,6 +78,8 @@ import torch
 from .. import resilience as _resilience
 from ..config import ENV_INDEX_ROW_GROUP_ROWS, INDEX_ROW_GROUP_ROWS_DEFAULT
 from ..exceptions import HyperspaceException, QueryTimeoutError, RetryBudgetExceededError
+from ..serve import replicas as _replicas
+from ..serve import singleflight as _singleflight
 from ..storage.filesystem import FileStatus, FileSystem, LocalFileSystem
 from ..telemetry import accounting as _accounting
 from ..telemetry import device_observatory as _devobs
@@ -308,11 +320,12 @@ def _zone_maps(md: "pq.FileMetaData", names: List[str]) -> List[RowGroupMeta]:
     return row_groups
 
 
-#: Footer-cache traffic and row-group pruning outcomes, as plain counters
-#: (`io_stats`); the byte counters tick only at real pruned decodes.
+#: Footer-cache traffic, row-group pruning outcomes and file decodes, as
+#: plain counters (`io_stats`); the byte counters tick only at real pruned
+#: decodes.
 _COUNTS = {
     "footer_hits": 0, "footer_misses": 0, "row_groups_scanned": 0, "row_groups_skipped": 0,
-    "bytes_decoded": 0, "bytes_skipped": 0,
+    "bytes_decoded": 0, "bytes_skipped": 0, "decode_files": 0,
 }
 #: Seconds of the scan's parts: the parquet decode (summed over the decode
 #: threads), then the conversion to columns (dictionary strings in code
@@ -333,8 +346,8 @@ _REGISTRY_COUNTS = {
     "row_groups_skipped": _metrics.counter("io.pruning.row_groups_skipped"),
     "bytes_decoded": _metrics.counter("io.pruning.bytes_decoded"),
     "bytes_skipped": _metrics.counter("io.pruning.bytes_skipped"),
+    "decode_files": _metrics.counter("io.decode.files"),
 }
-_DECODE_FILES = _metrics.counter("io.decode.files")
 _DECODE_SECONDS = _metrics.histogram("io.decode.seconds")
 _DECODE_IN_FLIGHT = _metrics.gauge("io.decode.in_flight")
 _DECODE_IN_FLIGHT_PEAK = _metrics.gauge("io.decode.in_flight_peak")
@@ -358,24 +371,26 @@ def _decode_accounting():
     finally:
         dt = time.monotonic() - t0
         _DECODE_IN_FLIGHT.dec()
-        _DECODE_FILES.inc()
+        _count("decode_files")
         _DECODE_SECONDS.observe(dt)
         _accounting.add("decode_files", 1)
         _accounting.add("decode_task_s", dt)
 
 
 @contextmanager
-def adopt(led, sc, stage):
+def adopt(led, sc, stage, leading=None):
     """Run a pool worker's body as the submitting query: its ledger, its
-    resilience scope and its stage."""
-    with _accounting.use_ledger(led), _resilience.use_scope(sc), _stage_ledger.stage_scope(stage):
+    resilience scope, its stage and the single-flights it leads."""
+    with _accounting.use_ledger(led), _resilience.use_scope(sc), _stage_ledger.stage_scope(stage), \
+            _singleflight.lead_with(leading):
         yield
 
 
 def submitter():
-    """What a pool's workers adopt (`adopt`): the caller's ledger, scope and
-    stage, `decode` by default."""
-    return _accounting.current_ledger(), _resilience.current_scope(), _stage_ledger.worker_stage("decode")
+    """What a pool's workers adopt (`adopt`): the caller's ledger, scope,
+    stage (`decode` by default) and led flights."""
+    return (_accounting.current_ledger(), _resilience.current_scope(), _stage_ledger.worker_stage("decode"),
+            _singleflight.leads())
 
 
 @contextmanager
@@ -389,7 +404,8 @@ def _timed(part: str):
 
 
 def io_stats() -> dict:
-    """The footer and pruning counters and the scan's seconds by part."""
+    """The footer, pruning and file-decode counters and the scan's seconds
+    by part."""
     with _stats_lock:
         return {**_COUNTS, "seconds": dict(SCAN_SECONDS)}
 
@@ -450,14 +466,19 @@ def footer_metadata(path: str, file_format: str = "parquet", _pf=None, base=None
         with pq.ParquetFile(path) as pf:
             return FileFooterMeta(pf.metadata, pf.schema_arrow)
 
-    try:
-        meta = _resilience.retry_io("io.footer", parse)
-    except (QueryTimeoutError, RetryBudgetExceededError):
-        raise  # query contracts, not pruning details
-    except Exception:
-        return None  # a corrupt footer costs the pruning, never the scan
-    cache.put_meta(path, meta, _meta_nbytes(meta), base)
-    return meta
+    def parse_and_cache() -> Optional[FileFooterMeta]:
+        try:
+            meta = _resilience.retry_io("io.footer", parse)
+        except (QueryTimeoutError, RetryBudgetExceededError):
+            raise  # query contracts, not pruning details
+        except Exception:
+            return None  # a corrupt footer costs the pruning, never the scan
+        cache.put_meta(path, meta, _meta_nbytes(meta), base)
+        return meta
+
+    # One parse for every concurrent cold scan of the file; `_pf` is only
+    # touched on the leader's own path.
+    return _singleflight.shared(("meta", path, base), parse_and_cache, lambda: cache.get_meta(path, base))
 
 
 def _arrow_to_table(at: pa.Table) -> Table:
@@ -617,13 +638,61 @@ def _pool() -> ThreadPoolExecutor:
     return _POOL
 
 
+def _cols_key(columns: Optional[List[str]]) -> tuple:
+    """A projection in a flight key (None, all columns, never aliases an
+    empty projection)."""
+    return ("<all>",) if columns is None else tuple(columns)
+
+
 def _decode_into_cache(jobs: List[tuple], device, file_format: str = "parquet") -> List[Table]:
-    """The miss half of `decode_files` (`io._decode_into_cache` :572): each
-    job's file is decoded in the columns the cache lacks (all of them when it
-    cannot tell; a file of another format than parquet decodes whole
-    anyway), the arrow reads on the decode threads, the conversions here,
-    one copy to the device per column for the batch, and every table cached.
-    The caller counted the misses."""
+    """The miss half of `decode_files` (`io._decode_into_cache` :572) under
+    single-flight, one flight a job (path, projection, selection, stat,
+    device). The batch this query leads decodes at once (`_decode_batch`)
+    and its flights finish before this query waits on any flight another
+    query leads; a followed job is read from the cache its leader filled,
+    or decoded here when that leader failed or its entry is gone. The
+    caller counted the misses; a follower's re-probe counts nothing."""
+    if not _singleflight.serving_enabled():
+        return _decode_batch(jobs, device, file_format)
+    cache = global_scan_cache()
+    keys = [("file", path, _cols_key(cols), sel, base, str(device)) for path, cols, _meta, sel, base in jobs]
+    first: Dict[tuple, int] = {}
+    for i, k in enumerate(keys):
+        first.setdefault(k, i)  # a job twice in the batch is decoded once
+    out: Dict[tuple, Table] = {}
+    todo = list(first)
+    while todo:
+        led, followed = _singleflight.claim(todo)
+        done: set = set()
+        try:
+            mine = [k for k in todo if k in led]
+            if mine:
+                for k, t in zip(mine, _decode_batch([jobs[first[k]] for k in mine], device, file_format)):
+                    out[k] = t
+                done = set(mine)
+        finally:
+            _singleflight.finish(led, done)
+        retry = []
+        for k, fl in followed.items():
+            path, cols, _meta, sel, base = jobs[first[k]]
+            t = cache.get(path, cols, record=False, sel=sel, device=device, base=base) if _singleflight.follow(fl) else None
+            if t is None:  # its leader failed, or the entry is gone: lead it again
+                _singleflight.note_follower_retry()
+                retry.append(k)
+            else:
+                _singleflight.note_dedup_hit()
+                out[k] = t
+        todo = retry
+    return [out[k] for k in keys]
+
+
+def _decode_batch(jobs: List[tuple], device, file_format: str = "parquet") -> List[Table]:
+    """Decode a batch of cache misses: each job's file in the columns the
+    cache lacks (all of them when it cannot tell; a file of another format
+    than parquet decodes whole anyway), the arrow reads on the decode
+    threads (each through the fleet's `coordinate_decode`), the conversions
+    here, one copy to the device per column for the batch, and every table
+    cached."""
     cache = global_scan_cache()
     reads = []
     for path, cols, meta, sel, base in jobs:
@@ -631,11 +700,14 @@ def _decode_into_cache(jobs: List[tuple], device, file_format: str = "parquet") 
         reads.append(missing if missing and missing != list(cols or []) else cols)
     args = [(job[0], rd, job[3], job[4]) for job, rd in zip(jobs, reads)]
 
-    def read(a):
+    def read_one(a):
         with _decode_accounting():
             if file_format in PARQUET_SHAPED:
                 return _resilience.retry_io("io.decode", lambda: _read_arrow(*a))
             return _resilience.retry_io("io.decode", lambda: _read_other(a[0], file_format, a[1]))
+
+    def read(a):
+        return _replicas.coordinate_decode(a[0], lambda: read_one(a))
 
     if len(args) > 1 and decode_pool_size(len(args)) > 1:
         sub = submitter()
@@ -659,7 +731,7 @@ def _decode_into_cache(jobs: List[tuple], device, file_format: str = "parquet") 
             _record_decoded_bytes(meta, sel, t.column_names)
         if rd is not cols:  # only the cold columns were read: assemble the rest from the cache
             whole = cache.get(path, cols, record=False, sel=sel, device=device, base=base)
-            t = whole if whole is not None else _decode_into_cache([(path, list(cols or meta.names), meta, sel, base)], device)[0]
+            t = whole if whole is not None else _decode_batch([(path, list(cols or meta.names), meta, sel, base)], device)[0]
         out.append(t)
     return out
 
@@ -887,12 +959,25 @@ def read_files(
     key, cached = concat_cache_probe(ordered, columns, device, marker, file_format, partitions)
     if cached is not None:
         return cached
-    if selections is not None:
-        record_pruning(selections, pruning_stats)
-    out, _ = read_in_order(ordered, file_format, columns, device, partitions, selections)
-    if key is not None:
-        global_concat_cache().put(key, out, None)
-    return out
+
+    def assemble() -> Table:
+        if selections is not None:
+            record_pruning(selections, pruning_stats)
+        out, _ = read_in_order(ordered, file_format, columns, device, partitions, selections)
+        if key is not None:
+            global_concat_cache().put(key, out, None)
+        return out
+
+    if key is None:
+        return assemble()
+
+    def reprobe() -> Optional[Table]:
+        hit = global_concat_cache().get(key)
+        return None if hit is None else hit[0]
+
+    # N identical concurrent cold scans assemble once; the others are served
+    # the concatenation the leader cached (their re-probe counts its hit).
+    return _singleflight.shared(("scan",) + key, assemble, reprobe)
 
 
 def iter_file_tables(

@@ -28,7 +28,10 @@ count and the matched rows of each side (`_count_from_match_stats`).
 
 Scans return their tables through the scan caches (`engine/scan_cache.py`),
 so a repeated query gets the same device tables, and the join's key64, layout,
-probe ranges and verified pairs are kept in the join memos below.
+probe ranges and verified pairs are kept in the join memos below. Concurrent
+queries share a cold bucketed or filtered concatenation and a cold memo
+entry under single-flight (`serve.singleflight`): one computes, the others
+wait and read its entry.
 
 Every read of an index relation runs under `_corruption_guard`: a decode
 failure of an index data file becomes a `CorruptIndexError` naming the
@@ -62,6 +65,7 @@ from ..ops.aggregate import hash_aggregate
 from ..ops.hashing import key64
 from ..ops.join import merge_join_pairs
 from ..ops.partition import bucketize_table, sortable_lane
+from ..serve import singleflight as _singleflight
 from ..telemetry import metrics as _metrics
 from ..telemetry import tracing as _tracing
 from . import io as engine_io
@@ -468,10 +472,24 @@ class BucketedIndexScanExec(PhysicalNode):
             _tracing.set_attr("bucketed_cache", "miss")
         else:
             _tracing.set_attr("bucketed_cache", "uncacheable")
-        table, starts = self._assemble(ctx)
-        if key is not None:
-            global_bucketed_cache().put(key, table, starts)
-        return table, starts
+
+        def assemble() -> Tuple[Table, np.ndarray]:
+            table, starts = self._assemble(ctx)
+            if key is not None:
+                global_bucketed_cache().put(key, table, starts)
+            return table, starts
+
+        if key is None:
+            return assemble()
+
+        def reprobe():
+            hit = global_bucketed_cache().get(key)
+            if hit is not None:  # another query's flight assembled it
+                _tracing.set_attr("bucketed_cache", "dedup_hit")
+            return hit
+
+        # Two concurrent cold indexed queries assemble the bucket files once.
+        return _singleflight.shared(("bucketed", key), assemble, reprobe)
 
     def execute(self, ctx) -> Table:
         return self.execute_concat(ctx)[0]
@@ -597,19 +615,25 @@ class FilterExec(PhysicalNode):
             hit = global_filtered_cache().get(key)
             if hit is not None:
                 return hit
-        pruned = None
-        if base_key is None or not global_bucketed_cache().contains(base_key):
-            pruned = child.execute_pruned_concat(ctx, self.condition)
-        table, starts = pruned if pruned is not None else child.execute_concat(ctx)
-        if table.num_rows:
-            keep = self._keep(table)
-            bounds = torch.as_tensor(np.asarray(starts, np.int64), device=keep.device)
-            starts = torch.searchsorted(keep, bounds).cpu().numpy().astype(np.int64)
-            table = table.take(keep)
-        table = self._strip_internal(table)
-        if key is not None:
-            global_filtered_cache().put(key, table, starts)
-        return table, starts
+
+        def assemble() -> Tuple[Table, np.ndarray]:
+            pruned = None
+            if base_key is None or not global_bucketed_cache().contains(base_key):
+                pruned = child.execute_pruned_concat(ctx, self.condition)
+            table, starts = pruned if pruned is not None else child.execute_concat(ctx)
+            if table.num_rows:
+                keep = self._keep(table)
+                bounds = torch.as_tensor(np.asarray(starts, np.int64), device=keep.device)
+                starts = torch.searchsorted(keep, bounds).cpu().numpy().astype(np.int64)
+                table = table.take(keep)
+            table = self._strip_internal(table)
+            if key is not None:
+                global_filtered_cache().put(key, table, starts)
+            return table, starts
+
+        if key is None:
+            return assemble()
+        return _singleflight.shared(("filtered_concat", key), assemble, lambda: global_filtered_cache().get(key))
 
     def _condition_key(self, ctx) -> str:
         cs = _resolution_case_sensitive(ctx, self.child.relation.schema.names)
@@ -1040,8 +1064,8 @@ def _count(tag: str, what: str) -> None:
 
 def _cached_by_table(tag: str, table: Table, subkey, compute):
     """A per-table-identity memo, weakref-keyed so that an entry dies with
-    its table (`physical._cached_by_table` :1817)."""
-    global _device_cache_bytes
+    its table (`physical._cached_by_table` :1817), computed under
+single-flight."""
     cache, key = _CACHES[tag], id(table)
     with _cache_lock:
         ent = cache.get(key)
@@ -1052,29 +1076,46 @@ def _cached_by_table(tag: str, table: Table, subkey, compute):
                 _count(tag, "hits")
                 return hit
     _count(tag, "misses")
-    val = compute()
-    nbytes = _val_nbytes(val)
-    with _cache_lock:
-        ent = cache.get(key)
-        if ent is None or ent[0]() is not table:
-            if ent is not None:  # a dead table's id, reused before its callback ran
-                _device_cache_bytes -= _entry_nbytes(tag, ent)
 
-            def _evict(wr, key=key):
-                ent_now = cache.get(key)
-                if ent_now is not None and ent_now[0] is wr:
-                    _drop_entry(tag, key)
+    def probe():
+        with _cache_lock:
+            ent = cache.get(key)
+            if ent is not None and ent[0]() is table:
+                hit = ent[1].get(subkey, _MISS)
+                if hit is not _MISS:
+                    _touch(tag, key)
+                    return hit
+        return None
 
-            cache[key] = (weakref.ref(table, _evict), {subkey: val})
-            _device_cache_bytes += nbytes
-        elif subkey not in ent[1]:
-            ent[1][subkey] = val
-            _device_cache_bytes += nbytes
-        else:
-            val = ent[1][subkey]
-        _touch(tag, key)
-        _evict_over_budget((tag, key))
-    return val
+    def compute_and_insert():
+        # Inside the flight: a follower wakes to the inserted entry.
+        global _device_cache_bytes
+        val = compute()
+        nbytes = _val_nbytes(val)
+        with _cache_lock:
+            ent = cache.get(key)
+            if ent is None or ent[0]() is not table:
+                if ent is not None:  # a dead table's id, reused before its callback ran
+                    _device_cache_bytes -= _entry_nbytes(tag, ent)
+
+                def _evict(wr, key=key):
+                    ent_now = cache.get(key)
+                    if ent_now is not None and ent_now[0] is wr:
+                        _drop_entry(tag, key)
+
+                cache[key] = (weakref.ref(table, _evict), {subkey: val})
+                _device_cache_bytes += nbytes
+            elif subkey not in ent[1]:
+                ent[1][subkey] = val
+                _device_cache_bytes += nbytes
+            else:
+                val = ent[1][subkey]
+            _touch(tag, key)
+            _evict_over_budget((tag, key))
+        return val
+
+    # Queries racing the same cold entry run one device computation.
+    return _singleflight.shared(("memo", tag, key, subkey), compute_and_insert, probe)
 
 
 def _two_table_key(left: Table, right: Table, subkey: tuple, rows_key):
@@ -1089,7 +1130,6 @@ def _two_table_key(left: Table, right: Table, subkey: tuple, rows_key):
 def _cached_two_table(tag: str, left: Table, right: Table, subkey: tuple, compute, rows_key=None):
     """A per-table-pair memo with the same accounting; an entry dies with
     either table (`physical._cached_two_table`)."""
-    global _device_cache_bytes
     cache = _CACHES[tag]
     key, valid = _two_table_key(left, right, subkey, rows_key)
     with _cache_lock:
@@ -1099,25 +1139,39 @@ def _cached_two_table(tag: str, left: Table, right: Table, subkey: tuple, comput
             _count(tag, "hits")
             return ent[2]
     _count(tag, "misses")
-    val = compute()
 
-    def _evict(wr, key=key):
-        ent_now = cache.get(key)
-        if ent_now is not None and (ent_now[0] is wr or ent_now[1] is wr):
-            _drop_entry(tag, key)
-
-    with _cache_lock:
-        ent = cache.get(key)
-        if ent is not None:
-            if valid(ent):
+    def probe():
+        with _cache_lock:
+            ent = cache.get(key)
+            if ent is not None and valid(ent):
                 _touch(tag, key)
                 return ent[2]
-            _device_cache_bytes -= _val_nbytes(ent[2])
-        cache[key] = (weakref.ref(left, _evict), weakref.ref(right, _evict), val)
-        _device_cache_bytes += _val_nbytes(val)
-        _touch(tag, key)
-        _evict_over_budget((tag, key))
-    return val
+        return None
+
+    def compute_and_insert():
+        # Inside the flight: a follower wakes to the inserted entry.
+        global _device_cache_bytes
+        val = compute()
+
+        def _evict(wr, key=key):
+            ent_now = cache.get(key)
+            if ent_now is not None and (ent_now[0] is wr or ent_now[1] is wr):
+                _drop_entry(tag, key)
+
+        with _cache_lock:
+            ent = cache.get(key)
+            if ent is not None:
+                if valid(ent):
+                    _touch(tag, key)
+                    return ent[2]
+                _device_cache_bytes -= _val_nbytes(ent[2])
+            cache[key] = (weakref.ref(left, _evict), weakref.ref(right, _evict), val)
+            _device_cache_bytes += _val_nbytes(val)
+            _touch(tag, key)
+            _evict_over_budget((tag, key))
+        return val
+
+    return _singleflight.shared(("memo", tag, key), compute_and_insert, probe)
 
 
 def _peek_two_table(tag: str, left: Table, right: Table, subkey: tuple, rows_key=None):

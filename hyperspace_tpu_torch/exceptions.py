@@ -3,7 +3,8 @@ the classes the port raises).
 
 One `HyperspaceException` for user-facing errors, extended by a
 transient/permanent taxonomy: `resilience.retry_io` retries a
-`TransientError` with bounded backoff, a `PermanentError` fails fast, and a
+`TransientError` with bounded backoff, a `PermanentError` (an
+`AdmissionRejectedError` of the serving layer among them) fails fast, and a
 `CorruptIndexError` (an index data file that does not decode) makes
 `DataFrame.collect`/`count` quarantine the index and answer from the source.
 """
@@ -67,6 +68,19 @@ class CompileTimeoutError(QueryTimeoutError):
 class RetryBudgetExceededError(PermanentError):
     """One query spent its retry budget (`HYPERSPACE_QUERY_RETRY_BUDGET`):
     each site's fault is transient, but the query's is systemic."""
+
+
+class AdmissionRejectedError(PermanentError):
+    """The serving layer refused the query (`serve.admission`): the server
+    holds `HYPERSPACE_SERVE_QUEUE_DEPTH` unfinished queries, or the tenant
+    its `HYPERSPACE_SERVE_TENANT_BUDGET`. Permanent, so `retry_io` never
+    spins on an overloaded server: the caller backs off. `reason` is
+    "queue_depth" or "tenant_budget"."""
+
+    def __init__(self, message: str, reason: str = "", tenant: str = ""):
+        super().__init__(message)
+        self.reason = reason
+        self.tenant = tenant
 
 
 def is_transient(exc: BaseException) -> bool:

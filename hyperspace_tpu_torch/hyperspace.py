@@ -7,7 +7,9 @@ The facade creates covering and data-skipping indexes, refreshes, compacts
 cancels and lists them, and explains a query's plan with them and without.
 Create, refresh and optimize each run in a `resilience.query_scope` of their
 own (one deadline and retry budget for the build) and a root span of their
-own (`build:create_index`, `build:refresh_index`, `build:optimize_index`)."""
+own (`build:create_index`, `build:refresh_index`, `build:optimize_index`);
+refresh and optimize run in the serving layer's batch lane. `server()` makes
+the multi-tenant front door (`serve.QueryServer`)."""
 
 from __future__ import annotations
 
@@ -66,7 +68,7 @@ class Hyperspace:
         when it can, full when it cannot, nothing when the index is fresh.
         None takes `HYPERSPACE_REFRESH_MODE`, else "full"."""
         mode = mode or os.environ.get(ENV_REFRESH_MODE) or "full"
-        with resilience.query_scope("build:refresh_index"):
+        with resilience.query_scope("build:refresh_index"), resilience.lane_scope("batch"):
             with tracing.query_span("build:refresh_index", index_name=index_name, mode=mode):
                 self._manager.refresh(index_name, mode)
 
@@ -74,7 +76,7 @@ class Hyperspace:
         """Merge each bucket's index files into one ("quick": the files below
         `hyperspace.index.optimize.fileSizeThreshold`; "full": all), and
         drop the rows of folded deleted source files."""
-        with resilience.query_scope("build:optimize_index"):
+        with resilience.query_scope("build:optimize_index"), resilience.lane_scope("batch"):
             with tracing.query_span("build:optimize_index", index_name=index_name, mode=mode):
                 self._manager.optimize(index_name, mode)
 
@@ -83,6 +85,20 @@ class Hyperspace:
 
     def indexes(self) -> Table:
         return self._manager.indexes()
+
+    def server(self, max_concurrent: Optional[int] = None, queue_depth: Optional[int] = None,
+               tenant_budget: Optional[int] = None):
+        """A multi-tenant `serve.QueryServer` over this process's engine:
+        bounded workers, priority lanes, per-tenant admission, single-flight
+        shared caches (None takes the env knobs).
+
+            with hs.server(max_concurrent=4) as srv:
+                fut = srv.submit(lambda: df.collect(), tenant="alice", lane="interactive")
+
+        `HYPERSPACE_SERVING=0` runs every submission inline and serially."""
+        from .serve import QueryServer
+
+        return QueryServer(max_concurrent=max_concurrent, queue_depth=queue_depth, tenant_budget=tenant_budget)
 
     def explain(self, df: DataFrame, verbose: bool = False, redirect=None) -> None:
         """The plan with indexes against the plan without, and the indexes

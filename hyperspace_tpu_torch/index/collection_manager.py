@@ -267,13 +267,32 @@ class CachingIndexCollectionManager(IndexCollectionManager):
     names. A mutation clears the cache before and after the action: a
     concurrent reader may refill it with the old generation while the action
     runs, and a failed action's transient entry must be read, not trusted
-    from the cache (:382-496)."""
+    from the cache (:382-496).
+
+    In a replica fleet (`HYPERSPACE_REPLICAS=1`, `serve.replicas`) the clear
+    crosses processes: a committed mutation publishes the index's latest log
+    id to the fleet's epoch file, and `get_indexes` polls that file (one
+    rate-limited `os.stat`, through this manager's own cursor) and drops the
+    cache when it moved: a refresh committed by any replica flips every
+    replica's readers with no TTL wait. Fleet off: one env read."""
 
     def __init__(self, session, **factories):
         super().__init__(session, **factories)
         self._cache = IndexCacheFactory.create(session.hs_conf.cache_type, session)
+        # A cursor of this manager's own: a shared one would let one manager
+        # consume the epoch's move and starve the others of their clear.
+        self._epoch_state: dict = {}
+
+    def _fleet_registry_dir(self) -> str:
+        from ..serve import replicas as _replicas
+
+        return _replicas.registry_dir(self._session.warehouse)
 
     def get_indexes(self, states_filter: Optional[Sequence[str]] = None) -> List[IndexLogEntry]:
+        from ..serve import replicas as _replicas
+
+        if _replicas.fleet_enabled() and _replicas.check_invalidation(self._epoch_state, self._fleet_registry_dir()):
+            self._cache.clear()
         cached = self._cache.get()
         if cached is None:
             cached = super().get_indexes(None)
@@ -285,30 +304,45 @@ class CachingIndexCollectionManager(IndexCollectionManager):
     def clear_cache(self) -> None:
         self._cache.clear()
 
-    def _mutate(self, fn) -> None:
+    def _publish_fleet_invalidation(self, index_name: Optional[str]) -> None:
+        """Announce a committed mutation's latest log id to the fleet (a
+        no-op without one; never fails the action)."""
+        from ..serve import replicas as _replicas
+
+        if index_name is None or not _replicas.fleet_enabled():
+            return
+        try:
+            log_mgr, _, _ = self._managers_for(index_name)
+            _replicas.publish_invalidation(index_name, log_mgr.get_latest_id(), self._fleet_registry_dir())
+        except Exception:
+            pass
+
+    def _mutate(self, fn, index_name: Optional[str] = None) -> None:
         self.clear_cache()
         try:
             fn()
+            self._publish_fleet_invalidation(index_name)
         finally:
             self.clear_cache()
 
     def create(self, df, index_config) -> None:
-        self._mutate(lambda: super(CachingIndexCollectionManager, self).create(df, index_config))
+        self._mutate(lambda: super(CachingIndexCollectionManager, self).create(df, index_config),
+                     index_config.index_name)
 
     def refresh(self, index_name: str, mode: str = "full") -> None:
-        self._mutate(lambda: super(CachingIndexCollectionManager, self).refresh(index_name, mode))
+        self._mutate(lambda: super(CachingIndexCollectionManager, self).refresh(index_name, mode), index_name)
 
     def optimize(self, index_name: str, mode: str = "quick") -> None:
-        self._mutate(lambda: super(CachingIndexCollectionManager, self).optimize(index_name, mode))
+        self._mutate(lambda: super(CachingIndexCollectionManager, self).optimize(index_name, mode), index_name)
 
     def delete(self, index_name: str) -> None:
-        self._mutate(lambda: super(CachingIndexCollectionManager, self).delete(index_name))
+        self._mutate(lambda: super(CachingIndexCollectionManager, self).delete(index_name), index_name)
 
     def restore(self, index_name: str) -> None:
-        self._mutate(lambda: super(CachingIndexCollectionManager, self).restore(index_name))
+        self._mutate(lambda: super(CachingIndexCollectionManager, self).restore(index_name), index_name)
 
     def vacuum(self, index_name: str) -> None:
-        self._mutate(lambda: super(CachingIndexCollectionManager, self).vacuum(index_name))
+        self._mutate(lambda: super(CachingIndexCollectionManager, self).vacuum(index_name), index_name)
 
     def cancel(self, index_name: str) -> None:
-        self._mutate(lambda: super(CachingIndexCollectionManager, self).cancel(index_name))
+        self._mutate(lambda: super(CachingIndexCollectionManager, self).cancel(index_name), index_name)

@@ -99,6 +99,8 @@ def host_hash_dictionary(dictionary: np.ndarray, seed: int, device=None) -> torc
     (the host when None), memoized per dictionary object and seed."""
     dev = torch.device("cpu" if device is None else device)
     key = (id(dictionary), int(seed))
+    # The miss is hashed under the lock, so that concurrent queries meeting a
+    # new dictionary hash it once (the loop holds the GIL all the same).
     with _dict_hash_lock:
         ent = _dict_hash_cache.get(key)
         if ent is not None and ent[0]() is dictionary:
@@ -106,24 +108,22 @@ def host_hash_dictionary(dictionary: np.ndarray, seed: int, device=None) -> torc
             if dev not in copies:
                 copies[dev] = copies[torch.device("cpu")].to(dev)
             return copies[dev]
-    host = _hash_strings(dictionary, seed)
-    copies = {torch.device("cpu"): host}
-    if dev.type != "cpu":
-        copies[dev] = host.to(dev)
+        host = _hash_strings(dictionary, seed)
+        copies = {torch.device("cpu"): host}
+        if dev.type != "cpu":
+            copies[dev] = host.to(dev)
 
-    def _evict(wr, key=key):
-        with _dict_hash_lock:
-            ent_now = _dict_hash_cache.get(key)
-            if ent_now is not None and ent_now[0] is wr:
-                _dict_hash_cache.pop(key, None)
+        def _evict(wr, key=key):
+            with _dict_hash_lock:
+                ent_now = _dict_hash_cache.get(key)
+                if ent_now is not None and ent_now[0] is wr:
+                    _dict_hash_cache.pop(key, None)
 
-    try:
-        ref = weakref.ref(dictionary, _evict)
-    except TypeError:  # a container that takes no weak reference: not memoized
+        try:
+            _dict_hash_cache[key] = (weakref.ref(dictionary, _evict), copies)
+        except TypeError:  # a container that takes no weak reference: not memoized
+            pass
         return copies[dev]
-    with _dict_hash_lock:
-        _dict_hash_cache[key] = (ref, copies)
-    return copies[dev]
 
 
 def column_hash_u32(lane, seed: int, force_float: bool = False) -> torch.Tensor:

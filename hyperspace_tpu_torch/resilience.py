@@ -21,8 +21,14 @@ The counters live in the metrics registry (`io.retries.attempts`,
 `io.retries.exhausted`, `io.retries.<point>`, `query.timeouts`;
 `counters()` reads them); a retry is also charged to the query's ledger
 (`io_retries`) and to the ambient span. The scope carries the query's stage
-ledger (`telemetry.stage_ledger`). The JAX package's serving lanes and yield
-hook (`lane_scope`, `register_yield_hook`) wait for the port's serving layer.
+ledger (`telemetry.stage_ledger`).
+
+Serving lanes: `lane_scope(lane)` tags the scopes opened under it with the
+serving layer's priority lane ("interactive" or "batch"), captured at open
+so that pool workers adopting the scope see it (`current_lane`). The
+scheduler installs a yield hook (`register_yield_hook`) that a batch-lane
+scope calls at every `check_deadline`: a batch query pauses briefly there
+while interactive work is pending (`serve.scheduler._yield_to_interactive`).
 """
 
 from __future__ import annotations
@@ -105,9 +111,10 @@ def query_timeout_s() -> Optional[float]:
 
 
 class QueryScope:
-    """Deadline, retry budget and planner decisions of one root action."""
+    """Deadline, retry budget, serving lane and planner decisions of one
+    root action."""
 
-    __slots__ = ("name", "start_mono", "deadline_mono", "timeout_s", "_lock", "retries", "plan_decisions",
+    __slots__ = ("name", "start_mono", "deadline_mono", "timeout_s", "_lock", "retries", "lane", "plan_decisions",
                  "stage_ledger")
 
     def __init__(self, name: str, timeout_s: Optional[float]):
@@ -117,6 +124,8 @@ class QueryScope:
         self.deadline_mono = None if timeout_s is None else self.start_mono + timeout_s
         self._lock = threading.Lock()
         self.retries = 0
+        #: The serving lane at open (None outside the serving layer).
+        self.lane = _lane.get()
         #: The planner's `PlanDecisions` of the running query, so that pool
         #: workers that adopt the scope see the same decisions.
         self.plan_decisions = None
@@ -133,6 +142,42 @@ class QueryScope:
 _scope: "contextvars.ContextVar[Optional[QueryScope]]" = contextvars.ContextVar(
     "hyperspace_torch_query_scope", default=None
 )
+
+#: The serving lane of the current submission ("interactive" / "batch";
+#: None outside the serving layer), captured by each scope at open.
+_lane: "contextvars.ContextVar[Optional[str]]" = contextvars.ContextVar("hyperspace_torch_serve_lane", default=None)
+
+#: The batch lane's cooperative yield hook (None until a server spawns its
+#: first worker): one predicate per `check_deadline` otherwise.
+_yield_hook: Optional[Callable[[], None]] = None
+
+
+@contextlib.contextmanager
+def lane_scope(lane: Optional[str]) -> Iterator[None]:
+    """Tag the query scopes opened under this context with a serving lane."""
+    if lane is None:
+        yield
+        return
+    token = _lane.set(lane)
+    try:
+        yield
+    finally:
+        _lane.reset(token)
+
+
+def current_lane() -> Optional[str]:
+    """The ambient serving lane: the open scope's, else the context's (what
+    the query ledger records at open)."""
+    sc = _scope.get()
+    if sc is not None and sc.lane is not None:
+        return sc.lane
+    return _lane.get()
+
+
+def register_yield_hook(fn: Optional[Callable[[], None]]) -> None:
+    """Install (or clear, with None) the batch lane's yield hook."""
+    global _yield_hook
+    _yield_hook = fn
 
 
 def current_scope() -> Optional[QueryScope]:
@@ -169,9 +214,14 @@ def use_scope(sc: Optional[QueryScope]) -> Iterator[None]:
 
 def check_deadline(where: str = "") -> None:
     """Raise `QueryTimeoutError` when the ambient scope's deadline has
-    passed; one contextvar read without a scope or a deadline."""
+    passed; one contextvar read without a scope or a deadline. A batch-lane
+    scope first calls the yield hook, when one is installed."""
     sc = _scope.get()
-    if sc is None or sc.deadline_mono is None:
+    if sc is None:
+        return
+    if _yield_hook is not None and sc.lane == "batch":
+        _yield_hook()
+    if sc.deadline_mono is None:
         return
     now = time.monotonic()
     if now < sc.deadline_mono:

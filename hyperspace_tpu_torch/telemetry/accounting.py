@@ -26,8 +26,10 @@ A closed ledger lands on the root span (`attrs["ledger"]`), in a bounded
 history (`recent_ledgers`, `ledger_for`), in the exporter's bounded queue
 (`drain_pending`), in the `accounting.<field>` counters, in the
 `latency.<root name>` histogram and, under `HYPERSPACE_HISTORY=1`, in the
-workload history store (`history.land`). The replica id waits for the
-serving layer.
+workload history store (`history.land`). A ledger records the serving
+lane at open (`resilience.current_lane`) and, at close, the process's
+replica id (`serve.replicas.replica_id`, fleet on or off), as the JAX
+package's does.
 """
 
 from __future__ import annotations
@@ -277,7 +279,10 @@ def ledger_scope(query_id: str, name: str, root=None) -> Iterator[QueryLedger]:
     if existing is not None:
         yield existing
         return
-    led = QueryLedger(query_id, name, tenant=_tenant.get())
+    # Lazy: resilience imports this module at load.
+    from .. import resilience as _resilience
+
+    led = QueryLedger(query_id, name, tenant=_tenant.get(), lane=_resilience.current_lane())
     led.stage_attr = _stage_ledger.enabled()
     token = _current.set(led)
     t0 = time.monotonic()
@@ -334,6 +339,12 @@ def _close(led: QueryLedger, root, t0: float) -> None:
             _planner.annotate_close(led, wall)
         except Exception:
             pass
+    try:
+        from ..serve.replicas import replica_id as _rid
+
+        led.set_value("replica_id", _rid())
+    except Exception:
+        pass
     _bank_tenant(led)
     d = led.to_dict()
     if root is not None:

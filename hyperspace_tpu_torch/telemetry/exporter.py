@@ -6,9 +6,9 @@ A daemon thread appends one JSON frame per `HYPERSPACE_METRICS_INTERVAL_S`
 (default 10 s) to `HYPERSPACE_METRICS_FILE`, rotated at
 `HYPERSPACE_METRICS_MAX_MB` (`rotation.append`). A frame is `{"schema_version",
 "ts", "seq", "interval_s", "snapshot", "ledgers", "compile_programs",
-"reliability"}` and, when they have something, `"tenants"`, `"history"`,
-`"device_live_bytes"` (with its age), `"device"` and `"planner"`; the last
-frame carries `"final": true`.
+"reliability", "replica_id"}` and, when they have something, `"tenants"`,
+`"slo"`, `"history"`, `"device_live_bytes"` (with its age), `"device"` and
+`"planner"`; the last frame carries `"final": true`.
 
 - `snapshot` is the registry's (histograms with p50 / p90 / p99),
   `ledgers` every ledger closed since the last frame
@@ -17,8 +17,10 @@ frame carries `"final": true`.
 - `device_live_bytes` is `torch.cuda.memory_allocated`, read only when this
   process already holds a CUDA context (`torch.cuda.is_initialized()`): the
   exporter's thread never initializes CUDA.
-- The serving layer's `slo` key and replica id are not in the port yet: a
-  frame omits them, as the JAX package's does when no lane has run.
+- `replica_id` is the process's fleet identity
+  (`serve.replicas.replica_id`, fleet on or off); `slo` the serving lanes'
+  objectives and burn rates (`telemetry.slo.summary`), omitted while no
+  lane has run.
 - Off by default: no env, no thread, no file. `stop()` wakes the thread,
   joins it and writes the final frame; `atexit` and, on the main thread, a
   SIGTERM / SIGINT chain stop a running exporter. One write and flush a
@@ -26,7 +28,8 @@ frame carries `"final": true`.
 
 `prometheus_text()` renders the registry in the Prometheus text format on
 demand: counters, gauges, histograms with cumulative `le` buckets, `_sum`
-and `_count`, and the per-tenant counters.
+and `_count`, the per-tenant counters, the lane-labeled SLO series and the
+`replica_info` series (labels `replica_id`, `host`, `pid`).
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import json
 import math
 import os
 import signal
+import socket
 import threading
 import time
 from typing import Optional
@@ -112,10 +116,21 @@ class MetricsExporter:
             "ledgers": accounting.drain_pending(),
             "compile_programs": compile_log.program_summary(),
         }
+        try:
+            from ..serve.replicas import replica_id as _rid
+
+            out["replica_id"] = _rid()
+        except Exception:
+            pass
         out["reliability"] = _resilience.reliability_rollup(out["snapshot"])
         tenants = accounting.tenant_rollup()
         if tenants:
             out["tenants"] = tenants
+        from . import slo as _slo
+
+        slo_state = _slo.summary()
+        if slo_state:
+            out["slo"] = slo_state
         hist = _history.frame_summary()
         if hist:
             out["history"] = hist
@@ -249,8 +264,9 @@ def _prom_label(v) -> str:
 
 
 def prometheus_text(prefix: str = "hyperspace") -> str:
-    """The registry in the Prometheus text exposition format, and the tenant
-    rollup as counters labeled by `tenant`."""
+    """The registry in the Prometheus text exposition format, the tenant
+    rollup as counters labeled by `tenant`, the SLO state as series labeled
+    by `lane`, and the process's `replica_info` series."""
     reg = _metrics.global_registry()
     with reg._lock:
         counters = list(reg._counters.values())
@@ -279,4 +295,24 @@ def prometheus_text(prefix: str = "hyperspace") -> str:
             v = tenants[tenant].get(field)
             if v is not None:
                 lines.append(f'{n}{{tenant="{_prom_label(tenant)}"}} {_prom_num(v)}')
+    from . import slo as _slo
+
+    slo_state = _slo.summary()
+    for field, mtype in (("objective_ms", "gauge"), ("compliance", "gauge"), ("burn_5m", "gauge"),
+                         ("burn_1h", "gauge"), ("total", "counter"), ("violations", "counter")):
+        n = f"{prefix}_slo_{_prom_name(field)}"
+        series = [(lane, slo_state[lane].get(field)) for lane in sorted(slo_state)]
+        series = [(lane, v) for lane, v in series if v is not None]
+        if series:
+            lines.append(f"# TYPE {n} {mtype}")
+            lines += [f'{n}{{lane="{lane}"}} {_prom_num(v)}' for lane, v in series]
+    try:
+        from ..serve.replicas import replica_id as _rid
+
+        n = f"{prefix}_replica_info"
+        lines.append(f"# TYPE {n} gauge")
+        lines.append(f'{n}{{replica_id="{_prom_label(_rid())}",host="{_prom_label(socket.gethostname())}",'
+                     f'pid="{os.getpid()}"}} 1')
+    except Exception:
+        pass
     return "\n".join(lines) + "\n"

@@ -14,8 +14,8 @@ Points (`FAULT_POINTS`):
 - `pool.worker`: a decode pool task body (`engine.io`);
 - `device.compile`: the kernel library's build
   (`telemetry.compile_log.observed_build`);
-- `serve.admit`: declared for the serving layer, which the port does not
-  have yet; nothing calls it;
+- `serve.admit`: a serving-layer admission decision
+  (`serve.admission.AdmissionController.admit`);
 - `refresh.merge`: after an incremental refresh's data directory committed,
   before its log entry (`actions.refresh.RefreshIncrementalAction.op`);
 - `compact.commit`: after every compacted bucket is staged, before the

@@ -9,7 +9,8 @@ of the last session made, else `./.hyperspace_history`):
 - `seg-<host>-<pid>-<uuid>.jsonl`: one append-only segment per writer
   (a process's store, per package: the uuid keeps two packages in one
   process apart). A line is one record, `{"schema_version", "kind":
-  "ledger", "ts", "fingerprint", "ledger"}`, written by one write and a
+  "ledger", "ts", "fingerprint", "ledger", "replica_id"}` (the writer's
+  `serve.replicas.replica_id`), written by one write and a
   flush, so a kill tears at most the last line; readers skip torn lines.
 - `compact-<host>-<pid>-<uuid>.jsonl`: compaction's output, a
   `compact_manifest` record naming its source segments, then one
@@ -530,6 +531,14 @@ class HistoryStore:
         verdict, or None."""
         rec = {"schema_version": SCHEMA_VERSION, "kind": "ledger", "ts": round(time.time(), 6),
                "fingerprint": fingerprint, "ledger": ledger}
+        # The writer's replica id on the envelope: K replicas share one
+        # directory and every record says whose it is.
+        try:
+            from ..serve.replicas import replica_id as _rid
+
+            rec["replica_id"] = _rid()
+        except Exception:
+            pass
         # ensure_ascii (the default) makes len(line) the bytes written.
         line = json.dumps(rec, default=str) + "\n"
         rotated = wrote = False

@@ -1198,3 +1198,139 @@ def test_history_on_under_timing_lands_device_seconds(cuda_device, tmp_path, mon
     assert os.listdir(str(tmp_path / "hist" / "planner"))
     history.reset_stores()
     planner.reset()
+
+
+def _served_join_lake(tmp_path, dev):
+    """l (3 files of 2,000 rows) ⋈ r on two key columns over covering
+    indexes of 8 buckets: the two-column key joins in hash mode (K1, then
+    K2); a lookup on l's index beside it."""
+    import os
+
+    import hyperspace_tpu_torch as hst
+    from hyperspace_tpu_torch.engine import io as torch_io
+    from hyperspace_tpu_torch.engine.table import Table
+
+    rng = np.random.RandomState(12)
+    src, r = str(tmp_path / "src" / "l"), str(tmp_path / "src" / "r")
+    if not os.path.exists(src):
+        for i in range(3):
+            torch_io.write_parquet(Table.from_pydict({
+                "a": rng.randint(0, 40, 2000).astype(np.int64), "b": rng.randint(0, 5, 2000).astype(np.int64),
+                "x": rng.rand(2000)}, "cpu"), os.path.join(src, f"part-{i:05d}.parquet"))
+        torch_io.write_parquet(Table.from_pydict({
+            "a2": np.repeat(np.arange(40, dtype=np.int64), 5), "b2": np.tile(np.arange(5, dtype=np.int64), 40),
+            "w": np.arange(200, dtype=np.int64)}, "cpu"), os.path.join(r, "part-00000.parquet"))
+    s = hst.HyperspaceSession(warehouse=str(tmp_path / dev), device=dev)
+    s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, 8)
+    hs = hst.Hyperspace(s)
+    hs.create_index(s.read.parquet(src), hst.IndexConfig("li", ["a", "b"], ["x"]))
+    hs.create_index(s.read.parquet(r), hst.IndexConfig("ri", ["a2", "b2"], ["w"]))
+    hst.enable_hyperspace(s)
+    join = s.read.parquet(src).join(s.read.parquet(r), (hst.col("a") == hst.col("a2")) & (hst.col("b") == hst.col("b2")))
+    return hs, {
+        "join": join.select("a", "b", "x", "w"),
+        "agg": join.group_by("w").agg(n=("*", "count"), t=("x", "sum")),
+        "lookup": s.read.parquet(src).filter((hst.col("a") == 7) & (hst.col("b") == 3)).select("a", "b", "x"),
+    }
+
+
+@pytest.mark.cuda
+def test_a_four_worker_server_on_the_card_returns_the_serial_rows(cuda_device, tmp_path):
+    """Twelve submissions (joins, aggregates, lookups; 3 tenants, both lanes)
+    on 4 workers sharing the device's default stream: every served table
+    equals the serial one on the card (exactly, floats included), which
+    equals the CPU session's (float sums at rtol 1e-9: the card adds in
+    another order), and K1 and K2 launched while serving."""
+    from hyperspace_tpu_torch.engine import physical, scan_cache
+    from hyperspace_tpu_torch.telemetry import compile_log
+
+    _, cpu_q = _served_join_lake(tmp_path, "cpu")
+    hs, qs = _served_join_lake(tmp_path, "cuda")
+    want = {n: q.collect().to_numpy() for n, q in qs.items()}
+    cpu = {n: q.collect().to_numpy() for n, q in cpu_q.items()}
+    for n in want:
+        for c in want[n]:
+            if want[n][c].dtype.kind == "f":
+                assert np.allclose(want[n][c], cpu[n][c], rtol=1e-9, atol=0), (n, c)
+            else:
+                assert np.array_equal(want[n][c], cpu[n][c]), (n, c)
+    scan_cache.clear_scan_caches()
+    physical.clear_device_memos()
+    compile_log.reset_launches(cuda_sort.LABEL, cuda_probe.LABEL)
+    names = ["join", "agg", "lookup"] * 4
+    with hs.server(max_concurrent=4) as srv:
+        futs = [srv.submit(qs[n].collect, tenant=f"t{i % 3}", lane="interactive" if n == "lookup" else "batch")
+                for i, n in enumerate(names)]
+        got = [f.result(120).to_numpy() for f in futs]
+    for n, out in zip(names, got):
+        assert list(out) == list(want[n])
+        for c in out:
+            assert np.array_equal(out[c], want[n][c]), (n, c)
+    assert cuda_sort.launches > 0 and cuda_probe.launches > 0
+
+
+@pytest.mark.cuda
+def test_four_threads_first_use_builds_the_library_and_hashes_a_dictionary_once(cuda_device, tmp_path,
+                                                                                monkeypatch):
+    """Four threads reach the kernel library (a fresh build directory, so it
+    must be built) and the dictionary-hash memo at once: one `nvcc` build,
+    one hash of the dictionary, and the same library and hashes for all."""
+    import threading
+
+    from hyperspace_tpu_torch.ops import _kernels, hashing
+
+    monkeypatch.setattr(_kernels, "_BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_kernels, "_lib", None)
+    builds, hashes = [], []
+    real_build, real_hash = _kernels._build, hashing._hash_strings
+    monkeypatch.setattr(_kernels, "_build", lambda target: (builds.append(target), real_build(target))[1])
+    monkeypatch.setattr(hashing, "_hash_strings", lambda d, seed: (hashes.append(seed), real_hash(d, seed))[1])
+    dictionary = np.array([f"name-{i}" for i in range(5000)])
+    start = threading.Barrier(4)
+    out, errs = [], []
+
+    def first_use():
+        try:
+            start.wait(30)
+            lib = _kernels.library()
+            h = hashing.host_hash_dictionary(dictionary, 7, cuda_device)
+            out.append((lib, h))
+        except BaseException as e:  # pragma: no cover - diagnostic
+            errs.append(e)
+
+    threads = [threading.Thread(target=first_use) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    assert not errs and len(out) == 4
+    assert len(builds) == 1 and len(hashes) == 1
+    assert all(lib is out[0][0] for lib, _ in out) and all(h is out[0][1] for _, h in out)
+    assert out[0][1].device.type == "cuda" and torch.equal(out[0][1].cpu(), real_hash(dictionary, 7))
+
+
+@pytest.mark.cuda
+def test_a_served_query_whose_launch_fails_resolves_its_future_with_the_error(cuda_device, tmp_path, monkeypatch):
+    """K2's C entry reports a launch error: the served query's future raises
+    that error, the plain version never runs (no CPU retry), and the server
+    serves the next query once the entry is back."""
+    from hyperspace_tpu_torch.engine import physical, scan_cache
+    from hyperspace_tpu_torch.ops import _kernels
+
+    hs, qs = _served_join_lake(tmp_path, "cuda")
+    lib = _kernels.library()
+    real_entry = lib.hs_range_probe_i64
+    plain_calls = []
+    real_plain = cuda_probe.range_probe_plain
+    monkeypatch.setattr(cuda_probe, "range_probe_plain", lambda *a: (plain_calls.append(1), real_plain(*a))[1])
+    scan_cache.clear_scan_caches()
+    physical.clear_device_memos()
+    monkeypatch.setattr(lib, "hs_range_probe_i64", lambda *args: 1)  # cudaErrorInvalidValue
+    with hs.server(max_concurrent=2) as srv:
+        fut = srv.submit(qs["join"].collect, tenant="a")
+        with pytest.raises(RuntimeError, match="hs_range_probe failed to launch"):
+            fut.result(120)
+        monkeypatch.setattr(lib, "hs_range_probe_i64", real_entry)
+        assert srv.run(qs["join"].count, tenant="a") > 0
+        assert srv.stats()["in_flight"] == 0
+    assert plain_calls == []

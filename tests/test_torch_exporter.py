@@ -33,17 +33,18 @@ from hyperspace_tpu.telemetry import device_observatory as jax_dv
 from hyperspace_tpu.telemetry import exporter as jax_exporter
 from hyperspace_tpu.telemetry import history as jax_history
 from hyperspace_tpu.telemetry import metrics as jax_metrics
+from hyperspace_tpu.telemetry import slo as jax_slo
 from hyperspace_tpu_torch.engine import physical, scan_cache
-from hyperspace_tpu_torch.telemetry import accounting, exporter, history, metrics, tracing
+from hyperspace_tpu_torch.telemetry import accounting, exporter, history, metrics, slo, tracing
 from hyperspace_tpu_torch.telemetry import device_observatory as dv
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKGS = (("torch", exporter, accounting, metrics), ("jax", jax_exporter, jax_accounting, jax_metrics))
 #: Frame keys the JAX package writes that the port does not on the CPU: the
-#: replica id and SLO state (serving, not ported yet), the compile cache, a
-#: live-bytes sample (the port reads one only from a CUDA context) and the
-#: device rollups (a CPU session copies nothing to a device).
-JAX_ONLY_KEYS = {"replica_id", "slo", "compile_cache", "device_live_bytes", "device_live_bytes_age_s", "device"}
+#: compile cache, a live-bytes sample (the port reads one only from a CUDA
+#: context) and the device rollups (a CPU session copies nothing to a
+#: device). Both write `replica_id`; neither writes `slo` with no lane run.
+JAX_ONLY_KEYS = {"compile_cache", "device_live_bytes", "device_live_bytes_age_s", "device"}
 
 
 @pytest.fixture(autouse=True)
@@ -55,8 +56,10 @@ def _fresh(monkeypatch):
     monkeypatch.setenv("HYPERSPACE_DISTRIBUTED", "0")
     scan_cache.clear_scan_caches()
     physical.clear_device_memos()
-    for mod in (dv, jax_dv):
+    for mod in (dv, jax_dv, slo, jax_slo):
         mod.reset()
+    for acc in (accounting, jax_accounting):
+        acc.reset_tenant_rollup()
     yield
     for mod in (exporter, jax_exporter):
         mod.stop()

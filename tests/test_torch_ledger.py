@@ -82,6 +82,28 @@ def fake_events(monkeypatch):
     return made
 
 
+class TickEvent(FakeEvent):
+    """A CUDA event stand-in on a clock of whole milliseconds: each event
+    made is one tick later, so device seconds are exact multiples of 1 ms
+    and per-stage sums reconcile with the ledger's total whatever the
+    host's timing."""
+
+    ticks = 0
+
+    def __init__(self, device=None):
+        super().__init__(device)
+        TickEvent.ticks += 1
+        self.n = TickEvent.ticks
+
+    def elapsed_time(self, end) -> float:
+        return float(end.n - self.n)
+
+
+@pytest.fixture()
+def tick_events(monkeypatch):
+    monkeypatch.setattr(dv, "_make_event", TickEvent)
+
+
 def _launch(label="cuda_probe.range_probe", seconds=0.0):
     with compile_log.observed_launch(label):
         if seconds:
@@ -291,7 +313,7 @@ def test_threaded_decode_workers_bill_decode_stage(tmp_path, monkeypatch):
     assert q(twin.t).collect().num_rows == 4
 
 
-def test_stage_totals_reconcile_with_ledger_counters(tmp_path, monkeypatch, fake_events):
+def test_stage_totals_reconcile_with_ledger_counters(tmp_path, monkeypatch, tick_events):
     monkeypatch.setenv("HYPERSPACE_ACCOUNTING", "1")
     twin = Twin(tmp_path)
     q = _pruned_multi_file(twin)

@@ -26,9 +26,12 @@ Phases, each failing loudly:
              the library call computing the same function (kernel and library
              as medians of 5 alternating windows), and the bound; splits the
              K1 (at cap 4096), K2, K3, K4 and K5 calls into host and device
-             time (`torch.profiler`).
+             time (`torch.profiler`). K1 also at [1, 32768] on the
+             build's composite keys (`partition.composite_build_keys` over
+             phase star's item keys), past its tile: the merge passes.
 3. main      TPC-H SF1-shaped data made with numpy from --seed (spec clause
-             4.2.3 rules), four `create_index` calls, then Q3's join (value
+             4.2.3 rules), four `create_index` calls, their build stages
+             printed (`last_build_stages()`). Then Q3's join (value
              mode: K2), Q9's join (hash mode: K1 + K2) and q3_agg, Q3's
              revenue shape (the Q3 join, a computed revenue column, a group-by
              on o_custkey: sum, count_distinct, count, max). Count and collect
@@ -218,7 +221,9 @@ Phases, each failing loudly:
              monthly files, item (18,000 rows as phase partitioned makes
              them, plus i_manager_id over 1..100) and date_dim under
              dateIdx (d_date_sk with d_year, d_moy) and itemIdx (i_item_sk
-             with i_brand_id, i_brand, i_manufact_id, i_manager_id). The
+             with i_brand_id, i_brand, i_manufact_id, i_manager_id);
+             itemIdx's build must take the composite sort on K1 (K1
+             launched during it) and write a CPU session's build's files. The
              star stream hashes the fact's keys into each dimension's
              buckets, pads and sorts (K1) and probes (K2). (a) Q3, (b) Q55
              and (c) Q55 with a float sum of ss_net_paid (the direct-cells
@@ -590,6 +595,24 @@ def phase_kernels(torch, rng):
             shape["split"] = host_device_split(torch, kernel)
             shape["library_split"] = host_device_split(torch, library)
         shapes.append(shape)
+    # K1 at the build's composite sort: phase star's itemIdx, 18,000
+    # item keys (1..18,000 in file order) and their bucket ids packed as
+    # `composite_build_sort` packs them, padded to [1, 32768]: past the
+    # 8192-pair tile, so two merge passes through the scratch buffer.
+    from hyperspace_tpu_torch.ops.hashing import bucket_id
+    from hyperspace_tpu_torch.ops.partition import composite_build_keys
+
+    item_sk = torch.arange(1, ITEM_ROWS + 1, dtype=torch.int64, device="cuda")
+    comp, _ = composite_build_keys(bucket_id([item_sk], NUM_BUCKETS), item_sk, ITEM_ROWS, NUM_BUCKETS)
+    check_sort(torch, cuda_sort, comp.cpu().numpy())
+    n = comp.numel()
+    b_ms, b_by = bound(n * (8 + 8 + 4), n * np.log2(n))
+    ms, library_ms = paired_ms(lambda: cuda_sort.sort_rows(comp), lambda: torch.sort(comp, dim=1, stable=True))
+    shapes.append({
+        "kernel": "K1", "shape": list(comp.shape), "role": "composite build sort", "ms": ms,
+        "library_ms": library_ms, "plain_ms": cuda_ms(lambda: cuda_sort.sort_rows_plain(comp)),
+        "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0,
+    })
     # K2: orders (8192) into lineitem (32768), partsupp (4096) into lineitem.
     for rows, cap_l, cap_r in [(256, 8192, 32768), (256, 4096, 32768)]:
         ls_np, rs_np, l_len_np, r_len_np = probe_case(rng, rows, cap_l, cap_r, fill=main_fill)
@@ -1025,9 +1048,11 @@ def write_sources(data, base: str) -> None:
         engine_io.write_parquet(source_table(data[name]), os.path.join(base, "src", name, "part-00000.parquet"))
 
 
-def build(base: str, device, warehouse=None):
-    """Sessions over the sources under `base/src`; indexes in `warehouse`."""
+def build(base: str, device, warehouse=None, stages=None):
+    """Sessions over the sources under `base/src`; indexes in `warehouse`.
+    `stages` (a dict) gets each build's `last_build_stages()`."""
     import hyperspace_tpu_torch as hst
+    from hyperspace_tpu_torch.telemetry.profiling import last_build_stages
 
     s = hst.HyperspaceSession(warehouse=warehouse or base, device=device)
     s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, NUM_BUCKETS)
@@ -1036,8 +1061,19 @@ def build(base: str, device, warehouse=None):
     for src, name, indexed, included in INDEXES:
         df = s.read.parquet(os.path.join(base, "src", src))
         _, seconds[name] = wall(lambda: hs.create_index(df, hst.IndexConfig(name, indexed, included)))
+        if stages is not None:
+            stages[name] = last_build_stages()
     hst.enable_hyperspace(s)
     return s, seconds
+
+
+def index_files(s, name: str) -> dict:
+    """{version directory/file name: sha256} of the data files of index
+    `name` of session `s`."""
+    import hyperspace_tpu_torch as hst
+
+    e = next(e for e in hst.Hyperspace(s)._manager.get_indexes() if e.name == name)
+    return {"/".join(p.split(os.sep)[-2:]): sha256(p) for p in e.content.files()}
 
 
 def queries(s, base: str):
@@ -1164,7 +1200,10 @@ def phase_main(torch, data, base: str):
     want_agg = expected_q3_agg(data)
     reset_launches(cuda_sort)
     reset_launches(cuda_probe)
-    s, build_s = build(base, DEVICE)
+    stages = {}
+    s, build_s = build(base, DEVICE, stages=stages)
+    for name, st in stages.items():
+        log(f"[main] {name} build stages {json.dumps(st)}")
     log(f"[main] build seconds {json.dumps(build_s)}")
     qs = dict(queries(s, base), q3_agg=q3_agg(s, base))
     expect_idx = {"q_ord": ["liOrd", "ordIdx"], "q_ps": ["liPs", "psIdx"], "q3_agg": ["liOrd", "ordIdx"]}
@@ -2509,7 +2548,7 @@ def merge_split(df) -> dict:
     appended, t["appended_decode_s"] = wall(lambda: scan._appended_rows(ctx))
     cols = [appended.column(c) for c in spec.bucket_columns]
     b, t["bucketize_hash_s"] = wall(lambda: bucket_id(cols, spec.num_buckets))
-    (perm, sorted_b), t["bucketize_sort_s"] = wall(lambda: _bucket_key_sort(b, cols, spec.num_buckets))
+    (perm, sorted_b, _), t["bucketize_sort_s"] = wall(lambda: _bucket_key_sort(b, cols, spec.num_buckets))
     (sorted_a, a_starts), t["bucketize_gather_s"] = wall(
         lambda: (appended.take(perm.long()), bucket_starts(sorted_b, spec.num_buckets)))
     strings = [n for n, c in table.columns.items() if c.is_string]
@@ -3836,7 +3875,7 @@ def phase_star(torch, base: str, seed: int, ss_rows: int = SS_ROWS):
     from hyperspace_tpu_torch.engine import io as engine_io
     from hyperspace_tpu_torch.engine.physical import MultiwayJoinExec
     from hyperspace_tpu_torch.ops import cuda_probe, cuda_sort
-    from hyperspace_tpu_torch.telemetry.profiling import last_join_stages, last_query_stages
+    from hyperspace_tpu_torch.telemetry.profiling import last_build_stages, last_join_stages, last_query_stages
 
     rng = np.random.RandomState(seed + 19)
     phase_t0 = time.perf_counter()
@@ -3854,9 +3893,27 @@ def phase_star(torch, base: str, seed: int, ss_rows: int = SS_ROWS):
     reset_launches(cuda_sort)
     reset_launches(cuda_probe)
     hs = hst.Hyperspace(s)
+    build_stages = {}
     for table, name, indexed, included in STAR_INDEXES:
+        k1 = cuda_sort.launches
         _, seconds[f"create_{name}"] = wall(lambda: hs.create_index(read(table), hst.IndexConfig(name, indexed,
                                                                                                   included)))
+        build_stages[name] = dict(last_build_stages(), k1_launches=cuda_sort.launches - k1)
+        log(f"[star] {name} build stages {json.dumps(build_stages[name])}")
+    item = build_stages["itemIdx"]
+    if item["sort_route"] != "composite" or not item["k1_launches"]:
+        raise AssertionError(f"star: itemIdx's build must sort on K1 (the composite route): {item}")
+    # itemIdx again in a CPU session (K1's plain version), in a second
+    # warehouse: the same files.
+    s_cpu = hst.HyperspaceSession(warehouse=os.path.join(root, "cpu_wh"), device="cpu")
+    s_cpu.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, NUM_BUCKETS)
+    table, _, indexed, included = next(i for i in STAR_INDEXES if i[1] == "itemIdx")
+    _, seconds["create_itemIdx_cpu"] = wall(lambda: hst.Hyperspace(s_cpu).create_index(
+        s_cpu.read.parquet(os.path.join(root, table)), hst.IndexConfig("itemIdx", indexed, included)))
+    if index_files(s, "itemIdx") != index_files(s_cpu, "itemIdx"):
+        raise AssertionError("star: itemIdx's builds on the card and on the CPU wrote different files")
+    del s_cpu
+    shutil.rmtree(os.path.join(root, "cpu_wh"))
     log(f"[star] store_sales {ss_rows} rows in {SS_FILES} files, item {len(tables['item']['i_item_sk'])}, date_dim "
         f"{DD_ROWS}; {json.dumps(seconds)}")
     steps = {}

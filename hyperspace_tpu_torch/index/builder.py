@@ -3,9 +3,15 @@
 Counterpart of `hyperspace_tpu/index/builder.py`'s serial route
 (`HYPERSPACE_BUILD_DECODE_THREADS=1`, the order the JAX package pins its
 pipelined and mesh builds to): read the indexed + included columns onto the
-device, bucketize (hash + stable in-bucket sort, `ops/partition.py`), write one
-`part-<bucket>.parquet` per non-empty bucket with bounded row groups, inside a
-staging directory committed by one rename. `derive_log_entry` (:265) builds
+device, bucketize (hash + stable in-bucket sort, `ops/partition.py`; a small
+build with one integer key sorts on K1, as the JAX package's staged build
+does on its device), write one `part-<bucket>.parquet` per non-empty bucket
+with bounded row groups, inside a staging directory committed by one rename.
+Each build records its stages (`telemetry.profiling.last_build_stages()`:
+decode, sort, take, write, and the sort's route); the JAX package's staged
+pipeline, which overlaps decoding with the sort and the writes, is not
+ported (ROADMAP Queue 1 item 4b), nor its mesh build (item 8).
+`derive_log_entry` (:265) builds
 the same metadata record, field for field. With lineage on
 (`hyperspace.index.lineage.enabled`) the source files are read in inventory
 order, and each row gets its file's path in the `_data_file_name` string
@@ -28,7 +34,9 @@ from ..engine.physical import lineage_column, partitions_of
 from ..engine.schema import STRING, Field, Schema
 from ..engine.table import Table
 from ..exceptions import HyperspaceException
-from ..ops.partition import bucketize_table
+from ..ops.hashing import bucket_id
+from ..ops.partition import _bucket_key_sort, bucket_starts
+from ..telemetry.profiling import StageTimings, record_build_stages
 from ..util.resolver_utils import resolve_all
 from .index_config import IndexConfig
 from .log_entry import (
@@ -114,10 +122,18 @@ class CoveringIndexBuilder(IndexerBuilder):
 
     def _write_serial(self, df, index_config: IndexConfig, index_data_path: str) -> None:
         indexed, _ = self._resolved_columns(df, index_config)
-        table = self._index_table(df, index_config)
         num_buckets = self._session.hs_conf.num_buckets
-        sorted_table, starts = bucketize_table(table, indexed, num_buckets)
-        host = sorted_table.to("cpu")
+        # Each stage ends with a sync of the card: its work is charged to it.
+        stages = StageTimings(mode="serial", device=self._session.device)
+        with stages.timed("decode"):
+            table = self._index_table(df, index_config)
+        with stages.timed("sort"):
+            cols = [table.column(c) for c in indexed]
+            perm, sorted_b, route = _bucket_key_sort(bucket_id(cols, num_buckets), cols, num_buckets)
+            starts = bucket_starts(sorted_b, num_buckets)
+        with stages.timed("take"):
+            host = table.take(perm.long()).to("cpu")
+        writers = build_writers()
         os.makedirs(index_data_path, exist_ok=True)
 
         def write_bucket(b: int) -> None:
@@ -131,8 +147,12 @@ class CoveringIndexBuilder(IndexerBuilder):
             )
 
         # Parquet encode releases the GIL: bucket files are written concurrently.
-        with ThreadPoolExecutor(max_workers=build_writers()) as pool:
+        with stages.timed("write"), ThreadPoolExecutor(max_workers=writers) as pool:
             list(pool.map(write_bucket, range(num_buckets)))
+        summary = stages.summary()
+        summary.update({"rows": table.num_rows, "files": len(df.plan.relation.files), "writers": writers,
+                        "sort_route": route})
+        record_build_stages(summary)
 
     def _index_schema(self, df, index_config: IndexConfig) -> Schema:
         indexed, included = self._resolved_columns(df, index_config)

@@ -1,14 +1,16 @@
-"""Per-stage timings of the streamed executors (counterpart of
-`hyperspace_tpu/telemetry/profiling.py` `StageTimings` :32,
-`record_query_stages` :164 and `record_join_stages` :189).
+"""Per-stage timings of index builds and the streamed executors
+(counterpart of `hyperspace_tpu/telemetry/profiling.py` `StageTimings` :32,
+`record_build_stages` :139, `record_query_stages` :164 and
+`record_join_stages` :189).
 
-A streamed scan aggregate (`engine/streaming.stream_aggregate`) and a
-streamed star join (`stream_star_aggregate`) each fill one `StageTimings`
-and record its summary; `last_query_stages()` and `last_join_stages()` read
-the newest. The summaries carry the JAX package's field names (`<stage>_s`,
-`wall_s`, `overlap_ratio`, `mode`, `stage_counts`, and what the executor adds:
-`chunks`, `join_mode`, `star_dims` ...), so both packages' records read
-alike.
+An index build (`index/builder.py`), a streamed scan aggregate
+(`engine/streaming.stream_aggregate`) and a streamed star join
+(`stream_star_aggregate`) each fill one `StageTimings` and record its
+summary; `last_build_stages()`, `last_query_stages()` and
+`last_join_stages()` read the newest. The summaries carry the JAX package's
+field names (`<stage>_s`, `wall_s`, `overlap_ratio`, `mode`,
+`stage_counts`, and what the operation adds: `rows`, `sort_route`,
+`chunks`, `join_mode`, `star_dims` ...), so both packages' records read alike.
 
 On a CUDA device every timed block ends with a synchronization of that
 device (`StageTimings(device=...)`): the card runs the block's work
@@ -123,11 +125,31 @@ def timed(stages: Optional[StageTimings], stage: str):
     return contextlib.nullcontext() if stages is None else stages.timed(stage)
 
 
-# The newest summaries of streamed scan aggregates and streamed joins,
-# bounded so that a long-lived session keeps a fixed amount.
+# The newest summaries of builds, streamed scan aggregates and streamed
+# joins, bounded so that a long-lived session keeps a fixed amount.
+_BUILD_STAGES: "deque[dict]" = deque(maxlen=16)
 _QUERY_STAGES: "deque[dict]" = deque(maxlen=16)
 _JOIN_STAGES: "deque[dict]" = deque(maxlen=16)
 _lock = threading.Lock()
+
+
+def record_build_stages(summary: dict) -> None:
+    """Record one index build's summary."""
+    _record("build", _BUILD_STAGES, summary)
+
+
+def last_build_stages() -> Optional[dict]:
+    """The newest build's summary (None if no build ran). Its `launches`
+    are the process's launches while the build ran: a query that ran at the
+    same time (`hs.server()`) adds its own."""
+    with _lock:
+        return dict(_BUILD_STAGES[-1]) if _BUILD_STAGES else None
+
+
+def build_stages_history() -> list:
+    """The summaries of the last few builds, oldest first."""
+    with _lock:
+        return [dict(d) for d in _BUILD_STAGES]
 
 
 def record_query_stages(summary: dict) -> None:

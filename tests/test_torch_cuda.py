@@ -1193,7 +1193,12 @@ def test_history_on_under_timing_lands_device_seconds(cuda_device, tmp_path, mon
             rows[dev] = q.collect().sorted_rows()
     assert rows["cpu"] == rows["cuda"]
     store = history.get_store()
-    card = [b for b in store.baselines().values() if b.get("device_time_s", 0) > 0]
+    # The builds' class has device seconds too: a card build of one integer
+    # key of at most 32,768 rows sorts on K1 (the composite route).
+    builds = [b for b in store.baselines().values() if "build:create_index" in b["names"]]
+    assert builds and builds[0]["device_time_s"] > 0
+    card = [b for b in store.baselines().values()
+            if b.get("device_time_s", 0) > 0 and "build:create_index" not in b["names"]]
     assert card and card[0]["n"] == 3 and card[0]["rows_produced"] == 3 * len(rows["cuda"])
     assert os.listdir(str(tmp_path / "hist" / "planner"))
     history.reset_stores()
@@ -1334,3 +1339,119 @@ def test_a_served_query_whose_launch_fails_resolves_its_future_with_the_error(cu
         assert srv.run(qs["join"].count, tenant="a") > 0
         assert srv.stats()["in_flight"] == 0
     assert plain_calls == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, kind", [(129, "dups"), (5000, "negative"), (20000, "int32"), (32768, "dups")])
+def test_composite_build_sort_on_the_card_equals_the_cpu(cuda_device, n, kind):
+    """The build's composite sort (`partition.composite_build_sort`)
+    launches K1 on the card and gives the CPU's (perm, sorted bucket ids)."""
+    from hyperspace_tpu_torch.ops.hashing import bucket_id
+    from hyperspace_tpu_torch.ops.partition import composite_build_sort
+
+    rng = np.random.RandomState(n)
+    key_np = {
+        "dups": rng.randint(0, 300, n).astype(np.int64),
+        "negative": rng.randint(-(2**40), -(2**40) + 900, n).astype(np.int64),
+        "int32": rng.randint(-(2**31), 2**31 - 1, n).astype(np.int32),
+    }[kind]
+    got = {}
+    for dev in ("cpu", cuda_device):
+        key = torch.from_numpy(key_np).to(dev)
+        k1 = cuda_sort.launches
+        perm, sorted_b = composite_build_sort(bucket_id([key], 200), key, n, 200)
+        torch.cuda.synchronize()
+        assert cuda_sort.launches - k1 == (0 if dev == "cpu" else 1)
+        got[str(dev)] = (perm.cpu(), sorted_b.cpu())
+    assert torch.equal(got["cpu"][0], got["cuda"][0]) and torch.equal(got["cpu"][1], got["cuda"][1])
+
+
+def _build_lake(tmp_path, rows, n_files=3):
+    """`n_files` parquet files of `rows` rows in all: an int key `k`, a second
+    int key `k2`, a string key `s` of 5 values and payloads."""
+    import os
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    src = str(tmp_path / "src")
+    os.makedirs(src)
+    rng = np.random.RandomState(rows)
+    for i, part in enumerate(np.array_split(np.arange(rows), n_files)):
+        m = len(part)
+        pq.write_table(pa.table({
+            "k": rng.randint(-50, 2000, m).astype(np.int64), "k2": rng.randint(0, 9, m).astype(np.int64),
+            "s": np.array(["AIR", "MAIL", "RAIL", "SHIP", "TRUCK"])[rng.randint(0, 5, m)],
+            "v": part.astype(np.int64), "f": rng.rand(m),
+        }), os.path.join(src, f"part-{i:05d}.parquet"))
+    return src
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows, indexed, route", [(18000, ["k"], "composite"), (40000, ["k"], "chain"),
+                                                  (18000, ["k2", "k"], "chain"), (18000, ["s"], "packed")])
+def test_a_build_on_the_card_equals_the_cpu_and_the_chain_sort(cuda_device, tmp_path, monkeypatch, rows, indexed,
+                                                                route):
+    """A build on the card takes `route` (K3 for the string key of 5 values,
+    with packed codes on) and writes the files of the CPU's build and of the
+    card's build with the composite sort declined (the stable sort chain)."""
+    import hashlib
+    import os
+
+    import hyperspace_tpu_torch as hst
+    from hyperspace_tpu_torch.engine import physical, scan_cache
+    from hyperspace_tpu_torch.ops import partition
+    from hyperspace_tpu_torch.telemetry.profiling import last_build_stages
+
+    src = _build_lake(tmp_path, rows)
+    monkeypatch.setenv("HYPERSPACE_PACKED_CODES", "1")
+    shas, stages = {}, {}
+    for tag, dev in (("cpu", "cpu"), ("cuda", "cuda"), ("cuda_chain", "cuda")):
+        with monkeypatch.context() as m:
+            if tag == "cuda_chain":
+                m.setattr(partition, "composite_build_sort", lambda *a: None)
+            scan_cache.clear_scan_caches()
+            physical.clear_device_memos()
+            s = hst.HyperspaceSession(warehouse=str(tmp_path / tag), device=dev)
+            s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, 16)
+            hs = hst.Hyperspace(s)
+            k1 = cuda_sort.launches
+            hs.create_index(s.read.parquet(src), hst.IndexConfig("idx", indexed, ["v", "f"]))
+            stages[tag] = dict(last_build_stages(), k1=cuda_sort.launches - k1)
+        root = str(tmp_path / tag / "indexes" / "idx")
+        shas[tag] = {os.path.relpath(os.path.join(d, f), root): hashlib.sha256(open(os.path.join(d, f), "rb").read())
+                     .hexdigest() for d, _, fs in os.walk(root) for f in fs if f.endswith(".parquet")}
+    assert shas["cuda"] == shas["cpu"] == shas["cuda_chain"]
+    assert len(shas["cpu"]) == (5 if indexed == ["s"] else 16)  # one file a non-empty bucket
+    assert stages["cuda"]["sort_route"] == stages["cpu"]["sort_route"] == route
+    assert stages["cuda"]["mode"] == "serial" and stages["cuda"]["rows"] == rows
+    assert (stages["cuda"]["k1"] > 0) == (route == "composite") and stages["cpu"]["k1"] == 0
+
+
+@pytest.mark.cuda
+def test_the_builds_composite_sort_never_takes_the_plain_sort(cuda_device, tmp_path, monkeypatch):
+    """On the card the composite route launches K1 or raises: the plain
+    version is never called, and a failed launch fails the build with no
+    index file left behind."""
+    import os
+
+    import hyperspace_tpu_torch as hst
+    from hyperspace_tpu_torch.ops import _kernels
+    from hyperspace_tpu_torch.telemetry.profiling import last_build_stages
+
+    src = _build_lake(tmp_path, 18000)
+    plain = []
+    real_plain = cuda_sort.sort_rows_plain
+    monkeypatch.setattr(cuda_sort, "sort_rows_plain", lambda *a: (plain.append(1), real_plain(*a))[1])
+    s = hst.HyperspaceSession(warehouse=str(tmp_path / "wh"), device="cuda")
+    hs = hst.Hyperspace(s)
+    k1 = cuda_sort.launches
+    hs.create_index(s.read.parquet(src), hst.IndexConfig("idx", ["k"], ["v"]))
+    assert last_build_stages()["sort_route"] == "composite" and cuda_sort.launches > k1 and plain == []
+    lib = _kernels.library()
+    monkeypatch.setattr(lib, "hs_bucket_sort", lambda *args: 1)  # cudaErrorInvalidValue
+    with pytest.raises(RuntimeError, match="hs_bucket_sort"):
+        hs.create_index(s.read.parquet(src), hst.IndexConfig("idx2", ["k"], ["v"]))
+    assert plain == []
+    idir = str(tmp_path / "wh" / "indexes" / "idx2")
+    assert [f for _, _, fs in os.walk(idir) for f in fs if f.endswith(".parquet")] == []

@@ -156,6 +156,12 @@ def test_traced_rows_identical_with_exporter_running(tmp_path, monkeypatch):
 
 
 def test_prometheus_text_renders_counters_and_histograms():
+    # Both registries are process singletons: a test that ran before this one
+    # in the same process (the JAX package's own Prometheus test) may have
+    # left these series counted. Start both packages from zero.
+    for _name, _mod, _acc, m in PKGS:
+        m.counter("test.prom.hits").reset()
+        m.histogram("test.prom.lat").reset()
     texts = {}
     for name, mod, _acc, m in PKGS:
         m.counter("test.prom.hits").inc(4)

@@ -31,7 +31,12 @@ Phases, each failing loudly:
              phase star's item keys), past its tile: the merge passes.
 3. main      TPC-H SF1-shaped data made with numpy from --seed (spec clause
              4.2.3 rules), four `create_index` calls, their build stages
-             printed (`last_build_stages()`). Then Q3's join (value
+             printed (`last_build_stages()`: mode `pipelined-device`, each
+             stage's seconds, `overlap_ratio`, `sort_route`, launches);
+             ordIdx's files equal to a CPU session's build of the same
+             source (the pinned copy ranges at full width), and an ordIdx
+             build whose 21st bucket write fails (`storage.write`) raises
+             and leaves no index file and no log entry. Then Q3's join (value
              mode: K2), Q9's join (hash mode: K1 + K2) and q3_agg, Q3's
              revenue shape (the Q3 join, a computed revenue column, a group-by
              on o_custkey: sum, count_distinct, count, max). Count and collect
@@ -173,7 +178,8 @@ Phases, each failing loudly:
              ssItem (store_sales [ss_item_sk] with ss_net_paid and the
              partition column, which the join rule must see configured)
              and itemIdx (item [i_item_sk] with i_brand_id, i_brand,
-             i_manufact_id), timed; (c) TPC-DS Q3 (d_moy 11, i_manufact_id
+             i_manufact_id), timed, each build's stages printed (ssItem
+             over the 1,826 day files); (c) TPC-DS Q3 (d_moy 11, i_manufact_id
              128, by d_year, i_brand, i_brand_id, ORDER BY d_year, the sum
              descending, i_brand_id, LIMIT 100) indexed (store_sales ⋈ item
              co-bucketed: K2, K1 in hash mode; then the general join to
@@ -1067,6 +1073,50 @@ def build(base: str, device, warehouse=None, stages=None):
     return s, seconds
 
 
+def cpu_index_files(base: str, name: str) -> dict:
+    """`index_files` of index `name` of `INDEXES` built by a CPU session
+    over the same source, in a warehouse of its own."""
+    import hyperspace_tpu_torch as hst
+
+    src, _, indexed, included = next(i for i in INDEXES if i[1] == name)
+    s = hst.HyperspaceSession(warehouse=os.path.join(base, "cpu_wh"), device="cpu")
+    s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, NUM_BUCKETS)
+    hst.Hyperspace(s).create_index(s.read.parquet(os.path.join(base, "src", src)),
+                                   hst.IndexConfig(name, indexed, included))
+    return index_files(s, name)
+
+
+def failed_write_leaves_nothing(base: str, name: str, after: int) -> None:
+    """A build of index `name` of `INDEXES` on the card whose bucket write
+    after the first `after` fails (a permanent `storage.write` fault) must
+    raise, leave no index file and commit no log entry."""
+    import hyperspace_tpu_torch as hst
+    from hyperspace_tpu_torch.exceptions import PermanentError
+    from hyperspace_tpu_torch.telemetry import faults
+
+    src, _, indexed, included = next(i for i in INDEXES if i[1] == name)
+    wh = os.path.join(base, "failed_write_wh")
+    s = hst.HyperspaceSession(warehouse=wh, device=DEVICE)
+    s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, NUM_BUCKETS)
+    hs = hst.Hyperspace(s)
+    faults.reset_counters()
+    try:
+        with faults.inject("storage.write", rate=1.0, kind="permanent", limit=1, after=after):
+            hs.create_index(s.read.parquet(os.path.join(base, "src", src)), hst.IndexConfig(name, indexed, included))
+    except PermanentError as e:
+        err = e
+    else:
+        raise AssertionError(f"main: {name}'s build with a failing bucket write did not raise")
+    finally:
+        writes = faults.call_count("storage.write")
+        faults.reset_counters()
+    leftovers = [f for _, _, fs in os.walk(os.path.join(wh, "indexes", name)) for f in fs if f.endswith(".parquet")]
+    if leftovers or hs._manager.get_indexes(["ACTIVE"]):
+        raise AssertionError(f"main: {name}'s failed build left {len(leftovers)} index files or a log entry")
+    log(f"[main] {name}: bucket write {after + 1} of a card build failed ({err}; {writes} writes begun): "
+        f"no index file, no log entry")
+
+
 def index_files(s, name: str) -> dict:
     """{version directory/file name: sha256} of the data files of index
     `name` of session `s`."""
@@ -1204,7 +1254,13 @@ def phase_main(torch, data, base: str):
     s, build_s = build(base, DEVICE, stages=stages)
     for name, st in stages.items():
         log(f"[main] {name} build stages {json.dumps(st)}")
+        card_check(st["mode"] == "pipelined-device", f"main: {name} was not built on the card's route: {st}")
     log(f"[main] build seconds {json.dumps(build_s)}")
+    cpu_files, cpu_s = wall(lambda: cpu_index_files(base, "ordIdx"))
+    if index_files(s, "ordIdx") != cpu_files:
+        raise AssertionError("main: ordIdx's builds on the card and on the CPU wrote different files")
+    log(f"[main] ordIdx: {len(cpu_files)} files sha256-equal to a CPU session's build ({cpu_s:.2f} s on the CPU)")
+    failed_write_leaves_nothing(base, "ordIdx", after=20)
     qs = dict(queries(s, base), q3_agg=q3_agg(s, base))
     expect_idx = {"q_ord": ["liOrd", "ordIdx"], "q_ps": ["liPs", "psIdx"], "q3_agg": ["liOrd", "ordIdx"]}
 
@@ -3136,6 +3192,7 @@ def phase_partitioned(torch, base: str, seed: int):
     from hyperspace_tpu_torch.engine.physical import SortMergeJoinExec
     from hyperspace_tpu_torch.index.dataskipping import DataSkippingIndexConfig, MinMaxSketch
     from hyperspace_tpu_torch.ops import cuda_probe, cuda_sort
+    from hyperspace_tpu_torch.telemetry.profiling import last_build_stages
 
     try:
         import pyarrow.orc  # noqa: F401
@@ -3201,6 +3258,7 @@ def phase_partitioned(torch, base: str, seed: int):
     engine_io.reset_io_stats()
     for table, name, indexed, included in DS_INDEXES:
         _, seconds[f"b_create_{name}"] = wall(lambda: hs.create_index(read(table), hst.IndexConfig(name, indexed, included)))
+        log(f"[partitioned] (b) {name} build stages {json.dumps(last_build_stages())}")
     log(f"[partitioned] (b) builds {json.dumps({k: v for k, v in seconds.items() if k.startswith('b_')})}; "
         f"scan parts {json.dumps(engine_io.io_stats()['seconds'])}")
     hst.enable_hyperspace(s)

@@ -1075,12 +1075,13 @@ def table_to_arrow(table: Table, encode_dictionaries: bool = False) -> pa.Table:
     return pa.table(arrays)
 
 
-def write_parquet(table: Table, path: str, row_group_rows: Optional[int] = None) -> None:
-    """`row_group_rows` bounds the written row groups (None = pyarrow's
-    default). The `storage.write` fault point and retry site
-    (`io.checked_write_table` :1214): a retried write truncates the partial
-    file, so the committed bytes are one clean encode."""
-    at = table_to_arrow(table, encode_dictionaries=True)
+def checked_write_table(at: pa.Table, path: str, row_group_rows: Optional[int] = None) -> None:
+    """The one parquet write site of the index writers and the session's
+    helpers (`io.checked_write_table` :1218): the `storage.write` fault point
+    and a bounded transient retry. A retried write truncates the partial
+    file, so the committed bytes are one clean encode. `row_group_rows`
+    bounds the written row groups (None = pyarrow's default). The caller
+    makes the directory."""
 
     def write() -> None:
         _faults.check("storage.write")
@@ -1089,8 +1090,14 @@ def write_parquet(table: Table, path: str, row_group_rows: Optional[int] = None)
         else:
             pq.write_table(at, path, row_group_size=int(row_group_rows))
 
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     _resilience.retry_io("storage.write", write)
+
+
+def write_parquet(table: Table, path: str, row_group_rows: Optional[int] = None) -> None:
+    """One table into one parquet file (its directory made if missing),
+    through `checked_write_table`."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    checked_write_table(table_to_arrow(table, encode_dictionaries=True), path, row_group_rows)
 
 
 def write_orc(table: Table, path: str) -> None:

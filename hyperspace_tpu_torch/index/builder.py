@@ -1,17 +1,16 @@
 """CoveringIndexBuilder: the engine side of index creation.
 
-Counterpart of `hyperspace_tpu/index/builder.py`'s serial route
-(`HYPERSPACE_BUILD_DECODE_THREADS=1`, the order the JAX package pins its
-pipelined and mesh builds to): read the indexed + included columns onto the
-device, bucketize (hash + stable in-bucket sort, `ops/partition.py`; a small
-build with one integer key sorts on K1, as the JAX package's staged build
-does on its device), write one `part-<bucket>.parquet` per non-empty bucket
-with bounded row groups, inside a staging directory committed by one rename.
-Each build records its stages (`telemetry.profiling.last_build_stages()`:
-decode, sort, take, write, and the sort's route); the JAX package's staged
-pipeline, which overlaps decoding with the sort and the writes, is not
-ported (ROADMAP Queue 1 item 4b), nor its mesh build (item 8).
-`derive_log_entry` (:265) builds
+Counterpart of `hyperspace_tpu/index/builder.py`. `write` has one route,
+inside a staging directory committed by one rename: read the indexed and
+included columns onto the session's device (`_index_table`, through
+`io.read_files`: the deadline check, the single-flight scan and the
+concat-cache insert), then `build_pipeline.pipelined_write` sorts by
+(bucket, keys, row), gathers, copies the sorted columns to the host in
+bucket-aligned ranges and writes one `part-<bucket>.parquet` per non-empty
+bucket with bounded row groups on the writer pool, the copies overlapped
+with the writes. Each build records its stages
+(`telemetry.profiling.last_build_stages()`). The JAX package's mesh build
+is not ported (ROADMAP Queue 1 item 8). `derive_log_entry` (:265) builds
 the same metadata record, field for field. With lineage on
 (`hyperspace.index.lineage.enabled`) the source files are read in inventory
 order, and each row gets its file's path in the `_data_file_name` string
@@ -23,7 +22,6 @@ are indexed too, between the configured columns and the lineage column.
 from __future__ import annotations
 
 import os
-from concurrent.futures import ThreadPoolExecutor
 from typing import List
 
 from ..actions.create import IndexerBuilder
@@ -34,10 +32,8 @@ from ..engine.physical import lineage_column, partitions_of
 from ..engine.schema import STRING, Field, Schema
 from ..engine.table import Table
 from ..exceptions import HyperspaceException
-from ..ops.hashing import bucket_id
-from ..ops.partition import _bucket_key_sort, bucket_starts
-from ..telemetry.profiling import StageTimings, record_build_stages
 from ..util.resolver_utils import resolve_all
+from . import build_pipeline
 from .index_config import IndexConfig
 from .log_entry import (
     Content,
@@ -91,8 +87,13 @@ class CoveringIndexBuilder(IndexerBuilder):
         )
 
     def write(self, df, index_config: IndexConfig, index_data_path: str) -> None:
+        indexed, _ = self._resolved_columns(df, index_config)
+        # One device: a build across devices is ROADMAP Queue 1 item 8.
         with stage_commit(index_data_path) as stage:
-            self._write_serial(df, index_config, stage)
+            build_pipeline.pipelined_write(
+                lambda: self._index_table(df, index_config), indexed, self._session.hs_conf.num_buckets, stage,
+                self._session.device, build_writers(), len(df.plan.relation.files),
+            )
 
     @staticmethod
     def _missing_partition_columns(rel: SourceRelation, wanted: List[str]) -> List[str]:
@@ -119,40 +120,6 @@ class CoveringIndexBuilder(IndexerBuilder):
         paths = [f.path for f in rel.files]
         t, counts = engine_io.read_in_order(paths, rel.file_format, wanted, device, partitions)
         return Table({**t.columns, IndexConstants.DATA_FILE_NAME_COLUMN: lineage_column(paths, counts, device)})
-
-    def _write_serial(self, df, index_config: IndexConfig, index_data_path: str) -> None:
-        indexed, _ = self._resolved_columns(df, index_config)
-        num_buckets = self._session.hs_conf.num_buckets
-        # Each stage ends with a sync of the card: its work is charged to it.
-        stages = StageTimings(mode="serial", device=self._session.device)
-        with stages.timed("decode"):
-            table = self._index_table(df, index_config)
-        with stages.timed("sort"):
-            cols = [table.column(c) for c in indexed]
-            perm, sorted_b, route = _bucket_key_sort(bucket_id(cols, num_buckets), cols, num_buckets)
-            starts = bucket_starts(sorted_b, num_buckets)
-        with stages.timed("take"):
-            host = table.take(perm.long()).to("cpu")
-        writers = build_writers()
-        os.makedirs(index_data_path, exist_ok=True)
-
-        def write_bucket(b: int) -> None:
-            lo, hi = int(starts[b]), int(starts[b + 1])
-            if hi <= lo:
-                return  # empty bucket: no file
-            engine_io.write_parquet(
-                host.slice(lo, hi),
-                os.path.join(index_data_path, f"part-{b:05d}.parquet"),
-                row_group_rows=engine_io.index_row_group_rows(),
-            )
-
-        # Parquet encode releases the GIL: bucket files are written concurrently.
-        with stages.timed("write"), ThreadPoolExecutor(max_workers=writers) as pool:
-            list(pool.map(write_bucket, range(num_buckets)))
-        summary = stages.summary()
-        summary.update({"rows": table.num_rows, "files": len(df.plan.relation.files), "writers": writers,
-                        "sort_route": route})
-        record_build_stages(summary)
 
     def _index_schema(self, df, index_config: IndexConfig) -> Schema:
         indexed, included = self._resolved_columns(df, index_config)

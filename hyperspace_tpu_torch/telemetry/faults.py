@@ -9,7 +9,7 @@ Points (`FAULT_POINTS`):
 - `io.decode`: a data or index file decode (`engine.io._read_arrow`,
   `_read_other`);
 - `io.footer`: a parquet footer parse (`engine.io.footer_metadata`);
-- `storage.write`: a parquet file write (`engine.io.write_parquet`);
+- `storage.write`: a parquet file write (`engine.io.checked_write_table`);
 - `log.write`: an operation-log write (`index.log_manager`);
 - `pool.worker`: a decode pool task body (`engine.io`);
 - `device.compile`: the kernel library's build

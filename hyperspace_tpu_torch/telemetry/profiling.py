@@ -3,7 +3,7 @@
 `record_build_stages` :139, `record_query_stages` :164 and
 `record_join_stages` :189).
 
-An index build (`index/builder.py`), a streamed scan aggregate
+An index build (`index/build_pipeline.py`), a streamed scan aggregate
 (`engine/streaming.stream_aggregate`) and a streamed star join
 (`stream_star_aggregate`) each fill one `StageTimings` and record its
 summary; `last_build_stages()`, `last_query_stages()` and
@@ -60,13 +60,15 @@ class StageTimings:
             self._counts[stage] = self._counts.get(stage, 0) + 1
 
     @contextlib.contextmanager
-    def timed(self, stage: str) -> Iterator[None]:
+    def timed(self, stage: str, sync: bool = True) -> Iterator[None]:
+        """Time a block as `stage`. `sync=False` is for host work that must
+        not wait for the card's other queued work (a copy on a side stream)."""
         t0 = time.monotonic()
         try:
             with stage_ledger.stage_scope(stage):
                 yield
         finally:
-            if self._sync is not None:
+            if sync and self._sync is not None:
                 torch.cuda.synchronize(self._sync)
             self.add(stage, time.monotonic() - t0)
 

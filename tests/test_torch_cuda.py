@@ -1424,7 +1424,7 @@ def test_a_build_on_the_card_equals_the_cpu_and_the_chain_sort(cuda_device, tmp_
     assert shas["cuda"] == shas["cpu"] == shas["cuda_chain"]
     assert len(shas["cpu"]) == (5 if indexed == ["s"] else 16)  # one file a non-empty bucket
     assert stages["cuda"]["sort_route"] == stages["cpu"]["sort_route"] == route
-    assert stages["cuda"]["mode"] == "serial" and stages["cuda"]["rows"] == rows
+    assert stages["cuda"]["mode"] == "pipelined-device" and stages["cuda"]["rows"] == rows
     assert (stages["cuda"]["k1"] > 0) == (route == "composite") and stages["cpu"]["k1"] == 0
 
 
@@ -1455,3 +1455,106 @@ def test_the_builds_composite_sort_never_takes_the_plain_sort(cuda_device, tmp_p
     assert plain == []
     idir = str(tmp_path / "wh" / "indexes" / "idx2")
     assert [f for _, _, fs in os.walk(idir) for f in fs if f.endswith(".parquet")] == []
+
+
+def _index_shas(root):
+    import hashlib
+    import os
+
+    return {os.path.relpath(os.path.join(d, f), root): hashlib.sha256(open(os.path.join(d, f), "rb").read()).hexdigest()
+            for d, _, fs in os.walk(root) for f in fs if f.endswith(".parquet")}
+
+
+def _nullable_lake(tmp_path, rows, n_files=3):
+    """A lake of `rows` rows with a nullable int key `k`, a nullable string
+    `s` of 40 values, and payloads."""
+    import os
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    src = str(tmp_path / "src_nulls")
+    os.makedirs(src)
+    rng = np.random.RandomState(rows + 1)
+    for i, part in enumerate(np.array_split(np.arange(rows), n_files)):
+        m = len(part)
+        pq.write_table(pa.table({
+            "k": pa.array(rng.randint(0, 5000, m).astype(np.int64), mask=rng.rand(m) < 0.05),
+            "s": pa.array(np.array([f"s{x:02d}" for x in range(40)])[rng.randint(0, 40, m)], mask=rng.rand(m) < 0.1),
+            "v": part.astype(np.int64), "f": rng.rand(m),
+        }), os.path.join(src, f"part-{i:05d}.parquet"))
+    return src
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("encoded", ["1", "0"])
+def test_the_pinned_copy_ranges_write_the_cpus_files(cuda_device, tmp_path, monkeypatch, encoded):
+    """A card build of 200,000 rows copies the sorted columns to pinned
+    memory in 16 bucket-aligned ranges on a side stream, and writes the CPU
+    session's files, with nullable int and string columns, under
+    `HYPERSPACE_ENCODED_EXEC` on and off."""
+    import hyperspace_tpu_torch as hst
+    from hyperspace_tpu_torch.engine import physical, scan_cache
+    from hyperspace_tpu_torch.telemetry.profiling import last_build_stages
+
+    monkeypatch.setenv("HYPERSPACE_ENCODED_EXEC", encoded)
+    src = _nullable_lake(tmp_path, 200_000)
+    shas, stages = {}, {}
+    for dev in ("cpu", "cuda"):
+        scan_cache.clear_scan_caches()
+        physical.clear_device_memos()
+        s = hst.HyperspaceSession(warehouse=str(tmp_path / dev), device=dev)
+        s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, 64)
+        hst.Hyperspace(s).create_index(s.read.parquet(src), hst.IndexConfig("idx", ["k"], ["s", "v", "f"]))
+        stages[dev] = last_build_stages()
+        shas[dev] = _index_shas(str(tmp_path / dev / "indexes" / "idx"))
+    assert shas["cuda"] == shas["cpu"] and len(shas["cpu"]) == 64
+    cuda = stages["cuda"]
+    assert (cuda["mode"], stages["cpu"]["mode"], cuda["ranges"]) == ("pipelined-device", "pipelined-cpu", 16)
+    assert cuda["stage_counts"]["take"] == 2 + cuda["ranges"] and cuda["stage_counts"]["write"] == 64
+
+
+@pytest.mark.cuda
+def test_a_failed_bucket_write_on_the_card_raises_and_leaves_nothing(cuda_device, tmp_path):
+    """A permanent `storage.write` fault at the sixth bucket write of a card
+    build raises, and leaves no index file, no log entry and no writer
+    thread."""
+    import os
+    import threading
+
+    import hyperspace_tpu_torch as hst
+    from hyperspace_tpu_torch.exceptions import PermanentError
+    from hyperspace_tpu_torch.telemetry import faults
+
+    src = _nullable_lake(tmp_path, 100_000)
+    s = hst.HyperspaceSession(warehouse=str(tmp_path / "wh"), device="cuda")
+    s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, 64)
+    hs = hst.Hyperspace(s)
+    faults.reset_counters()
+    try:
+        with faults.inject("storage.write", rate=1.0, kind="permanent", limit=1, after=5):
+            with pytest.raises(PermanentError, match="storage.write"):
+                hs.create_index(s.read.parquet(src), hst.IndexConfig("idx", ["k"], ["s", "v"]))
+    finally:
+        faults.reset_counters()
+    idir = str(tmp_path / "wh" / "indexes" / "idx")
+    assert [f for _, _, fs in os.walk(idir) for f in fs if f.endswith(".parquet")] == []
+    assert hs._manager.get_indexes(["ACTIVE"]) == []
+    assert [t for t in threading.enumerate() if t.name.startswith("hs-build-")] == []
+
+
+@pytest.mark.cuda
+def test_a_large_card_build_overlaps_its_copies_and_writes(cuda_device, tmp_path):
+    """A card build of 1,200,000 rows: its stages' seconds sum to more than
+    its wall (`overlap_ratio` above 1: the range copies, the prepares and
+    the writer pool's writes run at once)."""
+    import hyperspace_tpu_torch as hst
+    from hyperspace_tpu_torch.telemetry.profiling import last_build_stages
+
+    src = _nullable_lake(tmp_path, 1_200_000)
+    s = hst.HyperspaceSession(warehouse=str(tmp_path / "wh"), device="cuda")
+    s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, 200)
+    hst.Hyperspace(s).create_index(s.read.parquet(src), hst.IndexConfig("idx", ["k"], ["s", "v", "f"]))
+    st = last_build_stages()
+    assert st["mode"] == "pipelined-device" and st["rows"] == 1_200_000 and st["ranges"] == 16
+    assert st["overlap_ratio"] > 1, st

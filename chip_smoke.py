@@ -324,11 +324,28 @@ Phases, each failing loudly:
              (indexed and disabled) and string slices at SF 0.05 with
              device="cpu" and device="cuda": identical index files,
              identical rows in order (sums at rtol 1e-9).
+19. mesh     (runs right after main) the device mesh at main's width, on
+             all cards when two or more are visible, else on a virtual
+             4-shard mesh of one card (`parallel.virtual_devices`): (a)
+             liOrd, ordIdx, liQ3 and ordQ3 built through the all-to-all
+             exchange (default wire: coded and packed lanes; liOrd and
+             ordIdx again on the flat wire), each build's part files
+             sha256-equal to a single-device build on the card
+             (`HYPERSPACE_DISTRIBUTED=0`); (b) q3_agg and Q3 over the
+             sharded co-bucketed probe, each probe's K1 and K2 launches
+             2 and 1 a shard, Q3's second join and q_ord with Hyperspace
+             disabled over the real exchange, each equal to numpy: cold,
+             uncached p50 of 3, cached p50 of 3, an uncached run by stage;
+             (c) build seconds (mesh, single-device, flat wire), each
+             build's and query's `parallel.exchange.*` traffic, the
+             probes' and exchanges' seconds, the shards' K1 / K2 shapes,
+             and K1 and K2 at one shard's shapes against their plain
+             versions, timed beside the library calls and the bound.
 
 Kernel launches are read from the metrics registry
 (`kernel.launches.<label>`, which each wrapper's read-only `launches`
 reads), set to 0 at the start of each phase that drives the engine (main,
-q3, strings, packed, refresh, q13, skipping, delta, partitioned, setops,
+mesh, q3, strings, packed, refresh, q13, skipping, delta, partitioned, setops,
 star, resilience, analyze, history, serve) and summed over them. Prints one JSON
 line of per-kernel results, the card's `nvidia-smi` line,
 and last `{"ok": true, "device": {...}}`. Exits non-zero without a result
@@ -338,6 +355,7 @@ when no CUDA device is visible or the package is missing.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import os
@@ -1321,6 +1339,237 @@ def phase_main(torch, data, base: str):
         label = "uncached" if uncached else "cached"
         log(f"[main] q3_agg {label} collect breakdown {json.dumps(agg_breakdown(qs['q3_agg'], uncached))}")
     return launches, build_s, times
+
+
+@contextlib.contextmanager
+def env_flags(**flags):
+    """Environment flags set inside the block and put back after it."""
+    old = {k: os.environ.get(k) for k in flags}
+    os.environ.update(flags)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+MESH_SHARDS = 4  # the virtual mesh's shards when one card is visible
+
+
+def mesh_indexes() -> list:
+    """Phase mesh's indexes: q3_agg's (liOrd, ordIdx) and Q3's (liQ3, ordQ3)."""
+    return [i for i in INDEXES if i[1] in ("liOrd", "ordIdx")] + Q3_INDEXES
+
+
+def exchange_traffic() -> dict:
+    from hyperspace_tpu_torch.telemetry import metrics
+
+    return {c: metrics.counter(f"parallel.exchange.{c}").value for c in ("count", "rows", "bytes_payload",
+                                                                          "bytes_moved")}
+
+
+def mesh_builds(base: str, warehouse: str, names) -> tuple:
+    """Builds of the `mesh_indexes()` named in `names` by a card session in
+    `warehouse`: (session, seconds, each build's stages and exchange traffic)."""
+    import hyperspace_tpu_torch as hst
+    from hyperspace_tpu_torch.telemetry.profiling import last_build_stages
+
+    s = hst.HyperspaceSession(warehouse=warehouse, device=DEVICE)
+    s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, NUM_BUCKETS)
+    hs = hst.Hyperspace(s)
+    seconds, info = {}, {}
+    for src, name, indexed, included in mesh_indexes():
+        if name not in names:
+            continue
+        df = s.read.parquet(os.path.join(base, "src", src))
+        t0 = exchange_traffic()
+        _, seconds[name] = wall(lambda: hs.create_index(df, hst.IndexConfig(name, indexed, included)))
+        t1 = exchange_traffic()
+        st = last_build_stages()
+        info[name] = {"mode": st["mode"], "sort_route": st["sort_route"], "sort_s": st.get("sort_s"),
+                      **{k: t1[k] - t0[k] for k in t0}}
+    return s, seconds, info
+
+
+def mesh_kernel_shapes(torch, left, right) -> list:
+    """K1 and K2 at one shard's shapes of a mesh probe (shard 0 of the
+    blocks `left` and `right`), each against its plain version (tolerance
+    0) and timed beside the library call and the bound."""
+    from hyperspace_tpu_torch.ops import cuda_probe, cuda_sort
+    from hyperspace_tpu_torch.ops.bucket_join import _pad_scatter
+
+    sides = []
+    for blocks in (left, right):
+        lst = blocks.lstarts[0]
+        lens = lst[1:] - lst[:-1]
+        sides.append((_pad_scatter(blocks.blocks[0], lst[:-1], lens, blocks.cap), lens))
+    shapes = []
+    for padded, lens in sides:
+        check_sort(torch, cuda_sort, padded.cpu().numpy())
+        rows, cap = padded.shape
+        b_ms, b_by = bound(rows * cap * (8 + 8 + 4), rows * cap * np.log2(max(cap, 2)))
+        ms, library_ms = paired_ms(lambda: cuda_sort.sort_rows(padded), lambda: torch.sort(padded, dim=1, stable=True))
+        shapes.append({"kernel": "K1", "shape": [rows, cap], "role": "mesh shard sort", "ms": ms,
+                       "library_ms": library_ms, "plain_ms": cuda_ms(lambda: cuda_sort.sort_rows_plain(padded)),
+                       "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0})
+    (lp, l_len), (rp, r_len) = sides
+    if lp.shape[1] > rp.shape[1]:  # the smaller cap probes into the larger, as the probe does
+        (lp, l_len), (rp, r_len) = (rp, r_len), (lp, l_len)
+    ls, rs = cuda_sort.sort_rows(lp)[0], cuda_sort.sort_rows(rp)[0]
+    check_probe(torch, cuda_probe, *(x.cpu().numpy() for x in (ls, rs, l_len, r_len)))
+    n_l, n_r, rows = int(l_len.sum()), int(r_len.sum()), ls.shape[0]
+    b_ms, b_by = bound(8 * n_l + 8 * n_r + 16 * rows + 8 * ls.numel(), 2 * n_l * np.log2(max(int(r_len.max()), 2)))
+    ms, library_ms = paired_ms(lambda: cuda_probe.range_probe(ls, rs, l_len, r_len),
+                               lambda: (torch.searchsorted(rs, ls), torch.searchsorted(rs, ls, right=True)))
+    shapes.append({"kernel": "K2", "shape": [list(ls.shape), list(rs.shape)], "role": "mesh shard probe", "ms": ms,
+                   "library_ms": library_ms,
+                   "plain_ms": cuda_ms(lambda: cuda_probe.range_probe_plain(ls, rs, l_len, r_len), iters=3, warmup=1),
+                   "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0})
+    return shapes
+
+
+def phase_mesh(torch, data, base: str):
+    """The device mesh at the main phase's width (see the module docstring)."""
+    import hyperspace_tpu_torch as hst
+    from hyperspace_tpu_torch import col
+    from hyperspace_tpu_torch.engine.physical import ShuffleExchangeExec, SortMergeJoinExec
+    from hyperspace_tpu_torch.ops import cuda_probe, cuda_sort
+    from hyperspace_tpu_torch.parallel import table_ops, virtual_devices
+
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        where, ctx, shards = f"all {n_cards} cards", contextlib.nullcontext(), n_cards
+    else:
+        where, ctx, shards = f"a virtual {MESH_SHARDS}-shard mesh on one card", \
+            virtual_devices(MESH_SHARDS, DEVICE), MESH_SHARDS
+    log(f"[mesh] {nvidia_smi_line()}; the mesh: {where}")
+    want_agg, want_q3 = expected_q3_agg(data), expected_q3(data)
+    want_ord = canonical(expected_rows(data)[0])
+    names = [i[1] for i in mesh_indexes()]
+    reset_launches(cuda_sort)
+    reset_launches(cuda_probe)
+    probes, nested = [], []
+    real_probe = table_ops.probe_dist_blocks
+
+    def timed_probe(mesh, left, right):
+        """The engine's probe, timed on the card, its blocks kept (its own
+        call with the sides swapped is part of it)."""
+        if nested:
+            return real_probe(mesh, left, right)
+        nested.append(True)
+        k1, k2 = cuda_sort.launches, cuda_probe.launches
+        try:
+            out, t = wall(lambda: real_probe(mesh, left, right))
+        finally:
+            nested.clear()
+        probes.append({"s": t, "k1": cuda_sort.launches - k1, "k2": cuda_probe.launches - k2,
+                       "shards": list(table_ops.LAST_PROBE), "blocks": (left, right)})
+        return out
+
+    exchanges = []
+    real_exchange = ShuffleExchangeExec.exchange_table
+
+    def timed_exchange(self, mesh, t, ppd=8):
+        out, sec = wall(lambda: real_exchange(self, mesh, t, ppd))
+        exchanges.append(sec)
+        return out
+
+    # (a) single-device builds first (HYPERSPACE_DISTRIBUTED=0), then the mesh's.
+    with env_flags(HYPERSPACE_DISTRIBUTED="0"):
+        one, one_s, one_info = mesh_builds(base, os.path.join(base, "mesh_one"), names)
+    card_check(all(i["mode"] == "pipelined-device" for i in one_info.values()), f"mesh: {one_info}")
+    table_ops.probe_dist_blocks = timed_probe
+    ShuffleExchangeExec.exchange_table = timed_exchange
+    try:
+        with ctx:
+            s, mesh_s, info = mesh_builds(base, os.path.join(base, "mesh"), names)
+            mesh = s.mesh_for(len(data["lineitem"]["l_orderkey"]))
+            if mesh is None or mesh.size != shards:
+                raise AssertionError(f"mesh: the session's mesh is {mesh}")
+            with env_flags(HYPERSPACE_ENCODED_DEVICE="0", HYPERSPACE_PACKED_CODES="0"):
+                flat, flat_s, flat_info = mesh_builds(base, os.path.join(base, "mesh_flat"), ["liOrd", "ordIdx"])
+            for name, st in list(info.items()) + [(f"{n} (flat wire)", st) for n, st in flat_info.items()]:
+                if st["mode"] != "mesh" or st["count"] != 1 or st["rows"] == 0:
+                    raise AssertionError(f"mesh: {name} was not built through the exchange: {st}")
+            for name in names:
+                want = index_files(one, name)
+                if index_files(s, name) != want or (name in flat_info and index_files(flat, name) != want):
+                    raise AssertionError(f"mesh: {name}'s mesh-built files differ from the single-device build")
+            seconds = {"mesh": mesh_s, "single_device": one_s, "mesh_flat_wire": flat_s}
+            log(f"[mesh] build seconds {json.dumps(seconds)}")
+            log(f"[mesh] builds (exchange traffic, sort stage) {json.dumps({'mesh': info, 'flat_wire': flat_info})}")
+            log(f"[mesh] {len(names)} indexes' part files sha256-equal to the single-device builds (flat wire: "
+                f"liOrd, ordIdx too)")
+
+            # (b) Q3's aggregate and Q3 over the sharded probe, q_ord disabled over the exchange.
+            hst.enable_hyperspace(s)
+
+            def rd(t):
+                return s.read.parquet(os.path.join(base, "src", t))
+
+            def check_ord(out):
+                if not same_multiset(out.to_numpy(), want_ord):
+                    raise AssertionError("mesh q_ord_disabled: rows differ from the numpy join")
+
+            q_ord = rd("lineitem").join(rd("orders"), col("l_orderkey") == col("o_orderkey"))
+            qs = {
+                "q3_agg": (q3_agg(s, base), lambda out: check_q3_agg(out.to_numpy(), want_agg)),
+                "q3": (q3_query(rd, col), lambda out: check_q3("mesh q3", out.to_numpy(), want_q3)),
+                "q_ord_disabled": (q_ord.select("l_extendedprice", "o_custkey"), check_ord),
+            }
+            times = {}
+            for name, (df, check) in qs.items():
+                (hst.disable_hyperspace if name == "q_ord_disabled" else hst.enable_hyperspace)(s)
+                joins = [n for n in df.physical_plan().collect_nodes() if isinstance(n, SortMergeJoinExec)]
+                if (name == "q_ord_disabled") == any(j.bucketed for j in joins):
+                    raise AssertionError(f"mesh {name}: joins {[j.bucketed for j in joins]}:\n{df.explain_string()}")
+                del probes[:], exchanges[:]
+                t0, k1, k2 = exchange_traffic(), cuda_sort.launches, cuda_probe.launches
+                clear_caches()
+                out, t_cold = wall(df.collect)
+                check(out)
+                t1 = exchange_traffic()
+                t = {"rows": out.num_rows, "collect_cold_s": t_cold, "exchanges": t1["count"] - t0["count"],
+                     "exchange_bytes_payload": t1["bytes_payload"] - t0["bytes_payload"],
+                     "exchange_bytes_moved": t1["bytes_moved"] - t0["bytes_moved"],
+                     "probes": len(probes), "probe_s": [round(p["s"], 6) for p in probes],
+                     "exchange_s": [round(x, 6) for x in exchanges],
+                     "k1_launches": cuda_sort.launches - k1, "k2_launches": cuda_probe.launches - k2}
+                if name != "q_ord_disabled":
+                    if not probes or any(len(p["shards"]) != mesh.size for p in probes):
+                        raise AssertionError(f"mesh {name}: the sharded probe did not run: {probes}")
+                    card_check(all(p["k1"] == 2 * mesh.size and p["k2"] == mesh.size for p in probes),
+                               f"mesh {name}: K1 and K2 did not launch on every shard: "
+                               f"{[(p['k1'], p['k2']) for p in probes]}")
+                    t["shards"] = probes[0]["shards"]
+                if name != "q3_agg" and t["exchanges"] < 2:
+                    raise AssertionError(f"mesh {name}: the general join did not exchange both sides: {t}")
+                out, t["uncached_p50_s"] = run_p50(df.collect, 3, uncached=True)
+                check(out)
+                out, t["cached_p50_s"] = run_p50(df.collect, 3, uncached=False)
+                check(out)
+                n = df.count()
+                if n != out.num_rows:
+                    raise AssertionError(f"mesh {name}: count() {n} != {out.num_rows} rows")
+                times[name] = t
+                log(f"[mesh] {name} {json.dumps(t)}")
+                log(f"[mesh] {name} uncached collect stages {json.dumps(query_stage_split(torch, df, True))}")
+                if name == "q3_agg":
+                    blocks = probes[0]["blocks"]
+            launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches}  # before the timing's launches
+            for sh in mesh_kernel_shapes(torch, *blocks):
+                log(f"[mesh] {json.dumps(sh)}")
+            log(f"[mesh] q3_agg, q3 and q_ord disabled equal numpy over the mesh; launches {json.dumps(launches)}; "
+                f"{nvidia_smi_line()}")
+        if s.mesh_for(len(data["lineitem"]["l_orderkey"])) is not None and n_cards < 2:
+            raise AssertionError("mesh: the virtual mesh outlived its block")
+    finally:
+        table_ops.probe_dist_blocks = real_probe
+        ShuffleExchangeExec.exchange_table = real_exchange
+    return launches, {"mesh": mesh_s, "single_device": one_s}, times
 
 
 def cached_breakdown(df) -> dict:
@@ -5254,7 +5503,7 @@ KERNEL_META = {
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="env,kernels,main,q3,strings,packed,refresh,q13,skipping,delta,partitioned,setops,star,"
+                    default="env,kernels,main,mesh,q3,strings,packed,refresh,q13,skipping,delta,partitioned,setops,star,"
                             "resilience,analyze,history,serve,identity")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sf", type=float, default=1.0)
@@ -5298,7 +5547,7 @@ def main() -> int:
             launches[kid] = launches.get(kid, 0) + n
 
     data = None
-    if {"main", "q3", "strings", "packed", "refresh", "q13", "delta", "resilience", "analyze", "history",
+    if {"main", "mesh", "q3", "strings", "packed", "refresh", "q13", "delta", "resilience", "analyze", "history",
             "serve"} & set(phases):
         t0 = time.perf_counter()
         data = tpch(args.sf, args.seed)
@@ -5307,10 +5556,12 @@ def main() -> int:
             f"{len(data['customer']['c_custkey'])} (generated in {time.perf_counter() - t0:.2f} s)")
     base = tempfile.mkdtemp(prefix="hs_smoke_sf1_")
     try:
-        if {"main", "q3", "strings", "q13", "resilience", "analyze", "history", "serve"} & set(phases):
+        if {"main", "mesh", "q3", "strings", "q13", "resilience", "analyze", "history", "serve"} & set(phases):
             write_sources(data, base)
         if "main" in phases:
             add(timed_phase("main", phase_main, torch, data, base)[0])
+        if "mesh" in phases:
+            add(timed_phase("mesh", phase_mesh, torch, data, base)[0])
         if "q3" in phases:
             add(timed_phase("q3", phase_q3, torch, data, base)[0])
         if "strings" in phases:

@@ -3,7 +3,7 @@
 Counterpart of `hyperspace_tpu/config.py`, cut to the keys the ported slices
 read (build, JoinIndexRule and the co-bucketed join, FilterIndexRule, the scan
 layer, the aggregate, the index lifecycle, refresh, Hybrid Scan, compaction,
-data skipping and explain). Key names,
+data skipping, explain and the device mesh). Key names,
 environment variables and defaults are the JAX package's, so a conf or an
 environment written for one package means the same to the other.
 """
@@ -103,6 +103,18 @@ class IndexConstants:
     RESOLUTION_CASE_SENSITIVE = "hyperspace.resolution.caseSensitive"
     RESOLUTION_CASE_SENSITIVE_DEFAULT = False
 
+    # Execution over the device mesh (`parallel/`): with more than one
+    # visible device, builds exchange rows all-to-all, the general join
+    # exchanges for real and co-bucketed joins probe shard by shard.
+    DISTRIBUTED_ENABLED = "hyperspace.distributed.enabled"
+    DISTRIBUTED_ENABLED_DEFAULT = True
+    # Below this many rows one device runs it; tests set 0 to force the mesh.
+    DISTRIBUTED_MIN_ROWS = "hyperspace.distributed.minRows"
+    DISTRIBUTED_MIN_ROWS_DEFAULT = 65536
+    # Hash partitions a device of the general join's exchange.
+    DISTRIBUTED_PARTITIONS_PER_DEVICE = "hyperspace.distributed.partitionsPerDevice"
+    DISTRIBUTED_PARTITIONS_PER_DEVICE_DEFAULT = 8
+
 
 class SessionConf:
     """Flat string-keyed conf map with defaults (the SQLConf analogue)."""
@@ -172,6 +184,25 @@ class HyperspaceConf:
     @property
     def event_logger_class(self) -> Optional[str]:
         return self._c.get(IndexConstants.EVENT_LOGGER_CLASS)
+
+    @property
+    def distributed_enabled(self) -> bool:
+        """`HYPERSPACE_DISTRIBUTED`, read per call, when set ("0" pins the
+        single-device path), else the session conf (config.py:196)."""
+        env = os.environ.get("HYPERSPACE_DISTRIBUTED")
+        if env is not None and env != "":
+            return env != "0"
+        return self._c.get_bool(IndexConstants.DISTRIBUTED_ENABLED, IndexConstants.DISTRIBUTED_ENABLED_DEFAULT)
+
+    @property
+    def distributed_min_rows(self) -> int:
+        return self._c.get_int(IndexConstants.DISTRIBUTED_MIN_ROWS, IndexConstants.DISTRIBUTED_MIN_ROWS_DEFAULT)
+
+    @property
+    def partitions_per_device(self) -> int:
+        """At least 1: a zero would reach the exchange as a zero modulus."""
+        return max(1, self._c.get_int(IndexConstants.DISTRIBUTED_PARTITIONS_PER_DEVICE,
+                                      IndexConstants.DISTRIBUTED_PARTITIONS_PER_DEVICE_DEFAULT))
 
     @property
     def filter_bucket_pruning(self) -> bool:

@@ -36,6 +36,8 @@ _WORD_BITS = 32
 _M32 = 0xFFFFFFFF
 #: The sub-byte width classes.
 PACKED_BITS = (1, 2, 4)
+#: The mesh exchange's wire classes (row ids may take 16 bits).
+WIRE_BITS = (1, 2, 4, 8, 16)
 
 
 def packed_codes_mode() -> str:
@@ -71,6 +73,15 @@ def bits_for_cardinality(card: int):
     sub-byte class."""
     for bits in PACKED_BITS:
         if card + 1 <= (1 << bits):
+            return bits
+    return None
+
+
+def wire_bits_for_range(n_values: int):
+    """Smallest mesh-wire class holding unsigned field values [0, n_values);
+    None when even 16 bits is too narrow (the lane crosses unpacked)."""
+    for bits in WIRE_BITS:
+        if n_values <= (1 << bits):
             return bits
     return None
 

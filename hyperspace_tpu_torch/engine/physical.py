@@ -33,6 +33,13 @@ queries share a cold bucketed or filtered concatenation and a cold memo
 entry under single-flight (`serve.singleflight`): one computes, the others
 wait and read its entry.
 
+Over a device mesh (`session.mesh_for`, `parallel/`), the general join
+exchanges both sides for real (`ShuffleExchangeExec.exchange_table`) and
+probes the co-partitioned key blocks where they landed, and the co-bucketed
+join probes each shard's bucket range with K1 and K2 (`_mesh_pairs`); the
+fused join aggregate and both joins' count fast paths then decline, as in
+the JAX package, so the rows come in the mesh probe's order.
+
 Every read of an index relation runs under `_corruption_guard`: a decode
 failure of an index data file becomes a `CorruptIndexError` naming the
 index, on which `DataFrame.collect`/`count` quarantine it and re-plan over
@@ -1237,6 +1244,16 @@ def _pair_subkey(left_keys, right_keys, lnode, rnode, left: Optional[Table] = No
     return tuple(k.lower() for k in left_keys), tuple(k.lower() for k in right_keys)
 
 
+def _dist_blocks(table: Table, starts: np.ndarray, keys: List[str], mesh):
+    """A bucketed side's key layout on the mesh, kept per table identity
+    (physical.py:2208): a steady-state sharded join starts at the probe."""
+    from ..parallel.table_ops import build_dist_blocks
+
+    subkey = ("dist", tuple(k.lower() for k in keys), id(mesh), mesh.size)
+    return _cached_by_table("k64", table, subkey,
+                            lambda: build_dist_blocks(mesh, _table_key64(table, list(keys)), starts))
+
+
 def _table_key64(table: Table, keys: List[str], force_float=None) -> torch.Tensor:
     """Join key64 of a table's key columns, kept per table identity
     (physical.py:2222): a bucketed scan returns the same table across
@@ -1341,12 +1358,49 @@ class _PassThroughExec(PhysicalNode):
         return self.child.execute_count(ctx)
 
 
+class ExchangeInfo:
+    """The partition layout a real exchange attaches to its output table
+    (physical.py:897): rows grouped into `len(starts) - 1` hash partitions,
+    key64-sorted within each, and `blocks`, the exchanged keys where they
+    landed on the mesh, which the co-partitioned probe reads directly."""
+
+    __slots__ = ("mesh", "keys", "starts", "blocks")
+
+    def __init__(self, mesh, keys: List[str], starts: np.ndarray, blocks):
+        self.mesh = mesh
+        self.keys = keys
+        self.starts = starts
+        self.blocks = blocks
+
+
+def _mesh_for(ctx, num_rows: int):
+    return ctx.session.mesh_for(num_rows) if ctx.session is not None else None
+
+
 class ShuffleExchangeExec(_PassThroughExec):
     """Hash repartitioning on the join keys (physical.py:913): the operator
-    the bucketed index path eliminates. On one device it moves nothing; it
-    stands in the general join's plan as the exchange the indexes save."""
+    the bucketed index path eliminates. Over a device mesh it is a real
+    exchange: rows ride the all-to-all to their partition's device and come
+    back grouped by partition, the layout attached (`exchange_info`) for
+    the join above. On one device it moves nothing."""
 
     name = "ShuffleExchange"
+
+    def exchange_table(self, mesh, t: Table, partitions_per_device: int) -> Table:
+        from ..parallel.table_ops import distributed_exchange_table
+
+        exchanged, starts, blocks = distributed_exchange_table(mesh, t, self.keys, partitions_per_device)
+        exchanged.exchange_info = ExchangeInfo(mesh, [k.lower() for k in self.keys], starts, blocks)
+        return exchanged
+
+    def execute(self, ctx) -> Table:
+        # Run alone (physical.py:945). Under a join, the join decides for
+        # both sides at once: a one-sided exchange is traffic for nothing.
+        t = self.child.execute(ctx)
+        mesh = _mesh_for(ctx, t.num_rows)
+        if mesh is None or t.num_rows == 0:
+            return t
+        return self.exchange_table(mesh, t, ctx.session.hs_conf.partitions_per_device)
 
     def simple_string(self):
         return f"ShuffleExchange hashpartitioning({', '.join(self.keys)})"
@@ -1386,10 +1440,63 @@ class SortMergeJoinExec(PhysicalNode):
     def children(self):
         return (self.left, self.right)
 
-    def _general_pairs(self, ctx):
-        """Both children's tables and their verified pairs, through the
-        general pairs memo (physical.py:2541-2562)."""
-        lt, rt = self.left.execute(ctx), self.right.execute(ctx)
+    @staticmethod
+    def _unwrap_exchange(node: PhysicalNode) -> Optional[ShuffleExchangeExec]:
+        if isinstance(node, SortExec):
+            node = node.child
+        return node if isinstance(node, ShuffleExchangeExec) else None
+
+    def _general_children(self, ctx):
+        """(lex, rex, lt, rt): both children executed below their exchange
+        markers, with the markers (physical.py:2493); lex and rex are None
+        where no joint exchange can apply."""
+        lex, rex = self._unwrap_exchange(self.left), self._unwrap_exchange(self.right)
+        if lex is not None and rex is not None and ctx.session is not None:
+            return lex, rex, lex.child.execute(ctx), rex.child.execute(ctx)
+        return None, None, self.left.execute(ctx), self.right.execute(ctx)
+
+    def _exchanged(self, ctx, pre):
+        """Both sides exchanged over the mesh where one applies to both
+        together (physical.py:2510), else as they are: never a one-sided
+        exchange, and not for a key pair mixing int and float, which each
+        side would hash in its own kind's space."""
+        lex, rex, lt, rt = pre
+        if lex is None or rex is None or lt.num_rows == 0 or rt.num_rows == 0:
+            return lt, rt
+        if any(f is not None for f in _joint_float_flags(lt, rt, self.left_keys, self.right_keys)):
+            return lt, rt
+        mesh = ctx.session.mesh_for(lt.num_rows + rt.num_rows)
+        if mesh is None:
+            return lt, rt
+        ppd = ctx.session.hs_conf.partitions_per_device
+        return lex.exchange_table(mesh, lt, ppd), rex.exchange_table(mesh, rt, ppd)
+
+    def _copartitioned_pairs(self, lt: Table, rt: Table):
+        """Candidate pairs of two tables that came through real exchanges on
+        this join's keys over one mesh (physical.py:2565): partition p of
+        both lives on one shard, and the exchanged key blocks are probed
+        where they are. None otherwise."""
+        li, ri = getattr(lt, "exchange_info", None), getattr(rt, "exchange_info", None)
+        if li is None or ri is None or li.mesh is not ri.mesh or len(li.starts) != len(ri.starts):
+            return None
+        if li.keys != [k.lower() for k in self.left_keys] or ri.keys != [k.lower() for k in self.right_keys]:
+            return None
+        from ..parallel.table_ops import probe_dist_blocks
+
+        return probe_dist_blocks(li.mesh, li.blocks, ri.blocks)
+
+    def _general_pairs(self, ctx, pre=None):
+        """Both children's tables and their verified pairs (`pre`: the
+        children already executed): over the mesh, from the co-partitioned
+        probe of the exchanged tables (fresh tables every query, so nothing
+        is kept); otherwise through the general pairs memo
+        (physical.py:2502-2562)."""
+        lt, rt = self._exchanged(ctx, pre if pre is not None else self._general_children(ctx))
+        pairs = self._copartitioned_pairs(lt, rt)
+        if pairs is not None:
+            return (lt, rt) + _verify_pairs(lt, rt, self.left_keys, self.right_keys, *pairs)
+        if getattr(lt, "exchange_info", None) is not None or getattr(rt, "exchange_info", None) is not None:
+            return (lt, rt) + _join_pairs(lt, rt, self.left_keys, self.right_keys)
         subkey = (
             ("general",)
             + _pair_subkey(self.left_keys, self.right_keys, self.left, self.right, lt, rt)
@@ -1417,16 +1524,17 @@ class SortMergeJoinExec(PhysicalNode):
         ranges = _cached_two_table("pairs", left, right, ("cprobe", plan.mode) + subkey, lambda: probe_classed(plan), rows_key)
         return plan, ranges
 
-    def _pairs(self, ctx, verdict: bool = True):
+    def _pairs(self, ctx, verdict: bool = True, sides=None):
         """Both sides and their verified pairs (li, ri), through the pairs
         memo: in bucket-major order for the bucketed join, in `merge_join_pairs`'
         order for the general one. `verdict`: the bucketed join's memo hit or
-        miss goes on the ambient span (`pairs_memo`)."""
+        miss goes on the ambient span (`pairs_memo`). `sides`: the bucketed
+        join's `_sides`, where the caller has them already."""
         from ..ops.bucket_join import classed_pairs
 
         if not self.bucketed:
             return self._general_pairs(ctx)
-        left, right, l_starts, r_starts, subkey, rows_key = self._sides(ctx)
+        left, right, l_starts, r_starts, subkey, rows_key = sides or self._sides(ctx)
         if left.num_rows == 0 or right.num_rows == 0:
             empty = torch.empty(0, dtype=torch.int64, device=ctx.device)
             return left, right, empty, empty
@@ -1435,14 +1543,34 @@ class SortMergeJoinExec(PhysicalNode):
 
         def compute():
             computed.append(True)
-            plan, ranges = self._plan_and_ranges(left, right, l_starts, r_starts, subkey, rows_key)
-            li, ri = classed_pairs(plan, ranges)
-            return _verify_pairs(left, right, self.left_keys, self.right_keys, li, ri)
+            pairs = self._mesh_pairs(ctx, left, right, l_starts, r_starts)
+            if pairs is None:
+                plan, ranges = self._plan_and_ranges(left, right, l_starts, r_starts, subkey, rows_key)
+                pairs = classed_pairs(plan, ranges)
+            return _verify_pairs(left, right, self.left_keys, self.right_keys, *pairs)
 
         li, ri = _cached_two_table("pairs", left, right, subkey, compute, rows_key)
         if verdict:
             _tracing.set_attr("pairs_memo", "miss" if computed else "hit")
         return left, right, li, ri
+
+    def _mesh_pairs(self, ctx, left: Table, right: Table, l_starts, r_starts):
+        """The co-bucketed pairs from the mesh's sharded probe
+        (physical.py:2612-2633): each shard joins its own bucket range, K1
+        and K2 on every shard. None with no mesh, or a layout with an
+        outlier bucket (`mesh_probe_skew_safe`), which stays on the
+        size-classed executor."""
+        from ..ops.bucket_join import mesh_probe_skew_safe
+        from ..parallel.table_ops import probe_dist_blocks
+
+        mesh = _mesh_for(ctx, left.num_rows + right.num_rows)
+        if mesh is None or not mesh_probe_skew_safe(l_starts, r_starts):
+            return None
+        l_blocks = _dist_blocks(left, l_starts, self.left_keys, mesh)
+        r_blocks = _dist_blocks(right, r_starts, self.right_keys, mesh)
+        if l_blocks is None or r_blocks is None:
+            return None
+        return probe_dist_blocks(mesh, l_blocks, r_blocks)
 
     def execute(self, ctx) -> Table:
         left, right, li, ri = self._pairs(ctx)
@@ -1453,9 +1581,9 @@ class SortMergeJoinExec(PhysicalNode):
         The general join takes `_general_count_fast`. A bucketed inner join
         that a query collected already holds the verified pairs; otherwise
         value-mode probe counts compare the key values and are the exact count
-        with no pair expansion (physical.py:2685), and hash mode counts the
-        verified pairs. A bucketed join of another type counts its verified
-        pairs and the rows of each side they name."""
+        with no pair expansion (physical.py:2685), and hash mode (or a device
+        mesh) counts the verified pairs. A bucketed join of another type
+        counts its verified pairs and the rows of each side they name."""
         if not self.bucketed:
             return self._general_count_fast(ctx)
         if self.how != "inner":
@@ -1469,6 +1597,8 @@ class SortMergeJoinExec(PhysicalNode):
         hit, val = _peek_two_table("pairs", left, right, subkey, rows_key)
         if hit:
             return len(val[0])
+        if _mesh_for(ctx, left.num_rows + right.num_rows) is not None:
+            return len(self._pairs(ctx)[2])  # the sharded probe owns mesh-scale counts (physical.py:2716)
         plan, ranges = self._plan_and_ranges(left, right, l_starts, r_starts, subkey, rows_key)
         if plan.mode == "value":
             return ranges.total
@@ -1482,11 +1612,19 @@ class SortMergeJoinExec(PhysicalNode):
         other merges the key64, verifies the candidates and counts the
         verified pairs and the rows of each side they name
         (`_verified_match_counts`). Everything stays on the tables' device
-        but the counts."""
-        lt, rt = self.left.execute(ctx), self.right.execute(ctx)
+        but the counts. Over a device mesh the exchanged join's pairs are
+        counted instead."""
+        pre = self._general_children(ctx)
+        lt, rt = pre[2], pre[3]
         n_left, n_right = lt.num_rows, rt.num_rows
         if n_left == 0 or n_right == 0:
             return _count_from_match_stats(self.how, 0, 0, 0, n_left, n_right)
+        if _mesh_for(ctx, n_left + n_right) is not None:
+            # The exchange path owns mesh-scale counts (physical.py:2802).
+            _, _, li, ri = self._general_pairs(ctx, pre)
+            every = torch.ones(len(li), dtype=torch.bool, device=li.device)
+            stats = _verified_match_counts(every, li, ri, n_left, n_right)
+            return _count_from_match_stats(self.how, *stats, n_left, n_right)
         if self.how == "inner":
             lc, rc = _value_mode_column(lt, self.left_keys), _value_mode_column(rt, self.right_keys)
             if lc is not None and rc is not None:
@@ -1619,7 +1757,7 @@ class HashAggregateExec(PhysicalNode):
         sides aggregates the join's rows without executing the join and the
         chain as operators, so they open no span (the JAX package's analyzed
         tree marks them not executed). The rows are `execute`'s; None when
-        the shape does not apply."""
+        the shape does not apply or a device mesh takes the join."""
         if not self.group_keys or any(fn == "count_distinct" for _, fn, _ in self.aggs):
             return None
         chain: List[PhysicalNode] = []
@@ -1629,9 +1767,13 @@ class HashAggregateExec(PhysicalNode):
             node = node.child
         if not (isinstance(node, SortMergeJoinExec) and node.bucketed and node.how == "inner"):
             return None
-        left, right, li, ri = node._pairs(ctx, verdict=False)
+        sides = node._sides(ctx)
+        left, right = sides[:2]
         if left.num_rows == 0 or right.num_rows == 0:
             return None
+        if _mesh_for(ctx, left.num_rows + right.num_rows) is not None:
+            return None  # the sharded probe owns mesh-scale execution (physical.py:1386)
+        left, right, li, ri = node._pairs(ctx, verdict=False, sides=sides)
         t = _assemble_join(left, right, li, ri, "inner")
         for op in reversed(chain):
             t = op.apply(t) if isinstance(op, WithColumnExec) else t.select(op.column_names)

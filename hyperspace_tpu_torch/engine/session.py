@@ -3,7 +3,7 @@
 A session carries the conf, the filesystem, the device its tables live on,
 its named views and the optimizer extension point (`extra_optimizations`)
 that `enable_hyperspace` plugs the rewrite rules into. The device defaults to
-CUDA.
+CUDA. `mesh_for` hands the engine the device mesh where one applies.
 """
 
 from __future__ import annotations
@@ -403,7 +403,24 @@ class HyperspaceSession:
         # Rule protocol: rule.apply(plan, session) -> plan.
         self.extra_optimizations: List = []
         self._views: Dict[str, LogicalPlan] = {}
+        self._mesh = None
         HyperspaceSession._active = self
+
+    def mesh_for(self, num_rows: int):
+        """The device mesh, when execution over it should handle this many
+        rows (session.py:544): None when distribution is off, below the row
+        threshold, or with one visible device. The mesh is kept while the
+        visible devices stay the same."""
+        if not self.hs_conf.distributed_enabled or num_rows < self.hs_conf.distributed_min_rows:
+            return None
+        from ..parallel.mesh import Mesh, visible_devices
+
+        devices = visible_devices(self.device)
+        if len(devices) < 2:
+            return None
+        if self._mesh is None or self._mesh.devices != devices:
+            self._mesh = Mesh(devices)
+        return self._mesh
 
     @property
     def read(self) -> DataFrameReader:

@@ -264,8 +264,9 @@ def _dimension_matches(star_exec, ctx, stages, fact: Table, side, memo_todo: lis
 def stream_star_aggregate(agg_exec, star_exec, chain, ctx) -> Optional[Table]:
     """A `HashAggregateExec` over a `MultiwayJoinExec` as a chunk-carry
     stream (see the module docstring). None when the shape does not apply:
-    an empty fact or dimension, or a float sum with no direct-cells hint;
-    the `MultiwayJoinExec` then runs its cascade."""
+    an empty fact or dimension, a device mesh for the query's rows, or a
+    float sum with no direct-cells hint; the `MultiwayJoinExec` then runs
+    its cascade."""
     from ..exceptions import CorruptIndexError, HyperspaceException, QueryTimeoutError, RetryBudgetExceededError
     from ..ops.aggregate import StreamAggregator, _empty_result, direct_stream_hint
     from ..telemetry.profiling import StageTimings, record_join_stages
@@ -286,6 +287,9 @@ def stream_star_aggregate(agg_exec, star_exec, chain, ctx) -> Optional[Table]:
         return None
     if fact.num_rows == 0 or any(s[5].num_rows == 0 for s in dim_sides):
         return None
+    total_rows = fact.num_rows + sum(s[5].num_rows for s in dim_sides)
+    if ctx.session is not None and ctx.session.mesh_for(total_rows) is not None:
+        return None  # the sharded probe owns mesh-scale execution (streaming.py:605)
 
     group_keys = agg_exec.group_keys
     out_names = star_output_columns(fact, [s[5] for s in dim_sides])

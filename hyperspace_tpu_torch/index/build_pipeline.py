@@ -9,7 +9,10 @@ source is chosen:
 1. decode: the builder's read (`CoveringIndexBuilder._index_table`: the
    deadline check, the single-flight scan, the concat-cache insert);
 2. sort by (bucket, keys, row) (`partition._bucket_key_sort`: K1's
-   composites, K3's packed codes or the stable chain);
+   composites, K3's packed codes or the stable chain), or, where the
+   session hands it a device mesh, the all-to-all exchange whose shards
+   sort their rows by the same routes (`parallel.table_ops`, mode "mesh",
+   sort route "exchange");
 3. gather the sorted table on the session's device, once;
 4. bring it to the host in bucket-aligned ranges (`copy_ranges`): on a CUDA
    session one pinned buffer per column is allocated and every range's
@@ -35,8 +38,9 @@ Not ported from the JAX module, by design: its pow2 chunks and the staging
 of chunks on the device while decoding (`_effective_chunk_rows` :143,
 `_split_chunks` :152, `_stage_chunk_device` :467) bound the shapes that XLA
 compiles, and torch compiles no shapes; the port's `io.read_files` already
-decodes on its pool and copies the batch to the device once. A build across
-devices is ROADMAP Queue 1 item 8.
+decodes on its pool and copies the batch to the device once. The JAX
+package's mesh build takes its serial route; here it is this route's sort
+stage, so both write through one bucket writer.
 """
 
 from __future__ import annotations
@@ -200,17 +204,29 @@ def _write_ranges(host: _HostCopy, ranges: List[Tuple[int, int]], starts: np.nda
 
 
 def pipelined_write(decode: Callable[[], Table], key_names: List[str], num_buckets: int, index_data_path: str,
-                    device: torch.device, writers: int, n_files: int) -> dict:
+                    device: torch.device, writers: int, n_files: int, mesh_for=None) -> dict:
     """Decode, sort, gather, copy and write one build's bucket files into
     `index_data_path`; record and return its stage summary
-    (`profiling.last_build_stages()`)."""
+    (`profiling.last_build_stages()`). `mesh_for(rows)`, where given, may
+    hand the sort stage a device mesh: the rows then ride its all-to-all
+    exchange (`parallel.table_ops`, mode "mesh"), and the same gather,
+    ranges and writers follow."""
     stages = StageTimings(mode="pipelined-device" if device.type == "cuda" else "pipelined-cpu", device=device)
     with stages.timed("decode"):
         table = decode()
+    mesh = mesh_for(table.num_rows) if mesh_for is not None else None
+    if mesh is not None:
+        stages.mode = "mesh"
     with stages.timed("sort"):
-        cols = [table.column(c) for c in key_names]
-        perm, sorted_b, route = _bucket_key_sort(bucket_id(cols, num_buckets), cols, num_buckets)
-        starts = bucket_starts(sorted_b, num_buckets)
+        if mesh is not None:
+            from ..parallel.table_ops import distributed_bucketize_perm
+
+            perm, starts = distributed_bucketize_perm(mesh, table, key_names, num_buckets)
+            route = "exchange"
+        else:
+            cols = [table.column(c) for c in key_names]
+            perm, sorted_b, route = _bucket_key_sort(bucket_id(cols, num_buckets), cols, num_buckets)
+            starts = bucket_starts(sorted_b, num_buckets)
     with stages.timed("take"):
         sorted_t = table.take(perm.long())
     ranges = copy_ranges(starts, writers)

@@ -9,9 +9,10 @@ concat-cache insert), then `build_pipeline.pipelined_write` sorts by
 bucket-aligned ranges and writes one `part-<bucket>.parquet` per non-empty
 bucket with bounded row groups on the writer pool, the copies overlapped
 with the writes. Each build records its stages
-(`telemetry.profiling.last_build_stages()`). The JAX package's mesh build
-is not ported (ROADMAP Queue 1 item 8). `derive_log_entry` (:265) builds
-the same metadata record, field for field. With lineage on
+(`telemetry.profiling.last_build_stages()`). Where the session has a device
+mesh for the build (`_mesh_may_apply`, then `mesh_for` of the decoded
+rows), the sort stage is the mesh's all-to-all exchange. `derive_log_entry`
+(:265) builds the same metadata record, field for field. With lineage on
 (`hyperspace.index.lineage.enabled`) the source files are read in inventory
 order, and each row gets its file's path in the `_data_file_name` string
 column (:79-107), which lets a refresh fold deleted source files; the
@@ -88,12 +89,33 @@ class CoveringIndexBuilder(IndexerBuilder):
 
     def write(self, df, index_config: IndexConfig, index_data_path: str) -> None:
         indexed, _ = self._resolved_columns(df, index_config)
-        # One device: a build across devices is ROADMAP Queue 1 item 8.
+        rel = df.plan.relation
+        mesh_for = self._session.mesh_for if self._mesh_may_apply(rel) else None
         with stage_commit(index_data_path) as stage:
             build_pipeline.pipelined_write(
                 lambda: self._index_table(df, index_config), indexed, self._session.hs_conf.num_buckets, stage,
-                self._session.device, build_writers(), len(df.plan.relation.files),
+                self._session.device, build_writers(), len(rel.files), mesh_for,
             )
+
+    def _mesh_may_apply(self, rel: SourceRelation) -> bool:
+        """Whether the mesh build could take this source, decided before
+        decoding (builder.py:230): not with distribution off or one visible
+        device; for parquet and Delta sources, by the footers' row counts;
+        for other formats (or unreadable footers) yes, and `mesh_for` of the
+        decoded row count decides."""
+        from ..parallel.mesh import visible_devices
+
+        if not self._session.hs_conf.distributed_enabled or len(visible_devices(self._session.device)) < 2:
+            return False
+        if rel.file_format not in ("parquet", "delta"):
+            return True
+        try:
+            import pyarrow.parquet as pq
+
+            est = sum(pq.ParquetFile(f.path).metadata.num_rows for f in rel.files)
+        except (OSError, ValueError):  # no readable footer (pyarrow's errors derive from these)
+            return True
+        return self._session.mesh_for(est) is not None
 
     @staticmethod
     def _missing_partition_columns(rel: SourceRelation, wanted: List[str]) -> List[str]:

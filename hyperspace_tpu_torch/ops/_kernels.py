@@ -15,6 +15,7 @@ is raised.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -158,6 +159,15 @@ def library() -> ctypes.CDLL:
             lib.hs_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def on_device(device):
+    """The context a launch on `device` runs in: `torch.cuda.device(device)`
+    when another card is current (a mesh shard on cuda:1 launches on
+    cuda:1, not on the current card), else no switch at all."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def stream(device) -> int:

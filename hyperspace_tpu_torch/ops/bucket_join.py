@@ -50,8 +50,9 @@ from .join import host_merge_pairs
 _PAD = torch.iinfo(torch.int64).max
 
 #: A bucket whose larger side exceeds this many times the median of the
-#: active buckets' larger sides merges on the host (the JAX package's
-#: default `HYPERSPACE_JOIN_OUTLIER_FACTOR`).
+#: active buckets' larger sides merges on the host (`_outlier_factor` :58:
+#: `HYPERSPACE_JOIN_OUTLIER_FACTOR`, 8 when unset; 0 or less: no outliers).
+ENV_OUTLIER_FACTOR = "HYPERSPACE_JOIN_OUTLIER_FACTOR"
 OUTLIER_FACTOR = 8.0
 _MAX_CLASSES = 8
 
@@ -71,6 +72,34 @@ def size_classes_enabled() -> bool:
 
     decided = decided_value("join_size_classes")
     return True if decided is None else bool(decided)
+
+
+def _outlier_factor() -> float:
+    raw = os.environ.get(ENV_OUTLIER_FACTOR, "")
+    try:
+        return float(raw) if raw else OUTLIER_FACTOR
+    except ValueError:
+        return OUTLIER_FACTOR
+
+
+def mesh_probe_skew_safe(l_starts, r_starts) -> bool:
+    """Whether the mesh's sharded probe should take this bucket layout
+    (bucket_join.py:72). It pads every bucket to the largest one, so one
+    outlier bucket multiplies every shard's probe: a layout with an outlier
+    by the size-classed executor's own criterion stays on that executor.
+    With size classes off, or no outlier criterion, always."""
+    if not size_classes_enabled():
+        return True
+    l_lens = np.diff(np.asarray(l_starts, np.int64))
+    r_lens = np.diff(np.asarray(r_starts, np.int64))
+    n = min(len(l_lens), len(r_lens))
+    l_lens, r_lens = l_lens[:n], r_lens[:n]
+    active = np.nonzero((l_lens > 0) & (r_lens > 0))[0]
+    factor = _outlier_factor()
+    if len(active) == 0 or factor <= 0:
+        return True
+    mx = np.maximum(l_lens, r_lens)[active]
+    return bool(mx.max(initial=0) <= factor * max(float(np.median(mx)), 1.0))
 
 
 def _cap_pow2(n: int) -> int:
@@ -157,7 +186,11 @@ def joint_partition(l_starts: np.ndarray, r_starts: np.ndarray) -> Tuple[List[np
     if len(active) == 0:
         return [], np.empty(0, np.int64)
     mx = np.maximum(l_lens, r_lens)[active]
-    out_mask = mx > OUTLIER_FACTOR * max(float(np.median(mx)), 1.0)
+    factor = _outlier_factor()
+    if factor > 0:
+        out_mask = mx > factor * max(float(np.median(mx)), 1.0)
+    else:
+        out_mask = np.zeros(len(active), bool)
     outliers = active[out_mask]
     rest = active[~out_mask]
     if len(rest) == 0:

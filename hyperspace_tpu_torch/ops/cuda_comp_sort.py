@@ -60,7 +60,7 @@ def sort_comp_rows(v: torch.Tensor) -> torch.Tensor:
                        dtype=torch.int64, device=v.device)
     scratch = work.data_ptr()
     lib = _kernels.library()  # built before the probe: a build is no device time
-    with _compile_log.observed_launch(LABEL, v.device):
+    with _kernels.on_device(v.device), _compile_log.observed_launch(LABEL, v.device):
         err = lib.hs_comp_sort(
             v.data_ptr(), out.data_ptr(), scratch, scratch + 8 * scratch_words, rows, cap, tile,
             _kernels.stream(v.device),

@@ -55,7 +55,7 @@ def probe_packed(lw, rw, bits: int, l_len, r_len) -> Tuple[torch.Tensor, torch.T
         return out.unbind(0)
     lo_ptr = out.data_ptr()
     lib = _kernels.library()  # built before the probe: a build is no device time
-    with _compile_log.observed_launch(LABEL, dev):
+    with _kernels.on_device(dev), _compile_log.observed_launch(LABEL, dev):
         err = lib.hs_packed_probe(
             lw.data_ptr(), rw.data_ptr(), l_len.data_ptr(), r_len.data_ptr(), lo_ptr, lo_ptr + 4 * rows * cap_l,
             rows, cap_l, cap_r, bits, l_len.dtype == torch.int64, _kernels.stream(dev),

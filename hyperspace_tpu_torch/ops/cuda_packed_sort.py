@@ -64,7 +64,7 @@ def sort_codes_packed(words: torch.Tensor, bits: int) -> Tuple[torch.Tensor, tor
         return codes, order
     base = out.data_ptr()
     lib = _kernels.library()  # built before the probe: a build is no device time
-    with _compile_log.observed_launch(LABEL, words.device):
+    with _kernels.on_device(words.device), _compile_log.observed_launch(LABEL, words.device):
         err = lib.hs_packed_sort(
             words.data_ptr(), base, base + 4 * n, base + 8 * n if hist else None, rows, cap, bits, CHUNK_SLOTS,
             _kernels.stream(words.device),

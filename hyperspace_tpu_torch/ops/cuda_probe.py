@@ -74,7 +74,7 @@ def range_probe(ls, rs, l_len, r_len) -> Tuple[torch.Tensor, torch.Tensor]:
     if rows == 0 or cap_l == 0:
         return lo, counts
     lib = _kernels.library()  # built before the probe: a build is no device time
-    with _compile_log.observed_launch(LABEL, ls.device):
+    with _kernels.on_device(ls.device), _compile_log.observed_launch(LABEL, ls.device):
         fn = lib.hs_range_probe_i64 if ls.dtype == torch.int64 else lib.hs_range_probe_f64
         err = fn(
             ls.data_ptr(), rs.data_ptr(), l_len.data_ptr(), r_len.data_ptr(),

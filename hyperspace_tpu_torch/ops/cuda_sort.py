@@ -55,7 +55,7 @@ def sort_rows(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     # (rows * cap int64 keys, then as many int32 slots).
     scratch = torch.empty(rows * cap * 3 // 2, dtype=torch.int64, device=keys.device) if cap > tile else None
     lib = _kernels.library()  # built before the probe: a build is no device time
-    with _compile_log.observed_launch(LABEL, keys.device):
+    with _kernels.on_device(keys.device), _compile_log.observed_launch(LABEL, keys.device):
         err = lib.hs_bucket_sort(
             keys.data_ptr(), out_keys.data_ptr(), order.data_ptr(),
             None if scratch is None else scratch.data_ptr(), rows, cap, tile,

@@ -5,7 +5,8 @@ co-location across independently built indexes — what makes the shuffle-free
 bucketed join sound — needs every package to hash identically, so this module
 computes the same functions: `fmix32` :100, `_mix_combine` :111, `_words_u32`
 :118, `hash_device_values` :145, `host_hash_dictionary` :163,
-`column_hash_u32` :205, `key64` :324 and `bucket_id` :337.
+`column_hash_u32` :205, `combined_hash_u32` :315, `key64` :324 and
+`bucket_id` :337.
 
 A key lane is a tensor of numeric values, or a `Column`: a string column
 hashes through its dictionary (one 4-byte blake2b per distinct value on the
@@ -144,6 +145,13 @@ def _lane(lanes: Sequence, seed: int, force_float) -> torch.Tensor:
     return h
 
 
+def combined_hash_u32(arrays: Sequence) -> torch.Tensor:
+    """The row hash h1 of the key lanes (`combined_hash_u32` :315): uint32
+    values in an int64 lane, whose remainder by the bucket count is the
+    bucket id."""
+    return _lane(arrays, _SEED1, None)
+
+
 def key64(arrays: Sequence, force_float: Optional[Sequence[bool]] = None) -> torch.Tensor:
     """Signed 64-bit join/sort key from two independent 32-bit hash lanes:
     `(h1 << 32) | h2` in two's complement. h1 is first mapped to its signed
@@ -156,4 +164,4 @@ def key64(arrays: Sequence, force_float: Optional[Sequence[bool]] = None) -> tor
 
 def bucket_id(arrays: Sequence, num_buckets: int) -> torch.Tensor:
     """Bucket assignment: h1 % num_buckets (the repartition hash), int32."""
-    return (_lane(arrays, _SEED1, None) % int(num_buckets)).to(torch.int32)
+    return (combined_hash_u32(arrays) % int(num_buckets)).to(torch.int32)

@@ -1558,3 +1558,69 @@ def test_a_large_card_build_overlaps_its_copies_and_writes(cuda_device, tmp_path
     st = last_build_stages()
     assert st["mode"] == "pipelined-device" and st["rows"] == 1_200_000 and st["ranges"] == 16
     assert st["overlap_ratio"] > 1, st
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("encoded", ["0", "1"])
+def test_a_virtual_cuda_mesh_builds_and_joins_as_the_cpu(cuda_device, tmp_path, monkeypatch, encoded):
+    """On a virtual 4-shard mesh of the card: the mesh build (the
+    all-to-all exchange) writes the CPU session's files, the co-bucketed
+    join probes shard by shard with K1 twice and K2 once a shard, and the
+    general join exchanges both sides for real; rows equal the CPU's in
+    order (the CPU on a virtual mesh of its own)."""
+    import hyperspace_tpu_torch as hst
+    from hyperspace_tpu_torch.engine import physical, scan_cache
+    from hyperspace_tpu_torch.parallel import table_ops, virtual_devices
+    from hyperspace_tpu_torch.telemetry import metrics
+    from hyperspace_tpu_torch.telemetry.profiling import last_build_stages
+
+    monkeypatch.setenv("HYPERSPACE_ENCODED_DEVICE", encoded)
+    monkeypatch.setenv("HYPERSPACE_PACKED_CODES", encoded)
+    import os
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    rng = np.random.RandomState(8)
+    left, right = str(tmp_path / "left"), str(tmp_path / "right")
+    for path, n, cols in ((left, 30000, ("k", "v", "s")), (right, 9000, ("k2", "f"))):
+        os.makedirs(path)
+        pq.write_table(pa.table({
+            cols[0]: rng.randint(-50, 2000, n).astype(np.int64), cols[1]: np.arange(n, dtype=np.int64),
+            **({cols[2]: np.array(["AIR", "MAIL", "RAIL"])[rng.randint(0, 3, n)]} if len(cols) > 2 else {}),
+        }), os.path.join(path, "part-00000.parquet"))
+    rows, files = {}, {}
+    for dev in ("cpu", "cuda"):
+        scan_cache.clear_scan_caches()
+        physical.clear_device_memos()
+        with virtual_devices(4, dev):
+            s = hst.HyperspaceSession(warehouse=str(tmp_path / dev), device=dev)
+            s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, 16)
+            s.conf.set(hst.IndexConstants.DISTRIBUTED_MIN_ROWS, 0)
+            assert s.mesh_for(10).size == 4
+            hs = hst.Hyperspace(s)
+            hs.create_index(s.read.parquet(left), hst.IndexConfig("li", ["k"], ["v", "s"]))
+            assert last_build_stages()["mode"] == "mesh"
+            hs.create_index(s.read.parquet(right), hst.IndexConfig("ri", ["k2"], ["f"]))
+
+            def q():
+                return s.read.parquet(left).join(s.read.parquet(right), hst.col("k") == hst.col("k2")).select(
+                    "v", "s", "f")
+
+            hst.enable_hyperspace(s)
+            k1, k2, probes = cuda_sort.launches, cuda_probe.launches, table_ops.DIST_JOIN_STATS["probes"]
+            indexed = q().collect()
+            assert table_ops.DIST_JOIN_STATS["probes"] == probes + 1
+            if dev == "cuda":
+                assert (cuda_sort.launches - k1, cuda_probe.launches - k2) == (8, 4)
+            hst.disable_hyperspace(s)
+            exchanges = metrics.counter("parallel.exchange.count").value
+            general = q().collect()
+            assert metrics.counter("parallel.exchange.count").value == exchanges + 2
+        rows[dev] = (indexed.to("cpu").to_numpy(), general.to("cpu").to_numpy())
+        files[dev] = {n: _index_shas(str(tmp_path / dev / "indexes" / n)) for n in ("li", "ri")}
+    assert files["cuda"] == files["cpu"] and files["cpu"]["li"]
+    for got, want in zip(rows["cuda"], rows["cpu"]):
+        assert list(got) == list(want) and len(want["v"]) > 0
+        for c in want:
+            assert np.array_equal(np.asarray(got[c]), np.asarray(want[c]))

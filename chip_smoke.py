@@ -14,6 +14,7 @@
     python3 chip_smoke.py --phases env,analyze
     python3 chip_smoke.py --phases env,history
     python3 chip_smoke.py --phases env,kernels,serve
+    python3 chip_smoke.py --phases env,main,dense
 
 Phases, each failing loudly:
 
@@ -324,7 +325,7 @@ Phases, each failing loudly:
              (indexed and disabled) and string slices at SF 0.05 with
              device="cpu" and device="cuda": identical index files,
              identical rows in order (sums at rtol 1e-9).
-19. mesh     (runs right after main) the device mesh at main's width, on
+19. mesh     (runs after main and dense) the device mesh at main's width, on
              all cards when two or more are visible, else on a virtual
              4-shard mesh of one card (`parallel.virtual_devices`): (a)
              liOrd, ordIdx, liQ3 and ordQ3 built through the all-to-all
@@ -341,11 +342,37 @@ Phases, each failing loudly:
              probes' and exchanges' seconds, the shards' K1 / K2 shapes,
              and K1 and K2 at one shard's shapes against their plain
              versions, timed beside the library calls and the bound.
+20. dense    (runs right after main, on main's indexes; without phase main
+             it builds them) the co-bucketed join's dense layout under
+             `HYPERSPACE_JOIN_SIZE_CLASSES=0`: every bucket of a side padded
+             to the side's largest, one [200, cap] matrix a side. (a) q_ord
+             (value mode: K2 only, orders [200, 8192] probing lineitem [200,
+             32768]), q_ps (hash mode: K1 on both sides, then K2) and
+             q3_agg: cold count and collect, uncached p50 of 3, cached p50 of
+             3 beside phase main's classed runs, each equal to numpy and to
+             one classed (`=1`) run's answer; the K1 / K2 shapes each cold
+             run called and their launches; "join_buckets" pad bytes and
+             no "join_class" ones. (b) a skewed pair at main's width:
+             lineitem's l_orderkey with 10% of its rows moved to the middle
+             order's key (`RandomState(seed + 2)`; the hot bucket's ~627,000
+             rows make its cap 1,048,576) under liSkew, joined to orders
+             (ordSkew: value mode, K2 [200, 8192] into [200, 1048576]) and to
+             orders with 1% of o_orderkey null (ordNullKey,
+             `RandomState(seed + 3)`: hash mode, K1 at [200, 1048576] and
+             [200, 8192], then K2), each under the classed and the dense
+             layouts: cold collect, uncached and cached p50 of 3, both
+             layouts' pad bytes, each equal to numpy. Then K1 and K2 at the
+             dense shapes of q_ps and of the skewed hash pair against their
+             plain versions (max_abs_err over every output, 0), timed
+             beside the library calls and the bound; the kernels line
+             carries each as `bucket_sort_dense_<pair>_<shape>` or
+             `range_probe_dense_<pair>_<shapes>`, with the phase's launches
+             at that shape.
 
 Kernel launches are read from the metrics registry
 (`kernel.launches.<label>`, which each wrapper's read-only `launches`
 reads), set to 0 at the start of each phase that drives the engine (main,
-mesh, q3, strings, packed, refresh, q13, skipping, delta, partitioned, setops,
+dense, mesh, q3, strings, packed, refresh, q13, skipping, delta, partitioned, setops,
 star, resilience, analyze, history, serve) and summed over them. Prints one JSON
 line of per-kernel results, the card's `nvidia-smi` line,
 and last `{"ok": true, "device": {...}}`. Exits non-zero without a result
@@ -408,14 +435,14 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def paired_ms(fn, library, windows: int = 5):
+def paired_ms(fn, library, windows: int = 5, iters: int = 10):
     """Median milliseconds a call of `fn` and of `library`, each timed by
-    `cuda_ms` in `windows` alternating windows, so that drift of a shared
-    host falls on both alike."""
+    `cuda_ms` (`iters` calls) in `windows` alternating windows, so that
+    drift of a shared host falls on both alike."""
     a, b = [], []
     for _ in range(windows):
-        a.append(cuda_ms(fn))
-        b.append(cuda_ms(library))
+        a.append(cuda_ms(fn, iters))
+        b.append(cuda_ms(library, iters))
     return float(np.median(a)), float(np.median(b))
 
 
@@ -1248,6 +1275,20 @@ def check_q3_agg(got: dict, want: dict) -> None:
         raise AssertionError("q3_agg: revenue sums differ from the numpy group-by beyond rtol 1e-9")
 
 
+def check_answer(name: str, n: int, out, want: dict, want_agg: dict) -> None:
+    """Phase main's checks of one query's count `n` and collected rows `out`
+    against numpy: q_ord and q_ps as multisets (`want`: canonical rows by
+    query), q3_agg's groups (`check_q3_agg`)."""
+    if name == "q3_agg":
+        check_q3_agg(out.to_numpy(), want_agg)
+        if n != len(want_agg["o_custkey"]):
+            raise AssertionError(f"q3_agg: {n} groups, numpy has {len(want_agg['o_custkey'])}")
+    elif n != len(want[name][next(iter(want[name]))]):
+        raise AssertionError(f"{name}: count {n} != numpy join")
+    elif not same_multiset(out.to_numpy(), want[name]):
+        raise AssertionError(f"{name}: collected rows differ from the numpy join")
+
+
 def run_p50(fn, runs: int, uncached: bool):
     """(last output, median seconds) of `runs` calls of `fn`, each after
     emptying the caches when `uncached`."""
@@ -1283,14 +1324,7 @@ def phase_main(torch, data, base: str):
     expect_idx = {"q_ord": ["liOrd", "ordIdx"], "q_ps": ["liPs", "psIdx"], "q3_agg": ["liOrd", "ordIdx"]}
 
     def check(name, n, out):
-        if name == "q3_agg":
-            check_q3_agg(out.to_numpy(), want_agg)
-            if n != len(want_agg["o_custkey"]):
-                raise AssertionError(f"q3_agg: {n} groups, numpy has {len(want_agg['o_custkey'])}")
-        elif n != len(want[name][next(iter(want[name]))]):
-            raise AssertionError(f"{name}: count {n} != numpy join")
-        elif not same_multiset(out.to_numpy(), want[name]):
-            raise AssertionError(f"{name}: collected rows differ from the numpy join")
+        check_answer(name, n, out, want, want_agg)
 
     times = {}
     for name, df in qs.items():
@@ -1354,6 +1388,261 @@ def env_flags(**flags):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+# ---------------------------------------------------------------------------
+# The co-bucketed join's dense layout (HYPERSPACE_JOIN_SIZE_CLASSES=0)
+# ---------------------------------------------------------------------------
+
+DENSE_HOT_SHARE = 0.10  # lineitem's rows moved to one orderkey (this phase's choice)
+DENSE_NULL_SHARE = 0.01  # orders' keys nulled in the hash-mode pair (as phase strings nulls o_custkey)
+DENSE_INDEXES = [
+    ("lineitem_skew", "liSkew", ["l_orderkey"], ["l_extendedprice"]),
+    ("orders", "ordSkew", ["o_orderkey"], ["o_custkey"]),
+    ("orders_null_key", "ordNullKey", ["o_orderkey_n"], ["o_custkey"]),
+]
+
+
+def skew_sources(torch, data, base: str, seed: int) -> dict:
+    """Phase dense's skewed pair's sources: lineitem's l_orderkey with 10% of
+    its rows (a permutation of `RandomState(seed + 2)`) moved to the middle
+    order's key, with l_extendedprice; and orders' o_orderkey with 1% nulls
+    (`RandomState(seed + 3)`; the hot order kept), with o_custkey. Returns
+    the skewed keys and the validity."""
+    from hyperspace_tpu_torch.engine import io as engine_io
+    from hyperspace_tpu_torch.engine.table import Column, Table
+
+    li, od = data["lineitem"], data["orders"]
+    n = len(li["l_orderkey"])
+    hot_row = len(od["o_orderkey"]) // 2
+    l_orderkey = li["l_orderkey"].copy()
+    l_orderkey[np.random.RandomState(seed + 2).permutation(n)[: int(n * DENSE_HOT_SHARE)]] = od["o_orderkey"][hot_row]
+    valid = np.random.RandomState(seed + 3).rand(len(od["o_orderkey"])) >= DENSE_NULL_SHARE
+    valid[hot_row] = True
+    engine_io.write_parquet(source_table({"l_orderkey": l_orderkey, "l_extendedprice": li["l_extendedprice"]}),
+                            os.path.join(base, "src", "lineitem_skew", "part-00000.parquet"))
+    nullable = Table({
+        "o_orderkey_n": Column("int64", torch.from_numpy(np.where(valid, od["o_orderkey"], 0)), None,
+                               torch.from_numpy(valid)),
+        "o_custkey": Column.from_values(od["o_custkey"], "cpu"),
+    })
+    engine_io.write_parquet(nullable, os.path.join(base, "src", "orders_null_key", "part-00000.parquet"))
+    return {"l_orderkey": l_orderkey, "valid": valid}
+
+
+def dense_kernel_rows(torch, join, s, pair: str, calls: list) -> list:
+    """K1 and K2 at a dense hash-mode pair's shapes on the card: K1 on each
+    side's [B, cap] matrix (rebuilt from the join's cached key64 and bucket
+    bounds) and K2 on the pair's sorted reps in the probe's orientation, each
+    against its plain version (max_abs_err over every output), timed beside
+    the library call (median of 3 alternating windows of 3 calls) and the
+    bound. `calls`: the (kernel, shape) of each of the pair's launches on the
+    phase's main path; a row's launches are those at its shape."""
+    from hyperspace_tpu_torch.engine import physical
+    from hyperspace_tpu_torch.engine.physical import ExecContext
+    from hyperspace_tpu_torch.ops import bucket_join, cuda_probe, cuda_sort
+
+    def max_err(got, ref) -> int:
+        return max(int((g.to(torch.int64) - r.to(torch.int64)).abs().max()) for g, r in zip(got, ref))
+
+    left, right, ls, rs, _, _ = join._sides(ExecContext(s))
+    out = []
+    for table, starts, keys in ((left, ls, join.left_keys), (right, rs, join.right_keys)):
+        cap = bucket_join._cap_pow2(int(np.diff(starts).max()))
+        key64 = physical._table_key64(table, list(keys))
+        padded, _ = bucket_join._dense_scatter(torch.clamp(key64, max=PAD - 1), starts, cap)
+        err = max_err(cuda_sort.sort_rows(padded), cuda_sort.sort_rows_plain(padded))
+        shape = list(padded.shape)
+        b_ms, b_by = bound(padded.numel() * (8 + 8 + 4), padded.numel() * np.log2(max(cap, 2)))
+        ms, library_ms = paired_ms(lambda: cuda_sort.sort_rows(padded),
+                                   lambda: torch.sort(padded, dim=1, stable=True), windows=3, iters=3)
+        out.append({"kernel": "K1", "pair": pair, "shape": shape, "launches": calls.count(("K1", shape)), "ms": ms,
+                    "library_ms": library_ms, "plain_ms": cuda_ms(lambda: cuda_sort.sort_rows_plain(padded), 3, 1),
+                    "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err})
+        del padded
+    a, b, _ = bucket_join.probe_orientation(*join._reconciled_reps(left, right, ls, rs))
+    ak, bk = bucket_join.probe_keys_promoted(a.keys, b.keys)
+    err = max_err(cuda_probe.range_probe(ak, bk, a.lengths, b.lengths),
+                  cuda_probe.range_probe_plain(ak, bk, a.lengths, b.lengths))
+    n_l, n_r = int(a.lengths.sum()), int(b.lengths.sum())
+    b_ms, b_by = bound(8 * n_l + 8 * n_r + 16 * ak.shape[0] + 8 * ak.numel(),
+                       2 * n_l * np.log2(max(int(b.lengths.max()), 2)))
+    ms, library_ms = paired_ms(lambda: cuda_probe.range_probe(ak, bk, a.lengths, b.lengths),
+                               lambda: (torch.searchsorted(bk, ak), torch.searchsorted(bk, ak, right=True)),
+                               windows=3, iters=3)
+    shape = [list(ak.shape), list(bk.shape)]
+    out.append({"kernel": "K2", "pair": pair, "shape": shape, "launches": calls.count(("K2", shape)), "ms": ms,
+                "library_ms": library_ms,
+                "plain_ms": cuda_ms(lambda: cuda_probe.range_probe_plain(ak, bk, a.lengths, b.lengths), 1, 1),
+                "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err})
+    return out
+
+
+def phase_dense(torch, data, base: str, seed: int, main_times=None):
+    """The co-bucketed join's dense layout at main's width (see the module
+    docstring)."""
+    import hyperspace_tpu_torch as hst
+    from hyperspace_tpu_torch import col
+    from hyperspace_tpu_torch.engine import physical
+    from hyperspace_tpu_torch.engine.physical import SortMergeJoinExec
+    from hyperspace_tpu_torch.ops import bucket_join, cuda_probe, cuda_sort
+    from hyperspace_tpu_torch.telemetry import metrics
+
+    log(f"[dense] {nvidia_smi_line()}")
+    reset_launches(cuda_sort)
+    reset_launches(cuda_probe)
+    calls = []  # (kernel, shape) of each K1 / K2 call the engine makes in this phase
+    real_sort, real_probe = bucket_join.sort_rows, bucket_join.probe_ranges
+
+    def sort_spy(keys):
+        calls.append(("K1", list(keys.shape)))
+        return real_sort(keys)
+
+    def probe_spy(ls, rs, l_len, r_len):
+        calls.append(("K2", [list(ls.shape), list(rs.shape)]))
+        return real_probe(ls, rs, l_len, r_len)
+
+    def at_hot_cap(kid: str, shape) -> bool:
+        """A K1 call, or a K2 call's build side, at the skewed pair's hot cap."""
+        return (shape[1] if kid == "K1" else shape[1][1]) >= hot_cap
+
+    def pads() -> dict:
+        return {site: sum(metrics.counter(f"pad.{site}.bytes_{p}").value for p in ("payload", "padded"))
+                for site in ("join_buckets", "join_class")}
+
+    def shapes_since(mark: int) -> dict:
+        seen = {}
+        for kid, shape in calls[mark:]:
+            key = f"{kid} {json.dumps(shape)}"
+            seen[key] = seen.get(key, 0) + 1
+        return seen
+
+    want = {n: canonical(rows) for n, rows in zip(("q_ord", "q_ps"), expected_rows(data))}
+    want_agg = expected_q3_agg(data)
+    skew = skew_sources(torch, data, base, seed)
+    hot_cap = bucket_join._cap_pow2(int(np.bincount(skew["l_orderkey"]).max()))  # 1,048,576 at SF1
+    od, li = data["orders"], data["lineitem"]
+    a, b = np_join(skew["l_orderkey"], od["o_orderkey"])
+    want_skew = {"value": canonical({"l_extendedprice": li["l_extendedprice"][a], "o_custkey": od["o_custkey"][b]})}
+    kept = np.nonzero(skew["valid"])[0]
+    a, b = np_join(skew["l_orderkey"], od["o_orderkey"][kept])
+    want_skew["hash"] = canonical({"l_extendedprice": li["l_extendedprice"][a], "o_custkey": od["o_custkey"][kept[b]]})
+    bucket_join.sort_rows, bucket_join.probe_ranges = sort_spy, probe_spy
+    try:
+        # (a) main's q_ord, q_ps and q3_agg on main's indexes, dense, beside main's classed runs.
+        s = hst.HyperspaceSession(warehouse=base, device=DEVICE)
+        hst.enable_hyperspace(s)
+        qs = dict(queries(s, base), q3_agg=q3_agg(s, base))
+        times, q_calls = {}, {}
+        for name, df in qs.items():
+            with env_flags(HYPERSPACE_JOIN_SIZE_CLASSES="1"):
+                clear_caches()
+                classed = df.collect()
+            with env_flags(HYPERSPACE_JOIN_SIZE_CLASSES="0"):
+                mark, k1, k2, p0 = len(calls), cuda_sort.launches, cuda_probe.launches, pads()
+                clear_caches()
+                n, t_count = wall(df.count)
+                clear_caches()
+                out, t_collect = wall(df.collect)
+                check_answer(name, n, out, want, want_agg)
+                shapes = shapes_since(mark)
+                t = {"rows": n, "count_cold_s": t_count, "collect_cold_s": t_collect}
+                out, t["uncached_p50_s"] = run_p50(df.collect, 3, uncached=True)
+                check_answer(name, n, out, want, want_agg)
+                out, t["cached_p50_s"] = run_p50(df.collect, 3, uncached=False)
+                n, t["count_cached_p50_s"] = run_p50(df.count, 3, uncached=False)
+                check_answer(name, n, out, want, want_agg)
+                p1 = pads()
+                q_calls[name] = calls[mark:]
+            if name == "q3_agg":
+                got, other = out.to_numpy(), classed.to_numpy()
+                order, o2 = np.argsort(got["o_custkey"], kind="stable"), np.argsort(other["o_custkey"], kind="stable")
+                same = all(np.array_equal(got[c][order], other[c][o2]) for c in ("o_custkey", "orders", "lines", "top"))
+                same = same and np.allclose(got["revenue"][order], other["revenue"][o2], rtol=1e-9, atol=0)
+            else:
+                same = same_multiset(out.to_numpy(), canonical(classed.to_numpy()))
+            if not same:
+                raise AssertionError(f"dense {name}: the dense answer differs from the classed one")
+            t.update(k1_launches=cuda_sort.launches - k1, k2_launches=cuda_probe.launches - k2,
+                     cold_shapes=shapes, pad_bytes={k: p1[k] - p0[k] for k in p1})
+            if t["pad_bytes"]["join_class"] or not t["pad_bytes"]["join_buckets"]:
+                raise AssertionError(f"dense {name}: the classed layout ran under =0: {t['pad_bytes']}")
+            if not t["k2_launches"] or (name == "q_ps") != bool(t["k1_launches"]):
+                raise AssertionError(f"dense {name}: K1 {t['k1_launches']}, K2 {t['k2_launches']} launches")
+            if main_times is not None and name in main_times:
+                t["main_classed"] = {k: main_times[name][k] for k in ("uncached_p50_s", "cached_p50_s",
+                                                                    "count_cached_p50_s")}
+            times[name] = t
+            log(f"[dense] {name} {json.dumps(t)}")
+
+        # (b) the skewed pair, value mode (orders) and hash mode (orders with null keys).
+        sk = hst.HyperspaceSession(warehouse=os.path.join(base, "dense"), device=DEVICE)
+        sk.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, NUM_BUCKETS)
+        hs = hst.Hyperspace(sk)
+        build_s = {}
+        for src, name, indexed, included in DENSE_INDEXES:
+            df = sk.read.parquet(os.path.join(base, "src", src))
+            _, build_s[name] = wall(lambda: hs.create_index(df, hst.IndexConfig(name, indexed, included)))
+        hst.enable_hyperspace(sk)
+        log(f"[dense] skewed pair builds (s) {json.dumps(build_s)}")
+
+        def rd(t):
+            return sk.read.parquet(os.path.join(base, "src", t))
+
+        pairs = {
+            "value": (rd("lineitem_skew").join(rd("orders"), col("l_orderkey") == col("o_orderkey")),
+                      ["liSkew", "ordSkew"]),
+            "hash": (rd("lineitem_skew").join(rd("orders_null_key"), col("l_orderkey") == col("o_orderkey_n")),
+                     ["liSkew", "ordNullKey"]),
+        }
+        skewed, dense_calls = {}, []
+        for pair, (df, indexes) in pairs.items():
+            df = df.select("l_extendedprice", "o_custkey")
+            if scanned_indexes(df) != indexes:
+                raise AssertionError(f"dense {pair}: the plan does not scan {indexes}:\n{df.explain_string()}")
+            for layout, flag in (("classed", "1"), ("dense", "0")):
+                with env_flags(HYPERSPACE_JOIN_SIZE_CLASSES=flag):
+                    mark, k1, k2, p0 = len(calls), cuda_sort.launches, cuda_probe.launches, pads()
+                    clear_caches()
+                    out, t_cold = wall(df.collect)
+                    if not same_multiset(out.to_numpy(), want_skew[pair]):
+                        raise AssertionError(f"dense skewed {pair} {layout}: rows differ from the numpy join")
+                    t = {"rows": out.num_rows, "collect_cold_s": t_cold, "k1_launches": cuda_sort.launches - k1,
+                         "k2_launches": cuda_probe.launches - k2, "cold_shapes": shapes_since(mark)}
+                    p1 = pads()
+                    t["pad_bytes"] = {k: p1[k] - p0[k] for k in p1}
+                    out, t["uncached_p50_s"] = run_p50(df.collect, 3, uncached=True)
+                    out, t["cached_p50_s"] = run_p50(df.collect, 3, uncached=False)
+                    n, t["count_cached_p50_s"] = run_p50(df.count, 3, uncached=False)
+                    if n != out.num_rows or not same_multiset(out.to_numpy(), want_skew[pair]):
+                        raise AssertionError(f"dense skewed {pair} {layout}: rows or count differ from numpy's")
+                hot = [kid for kid, shape in calls[mark:] if at_hot_cap(kid, shape)]
+                if layout == "dense":
+                    if t["pad_bytes"]["join_class"] or (pair == "hash") != bool(t["k1_launches"]) or not hot:
+                        raise AssertionError(f"dense skewed {pair}: not the dense layout at the hot cap: {t}")
+                    dense_calls += calls[mark:]
+                elif t["pad_bytes"]["join_buckets"]:
+                    raise AssertionError(f"dense skewed {pair}: the classed run padded the dense layout")
+                t["device_cache"] = physical.device_cache_stats()
+                skewed[f"{pair}/{layout}"] = t
+                log(f"[dense] skewed {pair} {layout} {json.dumps(t)}")
+        launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches}  # before the kernel checks' launches
+    finally:
+        bucket_join.sort_rows, bucket_join.probe_ranges = real_sort, real_probe
+    kernel_rows = []
+    with env_flags(HYPERSPACE_JOIN_SIZE_CLASSES="0"):
+        for pair, session, df, pair_calls in (("q_ps", s, qs["q_ps"], q_calls["q_ps"]),
+                                              ("skew", sk, pairs["hash"][0], dense_calls)):
+            join = next(n for n in df.physical_plan().collect_nodes() if isinstance(n, SortMergeJoinExec))
+            kernel_rows += dense_kernel_rows(torch, join, session, pair, pair_calls)
+    for row in kernel_rows:
+        if row["max_abs_err"] != 0:
+            raise AssertionError(f"dense: {row['kernel']} disagrees with its plain version: {row}")
+        log(f"[dense] {json.dumps(row)}")
+    log(f"[dense] q_ord, q_ps, q3_agg and the skewed pair equal numpy under both layouts; launches "
+        f"{json.dumps(launches)}; {nvidia_smi_line()}")
+    clear_caches()
+    return launches, times, skewed, kernel_rows
 
 
 MESH_SHARDS = 4  # the virtual mesh's shards when one card is visible
@@ -5503,8 +5792,8 @@ KERNEL_META = {
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="env,kernels,main,mesh,q3,strings,packed,refresh,q13,skipping,delta,partitioned,setops,star,"
-                            "resilience,analyze,history,serve,identity")
+                    default="env,kernels,main,dense,mesh,q3,strings,packed,refresh,q13,skipping,delta,partitioned,"
+                            "setops,star,resilience,analyze,history,serve,identity")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sf", type=float, default=1.0)
     ap.add_argument("--identity-sf", type=float, default=0.05)
@@ -5546,9 +5835,9 @@ def main() -> int:
         for kid, n in counts.items():
             launches[kid] = launches.get(kid, 0) + n
 
-    data = None
-    if {"main", "mesh", "q3", "strings", "packed", "refresh", "q13", "delta", "resilience", "analyze", "history",
-            "serve"} & set(phases):
+    data, dense_rows = None, []
+    if {"main", "dense", "mesh", "q3", "strings", "packed", "refresh", "q13", "delta", "resilience", "analyze",
+            "history", "serve"} & set(phases):
         t0 = time.perf_counter()
         data = tpch(args.sf, args.seed)
         log(f"[data] TPC-H SF{args.sf}: lineitem {len(data['lineitem']['l_orderkey'])} rows, orders "
@@ -5556,10 +5845,17 @@ def main() -> int:
             f"{len(data['customer']['c_custkey'])} (generated in {time.perf_counter() - t0:.2f} s)")
     base = tempfile.mkdtemp(prefix="hs_smoke_sf1_")
     try:
-        if {"main", "mesh", "q3", "strings", "q13", "resilience", "analyze", "history", "serve"} & set(phases):
+        if {"main", "dense", "mesh", "q3", "strings", "q13", "resilience", "analyze", "history", "serve"} & set(phases):
             write_sources(data, base)
+        main_times = None
         if "main" in phases:
-            add(timed_phase("main", phase_main, torch, data, base)[0])
+            counts, _, main_times = timed_phase("main", phase_main, torch, data, base)
+            add(counts)
+        if "dense" in phases:
+            if "main" not in phases:
+                build(base, DEVICE)  # phase dense runs on main's indexes
+            counts, _, _, dense_rows = timed_phase("dense", phase_dense, torch, data, base, args.seed, main_times)
+            add(counts)
         if "mesh" in phases:
             add(timed_phase("mesh", phase_mesh, torch, data, base)[0])
         if "q3" in phases:
@@ -5606,6 +5902,14 @@ def main() -> int:
             "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
             "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
             "library_ms": main_shape["library_ms"],
+        })
+    for row in dense_rows:  # K1 and K2 at phase dense's hash-mode shapes, with the phase's launches there
+        name, source, replaces = KERNEL_META[row["kernel"]]
+        dims = "_".join("x".join(map(str, d)) for d in (row["shape"] if row["kernel"] == "K2" else [row["shape"]]))
+        kernels.append({
+            "name": f"{name}_dense_{row['pair']}_{dims}", "route": "cuda", "source": source, "replaces": replaces,
+            "launches": row["launches"], **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                                "bound_by", "library_ms", "shape")},
         })
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -946,9 +946,10 @@ def _value_inner_count(lv: torch.Tensor, rv: torch.Tensor) -> int:
 # ---------------------------------------------------------------------------
 #
 # - "k64": a table's join key64, per table identity (`_cached_by_table`).
+# - "pad": a table's dense padded rep (`PaddedBuckets`), per table identity.
 # - "cpad": a join pair's size-classed layout (`_cached_two_table`).
-# - "pairs": a pair's probe ranges and its verified (li, ri) pairs, bucketed
-#   or general.
+# - "pairs": a pair's probe ranges (dense or classed, under subkeys of their
+#   own) and its verified (li, ri) pairs, bucketed or general.
 # - "ver": a string key pair's codes over the union dictionary.
 #
 # Bucketed two-table entries are keyed by the two scans' `rows_token`s when
@@ -961,10 +962,12 @@ def _value_inner_count(lv: torch.Tensor, rv: torch.Tensor) -> int:
 # around each computation belongs to serving and is not ported.
 
 _key64_cache: Dict[int, tuple] = {}
+_padded_cache: Dict[int, tuple] = {}
 _classed_cache: Dict[tuple, tuple] = {}
 _pairs_cache: Dict[tuple, tuple] = {}
 _verify_cache: Dict[tuple, tuple] = {}
-_CACHES = {"k64": _key64_cache, "cpad": _classed_cache, "pairs": _pairs_cache, "ver": _verify_cache}
+_CACHES = {"k64": _key64_cache, "pad": _padded_cache, "cpad": _classed_cache, "pairs": _pairs_cache,
+           "ver": _verify_cache}
 _TWO_TABLE_TAGS = ("cpad", "pairs", "ver")
 _MEMO_COUNTS = {t: {"hits": 0, "misses": 0} for t in _CACHES}
 _MEMO_HITS = {t: _metrics.counter(f"memo.{t}.hits") for t in _CACHES}
@@ -1324,6 +1327,41 @@ def _value_mode_column(table: Table, keys: List[str]) -> Optional[Column]:
     return c
 
 
+def _padded_rep(table: Table, starts: np.ndarray, keys: List[str], force_hash: bool = False):
+    """One side's dense padded rep, kept per table identity (physical.py:2174):
+    value-direct when `_value_mode_column` and the data allow it, else by
+    key64 hash. `force_hash` derives the hash rep of a side that could go by
+    value when the other side cannot: the probe needs both in one key space."""
+    from ..ops.bucket_join import pad_buckets_by_hash, pad_buckets_by_value
+
+    def compute():
+        if not force_hash:
+            c = _value_mode_column(table, keys)
+            if c is not None:
+                rep = pad_buckets_by_value(c.data, starts)
+                if rep is not None:
+                    return rep
+        return pad_buckets_by_hash(_table_key64(table, list(keys)), starts)
+
+    return _cached_by_table("pad", table, (tuple(k.lower() for k in keys), force_hash), compute)
+
+
+def _probe_ranges_cached(l_rep, r_rep, left: Table, right: Table, subkey: tuple, rows_key):
+    """K2's (lo, counts) of a dense pair in `probe_orientation`'s orientation,
+    through the pairs memo under ("probe", mode) (physical.py:2007): a key of
+    its own beside the classed ("cprobe", mode), so a flip of the layout's
+    flag mid-session never hands one layout's ranges to the other."""
+    from ..ops.bucket_join import probe_keys_promoted, probe_orientation, probe_ranges
+
+    a, b, _ = probe_orientation(l_rep, r_rep)
+
+    def compute():
+        ak, bk = probe_keys_promoted(a.keys, b.keys)
+        return probe_ranges(ak, bk, a.lengths, b.lengths)
+
+    return _cached_two_table("pairs", left, right, ("probe", l_rep.mode) + subkey, compute, rows_key)
+
+
 def _classed_plan(left: Table, right: Table, l_keys, r_keys, l_starts, r_starts):
     """The joint size-classed layout: value mode only when both sides qualify,
     else both sides pad by key64 hash (physical.py:2044)."""
@@ -1524,14 +1562,36 @@ class SortMergeJoinExec(PhysicalNode):
         ranges = _cached_two_table("pairs", left, right, ("cprobe", plan.mode) + subkey, lambda: probe_classed(plan), rows_key)
         return plan, ranges
 
+    def _reconciled_reps(self, left: Table, right: Table, l_starts, r_starts):
+        """Both sides' dense reps in one mode (physical.py:2671): when one side
+        cannot go by value (several files a bucket after a refresh or a Hybrid
+        Scan append, a NaN, a nullable key), both go by hash."""
+        l_rep = _padded_rep(left, l_starts, self.left_keys)
+        r_rep = _padded_rep(right, r_starts, self.right_keys)
+        if l_rep.mode != r_rep.mode:
+            if l_rep.mode == "value":
+                l_rep = _padded_rep(left, l_starts, self.left_keys, force_hash=True)
+            else:
+                r_rep = _padded_rep(right, r_starts, self.right_keys, force_hash=True)
+        return l_rep, r_rep
+
+    def _single_device_pairs(self, left, right, l_starts, r_starts, subkey, rows_key):
+        """Candidate pairs of one device (physical.py:2636-2660) in the layout
+        `size_classes_enabled()` names: the size-classed plan, or the dense
+        reps probed through the probe memo."""
+        from ..ops.bucket_join import classed_pairs, probe_padded, size_classes_enabled
+
+        if size_classes_enabled():
+            return classed_pairs(*self._plan_and_ranges(left, right, l_starts, r_starts, subkey, rows_key))
+        l_rep, r_rep = self._reconciled_reps(left, right, l_starts, r_starts)
+        return probe_padded(l_rep, r_rep, ranges=_probe_ranges_cached(l_rep, r_rep, left, right, subkey, rows_key))
+
     def _pairs(self, ctx, verdict: bool = True, sides=None):
         """Both sides and their verified pairs (li, ri), through the pairs
         memo: in bucket-major order for the bucketed join, in `merge_join_pairs`'
         order for the general one. `verdict`: the bucketed join's memo hit or
         miss goes on the ambient span (`pairs_memo`). `sides`: the bucketed
         join's `_sides`, where the caller has them already."""
-        from ..ops.bucket_join import classed_pairs
-
         if not self.bucketed:
             return self._general_pairs(ctx)
         left, right, l_starts, r_starts, subkey, rows_key = sides or self._sides(ctx)
@@ -1545,8 +1605,7 @@ class SortMergeJoinExec(PhysicalNode):
             computed.append(True)
             pairs = self._mesh_pairs(ctx, left, right, l_starts, r_starts)
             if pairs is None:
-                plan, ranges = self._plan_and_ranges(left, right, l_starts, r_starts, subkey, rows_key)
-                pairs = classed_pairs(plan, ranges)
+                pairs = self._single_device_pairs(left, right, l_starts, r_starts, subkey, rows_key)
             return _verify_pairs(left, right, self.left_keys, self.right_keys, *pairs)
 
         li, ri = _cached_two_table("pairs", left, right, subkey, compute, rows_key)
@@ -1558,8 +1617,8 @@ class SortMergeJoinExec(PhysicalNode):
         """The co-bucketed pairs from the mesh's sharded probe
         (physical.py:2612-2633): each shard joins its own bucket range, K1
         and K2 on every shard. None with no mesh, or a layout with an
-        outlier bucket (`mesh_probe_skew_safe`), which stays on the
-        size-classed executor."""
+        outlier bucket while size classes are on (`mesh_probe_skew_safe`),
+        which stays on the size-classed executor."""
         from ..ops.bucket_join import mesh_probe_skew_safe
         from ..parallel.table_ops import probe_dist_blocks
 
@@ -1580,10 +1639,13 @@ class SortMergeJoinExec(PhysicalNode):
         """The join's row count without assembling its rows (physical.py:2473).
         The general join takes `_general_count_fast`. A bucketed inner join
         that a query collected already holds the verified pairs; otherwise
-        value-mode probe counts compare the key values and are the exact count
-        with no pair expansion (physical.py:2685), and hash mode (or a device
-        mesh) counts the verified pairs. A bucketed join of another type
-        counts its verified pairs and the rows of each side they name."""
+        value-mode probe counts, of either layout, compare the key values and
+        are the exact count with no pair expansion (physical.py:2685-2777),
+        and hash mode (or a device mesh) counts the verified pairs. A
+        bucketed join of another type counts its verified pairs and the rows
+        of each side they name."""
+        from ..ops.bucket_join import size_classes_enabled
+
         if not self.bucketed:
             return self._general_count_fast(ctx)
         if self.how != "inner":
@@ -1599,9 +1661,15 @@ class SortMergeJoinExec(PhysicalNode):
             return len(val[0])
         if _mesh_for(ctx, left.num_rows + right.num_rows) is not None:
             return len(self._pairs(ctx)[2])  # the sharded probe owns mesh-scale counts (physical.py:2716)
-        plan, ranges = self._plan_and_ranges(left, right, l_starts, r_starts, subkey, rows_key)
-        if plan.mode == "value":
-            return ranges.total
+        if size_classes_enabled():
+            plan, ranges = self._plan_and_ranges(left, right, l_starts, r_starts, subkey, rows_key)
+            if plan.mode == "value":
+                return ranges.total
+        else:
+            l_rep, r_rep = self._reconciled_reps(left, right, l_starts, r_starts)
+            if l_rep.mode == "value":
+                counts = _probe_ranges_cached(l_rep, r_rep, left, right, subkey, rows_key)[1]
+                return int(counts.sum(dtype=torch.int64))
         return len(self._pairs(ctx)[2])
 
     def _general_count_fast(self, ctx) -> int:

@@ -1,22 +1,29 @@
-"""Co-bucketed merge join, size-classed: all bucket pairs of a class in one probe.
+"""Co-bucketed merge join: every bucket pair in one probe, in one of two layouts.
 
-Counterpart of `hyperspace_tpu/ops/bucket_join.py`'s size-classed executor.
-Both join sides arrive hash-partitioned into the same buckets (the covering
-indexes were built with the same hash), so bucket b of the left joins only
-bucket b of the right. The bucket axis becomes a batch dimension:
+Counterpart of `hyperspace_tpu/ops/bucket_join.py`. Both join sides arrive
+hash-partitioned into the same buckets (the covering indexes were built with
+the same hash), so bucket b of the left joins only bucket b of the right. The
+bucket axis becomes a batch dimension. In value mode (one numeric null-free
+key, buckets already sorted by it at build time) the rows are the key values
+and need no sort; in hash mode they are `key64` hashes and each row is sorted
+by kernel K1 (`cuda_sort.sort_rows`). Kernel K2 (`cuda_probe.range_probe`)
+range-probes the smaller-capacity side into the larger.
+
+The size-classed layout (the default, `size_classes_enabled()`):
 
 1. `joint_partition` groups the buckets that are non-empty on both sides into
    classes by the power-of-two capacity of their two sides; buckets far above
    the median leave the padded layout and merge on the host (outliers).
-2. `_build_side` scatters each class's rows into a padded [B, cap] matrix. In
-   value mode (one numeric null-free key, buckets already sorted by it at
-   build time) the rows are the key values and need no sort; in hash mode
-   they are `key64` hashes and each row is sorted by kernel K1
-   (`cuda_sort.sort_rows`).
-3. `probe_classed` range-probes each class with kernel K2
-   (`cuda_probe.range_probe`), the smaller-capacity side probing the larger.
+2. `_build_side` scatters each class's rows into a padded [B, cap] matrix.
+3. `probe_classed` probes each class, oriented class by class.
 4. `classed_pairs` expands the ranges into (left_row, right_row) candidate
    pairs in bucket-major order, with torch ops on the tables' device.
+
+The dense layout (`HYPERSPACE_JOIN_SIZE_CLASSES=0`, or the planner's decision
+against classes): each side is one `PaddedBuckets`, every bucket padded to
+the side's largest (`pad_buckets_by_value`, `pad_buckets_by_hash`), probed in
+one orientation for all buckets (`probe_orientation`) and expanded by
+`probe_padded` in the JAX package's `_expand_np` order.
 
 A star join's fact was never bucketed on a dimension's keys: its rows are
 hashed into the dimension's buckets and laid out in their order on the fly
@@ -26,7 +33,7 @@ hashed into the dimension's buckets and laid out in their order on the fly
 of one low-cardinality string key (kernels K4 and K5). As in the JAX package,
 they are an ops-level API that no engine operator calls yet.
 
-The JAX package builds the class matrices on the host with numpy on its CPU
+The JAX package builds the padded matrices on the host with numpy on its CPU
 backend and with jitted programs on a TPU; the port has one path, torch ops on
 the session's device, and only the kernels' wrappers tell CPU from CUDA.
 """
@@ -57,9 +64,9 @@ OUTLIER_FACTOR = 8.0
 _MAX_CLASSES = 8
 
 
-#: The size-classed layout's gate, read where the JAX package's streamed
-#: joins read it (`size_classes_enabled` :46): "0" keeps a star query on the
-#: cascade. The dense layout it would otherwise select is not ported.
+#: The size-classed layout's gate (`size_classes_enabled` :46): "0" runs a
+#: co-bucketed binary join in the dense layout and keeps a star query on the
+#: cascade.
 ENV_SIZE_CLASSES = "HYPERSPACE_JOIN_SIZE_CLASSES"
 
 
@@ -258,18 +265,6 @@ def _pad_scatter(vals: torch.Tensor, gstarts: torch.Tensor, lens: torch.Tensor, 
     return padded
 
 
-def pad_buckets_by_value(vals, gstarts, lens, cap: int) -> torch.Tensor:
-    """Value-direct padded matrix: the buckets are already sorted by the key
-    (the index build sorted them), so no sort runs (bucket_join.py:304)."""
-    return _pad_scatter(vals, gstarts, lens, cap)
-
-
-def pad_buckets_by_hash(key64, gstarts, lens, cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Hash-key padded matrix sorted within each row by kernel K1, with the
-    sorted slot → storage slot order (bucket_join.py:351)."""
-    return sort_rows(_pad_scatter(key64, gstarts, lens, cap))
-
-
 def _build_side(vals: torch.Tensor, starts: np.ndarray, ids: np.ndarray, mode: str) -> _ClassSide:
     """Padded matrices of one class of one side (bucket_join.py:812), with the
     bucket axis pow2-padded by empty virtual buckets."""
@@ -283,10 +278,12 @@ def _build_side(vals: torch.Tensor, starts: np.ndarray, ids: np.ndarray, mode: s
     gstarts[: len(ids)] = torch.as_tensor(starts[ids].astype(np.int64), device=dev)
     rows, item = int(lens.sum()), vals.element_size()
     _devobs.record_pad("join_class", rows * item, (b_pad * cap - rows) * item)
+    padded = _pad_scatter(vals, gstarts, lens_t, cap)
     if mode == "hash":
-        keys, order = pad_buckets_by_hash(vals, gstarts, lens_t, cap)
+        # Hash keys sort within each row (K1); value rows are sorted already.
+        keys, order = sort_rows(padded)
         return _ClassSide(keys, lens_t, order, gstarts, cap)
-    return _ClassSide(pad_buckets_by_value(vals, gstarts, lens_t, cap), lens_t, None, gstarts, cap)
+    return _ClassSide(padded, lens_t, None, gstarts, cap)
 
 
 def fact_bucket_layout(bucket_ids: torch.Tensor, num_buckets: int) -> Tuple[torch.Tensor, np.ndarray]:
@@ -427,6 +424,116 @@ def classed_pairs(plan: ClassedJoinPlan, ranges: ClassedRanges) -> Tuple[torch.T
             li_all[s : s + len(li_o)] = torch.as_tensor(li_o, device=dev)
             ri_all[s : s + len(ri_o)] = torch.as_tensor(ri_o, device=dev)
     return li_all, ri_all
+
+
+# ---------------------------------------------------------------------------
+# The dense layout: one [B, cap] matrix a side, every bucket padded to the
+# side's largest (`HYPERSPACE_JOIN_SIZE_CLASSES=0`)
+# ---------------------------------------------------------------------------
+
+
+class PaddedBuckets:
+    """One side of a co-bucketed join in the dense layout
+    (`bucket_join.py:277`): `keys` [B, cap] sorted within each row (pads at
+    the dtype's max), `lengths` [B] valid counts, `order` [B, cap] sorted
+    slot -> storage slot (None in value mode, where storage order is sorted
+    order), `starts` the host bucket offsets [B + 1]. The engine keeps it per
+    table, so a steady-state join starts at the probe."""
+
+    __slots__ = ("keys", "lengths", "order", "starts", "mode")
+
+    def __init__(self, keys, lengths, order, starts, mode: str):
+        self.keys = keys
+        self.lengths = lengths
+        self.order = order
+        self.starts = starts
+        self.mode = mode  # "value" | "hash"
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes the rep holds (its charge to the device-cache budget)."""
+        return sum(int(getattr(a, "nbytes", 0) or 0) for a in (self.keys, self.lengths, self.order, self.starts))
+
+
+def _record_bucket_pad(rows: int, num_buckets: int, cap: int, itemsize: int) -> None:
+    """The padding of one dense [B, cap] key matrix (`bucket_join.py:342`)."""
+    _devobs.record_pad("join_buckets", rows * itemsize, (num_buckets * cap - rows) * itemsize)
+
+
+def _dense_scatter(vals: torch.Tensor, starts_np: np.ndarray, cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every bucket of a side scattered into one unsorted [B, cap] matrix,
+    and the bucket lengths [B] on the rows' device."""
+    dev = vals.device
+    lens = torch.as_tensor(np.diff(starts_np), device=dev)
+    return _pad_scatter(vals, torch.as_tensor(starts_np[:-1], device=dev), lens, cap), lens
+
+
+def pad_buckets_by_value(vals: torch.Tensor, starts_np) -> Optional[PaddedBuckets]:
+    """The value-direct dense rep of a side whose buckets the index build
+    sorted by its one numeric null-free key (`bucket_join.py:304`): no hash,
+    no sort. None when the side does not qualify, and the caller pads by
+    hash: no rows, a NaN key (even a singleton bucket's, which no
+    sortedness check sees: a probe would match NaN with NaN), or a bucket
+    that is not sorted (several files a bucket after a refresh or a Hybrid
+    Scan append). -0.0 is stored as +0.0; pads are the dtype's max."""
+    starts_np = np.asarray(starts_np, np.int64)
+    num_buckets = len(starts_np) - 1
+    lens = np.diff(starts_np)
+    if num_buckets == 0 or lens.max(initial=0) == 0:
+        return None
+    canon = value_mode_vals(vals, starts_np)
+    if canon is None:
+        return None
+    cap = _cap_pow2(int(lens.max()))
+    keys, lengths = _dense_scatter(canon, starts_np, cap)
+    _record_bucket_pad(int(starts_np[-1]), num_buckets, cap, canon.element_size())
+    return PaddedBuckets(keys, lengths, None, starts_np, "value")
+
+
+def pad_buckets_by_hash(key64: torch.Tensor, starts_np) -> PaddedBuckets:
+    """The hash-key dense rep (`bucket_join.py:351`): the keys nudged below
+    the pad, scattered into [B, cap = pow2(largest bucket)] and each row
+    sorted by kernel K1, with its sorted slot -> storage slot order. Past
+    K1's index range (rows * cap >= 2**31) the kernel's wrapper raises on
+    the card: there is no other sort to fall back to."""
+    starts_np = np.asarray(starts_np, np.int64)
+    num_buckets = len(starts_np) - 1
+    cap = _cap_pow2(int(np.diff(starts_np).max())) if num_buckets else 1
+    padded, lengths = _dense_scatter(torch.clamp(key64, max=_PAD - 1), starts_np, cap)
+    keys, order = sort_rows(padded)
+    _record_bucket_pad(int(starts_np[-1]), num_buckets, cap, 8)
+    return PaddedBuckets(keys, lengths, order, starts_np, "hash")
+
+
+def probe_orientation(left: PaddedBuckets, right: PaddedBuckets):
+    """(probe side, build side, swapped) of a dense pair (`bucket_join.py:387`):
+    the smaller capacity probes into the larger; on a tie the left probes."""
+    if left.keys.shape[1] > right.keys.shape[1]:
+        return right, left, True
+    return left, right, False
+
+
+def probe_padded(left: PaddedBuckets, right: PaddedBuckets, ranges=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Candidate (li, ri) pairs of a dense pair in one mode (`bucket_join.py:1074`):
+    K2's (lo, counts) in `probe_orientation`'s orientation (or `ranges`, the
+    engine's probe memo), expanded in flat (bucket, probe slot) order, each
+    probe slot's matches in the build side's sorted order."""
+    if left.mode != right.mode:
+        raise ValueError(f"mixed padded modes: {left.mode} vs {right.mode}")
+    a, b, swapped = probe_orientation(left, right)
+    if ranges is None:
+        ak, bk = probe_keys_promoted(a.keys, b.keys)
+        ranges = probe_ranges(ak, bk, a.lengths, b.lengths)
+    lo, counts = ranges
+    dev = counts.device
+    total = int(counts.sum(dtype=torch.int64))
+    if total == 0:
+        empty = torch.empty(0, dtype=torch.int64, device=dev)
+        return empty, empty
+    a_starts = torch.as_tensor(a.starts[:-1], device=dev)
+    b_starts = torch.as_tensor(b.starts[:-1], device=dev)
+    ai, bi = _expand(lo, counts, a_starts, b_starts, a.order, b.order, total)
+    return (bi, ai) if swapped else (ai, bi)
 
 
 # ---------------------------------------------------------------------------

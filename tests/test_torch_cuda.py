@@ -1624,3 +1624,135 @@ def test_a_virtual_cuda_mesh_builds_and_joins_as_the_cpu(cuda_device, tmp_path, 
         assert list(got) == list(want) and len(want["v"]) > 0
         for c in want:
             assert np.array_equal(np.asarray(got[c]), np.asarray(want[c]))
+
+
+def _dense_sources(tmp_path):
+    """A value-mode pair (one int key, sorted buckets) and a hash-mode pair
+    (two int keys) for the dense layout, written once for both devices."""
+    import os
+
+    from hyperspace_tpu_torch.engine import io as torch_io
+    from hyperspace_tpu_torch.engine.table import Table
+
+    rng = np.random.RandomState(24)
+    k = rng.randint(0, 3000, 40000).astype(np.int64)
+    k[:4000] = 1700  # one hot key: its bucket sets the left side's cap
+    k2 = np.arange(300, 3300, dtype=np.int64)  # unmatched keys on both sides
+    tables = {
+        "l": {"k": k, "k_b": k % 7, "v": rng.rand(40000)},
+        "r": {"k2": k2, "k2_b": k2 % 7, "w": rng.randint(0, 100, 3000).astype(np.int64)},
+    }
+    paths = {}
+    for name, cols in tables.items():
+        paths[name] = str(tmp_path / name)
+        torch_io.write_parquet(Table.from_pydict(cols, "cpu"), os.path.join(paths[name], "part-00000.parquet"))
+    return paths
+
+
+def _dense_session(tmp_path, dev, paths):
+    """A session on `dev` over `_dense_sources` with a covering index on each
+    pair's keys, and the pairs' joins: `q(mode, how)`."""
+    import hyperspace_tpu_torch as hst
+
+    s = hst.HyperspaceSession(warehouse=str(tmp_path / dev), device=dev)
+    s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, 16)
+    hs = hst.Hyperspace(s)
+    hs.create_index(s.read.parquet(paths["l"]), hst.IndexConfig("dL", ["k"], ["v"]))
+    hs.create_index(s.read.parquet(paths["r"]), hst.IndexConfig("dR", ["k2"], ["w"]))
+    hs.create_index(s.read.parquet(paths["l"]), hst.IndexConfig("dL2", ["k", "k_b"], ["v"]))
+    hs.create_index(s.read.parquet(paths["r"]), hst.IndexConfig("dR2", ["k2", "k2_b"], ["w"]))
+    hst.enable_hyperspace(s)
+    col, rd = hst.col, s.read.parquet
+
+    def q(mode, how="inner"):
+        cond = col("k") == col("k2")
+        if mode == "hash":
+            cond = cond & (col("k_b") == col("k2_b"))
+        df = rd(paths["l"]).join(rd(paths["r"]), cond, how)
+        return df.select("k", "v", "w") if how == "inner" else df
+
+    return s, q
+
+
+@pytest.mark.cuda
+def test_the_dense_layout_launches_k2_in_value_mode_and_k1_then_k2_in_hash_mode(cuda_device, tmp_path, monkeypatch):
+    """Under `HYPERSPACE_JOIN_SIZE_CLASSES=0` a value-mode pair (q_ord's
+    shape) probes once with K2 and sorts nothing; a hash-mode pair (q_ps's)
+    sorts each side's one [B, cap] matrix with K1, then probes once. Only
+    the dense layout pads ("join_buckets")."""
+    from hyperspace_tpu_torch.engine import physical
+    from hyperspace_tpu_torch.ops import bucket_join
+    from hyperspace_tpu_torch.telemetry import metrics
+
+    monkeypatch.setenv("HYPERSPACE_JOIN_SIZE_CLASSES", "0")
+    _, q = _dense_session(tmp_path, "cuda", _dense_sources(tmp_path))
+    shapes = []
+    real_sort = bucket_join.sort_rows
+    monkeypatch.setattr(bucket_join, "sort_rows", lambda keys: shapes.append(tuple(keys.shape)) or real_sort(keys))
+    for mode in ("value", "hash"):
+        df = q(mode)
+        physical.clear_device_memos()
+        del shapes[:]
+        k1, k2 = cuda_sort.launches, cuda_probe.launches
+        classes = metrics.counter("pad.join_class.bytes_payload").value
+        assert df.count() == df.collect().num_rows > 0
+        assert metrics.counter("pad.join_class.bytes_payload").value == classes
+        assert cuda_probe.launches - k2 == 1
+        assert cuda_sort.launches - k1 == (2 if mode == "hash" else 0) == len(shapes)
+        assert all(r == 16 for r, _ in shapes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["inner", "left", "full", "left_anti"])
+def test_a_dense_join_on_the_card_equals_the_cpu(cuda_device, tmp_path, monkeypatch, how):
+    """The dense layout on the card gives the CPU's rows in the CPU's order
+    and its count, in value and in hash mode, and a grouped aggregate over
+    the inner join (the fused aggregate) its groups in order: keys and
+    counts exact, float sums at rtol 1e-9 (the card's segment sums add in
+    another order)."""
+    monkeypatch.setenv("HYPERSPACE_JOIN_SIZE_CLASSES", "0")
+    paths = _dense_sources(tmp_path)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        _, q = _dense_session(tmp_path, dev, paths)
+        agg = q("value").group_by("w").agg(t=("v", "sum"), n=("*", "count"))
+        for key, df in (("value", q("value", how)), ("hash", q("hash", how)), ("agg", agg)):
+            out[dev, key] = (df.collect(), df.count())
+    for key in ("value", "hash"):
+        _same_table(out["cuda", key][0], out["cpu", key][0])
+    got, want = (out[dev, "agg"][0].to_numpy() for dev in ("cuda", "cpu"))
+    assert list(got) == list(want) == ["w", "t", "n"]
+    np.testing.assert_array_equal(got["w"], want["w"])
+    np.testing.assert_array_equal(got["n"], want["n"])
+    np.testing.assert_allclose(got["t"], want["t"], rtol=1e-9, atol=0)
+    for key in ("value", "hash", "agg"):
+        assert out["cuda", key][1] == out["cpu", key][1] == out["cpu", key][0].num_rows > 0
+
+
+@pytest.mark.cuda
+def test_a_dense_matrix_past_the_kernels_index_range_raises(cuda_device):
+    """K1 and K2 index a matrix with 32-bit slots: a dense [B, cap] matrix
+    with B * cap >= 2**31 (one bucket of 2**19 + 1 rows among 2,048 sets
+    cap 2**20) raises on the card, and nothing falls back to another sort or
+    probe: no launch, no pad recorded."""
+    from hyperspace_tpu_torch.ops import bucket_join
+    from hyperspace_tpu_torch.telemetry import metrics
+
+    rows = (1 << 19) + 1
+    starts = np.zeros(2049, np.int64)
+    starts[1:] = rows
+    key64 = torch.arange(rows, dtype=torch.int64, device=cuda_device)
+    k1, k2 = cuda_sort.launches, cuda_probe.launches
+    pads = metrics.counter("pad.join_buckets.bytes_payload").value
+    with pytest.raises(ValueError, match="sort_rows"):
+        bucket_join.pad_buckets_by_hash(key64, starts)
+    torch.cuda.empty_cache()
+    ls = torch.empty((2048, 8), dtype=torch.int64, device=cuda_device)
+    rs = torch.empty((2048, 1 << 20), dtype=torch.int64, device=cuda_device)
+    lens = torch.zeros(2048, dtype=torch.int64, device=cuda_device)
+    with pytest.raises(ValueError, match="range_probe"):
+        bucket_join.probe_ranges(ls, rs, lens, lens)
+    assert (cuda_sort.launches, cuda_probe.launches) == (k1, k2)
+    assert metrics.counter("pad.join_buckets.bytes_payload").value == pads
+    del rs
+    torch.cuda.empty_cache()

@@ -690,3 +690,87 @@ def test_a_warm_aggregate_streams_the_jax_packages_chunks(tmp_path, monkeypatch)
     cold, warm = (r.to_pydict() for _, r in runs["torch"])
     assert cold["c"] == warm["c"] and sum(c for c in cold["c"]) == 2 * rows
     assert sum(a != b for a, b in zip(cold["s"], warm["s"])) > 0  # the re-chunk moves float sums
+
+
+# -- the size-classes knob runs the layout it names -----------------------------
+
+
+def _join_lake(base):
+    """A port session over two sources under covering indexes on their keys,
+    and a co-bucketed join of them (value mode)."""
+    rng = np.random.RandomState(5)
+    paths = {t: os.path.join(str(base), t) for t in ("l", "r")}
+    s = hst.HyperspaceSession(warehouse=str(base), device="cpu")
+    s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, 4)
+    s.write_parquet({"k": rng.randint(0, 50, 800).astype(np.int64), "v": rng.randint(0, 9, 800)}, paths["l"])
+    s.write_parquet({"k2": np.arange(50, dtype=np.int64), "w": rng.rand(50)}, paths["r"])
+    hs = hst.Hyperspace(s)
+    hs.create_index(s.read.parquet(paths["l"]), hst.IndexConfig("pL", ["k"], ["v"]))
+    hs.create_index(s.read.parquet(paths["r"]), hst.IndexConfig("pR", ["k2"], ["w"]))
+    hst.enable_hyperspace(s)
+    return s, lambda: s.read.parquet(paths["l"]).join(s.read.parquet(paths["r"]), hst.col("k") == hst.col("k2"))
+
+
+def _pad_growth(run) -> dict:
+    """Bytes each join layout's pad site recorded while `run()` ran, with the
+    join memos emptied first."""
+    from hyperspace_tpu_torch.telemetry import metrics
+
+    def pads():
+        return {site: sum(metrics.counter(f"pad.{site}.bytes_{p}").value for p in ("payload", "padded"))
+                for site in ("join_buckets", "join_class")}
+
+    _clear_caches()
+    before = pads()
+    run()
+    return {site: n - before[site] for site, n in pads().items()}
+
+
+def test_a_decision_against_size_classes_runs_the_dense_layout(tmp_path):
+    """Inside `decisions_scope`, `join_size_classes = False` pads the dense
+    layout ("join_buckets") and not the classes ("join_class"); with the
+    flag unset and no decision in scope, the classes run."""
+    s, q = _join_lake(tmp_path)
+    expect = q().sorted_rows()
+    pd = planner.PlanDecisions(None, {"join_size_classes": planner.Decision(
+        "join_size_classes", False, True, 0.0, 0.0, "model")})
+    got = {}
+
+    def in_scope():
+        with planner.decisions_scope(pd):
+            phys = q().physical_plan()
+            got["rows"] = phys.execute(physical.ExecContext(s)).sorted_rows()
+            got["count"] = phys.execute_count(physical.ExecContext(s))
+
+    grown = _pad_growth(in_scope)
+    assert grown["join_buckets"] > 0 and grown["join_class"] == 0
+    assert got["rows"] == expect and got["count"] == len(expect)
+    grown = _pad_growth(lambda: got.update(rows=q().sorted_rows()))
+    assert grown["join_class"] > 0 and grown["join_buckets"] == 0
+    assert got["rows"] == expect
+    assert planner.last_decisions().decisions["join_size_classes"].value is True
+
+
+def test_measured_stage_subtotals_flip_the_join_to_the_dense_layout(tmp_path, monkeypatch):
+    """The outcome store's stage subtotals (the knob's pad, probe and verify
+    stages) measure the classes' arm 4x dearer at equal walls: the planner
+    flips `join_size_classes` off for this plan's class, and the query then
+    runs the dense layout (tests/test_stage_attribution.py:285-323)."""
+    from hyperspace_tpu_torch.plananalysis import fingerprint
+
+    s, q = _join_lake(tmp_path)
+    expect = q().sorted_rows()
+    monkeypatch.setenv(planner.ENV_MIN_SAMPLES, "2")
+    monkeypatch.setenv(planner.ENV_PLANNER_DIR, str(tmp_path / "store"))
+    planner.reset()
+    fp = fingerprint.plan_fingerprint(q().physical_plan())
+    store = planner._outcome_store()
+    for _ in range(2):
+        store.observe(fp, {"join_size_classes": {"arm": "on", "wall_s": 1.0, "predicted_s": 0.01, "stage_s": 0.08}})
+        store.observe(fp, {"join_size_classes": {"arm": "off", "wall_s": 1.0, "predicted_s": 0.02, "stage_s": 0.02}})
+    got = {}
+    grown = _pad_growth(lambda: got.update(rows=q().sorted_rows()))
+    d = planner.last_decisions().decisions["join_size_classes"]
+    assert (d.value, d.source) == (False, "measured") and planner.last_decisions().fingerprint == fp
+    assert grown["join_buckets"] > 0 and grown["join_class"] == 0
+    assert got["rows"] == expect

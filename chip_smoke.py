@@ -15,6 +15,7 @@
     python3 chip_smoke.py --phases env,history
     python3 chip_smoke.py --phases env,kernels,serve
     python3 chip_smoke.py --phases env,main,dense
+    python3 chip_smoke.py --phases env,kernels,surface
 
 Phases, each failing loudly:
 
@@ -368,12 +369,25 @@ Phases, each failing loudly:
              carries each as `bucket_sort_dense_<pair>_<shape>` or
              `range_probe_dense_<pair>_<shapes>`, with the phase's launches
              at that shape.
+21. surface  the JAX package's public surface on the card, at main's width
+             in a warehouse of its own: a session on the default device (the
+             card) is the active one, `Hyperspace()` takes it, and liOrd and
+             ordIdx are built through `IndexConfig.builder()`; main's q_ord
+             (value mode: K2) runs uncached once inside `profiling.trace`
+             with an `annotate("q_ord")` region, equal to numpy, and the
+             Chrome trace must name the region and K2's kernel
+             (`windowed_probe`). Then the reference's `examples/quickstart.py`
+             and `examples/walkthrough.py`, their imports renamed to the port
+             and the JAX platform lines dropped (`port_example_source`),
+             each in a child process on the card's default device: each must
+             print its own success line. Prints the phase's seconds beside
+             the card's `nvidia-smi` line.
 
 Kernel launches are read from the metrics registry
 (`kernel.launches.<label>`, which each wrapper's read-only `launches`
 reads), set to 0 at the start of each phase that drives the engine (main,
 dense, mesh, q3, strings, packed, refresh, q13, skipping, delta, partitioned, setops,
-star, resilience, analyze, history, serve) and summed over them. Prints one JSON
+star, resilience, analyze, history, serve, surface) and summed over them. Prints one JSON
 line of per-kernel results, the card's `nvidia-smi` line,
 and last `{"ok": true, "device": {...}}`. Exits non-zero without a result
 when no CUDA device is visible or the package is missing.
@@ -5789,11 +5803,96 @@ KERNEL_META = {
 }
 
 
+#: The reference's examples and the line each prints when it succeeds.
+EXAMPLES = (("quickstart.py", "results identical with indexing on/off — OK"), ("walkthrough.py", "WALKTHROUGH_OK"))
+_PLATFORM_LINE = re.compile(r'^\s*(import\s+jax\s*$|jax\.config\.update\(|os\.environ\.setdefault\("XLA_FLAGS")')
+_PACKAGE_IMPORT = re.compile(r"^(\s*(?:from|import)\s+)hyperspace_tpu\b")
+
+
+def port_example_source(source: str) -> str:
+    """A program written for the JAX package, made to run on the port: its
+    imports name `hyperspace_tpu_torch` and its JAX platform lines are
+    dropped; nothing else changes."""
+    return "".join(_PACKAGE_IMPORT.sub(r"\1hyperspace_tpu_torch", line)
+                   for line in source.splitlines(keepends=True) if not _PLATFORM_LINE.match(line))
+
+
+def phase_surface(torch, data, base: str):
+    """Phase surface (module docstring, 21)."""
+    import hyperspace_tpu_torch as hst
+    from hyperspace_tpu_torch.ops import cuda_probe, cuda_sort
+    from hyperspace_tpu_torch.telemetry import device_observatory, profiling
+
+    reset_launches(cuda_sort, cuda_probe)
+    wh = os.path.join(base, "surface")
+    s = hst.HyperspaceSession(warehouse=wh)
+    card_check(s.device.type == "cuda" and hst.HyperspaceSession.active() is s,
+               f"surface: the default session is on {s.device} or not the active one")
+    s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, NUM_BUCKETS)
+    hs = hst.Hyperspace()
+    card_check(hs._session is s, "surface: Hyperspace() did not take the active session")
+    build_s = {}
+    for src, name, indexed, included in (i for i in INDEXES if i[1] in ("liOrd", "ordIdx")):
+        cfg = hst.IndexConfig.builder().index_name(name).index_by(*indexed).include(*included).create()
+        if cfg != hst.IndexConfig(name, indexed, included):
+            raise AssertionError(f"surface: the builder made {cfg}")
+        df = s.read.parquet(os.path.join(base, "src", src))
+        _, build_s[name] = wall(lambda: hs.create_index(df, cfg))
+    hst.enable_hyperspace(s)
+    q = queries(s, base)["q_ord"]
+    if scanned_indexes(q) != ["liOrd", "ordIdx"]:
+        raise AssertionError(f"surface: q_ord does not scan the indexes:\n{q.explain_string()}")
+    li, od = data["lineitem"], data["orders"]
+    a, b = np_join(li["l_orderkey"], od["o_orderkey"])
+    want = canonical({"l_extendedprice": li["l_extendedprice"][a], "o_custkey": od["o_custkey"][b]})
+    trace_dir = os.path.join(base, "surface_trace")
+    clear_caches()
+    k2 = cuda_probe.launches
+    with profiling.trace(trace_dir):
+        with profiling.annotate("q_ord"):
+            out, t_traced = wall(q.collect)
+    check_answer("q_ord", out.num_rows, out, {"q_ord": want}, None)
+    traced_k2 = cuda_probe.launches - k2
+    with open(os.path.join(trace_dir, device_observatory.CHROME_TRACE_NAME)) as fh:
+        events = json.load(fh)["traceEvents"]
+    regions = sum(1 for e in events if e.get("name") == "q_ord")
+    kernel_names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    k2_seen = sorted(n for n in kernel_names if any(g in n for g in K2_GLOBALS))
+    card_check(regions > 0 and bool(k2_seen) and traced_k2 > 0,
+               f"surface: the trace names the region {regions} times and K2's kernel as {k2_seen} "
+               f"({traced_k2} K2 launches) among {sorted(kernel_names)[:20]}")
+    log(f"[surface] builds through IndexConfig.builder() {json.dumps(build_s)}; traced q_ord {out.num_rows} rows "
+        f"equal numpy in {t_traced} s; trace: {len(events)} events, region 'q_ord' {regions}, K2 kernel "
+        f"{k2_seen}, {traced_k2} K2 launches; {len(kernel_names)} distinct kernel names")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX_", "XLA_"))}
+    env["PYTHONPATH"] = root
+    for name, success in EXAMPLES:
+        with open(os.path.join(root, "examples", name)) as fh:
+            ported = port_example_source(fh.read())
+        path = os.path.join(base, "surface_examples", name)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as fh:
+            fh.write(ported)
+        t0 = time.perf_counter()
+        child = subprocess.run([sys.executable, path], capture_output=True, text=True, env=env, timeout=600,
+                               cwd=os.path.dirname(path))
+        t_child = time.perf_counter() - t0
+        if child.returncode != 0 or success not in child.stdout.splitlines():
+            raise AssertionError(f"surface: {name} on the port exited {child.returncode}:\n"
+                                 f"{child.stdout[-3000:]}\n{child.stderr[-3000:]}")
+        log(f"[surface] examples/{name} on the card: {len(child.stdout.splitlines())} lines ending in "
+            f"{success!r}, {t_child} s in its own process")
+    launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches}
+    log(f"[surface] launches {json.dumps(launches)}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="env,kernels,main,dense,mesh,q3,strings,packed,refresh,q13,skipping,delta,partitioned,"
-                            "setops,star,resilience,analyze,history,serve,identity")
+                            "setops,star,resilience,analyze,history,serve,surface,identity")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sf", type=float, default=1.0)
     ap.add_argument("--identity-sf", type=float, default=0.05)
@@ -5837,7 +5936,7 @@ def main() -> int:
 
     data, dense_rows = None, []
     if {"main", "dense", "mesh", "q3", "strings", "packed", "refresh", "q13", "delta", "resilience", "analyze",
-            "history", "serve"} & set(phases):
+            "history", "serve", "surface"} & set(phases):
         t0 = time.perf_counter()
         data = tpch(args.sf, args.seed)
         log(f"[data] TPC-H SF{args.sf}: lineitem {len(data['lineitem']['l_orderkey'])} rows, orders "
@@ -5845,7 +5944,8 @@ def main() -> int:
             f"{len(data['customer']['c_custkey'])} (generated in {time.perf_counter() - t0:.2f} s)")
     base = tempfile.mkdtemp(prefix="hs_smoke_sf1_")
     try:
-        if {"main", "dense", "mesh", "q3", "strings", "q13", "resilience", "analyze", "history", "serve"} & set(phases):
+        if {"main", "dense", "mesh", "q3", "strings", "q13", "resilience", "analyze", "history", "serve",
+                "surface"} & set(phases):
             write_sources(data, base)
         main_times = None
         if "main" in phases:
@@ -5886,6 +5986,9 @@ def main() -> int:
             add(timed_phase("history", phase_history, torch, data, base, args.seed)[0])
         if "serve" in phases:
             add(timed_phase("serve", phase_serve, torch, data, base, args.seed)[0])
+        if "surface" in phases:
+            add(timed_phase("surface", phase_surface, torch, data, base))
+            log(f"[surface] phase seconds {phase_seconds['surface']} on {smi}")
     finally:
         shutil.rmtree(base, ignore_errors=True)
     if "identity" in phases:

@@ -23,14 +23,28 @@ The sorts and searches on that path are hand-written CUDA kernels (`csrc/`).
 Many tenants' concurrent queries run through `Hyperspace.server()` (a
 `QueryServer`: priority lanes, admission, single-flight caches, SLOs, and
 with `HYPERSPACE_REPLICAS=1` a fleet of processes over one lake).
-Tables live on the session's device, CUDA by default. The package imports torch, numpy and pyarrow, never jax or
-hyperspace_tpu.
+Tables live on the session's device, CUDA by default. The package imports
+torch, numpy and pyarrow, never jax or hyperspace_tpu. Its public surface is
+the JAX package's, module by module: a program written for hyperspace_tpu
+runs here once its imports name hyperspace_tpu_torch, apart from the JAX-only
+machinery the README lists.
 """
 
-from .config import IndexConstants, SessionConf  # noqa: F401
+from .config import HyperspaceConf, IndexConstants, SessionConf  # noqa: F401
 from .engine.expr import col, lit, udf  # noqa: F401
 from .engine.session import DataFrame, HyperspaceSession  # noqa: F401
-from .exceptions import HyperspaceException  # noqa: F401
+from .exceptions import (  # noqa: F401
+    AdmissionRejectedError,
+    CompileTimeoutError,
+    ConcurrentWriteError,
+    CorruptIndexError,
+    HyperspaceException,
+    LogCommitError,
+    PermanentError,
+    QueryTimeoutError,
+    RetryBudgetExceededError,
+    TransientError,
+)
 from .hyperspace import (  # noqa: F401
     Hyperspace,
     disable_hyperspace,

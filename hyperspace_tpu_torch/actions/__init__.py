@@ -1,0 +1,1 @@
+from . import states  # noqa: F401

@@ -46,6 +46,10 @@ from ..telemetry.events import OptimizeActionEvent
 from . import states
 from .action import Action, _recover_stable
 
+# The quick mode's size threshold, under the JAX package's module names
+# (`actions/optimize.py:25-26`); the port keeps them on `IndexConstants`.
+OPTIMIZE_FILE_SIZE_THRESHOLD = IndexConstants.OPTIMIZE_FILE_SIZE_THRESHOLD
+OPTIMIZE_FILE_SIZE_THRESHOLD_DEFAULT = IndexConstants.OPTIMIZE_FILE_SIZE_THRESHOLD_DEFAULT
 OPTIMIZE_MODES = ("quick", "full")
 
 _BUCKET_RE = re.compile(r"part-(\d+)")

@@ -11,7 +11,7 @@ environment written for one package means the same to the other.
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 #: Row-group pushdown on/off (`engine/pushdown.py`); "0" = whole-file reads.
 ENV_SCAN_PUSHDOWN = "HYPERSPACE_SCAN_PUSHDOWN"
@@ -45,6 +45,9 @@ class IndexConstants:
     """Config keys and defaults (reference `index/IndexConstants.scala:21-57`)."""
 
     INDEX_SYSTEM_PATH = "hyperspace.system.path"
+    # Read by nothing beyond their getters, as in the JAX package.
+    INDEX_CREATION_PATH = "hyperspace.index.creation.path"
+    INDEX_SEARCH_PATHS = "hyperspace.index.search.paths"
 
     INDEX_NUM_BUCKETS = "hyperspace.index.num.buckets"
     INDEX_NUM_BUCKETS_DEFAULT = 200  # reference default = spark.sql.shuffle.partitions
@@ -103,6 +106,10 @@ class IndexConstants:
     RESOLUTION_CASE_SENSITIVE = "hyperspace.resolution.caseSensitive"
     RESOLUTION_CASE_SENSITIVE_DEFAULT = False
 
+    # Devices the build shards over; read by nothing beyond its getter, as in
+    # the JAX package (the mesh is the visible devices, `parallel/mesh.py`).
+    BUILD_MESH_DEVICES = "hyperspace.build.mesh.devices"
+
     # Execution over the device mesh (`parallel/`): with more than one
     # visible device, builds exchange rows all-to-all, the general join
     # exchanges for real and co-bucketed joins probe shard by shard.
@@ -125,6 +132,9 @@ class SessionConf:
     def set(self, key: str, value) -> None:
         self._conf[key] = str(value)
 
+    def unset(self, key: str) -> None:
+        self._conf.pop(key, None)
+
     def get(self, key: str, default: Optional[str] = None) -> Optional[str]:
         return self._conf.get(key, default)
 
@@ -137,6 +147,9 @@ class SessionConf:
         if v is None:
             return default
         return v.strip().lower() in ("1", "true", "yes", "on")
+
+    def copy(self) -> "SessionConf":
+        return SessionConf(dict(self._conf))
 
 
 class HyperspaceConf:
@@ -173,6 +186,19 @@ class HyperspaceConf:
     @property
     def cache_type(self) -> str:
         return self._c.get(IndexConstants.INDEX_CACHE_TYPE, IndexConstants.INDEX_CACHE_TYPE_DEFAULT)
+
+    @property
+    def system_path(self) -> Optional[str]:
+        return self._c.get(IndexConstants.INDEX_SYSTEM_PATH)
+
+    @property
+    def search_paths(self) -> Optional[List[str]]:
+        v = self._c.get(IndexConstants.INDEX_SEARCH_PATHS)
+        return v.split(",") if v else None
+
+    @property
+    def build_mesh_devices(self) -> int:
+        return self._c.get_int(IndexConstants.BUILD_MESH_DEVICES, 1)
 
     @property
     def case_sensitive(self) -> bool:

@@ -15,6 +15,13 @@ the planner is not ported, so unset means its default, on.
 Dictionaries over `_ENCODED_DICT_MAX` entries take the flatten read (the JAX
 package's default ceiling; the port reads no flag for it, since it changes
 which read runs and never a result).
+
+Accounting, as in the JAX package: each real decode ticks
+`io.encoded.columns_encoded` or `io.encoded.columns_flattened` per
+dictionary column, and the bytes that entered the engine still encoded
+(codes, dictionary, validity) or flattened to values land on
+`io.pruning.bytes_encoded_kept` / `io.pruning.bytes_materialized` and the
+query's ledger.
 """
 
 from __future__ import annotations
@@ -25,6 +32,9 @@ from typing import List, Optional
 import numpy as np
 import pyarrow as pa
 import torch
+
+from ..telemetry import accounting as _accounting
+from ..telemetry import metrics as _metrics
 
 ENV_ENCODED_EXEC = "HYPERSPACE_ENCODED_EXEC"
 _ENCODED_DICT_MAX = 1 << 20
@@ -40,6 +50,33 @@ def encoded_exec_enabled() -> bool:
 
     decided = decided_value("encoded_exec")
     return True if decided is None else bool(decided)
+
+
+COLUMNS_ENCODED = _metrics.counter("io.encoded.columns_encoded")
+COLUMNS_FLATTENED = _metrics.counter("io.encoded.columns_flattened")
+BYTES_ENCODED_KEPT = _metrics.counter("io.pruning.bytes_encoded_kept")
+BYTES_MATERIALIZED = _metrics.counter("io.pruning.bytes_materialized")
+
+
+def column_nbytes(c) -> int:
+    """What one column holds: its tensors and its host dictionary (the one
+    size the encoded-bytes counter and the scan cache's charge share)."""
+    n = c.data.nbytes
+    if c.validity is not None:
+        n += c.validity.nbytes
+    if c.dictionary is not None:
+        n += c.dictionary.nbytes
+    return int(n)
+
+
+def record_encoded_kept(nbytes: int) -> None:
+    BYTES_ENCODED_KEPT.inc(nbytes)
+    _accounting.add("bytes_encoded_kept", nbytes)
+
+
+def record_materialized(nbytes: int) -> None:
+    BYTES_MATERIALIZED.inc(nbytes)
+    _accounting.add("bytes_materialized", nbytes)
 
 
 def _stringish_value_type(t: "pa.DataType") -> bool:

@@ -95,6 +95,9 @@ class Expr:
     def __hash__(self):
         return hash(repr(self))
 
+    def semantic_equals(self, other: "Expr") -> bool:
+        return repr(self) == repr(other)
+
 
 class Col(Expr):
     def __init__(self, name: str):

@@ -491,8 +491,11 @@ def _arrow_to_table(at: pa.Table) -> Table:
         if pa.types.is_dictionary(arr.type) and _encoding.encoded_exec_enabled():
             c = _encoding.dictionary_array_to_column(arr)
             if c is not None:
+                _encoding.COLUMNS_ENCODED.inc()
+                _encoding.record_encoded_kept(_encoding.column_nbytes(c))
                 cols[name] = c
                 continue
+            _encoding.COLUMNS_FLATTENED.inc()
         if pa.types.is_temporal(arr.type):
             arr = arr.cast(pa.string())  # dates ride as ordered strings
         validity = None
@@ -512,6 +515,7 @@ def _arrow_to_table(at: pa.Table) -> Table:
         if np_arr.dtype.kind == "O":
             # A zero-row object array stays a string column.
             np_arr = np.empty(0, dtype="<U1") if len(np_arr) == 0 else np.asarray([str(x) for x in np_arr])
+        _encoding.record_materialized(np_arr.nbytes)
         c = Column.from_values(np_arr, "cpu")
         if validity is not None:
             data = c.data.clone()
@@ -650,8 +654,10 @@ def _decode_into_cache(jobs: List[tuple], device, file_format: str = "parquet") 
     device). The batch this query leads decodes at once (`_decode_batch`)
     and its flights finish before this query waits on any flight another
     query leads; a followed job is read from the cache its leader filled,
-    or decoded here when that leader failed or its entry is gone. The
-    caller counted the misses; a follower's re-probe counts nothing."""
+    or decoded here when that leader failed or its entry is gone. A job
+    this query leads is probed once more first: a flight that finished
+    after the caller's probe has cached it. The caller counted the misses;
+    the re-probes count nothing."""
     if not _singleflight.serving_enabled():
         return _decode_batch(jobs, device, file_format)
     cache = global_scan_cache()
@@ -665,11 +671,24 @@ def _decode_into_cache(jobs: List[tuple], device, file_format: str = "parquet") 
         led, followed = _singleflight.claim(todo)
         done: set = set()
         try:
-            mine = [k for k in todo if k in led]
+            mine = []
+            for k in todo:
+                if k not in led:
+                    continue
+                # A flight that finished between this query's probe and its
+                # claim left its entry cached: take it, decode nothing.
+                path, cols, _meta, sel, base = jobs[first[k]]
+                t = cache.get(path, cols, record=False, sel=sel, device=device, base=base)
+                if t is None:
+                    mine.append(k)
+                else:
+                    _singleflight.note_dedup_hit()
+                    out[k] = t
+                    done.add(k)
             if mine:
                 for k, t in zip(mine, _decode_batch([jobs[first[k]] for k in mine], device, file_format)):
                     out[k] = t
-                done = set(mine)
+                done.update(mine)
         finally:
             _singleflight.finish(led, done)
         retry = []

@@ -101,6 +101,10 @@ def packed_lane_count(n: int, bits: int) -> int:
     return -(-max(int(n), 1) // lpw) * lpw
 
 
+def packed_word_count(n: int, bits: int) -> int:
+    return packed_lane_count(n, bits) // lanes_per_word(bits)
+
+
 def _host_shifts(bits: int) -> np.ndarray:
     return (_WORD_BITS - bits * (np.arange(lanes_per_word(bits)) + 1)).astype(np.uint32)
 

@@ -58,6 +58,7 @@ from __future__ import annotations
 import contextlib
 import os
 import re
+import sys
 import threading
 import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -1108,7 +1109,9 @@ single-flight."""
                 if ent is not None:  # a dead table's id, reused before its callback ran
                     _device_cache_bytes -= _entry_nbytes(tag, ent)
 
-                def _evict(wr, key=key):
+                def _evict(wr, key=key, finalizing=sys.is_finalizing):
+                    if finalizing():  # interpreter exit: the module's globals may be gone
+                        return
                     ent_now = cache.get(key)
                     if ent_now is not None and ent_now[0] is wr:
                         _drop_entry(tag, key)
@@ -1163,7 +1166,9 @@ def _cached_two_table(tag: str, left: Table, right: Table, subkey: tuple, comput
         global _device_cache_bytes
         val = compute()
 
-        def _evict(wr, key=key):
+        def _evict(wr, key=key, finalizing=sys.is_finalizing):
+            if finalizing():  # interpreter exit: the module's globals may be gone
+                return
             ent_now = cache.get(key)
             if ent_now is not None and (ent_now[0] is wr or ent_now[1] is wr):
                 _drop_entry(tag, key)

@@ -45,17 +45,8 @@ from typing import List, Optional, Tuple
 from ..config import CONCAT_CACHE_BUDGET_DEFAULT, ENV_SCAN_CACHE_BUDGET, SCAN_CACHE_BUDGET_DEFAULT, env_bytes
 from ..telemetry import accounting as _accounting
 from ..telemetry import metrics as _metrics
+from .encoding import column_nbytes
 from .table import Column, Table
-
-
-def column_nbytes(c: Column) -> int:
-    """What one column holds: its tensors and its host dictionary."""
-    n = c.data.nbytes
-    if c.validity is not None:
-        n += c.validity.nbytes
-    if c.dictionary is not None:
-        n += c.dictionary.nbytes
-    return int(n)
 
 
 def table_nbytes(t: Table) -> int:

@@ -47,6 +47,15 @@ def dtype_from_numpy(dt: np.dtype) -> str:
     raise ValueError(f"Unsupported numpy dtype: {dt}")
 
 
+_TYPE_TO_NUMPY = {t: dt for dt, t in _NUMPY_TO_TYPE.items()}
+
+
+def numpy_dtype(type_name: str) -> np.dtype:
+    if type_name == STRING:
+        raise ValueError("string columns are dictionary-encoded; no direct numpy dtype")
+    return _TYPE_TO_NUMPY[type_name]
+
+
 @dataclass(frozen=True)
 class Field:
     name: str

@@ -3,13 +3,15 @@
 A session carries the conf, the filesystem, the device its tables live on,
 its named views and the optimizer extension point (`extra_optimizations`)
 that `enable_hyperspace` plugs the rewrite rules into. The device defaults to
-CUDA. `mesh_for` hands the engine the device mesh where one applies.
+CUDA. Each new session becomes the active one (`HyperspaceSession.active()`).
+`mesh_for` hands the engine the device mesh where one applies.
 """
 
 from __future__ import annotations
 
 import os
 import re
+import threading
 from typing import Dict, List, Optional
 
 from ..config import HyperspaceConf, SessionConf
@@ -384,9 +386,11 @@ def _absolute(path: str) -> str:
 class HyperspaceSession:
     """One session = conf + filesystem + device + optimizer rules + warehouse."""
 
-    #: The last session made: where the history store lives by default
-    #: (`telemetry.history.history_dir`).
+    # The active session (`session.py:501-542`): the calling thread's newest
+    # first, else the process's newest, which is also where the history
+    # store lives by default (`telemetry.history.history_dir`).
     _active: Optional["HyperspaceSession"] = None
+    _active_local = threading.local()
 
     def __init__(
         self,
@@ -404,7 +408,19 @@ class HyperspaceSession:
         self.extra_optimizations: List = []
         self._views: Dict[str, LogicalPlan] = {}
         self._mesh = None
+        HyperspaceSession._active_local.session = self
         HyperspaceSession._active = self
+
+    @classmethod
+    def active(cls) -> "HyperspaceSession":
+        """The calling thread's newest session, else the process's newest;
+        `HyperspaceException` when no session was made."""
+        local = getattr(cls._active_local, "session", None)
+        if local is not None:
+            return local
+        if cls._active is None:
+            raise HyperspaceException("No active HyperspaceSession.")
+        return cls._active
 
     def mesh_for(self, num_rows: int):
         """The device mesh, when execution over it should handle this many
@@ -454,6 +470,10 @@ class HyperspaceSession:
             with tracing.span(f"rule:{type(rule).__name__}"):
                 plan = rule.apply(plan, self)
         return plan
+
+    def create_table(self, data: Dict[str, list]) -> Table:
+        """A table of `data` on this session's device."""
+        return Table.from_pydict(data, self.device)
 
     def write_parquet(self, data, path: str, row_group_rows: Optional[int] = None) -> None:
         """Write a Table (or a dict of numpy arrays) as `path/part-00000.parquet`."""

@@ -21,6 +21,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..exceptions import HyperspaceException
+from ..ops.backend import resolve_device
 from .schema import STRING, TORCH_DTYPES, Field, Schema, dtype_from_numpy
 
 
@@ -204,8 +206,21 @@ class Table:
         :199): sorted by each value's string form."""
         return sorted(self.rows(), key=lambda r: tuple(str(x) for x in r))
 
+    def rename(self, mapping: Dict[str, str]) -> "Table":
+        return Table({mapping.get(n, n): c for n, c in self.columns.items()})
+
     @staticmethod
-    def from_pydict(data: Dict[str, list], device) -> "Table":
+    def from_pydict(data: Dict[str, list], device=None) -> "Table":
+        """A table of `data` on `device`; None means the active session's
+        device, else CUDA (which raises without a card: nothing falls back
+        to the CPU)."""
+        if device is None:
+            from .session import HyperspaceSession
+
+            try:
+                device = HyperspaceSession.active().device
+            except HyperspaceException:
+                device = resolve_device(None)
         return Table({n: Column.from_values(np.asarray(v), device) for n, v in data.items()})
 
     @staticmethod

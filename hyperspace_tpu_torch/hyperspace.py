@@ -44,9 +44,11 @@ def _index_manager_for(session: HyperspaceSession) -> CachingIndexCollectionMana
 
 
 class Hyperspace:
-    def __init__(self, session: HyperspaceSession):
-        self._session = session
-        self._manager = _index_manager_for(session)
+    def __init__(self, session: Optional[HyperspaceSession] = None):
+        """The index API over `session`, else over the active session
+        (`HyperspaceSession.active()`)."""
+        self._session = session or HyperspaceSession.active()
+        self._manager = _index_manager_for(self._session)
 
     def create_index(self, df: DataFrame, index_config: Union[IndexConfig, DataSkippingIndexConfig]) -> None:
         with resilience.query_scope("build:create_index"):

@@ -40,7 +40,38 @@ from .staging import reclaim_orphans
 REFRESH_MODES = ("full", "incremental", "auto")
 
 
-class IndexCollectionManager:
+class IndexManager:
+    """CRUD + listing contract (reference `IndexManager.scala:24-90`)."""
+
+    def create(self, df, index_config: IndexConfig) -> None:
+        raise NotImplementedError
+
+    def delete(self, index_name: str) -> None:
+        raise NotImplementedError
+
+    def restore(self, index_name: str) -> None:
+        raise NotImplementedError
+
+    def vacuum(self, index_name: str) -> None:
+        raise NotImplementedError
+
+    def refresh(self, index_name: str, mode: str = "full") -> None:
+        raise NotImplementedError
+
+    def optimize(self, index_name: str, mode: str = "quick") -> None:
+        raise NotImplementedError
+
+    def cancel(self, index_name: str) -> None:
+        raise NotImplementedError
+
+    def indexes(self) -> Table:
+        raise NotImplementedError
+
+    def get_indexes(self, states_filter: Optional[Sequence[str]] = None) -> List[IndexLogEntry]:
+        raise NotImplementedError
+
+
+class IndexCollectionManager(IndexManager):
     def __init__(
         self,
         session,

@@ -209,6 +209,17 @@ def bloom_positions(hashes, num_bits: int, num_hashes: int) -> List[int]:
     return [(h1 + i * h2) % num_bits for i in range(num_hashes)]
 
 
+def bloom_probe(bits: np.ndarray, value, column_dtype: str, num_hashes: int) -> bool:
+    """Whether one file's bloom bits may hold `value` (`dataskipping.bloom_probe`
+    :150): the rule's probe (`literal_hashes`, `bloom_positions`) for one
+    literal; True (keep the file) when the literal cannot be hashed as the
+    column's values were."""
+    hashes = literal_hashes(value, column_dtype)
+    if hashes is None:
+        return True
+    return bool(np.asarray(bits)[bloom_positions(hashes, len(bits), num_hashes)].all())
+
+
 def row_group_zones(path: str, file_format: str, column: str) -> list:
     """Each row group's [min, max] of one source file's column from its
     parquet footer (no decode): a list of 2-lists, None for a zone without

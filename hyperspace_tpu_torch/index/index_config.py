@@ -2,8 +2,8 @@
 
 Parity: reference `index/IndexConfig.scala:28-175` — name + indexedColumns +
 includedColumns; validates non-empty and no case-insensitive duplicates; case-insensitive
-equality. Counterpart of `hyperspace_tpu/index/index_config.py` without its fluent
-builder.
+equality; fluent builder (`indexBy/include/create`). Counterpart of
+`hyperspace_tpu/index/index_config.py`.
 """
 
 from __future__ import annotations
@@ -63,3 +63,40 @@ class IndexConfig:
             f"IndexConfig({self.index_name!r}, indexed={self.indexed_columns}, "
             f"included={self.included_columns})"
         )
+
+    class Builder:
+        def __init__(self):
+            self._name = ""
+            self._indexed: List[str] = []
+            self._included: List[str] = []
+
+        def index_name(self, name: str) -> "IndexConfig.Builder":
+            if not name or not name.strip():
+                raise HyperspaceException("Index name cannot be empty.")
+            if self._name:
+                raise HyperspaceException("Index name is already set.")
+            self._name = name
+            return self
+
+        def index_by(self, *columns: str) -> "IndexConfig.Builder":
+            if self._indexed:
+                raise HyperspaceException("Indexed columns are already set.")
+            if not columns:
+                raise HyperspaceException("Indexed columns cannot be empty.")
+            self._indexed = list(columns)
+            return self
+
+        def include(self, *columns: str) -> "IndexConfig.Builder":
+            if self._included:
+                raise HyperspaceException("Included columns are already set.")
+            if not columns:
+                raise HyperspaceException("Included columns cannot be empty.")
+            self._included = list(columns)
+            return self
+
+        def create(self) -> "IndexConfig":
+            return IndexConfig(self._name, self._indexed, self._included)
+
+    @staticmethod
+    def builder() -> "IndexConfig.Builder":
+        return IndexConfig.Builder()

@@ -1,0 +1,1 @@
+from . import hashing, join  # noqa: F401

@@ -25,6 +25,7 @@ wrap, and those are all that is kept.
 from __future__ import annotations
 
 import hashlib
+import sys
 import threading
 import weakref
 from typing import Optional, Sequence
@@ -114,7 +115,9 @@ def host_hash_dictionary(dictionary: np.ndarray, seed: int, device=None) -> torc
         if dev.type != "cpu":
             copies[dev] = host.to(dev)
 
-        def _evict(wr, key=key):
+        def _evict(wr, key=key, finalizing=sys.is_finalizing):
+            if finalizing():  # interpreter exit: the module's globals may be gone
+                return
             with _dict_hash_lock:
                 ent_now = _dict_hash_cache.get(key)
                 if ent_now is not None and ent_now[0] is wr:

@@ -28,7 +28,7 @@ from typing import Dict, List, Optional
 from ..actions import states
 from ..config import IndexConstants
 from ..engine.expr import Col, Expr, IsIn, Not
-from ..engine.logical import BucketSpec, LogicalPlan, ScanNode, SourceRelation
+from ..engine.logical import BucketSpec, LogicalPlan, ScanNode, SourceRelation, find_single_relation
 from ..engine.schema import Schema
 from ..index import quarantine
 from ..index.log_entry import IndexLogEntry
@@ -184,6 +184,10 @@ def lineage_prune_condition(deleted: List[str]) -> Expr:
     `NOT (_data_file_name IN deleted)`. It keeps bucket membership and the
     order within a bucket, so the co-bucketed join stays sound over it."""
     return Not(IsIn(Col(IndexConstants.DATA_FILE_NAME_COLUMN), list(deleted)))
+
+
+def get_scan_node(plan: LogicalPlan) -> Optional[ScanNode]:
+    return find_single_relation(plan)
 
 
 def index_files_as_statuses(entry: IndexLogEntry) -> List[FileStatus]:

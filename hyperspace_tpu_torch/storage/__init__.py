@@ -1,0 +1,1 @@
+from .filesystem import FileStatus, FileSystem, InMemoryFileSystem, LocalFileSystem  # noqa: F401

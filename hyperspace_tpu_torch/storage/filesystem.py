@@ -101,6 +101,11 @@ class FileSystem:
                     out.append(st)
         return sorted(out, key=lambda s: s.path)
 
+    def directory_size(self, path: str) -> int:
+        """Bytes of every plain file beneath `path` (every backend, remote
+        ones too, through `list_leaf_files`)."""
+        return sum(f.size for f in self.list_leaf_files(path))
+
 
 class LocalFileSystem(FileSystem):
     """Local-disk backend (the default)."""

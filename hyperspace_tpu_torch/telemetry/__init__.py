@@ -10,6 +10,34 @@ streamed executors (`profiling`).
 With `HYPERSPACE_METRICS_FILE` set when the package is imported, the
 exporter's thread starts here; unset, nothing starts."""
 
-from . import exporter as _exporter
+from . import (  # noqa: F401
+    accounting,
+    compile_log,
+    exporter,
+    faults,
+    history,
+    metrics,
+    slo,
+    tracing,
+)
+from .event_logging import (  # noqa: F401
+    EventLogger,
+    EventLoggerFactory,
+    NoOpEventLogger,
+    RecordingEventLogger,
+)
+from .events import (  # noqa: F401
+    AppInfo,
+    CancelActionEvent,
+    CreateActionEvent,
+    DeleteActionEvent,
+    HyperspaceEvent,
+    HyperspaceIndexCRUDEvent,
+    HyperspaceIndexUsageEvent,
+    OptimizeActionEvent,
+    RefreshActionEvent,
+    RestoreActionEvent,
+    VacuumActionEvent,
+)
 
-_exporter.maybe_start_from_env()
+exporter.maybe_start_from_env()

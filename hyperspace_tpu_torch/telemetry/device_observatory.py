@@ -443,6 +443,19 @@ def maybe_capture(reason: str, detail: Optional[dict] = None) -> Optional[str]:
         return None
 
 
+def start_profile(cuda: bool):
+    """A started `torch.profiler.profile` of the CPU, and of CUDA when
+    `cuda`: one cycle a window (accumulating changes nothing and keeps the
+    profiler from warning that it clears events between cycles). Stop it
+    and write it with `export_chrome_trace`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    p = profile(activities=activities, acc_events=True)
+    p.start()
+    return p
+
+
 def _trace_window(cap_dir: str, window_s: float) -> None:
     """One `torch.profiler` window into `cap_dir` (the daemon thread): CUDA
     activity too when this process holds a CUDA context. The window runs
@@ -454,17 +467,9 @@ def _trace_window(cap_dir: str, window_s: float) -> None:
     t0 = time.monotonic()
     try:
         import torch
-        from torch.profiler import ProfilerActivity, profile
 
-        activities = [ProfilerActivity.CPU]
-        if torch.cuda.is_initialized():
-            activities.append(ProfilerActivity.CUDA)
-        status["activities"] = sorted(a.name for a in activities)
-        # One cycle a window: accumulating changes nothing and keeps the
-        # profiler from warning that it clears events between cycles.
-        p = profile(activities=activities, acc_events=True)
-        p.start()
-        prof = p
+        prof = start_profile(torch.cuda.is_initialized())
+        status["activities"] = sorted(a.name for a in prof.activities)
         status["started_after_s"] = round(time.monotonic() - t0, 3)
         _trace_started.set()
         time.sleep(window_s)

@@ -11,6 +11,16 @@ summary; `last_build_stages()`, `last_query_stages()` and
 field names (`<stage>_s`, `wall_s`, `overlap_ratio`, `mode`,
 `stage_counts`, and what the operation adds: `rows`, `sort_route`,
 `chunks`, `join_mode`, `star_dims` ...), so both packages' records read alike.
+`*_stages_history()` give the last few of each kind, oldest first, and
+`io_pruning_summary()` the scan's pushdown and encoded-read counters.
+
+`trace(log_dir)` profiles a scope with `torch.profiler` (CPU, and CUDA
+when the card is in use) and writes a Chrome trace into `log_dir`;
+`annotate(name)` names a region of it (`record_function`, and an NVTX range
+on the card). Both do nothing with `enabled=False`, and `trace` with no
+`log_dir`, as the JAX package's (:260, :282). Unlike the JAX package's,
+`trace` lets a profiler that fails to start raise: the caller asked for a
+profile.
 
 On a CUDA device every timed block ends with a synchronization of that
 device (`StageTimings(device=...)`): the card runs the block's work
@@ -29,6 +39,7 @@ becomes stage spans of the ambient trace (`tracing.record_stage_spans`).
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 import time
 from collections import deque
@@ -165,6 +176,12 @@ def last_query_stages() -> Optional[dict]:
         return dict(_QUERY_STAGES[-1]) if _QUERY_STAGES else None
 
 
+def query_stages_history() -> list:
+    """The summaries of the last few streamed scan aggregates, oldest first."""
+    with _lock:
+        return [dict(d) for d in _QUERY_STAGES]
+
+
 def record_join_stages(summary: dict) -> None:
     """Record one streamed join's summary."""
     _record("join", _JOIN_STAGES, summary)
@@ -174,3 +191,72 @@ def last_join_stages() -> Optional[dict]:
     """The newest streamed join's summary (None if none ran)."""
     with _lock:
         return dict(_JOIN_STAGES[-1]) if _JOIN_STAGES else None
+
+
+def join_stages_history() -> list:
+    """The summaries of the last few streamed joins, oldest first."""
+    with _lock:
+        return [dict(d) for d in _JOIN_STAGES]
+
+
+def io_pruning_summary() -> dict:
+    """The process's scan counters under the JAX package's keys (:235): row
+    groups scanned and skipped by the footer zone maps, the bytes behind
+    them, the encoded read's columns and bytes (`engine/encoding.py`) and
+    the footer cache's hits and misses."""
+    from . import metrics
+
+    return {key: metrics.counter(name).value for key, name in (
+        ("row_groups_scanned", "io.pruning.row_groups_scanned"),
+        ("row_groups_skipped", "io.pruning.row_groups_skipped"),
+        ("bytes_decoded", "io.pruning.bytes_decoded"),
+        ("bytes_skipped", "io.pruning.bytes_skipped"),
+        ("bytes_encoded_kept", "io.pruning.bytes_encoded_kept"),
+        ("bytes_materialized", "io.pruning.bytes_materialized"),
+        ("columns_encoded", "io.encoded.columns_encoded"),
+        ("columns_flattened", "io.encoded.columns_flattened"),
+        ("footer_hits", "io.footer.hits"),
+        ("footer_misses", "io.footer.misses"),
+    )}
+
+
+def _cuda_in_use() -> bool:
+    return torch.cuda.is_available() and torch.cuda.is_initialized()
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str], enabled: bool = True) -> Iterator[None]:
+    """Profile the scope into `log_dir`: a `torch.profiler` window of the
+    CPU and, when the card is in use, CUDA, written as the Chrome trace
+    `device_observatory.CHROME_TRACE_NAME`. Nothing with `enabled=False`
+    or no `log_dir`."""
+    if not enabled or not log_dir:
+        yield
+        return
+    from . import device_observatory
+
+    os.makedirs(log_dir, exist_ok=True)
+    prof = device_observatory.start_profile(_cuda_in_use())
+    try:
+        yield
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(log_dir, device_observatory.CHROME_TRACE_NAME))
+
+
+@contextlib.contextmanager
+def annotate(name: str, enabled: bool = True) -> Iterator[None]:
+    """Name a region of the trace: a `torch.profiler.record_function`
+    region, and an NVTX range when the card is in use."""
+    if not enabled:
+        yield
+        return
+    nvtx = _cuda_in_use()
+    with torch.profiler.record_function(name):
+        if nvtx:
+            torch.cuda.nvtx.range_push(name)
+        try:
+            yield
+        finally:
+            if nvtx:
+                torch.cuda.nvtx.range_pop()

@@ -14,3 +14,10 @@ def to_json(obj: Any) -> str:
 
 def from_json(text: str) -> Any:
     return json.loads(text)
+
+
+def json_to_map(text: str) -> dict:
+    obj = from_json(text)
+    if not isinstance(obj, dict):
+        raise ValueError(f"expected JSON object, got {type(obj)}")
+    return obj

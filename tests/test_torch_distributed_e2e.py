@@ -25,6 +25,7 @@ import glob
 import hashlib
 import json
 import os
+from collections import deque
 
 import numpy as np
 import pytest
@@ -33,11 +34,13 @@ import hyperspace_tpu_torch.parallel as tp
 from hyperspace_tpu.engine import physical as jax_physical
 from hyperspace_tpu.parallel import table_ops as jax_table_ops
 from hyperspace_tpu.telemetry import metrics as jax_metrics
+from hyperspace_tpu.telemetry import profiling as jax_profiling
 from hyperspace_tpu.telemetry.profiling import last_build_stages as jax_last_build_stages
 from hyperspace_tpu.telemetry.profiling import last_join_stages as jax_last_join_stages
 from hyperspace_tpu_torch.engine import physical, scan_cache
 from hyperspace_tpu_torch.parallel import table_ops
 from hyperspace_tpu_torch.telemetry import metrics
+from hyperspace_tpu_torch.telemetry import profiling as port_profiling
 from hyperspace_tpu_torch.telemetry.profiling import last_build_stages, last_join_stages
 from test_torch_aggregate import assert_same
 from test_torch_star_join import _q2, _star2, make_star
@@ -415,10 +418,14 @@ def test_skewed_layout_stays_on_classed_executor(tmp_path, monkeypatch):
     assert got.num_rows > 0 and probes() == before
 
 
-def test_star_query_on_mesh_runs_the_cascade(tmp_path):
+def test_star_query_on_mesh_runs_the_cascade(tmp_path, monkeypatch):
     """Under a mesh the star stream declines (streaming.py:605): both
     packages run the cascade of sharded co-bucketed joins, and the groups
-    come in its key64 order."""
+    come in its key64 order. Each package's join-stage record starts empty,
+    so that a star an earlier test of the process streamed is not read as
+    this query's."""
+    for mod in (port_profiling, jax_profiling):
+        monkeypatch.setattr(mod, "_JOIN_STAGES", deque(maxlen=mod._JOIN_STAGES.maxlen))
     fact, dims = _star2()
     twin = make_star(tmp_path, fact, dims, DISTRIBUTED_MIN_ROWS=0)
     star = [n for n in _q2()(twin.t).physical_plan().collect_nodes() if isinstance(n, physical.MultiwayJoinExec)]

@@ -11,6 +11,9 @@
   memos evict in one LRU order across their tags and die with their tables.
 - Cached tensors are shared between queries, and no operator writes into
   them: their values and `tensor._version` are unchanged after queries.
+- Memo entries whose tables live until interpreter exit die quietly: the
+  eviction callbacks do nothing while the interpreter finalizes, so a
+  child process that keeps them to the end writes nothing on stderr.
 Nothing here computes on floats except the aggregate's sums, which must be
 identical between cached and uncached runs (tolerance 0) and equal the JAX
 package's at rtol 1e-9.
@@ -18,6 +21,8 @@ package's at rtol 1e-9.
 
 import gc
 import os
+import subprocess
+import sys
 import time
 import weakref
 
@@ -347,3 +352,31 @@ def test_memos_evict_across_tags_in_lru_order_and_die_with_their_tables():
     finally:
         physical.set_device_cache_budget(saved)
         clear()
+
+
+#: Tables and a dictionary held by the child's own globals, so that they die
+#: while the interpreter clears its modules, after the engine's.
+_EXIT_CHILD = """
+import numpy as np
+from hyperspace_tpu_torch.engine import physical
+from hyperspace_tpu_torch.engine.table import Table
+from hyperspace_tpu_torch.ops import hashing
+
+TABLES = [Table.from_pydict({"k": np.arange(10 + i, dtype=np.int64),
+                             "s": np.asarray(["a", "b"] * 5 + ["c"] * i)}, "cpu") for i in range(3)]
+for t in TABLES:
+    physical._table_key64(t, ["k"])
+    physical._table_key64(t, ["s"])
+    hashing.host_hash_dictionary(t.columns["s"].dictionary, 7)
+PAIR = physical._cached_two_table("pairs", TABLES[0], TABLES[1], ("x",), lambda: np.zeros(3))
+assert physical.device_cache_stats()["entries"] >= 4
+print("alive")
+"""
+
+
+def test_memo_entries_alive_at_interpreter_exit_write_nothing_on_stderr():
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", _EXIT_CHILD], capture_output=True, text=True, cwd=repo,
+                         env=dict(os.environ, PYTHONPATH=repo), timeout=300)
+    assert out.returncode == 0 and out.stdout == "alive\n", out.stderr
+    assert out.stderr == ""

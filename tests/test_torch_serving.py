@@ -13,7 +13,9 @@ run on both packages where a leg compares them).
 - Single flight: N identical cold scans decode each file once; a failed or
   timed-out leader neither poisons nor blocks its followers; distinct
   row-group selections never share a flight; two queries whose batches cross
-  (each leads one file and follows the other's) both finish.
+  (each leads one file and follows the other's) both finish, and decode each
+  file once also when one claims its second file after the other's flight
+  for it has ended.
 - Tenant and lane labels ride the root span, the ledger, the tenant rollup,
   the exporter frame and the Prometheus text.
 - A mixed workload on 8 workers finishes (no deadlock), and under injected
@@ -760,6 +762,58 @@ def test_crossed_batches_both_finish_and_decode_each_file_once(tmp_path, monkeyp
     assert not errs
     assert [t.rows() for t in out["a"]] == [t.rows() for t in out["b"][::-1]]
     assert out["a"][0].rows()[0] == (0, 0) and out["a"][1].rows()[0] == (200, 4)
+    d = _delta(before)
+    assert d.get("io.decode.files", 0) == 2 and d.get("serve.singleflight.dedup_hits", 0) == 2, d
+    assert sf.in_flight_count() == 0
+
+
+def test_a_late_claim_takes_what_a_finished_leader_cached(tmp_path, monkeypatch):
+    """The crossed batches of the test above, with query A held between its
+    two claims until query B has decoded f1 and ended its flight: A then
+    leads f1 but finds it cached, so each file still decodes once and each
+    query takes one file from the other's work."""
+    _, _, src = _lake(tmp_path, n_files=2)
+    files = [os.path.join(src, f"part-{i:05d}.parquet") for i in range(2)]
+    _clear_caches()
+    real_claim, real_finish = sf.claim, sf.finish
+    a_holds_f0, b_ended_f1 = threading.Event(), threading.Event()
+
+    def claim(keys):
+        keys = list(keys)
+        me = threading.current_thread().name
+        if me == "a" and len(keys) == 2:
+            led, followed = real_claim(keys[:1])
+            a_holds_f0.set()
+            assert b_ended_f1.wait(20)
+            led1, followed1 = real_claim(keys[1:])
+            return {**led, **led1}, {**followed, **followed1}
+        if me == "b" and len(keys) == 2:
+            assert a_holds_f0.wait(20)
+        return real_claim(keys)
+
+    def finish(led, ok):
+        real_finish(led, ok)
+        if threading.current_thread().name == "b" and any(k[0] == "file" and k[1] == files[1] for k in led):
+            b_ended_f1.set()
+
+    monkeypatch.setattr(sf, "claim", claim)
+    monkeypatch.setattr(sf, "finish", finish)
+    before = _counters()
+    out, errs = {}, []
+
+    def query(tag, order):
+        try:
+            out[tag] = engine_io.decode_files([(f, ["k", "v"], None, None) for f in order], "cpu")
+        except BaseException as e:  # pragma: no cover - diagnostic
+            errs.append(e)
+
+    ta = threading.Thread(target=query, args=("a", files), name="a")
+    tb = threading.Thread(target=query, args=("b", files[::-1]), name="b")
+    ta.start(), tb.start()
+    ta.join(30), tb.join(30)
+    assert not ta.is_alive() and not tb.is_alive() and not errs, errs
+    assert b_ended_f1.is_set()
+    assert [t.rows() for t in out["a"]] == [t.rows() for t in out["b"][::-1]]
     d = _delta(before)
     assert d.get("io.decode.files", 0) == 2 and d.get("serve.singleflight.dedup_hits", 0) == 2, d
     assert sf.in_flight_count() == 0

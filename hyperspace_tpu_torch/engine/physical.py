@@ -583,7 +583,12 @@ class FilterExec(PhysicalNode):
 
     def execute(self, ctx) -> Table:
         t = self.child.execute(ctx)
-        return self._strip_internal(t if t.num_rows == 0 else t.take(self._keep(t)))
+        if t.num_rows:
+            with _tracing.step("filter.predicate"):
+                mask = evaluate_predicate(self.condition, t)
+            with _tracing.step("filter.compact"):
+                t = t.take(torch.nonzero(mask).squeeze(1))
+        return self._strip_internal(t)
 
     def execute_stream(self, ctx, stages=None):
         """The filter chunk by chunk (physical.py:692); an empty chunk still
@@ -617,10 +622,12 @@ class FilterExec(PhysicalNode):
         only the row groups the condition can match, unless the whole scan is
         already cached (filtering it in memory beats decoding again)."""
         child = self.child
-        base_key = child._concat_cache_key(ctx)
-        key = None if base_key is None else ("filtered", base_key, self._condition_key(ctx))
+        with _tracing.step("filter.key"):
+            base_key = child._concat_cache_key(ctx)
+            key = None if base_key is None else ("filtered", base_key, self._condition_key(ctx))
         if key is not None:
-            hit = global_filtered_cache().get(key)
+            with _tracing.step("filter.cache_get"):
+                hit = global_filtered_cache().get(key)
             if hit is not None:
                 return hit
 
@@ -630,13 +637,17 @@ class FilterExec(PhysicalNode):
                 pruned = child.execute_pruned_concat(ctx, self.condition)
             table, starts = pruned if pruned is not None else child.execute_concat(ctx)
             if table.num_rows:
-                keep = self._keep(table)
-                bounds = torch.as_tensor(np.asarray(starts, np.int64), device=keep.device)
-                starts = torch.searchsorted(keep, bounds).cpu().numpy().astype(np.int64)
-                table = table.take(keep)
+                with _tracing.step("filter.predicate"):
+                    mask = evaluate_predicate(self.condition, table)
+                with _tracing.step("filter.compact"):
+                    keep = torch.nonzero(mask).squeeze(1)
+                    bounds = torch.as_tensor(np.asarray(starts, np.int64), device=keep.device)
+                    starts = torch.searchsorted(keep, bounds).cpu().numpy().astype(np.int64)
+                    table = table.take(keep)
             table = self._strip_internal(table)
             if key is not None:
-                global_filtered_cache().put(key, table, starts)
+                with _tracing.step("filter.cache_put"):
+                    global_filtered_cache().put(key, table, starts)
             return table, starts
 
         if key is None:
@@ -1297,14 +1308,17 @@ def _joint_float_flags(lt: Table, rt: Table, lkeys: List[str], rkeys: List[str])
 def _candidate_pairs(left: Table, right: Table, left_keys: List[str], right_keys: List[str]):
     """The general join's candidate pairs: a merge of the two sides' key64,
     hashed in the joint float64 space where a key pair mixes kinds."""
-    l_flags, r_flags = _joint_float_flags(left, right, left_keys, right_keys)
-    return merge_join_pairs(_table_key64(left, left_keys, l_flags), _table_key64(right, right_keys, r_flags))
+    with _tracing.step("join.hash"):
+        l_flags, r_flags = _joint_float_flags(left, right, left_keys, right_keys)
+        lk, rk = _table_key64(left, left_keys, l_flags), _table_key64(right, right_keys, r_flags)
+    return merge_join_pairs(lk, rk)
 
 
 def _join_pairs(left: Table, right: Table, left_keys: List[str], right_keys: List[str]):
     """The general join's verified pairs (physical.py:2274)."""
     li, ri = _candidate_pairs(left, right, left_keys, right_keys)
-    return _verify_pairs(left, right, left_keys, right_keys, li, ri)
+    with _tracing.step("join.verify"):
+        return _verify_pairs(left, right, left_keys, right_keys, li, ri)
 
 
 def _aligned_key_codes(left: Table, right: Table, lkey: str, rkey: str):
@@ -1540,31 +1554,40 @@ class SortMergeJoinExec(PhysicalNode):
             return (lt, rt) + _verify_pairs(lt, rt, self.left_keys, self.right_keys, *pairs)
         if getattr(lt, "exchange_info", None) is not None or getattr(rt, "exchange_info", None) is not None:
             return (lt, rt) + _join_pairs(lt, rt, self.left_keys, self.right_keys)
-        subkey = (
-            ("general",)
-            + _pair_subkey(self.left_keys, self.right_keys, self.left, self.right, lt, rt)
-            + (_relation_sig(self.left), _relation_sig(self.right))
-        )
-        li, ri = _cached_two_table(
-            "pairs", lt, rt, subkey, lambda: _join_pairs(lt, rt, self.left_keys, self.right_keys)
-        )
+        with _tracing.step("join.keys"):
+            subkey = (
+                ("general",)
+                + _pair_subkey(self.left_keys, self.right_keys, self.left, self.right, lt, rt)
+                + (_relation_sig(self.left), _relation_sig(self.right))
+            )
+        with _tracing.step("join.pairs"):
+            li, ri = _cached_two_table(
+                "pairs", lt, rt, subkey, lambda: _join_pairs(lt, rt, self.left_keys, self.right_keys)
+            )
         return lt, rt, li, ri
 
     def _sides(self, ctx):
+        """Both children's bucketed tables and starts, the pair's memo
+        subkey and its rows key (the sides' row tokens)."""
         left, l_starts = self.left.execute_concat(ctx)
         right, r_starts = self.right.execute_concat(ctx)
-        subkey = _pair_subkey(self.left_keys, self.right_keys, self.left, self.right, left, right)
-        return left, right, l_starts, r_starts, subkey, _pair_rows_key(self.left, self.right, ctx)
+        with _tracing.step("join.keys"):
+            subkey = _pair_subkey(self.left_keys, self.right_keys, self.left, self.right, left, right)
+            rows_key = _pair_rows_key(self.left, self.right, ctx)
+        return left, right, l_starts, r_starts, subkey, rows_key
 
     def _plan_and_ranges(self, left, right, l_starts, r_starts, subkey, rows_key):
         """The pair's size-classed layout and its probe, through the memos."""
         from ..ops.bucket_join import probe_classed
 
-        plan = _cached_two_table(
-            "cpad", left, right, ("cplan",) + subkey,
-            lambda: _classed_plan(left, right, self.left_keys, self.right_keys, l_starts, r_starts), rows_key,
-        )
-        ranges = _cached_two_table("pairs", left, right, ("cprobe", plan.mode) + subkey, lambda: probe_classed(plan), rows_key)
+        with _tracing.step("join.layout"):
+            plan = _cached_two_table(
+                "cpad", left, right, ("cplan",) + subkey,
+                lambda: _classed_plan(left, right, self.left_keys, self.right_keys, l_starts, r_starts), rows_key,
+            )
+        with _tracing.step("join.probe"):
+            ranges = _cached_two_table("pairs", left, right, ("cprobe", plan.mode) + subkey,
+                                       lambda: probe_classed(plan), rows_key)
         return plan, ranges
 
     def _reconciled_reps(self, left: Table, right: Table, l_starts, r_starts):
@@ -1587,9 +1610,15 @@ class SortMergeJoinExec(PhysicalNode):
         from ..ops.bucket_join import classed_pairs, probe_padded, size_classes_enabled
 
         if size_classes_enabled():
-            return classed_pairs(*self._plan_and_ranges(left, right, l_starts, r_starts, subkey, rows_key))
-        l_rep, r_rep = self._reconciled_reps(left, right, l_starts, r_starts)
-        return probe_padded(l_rep, r_rep, ranges=_probe_ranges_cached(l_rep, r_rep, left, right, subkey, rows_key))
+            plan, ranges = self._plan_and_ranges(left, right, l_starts, r_starts, subkey, rows_key)
+            with _tracing.step("join.expand"):
+                return classed_pairs(plan, ranges)
+        with _tracing.step("join.layout"):
+            l_rep, r_rep = self._reconciled_reps(left, right, l_starts, r_starts)
+        with _tracing.step("join.probe"):
+            ranges = _probe_ranges_cached(l_rep, r_rep, left, right, subkey, rows_key)
+        with _tracing.step("join.expand"):
+            return probe_padded(l_rep, r_rep, ranges=ranges)
 
     def _pairs(self, ctx, verdict: bool = True, sides=None):
         """Both sides and their verified pairs (li, ri), through the pairs
@@ -1611,9 +1640,12 @@ class SortMergeJoinExec(PhysicalNode):
             pairs = self._mesh_pairs(ctx, left, right, l_starts, r_starts)
             if pairs is None:
                 pairs = self._single_device_pairs(left, right, l_starts, r_starts, subkey, rows_key)
-            return _verify_pairs(left, right, self.left_keys, self.right_keys, *pairs)
+            with _tracing.step("join.verify"):
+                return _verify_pairs(left, right, self.left_keys, self.right_keys, *pairs)
 
-        li, ri = _cached_two_table("pairs", left, right, subkey, compute, rows_key)
+        with _tracing.step("join.pairs"):
+            li, ri = _cached_two_table("pairs", left, right, subkey, compute, rows_key)
+        # On the operator's span, outside the step: explain(analyze=True) reads it there.
         if verdict:
             _tracing.set_attr("pairs_memo", "miss" if computed else "hit")
         return left, right, li, ri
@@ -1638,7 +1670,8 @@ class SortMergeJoinExec(PhysicalNode):
 
     def execute(self, ctx) -> Table:
         left, right, li, ri = self._pairs(ctx)
-        return _assemble_join(left, right, li, ri, self.how)
+        with _tracing.step("join.gather"):
+            return _assemble_join(left, right, li, ri, self.how)
 
     def execute_count(self, ctx) -> int:
         """The join's row count without assembling its rows (physical.py:2473).
@@ -1847,7 +1880,8 @@ class HashAggregateExec(PhysicalNode):
         if _mesh_for(ctx, left.num_rows + right.num_rows) is not None:
             return None  # the sharded probe owns mesh-scale execution (physical.py:1386)
         left, right, li, ri = node._pairs(ctx, verdict=False, sides=sides)
-        t = _assemble_join(left, right, li, ri, "inner")
+        with _tracing.step("join.gather"):
+            t = _assemble_join(left, right, li, ri, "inner")
         for op in reversed(chain):
             t = op.apply(t) if isinstance(op, WithColumnExec) else t.select(op.column_names)
         return hash_aggregate(t, self.group_keys, self.aggs)

@@ -217,11 +217,14 @@ class DataFrame:
         from ..telemetry import accounting, tracing
         from ..telemetry.device_observatory import table_to_host
 
+        def run(phys):
+            t = phys.execute(ExecContext(self.session))
+            with tracing.step("collect.to_host"):
+                return table_to_host(t)
+
         with resilience.query_scope("query:collect"):
             with tracing.query_span("query:collect") as root:
-                out = self._run_with_quarantine_fallback(
-                    lambda phys: table_to_host(phys.execute(ExecContext(self.session)))
-                )
+                out = self._run_with_quarantine_fallback(run)
                 root.set_attr("rows_out", int(out.num_rows))
                 accounting.set_value("rows_produced", int(out.num_rows))
                 return out

@@ -51,6 +51,7 @@ from ..engine.schema import BOOL, FLOAT32, FLOAT64, INT32, INT64, STRING, TORCH_
 from ..engine.table import Column, Table
 from ..exceptions import HyperspaceException
 from ..engine.table import _dtype_of
+from ..telemetry import tracing as _tracing
 from ..telemetry.profiling import timed
 from .hashing import key64
 
@@ -321,41 +322,45 @@ def _host_aggregate(table: Table, group_keys, aggs: Sequence[AggTriple]) -> Tabl
 
 
 def hash_aggregate(table: Table, group_keys, aggs: Sequence[AggTriple]) -> Table:
-    """GROUP BY `group_keys` computing `aggs` = [(out_name, fn, column | None)]."""
+    """GROUP BY `group_keys` computing `aggs` = [(out_name, fn, column | None)].
+    Steps `agg.keys`, `agg.reduce` and `agg.assemble` while tracing."""
     group_keys = list(group_keys)
     if not group_keys:
         return _global_aggregate(table, aggs)
     if table.num_rows == 0:
         return _empty_result(table, group_keys, aggs)
-    key_cols = [table.column(k) for k in group_keys]
-    k64 = key64(key_cols)
-    perm, boundary, gid = _group_ids(key_cols, k64)
-    starts = torch.nonzero(boundary).squeeze(1)
-    n_groups = int(starts.shape[0])
-    ends = torch.cat([starts[1:], torch.tensor([table.num_rows], device=starts.device)])
-    seg_rows = ends - starts
-    reduced = []
-    for out_name, fn, col_name in aggs:
-        col = table.column(col_name) if col_name is not None else None
-        dtype = result_dtype(fn, None if col is None else col.dtype)
-        if fn == "count_distinct":
-            reduced.append((out_name, col, dtype, _count_distinct_sorted(gid, perm, col, n_groups), None))
-            continue
-        vals, n_valid = _segment_reduce(fn, col, perm, gid, seg_rows, n_groups)
-        reduced.append((out_name, col, dtype, vals, None if fn == "count" else n_valid > 0))
-    rep_rows = table.take(perm[starts]).select(group_keys)
-    # Equal tuples hash equal, so two representatives can only repeat a tuple
-    # when their key64s are equal: check exactly on the host only then.
-    rep_k64 = k64[perm[starts]]
-    if bool((rep_k64[1:] == rep_k64[:-1]).any()) and len(
-        np.unique(_key_records([rep_rows.column(k) for k in group_keys]))
-    ) != n_groups:
-        # A 64-bit collision interleaved two tuples in one sorted run.
-        return _host_aggregate(table, group_keys, aggs)
-    out = {k: rep_rows.column(k) for k in group_keys}
-    for out_name, col, dtype, vals, validity in reduced:
-        out[out_name] = _out_column(col, dtype, vals, validity)
-    return Table(out)
+    with _tracing.step("agg.keys"):
+        key_cols = [table.column(k) for k in group_keys]
+        k64 = key64(key_cols)
+        perm, boundary, gid = _group_ids(key_cols, k64)
+        starts = torch.nonzero(boundary).squeeze(1)
+        n_groups = int(starts.shape[0])
+        ends = torch.cat([starts[1:], torch.tensor([table.num_rows], device=starts.device)])
+        seg_rows = ends - starts
+    with _tracing.step("agg.reduce"):
+        reduced = []
+        for out_name, fn, col_name in aggs:
+            col = table.column(col_name) if col_name is not None else None
+            dtype = result_dtype(fn, None if col is None else col.dtype)
+            if fn == "count_distinct":
+                reduced.append((out_name, col, dtype, _count_distinct_sorted(gid, perm, col, n_groups), None))
+                continue
+            vals, n_valid = _segment_reduce(fn, col, perm, gid, seg_rows, n_groups)
+            reduced.append((out_name, col, dtype, vals, None if fn == "count" else n_valid > 0))
+    with _tracing.step("agg.assemble"):
+        rep_rows = table.take(perm[starts]).select(group_keys)
+        # Equal tuples hash equal, so two representatives can only repeat a tuple
+        # when their key64s are equal: check exactly on the host only then.
+        rep_k64 = k64[perm[starts]]
+        if bool((rep_k64[1:] == rep_k64[:-1]).any()) and len(
+            np.unique(_key_records([rep_rows.column(k) for k in group_keys]))
+        ) != n_groups:
+            # A 64-bit collision interleaved two tuples in one sorted run.
+            return _host_aggregate(table, group_keys, aggs)
+        out = {k: rep_rows.column(k) for k in group_keys}
+        for out_name, col, dtype, vals, validity in reduced:
+            out[out_name] = _out_column(col, dtype, vals, validity)
+        return Table(out)
 
 
 # ---------------------------------------------------------------------------

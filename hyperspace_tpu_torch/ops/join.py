@@ -21,6 +21,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..telemetry import tracing as _tracing
+
 
 def stable_argsort_host(x) -> np.ndarray:
     """A stable argsort of a host array, as a numpy permutation (:26)."""
@@ -42,22 +44,25 @@ def merge_join_pairs(l_key64: torch.Tensor, r_key64: torch.Tensor) -> Tuple[torc
     """All (left_index, right_index) pairs with equal keys, as int64 tensors
     on the keys' device (:54). Pair order: left rows in stable sorted-key
     order, each with its right matches in stable sorted-key order — the JAX
-    package's order on every backend."""
+    package's order on every backend. Steps `join.sort` and `join.merge`
+    while tracing."""
     dev = l_key64.device
     n_l, n_r = int(l_key64.shape[0]), int(r_key64.shape[0])
     empty = torch.empty(0, dtype=torch.int64, device=dev)
     if n_l == 0 or n_r == 0:
         return empty, empty
-    l_order = torch.sort(l_key64, stable=True).indices
-    r_order = torch.sort(r_key64, stable=True).indices
-    lo, counts = _range_probe_body(l_key64, r_key64, l_order, r_order, torch.searchsorted)
-    total = int(counts.sum())  # the one scalar sync: the output size
-    if total == 0:
-        return empty, empty
-    starts = torch.cumsum(counts, 0) - counts
-    l_pos = torch.repeat_interleave(torch.arange(n_l, device=dev), counts, output_size=total)
-    r_pos = lo[l_pos] + (torch.arange(total, device=dev) - starts[l_pos])
-    return l_order[l_pos], r_order[r_pos]
+    with _tracing.step("join.sort"):
+        l_order = torch.sort(l_key64, stable=True).indices
+        r_order = torch.sort(r_key64, stable=True).indices
+    with _tracing.step("join.merge"):
+        lo, counts = _range_probe_body(l_key64, r_key64, l_order, r_order, torch.searchsorted)
+        total = int(counts.sum())  # the one scalar sync: the output size
+        if total == 0:
+            return empty, empty
+        starts = torch.cumsum(counts, 0) - counts
+        l_pos = torch.repeat_interleave(torch.arange(n_l, device=dev), counts, output_size=total)
+        r_pos = lo[l_pos] + (torch.arange(total, device=dev) - starts[l_pos])
+        return l_order[l_pos], r_order[r_pos]
 
 
 def host_merge_pairs(lk: np.ndarray, rk: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:

@@ -52,6 +52,16 @@ def _subtree_verdict(span, children_of, key, rendered_ids, own_id, depth: int = 
     return None
 
 
+def _with_steps(span, children_of) -> list:
+    """The span and its step spans (`<op>.<step>`, nested or not): the
+    operator's own work, whose kernel launches and builds are its own."""
+    out = [span]
+    for child in children_of.get(span.span_id, ()):
+        if ":" not in child.name:
+            out.extend(_with_steps(child, children_of))
+    return out
+
+
 def _node_annotation(span, children_of, rendered_ids) -> str:
     parts = [f"time={_fmt_seconds(span.duration_s)}"]
     rows = span.attrs.get("rows_out")
@@ -62,10 +72,15 @@ def _node_annotation(span, children_of, rendered_ids) -> str:
         v = _subtree_verdict(span, children_of, key, rendered_ids, own_id)
         if v is not None:
             parts.append(f"{key}={v}")
-    compiles = span.attrs.get("xla_compiles")
+    own: Dict[str, float] = {}
+    for s in _with_steps(span, children_of):
+        for k, v in s.attrs.items():
+            if k.startswith("launches.") or k in ("xla_compiles", "xla_compile_s"):
+                own[k] = own.get(k, 0) + v
+    compiles = own.get("xla_compiles")
     if compiles:
-        parts.append(f"compiles={compiles}(+{_fmt_seconds(span.attrs.get('xla_compile_s') or 0.0)})")
-    launches = {k[len("launches."):]: v for k, v in span.attrs.items() if k.startswith("launches.")}
+        parts.append(f"compiles={compiles}(+{_fmt_seconds(own.get('xla_compile_s') or 0.0)})")
+    launches = {k[len("launches."):]: v for k, v in own.items() if k.startswith("launches.")}
     if launches:
         parts.append("launches=" + ",".join(f"{k}:{v}" for k, v in sorted(launches.items())))
     if span.status != "ok":

@@ -35,7 +35,8 @@ inline, and the batch path is the single-caller one.
 
 Metrics: `serve.singleflight.leaders`, `serve.singleflight.dedup_hits`
 (followers served by a leader's work), `serve.singleflight.follower_retries`
-and the `serve.singleflight.wait_s` histogram.
+and the `serve.singleflight.wait_s` histogram; while tracing, each wait adds
+to its ambient span's `wait_s` attribute.
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ from typing import Callable, Dict, Iterable, Iterator, Optional, Tuple, TypeVar
 
 from .. import resilience as _resilience
 from ..telemetry import metrics as _metrics
+from ..telemetry import tracing as _tracing
 
 ENV_SERVING = "HYPERSPACE_SERVING"
 
@@ -130,7 +132,9 @@ T = TypeVar("T")
 
 def follow(fl: _Flight) -> bool:
     """Wait for `fl` to finish, checking the ambient deadline at every slice;
-    True when its leader completed normally."""
+    True when its leader completed normally. The wait's seconds also go on
+    the ambient span's `wait_s`: an attribute, not a span of its own, so a
+    timeline never reads the blocked thread as working."""
     with _lock:
         fl.waiters += 1
     t0 = time.monotonic()
@@ -140,7 +144,11 @@ def follow(fl: _Flight) -> bool:
     finally:
         with _lock:
             fl.waiters -= 1
-    _WAIT_S.observe(time.monotonic() - t0)
+    waited = time.monotonic() - t0
+    _WAIT_S.observe(waited)
+    sp = _tracing.current_span()
+    if sp is not None:
+        sp.inc_attr("wait_s", waited)
     return fl.ok
 
 

@@ -3,30 +3,48 @@
 Every user-facing action (`DataFrame.collect/count`, `create_index`,
 `refresh_index`, `optimize_index`, `explain(analyze=True)`) opens a root span
 with a `query_id`; the planner (`plan`), the optimizer rules
-(`rule:<Name>`), the physical operators (`op:<name>`, with `node_id`) and
-the stage summaries of the streamed executors (`<kind>:stages` and
-`<kind>:<stage>`) hang below it.
+(`rule:<Name>`), the physical operators (`op:<name>`, with `node_id`), the
+operators' steps (`<op>.<step>`, `step()`) and the stage summaries of the
+streamed executors (`<kind>:stages` and `<kind>:<stage>`) hang below it.
 
 - **Off by default.** Spans record only while a sink is attached:
   `HYPERSPACE_TRACE_FILE` (JSONL export), `HYPERSPACE_TIMELINE_DIR` (one
   Chrome trace per query, `stage_ledger.chrome_trace`), `HYPERSPACE_TRACING=1`
   or a `capture()` scope. Otherwise every hook is one predicate and the
-  shared `NOOP_SPAN`: no allocation, no device work.
+  shared `NOOP_SPAN`: no clock read, no allocation, no device work.
 - **Threads.** The ambient span rides a contextvar; a pool worker that does
   not inherit the submitter's context passes `parent=` explicitly, and an
   explicit real parent records whatever this thread's `active()` says.
+  Every span records the thread that opened it (`tid`, the native id) and,
+  when it ends on that thread, the thread's CPU seconds over it (`cpu_s`,
+  `time.thread_time`): wall minus CPU is time the thread was off the CPU
+  (the GIL, a blocked wait, a sleep). A blocked wait the program knows of
+  adds its seconds to the ambient span's `wait_s` (the single-flight
+  follower's) rather than opening a span: a span of a blocked thread would
+  read as that thread's work.
+- **Steps.** `step(name)` opens a child span of the ambient span named
+  `<op>.<step>` (`filter.predicate`, `join.probe`, ...): the parts of an
+  operator's own work. A step never wraps a child operator's execution, so
+  every `op:` span keeps its operator parent, and none opens inside a loop
+  over buckets, row groups or rows.
 - **Bounded.** Finished traces sit in a deque of 16, and a trace holds at
   most `MAX_SPANS_PER_TRACE` spans: the overflow is counted on the root
   (`spans_dropped`) and in `trace.spans.dropped`.
 - **The card.** A span's wall is the host's: kernels launched inside it may
   still run after it closes. Device seconds come only from the CUDA-event
-  probes of `device_observatory` (the ledger's `device_time_s`). The JAX
-  package's profiler annotations have no counterpart here.
+  probes of `device_observatory` (the ledger's `device_time_s`). A span
+  opens no profiler range (`record_function`, NVTX): a profiler records
+  such a range around launches as a device-side annotation, which a reader
+  that takes every device event as busy time would count as the card's
+  work. `profiling.annotate` opens one where a caller asks.
 
 JSONL (`HYPERSPACE_TRACE_FILE`): one line per span, written when the root
 ends, `{"query_id", "span_id", "parent_id", "name", "start_s", "duration_s",
-"status", "attrs"}`, the schema `tools/hstimeline.py` reads. The file
-rotates at `HYPERSPACE_TRACE_MAX_MB` (`rotation.append`).
+"status", "attrs"}`, the schema `tools/hstimeline.py` reads. Every span's
+`attrs` holds `tid`; a span that ended on its own thread holds `cpu_s`
+(synthesized stage spans and spans closed as `unclosed` do not); a span
+whose thread waited on another query's single flight holds `wait_s`. The
+file rotates at `HYPERSPACE_TRACE_MAX_MB` (`rotation.append`).
 """
 
 from __future__ import annotations
@@ -102,8 +120,8 @@ class QueryTrace:
 class Span:
     """One named, timed node of a query's span tree."""
 
-    __slots__ = ("trace", "name", "span_id", "parent_id", "start_s", "_t0", "duration_s", "status", "attrs",
-                 "_lock", "_registered")
+    __slots__ = ("trace", "name", "span_id", "parent_id", "start_s", "_t0", "_tid", "_cpu0", "duration_s", "status",
+                 "attrs", "_lock", "_registered")
 
     def __init__(self, trace: QueryTrace, name: str, parent_id: Optional[int], attrs=None):
         self.trace = trace
@@ -115,6 +133,8 @@ class Span:
         self.duration_s: Optional[float] = None
         self.status = "ok"
         self.attrs: dict = dict(attrs) if attrs else {}
+        self._tid = self.attrs["tid"] = threading.get_native_id()
+        self._cpu0 = time.thread_time()
         self._lock = threading.Lock()
         self._registered = trace._register(self)
 
@@ -140,11 +160,15 @@ class Span:
             self.attrs[key] = self.attrs.get(key, 0) + delta
 
     def end(self, status: Optional[str] = None, error: Optional[BaseException] = None) -> None:
-        """Close the span; the first end wins."""
+        """Close the span; the first end wins. Ended on the thread that
+        opened it, and not as `unclosed`, it records that thread's CPU
+        seconds over it (`cpu_s`)."""
         with self._lock:
             if self.duration_s is not None:
                 return
             self.duration_s = max(0.0, time.monotonic() - self._t0)
+            if status != "unclosed" and threading.get_native_id() == self._tid:
+                self.attrs["cpu_s"] = max(0.0, time.thread_time() - self._cpu0)
             if error is not None:
                 self.status = "error"
                 self.attrs["error"] = f"{type(error).__name__}: {error}"
@@ -194,6 +218,16 @@ class _NoopSpan:
 
     def end(self, status=None, error=None):
         pass
+
+    # Static, so that `with NOOP_SPAN:` binds no method object: a step site
+    # with tracing off allocates nothing.
+    @staticmethod
+    def __enter__():
+        return NOOP_SPAN
+
+    @staticmethod
+    def __exit__(exc_type, exc, tb):
+        return None
 
 
 NOOP_SPAN = _NoopSpan()
@@ -307,6 +341,18 @@ def span(name: str, parent=None, **attrs) -> Iterator:
         raise
     finally:
         _current_span.reset(token)
+
+
+def step(name: str):
+    """A step of the ambient operator's own work, as a context manager: a
+    child span `name` (`<op>.<step>`) that is the ambient span while it is
+    open. `NOOP_SPAN` itself where no span is ambient (tracing off, or a
+    worker thread that did not inherit one): one contextvar read, no clock,
+    no allocation. `name` is a literal at every site: nothing is formatted."""
+    parent = _current_span.get()
+    if parent is None:
+        return NOOP_SPAN
+    return span(name, parent=parent)
 
 
 def record_stage_spans(kind: str, summary: dict, parent=None) -> None:

@@ -13,18 +13,25 @@ the reference's bucket band (within 2x of numpy's quantile) and to the JAX
 package's own estimates exactly.
 """
 
+import itertools
 import json
 import os
+import threading
+import time
+import tracemalloc
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
 
+import chip_smoke
+import hyperspace_tpu_torch as hst
 from hyperspace_tpu.telemetry import metrics as jax_metrics
 from hyperspace_tpu.telemetry import tracing as jax_tracing
 from hyperspace_tpu_torch.engine import io as engine_io
 from hyperspace_tpu_torch.engine import physical, scan_cache
 from hyperspace_tpu_torch.engine.table import Table
+from hyperspace_tpu_torch.serve import singleflight
 from hyperspace_tpu_torch.telemetry import compile_log, metrics, profiling, tracing
 from test_torch_star_join import _q2, _star2, make_star
 from test_torch_udf_setops import Twin
@@ -64,12 +71,26 @@ def _jsonl(path):
         return [json.loads(line) for line in fh]
 
 
+def _is_step(name):
+    """The port's operator steps (`<op>.<step>`), which the JAX package does
+    not open."""
+    return "." in name and ":" not in name
+
+
 def _edges(spans):
     """(name, parent name) of every span but the synthesized stage spans,
-    whose set depends on which stages ran."""
-    by_id = {sp["span_id"]: sp["name"] for sp in spans}
-    return sorted((sp["name"], by_id.get(sp["parent_id"])) for sp in spans
-                  if not sp["name"].startswith(("join:", "query:stages")) or sp["name"] == "join:stages")
+    whose set depends on which stages ran, and the port's steps: a span
+    under a step counts under the step's operator."""
+    by_id = {sp["span_id"]: sp for sp in spans}
+
+    def parent_name(sp):
+        parent = by_id.get(sp["parent_id"])
+        while parent is not None and _is_step(parent["name"]):
+            parent = by_id.get(parent["parent_id"])
+        return None if parent is None else parent["name"]
+
+    return sorted((sp["name"], parent_name(sp)) for sp in spans if not _is_step(sp["name"])
+                  and (not sp["name"].startswith(("join:", "query:stages")) or sp["name"] == "join:stages"))
 
 
 def test_star_query_is_one_span_tree_exported_as_jsonl(tmp_path, monkeypatch):
@@ -359,6 +380,229 @@ def test_index_actions_open_root_spans(tmp_path, name):
         else:
             p.hs.optimize_index("spanIdx", "full")
     assert cap.trace.root.name == name and cap.trace.root.attrs["index_name"] == "spanIdx"
+
+
+# -- threads, CPU time, waits and operator steps (the port's own) ---------------
+
+
+def _spin(seconds):
+    t0 = time.thread_time()
+    while time.thread_time() - t0 < seconds:
+        pass
+
+
+@pytest.mark.parametrize("work, busy", [(_spin, True), (time.sleep, False)], ids=["busy", "sleep"])
+def test_a_span_records_its_thread_and_its_cpu_time(work, busy):
+    """A span's `cpu_s` is its thread's CPU over it: around 0.05 s of CPU
+    work at least that (all of its wall on an idle host), around a sleep
+    near 0, and within the thread's CPU read just inside and just outside
+    it; `tid` is the opening thread's native id."""
+    with tracing.capture() as cap:
+        with tracing.query_span("query:clock"):
+            outer = time.thread_time()
+            with tracing.span("work") as sp:
+                inner = time.thread_time()
+                work(0.05)
+                inner = time.thread_time() - inner
+            outer = time.thread_time() - outer
+    sp = cap.trace.find("work")[0]
+    assert sp.attrs["tid"] == cap.trace.root.attrs["tid"] == threading.get_native_id()
+    cpu, wall = sp.attrs["cpu_s"], sp.duration_s
+    assert wall >= 0.05 and inner <= cpu <= outer <= wall + 0.01, (inner, cpu, outer, wall)
+    if busy:
+        assert cpu >= 0.05
+    else:
+        assert cpu < 0.02, (cpu, wall)
+    assert sp.to_json()["attrs"]["cpu_s"] == cpu
+
+
+def test_spans_that_do_not_end_on_their_thread_carry_no_cpu_time(tmp_path, monkeypatch):
+    """A span ended on another thread, one left open until the export closes
+    it as `unclosed`, and a synthesized stage span keep their `tid` and have
+    no `cpu_s`."""
+    path = str(tmp_path / "t.jsonl")
+    monkeypatch.setenv("HYPERSPACE_TRACE_FILE", path)
+    with tracing.query_span("query:handoff") as root:
+        moved = tracing.Span(root.trace, "moved", root.span_id)
+        th = threading.Thread(target=moved.end)
+        th.start()
+        th.join(10)
+        assert not th.is_alive()
+        tracing.Span(root.trace, "left_open", root.span_id)
+        tracing.record_stage_spans("query", {"wall_s": 0.01, "eval_s": 0.005})
+    spans = {sp["name"]: sp for sp in _jsonl(path)}
+    me = threading.get_native_id()
+    assert spans["moved"]["status"] == "ok" and spans["left_open"]["status"] == "unclosed"
+    for name in ("moved", "left_open", "query:stages", "query:eval"):
+        assert spans[name]["attrs"]["tid"] == me and "cpu_s" not in spans[name]["attrs"], name
+    assert spans["query:handoff"]["attrs"]["cpu_s"] >= 0
+
+
+def test_a_single_flight_wait_is_an_attribute_of_the_ambient_span():
+    """A follower's blocked seconds land in its ambient span's `wait_s`, and
+    the wait opens no span of its own."""
+    key = ("test", "tracing", "wait_s")
+    claimed = threading.Event()
+
+    def leader():
+        led, _ = singleflight.claim((key,))
+        claimed.set()
+        deadline = time.monotonic() + 10
+        while led[key].waiters == 0 and time.monotonic() < deadline:
+            time.sleep(0.001)
+        time.sleep(0.03)
+        singleflight.finish(led, led.keys())
+
+    th = threading.Thread(target=leader)
+    th.start()
+    assert claimed.wait(10)
+    with tracing.capture() as cap:
+        with tracing.query_span("query:follow"):
+            with tracing.span("op:Wait"):
+                _, followed = singleflight.claim((key,))
+                assert singleflight.follow(followed[key])
+    th.join(10)
+    assert not th.is_alive()
+    assert sorted(s.name for s in cap.trace.spans) == ["op:Wait", "query:follow"]
+    op = cap.trace.find("op:Wait")[0]
+    assert 0.03 <= op.attrs["wait_s"] <= op.duration_s
+    assert "wait_s" not in cap.trace.root.attrs
+
+
+def test_a_steps_kernel_launches_show_on_its_operators_analyzed_line():
+    """explain(analyze=True) reads an operator's launches and builds off its
+    steps too: a launch inside `join.probe` is the join's."""
+    from hyperspace_tpu_torch.plananalysis.analyze import _node_annotation
+
+    with tracing.capture() as cap:
+        with tracing.query_span("query:launch"):
+            with tracing.span("op:SortMergeJoin", node_id=1) as op:
+                op.inc_attr("launches.cuda_sort.sort_rows", 1)
+                with tracing.step("join.pairs"):
+                    with tracing.step("join.probe") as sp:
+                        sp.inc_attr("launches.cuda_probe.range_probe", 2)
+                        sp.inc_attr("xla_compiles", 1)
+                        sp.inc_attr("xla_compile_s", 0.5)
+    op = cap.trace.find("op:SortMergeJoin")[0]
+    line = _node_annotation(op, cap.trace.spans_by_parent(), {1})
+    assert "launches=cuda_probe.range_probe:2,cuda_sort.sort_rows:1" in line
+    assert "compiles=1(+500.0ms)" in line
+
+
+#: Each step of the Q3 plan and the operator it belongs to.
+Q3_STEPS = {
+    "filter.key": "op:Filter", "filter.cache_get": "op:Filter", "filter.predicate": "op:Filter",
+    "filter.compact": "op:Filter", "filter.cache_put": "op:Filter",
+    "join.keys": "op:SortMergeJoin", "join.pairs": "op:SortMergeJoin", "join.layout": "op:SortMergeJoin",
+    "join.probe": "op:SortMergeJoin", "join.expand": "op:SortMergeJoin", "join.verify": "op:SortMergeJoin",
+    "join.hash": "op:SortMergeJoin", "join.sort": "op:SortMergeJoin", "join.merge": "op:SortMergeJoin",
+    "join.gather": "op:SortMergeJoin",
+    "agg.keys": "op:HashAggregate", "agg.reduce": "op:HashAggregate", "agg.assemble": "op:HashAggregate",
+    "collect.to_host": "query:collect",
+}
+
+
+@pytest.fixture(scope="module")
+def q3_lake(tmp_path_factory):
+    """TPC-H Q3's tables at a tiny scale with its two covering indexes."""
+    base = str(tmp_path_factory.mktemp("q3_steps"))
+    chip_smoke.write_sources(chip_smoke.tpch(0.002, 0), base)
+    s = hst.HyperspaceSession(warehouse=os.path.join(base, "wh"), device="cpu")
+    s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, 4)
+    hs = hst.Hyperspace(s)
+    for src, name, indexed, included in chip_smoke.Q3_INDEXES:
+        hs.create_index(s.read.parquet(os.path.join(base, "src", src)), hst.IndexConfig(name, indexed, included))
+    hst.enable_hyperspace(s)
+    return lambda: chip_smoke.q3_query(lambda t: s.read.parquet(os.path.join(base, "src", t)), hst.col)
+
+
+def _op_of(span, by_id):
+    """The nearest operator (or root) span above a step."""
+    parent = by_id[span.parent_id]
+    while parent.parent_id is not None and not parent.name.startswith("op:"):
+        parent = by_id[parent.parent_id]
+    return parent
+
+
+def test_a_co_bucketed_q3_records_its_steps_under_their_operators(q3_lake):
+    """Every step of Q3's filters, both joins and the aggregate sits under
+    its operator, on the query's thread, with its CPU time; the co-bucketed
+    join runs layout, probe and expansion, the general join hash, sort and
+    merge; no step wraps an operator."""
+    plain = q3_lake().collect().rows()
+    scan_cache.clear_scan_caches()
+    physical.clear_device_memos()
+    with tracing.capture() as cap:
+        assert q3_lake().collect().rows() == plain
+    trace = cap.trace
+    by_id = {s.span_id: s for s in trace.spans}
+    steps = [s for s in trace.spans if _is_step(s.name)]
+    assert {s.name for s in steps} == set(Q3_STEPS)
+    tid = trace.root.attrs["tid"]
+    for s in steps:
+        assert _op_of(s, by_id).name == Q3_STEPS[s.name], s.name
+        assert s.attrs["tid"] == tid and s.attrs["cpu_s"] >= 0 and s.status == "ok", s.name
+    for s in trace.spans:
+        if s.name.startswith("op:"):
+            assert not _is_step(by_id[s.parent_id].name), s.name
+    joins = [{st.name for st in steps if _op_of(st, by_id) is j} for j in trace.find("op:SortMergeJoin")]
+    assert sorted(sorted(j) for j in joins) == sorted([
+        ["join.expand", "join.gather", "join.keys", "join.layout", "join.pairs", "join.probe", "join.verify"],
+        ["join.gather", "join.hash", "join.keys", "join.merge", "join.pairs", "join.sort", "join.verify"],
+    ])
+    assert len(trace.spans) < 100 and trace.dropped == 0
+
+
+def test_with_tracing_off_a_step_site_is_one_predicate(q3_lake, monkeypatch):
+    """Tracing off, the same query records no span, every step hook hands
+    back `NOOP_SPAN`, and nothing reads a clock or builds a span; a step
+    site allocates nothing."""
+    plain = q3_lake().collect().rows()
+    scan_cache.clear_scan_caches()
+    physical.clear_device_memos()
+    handed = []
+    real_step = tracing.step
+
+    def spy(name):
+        out = real_step(name)
+        handed.append((name, out))
+        return out
+
+    class NoClock:
+        def __getattr__(self, name):
+            raise AssertionError(f"a clock read with tracing off: time.{name}")
+
+    def no_span(*args, **kwargs):
+        raise AssertionError("a span built with tracing off")
+
+    n_traces = len(tracing.recent_traces())
+    with monkeypatch.context() as m:
+        m.setattr(tracing, "step", spy)
+        m.setattr(tracing, "time", NoClock())
+        m.setattr(tracing, "Span", no_span)
+        assert q3_lake().collect().rows() == plain
+    assert len(tracing.recent_traces()) == n_traces
+    assert {name for name, _ in handed} == set(Q3_STEPS)
+    assert all(out is tracing.NOOP_SPAN for _, out in handed)
+
+    def site(n):
+        for _ in n:
+            with tracing.step("filter.key"):
+                pass
+
+    site(itertools.repeat(None, 10))
+    grown = []
+    for _ in range(5):  # another thread's allocation may land in one window
+        n = itertools.repeat(None, 10_000)
+        tracemalloc.start()
+        try:
+            tracemalloc.reset_peak()
+            base = tracemalloc.get_traced_memory()[0]
+            site(n)
+            grown.append(tracemalloc.get_traced_memory()[1] - base)
+        finally:
+            tracemalloc.stop()
+    assert min(grown) == 0, grown
 
 
 # -- the registry: tests/test_observability.py :49-121 ----------------------------

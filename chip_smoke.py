@@ -22,8 +22,9 @@ Phases, each failing loudly:
 1. env       the card's name and power limit, torch and CUDA versions; build
              the CUDA kernels from `hyperspace_tpu_torch/csrc` (timed).
 2. kernels   K1 (in-bucket sort), K2 (range probe), K3 (build composite
-             sort), K4 (packed-code sort) and K5 (packed-code probe) against
-             their plain PyTorch versions at the path's shapes and edge cases.
+             sort), K4 (packed-code sort), K5 (packed-code probe) and K6
+             (key64) against their plain PyTorch versions at the path's
+             shapes and edge cases.
              Outputs are integers: tolerance 0. Times kernel, plain version,
              the library call computing the same function (kernel and library
              as medians of 5 alternating windows), and the bound; splits the
@@ -696,6 +697,7 @@ def phase_kernels(torch, rng):
             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0, "split": host_device_split(torch, kernel),
         })
     shapes += phase_packed_kernels(torch, rng)
+    shapes += phase_hash_kernel(torch, rng)
     for s in shapes:
         log(f"[kernels] {json.dumps(s)}")
     return shapes
@@ -931,6 +933,50 @@ def phase_packed_kernels(torch, rng):
         if cap == 4096:  # where the host's cost per call decides the time
             shape["library_split"] = host_device_split(torch, library)
         shapes.append(shape)
+    return shapes
+
+
+# K6's shapes in the benchmark's cell `tpch_sf10.q3_streams3` (lakebench): the
+# rows of one Q3 query's aggregate (its three group keys) and of the general
+# join's side from the co-bucketed join (`o_custkey`), read from
+# `explain(analyze=True)` of Q3 at SF10 (DATE 1995-03-18, SEGMENT BUILDING).
+K6_AGG_ROWS = 300_413
+K6_JOIN_ROWS = 1_499_335
+
+
+def phase_hash_kernel(torch, rng):
+    """K6 against the plain chain (tolerance 0), then timed at Q3's two
+    key64 shapes: kernel and plain version as medians of 5 alternating
+    windows of 10 calls, the bound the lanes' bytes read and 8 bytes a row
+    written, and each one's host and device time a call. No single PyTorch
+    call computes key64, so there is no library time."""
+    from hyperspace_tpu_torch.ops import cuda_hash
+    from hyperspace_tpu_torch.ops.hashing import key64, key64_plain
+
+    dev = torch.device("cuda")
+    n_agg, n_join = K6_AGG_ROWS, K6_JOIN_ROWS
+    orderkey = torch.from_numpy(rng.randint(1, 60_000_001, n_agg).astype(np.int64)).to(dev)
+    orderdate = torch.from_numpy(rng.randint(8766, 8826, n_agg).astype(np.int32)).to(dev)
+    shippriority = torch.zeros(n_agg, dtype=torch.int32, device=dev)
+    custkey = torch.from_numpy(rng.randint(1, 1_500_001, n_join).astype(np.int64)).to(dev)
+    shapes = []
+    for role, lanes in (("aggregate keys", [orderkey, orderdate, shippriority]), ("general join key", [custkey])):
+        if not torch.equal(key64(lanes), key64_plain(lanes)):
+            raise AssertionError(f"K6 disagrees with its plain version ({role})")
+        before = cuda_hash.launches
+        key64(lanes)
+        torch.cuda.synchronize()
+        launches = cuda_hash.launches - before
+        n = int(lanes[0].shape[0])
+        b_ms, b_by = bound(n * (sum(x.element_size() for x in lanes) + 8), 0)
+        kernel = lambda: key64(lanes)  # noqa: E731
+        plain = lambda: key64_plain(lanes)  # noqa: E731
+        ms, plain_ms = paired_ms(kernel, plain)
+        shapes.append({
+            "kernel": "K6", "role": role, "shape": [n, len(lanes)], "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "launches_a_call": launches,
+            "max_abs_err": 0, "split": host_device_split(torch, kernel), "plain_split": host_device_split(torch, plain),
+        })
     return shapes
 
 
@@ -1317,12 +1363,12 @@ def run_p50(fn, runs: int, uncached: bool):
 
 def phase_main(torch, data, base: str):
     from hyperspace_tpu_torch.engine import io as engine_io
-    from hyperspace_tpu_torch.ops import cuda_probe, cuda_sort
+    from hyperspace_tpu_torch.ops import cuda_hash, cuda_probe, cuda_sort
 
     want = {n: canonical(rows) for n, rows in zip(("q_ord", "q_ps"), expected_rows(data))}
     want_agg = expected_q3_agg(data)
     reset_launches(cuda_sort)
-    reset_launches(cuda_probe)
+    reset_launches(cuda_probe, cuda_hash)
     stages = {}
     s, build_s = build(base, DEVICE, stages=stages)
     for name, st in stages.items():
@@ -1375,7 +1421,7 @@ def phase_main(torch, data, base: str):
         a, b = first.column(n), second.column(n)
         if a.data.numpy().tobytes() != b.data.numpy().tobytes() or (a.validity is None) != (b.validity is None):
             raise AssertionError(f"q3_agg: two uncached runs differ in the bits of {n}")
-    launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches}
+    launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches, "K6": cuda_hash.launches}
     log(f"[main] counts, rows and q3_agg's groups equal numpy; two q3_agg runs are bitwise equal; "
         f"launches {json.dumps(launches)}")
     log(f"[main] caches and memos {json.dumps(cache_stats())}")
@@ -1499,12 +1545,12 @@ def phase_dense(torch, data, base: str, seed: int, main_times=None):
     from hyperspace_tpu_torch import col
     from hyperspace_tpu_torch.engine import physical
     from hyperspace_tpu_torch.engine.physical import SortMergeJoinExec
-    from hyperspace_tpu_torch.ops import bucket_join, cuda_probe, cuda_sort
+    from hyperspace_tpu_torch.ops import bucket_join, cuda_hash, cuda_probe, cuda_sort
     from hyperspace_tpu_torch.telemetry import metrics
 
     log(f"[dense] {nvidia_smi_line()}")
     reset_launches(cuda_sort)
-    reset_launches(cuda_probe)
+    reset_launches(cuda_probe, cuda_hash)
     calls = []  # (kernel, shape) of each K1 / K2 call the engine makes in this phase
     real_sort, real_probe = bucket_join.sort_rows, bucket_join.probe_ranges
 
@@ -1640,7 +1686,8 @@ def phase_dense(torch, data, base: str, seed: int, main_times=None):
                 t["device_cache"] = physical.device_cache_stats()
                 skewed[f"{pair}/{layout}"] = t
                 log(f"[dense] skewed {pair} {layout} {json.dumps(t)}")
-        launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches}  # before the kernel checks' launches
+        # before the kernel checks' launches
+        launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches, "K6": cuda_hash.launches}
     finally:
         bucket_join.sort_rows, bucket_join.probe_ranges = real_sort, real_probe
     kernel_rows = []
@@ -1739,7 +1786,7 @@ def phase_mesh(torch, data, base: str):
     import hyperspace_tpu_torch as hst
     from hyperspace_tpu_torch import col
     from hyperspace_tpu_torch.engine.physical import ShuffleExchangeExec, SortMergeJoinExec
-    from hyperspace_tpu_torch.ops import cuda_probe, cuda_sort
+    from hyperspace_tpu_torch.ops import cuda_hash, cuda_probe, cuda_sort
     from hyperspace_tpu_torch.parallel import table_ops, virtual_devices
 
     n_cards = torch.cuda.device_count()
@@ -1753,7 +1800,7 @@ def phase_mesh(torch, data, base: str):
     want_ord = canonical(expected_rows(data)[0])
     names = [i[1] for i in mesh_indexes()]
     reset_launches(cuda_sort)
-    reset_launches(cuda_probe)
+    reset_launches(cuda_probe, cuda_hash)
     probes, nested = [], []
     real_probe = table_ops.probe_dist_blocks
 
@@ -1862,7 +1909,8 @@ def phase_mesh(torch, data, base: str):
                 log(f"[mesh] {name} uncached collect stages {json.dumps(query_stage_split(torch, df, True))}")
                 if name == "q3_agg":
                     blocks = probes[0]["blocks"]
-            launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches}  # before the timing's launches
+            # before the timing's launches
+            launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches, "K6": cuda_hash.launches}
             for sh in mesh_kernel_shapes(torch, *blocks):
                 log(f"[mesh] {json.dumps(sh)}")
             log(f"[mesh] q3_agg, q3 and q_ord disabled equal numpy over the mesh; launches {json.dumps(launches)}; "
@@ -2210,11 +2258,11 @@ def order_by_check(torch, rows: int = 1 << 20) -> dict:
 def phase_q3(torch, data, base: str):
     import hyperspace_tpu_torch as hst
     from hyperspace_tpu_torch.engine.physical import SortMergeJoinExec
-    from hyperspace_tpu_torch.ops import cuda_probe, cuda_sort
+    from hyperspace_tpu_torch.ops import cuda_hash, cuda_probe, cuda_sort
 
     want = expected_q3(data)
     reset_launches(cuda_sort)
-    reset_launches(cuda_probe)
+    reset_launches(cuda_probe, cuda_hash)
     s = hst.HyperspaceSession(warehouse=os.path.join(base, "q3"), device=DEVICE)
     s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, NUM_BUCKETS)
     hs = hst.Hyperspace(s)
@@ -2232,7 +2280,7 @@ def phase_q3(torch, data, base: str):
         expect = ["bucketed", "general"] if run == "indexed" else ["general", "general"]
         if kinds != expect or (run == "indexed" and scanned_indexes(df) != ["liQ3", "ordQ3"]):
             raise AssertionError(f"q3 {run}: joins {kinds}, want {expect}:\n{df.explain_string()}")
-        k2 = cuda_probe.launches
+        k2, k6 = cuda_probe.launches, cuda_hash.launches
         clear_caches()
         out, t_cold = wall(df.collect)
         check_q3(f"q3 {run}", out.to_numpy(), want)
@@ -2244,8 +2292,11 @@ def phase_q3(torch, data, base: str):
         if df.count() != out.num_rows:
             raise AssertionError(f"q3 {run}: count() {df.count()} != {out.num_rows} rows")
         t["k2_launches"] = cuda_probe.launches - k2
+        t["k6_launches"] = cuda_hash.launches - k6
         if run == "indexed" and t["k2_launches"] == 0:
             raise AssertionError("q3 indexed: K2 never launched")
+        if t["k6_launches"] == 0:
+            raise AssertionError(f"q3 {run}: K6 never launched (the aggregate's and the general join's keys)")
         results[run] = out.to_numpy()
         times[run] = t
         log(f"[q3] {run} {json.dumps(t)}")
@@ -2261,7 +2312,7 @@ def phase_q3(torch, data, base: str):
     log(f"[q3] order_by on the card equals np.lexsort with NaN and ±0.0 keys ({1 << 20} rows), seconds "
         f"{json.dumps(order_by_check(torch))}")
     top = {c: (v.tolist() if c != "revenue" else [round(float(x), 4) for x in v]) for c, v in a.items()}
-    launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches}
+    launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches, "K6": cuda_hash.launches}
     log(f"[q3] both runs equal numpy's Q3 and each other; top rows {json.dumps(top)}; "
         f"launches {json.dumps(launches)}")
     return launches, build_s, times
@@ -2403,7 +2454,7 @@ def outer_join_split(torch, df) -> dict:
 def phase_q13(torch, data, base: str, seed: int):
     import hyperspace_tpu_torch as hst
     from hyperspace_tpu_torch.engine.physical import SortMergeJoinExec
-    from hyperspace_tpu_torch.ops import cuda_probe, cuda_sort
+    from hyperspace_tpu_torch.ops import cuda_hash, cuda_probe, cuda_sort
 
     valid = key_kind_sources(torch, data, base, seed)["o_custkey_n"]
     want = expected_q13(data)
@@ -2411,7 +2462,7 @@ def phase_q13(torch, data, base: str, seed: int):
     n_cust, n_orders = len(data["customer"]["c_custkey"]), len(data["orders"]["o_orderkey"])
     outer_rows = n_orders + n_cust - int((orders_per_customer(data) > 0).sum())
     reset_launches(cuda_sort)
-    reset_launches(cuda_probe)
+    reset_launches(cuda_probe, cuda_hash)
     s = hst.HyperspaceSession(warehouse=os.path.join(base, "q13"), device=DEVICE)
     s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, NUM_BUCKETS)
     hs = hst.Hyperspace(s)
@@ -2480,7 +2531,7 @@ def phase_q13(torch, data, base: str, seed: int):
             raise AssertionError(f"{name}: K2 must launch, and K1 exactly on the nullable key (hash mode): {t}")
         times[name] = t
         log(f"[q13] {name} {json.dumps(t)}")
-    launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches}
+    launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches, "K6": cuda_hash.launches}
     top = {c: v[:5].tolist() for c, v in results["indexed"].items()}
     log(f"[q13] Q13 indexed and disabled equal numpy's Q13 and each other ({len(want['c_count'])} rows, first "
         f"{json.dumps(top)}); right, semi, anti and the nullable full outer join equal numpy; launches "
@@ -2707,11 +2758,11 @@ def key_kind_joins(torch, data, base: str, seed: int) -> dict:
 
 def phase_strings(torch, data, base: str, seed: int):
     import hyperspace_tpu_torch as hst
-    from hyperspace_tpu_torch.ops import cuda_comp_sort, cuda_probe, cuda_sort
+    from hyperspace_tpu_torch.ops import cuda_comp_sort, cuda_hash, cuda_probe, cuda_sort
 
     reset_launches(cuda_comp_sort)
     reset_launches(cuda_sort)
-    reset_launches(cuda_probe)
+    reset_launches(cuda_probe, cuda_hash)
     s, build_s, k3 = build_string_indexes(torch, base, DEVICE, os.path.join(base, "strings"))
     log(f"[strings] build seconds {json.dumps(build_s)}; K3 launches per build {json.dumps(k3)}")
     if k3 != {"custSeg": 1, "liShip": 0}:
@@ -2764,7 +2815,8 @@ def phase_strings(torch, data, base: str, seed: int):
         log(f"[strings] {name} uncached collect breakdown {json.dumps(filter_breakdown(torch, df))}")
         log(f"[strings] {name} cached collect breakdown {json.dumps(filter_breakdown(torch, df))}")
     times.update(key_kind_joins(torch, data, base, seed))
-    launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches, "K3": cuda_comp_sort.launches}
+    launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches, "K3": cuda_comp_sort.launches,
+                "K6": cuda_hash.launches}
     log(f"[strings] rows equal the numpy filters and the non-indexed queries, q12_range's the read without "
         f"pushdown, and the string-key and nullable-key joins numpy's; launches {json.dumps(launches)}")
     return launches, build_s, times
@@ -2967,7 +3019,7 @@ def phase_refresh(torch, data, base: str):
     from hyperspace_tpu_torch.index.builder import CoveringIndexBuilder
     from hyperspace_tpu_torch.index.data_manager import IndexDataManagerImpl
     from hyperspace_tpu_torch.index.log_manager import IndexLogManagerImpl
-    from hyperspace_tpu_torch.ops import cuda_probe, cuda_sort
+    from hyperspace_tpu_torch.ops import cuda_hash, cuda_probe, cuda_sort
 
     root = os.path.join(base, "refresh")
     src = os.path.join(root, "src")
@@ -2977,7 +3029,7 @@ def phase_refresh(torch, data, base: str):
             write_lineitem_file(data, src, bounds, i)
     engine_io.write_parquet(source_table(data["orders"]), os.path.join(src, "orders", "part-00000.parquet"))
     reset_launches(cuda_sort)
-    reset_launches(cuda_probe)
+    reset_launches(cuda_probe, cuda_hash)
     s = hst.HyperspaceSession(warehouse=root, device=DEVICE)
     s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, NUM_BUCKETS)
     s.conf.set(hst.IndexConstants.INDEX_LINEAGE_ENABLED, "true")
@@ -3104,7 +3156,7 @@ def phase_refresh(torch, data, base: str):
     uses_index("vacuumed", False)
     steps["f_lifecycle"] = f
     log(f"[refresh] f_lifecycle {json.dumps(f)}")
-    launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches}
+    launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches, "K6": cuda_hash.launches}
     log(f"[refresh] seconds {json.dumps(seconds)}; every step equals numpy; launches {json.dumps(launches)}")
     return launches, seconds, steps
 
@@ -3337,7 +3389,7 @@ def phase_skipping(torch, base: str, seed: int):
     import hyperspace_tpu_torch as hst
     from hyperspace_tpu_torch.engine import io as engine_io
     from hyperspace_tpu_torch.index.dataskipping import BloomFilterSketch, DataSkippingIndexConfig, MinMaxSketch
-    from hyperspace_tpu_torch.ops import cuda_probe, cuda_sort
+    from hyperspace_tpu_torch.ops import cuda_hash, cuda_probe, cuda_sort
 
     rng = np.random.RandomState(seed + 12)
     t0 = time.perf_counter()
@@ -3362,7 +3414,7 @@ def phase_skipping(torch, base: str, seed: int):
     log(f"[skipping] store_sales {SS_ROWS} rows in {SS_FILES} monthly files, "
         f"{len(np.unique(cols['ss_ticket_number']))} tickets (made and written in {time.perf_counter() - t0:.2f} s)")
     reset_launches(cuda_sort)
-    reset_launches(cuda_probe)
+    reset_launches(cuda_probe, cuda_hash)
     s = hst.HyperspaceSession(warehouse=root, device=DEVICE)
     hs = hst.Hyperspace(s)
     config = DataSkippingIndexConfig("ssSkip", [MinMaxSketch("ss_sold_date_sk", "rowgroup"),
@@ -3432,7 +3484,7 @@ def phase_skipping(torch, base: str, seed: int):
     run("m3_deleted_hybrid_day", "day", files=1)
     seconds = {"sketch_build_s": build_s, "rule_cold_s": rule_cold, "rule_warm_s": rule_warm,
                "incremental_refresh_s": refresh_s}
-    launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches}
+    launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches, "K6": cuda_hash.launches}
     log(f"[skipping] seconds {json.dumps(seconds)}; every query equals numpy; launches {json.dumps(launches)}")
     return launches, seconds, steps
 
@@ -3456,14 +3508,14 @@ def phase_delta(torch, data, base: str):
     from hyperspace_tpu_torch.engine import io as engine_io
     from hyperspace_tpu_torch.engine.logical import ScanNode
     from hyperspace_tpu_torch.index.dataskipping import DataSkippingIndexConfig, MinMaxSketch
-    from hyperspace_tpu_torch.ops import cuda_probe, cuda_sort
+    from hyperspace_tpu_torch.ops import cuda_hash, cuda_probe, cuda_sort
     from hyperspace_tpu_torch.storage import delta as delta_log
 
     root = os.path.join(base, "delta")
     table, orders = os.path.join(root, "lineitem"), os.path.join(root, "orders")
     bounds = refresh_bounds(data)
     reset_launches(cuda_sort)
-    reset_launches(cuda_probe)
+    reset_launches(cuda_probe, cuda_hash)
     s = hst.HyperspaceSession(warehouse=root, device=DEVICE)
     s.conf.set(hst.IndexConstants.INDEX_NUM_BUCKETS, NUM_BUCKETS)
     s.conf.set(hst.IndexConstants.INDEX_LINEAGE_ENABLED, "true")
@@ -3581,7 +3633,7 @@ def phase_delta(torch, data, base: str):
     if len(entry().content.files()) != NUM_BUCKETS or len(delta_log.active_files(table)) != 1:
         raise AssertionError("delta full: want one version of the index over the one overwritten file")
     measure("g_overwrite_full", "value", one_version)
-    launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches}
+    launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches, "K6": cuda_hash.launches}
     log(f"[delta] seconds {json.dumps(seconds)}; every step equals numpy; launches {json.dumps(launches)}")
     return launches, seconds, steps
 
@@ -3743,7 +3795,7 @@ def phase_partitioned(torch, base: str, seed: int):
     from hyperspace_tpu_torch.engine import io as engine_io
     from hyperspace_tpu_torch.engine.physical import SortMergeJoinExec
     from hyperspace_tpu_torch.index.dataskipping import DataSkippingIndexConfig, MinMaxSketch
-    from hyperspace_tpu_torch.ops import cuda_probe, cuda_sort
+    from hyperspace_tpu_torch.ops import cuda_hash, cuda_probe, cuda_sort
     from hyperspace_tpu_torch.telemetry.profiling import last_build_stages
 
     try:
@@ -3779,7 +3831,7 @@ def phase_partitioned(torch, base: str, seed: int):
         return readers[t](src[t])
 
     reset_launches(cuda_sort)
-    reset_launches(cuda_probe)
+    reset_launches(cuda_probe, cuda_hash)
 
     # (a) the read
     c = hst.col
@@ -3939,7 +3991,7 @@ def phase_partitioned(torch, base: str, seed: int):
     same_files = index_shas(hs, "itemJson") == index_shas(hs, "itemIdx")
     log(f"[partitioned] (f) lookup of i_item_sk {key} over JSON and {item_format} equals numpy; the two indexes' "
         f"sha256 sets equal: {same_files} (lineage names each source's files)")
-    launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches}
+    launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches, "K6": cuda_hash.launches}
     if not launches["K2"]:
         raise AssertionError("partitioned: K2 never launched")
     seconds["phase"] = time.perf_counter() - phase_t0
@@ -4131,7 +4183,7 @@ def phase_setops(torch, base: str, seed: int, sizes: dict = SETOPS_SF1):
     and scalar."""
     import hyperspace_tpu_torch as hst
     from hyperspace_tpu_torch.engine.physical import SortMergeJoinExec
-    from hyperspace_tpu_torch.ops import cuda_probe, cuda_sort
+    from hyperspace_tpu_torch.ops import cuda_hash, cuda_probe, cuda_sort
     from hyperspace_tpu_torch.serde import deserialize_plan, serialize_plan
 
     rng = np.random.RandomState(seed + 17)
@@ -4157,7 +4209,7 @@ def phase_setops(torch, base: str, seed: int, sizes: dict = SETOPS_SF1):
 
     c = hst.col
     reset_launches(cuda_sort)
-    reset_launches(cuda_probe)
+    reset_launches(cuda_probe, cuda_hash)
     hs = hst.Hyperspace(s)
     for table, name, indexed, included in SETOPS_INDEXES:
         _, seconds[f"create_{name}"] = wall(lambda: hs.create_index(read(table), hst.IndexConfig(name, indexed, included)))
@@ -4259,7 +4311,7 @@ def phase_setops(torch, base: str, seed: int, sizes: dict = SETOPS_SF1):
     n, seconds["h_scalar"] = wall(q38.group_by().agg(n=("d_date", "count")).scalar)
     if n != len(want["q38"]):
         raise AssertionError(f"setops (h): scalar() {n}, numpy {len(want['q38'])}")
-    launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches}
+    launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches, "K6": cuda_hash.launches}
     if not launches["K2"]:
         raise AssertionError("setops: K2 never launched")
     seconds["phase"] = time.perf_counter() - phase_t0
@@ -4484,7 +4536,7 @@ def phase_star(torch, base: str, seed: int, ss_rows: int = SS_ROWS):
     import hyperspace_tpu_torch as hst
     from hyperspace_tpu_torch.engine import io as engine_io
     from hyperspace_tpu_torch.engine.physical import MultiwayJoinExec
-    from hyperspace_tpu_torch.ops import cuda_probe, cuda_sort
+    from hyperspace_tpu_torch.ops import cuda_hash, cuda_probe, cuda_sort
     from hyperspace_tpu_torch.telemetry.profiling import last_build_stages, last_join_stages, last_query_stages
 
     rng = np.random.RandomState(seed + 19)
@@ -4501,7 +4553,7 @@ def phase_star(torch, base: str, seed: int, ss_rows: int = SS_ROWS):
 
     c = hst.col
     reset_launches(cuda_sort)
-    reset_launches(cuda_probe)
+    reset_launches(cuda_probe, cuda_hash)
     hs = hst.Hyperspace(s)
     build_stages = {}
     for table, name, indexed, included in STAR_INDEXES:
@@ -4612,7 +4664,7 @@ def phase_star(torch, base: str, seed: int, ss_rows: int = SS_ROWS):
     measure("e_q55_hybrid", "star", q, expected_star(tables, "b_q55"), check_star_rows)
     s.conf.set(hst.IndexConstants.INDEX_HYBRID_SCAN_ENABLED, "false")
 
-    launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches}
+    launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches, "K6": cuda_hash.launches}
     seconds["phase"] = time.perf_counter() - phase_t0
     log(f"[star] seconds {json.dumps(seconds)}; every step equals numpy; launches {json.dumps(launches)}")
     return launches, seconds, steps
@@ -4684,7 +4736,7 @@ def phase_resilience(torch, data, base: str, seed: int):
     from hyperspace_tpu_torch.exceptions import QueryTimeoutError, TransientError
     from hyperspace_tpu_torch.index import quarantine
     from hyperspace_tpu_torch.index.staging import STAGING_PREFIX
-    from hyperspace_tpu_torch.ops import cuda_probe, cuda_sort
+    from hyperspace_tpu_torch.ops import cuda_hash, cuda_probe, cuda_sort
     from hyperspace_tpu_torch.plananalysis import costmodel, planner
     from hyperspace_tpu_torch.telemetry import faults
     from hyperspace_tpu_torch.telemetry.profiling import last_query_stages
@@ -4692,7 +4744,7 @@ def phase_resilience(torch, data, base: str, seed: int):
     phase_t0 = time.perf_counter()
     root = os.path.join(base, "resilience")
     reset_launches(cuda_sort)
-    reset_launches(cuda_probe)
+    reset_launches(cuda_probe, cuda_hash)
     quarantine.clear()
     faults.clear()
     faults.reset_counters()
@@ -4911,7 +4963,7 @@ def phase_resilience(torch, data, base: str, seed: int):
     log(f"[resilience] (e) {json.dumps(live)}; each fault failed clean and the stable generation answered")
     steps["e_live"] = live
 
-    launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches}
+    launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches, "K6": cuda_hash.launches}
     seconds["phase"] = time.perf_counter() - phase_t0
     log(f"[resilience] seconds {json.dumps(seconds)}; reliability {json.dumps(resilience.reliability_rollup())}; "
         f"launches {json.dumps(launches)}")
@@ -4928,7 +4980,7 @@ ANALYZE_COST_RUNS = 15
 ANALYZE_SINKS = ("HYPERSPACE_TRACE_FILE", "HYPERSPACE_TIMELINE_DIR", "HYPERSPACE_TRACING", "HYPERSPACE_ACCOUNTING",
                  "HYPERSPACE_DEVICE_TIMING")
 #: The C entries each kernel's wrapper calls, by kernel id.
-KERNEL_ENTRIES = {"K1": ("hs_bucket_sort",), "K2": ("hs_range_probe_i64", "hs_range_probe_f64")}
+KERNEL_ENTRIES = {"K1": ("hs_bucket_sort",), "K2": ("hs_range_probe_i64", "hs_range_probe_f64"), "K6": ("hs_key64",)}
 
 
 class EntryCounter:
@@ -4988,7 +5040,7 @@ def phase_analyze(torch, data, base: str, seed: int):
     `HYPERSPACE_TRACING=1`, `HYPERSPACE_ACCOUNTING=1` and
     `HYPERSPACE_DEVICE_TIMING=all`, run in turns (prints, not checks)."""
     import hyperspace_tpu_torch as hst
-    from hyperspace_tpu_torch.ops import _kernels, cuda_probe, cuda_sort
+    from hyperspace_tpu_torch.ops import _kernels, cuda_hash, cuda_probe, cuda_sort
     from hyperspace_tpu_torch.plananalysis.analyze import explain_analyze
     from hyperspace_tpu_torch.telemetry import accounting, tracing
 
@@ -5025,13 +5077,13 @@ def phase_analyze(torch, data, base: str, seed: int):
             check_star_rows("analyze q55", got, want_q55)
 
     lib = _kernels.library()
-    totals = {"K1": 0, "K2": 0}
+    totals = {"K1": 0, "K2": 0, "K6": 0}
     for name, df in (("q3", q3), ("q55", q55)):
         clear_caches()
         plain = df.collect().to_numpy()
         check_rows(name, plain)
         clear_caches()
-        reset_launches(cuda_sort, cuda_probe)
+        reset_launches(cuda_sort, cuda_probe, cuda_hash)
         os.environ["HYPERSPACE_DEVICE_TIMING"] = "all"
         try:
             with EntryCounter(lib) as entries:
@@ -5051,15 +5103,15 @@ def phase_analyze(torch, data, base: str, seed: int):
         if not 0.0 < dev_s <= wall_s:
             raise AssertionError(f"analyze {name}: device_time_s {dev_s} not in (0, wall {wall_s}]")
         reg = registry_launches()
-        for kid in ("K1", "K2"):
+        for kid in KERNEL_ENTRIES:
             if reg[kid] != entries.calls[kid]:
                 raise AssertionError(f"analyze {name}: registry {kid} {reg[kid]} != {entries.calls[kid]} calls")
             totals[kid] += reg[kid]
-        log(f"[analyze] {name} {json.dumps({'rows': result.num_rows, 'explain_analyze_s': t_analyze, 'wall_s': wall_s, 'device_time_s': dev_s, 'host_time_s': led.get('host_time_s'), 'launches_registry': {k: reg[k] for k in ('K1', 'K2')}, 'entry_calls': entries.calls, 'decode_files': led.get('decode_files'), 'bytes_decoded': led.get('bytes_decoded', 0), 'device_upload_bytes': led.get('device_upload_bytes', 0), 'd2h_bytes': led.get('d2h_bytes', 0), 'pad_ratio': led.get('pad_ratio'), 'stages': led.get('stages')})}")
+        log(f"[analyze] {name} {json.dumps({'rows': result.num_rows, 'explain_analyze_s': t_analyze, 'wall_s': wall_s, 'device_time_s': dev_s, 'host_time_s': led.get('host_time_s'), 'launches_registry': {k: reg[k] for k in KERNEL_ENTRIES}, 'entry_calls': entries.calls, 'decode_files': led.get('decode_files'), 'bytes_decoded': led.get('bytes_decoded', 0), 'device_upload_bytes': led.get('device_upload_bytes', 0), 'd2h_bytes': led.get('d2h_bytes', 0), 'pad_ratio': led.get('pad_ratio'), 'stages': led.get('stages')})}")
         for line in text.split("\nPlanner:")[0].splitlines():
             log(f"[analyze] {name} | {line}")
-    if totals["K1"] == 0 or totals["K2"] == 0:
-        raise AssertionError(f"analyze: K1 and K2 must both launch, got {totals}")
+    if 0 in totals.values():
+        raise AssertionError(f"analyze: K1, K2 and K6 must each launch, got {totals}")
 
     trace_file, tdir = os.path.join(root, "trace.jsonl"), os.path.join(root, "timelines")
     os.environ["HYPERSPACE_TRACE_FILE"], os.environ["HYPERSPACE_TIMELINE_DIR"] = trace_file, tdir
@@ -5187,7 +5239,7 @@ def phase_history(torch, data, base: str, seed: int, ss_rows: int = SS_ROWS):
     exporter running, in turns (and, to split history's cost, with the
     ledger alone and with history but the planner off)."""
     import hyperspace_tpu_torch as hst
-    from hyperspace_tpu_torch.ops import cuda_probe, cuda_sort
+    from hyperspace_tpu_torch.ops import cuda_hash, cuda_probe, cuda_sort
     from hyperspace_tpu_torch.plananalysis import planner
     from hyperspace_tpu_torch.telemetry import accounting, exporter, faults, history, metrics, tracing
     from hyperspace_tpu_torch.telemetry import device_observatory as dv
@@ -5240,7 +5292,7 @@ def phase_history(torch, data, base: str, seed: int, ss_rows: int = SS_ROWS):
         if not exporter.start():
             raise AssertionError("history: the exporter did not start from HYPERSPACE_METRICS_FILE")
         # (a) the baselines
-        reset_launches(cuda_sort, cuda_probe)
+        reset_launches(cuda_sort, cuda_probe, cuda_hash)
         records0 = metrics.counter("history.records").value
         anomalies0 = metrics.counter("history.anomalies").value
         fps, walls, arms = {}, {n: [] for n in queries}, {n: [] for n in queries}
@@ -5258,7 +5310,7 @@ def phase_history(torch, data, base: str, seed: int, ss_rows: int = SS_ROWS):
                 walls[name].append(round(led["wall_s"], 4))
                 arms[name].append({k: f"{d.arm}/{d.source}" for k, d in planner.last_decisions().decisions.items()
                                    if d.source != "model"})
-        launches = {kid: n for kid, n in registry_launches().items() if kid in ("K1", "K2")}
+        launches = {kid: n for kid, n in registry_launches().items() if kid in ("K1", "K2", "K6")}
         records = metrics.counter("history.records").value - records0
         if records != 2 * HISTORY_RUNS:
             raise AssertionError(f"history: history.records rose by {records}, want {2 * HISTORY_RUNS}")
@@ -5307,7 +5359,7 @@ def phase_history(torch, data, base: str, seed: int, ss_rows: int = SS_ROWS):
             raise AssertionError("history (b): the capture's profiler window did not start")
         os.environ["HYPERSPACE_MULTIWAY"] = "1"
         try:
-            reset_launches(cuda_sort, cuda_probe)
+            reset_launches(cuda_sort, cuda_probe, cuda_hash)
             clear_caches()
             out, t_window = wall(queries["q55"].collect)
         finally:
@@ -5574,13 +5626,13 @@ def phase_serve(torch, data, base: str, seed: int):
     exits cleanly. Prints each replica's device bytes."""
     import hyperspace_tpu_torch as hst
     from hyperspace_tpu_torch.engine import io as engine_io
-    from hyperspace_tpu_torch.ops import cuda_probe, cuda_sort
+    from hyperspace_tpu_torch.ops import cuda_hash, cuda_probe, cuda_sort
     from hyperspace_tpu_torch.serve import replicas
     from hyperspace_tpu_torch.telemetry import metrics
 
     for k in SERVE_ENVS:
         os.environ.pop(k, None)
-    reset_launches(cuda_sort, cuda_probe)
+    reset_launches(cuda_sort, cuda_probe, cuda_hash)
     root = os.path.join(base, "serve")
     warehouse = os.path.join(root, "wh")
     s = hst.HyperspaceSession(warehouse=warehouse, device=DEVICE)
@@ -5660,7 +5712,7 @@ def phase_serve(torch, data, base: str, seed: int):
     finally:
         for k in knobs:
             os.environ.pop(k, None)
-    launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches}
+    launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches, "K6": cuda_hash.launches}
     card_check(launches["K1"] > 0 and launches["K2"] > 0, f"serve (2): K1 and K2 must launch, got {launches}")
     log(f"[serve] (2) {nvidia_smi_line()}: every served answer equals its serial answer; "
         f"{json.dumps(results)}; launches so far {json.dumps(launches)}")
@@ -5789,7 +5841,7 @@ def phase_serve(torch, data, base: str, seed: int):
         replicas.leave_fleet()
         for k in SERVE_ENVS:
             os.environ.pop(k, None)
-    launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches}
+    launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches, "K6": cuda_hash.launches}
     log(f"[serve] launches {json.dumps(launches)}")
     return launches, seconds, results
 
@@ -5800,6 +5852,7 @@ KERNEL_META = {
     "K3": ("comp_sort", "hyperspace_tpu_torch/csrc/comp_sort.cu", "hyperspace_tpu/ops/pallas_sort.py:256"),
     "K4": ("packed_sort", "hyperspace_tpu_torch/csrc/packed_sort.cu", "hyperspace_tpu/ops/pallas_sort.py:210"),
     "K5": ("packed_probe", "hyperspace_tpu_torch/csrc/packed_probe.cu", "hyperspace_tpu/ops/pallas_probe.py:254"),
+    "K6": ("key_hash", "hyperspace_tpu_torch/csrc/key_hash.cu", "none (hyperspace_tpu/ops/hashing.py:324 is fused jnp)"),
 }
 
 
@@ -5820,10 +5873,10 @@ def port_example_source(source: str) -> str:
 def phase_surface(torch, data, base: str):
     """Phase surface (module docstring, 21)."""
     import hyperspace_tpu_torch as hst
-    from hyperspace_tpu_torch.ops import cuda_probe, cuda_sort
+    from hyperspace_tpu_torch.ops import cuda_hash, cuda_probe, cuda_sort
     from hyperspace_tpu_torch.telemetry import device_observatory, profiling
 
-    reset_launches(cuda_sort, cuda_probe)
+    reset_launches(cuda_sort, cuda_probe, cuda_hash)
     wh = os.path.join(base, "surface")
     s = hst.HyperspaceSession(warehouse=wh)
     card_check(s.device.type == "cuda" and hst.HyperspaceSession.active() is s,
@@ -5883,7 +5936,7 @@ def phase_surface(torch, data, base: str):
                                  f"{child.stdout[-3000:]}\n{child.stderr[-3000:]}")
         log(f"[surface] examples/{name} on the card: {len(child.stdout.splitlines())} lines ending in "
             f"{success!r}, {t_child} s in its own process")
-    launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches}
+    launches = {"K1": cuda_sort.launches, "K2": cuda_probe.launches, "K6": cuda_hash.launches}
     log(f"[surface] launches {json.dumps(launches)}")
     return launches
 

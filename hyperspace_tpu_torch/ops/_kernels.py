@@ -31,7 +31,7 @@ import torch
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
-_SOURCES = ("bucket_sort.cu", "range_probe.cu", "comp_sort.cu", "packed_sort.cu", "packed_probe.cu")
+_SOURCES = ("bucket_sort.cu", "range_probe.cu", "comp_sort.cu", "packed_sort.cu", "packed_probe.cu", "key_hash.cu")
 _HEADERS: tuple = ()  # headers the sources include, hashed into the build digest
 _BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "hyperspace_tpu_torch")
 _FLAGS = (
@@ -46,6 +46,7 @@ build_seconds = 0.0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "hs_bucket_sort": (_P, _P, _P, _P, _I, _I, _I, _P),
     "hs_range_probe_i64": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
@@ -53,6 +54,8 @@ _SIGNATURES = {
     "hs_comp_sort": (_P, _P, _P, _P, _I, _I, _I, _P),
     "hs_packed_sort": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "hs_packed_probe": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "hs_key64": (_P, _I, _L, _P, _I, _P),
+    "hs_key64_abi": (_P, _I),
 }
 
 

@@ -6,7 +6,8 @@ bucketed join sound — needs every package to hash identically, so this module
 computes the same functions: `fmix32` :100, `_mix_combine` :111, `_words_u32`
 :118, `hash_device_values` :145, `host_hash_dictionary` :163,
 `column_hash_u32` :205, `combined_hash_u32` :315, `key64` :324 and
-`bucket_id` :337.
+`bucket_id` :337. `key64` on a CUDA device is one launch of kernel K6
+(`ops/cuda_hash.py`); `key64_plain` is its plain version.
 
 A key lane is a tensor of numeric values, or a `Column`: a string column
 hashes through its dictionary (one 4-byte blake2b per distinct value on the
@@ -157,7 +158,19 @@ def combined_hash_u32(arrays: Sequence) -> torch.Tensor:
 
 def key64(arrays: Sequence, force_float: Optional[Sequence[bool]] = None) -> torch.Tensor:
     """Signed 64-bit join/sort key from two independent 32-bit hash lanes:
-    `(h1 << 32) | h2` in two's complement. h1 is first mapped to its signed
+    `(h1 << 32) | h2` in two's complement. Lanes on the CPU run
+    `key64_plain`; lanes on a CUDA device launch kernel K6
+    (`ops/cuda_hash.key64`), which gives the same bits."""
+    first = arrays[0] if isinstance(arrays[0], torch.Tensor) else arrays[0].data
+    if first.device.type == "cpu":
+        return key64_plain(arrays, force_float)
+    from . import cuda_hash
+
+    return cuda_hash.key64(arrays, force_float)
+
+
+def key64_plain(arrays: Sequence, force_float: Optional[Sequence[bool]] = None) -> torch.Tensor:
+    """The plain PyTorch version of `key64`. h1 is first mapped to its signed
     32-bit value, so the shift is a multiply that never leaves int64."""
     h1 = _lane(arrays, _SEED1, force_float)
     h2 = _lane(arrays, _SEED2, force_float)

@@ -50,6 +50,7 @@ LABELS = {
     "K3": "cuda_comp_sort.sort_comp_rows",
     "K4": "cuda_packed_sort.sort_codes_packed",
     "K5": "cuda_packed_probe.probe_packed",
+    "K6": "cuda_hash.key64",
 }
 LIBRARY_LABEL = "kernels.library"
 

@@ -25,7 +25,8 @@ from hyperspace_tpu.parallel import table_ops as j_table_ops
 from hyperspace_tpu.telemetry import metrics as j_metrics
 from hyperspace_tpu_torch import resilience
 from hyperspace_tpu_torch.engine.table import Column, Table
-from hyperspace_tpu_torch.ops import cuda_comp_sort, cuda_packed_probe, cuda_packed_sort, cuda_probe, cuda_sort
+from hyperspace_tpu_torch.ops import (cuda_comp_sort, cuda_hash, cuda_packed_probe, cuda_packed_sort, cuda_probe,
+                                      cuda_sort)
 from hyperspace_tpu_torch.ops.hashing import combined_hash_u32
 from hyperspace_tpu_torch.ops.partition import bucketize_table
 from hyperspace_tpu_torch.parallel import table_ops
@@ -322,7 +323,8 @@ def test_mesh_exchange_bills_exchange_stage(mesh):
     lambda t: cuda_packed_sort.sort_codes_packed(t.to(torch.int32).reshape(1, -1), 4),
     lambda t: cuda_packed_probe.probe_packed(t.to(torch.int32).reshape(1, -1), t.to(torch.int32).reshape(1, -1),
                                              4, t[:1], t[:1]),
-], ids=["K1", "K2", "K3", "K4", "K5"])
+    lambda t: cuda_hash.key64([t, t.to(torch.int32)]),
+], ids=["K1", "K2", "K3", "K4", "K5", "K6"])
 def test_kernel_wrappers_raise_off_cpu_and_cuda(call):
     """A wrapper takes its plain version only for a CPU tensor, launches its
     kernel for a CUDA one, and raises for any other device."""

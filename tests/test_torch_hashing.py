@@ -165,3 +165,165 @@ def test_dictionary_hash_memo_dies_with_its_dictionary():
     del d
     gc.collect()
     assert key not in torch_hashing._dict_hash_cache
+
+
+def _narrow_columns():
+    rng = np.random.RandomState(13)
+    n = 4096
+    return {
+        "int8": np.concatenate([[-128, -1, 0, 127], rng.randint(-128, 128, n - 4)]).astype(np.int8),
+        "int16": np.concatenate([[-(2**15), -1, 0, 2**15 - 1], rng.randint(-(2**15), 2**15, n - 4)]).astype(np.int16),
+        "uint8": np.concatenate([[0, 1, 128, 255], rng.randint(0, 256, n - 4)]).astype(np.uint8),
+        "bool": rng.rand(n) < 0.5,
+        "int64": rng.randint(-(2**62), 2**62, n, dtype=np.int64),
+    }
+
+
+NARROW_CASES = [["int8"], ["int16"], ["uint8"], ["bool"], ["int8", "uint8", "bool", "int16", "int64"]]
+
+
+@pytest.mark.parametrize("names", NARROW_CASES, ids=["+".join(c) for c in NARROW_CASES])
+def test_key64_bit_identical_for_narrow_integer_and_bool_lanes(names):
+    """The plain chain widens int8, int16, uint8 and bool lanes to int64 as
+    the JAX package does. The JAX package's columns take no narrow dtype, so
+    its column (which only says "numeric") holds the int64 widening and its
+    device array the narrow values."""
+    cols = _narrow_columns()
+    arrays = [cols[n] for n in names]
+    kinds = [Column.from_values(a.astype(np.int64)) for a in arrays]
+    want = jax_hashing.key64(kinds, [jnp.asarray(a) for a in arrays])
+    got = torch_hashing.key64([torch.from_numpy(a) for a in arrays])
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_key64_on_the_cpu_never_loads_the_cuda_library(monkeypatch):
+    """CPU lanes take the plain chain: the kernel library is never asked for."""
+    from hyperspace_tpu_torch.engine.table import Column as TorchColumn
+    from hyperspace_tpu_torch.ops import _kernels
+
+    def refuse():
+        raise AssertionError("key64 on the CPU loaded the CUDA library")
+
+    monkeypatch.setattr(_kernels, "library", refuse)
+    cols, strings = _columns(), _string_columns()
+    n = len(strings["name"])
+    lanes = [torch.from_numpy(cols["int64"][:n]), torch.from_numpy(cols["float64"][:n]),
+             TorchColumn.from_values(strings["name"], "cpu")]
+    for force_float in (None, [True, False, False]):
+        got = torch_hashing.key64(lanes, force_float)
+        assert torch.equal(got, torch_hashing.key64_plain(lanes, force_float))
+
+
+@pytest.mark.parametrize("n_lanes", [1, 8, 9], ids=["one", "cap", "cap+1"])
+def test_the_kernel_plan_gives_kinds_dtype_codes_and_launches(n_lanes):
+    """`cuda_hash.plan`: one descriptor per lane, at most MAX_LANES a launch.
+    The lanes cycle through an int32 tensor, a float32 tensor, a string
+    column, a bool tensor forced to float64 and a uint8 tensor."""
+    from hyperspace_tpu_torch.engine.table import Column as TorchColumn
+    from hyperspace_tpu_torch.ops import cuda_hash
+
+    assert cuda_hash.MAX_LANES == 8
+    n = 5
+    menu = [
+        (torch.zeros(n, dtype=torch.int32), False, (cuda_hash.KIND_INT, 2)),
+        (torch.zeros(n, dtype=torch.float32), False, (cuda_hash.KIND_FLOAT, 6)),
+        (TorchColumn.from_values(np.array(["a", "b", "a", "c", "b"]), "cpu"), True, (cuda_hash.KIND_STRING, 2)),
+        (torch.zeros(n, dtype=torch.bool), True, (cuda_hash.KIND_FLOAT, 5)),
+        (torch.zeros(n, dtype=torch.uint8), False, (cuda_hash.KIND_INT, 4)),
+    ]
+    picks = [menu[i % len(menu)] for i in range(n_lanes)]
+    plan = cuda_hash.plan([p[0] for p in picks], [p[1] for p in picks])
+    want = [(i, *picks[i][2]) for i in range(n_lanes)]
+    assert plan == [want[lo:lo + 8] for lo in range(0, n_lanes, 8)]
+    assert [len(c) for c in plan] == {1: [1], 8: [8], 9: [8, 1]}[n_lanes]
+    assert cuda_hash.plan([torch.zeros(n, dtype=torch.int64)]) == [[(0, cuda_hash.KIND_INT, 3)]]
+    assert cuda_hash.plan([torch.zeros(n, dtype=torch.float64)], [True]) == [[(0, cuda_hash.KIND_FLOAT, 7)]]
+
+
+@pytest.mark.parametrize("lanes", [[], [torch.zeros(3, dtype=torch.float16)], [torch.zeros(3, dtype=torch.complex64)]],
+                         ids=["none", "float16", "complex64"])
+def test_the_kernel_plan_refuses_what_the_kernel_does_not_take(lanes):
+    from hyperspace_tpu_torch.ops import cuda_hash
+
+    with pytest.raises(ValueError, match="key64"):
+        cuda_hash.plan(lanes)
+
+
+def _cu_constants():
+    """`csrc/key_hash.cu`'s kMaxLanes, Kind and Dtype codes by name, the
+    order `hs_key64_abi` lists them in, and HsLane's field types."""
+    import os
+    import re
+
+    from hyperspace_tpu_torch.ops import _kernels
+
+    with open(os.path.join(_kernels._CSRC, "key_hash.cu")) as fh:
+        src = fh.read()
+    names = {"kMaxLanes": int(re.search(r"constexpr int kMaxLanes = (\d+);", src).group(1))}
+    for enum in ("Kind", "Dtype"):
+        body = re.search(r"enum %s : int32_t \{([^}]*)\}" % enum, src).group(1)
+        for name, value in re.findall(r"(k\w+) = (\d+)", body):
+            names[name] = int(value)
+    order = re.search(r"const int values\[\] = \{([^}]*)\}", src).group(1)
+    order = [w.strip() for w in order.replace("\n", " ").split(",")]
+    fields = re.search(r"struct HsLane \{([^}]*)\}", src).group(1)
+    fields = [line.strip().rsplit(" ", 1)[0] for line in fields.strip().splitlines()]
+    return names, order, fields
+
+
+def test_the_kernel_constants_are_the_cuda_sources():
+    """The wrapper's lane cap, kind and dtype codes and lane layout are the
+    ones `csrc/key_hash.cu` defines, and `abi()` lists them in the order
+    `hs_key64_abi` returns them."""
+    import ctypes
+
+    from hyperspace_tpu_torch.ops import cuda_hash
+
+    names, order, fields = _cu_constants()
+    assert names["kMaxLanes"] == cuda_hash.MAX_LANES
+    assert (names["kInt"], names["kFloat"], names["kString"]) == (
+        cuda_hash.KIND_INT, cuda_hash.KIND_FLOAT, cuda_hash.KIND_STRING)
+    c_dtypes = {"kI8": torch.int8, "kI16": torch.int16, "kI32": torch.int32, "kI64": torch.int64,
+                "kU8": torch.uint8, "kBool": torch.bool, "kF32": torch.float32, "kF64": torch.float64}
+    assert {cuda_hash.DTYPE_CODES[dt]: dt for dt in cuda_hash.DTYPE_CODES} == {
+        names[k]: dt for k, dt in c_dtypes.items()}
+    assert order[-1] == "static_cast<int>(sizeof(HsLane))"
+    assert tuple(names[w] for w in order[:-1]) == cuda_hash.abi()[:-1]
+    pointer, int32 = ("const void*", "const int64_t*"), "int32_t"
+    assert [f in pointer if t == ctypes.c_void_p else f == int32
+            for f, (_, t) in zip(fields, cuda_hash._Lane._fields_)] == [True] * 5
+    assert len(fields) == len(cuda_hash._Lane._fields_)
+    assert cuda_hash.abi()[-1] == ctypes.sizeof(cuda_hash._Lane) == 32
+
+
+@pytest.mark.parametrize("change", [None, "count", "cap", "dtype", "size"])
+def test_the_wrapper_refuses_a_kernel_with_other_constants(monkeypatch, change):
+    """`cuda_hash._check_abi` passes a library whose `hs_key64_abi` gives
+    `abi()`, and raises on a short list, another cap, dtype code or lane
+    size, before any launch."""
+    from hyperspace_tpu_torch.ops import cuda_hash
+
+    values = list(cuda_hash.abi())
+    if change == "cap":
+        values[0] += 1
+    elif change == "dtype":
+        values[4], values[5] = values[5], values[4]
+    elif change == "size":
+        values[-1] = 40
+    elif change == "count":
+        values = values[:-1]
+
+    def hs_key64_abi(buf, cap):
+        for i, v in enumerate(values[:cap]):
+            buf[i] = v
+        return len(values)
+
+    monkeypatch.setattr(cuda_hash, "_abi_checked", False)
+    lib = type("Lib", (), {"hs_key64_abi": staticmethod(hs_key64_abi)})
+    if change is None:
+        cuda_hash._check_abi(lib)
+        assert cuda_hash._abi_checked
+    else:
+        with pytest.raises(RuntimeError, match="constants"):
+            cuda_hash._check_abi(lib)
+        assert not cuda_hash._abi_checked

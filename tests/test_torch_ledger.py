@@ -29,7 +29,8 @@ from hyperspace_tpu_torch.engine import io as engine_io
 from hyperspace_tpu_torch.engine import physical, scan_cache
 from hyperspace_tpu_torch.engine.table import Table
 from hyperspace_tpu_torch.exceptions import CompileTimeoutError, TransientError
-from hyperspace_tpu_torch.ops import _kernels, cuda_comp_sort, cuda_packed_probe, cuda_packed_sort, cuda_probe, cuda_sort
+from hyperspace_tpu_torch.ops import (_kernels, cuda_comp_sort, cuda_hash, cuda_packed_probe, cuda_packed_sort,
+                                      cuda_probe, cuda_sort)
 from hyperspace_tpu_torch.plananalysis import attribution, costmodel, fingerprint
 from hyperspace_tpu_torch.telemetry import accounting, compile_log, faults, metrics, stage_ledger, tracing
 from hyperspace_tpu_torch.telemetry import device_observatory as dv
@@ -611,8 +612,8 @@ def test_stream_pool_workers_adopt_the_query_ledger(tmp_path, monkeypatch):
 
 
 def test_launch_views_read_the_registry_and_are_read_only():
-    mods = (cuda_sort, cuda_probe, cuda_comp_sort, cuda_packed_sort, cuda_packed_probe)
-    assert [m.LABEL for m in mods] == [compile_log.LABELS[k] for k in ("K1", "K2", "K3", "K4", "K5")]
+    mods = (cuda_sort, cuda_probe, cuda_comp_sort, cuda_packed_sort, cuda_packed_probe, cuda_hash)
+    assert [m.LABEL for m in mods] == [compile_log.LABELS[k] for k in ("K1", "K2", "K3", "K4", "K5", "K6")]
     compile_log.reset_launches()
     _launch(cuda_probe.LABEL)
     assert cuda_probe.launches == 1 == metrics.counter(f"kernel.launches.{cuda_probe.LABEL}").value
